@@ -1,0 +1,589 @@
+#!/usr/bin/env python3
+"""Smoke run of ratelimit_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, one line each; any failure exits non-zero:
+
+1. device: CUDA present; the card's name and power limit (nvidia-smi);
+2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
+3. kernels: each kernel against its plain PyTorch version on the card,
+   same seeded inputs, exact equality (integer arithmetic and one IEEE
+   f32 multiply: the tolerance is 0), for N in {8, 100, 128, 4096} at
+   2^20 slots and once at 2^24 slots; CUDA-event median times at 4096;
+4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
+   slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
+   against the plain version and an independent numpy reference;
+5. served: the runner in-process with BACKEND_TYPE=cuda answering gRPC
+   ShouldRateLimit requests decided by K1 -- the 6th hit on a 5/min
+   key is OVER_LIMIT, a concurrent burst coalesces into multi-lane
+   launches -- and the warm microseconds per request.
+
+Kernel launch counts are zeroed just before each main-path phase (4, 5)
+and read just after: every kernel must have run there.  The last lines
+are a JSON summary of the kernels and
+{"ok": true, "device": {"platform": "gpu", ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W): HBM
+# bandwidth, and the non-tensor-core 32-bit rate used for the integer
+# compare/add work of these kernels.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
+SIZES = (8, 100, 128, 4096)
+NUM_SLOTS = 1 << 20
+BIG_SLOTS = 1 << 24
+U32 = 0xFFFFFFFF
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    log(f"FAIL: {msg}")
+    sys.exit(1)
+
+
+def u32_max_abs_err(a, b) -> int:
+    """Largest |a - b| between two int32-bit (u32) or narrow tensors."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return U32
+    if a.numel() == 0:
+        return 0
+    mask = U32 if a.dtype == torch.int32 else (1 << (8 * a.element_size())) - 1
+    da = a.to(torch.int64) & mask
+    db = b.to(torch.int64) & mask
+    return int((da - db).abs().max().item())
+
+
+def time_ms(fn, reps: int = 20, inner: int = 50) -> float:
+    """CUDA-event median milliseconds per call of fn()."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return float(np.median(samples))
+
+
+def device_ms(fn, iters: int = 20):
+    """Milliseconds of device (kernel + copy) time per call of fn(),
+    summed over every CUDA activity torch.profiler records; None when
+    the profiler sees no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            total_us += getattr(ev, "device_time", None) or ev.cuda_time
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+# -- phase 3: kernels against their plain versions ----------------------
+
+
+def _table(torch, rng, ns, dev):
+    start = rng.integers(0, 1000, ns, dtype=np.uint64).astype(np.uint32)
+    hot = rng.choice(ns, min(ns, 512), replace=False)
+    start[hot] = U32 - rng.integers(0, 8, len(hot)).astype(np.uint32)
+    return torch.from_numpy(start.view(np.int32)).to(dev)
+
+
+def _packed(torch, rng, n, ns, dev, hot_slots):
+    pad = n // 4
+    g = n - pad
+    k = min(len(hot_slots), max(1, g // 8))  # lanes on near-u32-max slots
+    rest = rng.choice(ns, 2 * g, replace=False)
+    rest = rest[~np.isin(rest, hot_slots[:k])][: g - k]
+    slots = np.concatenate(
+        [np.asarray(hot_slots[:k], np.int64), rest, np.arange(ns, ns + pad)]
+    )
+    hits = rng.integers(0, 40, n).astype(np.uint32)
+    hits[: max(1, g // 16)] = U32 - rng.integers(0, 3, max(1, g // 16)).astype(
+        np.uint32
+    )
+    limits = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    limits[g // 2 :] = rng.integers(1, 200, n - g // 2).astype(np.uint32)
+    fresh = rng.random(n) < 0.2
+    hits[g:], limits[g:], fresh[g:] = 0, 1, False
+    pk = np.stack(
+        [slots.astype(np.int32), hits.view(np.int32), limits.view(np.int32), fresh]
+    ).astype(np.int32)
+    return torch.from_numpy(pk).to(dev)
+
+
+def _dup_lanes(torch, rng, n, ns, dev, distinct):
+    slots = rng.choice(ns, distinct, replace=False)[rng.integers(0, distinct, n)]
+    slots[-max(1, n // 10) :] = ns + np.arange(max(1, n // 10))  # pads
+    hits = rng.integers(1, 4, n).astype(np.uint32)
+    hits[: max(1, n // 20)] = U32 - rng.integers(0, 9, max(1, n // 20)).astype(
+        np.uint32
+    )
+    fresh = rng.random(n) < 0.1
+    return (
+        torch.from_numpy(slots.astype(np.int32)).to(dev),
+        torch.from_numpy(hits.view(np.int32)).to(dev),
+        torch.from_numpy(fresh).to(dev),
+    )
+
+
+def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
+    """Every kernel vs its plain version; returns max |err| by kernel."""
+    rng = np.random.default_rng(2024)
+    err = {fw.K1: 0, prefix_cuda.KERNEL: 0, fw.K3_UPDATE: 0, fw.K3_DECIDE: 0}
+
+    def note(name, a, b, what):
+        e = u32_max_abs_err(a, b)
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
+
+    for ns, sizes in ((NUM_SLOTS, SIZES), (BIG_SLOTS, (4096,))):
+        base = _table(torch, rng, ns, dev)
+        hot = torch.nonzero((base.to(torch.int64) & U32) > U32 - 16).flatten()
+        hot = hot.cpu().numpy()
+        for n in sizes:
+            for dt in ("", "uint8", "uint16"):
+                pk = _packed(torch, rng, n, ns, dev, hot)
+                ck, cp = base.clone(), base.clone()
+                out_k = fw.fw_unique_step(ck, pk, dt)
+                out_p = fw._unique_step_plain(cp, pk, dt)
+                note(fw.K1, out_k, out_p, f"afters n={n} ns={ns} dtype={dt!r}")
+                note(fw.K1, ck, cp, f"table n={n} ns={ns} dtype={dt!r}")
+            for distinct in (1, max(1, n // 8), n):
+                slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, distinct)
+                note(
+                    prefix_cuda.KERNEL,
+                    prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
+                    prefix_plain(slots, hits),
+                    f"n={n} distinct={distinct}",
+                )
+                ck, cp = base.clone(), base.clone()
+                ak = fw.fw_general_update(ck, slots, hits, fresh)
+                ap = fw._update_plain(cp, slots, hits, fresh)
+                note(fw.K3_UPDATE, ak, ap, f"afters n={n} ns={ns} d={distinct}")
+                note(fw.K3_UPDATE, ck, cp, f"table n={n} ns={ns} d={distinct}")
+            afters = torch.from_numpy(
+                rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+            ).to(dev)
+            hits = torch.from_numpy(
+                rng.integers(0, 1 << 20, n).astype(np.uint32).view(np.int32)
+            ).to(dev)
+            limits = torch.from_numpy(
+                rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+            ).to(dev)
+            shadow = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+            for ratio in (0.8, 0.5):
+                dk = fw.fw_decision_block(afters, hits, limits, shadow, ratio)
+                dp = fw._decision_block_plain(afters, hits, limits, shadow, ratio)
+                for f in dk._fields:
+                    note(fw.K3_DECIDE, getattr(dk, f), getattr(dp, f), f"{f} n={n}")
+    torch.cuda.synchronize()
+    return err
+
+
+def time_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
+    """Median ms of each kernel and its plain version at 4096 lanes and
+    2^20 slots, plus the bound of each (larger of bytes over HBM rate
+    and operations over the 32-bit peak), from this run's inputs."""
+    rng = np.random.default_rng(7)
+    n, ns = 4096, NUM_SLOTS
+    table = _table(torch, rng, ns, dev)
+    pk = _packed(torch, rng, n, ns, dev, np.zeros(0, np.int64))
+    slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, n // 2)
+    live = slots[(slots >= 0) & (slots < ns)]
+    distinct = int(torch.unique(live).numel())
+    n_live_k1 = int(((pk[0] >= 0) & (pk[0] < ns)).sum().item())
+    afters = fw.fw_general_update(table.clone(), slots, hits, fresh)
+    limits = torch.from_numpy(rng.integers(1, 1000, n).astype(np.int32)).to(dev)
+    shadow = torch.zeros(n, dtype=torch.bool, device=dev)
+    t1, t2 = table.clone(), table.clone()
+    rows = {}
+    calls = {}
+
+    def row(name, k, p, nbytes, ops):
+        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        b_ops = ops / PEAK_OPS_PER_S * 1e3
+        call_ms, plain_call_ms = time_ms(k), time_ms(p, reps=5, inner=5)
+        dev_ms, plain_dev_ms = device_ms(k), device_ms(p, iters=5)
+        rows[name] = dict(
+            # Device time from the profiler; the CUDA-event time of
+            # back-to-back calls (host enqueue included) where the
+            # profiler saw nothing.
+            ms=dev_ms if dev_ms is not None else call_ms,
+            plain_ms=plain_dev_ms if plain_dev_ms is not None else plain_call_ms,
+            bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            library_ms=None,
+        )
+        calls[name] = (call_ms, plain_call_ms)
+
+    pairs = n * (n + 1) // 2
+    row(
+        fw.K1,
+        lambda: fw.fw_unique_step(t1, pk, ""),
+        lambda: fw._unique_step_plain(t2, pk, ""),
+        16 * n + 8 * n_live_k1 + 4 * n,  # packed in, gather+scatter, afters out
+        8 * n,
+    )
+    row(
+        prefix_cuda.KERNEL,
+        lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
+        lambda: prefix_plain(slots, hits),
+        8 * n + 4 * n,
+        2 * pairs,  # one compare + one add per (i, j <= i)
+    )
+    row(
+        fw.K3_UPDATE,
+        lambda: fw.fw_general_update(t1, slots, hits, fresh),
+        lambda: fw._update_plain(t2, slots, hits, fresh),
+        9 * n + 8 * distinct + 4 * n,
+        2 * pairs + 4 * n,
+    )
+    row(
+        fw.K3_DECIDE,
+        lambda: fw.fw_decision_block(afters, hits, limits, shadow, 0.8),
+        lambda: fw._decision_block_plain(afters, hits, limits, shadow, 0.8),
+        13 * n + 33 * n,
+        30 * n,
+    )
+    return rows, calls
+
+
+# -- phase 4: the flagship forward step ---------------------------------
+
+
+def graft_batch():
+    """__graft_entry__.entry()'s batch, rebuilt in numpy."""
+    rng = np.random.default_rng(0)
+    n = 4096
+    return dict(
+        slots=rng.integers(0, NUM_SLOTS, n).astype(np.int32),
+        hits=rng.integers(1, 4, n).astype(np.uint32),
+        limits=rng.integers(1, 1000, n).astype(np.uint32),
+        fresh=rng.random(n) < 0.1,
+        shadow=np.zeros(n, dtype=bool),
+    )
+
+
+def forward_phase(torch, fw, kernels, dev):
+    raw = graft_batch()
+    batch = fw.DeviceBatch(
+        slots=torch.from_numpy(raw["slots"]).to(dev),
+        hits=torch.from_numpy(raw["hits"].view(np.int32)).to(dev),
+        limits=torch.from_numpy(raw["limits"].view(np.int32)).to(dev),
+        fresh=torch.from_numpy(raw["fresh"]).to(dev),
+        shadow=torch.from_numpy(raw["shadow"]).to(dev),
+    )
+    model = fw.FixedWindowModel(NUM_SLOTS, device=dev)
+    counts = model.init_state()
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    counts, dec = model.forward(counts, batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in (fw.K3_UPDATE, fw.K3_DECIDE, "per_slot_inclusive_prefix"):
+        if launches.get(name, 0) < 1:
+            fail(f"forward step did not launch {name}: {launches}")
+
+    plain_counts = torch.zeros(NUM_SLOTS, dtype=torch.int32, device=dev)
+    plain_afters = fw._update_plain(plain_counts, batch.slots, batch.hits, batch.fresh)
+    plain = fw._decision_block_plain(
+        plain_afters, batch.hits, batch.limits, batch.shadow, model.near_ratio
+    )
+    for f in dec._fields:
+        if u32_max_abs_err(getattr(dec, f), getattr(plain, f)) != 0:
+            fail(f"forward step field {f} disagrees with the plain version")
+    if u32_max_abs_err(counts, plain_counts) != 0:
+        fail("forward step table disagrees with the plain version")
+
+    # Independent reference: from an empty table each lane's after is
+    # its slot's running sum of hits in batch order.
+    run: dict = {}
+    want_after = np.empty(len(raw["slots"]), dtype=np.int64)
+    for i, (s, h) in enumerate(zip(raw["slots"].tolist(), raw["hits"].tolist())):
+        run[s] = run.get(s, 0) + h
+        want_after[i] = run[s]
+    got_after = dec.afters.cpu().numpy().view(np.uint32)
+    got_codes = dec.codes.cpu().numpy()
+    want_codes = np.where(want_after > raw["limits"], 2, 1)
+    if not (np.array_equal(got_after, want_after) and np.array_equal(got_codes, want_codes)):
+        fail("forward step disagrees with the numpy reference")
+    step = lambda: model.forward(counts, batch)  # noqa: E731
+    ms = (time_ms(step, reps=10, inner=20), device_ms(step))
+    return launches, ms, int((got_codes == 2).sum())
+
+
+# -- phase 5: the served path --------------------------------------------
+
+
+CONFIG = """domain: rl
+descriptors:
+  - key: foo
+    rate_limit:
+      unit: minute
+      requests_per_unit: 5
+  - key: burst
+    rate_limit:
+      unit: hour
+      requests_per_unit: 5
+"""
+
+
+def served_phase(kernels, fw):
+    import grpc
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = os.path.join(root, "ratelimit", "config")
+        os.makedirs(cfg)
+        with open(os.path.join(cfg, "rl.yaml"), "w") as f:
+            f.write(CONFIG)
+        os.environ.update(
+            BACKEND_TYPE="cuda",
+            TPU_ALGORITHM_BANKS="",
+            KERNEL_DEADLINE_S="0",
+            RUNTIME_ROOT=root,
+            RUNTIME_SUBDIRECTORY="ratelimit",
+            GRPC_HOST="127.0.0.1",
+            GRPC_PORT="0",
+            USE_STATSD="false",
+        )
+        from ratelimit_tpu_torch.runner import Runner
+        from ratelimit_tpu_torch.server import pb  # noqa: F401
+
+        from envoy.service.ratelimit.v3 import rls_pb2
+
+        runner = Runner()
+        kernels.launches.clear()
+        runner.start()
+        try:
+            channel = grpc.insecure_channel(
+                f"127.0.0.1:{runner.grpc_server.bound_port}"
+            )
+            call = channel.unary_unary(
+                "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                response_deserializer=rls_pb2.RateLimitResponse.FromString,
+            )
+
+            def request(key, value, hits=0):
+                req = rls_pb2.RateLimitRequest(domain="rl", hits_addend=hits)
+                e = req.descriptors.add().entries.add()
+                e.key, e.value = key, value
+                return call(req, timeout=60)
+
+            OK = rls_pb2.RateLimitResponse.OK
+            OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
+            # Keep the six hits inside one minute window.
+            if time.time() % 60 > 50:
+                time.sleep(61 - time.time() % 60)
+            codes = [request("foo", "x").overall_code for _ in range(6)]
+            if codes != [OK] * 5 + [OVER]:
+                fail(f"5/min progression wrong: {codes}")
+
+            # Concurrent burst over many keys: 2 hits per key.
+            keys = [f"k{i}" for i in range(512)]
+            errors = []
+
+            def worker(chunk):
+                try:
+                    for k in chunk:
+                        if request("burst", k).overall_code != OK:
+                            errors.append(k)
+                except Exception as exc:  # noqa: BLE001 -- reported below
+                    errors.append(repr(exc))
+
+            for _ in range(2):
+                threads = [
+                    threading.Thread(target=worker, args=(keys[i::32],))
+                    for i in range(32)
+                ]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=120)
+                if any(t.is_alive() for t in threads) or errors:
+                    fail(f"burst failed: {errors[:3]}")
+            for k in keys[:16]:
+                st = request("burst", k).statuses[0]
+                if st.code != OK or st.limit_remaining != 2:
+                    fail(f"burst key {k} counted wrong: {st}")
+            lanes = runner.cache.dispatcher.max_launch_lanes
+            if lanes <= 1:
+                fail("the burst never coalesced into a multi-lane launch")
+
+            # Warm closed-loop latency, one client.
+            for i in range(50):
+                request("foo", f"warm{i % 10}")
+            n = 400
+            t0 = time.perf_counter()
+            for i in range(n):
+                request("foo", f"lat{i % 50}")
+            us_per_req = (time.perf_counter() - t0) / n * 1e6
+            channel.close()
+        finally:
+            runner.stop()
+        launches = dict(kernels.launches)
+    if launches.get(fw.K1, 0) < 1:
+        fail(f"served path did not launch {fw.K1}: {launches}")
+    return launches, lanes, us_per_req
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a CUDA GPU")
+    if not os.path.isdir(os.path.join(REPO, "ratelimit_tpu_torch")):
+        fail("ratelimit_tpu_torch/ not found beside chip_smoke.py")
+    sys.path.insert(0, REPO)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        timeout=60,
+    ).stdout.strip()
+    log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    log(smi)
+
+    # 2. build
+    from ratelimit_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    seconds = kernels.build_all()
+    log(
+        f"build: {time.perf_counter() - t0:.1f} s wall "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+    )
+    for name, text in kernels.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    # 3. kernels vs plain versions
+    from ratelimit_tpu_torch.models import fixed_window as fw
+    from ratelimit_tpu_torch.ops import prefix_cuda
+    from ratelimit_tpu_torch.ops.prefix import per_slot_inclusive_prefix
+
+    errs = check_kernels(torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev)
+    log(f"kernels: exact for N in {SIZES} at 2^20 slots and 4096 at 2^24; max|err| {errs}")
+    timing, calls = time_kernels(
+        torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev
+    )
+    log(
+        "kernel device times at N=4096 (profiler): "
+        + "; ".join(
+            f"{k} {v['ms'] * 1e3:.2f} us (plain {v['plain_ms'] * 1e3:.1f} us, "
+            f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']})"
+            for k, v in timing.items()
+        )
+    )
+    log(
+        "call times at N=4096 (CUDA-event median of back-to-back calls, "
+        "host enqueue included): "
+        + "; ".join(
+            f"{k} {c * 1e3:.2f} us (plain {p * 1e3:.1f} us)"
+            for k, (c, p) in calls.items()
+        )
+    )
+
+    # 4. flagship forward step (main path b)
+    fwd_launches, fwd_ms, n_over = forward_phase(torch, fw, kernels, dev)
+    log(
+        f"forward: graft batch 2^20 slots x 4096 lanes exact vs plain and numpy; "
+        f"{n_over} lanes OVER_LIMIT; {fwd_ms[0] * 1e3:.1f} us/step "
+        f"(device {fwd_ms[1] * 1e3 if fwd_ms[1] else float('nan'):.1f} us); "
+        f"launches {fwd_launches}"
+    )
+
+    # 5. served path (main path a)
+    srv_launches, lanes, us_per_req = served_phase(kernels, fw)
+    log(
+        f"served: 6th hit OVER_LIMIT, burst coalesced up to {lanes} lanes/launch, "
+        f"warm {us_per_req:.1f} us/request; launches {srv_launches}"
+    )
+
+    main_launches = {
+        k: fwd_launches.get(k, 0) + srv_launches.get(k, 0)
+        for k in set(fwd_launches) | set(srv_launches)
+    }
+    replaces = {
+        fw.K1: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
+        prefix_cuda.KERNEL: ("ratelimit_tpu_torch/csrc/prefix.cu", "ratelimit_tpu/ops/prefix_pallas.py:82"),
+        fw.K3_UPDATE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:247"),
+        fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
+    }
+    rows = []
+    for name, (source, rep) in replaces.items():
+        launches = main_launches.get(name, 0)
+        if launches < 1:
+            fail(f"{name} never launched on the main path")
+        rows.append(
+            dict(
+                name=name,
+                route="cuda",
+                source=source,
+                replaces=rep,
+                launches=launches,
+                max_abs_err=errs[name],
+                **timing[name],
+            )
+        )
+    log(json.dumps({"kernels": rows}))
+    log(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+
+
+if __name__ == "__main__":
+    main()

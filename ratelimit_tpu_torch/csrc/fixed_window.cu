@@ -1,0 +1,233 @@
+// Fixed-window counter kernels for Hopper (sm_90a).
+//
+// The counter table is uint32 per slot (stored by the caller as an int32
+// tensor of the same bits).  All arithmetic and comparisons here are on
+// uint32_t: torch's int32 compares are signed and wrong at 2^31 and up.
+// A slot outside [0, num_slots) is inert: it reads 0 and writes nothing
+// (the serving engine pads batches with the ids num_slots + i).
+//
+// K1 fw_unique_step replaces the jitted XLA step
+//   ratelimit_tpu/models/fixed_window.py:171 step_counters_unique_packed
+//   -> update_unique (:200-245).
+// One thread per lane of the packed int32[4, N] batch (rows: slot, hits
+// bits, limit bits, fresh).  Slots are unique, so the scatter needs no
+// atomics.  Bound: 16 B in, 4 B gathered, 4 B written and <= 4 B read
+// back per lane -- about 0.1 MB at 4096 lanes, so the launch latency
+// and not the memory system bounds it.  The TPU's 128-wide row gather
+// (fixed_window.py:210-226) is a TPU layout trick and has no
+// counterpart here.
+//
+// K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
+// duplicate-tolerant step) and :294 decision_block.  A fresh lane zeroes
+// its slot for EVERY lane of that slot, so every zeroing must land
+// before any gather, and every gather before any add: the update runs
+// as separate launches on one stream -- zero fresh slots, gather, the
+// per-slot prefix (K2, csrc/prefix.cu), then add + modular atomicAdd.
+// fw_decision_block is the branch-free threshold machine, one thread
+// per lane; the near-limit threshold is floorf(__fmul_rn(limit, ratio))
+// so that nvcc cannot contract it with anything else.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr uint32_t kU32Max = 0xFFFFFFFFu;
+
+__device__ __forceinline__ bool in_table(int32_t slot, long long num_slots) {
+  return slot >= 0 && static_cast<long long>(slot) < num_slots;
+}
+
+__global__ void fw_unique_step_kernel(uint32_t* __restrict__ counts,
+                                      long long num_slots,
+                                      const int32_t* __restrict__ packed,
+                                      int n, void* __restrict__ out,
+                                      int out_kind) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) {
+    return;
+  }
+  const int32_t slot = packed[i];
+  const uint32_t hits = static_cast<uint32_t>(packed[n + i]);
+  const uint32_t limit = static_cast<uint32_t>(packed[2 * n + i]);
+  const bool fresh = packed[3 * n + i] != 0;
+  const bool live = in_table(slot, num_slots);
+
+  const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
+  uint32_t after = before + hits;
+  if (after < before) {  // one u32 add wraps at most once: saturate
+    after = kU32Max;
+  }
+  if (live) {
+    counts[slot] = after;
+  }
+  if (out_kind == 0) {
+    static_cast<uint32_t*>(out)[i] = after;
+    return;
+  }
+  const uint32_t cap = limit + hits;  // modular, as the reference
+  const uint32_t sat = after < cap ? after : cap;
+  if (out_kind == 1) {
+    static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(sat);
+  } else {
+    static_cast<uint16_t*>(out)[i] = static_cast<uint16_t>(sat);
+  }
+}
+
+__global__ void fw_zero_fresh_kernel(uint32_t* __restrict__ counts,
+                                     long long num_slots,
+                                     const int32_t* __restrict__ slots,
+                                     const uint8_t* __restrict__ fresh,
+                                     int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n && fresh[i] && in_table(slots[i], num_slots)) {
+    counts[slots[i]] = 0u;
+  }
+}
+
+__global__ void fw_gather_kernel(const uint32_t* __restrict__ counts,
+                                 long long num_slots,
+                                 const int32_t* __restrict__ slots,
+                                 uint32_t* __restrict__ before, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int32_t slot = slots[i];
+    before[i] = in_table(slot, num_slots) ? counts[slot] : 0u;
+  }
+}
+
+__global__ void fw_add_kernel(uint32_t* __restrict__ counts,
+                              long long num_slots,
+                              const int32_t* __restrict__ slots,
+                              const uint32_t* __restrict__ hits,
+                              const uint32_t* __restrict__ incl,
+                              uint32_t* __restrict__ afters, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) {
+    return;
+  }
+  afters[i] += incl[i];  // modular: the general path does not saturate
+  const int32_t slot = slots[i];
+  if (in_table(slot, num_slots)) {
+    atomicAdd(&counts[slot], hits[i]);
+  }
+}
+
+__global__ void fw_decision_block_kernel(const uint32_t* __restrict__ afters,
+                                         const uint32_t* __restrict__ hits,
+                                         const uint32_t* __restrict__ limits,
+                                         const uint8_t* __restrict__ shadow,
+                                         float near_ratio, int n,
+                                         uint32_t* __restrict__ out,
+                                         uint8_t* __restrict__ set_lc) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) {
+    return;
+  }
+  const uint32_t after = afters[i];
+  const uint32_t h = hits[i];
+  const uint32_t limit = limits[i];
+  const uint32_t before = after - h;
+  const float near_f =
+      floorf(__fmul_rn(__uint2float_rn(limit), near_ratio));
+  const uint32_t near =
+      near_f <= 0.0f ? 0u
+                     : (near_f >= 4294967296.0f ? kU32Max
+                                                : static_cast<uint32_t>(near_f));
+
+  const bool over = after > limit;
+  const bool ok = !over;
+  const bool fully_over = over && before >= limit;
+  const bool partly_over = over && !fully_over;
+  const uint32_t over_delta =
+      fully_over ? h : (partly_over ? after - limit : 0u);
+  const uint32_t max_near_before = near > before ? near : before;
+  const uint32_t near_from_over = partly_over ? limit - max_near_before : 0u;
+  const bool near_ok = ok && after > near;
+  const uint32_t near_from_ok =
+      (near_ok && before >= near) ? h : (near_ok ? after - near : 0u);
+  const bool shadowed = over && shadow[i] != 0;
+
+  out[i] = (over && !shadowed) ? 2u : 1u;          // codes
+  out[n + i] = ok ? limit - after : 0u;            // limit_remaining
+  out[2 * n + i] = before;                         // befores
+  out[3 * n + i] = after;                          // afters
+  out[4 * n + i] = over_delta;                     // over_limit
+  out[5 * n + i] = near_from_over + near_from_ok;  // near_limit
+  out[6 * n + i] = ok ? h : 0u;                    // within_limit
+  out[7 * n + i] = shadowed ? h : 0u;              // shadow_mode
+  set_lc[i] = over ? 1 : 0;                        // set_local_cache
+}
+
+inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+}  // namespace
+
+extern "C" int rl_fw_unique_step(void* counts, long long num_slots,
+                                 const void* packed, int n, void* out,
+                                 int out_kind, void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  fw_unique_step_kernel<<<blocks_for(n), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(counts), num_slots,
+      static_cast<const int32_t*>(packed), n, out, out_kind);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// First half of the general update: zero fresh slots, then gather the
+// table values into `before` (a second launch, so it sees every zero).
+extern "C" int rl_fw_zero_and_gather(void* counts, long long num_slots,
+                                     const void* slots, const void* fresh,
+                                     void* before, int n, void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fw_zero_fresh_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+      static_cast<uint32_t*>(counts), num_slots,
+      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(fresh),
+      n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  fw_gather_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+      static_cast<const uint32_t*>(counts), num_slots,
+      static_cast<const int32_t*>(slots), static_cast<uint32_t*>(before), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Second half, after the prefix: afters = before + incl (in place in
+// `afters`, which holds `before` on entry) and the scatter-add of hits.
+extern "C" int rl_fw_add(void* counts, long long num_slots, const void* slots,
+                         const void* hits, const void* incl, void* afters,
+                         int n, void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  fw_add_kernel<<<blocks_for(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(counts), num_slots,
+      static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(hits),
+      static_cast<const uint32_t*>(incl), static_cast<uint32_t*>(afters), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rl_fw_decision_block(const void* afters, const void* hits,
+                                    const void* limits, const void* shadow,
+                                    float near_ratio, int n, void* out,
+                                    void* set_lc, void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  fw_decision_block_kernel<<<blocks_for(n), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(afters), static_cast<const uint32_t*>(hits),
+      static_cast<const uint32_t*>(limits),
+      static_cast<const uint8_t*>(shadow), near_ratio, n,
+      static_cast<uint32_t*>(out), static_cast<uint8_t*>(set_lc));
+  return static_cast<int>(cudaGetLastError());
+}

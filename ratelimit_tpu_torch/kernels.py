@@ -1,0 +1,206 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into
+its own shared library with a plain C interface under ``_build/``
+(listed in ``.gitignore``), and is loaded with ``ctypes``.  Sources
+build at first use, or all together (one ``nvcc`` per source, started
+in parallel) through :func:`build_all`.  A library's file name carries
+a digest of its source and flags, so a changed source rebuilds and an
+unchanged one loads as is.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on a machine without ``nvcc``.  A wrapper calls
+:func:`library` only when it has a CUDA tensor in hand; a failed build
+or launch raises, and there is no fallback to the plain versions.
+
+``launches`` counts kernel launches by kernel name.  Every wrapper adds
+one where it launches its kernel, and nowhere else, so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+#: library name -> source file under csrc/
+SOURCES = {
+    "prefix": "prefix.cu",
+    "fixed_window": "fixed_window.cu",
+}
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_VP = ctypes.c_void_p
+_I32 = ctypes.c_int
+_I64 = ctypes.c_longlong
+
+#: C signatures: name -> (library, argtypes).  Every function returns
+#: the cudaError_t of its launch(es) as an int (0 = success).
+SIGNATURES = {
+    "rl_per_slot_inclusive_prefix": ("prefix", [_VP, _VP, _VP, _I32, _VP]),
+    "rl_fw_unique_step": (
+        "fixed_window",
+        [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
+    "rl_fw_zero_and_gather": (
+        "fixed_window",
+        [_VP, _I64, _VP, _VP, _VP, _I32, _VP],
+    ),
+    "rl_fw_add": ("fixed_window", [_VP, _I64, _VP, _VP, _VP, _VP, _I32, _VP]),
+    "rl_fw_decision_block": (
+        "fixed_window",
+        [_VP, _VP, _VP, _VP, ctypes.c_float, _I32, _VP, _VP, _VP],
+    ),
+}
+
+#: Launch counts by kernel name (see module docstring).
+launches: collections.Counter = collections.Counter()
+
+#: nvcc's output (ptxas register/shared-memory report) per library,
+#: filled by the builds this process ran.
+build_logs: Dict[str, str] = {}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch."""
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        candidate = "/usr/local/cuda/bin/nvcc"
+        if os.path.exists(candidate):
+            nvcc = candidate
+    if nvcc is None:
+        raise KernelError(
+            "nvcc not found: the CUDA kernels build only where the CUDA "
+            "toolkit is installed"
+        )
+    return nvcc
+
+
+def _so_path(name: str) -> str:
+    src = os.path.join(CSRC_DIR, SOURCES[name])
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all(names=None) -> Dict[str, float]:
+    """Build every missing library, one nvcc per source, all started
+    together; returns the wall seconds each build took (0.0 for one
+    already built).  Raises KernelError naming every source that
+    failed, with nvcc's output."""
+    names = list(SOURCES) if names is None else list(names)
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names) -> Dict[str, float]:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = None
+    procs = {}
+    seconds: Dict[str, float] = {}
+    for name in names:
+        path = _so_path(name)
+        if os.path.exists(path):
+            seconds[name] = 0.0
+            continue
+        nvcc = nvcc or find_nvcc()
+        tmp = f"{path}.tmp.{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            ),
+            tmp,
+            path,
+            time.perf_counter(),
+        )
+    failed = []
+    for name, (proc, tmp, path, t0) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += "\n(nvcc timed out after 600 s)"
+        seconds[name] = time.perf_counter() - t0
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} (rc={proc.returncode}):\n{out}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            continue
+        os.replace(tmp, path)
+    if failed:
+        raise KernelError("kernel build failed: " + "\n".join(failed))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, building it first when needed."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        _build_locked([name])
+        path = _so_path(name)
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError as e:
+            raise KernelError(f"cannot load {path}: {e}") from e
+        for fn, (owner, argtypes) in SIGNATURES.items():
+            if owner != name:
+                continue
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        _LIBS[name] = lib
+        return lib
+
+
+def function(fn: str):
+    """The ctypes function `fn` (see SIGNATURES)."""
+    return getattr(library(SIGNATURES[fn][0]), fn)
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        raise KernelError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def stream_ptr(device) -> int:
+    """Raw handle of the current CUDA stream on `device`."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

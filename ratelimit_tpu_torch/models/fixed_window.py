@@ -1,0 +1,400 @@
+"""The flagship model: a fixed-window rate-limit decision step on the GPU.
+
+Port of ratelimit_tpu/models/fixed_window.py.  The counter table is one
+int32 tensor of u32 bit patterns (one counter per slot; 2**24 slots =
+64 MiB) on the model's device.  Two steps run against it:
+
+- the serving step, ``step_counters_unique_packed``: the engine has
+  already deduplicated the batch on the host, so every live slot is
+  unique -- K1 ``fw_unique_step`` (csrc/fixed_window.cu);
+- the duplicate-tolerant step, ``forward`` = ``update`` +
+  ``decision_block``: zero fresh slots, gather, in-batch per-slot
+  prefix (Redis pipeline order), modular scatter-add, threshold
+  decisions -- K3 ``fw_general_update`` (which runs K2, ops/prefix_cuda)
+  and ``fw_decision_block``.
+
+Unlike the JAX functions, which return a new (donated) table, the
+steps update ``counts`` IN PLACE and return the same tensor, so the
+table is never copied.
+
+Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or
+raises) and runs its plain PyTorch version -- int64 arithmetic masked
+to 32 bits, kept beside it here -- only for a tensor on the CPU.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..ops.prefix import per_slot_inclusive_prefix
+from ..ops.prefix_cuda import per_slot_inclusive_prefix_cuda
+from ..ops.u32 import U32_MASK, narrow, narrow16, widen
+
+# api.Code values, as device-friendly constants (api.py Code enum).
+CODE_OK = 1
+CODE_OVER_LIMIT = 2
+
+#: Serving readback types: "" = raw u32 afters, else the saturated
+#: narrow readback min(after, limit + hits).  u16 lives in int16
+#: storage (torch has few uint16 ops); the host views it as uint16.
+OUT_DTYPES = {"": torch.int32, "uint8": torch.uint8, "uint16": torch.int16}
+_OUT_KIND = {"": 0, "uint8": 1, "uint16": 2}
+
+K1 = "fw_unique_step"
+K3_UPDATE = "fw_general_update"
+K3_DECIDE = "fw_decision_block"
+
+
+class DeviceBatch(NamedTuple):
+    """One padded descriptor batch on the device.  u32 fields are
+    int32 tensors of the same bits; out-of-table slots are inert."""
+
+    slots: torch.Tensor  # int32[N]
+    hits: torch.Tensor  # int32[N], u32 bits
+    limits: torch.Tensor  # int32[N], u32 bits (requests_per_unit)
+    fresh: torch.Tensor  # bool[N] first sighting of a newly assigned slot
+    shadow: torch.Tensor  # bool[N] rule-level shadow mode
+
+
+class DeviceDecisions(NamedTuple):
+    """Per-descriptor outcomes + stat deltas: codes int32, the u32
+    counters as int32 bits, set_local_cache bool."""
+
+    codes: torch.Tensor
+    limit_remaining: torch.Tensor
+    befores: torch.Tensor
+    afters: torch.Tensor
+    over_limit: torch.Tensor
+    near_limit: torch.Tensor
+    within_limit: torch.Tensor
+    shadow_mode: torch.Tensor
+    set_local_cache: torch.Tensor
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; CUDA must exist when asked for."""
+    d = torch.device(device)
+    if d.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU"
+            )
+        if d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+    elif d.type != "cpu":
+        raise ValueError(f"unsupported device {d}")
+    return d
+
+
+def state_from_numpy(counts_u32: np.ndarray, device="cuda") -> torch.Tensor:
+    """The JAX model's uint32[num_slots] table (init_state or
+    CounterEngine.export_state()["counts"]) -> the port's int32-bits
+    tensor on `device`."""
+    arr = np.ascontiguousarray(counts_u32, dtype=np.uint32).reshape(-1)
+    return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
+
+
+def state_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Inverse of state_from_numpy: a uint32 numpy copy of the table."""
+    return t.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def _check_table(counts: torch.Tensor) -> None:
+    if counts.dtype != torch.int32 or counts.dim() != 1:
+        raise TypeError(
+            f"counts must be a 1-D int32 tensor, got {counts.dtype} "
+            f"{tuple(counts.shape)}"
+        )
+    if not counts.is_contiguous():
+        raise ValueError("counts must be contiguous")
+
+
+def _require_cuda(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+
+
+def _check_lanes(device: torch.device, n: int, **tensors) -> None:
+    for name, (t, dtype) in tensors.items():
+        if t.dtype != dtype or t.shape != (n,):
+            raise TypeError(
+                f"{name} must be {dtype}[{n}], got {t.dtype} {tuple(t.shape)}"
+            )
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# -- K1: unique-slot serving step ---------------------------------------
+
+
+def _unique_step_plain(
+    counts: torch.Tensor, packed: torch.Tensor, out_dtype: str
+) -> torch.Tensor:
+    """Plain version of K1 (updates `counts` in place, returns afters)."""
+    ns = counts.shape[0]
+    slots = packed[0].to(torch.int64)
+    hits = widen(packed[1])
+    limits = widen(packed[2])
+    fresh = packed[3] != 0
+    live = (slots >= 0) & (slots < ns)
+    idx = torch.where(live, slots, torch.zeros_like(slots))
+    before = torch.where(live & ~fresh, widen(counts[idx]), torch.zeros_like(hits))
+    after = torch.clamp(before + hits, max=U32_MASK)  # saturating
+    counts[slots[live]] = narrow(after[live])
+    if out_dtype == "":
+        return narrow(after)
+    sat = torch.minimum(after, (limits + hits) & U32_MASK)
+    if out_dtype == "uint8":
+        return (sat & 0xFF).to(torch.uint8)
+    return narrow16(sat)
+
+
+def fw_unique_step(
+    counts: torch.Tensor, packed: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K1: fresh-zero, gather, saturating u32 add and unique scatter-set
+    of one packed int32[4, N] batch (rows: slots, hits bits, limit
+    bits, fresh); returns the afters as int32 u32 bits ("") or the
+    saturated narrow readback ("uint8" -> uint8, "uint16" -> int16
+    storage).  Updates `counts` in place.  Every live slot must be
+    distinct (the engine dedups on the host)."""
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
+    _check_table(counts)
+    if packed.dtype != torch.int32 or packed.dim() != 2 or packed.shape[0] != 4:
+        raise TypeError(
+            f"packed must be int32[4, N], got {packed.dtype} {tuple(packed.shape)}"
+        )
+    if packed.device != counts.device:
+        raise ValueError("packed and counts must be on one device")
+    if counts.device.type == "cpu":
+        return _unique_step_plain(counts, packed, out_dtype)
+    _require_cuda(counts.device)
+    if not packed.is_contiguous():
+        raise ValueError("packed must be contiguous")
+    n = packed.shape[1]
+    out = torch.empty(n, dtype=OUT_DTYPES[out_dtype], device=counts.device)
+    if n == 0:
+        return out
+    rc = kernels.function("rl_fw_unique_step")(
+        counts.data_ptr(),
+        counts.shape[0],
+        packed.data_ptr(),
+        n,
+        out.data_ptr(),
+        _OUT_KIND[out_dtype],
+        kernels.stream_ptr(counts.device),
+    )
+    kernels.check(rc, K1)
+    kernels.launches[K1] += 1
+    return out
+
+
+# -- K3: duplicate-tolerant update + decision block ---------------------
+
+
+def _update_plain(
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of fw_general_update (in place; returns afters)."""
+    ns = counts.shape[0]
+    s64 = slots.to(torch.int64)
+    live = (s64 >= 0) & (s64 < ns)
+    counts[s64[live & fresh]] = 0
+    idx = torch.where(live, s64, torch.zeros_like(s64))
+    before = torch.where(live, widen(counts[idx]), torch.zeros_like(s64))
+    incl = widen(per_slot_inclusive_prefix(slots, hits))
+    afters = before + incl
+    # Modular scatter-add: every lane of a slot writes the same total.
+    total = torch.zeros(ns, dtype=torch.int64, device=counts.device)
+    total.index_add_(0, s64[live], widen(hits)[live])
+    touched = s64[live]
+    counts[touched] = narrow(widen(counts[touched]) + total[touched])
+    return narrow(afters)
+
+
+def fw_general_update(
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+) -> torch.Tensor:
+    """K3 update: zero fresh slots, gather 'before', add the in-batch
+    per-slot prefix (K2), modular scatter-add of hits.  Returns the
+    per-lane afters (int32 u32 bits); updates `counts` in place.
+    Duplicate slots are allowed."""
+    _check_table(counts)
+    n = slots.shape[0]
+    _check_lanes(
+        counts.device,
+        n,
+        slots=(slots, torch.int32),
+        hits=(hits, torch.int32),
+        fresh=(fresh, torch.bool),
+    )
+    if counts.device.type == "cpu":
+        return _update_plain(counts, slots, hits, fresh)
+    _require_cuda(counts.device)
+    afters = torch.empty(n, dtype=torch.int32, device=counts.device)
+    if n == 0:
+        return afters
+    stream = kernels.stream_ptr(counts.device)
+    ns = counts.shape[0]
+    rc = kernels.function("rl_fw_zero_and_gather")(
+        counts.data_ptr(), ns, slots.data_ptr(), fresh.data_ptr(),
+        afters.data_ptr(), n, stream,
+    )
+    kernels.check(rc, K3_UPDATE)
+    incl = per_slot_inclusive_prefix_cuda(slots, hits)
+    rc = kernels.function("rl_fw_add")(
+        counts.data_ptr(), ns, slots.data_ptr(), hits.data_ptr(),
+        incl.data_ptr(), afters.data_ptr(), n, stream,
+    )
+    kernels.check(rc, K3_UPDATE)
+    kernels.launches[K3_UPDATE] += 1
+    return afters
+
+
+def _decision_block_plain(
+    afters: torch.Tensor,
+    hits: torch.Tensor,
+    limits: torch.Tensor,
+    shadow: torch.Tensor,
+    near_ratio: float,
+) -> DeviceDecisions:
+    """Plain version of fw_decision_block (limiter/base.py formulas)."""
+    a = widen(afters)
+    h = widen(hits)
+    lim = widen(limits)
+    zero = torch.zeros_like(a)
+    befores = (a - h) & U32_MASK
+    near_f = torch.floor(
+        limits.to(torch.int64).bitwise_and(U32_MASK).to(torch.float32)
+        * torch.tensor(near_ratio, dtype=torch.float32)
+    )
+    near = near_f.clamp(min=0.0, max=4294967296.0).to(torch.int64)
+    near = near.clamp(max=U32_MASK)
+
+    over = a > lim
+    ok = ~over
+    fully_over = over & (befores >= lim)
+    partly_over = over & ~fully_over
+    over_delta = torch.where(
+        fully_over, h, torch.where(partly_over, a - lim, zero)
+    )
+    near_from_over = torch.where(
+        partly_over, lim - torch.maximum(near, befores), zero
+    )
+    near_ok = ok & (a > near)
+    near_from_ok = torch.where(
+        near_ok & (befores >= near), h, torch.where(near_ok, a - near, zero)
+    )
+    shadowed = over & shadow
+    codes = torch.where(
+        over & ~shadowed,
+        torch.full_like(a, CODE_OVER_LIMIT),
+        torch.full_like(a, CODE_OK),
+    )
+    return DeviceDecisions(
+        codes=codes.to(torch.int32),
+        limit_remaining=narrow(torch.where(ok, lim - a, zero)),
+        befores=narrow(befores),
+        afters=narrow(a),
+        over_limit=narrow(over_delta),
+        near_limit=narrow(near_from_over + near_from_ok),
+        within_limit=narrow(torch.where(ok, h, zero)),
+        shadow_mode=narrow(torch.where(shadowed, h, zero)),
+        set_local_cache=over,
+    )
+
+
+def fw_decision_block(
+    afters: torch.Tensor,
+    hits: torch.Tensor,
+    limits: torch.Tensor,
+    shadow: torch.Tensor,
+    near_ratio: float,
+) -> DeviceDecisions:
+    """K3 decisions: the branch-free threshold state machine
+    (limiter/base.py formulas; reference base_limiter.go:76-179) over
+    u32 afters/hits/limits (int32 bits) and bool shadow."""
+    n = afters.shape[0]
+    device = afters.device
+    _check_lanes(
+        device,
+        n,
+        afters=(afters, torch.int32),
+        hits=(hits, torch.int32),
+        limits=(limits, torch.int32),
+        shadow=(shadow, torch.bool),
+    )
+    if device.type == "cpu":
+        return _decision_block_plain(afters, hits, limits, shadow, near_ratio)
+    _require_cuda(device)
+    out = torch.empty((8, n), dtype=torch.int32, device=device)
+    set_lc = torch.empty(n, dtype=torch.bool, device=device)
+    if n > 0:
+        rc = kernels.function("rl_fw_decision_block")(
+            afters.data_ptr(), hits.data_ptr(), limits.data_ptr(),
+            shadow.data_ptr(), float(near_ratio), n, out.data_ptr(),
+            set_lc.data_ptr(), kernels.stream_ptr(device),
+        )
+        kernels.check(rc, K3_DECIDE)
+        kernels.launches[K3_DECIDE] += 1
+    return DeviceDecisions(*out.unbind(0), set_lc)
+
+
+class FixedWindowModel:
+    """Configuration + steps for the counter table.
+
+    `num_slots` is the table capacity (one u32 per slot in device
+    memory, so 2**24 slots = 64 MiB).  `near_ratio` is the
+    NEAR_LIMIT_RATIO knob (settings.go:48, default 0.8).  `device`
+    defaults to the GPU; only an explicit "cpu" runs the plain
+    versions on the CPU.
+    """
+
+    def __init__(self, num_slots: int, near_ratio: float = 0.8, device="cuda"):
+        self.num_slots = int(num_slots)
+        self.near_ratio = float(near_ratio)
+        self.device = resolve_device(device)
+
+    def init_state(self) -> torch.Tensor:
+        """Fresh counter table (all windows empty)."""
+        return torch.zeros(self.num_slots, dtype=torch.int32, device=self.device)
+
+    def step_counters_unique_packed(
+        self, counts: torch.Tensor, out_dtype: str, packed: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Serving step (K1) fed by ONE packed int32[4, N] transfer:
+        returns (counts, afters) with `counts` updated in place.  See
+        ratelimit_tpu FixedWindowModel.step_counters_compact for why
+        the saturated narrow readback loses no information."""
+        return counts, fw_unique_step(counts, packed, out_dtype)
+
+    def update(
+        self, counts: torch.Tensor, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Duplicate-tolerant counter update (K3 + K2): returns
+        (counts, afters).  MODULAR u32 arithmetic, like the reference's
+        scatter-add; serving never reaches it."""
+        return counts, fw_general_update(counts, batch.slots, batch.hits, batch.fresh)
+
+    def forward(
+        self, counts: torch.Tensor, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, DeviceDecisions]:
+        """The flagship forward step: update + decision block."""
+        counts, afters = self.update(counts, batch)
+        decisions = fw_decision_block(
+            afters, batch.hits, batch.limits, batch.shadow, self.near_ratio
+        )
+        return counts, decisions

@@ -1,0 +1,240 @@
+"""Process bootstrap: Settings -> backend -> service -> listeners.
+
+Port of ratelimit_tpu/runner.py for the single-lane fixed-window
+slice: stats, the local over-limit cache, the CUDA counter backend
+(``BACKEND_TYPE=cuda``), the service with its runtime config loader,
+the gRPC listener and the statsd exporter.  The HTTP and debug
+listeners, checkpoints and the observability planes are not ported
+yet; settings that select an unported feature are refused at boot
+(settings.unported_settings).
+
+Run directly:  python -m ratelimit_tpu_torch.runner
+"""
+
+from __future__ import annotations
+
+import logging
+import signal
+import threading
+from typing import Optional
+
+from .config.runtime import RuntimeLoader
+from .service import RateLimitService
+from .settings import Settings, SettingsError, new_settings, unported_settings
+from .stats.manager import Manager
+from .stats.statsd import StatsdExporter
+from .utils.time import RealTimeSource
+
+logger = logging.getLogger("ratelimit")
+
+_LOG_LEVELS = {
+    "TRACE": logging.DEBUG,
+    "DEBUG": logging.DEBUG,
+    "INFO": logging.INFO,
+    "WARN": logging.WARNING,
+    "WARNING": logging.WARNING,
+    "ERROR": logging.ERROR,
+}
+
+
+def create_limiter(s: Settings, local_cache, time_source, device="cuda"):
+    """BackendType switch (reference runner.go:50-74).  `device` is
+    where the counter table lives: the GPU unless the caller asks for
+    the CPU (the tests do)."""
+    refused = unported_settings(s)
+    if refused:
+        raise SettingsError(
+            "settings select features not ported to ratelimit_tpu_torch "
+            "(ROADMAP.md, Queue 3): " + "; ".join(refused)
+        )
+    from .backends.cuda_cache import CudaRateLimitCache
+    from .backends.engine import CounterEngine
+
+    engine = CounterEngine(
+        num_slots=s.tpu_num_slots,
+        near_ratio=s.near_limit_ratio,
+        buckets=tuple(s.tpu_batch_buckets),
+        device=device,
+    )
+    return CudaRateLimitCache(
+        engine,
+        time_source=time_source,
+        local_cache=local_cache,
+        expiration_jitter_max_seconds=s.expiration_jitter_max_seconds,
+        cache_key_prefix=s.cache_key_prefix,
+        batch_window_us=s.tpu_batch_window_us,
+        batch_limit=s.tpu_batch_limit,
+        dispatch_timeout_s=s.tpu_dispatch_timeout_s,
+        pipeline_depth=s.tpu_pipeline_depth,
+        unhealthy_after=s.tpu_unhealthy_after,
+        resolution_cache_entries=s.resolution_cache_entries,
+        device_failure_mode=s.device_failure_mode,
+    )
+
+
+class Runner:
+    def __init__(
+        self,
+        settings: Optional[Settings] = None,
+        time_source=None,
+        device="cuda",
+    ):
+        """`time_source` is the clock seam (tests pin it); `device`
+        places the counter table (default the GPU)."""
+        self.settings = settings or new_settings()
+        self.time_source = time_source or RealTimeSource()
+        self.device = device
+        self.stats_manager = Manager(extra_tags=self.settings.extra_tags)
+        self._stopped = threading.Event()
+        self.cache = None
+        self.service = None
+        self.runtime = None
+        self.grpc_server = None
+        self.statsd = None
+        self.health = None
+
+    def start(self) -> None:
+        """Wire everything and start the listeners (non-blocking)."""
+        s = self.settings
+        logging.basicConfig(
+            level=_LOG_LEVELS.get(s.log_level.upper(), logging.WARNING),
+            format=(
+                '{"@timestamp":"%(asctime)s","level":"%(levelname)s",'
+                '"@message":"%(message)s"}'
+                if s.log_format == "json"
+                else "%(asctime)s %(levelname)s %(name)s %(message)s"
+            ),
+        )
+        from .server.grpc_server import create_grpc_server, server_credentials
+        from .server.health import HealthChecker
+
+        local_cache = None
+        if s.local_cache_size_in_bytes > 0:
+            from .limiter.local_cache import LocalCache
+
+            local_cache = LocalCache(s.local_cache_size_in_bytes)
+            local_cache.register_stats(self.stats_manager.store)
+
+        self.cache = create_limiter(s, local_cache, self.time_source, self.device)
+        self.cache.register_stats(self.stats_manager.store)
+        if s.tpu_warmup:
+            logger.warning("warming up kernel shapes (TPU_WARMUP=true)...")
+            self.cache.warmup()
+
+        self.runtime = RuntimeLoader(
+            s.runtime_path,
+            s.runtime_subdirectory,
+            ignore_dot_files=s.runtime_ignore_dot_files,
+        )
+        self.service = RateLimitService(
+            self.runtime,
+            self.cache,
+            self.stats_manager,
+            runtime_watch_root=s.runtime_watch_root,
+            clock=self.time_source,
+            global_shadow_mode=s.global_shadow_mode,
+            headers_enabled=s.rate_limit_response_headers_enabled,
+            header_limit=s.header_ratelimit_limit,
+            header_remaining=s.header_ratelimit_remaining,
+            header_reset=s.header_ratelimit_reset,
+            # Re-read env-derived settings on every config reload, like
+            # the reference's settings.NewSettings() in its reload path.
+            settings_reloader=new_settings,
+        )
+        self.runtime.start()
+
+        self.health = HealthChecker()
+        self.cache.bind_health(self.health)
+
+        credentials = None
+        if bool(s.grpc_server_tls_cert) != bool(s.grpc_server_tls_key):
+            # A half-configured pair must fail startup, never silently
+            # serve rate-limit traffic in cleartext.
+            raise ValueError(
+                "GRPC_SERVER_TLS_CERT and GRPC_SERVER_TLS_KEY must be "
+                "set together (got cert="
+                f"{s.grpc_server_tls_cert!r}, key={s.grpc_server_tls_key!r})"
+            )
+        if s.grpc_server_tls_cert:
+            credentials = server_credentials(
+                s.grpc_server_tls_cert,
+                s.grpc_server_tls_key,
+                s.grpc_server_tls_ca,
+            )
+        self.grpc_server = create_grpc_server(
+            self.service,
+            self.health,
+            store=self.stats_manager.store,
+            host=s.grpc_host,
+            port=s.grpc_port,
+            max_connection_age_s=s.grpc_max_connection_age,
+            max_connection_age_grace_s=s.grpc_max_connection_age_grace,
+            max_workers=s.grpc_max_workers,
+            credentials=credentials,
+            auth_token=s.grpc_auth_token,
+        )
+        self.grpc_server.start()
+
+        if s.use_statsd:
+            self.statsd = StatsdExporter(
+                self.stats_manager.store, s.statsd_host, s.statsd_port
+            )
+            self.statsd.start()
+
+        if s.gc_tuning:
+            # Move all startup allocation out of the gc's scan set so
+            # serving-path collections stay small.
+            import gc
+
+            gc.collect()
+            gc.freeze()
+
+        logger.warning(
+            "ratelimit serving: grpc=%s backend=%s device=%s",
+            self.grpc_server.bound_port,
+            s.backend_type,
+            self.cache.engine.device,
+        )
+
+    def run(self) -> None:
+        """start() + install signal handlers + block until stopped."""
+        self.start()
+
+        def handle(signum, frame):
+            logger.warning("received signal %s, shutting down", signum)
+            if self.health is not None:
+                self.health.fail()
+            self.stop()
+
+        for sig in (signal.SIGINT, signal.SIGTERM, signal.SIGHUP):
+            signal.signal(sig, handle)
+        self._stopped.wait()
+
+    def stop(self) -> None:
+        """Graceful drain + stop, in the reference's order: health
+        NOT_SERVING, gRPC grace for in-flight RPCs, dispatcher drain,
+        then the remaining listeners and the backend."""
+        if self.health is not None:
+            self.health.fail()
+        if self.grpc_server is not None:
+            self.grpc_server.stop(grace=5).wait(timeout=10)
+        if self.cache is not None:
+            try:
+                self.cache.flush()
+            except Exception:
+                logger.exception("dispatcher drain failed during shutdown")
+        if self.runtime is not None:
+            self.runtime.stop()
+        if self.statsd is not None:
+            self.statsd.stop()
+        if self.cache is not None:
+            self.cache.close()
+        self._stopped.set()
+
+
+def main() -> None:
+    Runner().run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,93 @@
+"""Package-level contracts of the port: it stands alone (importing
+every module pulls in neither jax nor the JAX package), its registry
+refuses unported algorithms instead of falling back, and its CPU
+dispatch is explicit."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import ratelimit_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.")
+    or m == "ratelimit_tpu" or m.startswith("ratelimit_tpu.")
+)
+print(len(names), leaked)
+assert not leaked, leaked
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    count = int(proc.stdout.split()[0])
+    assert count >= 30  # every module of the package was imported
+
+
+@pytest.mark.parametrize("name", ["sliding_window", "gcra"])
+def test_registry_refuses_unported_algorithms(name):
+    from ratelimit_tpu_torch.models.registry import get_algorithm
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_algorithm(name).make_model(64, 0.8, device="cpu")
+
+
+def test_registry_builds_fixed_window_on_cpu():
+    from ratelimit_tpu_torch.models.registry import get_algorithm
+
+    model = get_algorithm("fixed_window").make_model(64, 0.5, device="cpu")
+    assert model.num_slots == 64 and model.device.type == "cpu"
+
+
+def test_config_with_algorithm_rules_loads_like_the_reference():
+    """The algorithm table stays complete, so a config naming gcra
+    loads (and, with no bank, enforces fixed-window) as it does in the
+    JAX package."""
+    from ratelimit_tpu.config.loader import ConfigFile as JaxConfigFile
+    from ratelimit_tpu.config.loader import load_config as jax_load
+    from ratelimit_tpu.stats.manager import Manager as JaxManager
+    from ratelimit_tpu_torch.config.loader import ConfigFile, load_config
+    from ratelimit_tpu_torch.stats.manager import Manager
+
+    yaml = (
+        "domain: d\n"
+        "descriptors:\n"
+        "  - key: k\n"
+        "    rate_limit:\n"
+        "      unit: minute\n"
+        "      requests_per_unit: 3\n"
+        "      algorithm: gcra\n"
+    )
+    port = load_config([ConfigFile("config.d", yaml)], Manager())
+    ref = jax_load([JaxConfigFile("config.d", yaml)], JaxManager())
+    assert sorted(port.domains) == sorted(ref.domains) == ["d"]
+
+
+def test_kernel_wrappers_refuse_unknown_devices():
+    import torch
+
+    from ratelimit_tpu_torch.models.fixed_window import fw_unique_step
+
+    counts = torch.zeros(8, dtype=torch.int32, device="meta")
+    packed = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fw_unique_step(counts, packed, "")

@@ -1,0 +1,200 @@
+"""Both runners in-process on ephemeral ports, one config, one gRPC
+request stream: the JAX runner (BACKEND_TYPE=tpu on the CPU) and the
+port's runner (BACKEND_TYPE=cuda with its counter table on the CPU)
+must answer with byte-equal ShouldRateLimit responses."""
+
+import grpc
+import pytest
+
+from ratelimit_tpu.runner import Runner as JaxRunner
+from ratelimit_tpu.settings import Settings as JaxSettings
+from ratelimit_tpu.utils.time import PinnedTimeSource as JaxPinned
+from ratelimit_tpu_torch.runner import Runner
+from ratelimit_tpu_torch.settings import Settings, SettingsError
+from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+from ratelimit_tpu_torch.server import pb  # noqa: F401  (sys.path for generated)
+from envoy.service.ratelimit.v3 import rls_pb2  # noqa: E402
+
+CONFIG = """
+domain: rl
+descriptors:
+  - key: foo
+    rate_limit:
+      unit: minute
+      requests_per_unit: 5
+  - key: bar
+    value: hourly
+    rate_limit:
+      unit: hour
+      requests_per_unit: 3
+  - key: shadowed
+    shadow_mode: true
+    rate_limit:
+      unit: second
+      requests_per_unit: 2
+  - key: free
+    rate_limit:
+      unlimited: true
+  - key: nested
+    descriptors:
+      - key: inner
+        rate_limit:
+          unit: day
+          requests_per_unit: 40
+"""
+
+COMMON = dict(
+    host="127.0.0.1",
+    port=0,
+    grpc_host="127.0.0.1",
+    grpc_port=0,
+    debug_host="127.0.0.1",
+    debug_port=0,
+    use_statsd=False,
+    tpu_num_slots=1 << 12,
+    tpu_batch_window_us=200,
+    tpu_batch_buckets=[8, 32],
+    local_cache_size_in_bytes=1 << 20,
+    expiration_jitter_max_seconds=0,
+    tpu_algorithm_banks="",
+    kernel_deadline_s=0.0,
+    gc_tuning=False,
+)
+
+
+@pytest.fixture(scope="module")
+def runners(tmp_path_factory):
+    root = tmp_path_factory.mktemp("runtime")
+    config_dir = root / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "rl.yaml").write_text(CONFIG)
+    paths = dict(runtime_path=str(root), runtime_subdirectory="ratelimit")
+    jax_runner = JaxRunner(
+        JaxSettings(backend_type="tpu", **COMMON, **paths),
+        time_source=JaxPinned(1_000_000),
+    )
+    port_runner = Runner(
+        Settings(backend_type="cuda", **COMMON, **paths),
+        time_source=PinnedTimeSource(1_000_000),
+        device="cpu",
+    )
+    jax_runner.start()
+    try:
+        port_runner.start()
+        try:
+            yield jax_runner, port_runner
+        finally:
+            port_runner.stop()
+    finally:
+        jax_runner.stop()
+
+
+def _call(runner, payload: bytes):
+    """Raw bytes in, raw bytes (or the status) out."""
+    with grpc.insecure_channel(
+        f"127.0.0.1:{runner.grpc_server.bound_port}"
+    ) as channel:
+        method = channel.unary_unary(
+            "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit"
+        )
+        try:
+            return method(payload, timeout=30)
+        except grpc.RpcError as e:
+            return (e.code(), e.details())
+
+
+def _request(domain, descriptors, hits=0):
+    req = rls_pb2.RateLimitRequest(domain=domain, hits_addend=hits)
+    for entries, override in descriptors:
+        d = req.descriptors.add()
+        for k, v in entries:
+            e = d.entries.add()
+            e.key, e.value = k, v
+        if override is not None:
+            d.limit.requests_per_unit = override[0]
+            d.limit.unit = override[1]
+    return req.SerializeToString()
+
+
+MINUTE = rls_pb2.RateLimitResponse.RateLimit.MINUTE
+SECOND = rls_pb2.RateLimitResponse.RateLimit.SECOND
+
+
+def _stream():
+    foo = ([("foo", "a")], None)
+    yield from [_request("rl", [foo])] * 7  # 6th and 7th OVER_LIMIT
+    for i in range(4):
+        yield _request(
+            "rl",
+            [
+                ([("bar", "hourly")], None),
+                ([("foo", f"k{i}")], None),
+                ([("free", "x")], None),
+                ([("nosuch", "x")], None),
+            ],
+            hits=2,
+        )
+    for _ in range(4):
+        yield _request("rl", [([("shadowed", "s")], None)])
+    for _ in range(3):
+        yield _request("rl", [([("nested", "n"), ("inner", "i")], None)], hits=15)
+    for _ in range(3):
+        yield _request("rl", [([("foo", "ov")], (2, SECOND))])
+    yield _request("rl", [([("foo", "big")], None)], hits=0xFFFFFFFF)
+    yield _request("rl", [([("foo", "big")], None)])
+    yield _request("", [foo])  # empty domain: UNKNOWN
+    yield _request("nodomain", [foo])
+
+
+def test_grpc_stream_byte_equal(runners):
+    jax_runner, port_runner = runners
+    answers = []
+    for payload in _stream():
+        want = _call(jax_runner, payload)
+        got = _call(port_runner, payload)
+        assert got == want
+        answers.append(got)
+    codes = [
+        rls_pb2.RateLimitResponse.FromString(a).overall_code
+        for a in answers[:7]
+    ]
+    OK, OVER = rls_pb2.RateLimitResponse.OK, rls_pb2.RateLimitResponse.OVER_LIMIT
+    assert codes == [OK] * 5 + [OVER] * 2
+    assert answers[-2][0] == grpc.StatusCode.UNKNOWN
+
+
+def test_concurrent_burst_byte_equal(runners):
+    """A burst of concurrent RPCs over many keys (coalesced into
+    multi-lane launches by the dispatcher) ends in the same counters:
+    each key's follow-up answer is byte-equal across the stacks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jax_runner, port_runner = runners
+    keys = [f"burst{i}" for i in range(48)]
+    payloads = [_request("rl", [([("foo", k)], None)]) for k in keys for _ in range(3)]
+    for runner in (jax_runner, port_runner):
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(lambda p: _call(runner, p), payloads))
+    for k in keys:
+        probe = _request("rl", [([("foo", k)], None)])
+        assert _call(port_runner, probe) == _call(jax_runner, probe)
+
+
+@pytest.mark.parametrize(
+    "override,needle",
+    [
+        (dict(tpu_algorithm_banks="sliding_window,gcra"), "TPU_ALGORITHM_BANKS"),
+        (dict(kernel_deadline_s=0.25), "KERNEL_DEADLINE_S"),
+        (dict(tpu_num_lanes=2), "TPU_NUM_LANES"),
+        (dict(tpu_per_second=True), "TPU_PERSECOND"),
+        (dict(backend_type="tpu-write-behind"), "BACKEND_TYPE"),
+        (dict(tpu_checkpoint_dir="checkpoints"), "TPU_CHECKPOINT_DIR"),
+    ],
+)
+def test_unported_settings_refused_at_boot(tmp_path, override, needle):
+    base = dict(COMMON, runtime_path=str(tmp_path), backend_type="cuda")
+    runner = Runner(Settings(**{**base, **override}), device="cpu")
+    with pytest.raises(SettingsError, match=needle):
+        runner.start()
+    runner.stop()
