@@ -8,16 +8,27 @@ Phases, one line each; any failure exits non-zero:
 1. device: CUDA present; the card's name and power limit (nvidia-smi);
 2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   same seeded inputs, exact equality (integer arithmetic and one IEEE
-   f32 multiply: the tolerance is 0), for N in {8, 100, 128, 4096} at
-   2^20 slots and once at 2^24 slots; CUDA-event median times at 4096;
+   same seeded inputs, exact equality (integer arithmetic and IEEE f32
+   steps in one fixed order: the tolerance is 0).  K1-K3 for N in {8,
+   100, 128, 4096} at 2^20 slots and once at 2^24 slots, with positive
+   and then with negative slot ids; the algorithm-bank kernels K4
+   (sliding window) and K5 (GCRA) for the same N at 2^18 slots (the
+   bank default) and 4096 at 2^24, over several steps with the clock
+   advancing through same, adjacent and older windows, with fresh,
+   padding, saturated and limit-0 lanes and ids in [-ns, -1];
+   profiler device times at 4096;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
    against the plain version and an independent numpy reference;
-5. served: the runner in-process with BACKEND_TYPE=cuda answering gRPC
-   ShouldRateLimit requests decided by K1 -- the 6th hit on a 5/min
-   key is OVER_LIMIT, a concurrent burst coalesces into multi-lane
-   launches -- and the warm microseconds per request.
+5. served: the runner in-process with BACKEND_TYPE=cuda and the
+   default TPU_ALGORITHM_BANKS (sliding_window,gcra) answering gRPC
+   ShouldRateLimit requests -- the 6th hit on a 5/min key is
+   OVER_LIMIT on the fixed-window lane (K1), on a sliding-window key
+   (K4) and on a GCRA key (K5); a shadowed GCRA key is enforced by
+   fixed-window while ratelimit.tpu.shadow.gcra.{agree,diverge}
+   moves; a concurrent burst coalesces into multi-lane launches --
+   and the warm microseconds per request on a fixed-window and on a
+   GCRA key.
 
 Kernel launch counts are zeroed just before each main-path phase (4, 5)
 and read just after: every kernel must have run there.  The last lines
@@ -27,6 +38,7 @@ are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -48,7 +60,13 @@ PEAK_OPS_PER_S = 67e12
 SIZES = (8, 100, 128, 4096)
 NUM_SLOTS = 1 << 20
 BIG_SLOTS = 1 << 24
+ALGO_SLOTS = 1 << 18  # TPU_ALGORITHM_NUM_SLOTS default
 U32 = 0xFFFFFFFF
+# A clock aligned to every divider (1, 60, 3600 s), so the first step
+# has zero elapsed seconds, then steps inside the window, into the
+# adjacent one and past it.
+ALGO_NOW = 1_699_999_200
+ALGO_STEPS = (0, 30, 45, 70, 4000)
 
 
 def log(msg: str) -> None:
@@ -125,7 +143,16 @@ def _table(torch, rng, ns, dev):
     return torch.from_numpy(start.view(np.int32)).to(dev)
 
 
-def _packed(torch, rng, n, ns, dev, hot_slots):
+def _negate(rng, slots, live, ns):
+    """Give about a third of the first `live` lanes their alias id - ns,
+    which addresses the same slot (JAX's index semantics)."""
+    slots = np.asarray(slots, np.int64).copy()
+    flip = rng.random(live) < 0.35
+    slots[:live][flip] -= ns
+    return slots
+
+
+def _packed(torch, rng, n, ns, dev, hot_slots, neg=False):
     pad = n // 4
     g = n - pad
     k = min(len(hot_slots), max(1, g // 8))  # lanes on near-u32-max slots
@@ -134,6 +161,8 @@ def _packed(torch, rng, n, ns, dev, hot_slots):
     slots = np.concatenate(
         [np.asarray(hot_slots[:k], np.int64), rest, np.arange(ns, ns + pad)]
     )
+    if neg:
+        slots = _negate(rng, slots, g, ns)
     hits = rng.integers(0, 40, n).astype(np.uint32)
     hits[: max(1, g // 16)] = U32 - rng.integers(0, 3, max(1, g // 16)).astype(
         np.uint32
@@ -148,9 +177,11 @@ def _packed(torch, rng, n, ns, dev, hot_slots):
     return torch.from_numpy(pk).to(dev)
 
 
-def _dup_lanes(torch, rng, n, ns, dev, distinct):
+def _dup_lanes(torch, rng, n, ns, dev, distinct, neg=False):
     slots = rng.choice(ns, distinct, replace=False)[rng.integers(0, distinct, n)]
     slots[-max(1, n // 10) :] = ns + np.arange(max(1, n // 10))  # pads
+    if neg:
+        slots = _negate(rng, slots, n - max(1, n // 10), ns)
     hits = rng.integers(1, 4, n).astype(np.uint32)
     hits[: max(1, n // 20)] = U32 - rng.integers(0, 9, max(1, n // 20)).astype(
         np.uint32
@@ -174,31 +205,36 @@ def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
         if e != 0:
             fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
 
-    for ns, sizes in ((NUM_SLOTS, SIZES), (BIG_SLOTS, (4096,))):
+    cases = ((NUM_SLOTS, SIZES), (BIG_SLOTS, (4096,)))
+    for neg, (ns, sizes) in itertools.product((False, True), cases):
         base = _table(torch, rng, ns, dev)
         hot = torch.nonzero((base.to(torch.int64) & U32) > U32 - 16).flatten()
         hot = hot.cpu().numpy()
         for n in sizes:
             for dt in ("", "uint8", "uint16"):
-                pk = _packed(torch, rng, n, ns, dev, hot)
+                pk = _packed(torch, rng, n, ns, dev, hot, neg)
                 ck, cp = base.clone(), base.clone()
                 out_k = fw.fw_unique_step(ck, pk, dt)
                 out_p = fw._unique_step_plain(cp, pk, dt)
-                note(fw.K1, out_k, out_p, f"afters n={n} ns={ns} dtype={dt!r}")
-                note(fw.K1, ck, cp, f"table n={n} ns={ns} dtype={dt!r}")
+                what = f"n={n} ns={ns} dtype={dt!r} negative ids={neg}"
+                note(fw.K1, out_k, out_p, "afters " + what)
+                note(fw.K1, ck, cp, "table " + what)
             for distinct in (1, max(1, n // 8), n):
-                slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, distinct)
+                slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, distinct, neg)
                 note(
                     prefix_cuda.KERNEL,
                     prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
                     prefix_plain(slots, hits),
-                    f"n={n} distinct={distinct}",
+                    f"n={n} distinct={distinct} negative ids={neg}",
                 )
                 ck, cp = base.clone(), base.clone()
                 ak = fw.fw_general_update(ck, slots, hits, fresh)
                 ap = fw._update_plain(cp, slots, hits, fresh)
-                note(fw.K3_UPDATE, ak, ap, f"afters n={n} ns={ns} d={distinct}")
-                note(fw.K3_UPDATE, ck, cp, f"table n={n} ns={ns} d={distinct}")
+                what = f"n={n} ns={ns} d={distinct} negative ids={neg}"
+                note(fw.K3_UPDATE, ak, ap, "afters " + what)
+                note(fw.K3_UPDATE, ck, cp, "table " + what)
+            if neg:
+                continue  # the decision block takes no slot ids
             afters = torch.from_numpy(
                 rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
             ).to(dev)
@@ -218,10 +254,88 @@ def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
     return err
 
 
-def time_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
+def _algo_state(torch, rng, algo, ns, pool, dev):
+    """An algorithm bank's table: zero except the `pool` slots, whose
+    state sits in the current, the adjacent and older windows (sliding
+    window) or whose TAT lies around the clock (GCRA), some of it
+    saturated at u32 max."""
+    k = len(pool)
+    if algo == "sw":
+        state = np.zeros((3, ns), np.uint32)
+        back = rng.choice([0, 60, 3600, 7200, 120], k).astype(np.uint32)
+        state[0, pool] = ALGO_NOW - back
+        state[1, pool] = rng.integers(0, 60, k)
+        state[2, pool] = rng.integers(0, 60, k)
+        sat = rng.random(k) < 0.15
+        state[1, pool[sat]] = U32
+        state[2, pool[rng.random(k) < 0.15]] = U32
+    else:
+        state = np.zeros((2, ns), np.uint32)
+        state[0, pool] = ALGO_NOW + rng.integers(-200, 200, k)
+        state[1, pool] = rng.integers(0, 1 << 32, k, dtype=np.uint64)
+    return torch.from_numpy(state.view(np.int32)).to(dev)
+
+
+def _algo_packed(torch, rng, n, ns, pool, dev):
+    """int32[5, n] as the engine builds it: unique slots drawn from
+    `pool` (so steps revisit slots), about a third as their alias id -
+    ns, then distinct out-of-table pads (hits 0, limit 1, divider 1)."""
+    pad = n // 4
+    g = n - pad
+    slots = _negate(
+        rng, np.concatenate([rng.choice(pool, g, replace=False), ns + np.arange(pad)]), g, ns
+    )
+    hits = rng.integers(1, 40, n).astype(np.uint32)
+    hits[: max(1, g // 16)] = U32 - rng.integers(0, 3, max(1, g // 16)).astype(np.uint32)
+    limits = rng.integers(1, 200, n).astype(np.uint32)
+    limits[rng.random(n) < 0.1] = 0
+    limits[rng.random(n) < 0.1] = rng.integers(1 << 20, 1 << 32, dtype=np.uint64)
+    fresh = rng.random(n) < 0.15
+    divider = rng.choice([1, 60, 3600], n).astype(np.uint32)
+    hits[g:], limits[g:], fresh[g:], divider[g:] = 0, 1, False, 1
+    pk = np.stack(
+        [slots.astype(np.int32), hits.view(np.int32), limits.view(np.int32),
+         fresh.astype(np.int32), divider.view(np.int32)]
+    )
+    return torch.from_numpy(pk).to(dev)
+
+
+def check_algorithms(torch, sw, gcra, dev):
+    """K4 and K5 against their plain versions, several steps each with
+    the clock advancing (ALGO_STEPS); returns max |err| by kernel."""
+    rng = np.random.default_rng(2025)
+    steps = {sw.K4: (sw.sw_serve_step, sw._sw_step_plain, "sw"),
+             gcra.K5: (gcra.gcra_serve_step, gcra._gcra_step_plain, "gcra")}
+    err = {name: 0 for name in steps}
+    for name, (kernel, plain, algo) in steps.items():
+        for ns, sizes in ((ALGO_SLOTS, SIZES), (BIG_SLOTS, (4096,))):
+            for n in sizes:
+                pool = rng.choice(ns, 2 * n, replace=False)
+                sk = _algo_state(torch, rng, algo, ns, pool, dev)
+                sp = sk.clone()
+                for dt in ALGO_STEPS:
+                    now = ALGO_NOW + dt
+                    pk = _algo_packed(torch, rng, n, ns, pool, dev)
+                    for what, a, b in (
+                        ("out", kernel(sk, pk, now), plain(sp, pk, now)),
+                        ("state", sk, sp),
+                    ):
+                        e = u32_max_abs_err(a, b)
+                        err[name] = max(err[name], e)
+                        if e != 0:
+                            fail(
+                                f"{name} disagrees with its plain version ({what} "
+                                f"n={n} ns={ns} now=+{dt}): max|err|={e}"
+                            )
+    torch.cuda.synchronize()
+    return err
+
+
+def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
-    2^20 slots, plus the bound of each (larger of bytes over HBM rate
-    and operations over the 32-bit peak), from this run's inputs."""
+    2^20 slots (K4, K5: 2^18, the bank default), plus the bound of each
+    (larger of bytes over HBM rate and operations over the 32-bit
+    peak), from this run's inputs."""
     rng = np.random.default_rng(7)
     n, ns = 4096, NUM_SLOTS
     table = _table(torch, rng, ns, dev)
@@ -282,6 +396,33 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
         lambda: fw._decision_block_plain(afters, hits, limits, shadow, 0.8),
         13 * n + 33 * n,
         30 * n,
+    )
+
+    ans = ALGO_SLOTS
+    pool = rng.choice(ans, 2 * n, replace=False)
+    apk = _algo_packed(torch, rng, n, ans, pool, dev)
+    in_table = (apk[0] >= -ans) & (apk[0] < ans)
+    a_live = int(in_table.sum().item())
+    a_kept = int((in_table & (apk[3] == 0)).sum().item())  # K5 skips fresh
+    s1 = _algo_state(torch, rng, "sw", ans, pool, dev)
+    s2 = s1.clone()
+    row(
+        sw.K4,
+        lambda: sw.sw_serve_step(s1, apk, ALGO_NOW),
+        lambda: sw._sw_step_plain(s2, apk, ALGO_NOW),
+        # packed rows slot, hits, fresh, divider (never the limit row),
+        # gather, scatter, out
+        16 * n + 12 * a_live + 12 * a_live + 8 * n,
+        20 * n,  # ~20 integer and f32 operations per lane (csrc/algorithms.cu)
+    )
+    g1 = _algo_state(torch, rng, "gcra", ans, pool, dev)
+    g2 = g1.clone()
+    row(
+        gcra.K5,
+        lambda: gcra.gcra_serve_step(g1, apk, ALGO_NOW),
+        lambda: gcra._gcra_step_plain(g2, apk, ALGO_NOW),
+        20 * n + 8 * a_kept + 8 * a_live + 4 * n,
+        40 * n,  # ~40 operations per lane
     )
     return rows, calls
 
@@ -363,10 +504,28 @@ descriptors:
     rate_limit:
       unit: hour
       requests_per_unit: 5
+  - key: slide
+    rate_limit:
+      unit: minute
+      requests_per_unit: 5
+      algorithm: sliding_window
+  - key: tb
+    rate_limit:
+      unit: minute
+      requests_per_unit: 5
+      algorithm: gcra
+  - key: shady
+    rate_limit:
+      unit: minute
+      requests_per_unit: 5
+      algorithm: gcra
+      shadow: true
 """
 
+SHADOW_COUNTERS = ("ratelimit.tpu.shadow.gcra.agree", "ratelimit.tpu.shadow.gcra.diverge")
 
-def served_phase(kernels, fw):
+
+def served_phase(kernels, fw, sw, gcra):
     import grpc
 
     with tempfile.TemporaryDirectory() as root:
@@ -374,9 +533,10 @@ def served_phase(kernels, fw):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
+        # TPU_ALGORITHM_BANKS stays at its default: both banks are built.
+        os.environ.pop("TPU_ALGORITHM_BANKS", None)
         os.environ.update(
             BACKEND_TYPE="cuda",
-            TPU_ALGORITHM_BANKS="",
             KERNEL_DEADLINE_S="0",
             RUNTIME_ROOT=root,
             RUNTIME_SUBDIRECTORY="ratelimit",
@@ -410,12 +570,24 @@ def served_phase(kernels, fw):
 
             OK = rls_pb2.RateLimitResponse.OK
             OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
-            # Keep the six hits inside one minute window.
-            if time.time() % 60 > 50:
-                time.sleep(61 - time.time() % 60)
-            codes = [request("foo", "x").overall_code for _ in range(6)]
-            if codes != [OK] * 5 + [OVER]:
-                fail(f"5/min progression wrong: {codes}")
+            if sorted(runner.cache.algorithm_banks) != ["gcra", "sliding_window"]:
+                fail(f"default banks not built: {sorted(runner.cache.algorithm_banks)}")
+            store = runner.stats_manager.store
+            shadow_before = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
+            # Fixed window (K1), sliding window (K4), GCRA (K5) and a
+            # shadowed GCRA rule that fixed-window enforces: on each
+            # 5/min key the 6th hit is OVER_LIMIT.
+            for key in ("foo", "slide", "tb", "shady"):
+                # Keep the six hits inside one minute window.
+                if time.time() % 60 > 50:
+                    time.sleep(61 - time.time() % 60)
+                codes = [request(key, "x").overall_code for _ in range(6)]
+                if codes != [OK] * 5 + [OVER]:
+                    fail(f"5/min progression wrong on {key}: {codes}")
+            shadow_after = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
+            shadow_moved = [b - a for a, b in zip(shadow_before, shadow_after)]
+            if sum(shadow_moved) < 1:
+                fail(f"shadow gcra counters did not move: {shadow_after}")
 
             # Concurrent burst over many keys: 2 hits per key.
             keys = [f"k{i}" for i in range(512)]
@@ -456,13 +628,20 @@ def served_phase(kernels, fw):
             for i in range(n):
                 request("foo", f"lat{i % 50}")
             us_per_req = (time.perf_counter() - t0) / n * 1e6
+            for i in range(50):
+                request("tb", f"warm{i % 10}")
+            t0 = time.perf_counter()
+            for i in range(n):
+                request("tb", f"lat{i % 50}")
+            us_per_algo_req = (time.perf_counter() - t0) / n * 1e6
             channel.close()
         finally:
             runner.stop()
         launches = dict(kernels.launches)
-    if launches.get(fw.K1, 0) < 1:
-        fail(f"served path did not launch {fw.K1}: {launches}")
-    return launches, lanes, us_per_req
+    for name in (fw.K1, sw.K4, gcra.K5):
+        if launches.get(name, 0) < 1:
+            fail(f"served path did not launch {name}: {launches}")
+    return launches, lanes, us_per_req, us_per_algo_req, shadow_moved
 
 
 def main() -> None:
@@ -506,10 +685,22 @@ def main() -> None:
     from ratelimit_tpu_torch.ops import prefix_cuda
     from ratelimit_tpu_torch.ops.prefix import per_slot_inclusive_prefix
 
+    from ratelimit_tpu_torch.models import gcra
+    from ratelimit_tpu_torch.models import sliding_window as sw
+
     errs = check_kernels(torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev)
-    log(f"kernels: exact for N in {SIZES} at 2^20 slots and 4096 at 2^24; max|err| {errs}")
+    log(
+        f"kernels: exact for N in {SIZES} at 2^20 slots and 4096 at 2^24, "
+        f"positive and negative slot ids; max|err| {errs}"
+    )
+    algo_errs = check_algorithms(torch, sw, gcra, dev)
+    log(
+        f"algorithm kernels: exact for N in {SIZES} at 2^18 slots and 4096 at "
+        f"2^24 over {len(ALGO_STEPS)} steps each; max|err| {algo_errs}"
+    )
+    errs.update(algo_errs)
     timing, calls = time_kernels(
-        torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev
+        torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, dev
     )
     log(
         "kernel device times at N=4096 (profiler): "
@@ -538,10 +729,15 @@ def main() -> None:
     )
 
     # 5. served path (main path a)
-    srv_launches, lanes, us_per_req = served_phase(kernels, fw)
+    srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved = served_phase(
+        kernels, fw, sw, gcra
+    )
     log(
-        f"served: 6th hit OVER_LIMIT, burst coalesced up to {lanes} lanes/launch, "
-        f"warm {us_per_req:.1f} us/request; launches {srv_launches}"
+        f"served: 6th hit OVER_LIMIT on fixed-window, sliding-window, GCRA and "
+        f"shadow-GCRA keys (shadow gcra agree/diverge +{shadow_moved}), burst "
+        f"coalesced up to {lanes} lanes/launch, warm {us_per_req:.1f} us/request "
+        f"(fixed window), {us_per_algo_req:.1f} us/request (GCRA); "
+        f"launches {srv_launches}"
     )
 
     main_launches = {
@@ -553,6 +749,8 @@ def main() -> None:
         prefix_cuda.KERNEL: ("ratelimit_tpu_torch/csrc/prefix.cu", "ratelimit_tpu/ops/prefix_pallas.py:82"),
         fw.K3_UPDATE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
+        sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
+        gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
     }
     rows = []
     for name, (source, rep) in replaces.items():
@@ -578,7 +776,7 @@ def main() -> None:
                 "device": {
                     "platform": "gpu",
                     "kind": torch.cuda.get_device_name(0),
-                    "count": torch.cuda.device_count(),
+                    "count": 1,  # the one card this run uses
                 },
             }
         )

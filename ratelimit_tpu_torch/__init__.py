@@ -16,7 +16,8 @@ Layering (as in the reference):
 - ``limiter``   -- cache keys, threshold state machine, local cache,
                    descriptor-resolution cache.
 - ``ops``       -- the per-slot prefix (plain version + CUDA kernel).
-- ``models``    -- the fixed-window counter model (CUDA kernels).
+- ``models``    -- the fixed-window, sliding-window and GCRA models
+                   (CUDA kernels) and the algorithm registry.
 - ``backends``  -- counter engine, dispatcher, ``CudaRateLimitCache``.
 - ``service``   -- ShouldRateLimit service logic.
 - ``server``    -- gRPC + health serving surfaces.

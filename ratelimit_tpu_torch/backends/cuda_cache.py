@@ -2,11 +2,16 @@
 counter engine.
 
 Port of ratelimit_tpu/backends/tpu_cache.py (TpuRateLimitCache) for
-the single-lane fixed-window path: one CounterEngine, one dispatcher.
-Per-second banks, several host lanes, algorithm banks, the device
-fault domain, hot-key tracking and the flight/launch recorders are not
-ported yet (ROADMAP.md); the runner refuses the settings that select
-them.  The request path is the reference's:
+one fixed-window lane plus the algorithm banks: one CounterEngine per
+bank, one dispatcher per bank.  Rules carrying ``algorithm:
+sliding_window`` or ``algorithm: gcra`` route to that algorithm's bank
+-- as the ENFORCING bank, or with ``shadow: true`` as a CANDIDATE whose
+would-be decision is compared with the fixed-window one that still
+enforces (``ratelimit.tpu.shadow.<algo>.{agree,diverge}``).  Per-second
+banks, several host lanes, the device fault domain, hot-key tracking
+and the flight/launch recorders are not ported yet (ROADMAP.md); the
+runner refuses the settings that select them.  The request path is the
+reference's:
 
 1. ``hits_addend = max(1, request.hits_addend)``;
 2. window-aligned cache keys + TotalHits stats (through the
@@ -35,6 +40,7 @@ from ..config import RateLimitRule
 from ..limiter.cache_key import CacheKeyGenerator, EMPTY_KEY
 from ..limiter.local_cache import LocalCache
 from ..limiter.resolution import ResolutionCache
+from ..models.registry import ALGORITHMS
 from ..utils.time import (
     TimeSource,
     RealTimeSource,
@@ -53,6 +59,7 @@ from .engine import CounterEngine, HostBatch, HostDecisions
 
 # Device code -> api Code without an enum __call__ per lane.
 _CODE_BY_VALUE = {c.value: c for c in Code}
+_OVER_VALUE = int(Code.OVER_LIMIT)
 
 _CAT_NONE = 0  # no matching rule: OK, no stats
 _CAT_ENGINE = 1  # goes to the counter engine
@@ -140,13 +147,28 @@ class CudaRateLimitCache:
         unhealthy_after: int = 3,
         resolution_cache_entries: int = 1 << 16,
         device_failure_mode: str = "host",
+        algorithm_banks: Optional[dict] = None,
     ):
+        """`algorithm_banks` maps a non-default algorithm name
+        (models/registry.py) to the CounterEngine serving it; rules
+        naming an algorithm with no bank fold back to fixed-window."""
         if device_failure_mode not in FAILURE_MODES:
             raise ValueError(
                 f"DEVICE_FAILURE_MODE must be one of "
                 f"{sorted(FAILURE_MODES)}, got {device_failure_mode!r}"
             )
         self.engine = engine
+        self.algorithm_banks: dict = {
+            name: eng for name, eng in (algorithm_banks or {}).items() if eng is not None
+        }
+        for name in self.algorithm_banks:
+            if name not in ALGORITHMS:
+                raise ValueError(f"unknown algorithm bank {name!r}")
+        self._algo_order = sorted(self.algorithm_banks)
+        # Shadow-rollout divergence tallies per algorithm: [agree,
+        # diverge] plain ints bumped on the RPC thread (stats-only GIL
+        # races accepted, like the resolver tallies).
+        self._shadow_counts = {name: [0, 0] for name in self._algo_order}
         self.time_source = time_source or RealTimeSource()
         self.local_cache = local_cache
         self.key_generator = CacheKeyGenerator(cache_key_prefix)
@@ -158,6 +180,7 @@ class CudaRateLimitCache:
                 n_lanes=1,
                 lane_dtype=LANE_DTYPE,
                 capacity=resolution_cache_entries,
+                algorithms=frozenset(self.algorithm_banks),
             )
             if resolution_cache_entries > 0
             else None
@@ -171,24 +194,34 @@ class CudaRateLimitCache:
         # Recycled WorkItem events; recycled ONLY after a successful
         # wait().  Take via _pool_event() (EAFP pop).
         self._event_pool: List[threading.Event] = []
-        # Inline mode (batch_window_us=0) runs the engine step on the
-        # RPC caller thread under this lock; otherwise the dispatcher
-        # thread owns the engine exclusively.
-        self._inline_lock = threading.Lock()
-        self._dispatcher: Optional[BatchDispatcher] = None
+        # Inline mode (batch_window_us=0) runs each engine step on the
+        # RPC caller thread under that engine's lock; otherwise one
+        # dispatcher thread pair per bank owns its engine exclusively.
+        self._inline_locks = {id(e): threading.Lock() for e in self.engines()}
+        self._dispatchers: dict = {}
         if batch_window_us > 0:
-            self._dispatcher = BatchDispatcher(
-                engine,
-                int(batch_window_us),
-                int(batch_limit),
-                name="cuda-dispatcher",
-                pipeline_depth=pipeline_depth,
-                unhealthy_after=unhealthy_after,
-            )
+            for eng, name in zip(
+                self.engines(),
+                ["cuda-dispatcher"] + ["cuda-dispatcher-" + n for n in self._algo_order],
+            ):
+                self._dispatchers[id(eng)] = BatchDispatcher(
+                    eng,
+                    int(batch_window_us),
+                    int(batch_limit),
+                    name=name,
+                    pipeline_depth=pipeline_depth,
+                    unhealthy_after=unhealthy_after,
+                )
 
     @property
     def dispatcher(self) -> Optional[BatchDispatcher]:
-        return self._dispatcher
+        """The fixed-window lane's dispatcher (None in inline mode)."""
+        return self._dispatchers.get(id(self.engine))
+
+    def engines(self) -> list:
+        """Every bank: the fixed-window lane, then the algorithm banks
+        in sorted-name order (the reference's bank order)."""
+        return [self.engine] + [self.algorithm_banks[n] for n in self._algo_order]
 
     # -- RateLimitCache seam --------------------------------------------
 
@@ -231,16 +264,20 @@ class CudaRateLimitCache:
         items = []
         if rows:
             items.append(
-                self._make_item(rows, keys, limits, hits_addend, now, statuses)
+                (
+                    self.engine,
+                    self._make_item(rows, keys, limits, hits_addend, now, statuses),
+                )
             )
         return items, statuses, categories, hits_addend, now
 
     def _prepare_resolved(self, request: RateLimitRequest, config):
         """The one-dict-hit front half (limiter/resolution.py): rule
-        lookup, key, TotalHits, local-cache check and pack assembly
-        fused into a single pass over the descriptors.  Returns
-        (items, statuses, categories, limits, is_unlimited,
-        hits_addend, now)."""
+        lookup, key, TotalHits, local-cache check, bank routing and
+        per-bank pack assembly fused into a single pass over the
+        descriptors.  Returns (items, statuses, categories, limits,
+        is_unlimited, hits_addend, now, shadow_info); items are
+        (engine, WorkItem) pairs."""
         resolver = self.resolver
         descriptors = request.descriptors
         domain = request.domain
@@ -261,6 +298,14 @@ class CudaRateLimitCache:
         generation = config.generation
         resolution_hits = 0
         overrides: Optional[list] = None
+        # Algorithm-bank routing state, allocated lazily: an
+        # all-fixed-window request pays one int-truthiness branch per
+        # descriptor and nothing else.
+        algo_accs: Optional[dict] = None  # name -> (rows, enc, tpl)
+        shadow_accs: Optional[dict] = None  # name -> (rows, enc, tpl)
+        shadow_rows: Optional[list] = None  # (i, name)
+        raw_over: Optional[list] = None  # enforced pre-shadow over-ness
+        cand_over: Optional[list] = None  # candidate over-ness
         # TotalHits adds batched by rule identity.
         prev_rule = None
         prev_hits = 0
@@ -294,10 +339,42 @@ class CudaRateLimitCache:
             if ws is None or ws.window != now - now % rd.divider:
                 ws = rd.window_state(now)
             key = keys[i] = ws.cache_key
+            algo_id = rd.algo_id
+            if algo_id and not rd.algo_shadow:
+                # The rule ENFORCES a non-default algorithm: route to its
+                # bank.  The host over-limit cache is skipped -- these
+                # kernels refill capacity continuously, so a full-window
+                # OVER_LIMIT verdict has no valid TTL.
+                categories[i] = _CAT_ENGINE
+                if algo_accs is None:
+                    algo_accs = {}
+                acc = algo_accs.get(rd.algorithm)
+                if acc is None:
+                    acc = algo_accs[rd.algorithm] = ([], [], [])
+                acc[0].append(i)
+                acc[1].append(ws.algo_key_bytes)
+                acc[2].append(ws.algo_template_bytes)
+                continue
             if local_cache is not None and local_cache.contains(key.key):
                 categories[i] = _CAT_SKIP if rule.shadow_mode else _CAT_LOCAL
                 continue
             categories[i] = _CAT_ENGINE
+            if algo_id:
+                # Shadow rollout: the candidate kernel evaluates the same
+                # descriptor on its bank while fixed-window enforces;
+                # divergence is tallied after both complete.
+                if shadow_accs is None:
+                    shadow_accs = {}
+                    shadow_rows = []
+                    raw_over = [False] * n
+                    cand_over = [None] * n
+                sa = shadow_accs.get(rd.algorithm)
+                if sa is None:
+                    sa = shadow_accs[rd.algorithm] = ([], [], [])
+                sa[0].append(i)
+                sa[1].append(ws.algo_key_bytes)
+                sa[2].append(ws.algo_template_bytes)
+                shadow_rows.append((i, rd.algorithm))
             rows.append(i)
             enc.append(ws.key_bytes)
             tparts.append(ws.template_bytes)
@@ -317,11 +394,45 @@ class CudaRateLimitCache:
         items = []
         if rows:
             items.append(
-                self._make_packed_item(
-                    rows, keys, limits, hits_addend, now, statuses, enc, tparts
+                (
+                    self.engine,
+                    self._make_packed_item(
+                        rows, keys, limits, hits_addend, now, statuses, enc,
+                        tparts, raw_over,
+                    ),
                 )
             )
-        return items, statuses, categories, limits, is_unlimited, hits_addend, now
+        if algo_accs is not None:
+            # Enforcing banks: statuses and stats assemble exactly like
+            # the lane's, from the generic engine's decisions.
+            for name, (a_rows, a_enc, a_tparts) in algo_accs.items():
+                items.append(
+                    (
+                        self.algorithm_banks[name],
+                        self._make_packed_item(
+                            a_rows, keys, limits, hits_addend, now, statuses,
+                            a_enc, a_tparts,
+                        ),
+                    )
+                )
+        shadow_info = None
+        if shadow_accs is not None:
+            # Shadow candidates record the candidate kernel's would-be
+            # outcome and touch nothing else.
+            for name, (s_rows, s_enc, s_tparts) in shadow_accs.items():
+                items.append(
+                    (
+                        self.algorithm_banks[name],
+                        self._make_candidate_item(
+                            s_rows, hits_addend, now, s_enc, s_tparts, cand_over
+                        ),
+                    )
+                )
+            shadow_info = (shadow_rows, raw_over, cand_over)
+        return (
+            items, statuses, categories, limits, is_unlimited, hits_addend,
+            now, shadow_info,
+        )
 
     def _route_overrides(
         self,
@@ -400,18 +511,33 @@ class CudaRateLimitCache:
         get_limit + do_limit pair."""
         (
             items, statuses, categories, limits, is_unlimited, hits_addend,
-            now,
+            now, shadow_info,
         ) = self._prepare_resolved(request, config)
         statuses = self._execute(
             limits, items, statuses, categories, hits_addend, now,
             len(request.descriptors), deadline=request.deadline,
         )
+        if shadow_info is not None:
+            self._note_shadow_outcomes(*shadow_info)
         return statuses, limits, is_unlimited
+
+    def _note_shadow_outcomes(self, shadow_rows, raw_over, cand_over) -> None:
+        """Tally shadow-rollout divergence: for every shadowed
+        descriptor that reached the engines, compare the candidate
+        kernel's would-be over-ness with the enforced fixed-window one
+        (both before shadow_mode, so a rule that also suppresses
+        OVER_LIMIT still measures real divergence)."""
+        counts = self._shadow_counts
+        for i, name in shadow_rows:
+            co = cand_over[i]
+            if co is None:
+                continue  # candidate never evaluated
+            counts[name][0 if co == raw_over[i] else 1] += 1
 
     def _execute(
         self,
         limits,
-        items: List[WorkItem],
+        items: List[tuple],
         statuses,
         categories,
         hits_addend: int,
@@ -422,20 +548,23 @@ class CudaRateLimitCache:
         """The device half: submit, wait -- bounded by the dispatch
         timeout and the caller's remaining RPC deadline (`deadline`,
         absolute time.monotonic seconds) -- then fill the non-engine
-        categories.  A wait cut short by the CALLER's deadline answers
-        per DEVICE_FAILURE_MODE; device errors raise CacheError."""
-        d = self._dispatcher
+        categories.  `items` are (engine, WorkItem) pairs; every bank's
+        item is submitted before the first wait, so the banks' device
+        steps overlap.  A wait cut short by the CALLER's deadline
+        answers per DEVICE_FAILURE_MODE; device errors raise
+        CacheError."""
         done: List[WorkItem] = []
-        for item in items:
+        for engine, item in items:
+            d = self._dispatchers.get(id(engine))
             if d is None:
-                with self._inline_lock:
-                    run_items(self.engine, [item])
+                with self._inline_locks[id(engine)]:
+                    run_items(engine, [item])
             else:
                 try:
                     d.submit(item)
                 except Exception as e:
                     raise _engine_failure(e) from e
-        for item in items:
+        for _engine, item in items:
             timeout = self.dispatch_timeout_s
             caller_bound = False
             if deadline is not None:
@@ -511,32 +640,38 @@ class CudaRateLimitCache:
         import logging
 
         log = logging.getLogger("ratelimit.health")
-        d = self._dispatcher
-        if d is None:
-            return
+        # SERVING only while EVERY bank's dispatcher is healthy: one bank
+        # recovering must not mask another still failing.
+        states = {key: True for key in self._dispatchers}
         lock = threading.Lock()
 
-        def on_state(healthy: bool, reason: str) -> None:
-            with lock:
-                if healthy:
-                    log.info("cuda backend healthy again: %s", reason)
-                    health.ok()
-                else:
-                    log.error("cuda backend unhealthy: %s", reason)
-                    health.fail()
+        def make_on_state(key: int):
+            def on_state(healthy: bool, reason: str) -> None:
+                with lock:
+                    states[key] = healthy
+                    if healthy:
+                        log.info("cuda backend healthy again: %s", reason)
+                        if all(states.values()):
+                            health.ok()
+                    else:
+                        log.error("cuda backend unhealthy: %s", reason)
+                        health.fail()
 
-        d.on_state = on_state
+            return on_state
+
+        for key, d in self._dispatchers.items():
+            d.on_state = make_on_state(key)
 
     def flush(self) -> None:
-        """Drain the dispatcher queue (deterministic test hook; the
+        """Drain the dispatcher queues (deterministic test hook; the
         graceful-drain leg of runner.stop)."""
-        d = self._dispatcher
-        if d is not None and d.dead is None:
-            d.flush()
+        for d in list(self._dispatchers.values()):
+            if d.dead is None:
+                d.flush()
 
     def close(self) -> None:
-        d, self._dispatcher = self._dispatcher, None
-        if d is not None:
+        dispatchers, self._dispatchers = list(self._dispatchers.values()), {}
+        for d in dispatchers:
             d.stop(timeout=0.5 if d.dead is not None else 10.0)
 
     # Batch-size histogram ladder: powers of two up to the default
@@ -544,10 +679,11 @@ class CudaRateLimitCache:
     _BATCH_BOUNDS = tuple(float(1 << i) for i in range(13))
 
     def register_stats(self, store, scope: str = "ratelimit.tpu") -> None:
-        """Live gauges for the bank (slot-table occupancy/evictions,
+        """Live gauges for each bank (slot-table occupancy/evictions,
         dispatcher queue depth, in-flight launches, batch-shape
-        histograms) plus the resolution/stem cache counters, under the
-        reference's metric names."""
+        histograms), the resolution/stem cache counters and the
+        shadow-rollout agree/diverge counters per algorithm bank, under
+        the reference's metric names."""
         kg = self.key_generator
         store.counter_fn(scope + ".stem_cache_clears", lambda: kg.clears)
         store.gauge_fn(scope + ".stem_cache.entries", lambda: len(kg))
@@ -561,38 +697,48 @@ class CudaRateLimitCache:
                 scope + ".resolution_cache.clears", lambda: res.clears
             )
             store.gauge_fn(scope + ".resolution_cache.entries", lambda: len(res))
+        # One agree/diverge pair per algorithm bank: bounded by the
+        # algorithm table, not by traffic.
+        for name in self._algo_order:
+            pair = self._shadow_counts[name]
+            store.counter_fn(scope + ".shadow." + name + ".agree", lambda p=pair: p[0])
+            store.counter_fn(
+                scope + ".shadow." + name + ".diverge", lambda p=pair: p[1]
+            )
         store.counter_fn(
             scope + ".fault.deadline_answers",
             lambda: self.stat_deadline_answers,
         )
-        eng = self.engine
-        base = scope + ".bank0"
-        store.gauge_fn(base + ".live_keys", lambda: eng.stat_live_keys)
-        store.counter_fn(base + ".evictions", lambda: eng.stat_evictions)
-        store.counter_fn(
-            base + ".window_rollovers", lambda: eng.stat_window_rollovers
-        )
-        store.gauge_fn(base + ".num_slots", lambda: eng.model.num_slots)
-        store.gauge_fn(
-            base + ".slot_fill_pct",
-            lambda: 100 * eng.stat_live_keys // max(1, eng.model.num_slots),
-        )
-        d = self._dispatcher
-        if d is not None:
-            store.gauge_fn(base + ".dispatch_queue", d.queue_depth)
-            store.gauge_fn(base + ".dispatch_queue_hwm", d.queue_depth_hwm)
-            store.gauge_fn(base + ".inflight_launches", d.inflight)
-            store.gauge_fn(base + ".inflight_hwm", d.inflight_hwm)
-            d.batch_lanes_hist = store.histogram(
-                base + ".batch_lanes", self._BATCH_BOUNDS
+        for idx, eng in enumerate(self.engines()):
+            base = f"{scope}.bank{idx}"
+            store.gauge_fn(base + ".live_keys", lambda e=eng: e.stat_live_keys)
+            store.counter_fn(base + ".evictions", lambda e=eng: e.stat_evictions)
+            store.counter_fn(
+                base + ".window_rollovers", lambda e=eng: e.stat_window_rollovers
             )
-            d.batch_items_hist = store.histogram(
-                base + ".batch_items", self._BATCH_BOUNDS
+            store.gauge_fn(base + ".num_slots", lambda e=eng: e.model.num_slots)
+            store.gauge_fn(
+                base + ".slot_fill_pct",
+                lambda e=eng: 100 * e.stat_live_keys // max(1, e.model.num_slots),
             )
+            d = self._dispatchers.get(id(eng))
+            if d is not None:
+                store.gauge_fn(base + ".dispatch_queue", d.queue_depth)
+                store.gauge_fn(base + ".dispatch_queue_hwm", d.queue_depth_hwm)
+                store.gauge_fn(base + ".inflight_launches", d.inflight)
+                store.gauge_fn(base + ".inflight_hwm", d.inflight_hwm)
+                d.batch_lanes_hist = store.histogram(
+                    base + ".batch_lanes", self._BATCH_BOUNDS
+                )
+                d.batch_items_hist = store.histogram(
+                    base + ".batch_items", self._BATCH_BOUNDS
+                )
 
     def warmup(self) -> None:
-        """Run every (bucket, readback-dtype) shape before serving."""
-        warmup_engine(self.engine)
+        """Run every (bucket, readback-dtype) shape of every bank before
+        serving."""
+        for eng in self.engines():
+            warmup_engine(eng)
 
     # -- internals -------------------------------------------------------
 
@@ -638,22 +784,59 @@ class CudaRateLimitCache:
             return threading.Event()
 
     def _make_packed_item(
-        self, rows, keys, limits, hits_addend, now, statuses, enc, tparts
+        self, rows, keys, limits, hits_addend, now, statuses, enc, tparts,
+        raw_over: Optional[list] = None,
     ) -> WorkItem:
         """Resolution-fast-path packer: the accumulators already hold
         the memoized key bytes and template records (hits=1
         pre-stamped), so the pack is two joins and two views."""
+        pack = self._template_pack(hits_addend, enc, tparts)
+        jitters = self._draw_jitters(rows)
+        if jitters is not None:
+            pack.meta["expiry"] += np.asarray(jitters, dtype=np.int64)
+        return self._finish_item(
+            rows, keys, limits, hits_addend, now, statuses, pack, raw_over
+        )
+
+    @staticmethod
+    def _template_pack(hits_addend, enc, tparts) -> LanePack:
+        """The LanePack of the memoized key bytes `enc` and template
+        records `tparts` (hits=1 pre-stamped), with this request's hits."""
         buf = bytearray(b"".join(tparts))
         meta = np.frombuffer(buf, dtype=LANE_DTYPE)
-        meta_u8 = np.frombuffer(buf, dtype=np.uint8)
         hits_clamped = min(hits_addend, 0xFFFFFFFF)
         if hits_clamped != 1:
             meta["hits"] = hits_clamped
-        jitters = self._draw_jitters(rows)
-        if jitters is not None:
-            meta["expiry"] += np.asarray(jitters, dtype=np.int64)
-        pack = LanePack(key_blob=b"".join(enc), meta=meta, meta_u8=meta_u8)
-        return self._finish_item(rows, keys, limits, hits_addend, now, statuses, pack)
+        return LanePack(
+            key_blob=b"".join(enc),
+            meta=meta,
+            meta_u8=np.frombuffer(buf, dtype=np.uint8),
+        )
+
+    def _make_candidate_item(
+        self, rows, hits_addend, now, enc, tparts, cand_over: list
+    ) -> WorkItem:
+        """Shadow-candidate packer: the same template pack as
+        _make_packed_item, but the apply records ONLY the candidate
+        kernel's would-be over-ness (before shadow_mode) -- no
+        statuses, no rule stats, no local cache, so a shadowed rule's
+        responses stay byte-identical to plain fixed-window."""
+        pack = self._template_pack(hits_addend, enc, tparts)
+
+        def apply(decisions: HostDecisions) -> None:
+            codes = decisions.codes.tolist()
+            shadow = decisions.shadow_mode.tolist()
+            for j, i in enumerate(rows):
+                cand_over[i] = codes[j] == _OVER_VALUE or shadow[j] > 0
+
+        return WorkItem(
+            now=now,
+            lanes=(),
+            pack=pack,
+            apply=apply,
+            defer_apply=True,
+            event=self._pool_event(),
+        )
 
     def _draw_jitters(self, rows) -> Optional[List[int]]:
         if self.expiration_jitter_max_seconds <= 0:
@@ -667,11 +850,13 @@ class CudaRateLimitCache:
             ]
 
     def _finish_item(
-        self, rows, keys, limits, hits_addend, now, statuses, pack
+        self, rows, keys, limits, hits_addend, now, statuses, pack,
+        raw_over: Optional[list] = None,
     ) -> WorkItem:
         def apply(decisions: HostDecisions) -> None:
             self._apply_decisions(
-                rows, keys, limits, hits_addend, now, decisions, statuses
+                rows, keys, limits, hits_addend, now, decisions, statuses,
+                raw_over,
             )
 
         # defer_apply: status assembly runs on THIS RPC thread inside
@@ -686,7 +871,8 @@ class CudaRateLimitCache:
         )
 
     def _apply_decisions(
-        self, rows, keys, limits, hits_addend, now, decisions, statuses
+        self, rows, keys, limits, hits_addend, now, decisions, statuses,
+        raw_over: Optional[list] = None,
     ) -> None:
         reset_cache: dict = {}
         codes = decisions.codes.tolist()
@@ -700,6 +886,10 @@ class CudaRateLimitCache:
         for j, i in enumerate(rows):
             rule = limits[i]
             stats = rule.stats
+            if raw_over is not None:
+                # Over-ness before shadow_mode, for the shadow-rollout
+                # comparison (_note_shadow_outcomes).
+                raw_over[i] = codes[j] == _OVER_VALUE or shadow[j] > 0
             v = over[j]
             if v:
                 stats.over_limit.add(int(v))

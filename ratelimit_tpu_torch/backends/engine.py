@@ -6,11 +6,21 @@ and batch padding/bucketing.  The host halves -- ``DEFAULT_BUCKETS``,
 ``_Dedup``, ``_dedup_chunk``, ``_decide_host`` and the u8/u16/u32
 readback choice -- are the reference's, unchanged.
 
+Two model protocols, as in the reference.  The fixed-window model
+serves through its saturating unique-slot step (K1, int32[4, padded]
+up, u8/u16/u32 afters back).  A model with ``lane_counts`` runs the
+generic algorithm protocol (sliding window K4, GCRA K5): int32[5,
+padded] up (the divider row added), the batch clock ``now`` beside it,
+the model's own readback (u32[2, padded] or i32[padded]) back, and
+``decide_generic`` on the host.  Stable-stem models
+(``windowed_keys=False``) get the Python slot table with
+refresh-on-touch expiry, so a hot key keeps its slot and state.
+
 The device half runs on a CUDA stream the engine owns:
-``_device_submit`` fills a pinned int32[4, padded] staging buffer, makes
-one non_blocking host-to-device copy, launches K1 (``fw_unique_step``)
-and one non_blocking device-to-host copy of the afters into pinned
-readback memory, then records an event.  ``step_complete`` waits on
+``_device_submit`` fills a pinned staging buffer, makes one non_blocking
+host-to-device copy, launches the model's kernel and one non_blocking
+device-to-host copy of its output into pinned readback memory, then
+records an event.  ``step_complete`` waits on
 that event (never on the whole device) before the host decide pass.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
@@ -22,13 +32,20 @@ on another thread, and a stream context is thread-local.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..models.fixed_window import FixedWindowModel, resolve_device, state_to_numpy
+from ..models.fixed_window import (
+    FixedWindowModel,
+    resolve_device,
+    state_from_numpy,
+    state_to_numpy,
+)
+from .slot_table import SlotTable
 
 # Pad batches up to one of these sizes so a handful of kernel shapes
 # serve every batch length (batch-axis bucketing to fixed shapes).
@@ -47,8 +64,9 @@ class HostBatch:
     limits: np.ndarray  # uint32
     fresh: np.ndarray  # bool
     shadow: np.ndarray  # bool
-    # Per-lane window length in seconds; only the generic-algorithm
-    # models (not yet ported) consume it.
+    # Per-lane window length in seconds; only generic-algorithm models
+    # consume it.  None -> dividers of 1 reach the device (inert for
+    # warmup probes with hits=0).
     dividers: Optional[np.ndarray] = None  # uint32
 
 
@@ -70,8 +88,6 @@ class HostDecisions:
 def _pick_table_cls(native: Optional[bool]):
     """Slot-table implementation choice: C++ (one FFI call per batch)
     with automatic fallback to the Python oracle."""
-    from .slot_table import SlotTable
-
     if native is False:
         return SlotTable
     from . import native_slot_table
@@ -275,20 +291,66 @@ def _decide_host(
     )
 
 
+def decide_generic(
+    model,
+    fetched: np.ndarray,
+    hits_u32: np.ndarray,
+    limits_u32: np.ndarray,
+    shadow: np.ndarray,
+    dedup: _Dedup,
+    now: int,
+) -> HostDecisions:
+    """Host half of the generic algorithm protocol: the model rebuilds
+    per-lane effective (before, after) counts from its device readback,
+    then the SHARED threshold state machine (limiter.base.decide_batch)
+    produces codes and stat deltas, so near-limit and partial-hit
+    attribution are the same for every algorithm.  Generic algorithms
+    never feed the host over-limit cache (their capacity refills
+    continuously, so an OVER_LIMIT verdict holds for no full window):
+    set_local_cache stays False."""
+    from ..limiter.base import decide_batch
+
+    befores, afters = model.lane_counts(fetched, dedup, hits_u32, limits_u32, now)
+    count = len(hits_u32)
+    d = decide_batch(
+        limits=limits_u32,
+        befores=befores,
+        afters=afters,
+        hits=hits_u32.astype(np.int64),
+        near_ratio=model.near_ratio,
+        shadow_mask=shadow,
+        local_cache_mask=np.zeros(count, dtype=bool),
+    )
+    return HostDecisions(
+        codes=d.codes,
+        limit_remaining=d.limit_remaining,
+        befores=befores,
+        afters=afters,
+        over_limit=d.over_limit,
+        near_limit=d.near_limit,
+        within_limit=d.within_limit,
+        shadow_mode=d.shadow_mode,
+        set_local_cache=np.zeros(count, dtype=bool),
+    )
+
+
 class _Staging:
-    """Host buffers of one in-flight submission: the packed int32[4, N]
-    upload and the afters readback (pinned on CUDA, so both copies are
-    truly asynchronous), plus the event recorded after the readback.
-    A staging object returns to the engine's free list only after
-    step_complete has waited on its event and copied the afters out."""
+    """Host buffers of one in-flight submission: the packed int32[rows,
+    N] upload and the readback of up to `out_bytes` per lane (pinned on
+    CUDA, so both copies are truly asynchronous), plus the event
+    recorded after the readback.  A staging object returns to the
+    engine's free list only after step_complete has waited on its event
+    and copied the readback out."""
 
     __slots__ = ("packed", "packed_np", "readback", "event")
 
-    def __init__(self, max_batch: int, device: torch.device):
+    def __init__(self, max_batch: int, device: torch.device, rows: int, out_bytes: int):
         pin = device.type == "cuda"
-        self.packed = torch.empty(4 * max_batch, dtype=torch.int32, pin_memory=pin)
+        self.packed = torch.empty(rows * max_batch, dtype=torch.int32, pin_memory=pin)
         self.packed_np = self.packed.numpy()
-        self.readback = torch.empty(4 * max_batch, dtype=torch.uint8, pin_memory=pin)
+        self.readback = torch.empty(
+            out_bytes * max_batch, dtype=torch.uint8, pin_memory=pin
+        )
         self.event = torch.cuda.Event() if pin else None
 
 
@@ -299,32 +361,47 @@ class CounterEngine:
         near_ratio: float = 0.8,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         device="cuda",
-        model: Optional[FixedWindowModel] = None,
+        model=None,
         native_table: Optional[bool] = None,
     ):
         """`device` defaults to the GPU and raises there when CUDA is
         absent; only device="cpu" runs the plain versions.  `model`
-        defaults to a FixedWindowModel on that device (the generic
-        algorithm protocol is not ported yet).  `native_table`: None =
-        use the C++ slot table when it builds/loads, True = require
-        it, False = pure Python."""
+        defaults to a FixedWindowModel on that device.  A model must
+        provide EITHER the saturating unique-slot serving step
+        (step_counters_unique_packed) OR the generic algorithm
+        protocol: ``step_serve_packed(state, packed, now)`` on the
+        device plus ``lane_counts(out, dedup, hits, limits, now)`` on
+        the host.  `native_table`: None = use the C++ slot table when
+        it builds/loads, True = require it, False = pure Python;
+        generic models with stable-stem keys (windowed_keys=False)
+        always get the Python table with refresh-on-touch expiry."""
         self.device = resolve_device(device)
         self.model = (
             model
             if model is not None
             else FixedWindowModel(num_slots, near_ratio, device=self.device)
         )
-        if not hasattr(self.model, "step_counters_unique_packed"):
+        # Generic algorithm protocol marker: the model owns both the
+        # device step and the host lane reconstruction.
+        self._generic = hasattr(self.model, "lane_counts")
+        if not self._generic and not hasattr(self.model, "step_counters_unique_packed"):
             raise TypeError(
                 "model must provide the saturating unique-slot serving "
-                "step (step_counters_unique_packed); the generic "
-                "algorithm protocol is not ported yet"
+                "step (step_counters_unique_packed) or the generic "
+                "step_serve_packed/lane_counts protocol"
             )
         if self.model.device != self.device:
             raise ValueError(
                 f"model is on {self.model.device}, engine on {self.device}"
             )
-        self._table_cls = _pick_table_cls(native_table)
+        if self._generic and not getattr(self.model, "windowed_keys", True):
+            # Stable-stem keys: refresh-on-touch expiry keeps a hot
+            # key's slot -- and the window/TAT state it carries -- alive
+            # instead of reclaiming it `divider` seconds after first
+            # sight.
+            self._table_cls = functools.partial(SlotTable, refresh_expiry=True)
+        else:
+            self._table_cls = _pick_table_cls(native_table)
         self.slot_table = self._table_cls(self.model.num_slots)
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
@@ -392,7 +469,7 @@ class CounterEngine:
                 batch.fresh[start:end],
                 None if batch.dividers is None else batch.dividers[start:end],
             )
-            chunks.append((self._device_submit(dedup), start, count, dedup))
+            chunks.append((self._device_submit(dedup, now), start, count, dedup))
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
         self.stat_live_keys = len(self.slot_table)
         self.stat_evictions = self.slot_table.evictions
@@ -411,6 +488,9 @@ class CounterEngine:
         hits = np.ascontiguousarray(meta["hits"])
         limits = np.ascontiguousarray(meta["limits"])
         shadow = meta["shadow"].astype(bool)
+        # Generic models need per-lane window lengths on the device;
+        # the fixed-window paths never read them.
+        dividers = np.ascontiguousarray(meta["divider"]) if self._generic else None
         table = self.slot_table
         fused = hasattr(table, "assign_dedup_packed")
         blob_arr = (
@@ -470,6 +550,7 @@ class CounterEngine:
                         hits[start:end],
                         limits[start:end],
                         fresh[start:end],
+                        None if dividers is None else dividers[start:end],
                     )
                     dedups.append((start, count, dedup))
         finally:
@@ -478,7 +559,7 @@ class CounterEngine:
         # Phase 2 -- launch the device step per chunk.
         chunks = []
         for start, count, dedup in dedups:
-            chunks.append((self._device_submit(dedup), start, count, dedup))
+            chunks.append((self._device_submit(dedup, now), start, count, dedup))
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
         self.stat_live_keys = len(table)
         self.stat_evictions = table.evictions
@@ -498,6 +579,19 @@ class CounterEngine:
         for handle, start, count, dedup in chunks:
             fetched = self._fetch(handle)
             end = start + count
+            if self._generic:
+                outs.append(
+                    decide_generic(
+                        self.model,
+                        fetched,
+                        hits[start:end],
+                        limits[start:end],
+                        shadow[start:end],
+                        dedup,
+                        now,
+                    )
+                )
+                continue
             outs.append(
                 _decide_host(
                     fetched,
@@ -521,7 +615,10 @@ class CounterEngine:
         try:
             return self._free_staging.pop()
         except IndexError:
-            return _Staging(self.max_batch, self.device)
+            # Generic models upload a fifth (divider) row and read back
+            # up to 8 B per lane (sliding window: u32[2, N]).
+            rows, out_bytes = (5, 8) if self._generic else (4, 4)
+            return _Staging(self.max_batch, self.device, rows, out_bytes)
 
     def _fetch(self, handle) -> np.ndarray:
         """Wait for one submission's readback; copy it out and recycle
@@ -533,12 +630,14 @@ class CounterEngine:
         self._free_staging.append(st)
         return out
 
-    def _device_submit(self, dedup: _Dedup):
+    def _device_submit(self, dedup: _Dedup, now: int):
         """Launch the device step for one deduped chunk; returns the
         handle step_complete waits on."""
         g = len(dedup.uniq_slots)
         padded = self._bucket(g)
         ns = self.model.num_slots
+        if self._generic:
+            return self._device_submit_generic(dedup, now, g, padded, ns)
         # Dtype choice uses the UNWRAPPED uint64 totals; totals past
         # u32 max are CLAMPED for the device (not wrapped), matching
         # the saturating counter arithmetic.
@@ -567,33 +666,94 @@ class CounterEngine:
             self._counts, afters = self.model.step_counters_unique_packed(
                 self._counts, dt, packed
             )
-            nbytes = afters.numel() * afters.element_size()
-            readback = st.readback[:nbytes].view(afters.dtype)
-            readback.copy_(afters, non_blocking=True)
-            if st.event is not None:
-                st.event.record(self._stream)
-        return st, readback
+            return st, self._read_back(st, afters)
+
+    def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
+        """Generic algorithm path: ONE int32[5, padded] upload -- rows
+        slots, hits bits, limits bits, fresh, divider bits -- plus the
+        batch clock; the model owns the state layout, the kernel and
+        the host reconstruction.  Padding uses DISTINCT out-of-table
+        slots with divider 1, limit 1 and hits 0, so pad lanes are
+        inert."""
+        st = self._take_staging()
+        pk = st.packed_np[: 5 * padded].reshape(5, padded)
+        pk[0, :g] = dedup.uniq_slots
+        pk[1, :g] = dedup.totals_u32().view(np.int32)
+        pk[2, :g] = dedup.limit_max.view(np.int32)
+        pk[3, :g] = dedup.fresh
+        if dedup.divider_max is not None:
+            pk[4, :g] = dedup.divider_max.view(np.int32)
+        else:
+            pk[4, :g] = 1
+        if padded > g:
+            pk[0, g:] = np.arange(ns, ns + (padded - g), dtype=np.int64)
+            pk[1, g:] = 0
+            pk[2, g:] = 1
+            pk[3, g:] = 0
+            pk[4, g:] = 1
+        host = st.packed[: 5 * padded].view(5, padded)
+        with self._on_stream():
+            packed = host.to(self.device, non_blocking=True)
+            self._counts, out = self.model.step_serve_packed(self._counts, packed, now)
+            return st, self._read_back(st, out)
+
+    def _read_back(self, st: _Staging, out: torch.Tensor) -> torch.Tensor:
+        """Enqueue the copy of `out` into `st`'s pinned readback (same
+        dtype and shape) and record `st`'s event after it.  Runs on the
+        engine stream."""
+        nbytes = out.numel() * out.element_size()
+        readback = st.readback[:nbytes].view(out.dtype).view(out.shape)
+        readback.copy_(out, non_blocking=True)
+        if st.event is not None:
+            st.event.record(self._stream)
+        return readback
 
     # -- checkpoint surface ---------------------------------------------
 
+    @property
+    def algorithm(self) -> str:
+        """The model's algorithm-table name (models/registry.py), so a
+        restore can never feed one kernel's state rows to another."""
+        return getattr(self.model, "algo", "fixed_window")
+
     def export_state(self) -> dict:
-        """Named copy of the per-slot device state:
-        ``{"counts": uint32[num_slots]}``, the reference's contract."""
-        return {"counts": self.export_counts()}
+        """Named copy of the per-slot device state, the reference's
+        contract: fixed-window ``{"counts": uint32[num_slots]}``;
+        generic models one uint32[num_slots] row per
+        ``model.state_rows`` name."""
+        rows = getattr(self.model, "state_rows", ("counts",))
+        if rows == ("counts",):
+            return {"counts": self.export_counts()}
+        self._sync()
+        arr = state_to_numpy(self._counts)
+        return {name: arr[i].copy() for i, name in enumerate(rows)}
 
     def import_state(self, state: dict) -> None:
         """Inverse of export_state; validates names and shapes."""
-        extra = set(state) - {"counts"}
-        if extra:
+        rows = getattr(self.model, "state_rows", ("counts",))
+        if set(state) != set(rows):
             raise ValueError(
-                f"fixed-window state has only a 'counts' row, got {sorted(state)}"
+                f"{self.algorithm} state has rows {list(rows)}, got {sorted(state)}"
             )
-        self.import_counts(state["counts"])
+        if rows == ("counts",):
+            self.import_counts(state["counts"])
+            return
+        ns = self.model.num_slots
+        stacked = np.empty((len(rows), ns), dtype=np.uint32)
+        for i, name in enumerate(rows):
+            arr = np.asarray(state[name], dtype=np.uint32).reshape(-1)
+            if arr.shape[0] != ns:
+                raise ValueError(
+                    f"state row {name!r} size {arr.shape[0]} != num_slots {ns}"
+                )
+            stacked[i] = arr
+        with self._on_stream():
+            self._counts = state_from_numpy(stacked, self.device)
 
     def export_counts(self) -> np.ndarray:
         """Flat uint32 copy of the counter table."""
         self._sync()
-        return state_to_numpy(self._counts)
+        return state_to_numpy(self._counts).reshape(-1)
 
     def import_counts(self, counts: np.ndarray) -> None:
         arr = np.asarray(counts, dtype=np.uint32).reshape(-1)

@@ -3,8 +3,9 @@
 // The counter table is uint32 per slot (stored by the caller as an int32
 // tensor of the same bits).  All arithmetic and comparisons here are on
 // uint32_t: torch's int32 compares are signed and wrong at 2^31 and up.
-// A slot outside [0, num_slots) is inert: it reads 0 and writes nothing
-// (the serving engine pads batches with the ids num_slots + i).
+// Slot ids follow JAX's index semantics (slot_index.cuh): an id in
+// [-num_slots, -1] addresses id + num_slots; any other id outside the
+// table is inert.
 //
 // K1 fw_unique_step replaces the jitted XLA step
 //   ratelimit_tpu/models/fixed_window.py:171 step_counters_unique_packed
@@ -30,14 +31,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "slot_index.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr uint32_t kU32Max = 0xFFFFFFFFu;
-
-__device__ __forceinline__ bool in_table(int32_t slot, long long num_slots) {
-  return slot >= 0 && static_cast<long long>(slot) < num_slots;
-}
 
 __global__ void fw_unique_step_kernel(uint32_t* __restrict__ counts,
                                       long long num_slots,
@@ -48,11 +47,11 @@ __global__ void fw_unique_step_kernel(uint32_t* __restrict__ counts,
   if (i >= n) {
     return;
   }
-  const int32_t slot = packed[i];
+  const long long slot = slot_index(packed[i], num_slots);
   const uint32_t hits = static_cast<uint32_t>(packed[n + i]);
   const uint32_t limit = static_cast<uint32_t>(packed[2 * n + i]);
   const bool fresh = packed[3 * n + i] != 0;
-  const bool live = in_table(slot, num_slots);
+  const bool live = slot >= 0;
 
   const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
   uint32_t after = before + hits;
@@ -81,8 +80,11 @@ __global__ void fw_zero_fresh_kernel(uint32_t* __restrict__ counts,
                                      const uint8_t* __restrict__ fresh,
                                      int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && fresh[i] && in_table(slots[i], num_slots)) {
-    counts[slots[i]] = 0u;
+  if (i < n && fresh[i]) {
+    const long long slot = slot_index(slots[i], num_slots);
+    if (slot >= 0) {
+      counts[slot] = 0u;
+    }
   }
 }
 
@@ -92,8 +94,8 @@ __global__ void fw_gather_kernel(const uint32_t* __restrict__ counts,
                                  uint32_t* __restrict__ before, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) {
-    const int32_t slot = slots[i];
-    before[i] = in_table(slot, num_slots) ? counts[slot] : 0u;
+    const long long slot = slot_index(slots[i], num_slots);
+    before[i] = slot >= 0 ? counts[slot] : 0u;
   }
 }
 
@@ -108,8 +110,8 @@ __global__ void fw_add_kernel(uint32_t* __restrict__ counts,
     return;
   }
   afters[i] += incl[i];  // modular: the general path does not saturate
-  const int32_t slot = slots[i];
-  if (in_table(slot, num_slots)) {
+  const long long slot = slot_index(slots[i], num_slots);
+  if (slot >= 0) {
     atomicAdd(&counts[slot], hits[i]);
   }
 }

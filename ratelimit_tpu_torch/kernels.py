@@ -5,8 +5,9 @@ its own shared library with a plain C interface under ``_build/``
 (listed in ``.gitignore``), and is loaded with ``ctypes``.  Sources
 build at first use, or all together (one ``nvcc`` per source, started
 in parallel) through :func:`build_all`.  A library's file name carries
-a digest of its source and flags, so a changed source rebuilds and an
-unchanged one loads as is.
+a digest of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so a changed source or header rebuilds and an unchanged one
+loads as is.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.  A wrapper calls
@@ -38,6 +39,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = {
     "prefix": "prefix.cu",
     "fixed_window": "fixed_window.cu",
+    "algorithms": "algorithms.cu",
 }
 
 NVCC_FLAGS = (
@@ -71,6 +73,8 @@ SIGNATURES = {
         "fixed_window",
         [_VP, _VP, _VP, _VP, ctypes.c_float, _I32, _VP, _VP, _VP],
     ),
+    "rl_sw_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
+    "rl_gcra_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
 }
 
 #: Launch counts by kernel name (see module docstring).
@@ -103,10 +107,12 @@ def find_nvcc() -> str:
 
 
 def _so_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # The source and every shared header it may include.
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
     h.update("\0".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

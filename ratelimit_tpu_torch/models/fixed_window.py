@@ -91,16 +91,31 @@ def resolve_device(device) -> torch.device:
 
 
 def state_from_numpy(counts_u32: np.ndarray, device="cuda") -> torch.Tensor:
-    """The JAX model's uint32[num_slots] table (init_state or
-    CounterEngine.export_state()["counts"]) -> the port's int32-bits
-    tensor on `device`."""
-    arr = np.ascontiguousarray(counts_u32, dtype=np.uint32).reshape(-1)
+    """A JAX model's uint32 state -> the port's int32-bits tensor on
+    `device`: fixed-window's uint32[num_slots] table (flattened), or an
+    algorithm bank's uint32[rows, num_slots] table (sliding window 3
+    rows, GCRA 2; shape kept)."""
+    arr = np.ascontiguousarray(counts_u32, dtype=np.uint32)
+    if arr.ndim != 2:
+        arr = arr.reshape(-1)
     return torch.from_numpy(arr.view(np.int32).copy()).to(resolve_device(device))
 
 
 def state_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """Inverse of state_from_numpy: a uint32 numpy copy of the table."""
+    """Inverse of state_from_numpy: a uint32 numpy copy of the table,
+    same shape."""
     return t.detach().cpu().numpy().view(np.uint32).copy()
+
+
+def slot_index(slots: torch.Tensor, num_slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's index semantics for slot ids (gather mode="fill", scatter
+    mode="drop"): an id in [-num_slots, -1] addresses id + num_slots,
+    numpy-style; any other id outside [0, num_slots) is inert.  Returns
+    (int64 table index, 0 where inert; bool live mask)."""
+    s = slots.to(torch.int64)
+    s = torch.where(s < 0, s + num_slots, s)
+    live = (s >= 0) & (s < num_slots)
+    return torch.where(live, s, torch.zeros_like(s)), live
 
 
 def _check_table(counts: torch.Tensor) -> None:
@@ -137,16 +152,13 @@ def _unique_step_plain(
     counts: torch.Tensor, packed: torch.Tensor, out_dtype: str
 ) -> torch.Tensor:
     """Plain version of K1 (updates `counts` in place, returns afters)."""
-    ns = counts.shape[0]
-    slots = packed[0].to(torch.int64)
+    idx, live = slot_index(packed[0], counts.shape[0])
     hits = widen(packed[1])
     limits = widen(packed[2])
     fresh = packed[3] != 0
-    live = (slots >= 0) & (slots < ns)
-    idx = torch.where(live, slots, torch.zeros_like(slots))
     before = torch.where(live & ~fresh, widen(counts[idx]), torch.zeros_like(hits))
     after = torch.clamp(before + hits, max=U32_MASK)  # saturating
-    counts[slots[live]] = narrow(after[live])
+    counts[idx[live]] = narrow(after[live])
     if out_dtype == "":
         return narrow(after)
     sat = torch.minimum(after, (limits + hits) & U32_MASK)
@@ -207,17 +219,17 @@ def _update_plain(
 ) -> torch.Tensor:
     """Plain version of fw_general_update (in place; returns afters)."""
     ns = counts.shape[0]
-    s64 = slots.to(torch.int64)
-    live = (s64 >= 0) & (s64 < ns)
-    counts[s64[live & fresh]] = 0
-    idx = torch.where(live, s64, torch.zeros_like(s64))
-    before = torch.where(live, widen(counts[idx]), torch.zeros_like(s64))
+    idx, live = slot_index(slots, ns)
+    counts[idx[live & fresh]] = 0
+    before = torch.where(live, widen(counts[idx]), torch.zeros_like(idx))
+    # The prefix compares raw ids (as JAX's does): -1 and ns - 1 share
+    # a table slot but not a prefix.
     incl = widen(per_slot_inclusive_prefix(slots, hits))
     afters = before + incl
     # Modular scatter-add: every lane of a slot writes the same total.
     total = torch.zeros(ns, dtype=torch.int64, device=counts.device)
-    total.index_add_(0, s64[live], widen(hits)[live])
-    touched = s64[live]
+    touched = idx[live]
+    total.index_add_(0, touched, widen(hits)[live])
     counts[touched] = narrow(widen(counts[touched]) + total[touched])
     return narrow(afters)
 

@@ -2,10 +2,13 @@
 
 Port of ratelimit_tpu/models/registry.py.  The table keeps every
 algorithm's name, id and key/state layout, so configs that name an
-algorithm load and resolve exactly as in the reference.  Only the
-fixed-window model is ported: asking the table to BUILD a
-sliding-window or GCRA model raises NotImplementedError naming the
-ROADMAP item, never falling back to another kernel.
+algorithm load and resolve exactly as in the reference, and builds
+each model on the device it is given (the GPU unless the caller asks
+for the CPU).  Rules carrying ``algorithm: <name>`` route to a
+dedicated engine bank whose model this table builds -- as the
+enforcing bank, or with ``shadow: true`` as a candidate evaluated
+beside fixed-window enforcement (``ratelimit.tpu.shadow.<algo>
+.{agree,diverge}``).
 
 This module stays importable without torch: the config loader
 validates algorithm names through it.  Model classes are imported
@@ -52,18 +55,16 @@ def _make_fixed_window(num_slots: int, near_ratio: float, device="cuda"):
     return FixedWindowModel(num_slots, near_ratio, device=device)
 
 
-def _not_ported(name: str, item: str):
-    def make(num_slots: int, near_ratio: float, device="cuda"):
-        raise NotImplementedError(
-            f"the {name} algorithm is not ported to ratelimit_tpu_torch "
-            f"yet (ROADMAP.md, Queue 1 item 4 and Queue 2 item {item})"
-        )
+def _make_sliding_window(num_slots: int, near_ratio: float, device="cuda"):
+    from .sliding_window import SlidingWindowModel
 
-    return make
+    return SlidingWindowModel(num_slots, near_ratio, device=device)
 
 
-_make_sliding_window = _not_ported("sliding_window", "2")
-_make_gcra = _not_ported("gcra", "3")
+def _make_gcra(num_slots: int, near_ratio: float, device="cuda"):
+    from .gcra import GcraModel
+
+    return GcraModel(num_slots, near_ratio, device=device)
 
 
 ALGORITHMS = {

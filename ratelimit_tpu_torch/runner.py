@@ -1,8 +1,9 @@
 """Process bootstrap: Settings -> backend -> service -> listeners.
 
-Port of ratelimit_tpu/runner.py for the single-lane fixed-window
-slice: stats, the local over-limit cache, the CUDA counter backend
-(``BACKEND_TYPE=cuda``), the service with its runtime config loader,
+Port of ratelimit_tpu/runner.py for one fixed-window lane plus the
+algorithm banks: stats, the local over-limit cache, the CUDA counter
+backend (``BACKEND_TYPE=cuda``) with one engine per algorithm named in
+``TPU_ALGORITHM_BANKS``, the service with its runtime config loader,
 the gRPC listener and the statsd exporter.  The HTTP and debug
 listeners, checkpoints and the observability planes are not ported
 yet; settings that select an unported feature are refused at boot
@@ -37,6 +38,34 @@ _LOG_LEVELS = {
 }
 
 
+def make_algorithm_banks(s: Settings, device="cuda"):
+    """One generic engine per non-default algorithm named in
+    TPU_ALGORITHM_BANKS (models/registry.py), each with a
+    TPU_ALGORITHM_NUM_SLOTS table on `device`, or None when the list is
+    empty.  An unknown name fails startup: a mistyped bank list must
+    never serve without the kernel it asked for."""
+    names = [p.strip() for p in s.tpu_algorithm_banks.split(",") if p.strip()]
+    if not names:
+        return None
+    from .backends.engine import CounterEngine
+    from .models.registry import DEFAULT_ALGORITHM, get_algorithm
+
+    banks = {}
+    for name in names:
+        spec = get_algorithm(name)  # raises KeyError on typos
+        if spec.name == DEFAULT_ALGORITHM:
+            continue  # the lane IS the fixed-window bank
+        banks[spec.name] = CounterEngine(
+            near_ratio=s.near_limit_ratio,
+            buckets=tuple(s.tpu_batch_buckets),
+            device=device,
+            model=spec.make_model(
+                s.tpu_algorithm_num_slots, s.near_limit_ratio, device=device
+            ),
+        )
+    return banks or None
+
+
 def create_limiter(s: Settings, local_cache, time_source, device="cuda"):
     """BackendType switch (reference runner.go:50-74).  `device` is
     where the counter table lives: the GPU unless the caller asks for
@@ -69,6 +98,7 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda"):
         unhealthy_after=s.tpu_unhealthy_after,
         resolution_cache_entries=s.resolution_cache_entries,
         device_failure_mode=s.device_failure_mode,
+        algorithm_banks=make_algorithm_banks(s, device),
     )
 
 

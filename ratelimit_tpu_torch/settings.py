@@ -525,11 +525,6 @@ def unported_settings(s: Settings) -> List[str]:
             f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' is ported "
             "(sharded, write-behind and memory backends are not)"
         )
-    if s.tpu_algorithm_banks.strip():
-        out.append(
-            f"TPU_ALGORITHM_BANKS={s.tpu_algorithm_banks!r}: the "
-            "sliding-window and GCRA banks are not ported; set it empty"
-        )
     if s.kernel_deadline_s > 0:
         out.append(
             f"KERNEL_DEADLINE_S={s.kernel_deadline_s}: the device fault "

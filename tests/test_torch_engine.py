@@ -7,7 +7,8 @@ every HostDecisions field and the exported counter table must be
 equal: duplicates (host dedup + pipeline-order reconstruction), u8 /
 u16 / u32 readback, u32 saturation, fresh slots, batches wider than
 max_batch, and checkpoints exported by one engine imported into the
-other.
+other.  The generic algorithm protocol (sliding-window and GCRA banks)
+runs the same duplicate-laden streams through both packages' engines.
 """
 
 import numpy as np
@@ -18,8 +19,10 @@ from ratelimit_tpu.backends.dispatcher import LanePack as JaxLanePack
 from ratelimit_tpu.backends.dispatcher import Lane as JaxLane
 from ratelimit_tpu.backends.engine import CounterEngine as JaxEngine
 from ratelimit_tpu.backends.engine import HostBatch as JaxHostBatch
+from ratelimit_tpu.models.registry import get_algorithm as jax_algorithm
 from ratelimit_tpu_torch.backends.dispatcher import Lane, LanePack
 from ratelimit_tpu_torch.backends.engine import CounterEngine, HostBatch
+from ratelimit_tpu_torch.models.registry import get_algorithm
 
 FIELDS = (
     "codes",
@@ -168,6 +171,75 @@ def test_checkpoints_cross_between_packages():
         te.import_counts(np.zeros(10, dtype=np.uint32))
     with pytest.raises(ValueError):
         te.import_state({"counts": je.export_counts(), "prev": je.export_counts()})
+
+
+def _generic_engines(name, num_slots=256):
+    return (
+        JaxEngine(buckets=BUCKETS, model=jax_algorithm(name).make_model(num_slots, 0.8)),
+        CounterEngine(
+            buckets=BUCKETS,
+            device="cpu",
+            model=get_algorithm(name).make_model(num_slots, 0.8, device="cpu"),
+        ),
+    )
+
+
+@pytest.mark.parametrize("name", ["sliding_window", "gcra"])
+def test_generic_engine_matches_jax(name):
+    """Duplicate-laden HostBatch streams (wider than max_batch, with
+    fresh slots, shadow lanes, mixed dividers and a clock that crosses
+    windows) through both generic engines: every decision field and
+    the exported state rows are equal."""
+    je, te = _generic_engines(name)
+    assert te.slot_table.refresh_expiry
+    rng = np.random.default_rng(17)
+    now = 1_700_000_000
+    for n in (5, 40, 80, 1, 33, 64, 12, 70):  # 80 > max_batch
+        raw = _host_batch(rng, n, 160, 20, 4)
+        if name == "gcra":
+            # Emission intervals divider/limit exact in f32: the jitted
+            # JAX step may fuse v + adm * T into an FMA, which moves a
+            # TAT by one ulp only where T is inexact.
+            raw["limits"] = rng.choice([1, 2, 3, 4, 5, 6, 10, 12, 15, 20], n)
+            raw["limits"] = raw["limits"].astype(np.uint32)
+            raw["dividers"] = rng.choice([60, 3600], n).astype(np.uint32)
+        else:
+            raw["dividers"] = rng.choice([1, 60, 3600], n).astype(np.uint32)
+        _assert_same(je.step(JaxHostBatch(**raw), now), te.step(HostBatch(**raw), now))
+        for row, arr in je.export_state().items():
+            np.testing.assert_array_equal(te.export_state()[row], arr, err_msg=row)
+        now += int(rng.integers(0, 50))
+    assert te.stat_window_rollovers == je.stat_window_rollovers
+    assert not te.step(HostBatch(**raw), now).set_local_cache.any()
+
+
+@pytest.mark.parametrize("name", ["sliding_window", "gcra"])
+def test_generic_submit_packed_matches_jax(name):
+    """The serving entry of an algorithm bank: stable-stem keys with a
+    two-window lease and the rule's divider in each LANE_DTYPE record."""
+    je, te = _generic_engines(name, num_slots=64)
+    rng = np.random.default_rng(5)
+    for step, n in enumerate((4, 30, 100, 7, 64)):
+        now = 1_700_000_000 + 25 * step
+        lanes = [
+            (f"dom_k_{int(rng.integers(0, 20))}", int(rng.integers(1, 12)),
+             bool(rng.random() < 0.2), int(rng.integers(1, 3)))
+            for _ in range(n)
+        ]
+        packs = []
+        for pack_cls, lane_cls in ((JaxLanePack, JaxLane), (LanePack, Lane)):
+            pack = pack_cls.from_lanes(
+                [lane_cls(k, now + 120, lim, sh, h) for k, lim, sh, h in lanes]
+            )
+            pack.meta["divider"] = 60
+            pack.meta["algo"] = get_algorithm(name).algo_id
+            packs.append(pack)
+        dj = je.step_complete(je.submit_packed(now, packs[0].key_blob, packs[0].meta))
+        dt = te.step_complete(te.submit_packed(now, packs[1].key_blob, packs[1].meta))
+        _assert_same(dj, dt)
+        for row, arr in je.export_state().items():
+            np.testing.assert_array_equal(te.export_state()[row], arr, err_msg=row)
+        assert te.stat_live_keys == je.stat_live_keys
 
 
 def test_engine_without_device_needs_cuda():

@@ -5,8 +5,10 @@ ratelimit_tpu.models.fixed_window and ratelimit_tpu_torch.models
 .fixed_window (device="cpu": the kernels' plain versions): the unique
 packed serving step (K1) for each readback type, with saturation, pad
 and fresh lanes; the duplicate-tolerant forward step (K3 + K2) on a
-graft-like batch; and the state conversion helpers.  All of it is
-integer arithmetic plus one IEEE f32 multiply, so equality is exact.
+graft-like batch; slot ids in [-num_slots, -1], which JAX's gather
+and scatter address numpy-style; and the state conversion helpers.  All
+of it is integer arithmetic plus one IEEE f32 multiply, so equality is
+exact.
 """
 
 import numpy as np
@@ -195,6 +197,50 @@ def test_decision_block_matches_jax_full_u32_range(near_ratio):
         near_ratio,
     )
     _compare_decisions(td, jd)
+
+
+@pytest.mark.parametrize("num_slots", [200, 256])  # 256: JAX's row gather
+def test_unique_step_negative_slot_ids_match_jax(num_slots):
+    """Ids in [-ns, -1] address id + ns; ids below -ns or at/above ns
+    are inert, in K1's plain version as in the JAX step."""
+    ns = num_slots
+    rng = np.random.default_rng(ns)
+    start = rng.integers(0, 100, ns).astype(np.uint32)
+    slots = np.array([-1, -ns, -ns - 1, 3, ns, -(ns // 2), 7, -(2**31)], np.int64)
+    pk = np.zeros((4, len(slots)), np.int32)
+    pk[0] = slots
+    pk[1] = rng.integers(1, 9, len(slots))
+    pk[2] = 10
+    pk[3] = [0, 1, 0, 0, 0, 0, 1, 0]
+    for out_dtype in ("", "uint8", "uint16"):
+        jc, ja = JaxModel(ns).step_counters_unique_packed(
+            jnp.asarray(start), out_dtype, jnp.asarray(pk)
+        )
+        tc = state_from_numpy(start, device="cpu")
+        _, ta = FixedWindowModel(ns, device="cpu").step_counters_unique_packed(
+            tc, out_dtype, torch.from_numpy(pk)
+        )
+        np.testing.assert_array_equal(_as_u32(ta), np.asarray(ja))
+        np.testing.assert_array_equal(state_to_numpy(tc), np.asarray(jc))
+    assert state_to_numpy(tc)[ns - 1] != start[ns - 1]  # -1 wrote slot ns-1
+
+
+def test_forward_negative_slot_ids_match_jax():
+    """K3's zero, gather and scatter-add normalise negative ids like
+    JAX; the prefix (K2) compares raw ids, so -1 and ns - 1 share a
+    slot but not a prefix, in both packages."""
+    ns = 64
+    rng = np.random.default_rng(4)
+    jmodel, tmodel = JaxModel(ns), FixedWindowModel(ns, device="cpu")
+    jc = jnp.asarray(rng.integers(0, 50, ns).astype(np.uint32))
+    tc = state_from_numpy(np.asarray(jc), device="cpu")
+    for seed in range(3):
+        raw = _graft_batch(ns, 96, seed)
+        raw["slots"] = rng.integers(-ns - 4, ns + 4, 96).astype(np.int32)
+        jc, jd = jmodel.forward(jc, JaxBatch(**{k: jnp.asarray(v) for k, v in raw.items()}))
+        tc, td = tmodel.forward(tc, _torch_batch(raw))
+        _compare_decisions(td, jd)
+        np.testing.assert_array_equal(state_to_numpy(tc), np.asarray(jc))
 
 
 def test_state_round_trip():

@@ -1,7 +1,7 @@
 """Package-level contracts of the port: it stands alone (importing
 every module pulls in neither jax nor the JAX package), its registry
-refuses unported algorithms instead of falling back, and its CPU
-dispatch is explicit."""
+builds every algorithm's model and refuses devices it has no kernel
+for instead of falling back, and its CPU dispatch is explicit."""
 
 import os
 import subprocess
@@ -45,10 +45,18 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 @pytest.mark.parametrize("name", ["sliding_window", "gcra"])
 def test_registry_refuses_unported_algorithms(name):
+    """Both algorithm banks are ported: the registry builds each model
+    on the device it is given, and refuses a device it has no kernel
+    for instead of falling back."""
     from ratelimit_tpu_torch.models.registry import get_algorithm
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_algorithm(name).make_model(64, 0.8, device="cpu")
+    spec = get_algorithm(name)
+    model = spec.make_model(64, 0.8, device="cpu")
+    assert model.algo == name and model.state_rows == spec.state_rows
+    assert not model.windowed_keys and model.device.type == "cpu"
+    assert tuple(model.init_state().shape) == (len(spec.state_rows), 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        spec.make_model(64, 0.8, device="meta")
 
 
 def test_registry_builds_fixed_window_on_cpu():

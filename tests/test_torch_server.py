@@ -181,10 +181,74 @@ def test_concurrent_burst_byte_equal(runners):
         assert _call(port_runner, probe) == _call(jax_runner, probe)
 
 
+ALGO_CONFIG = """
+domain: algo
+descriptors:
+  - key: fx
+    rate_limit: {unit: minute, requests_per_unit: 5}
+  - key: slide
+    rate_limit: {unit: minute, requests_per_unit: 5, algorithm: sliding_window}
+  - key: tb
+    rate_limit: {unit: minute, requests_per_unit: 5, algorithm: gcra}
+  - key: shady
+    rate_limit: {unit: minute, requests_per_unit: 5, algorithm: gcra, shadow: true}
+"""
+
+
+def test_default_algorithm_banks_boot_and_serve(tmp_path):
+    """TPU_ALGORITHM_BANKS at its default (sliding_window,gcra): both
+    runners build the two banks and answer a stream over enforcing and
+    shadowed algorithm rules byte-equal, with the shadow tallies
+    counted under the reference's names."""
+    config_dir = tmp_path / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "algo.yaml").write_text(ALGO_CONFIG)
+    common = {k: v for k, v in COMMON.items() if k != "tpu_algorithm_banks"}
+    paths = dict(runtime_path=str(tmp_path), runtime_subdirectory="ratelimit")
+    assert Settings().tpu_algorithm_banks == "sliding_window,gcra"
+    jax_runner = JaxRunner(
+        JaxSettings(backend_type="tpu", **common, **paths),
+        time_source=JaxPinned(1_000_020),
+    )
+    clock = PinnedTimeSource(1_000_020)
+    port_runner = Runner(
+        Settings(backend_type="cuda", **common, **paths),
+        time_source=clock,
+        device="cpu",
+    )
+    jax_runner.start()
+    try:
+        port_runner.start()
+        try:
+            assert sorted(port_runner.cache.algorithm_banks) == ["gcra", "sliding_window"]
+            codes = {}
+            for key in ("fx", "slide", "tb", "shady"):
+                for _ in range(7):
+                    payload = _request("algo", [([(key, "u")], None)])
+                    got = _call(port_runner, payload)
+                    assert got == _call(jax_runner, payload), key
+                    codes.setdefault(key, []).append(
+                        rls_pb2.RateLimitResponse.FromString(got).overall_code
+                    )
+            OK = rls_pb2.RateLimitResponse.OK
+            OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
+            for key in ("fx", "slide", "tb", "shady"):
+                assert codes[key] == [OK] * 5 + [OVER] * 2, key
+            # The 7th shady hit answers from the local over-limit cache,
+            # so the candidate ran six times.
+            values = port_runner.stats_manager.store.counter_fn_values()
+            assert values["ratelimit.tpu.shadow.gcra.agree"] == 6
+            assert values["ratelimit.tpu.shadow.gcra.diverge"] == 0
+        finally:
+            port_runner.stop()
+    finally:
+        jax_runner.stop()
+
+
 @pytest.mark.parametrize(
     "override,needle",
     [
-        (dict(tpu_algorithm_banks="sliding_window,gcra"), "TPU_ALGORITHM_BANKS"),
+        (dict(overload_shed_enabled=True), "OVERLOAD"),
         (dict(kernel_deadline_s=0.25), "KERNEL_DEADLINE_S"),
         (dict(tpu_num_lanes=2), "TPU_NUM_LANES"),
         (dict(tpu_per_second=True), "TPU_PERSECOND"),
