@@ -15,12 +15,20 @@ Phases, one line each; any failure exits non-zero:
    (sliding window) and K5 (GCRA) for the same N at 2^18 slots (the
    bank default) and 4096 at 2^24, over several steps with the clock
    advancing through same, adjacent and older windows, with fresh,
-   padding, saturated and limit-0 lanes and ids in [-ns, -1];
-   profiler device times at 4096;
+   padding, saturated and limit-0 lanes and ids in [-ns, -1]; the
+   bank-sharded kernels K6 (routed serving step) and K7 (general update
+   over global ids, and its compact u8/u16 readback) over 8 banks for
+   the same N at 2^20 slots and 4096 at 2^24, with uniform and
+   all-one-bank routing, fresh, padding, saturated, duplicate,
+   out-of-table and negative ids; profiler device times at 4096;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
    against the plain version and an independent numpy reference;
-5. served: the runner in-process with BACKEND_TYPE=cuda and the
+5. sharded forward: the same batch through the bank-sharded model (8
+   banks on the card) -- K7, K2 and K3's decision block -- against the
+   single-table forward step and the sharded plain version, its table
+   in global order against the single table;
+6. served: the runner in-process with BACKEND_TYPE=cuda and the
    default TPU_ALGORITHM_BANKS (sliding_window,gcra) answering gRPC
    ShouldRateLimit requests -- the 6th hit on a 5/min key is
    OVER_LIMIT on the fixed-window lane (K1), on a sliding-window key
@@ -28,9 +36,14 @@ Phases, one line each; any failure exits non-zero:
    fixed-window while ratelimit.tpu.shadow.gcra.{agree,diverge}
    moves; a concurrent burst coalesces into multi-lane launches --
    and the warm microseconds per request on a fixed-window and on a
-   GCRA key.
+   GCRA key;
+7. sharded served: the runner with BACKEND_TYPE=cuda-sharded, 2^20
+   slots over a mesh of 8 banks on the card -- the 6th hit on a 5/min
+   key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
+   live counter in every bank, a concurrent burst coalesces into
+   multi-lane K6 launches -- and the warm microseconds per request.
 
-Kernel launch counts are zeroed just before each main-path phase (4, 5)
+Kernel launch counts are zeroed just before each main-path phase (4-7)
 and read just after: every kernel must have run there.  The last lines
 are a JSON summary of the kernels and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -38,6 +51,7 @@ are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -58,6 +72,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 SIZES = (8, 100, 128, 4096)
+BANKS = 8
 NUM_SLOTS = 1 << 20
 BIG_SLOTS = 1 << 24
 ALGO_SLOTS = 1 << 18  # TPU_ALGORITHM_NUM_SLOTS default
@@ -331,7 +346,87 @@ def check_algorithms(torch, sw, gcra, dev):
     return err
 
 
-def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, dev):
+def _banked_table(torch, rng, ns, dev):
+    """A (BANKS, ns / BANKS) table like _table's, and the GLOBAL ids of
+    its near-u32-max slots (bank b position l holds slot l * BANKS + b)."""
+    spb = ns // BANKS
+    table = _table(torch, rng, ns, dev).view(BANKS, spb)
+    flat = torch.nonzero((table.flatten().to(torch.int64) & U32) > U32 - 16).flatten()
+    flat = flat.cpu().numpy()
+    return table, (flat % spb) * BANKS + flat // spb
+
+
+def _routed(torch, rng, n, ns, dev, hot, skew):
+    """int32[BANKS, 4, cap] as the sharded engine routes n lanes: 3/4
+    live distinct slots (some near u32 max, with large hits), spread
+    over the banks (uniform) or all in bank 0 (skew), as LOCAL ids --
+    about a third as their alias id - spb -- then padding ids spb + i up
+    to the bucketed cap; returns (packed, live lane count)."""
+    spb = ns // BANKS
+    g = n - n // 4
+    if skew:
+        hot = hot[hot % BANKS == 0]
+    k = min(len(hot), max(1, g // 8))
+    pool = rng.choice(spb, 2 * g, replace=False) * BANKS if skew else rng.choice(ns, 2 * g, replace=False)
+    rest = pool[~np.isin(pool, hot[:k])][: g - k]
+    slots = np.concatenate([np.asarray(hot[:k], np.int64), rest])
+    bank = slots % BANKS
+    local = slots // BANKS
+    local[rng.random(g) < 0.35] -= spb
+    order = np.argsort(bank, kind="stable")
+    bank, local = bank[order], local[order]
+    per_bank = np.bincount(bank, minlength=BANKS)
+    pos = np.arange(g) - np.concatenate([[0], np.cumsum(per_bank)])[bank]
+    cap = max(8, 1 << int(per_bank.max() - 1).bit_length())
+    hits = rng.integers(0, 40, g).astype(np.uint32)
+    hits[order < k] = U32 - rng.integers(0, 3, int((order < k).sum())).astype(np.uint32)
+    pk = np.zeros((BANKS, 4, cap), np.int32)
+    pk[:, 0] = spb + np.arange(cap)
+    pk[:, 2] = 1
+    pk[bank, 0, pos] = local
+    pk[bank, 1, pos] = hits.view(np.int32)
+    pk[bank, 2, pos] = rng.integers(1, 200, g).astype(np.int32)
+    pk[bank, 3, pos] = rng.random(g) < 0.2
+    return torch.from_numpy(pk).to(dev), g
+
+
+def check_sharded(torch, sh, dev):
+    """K6 and K7 against their plain versions over BANKS banks; returns
+    max |err| by kernel."""
+    rng = np.random.default_rng(2026)
+    err = {sh.K6: 0, sh.K7: 0}
+
+    def note(name, a, b, what):
+        e = u32_max_abs_err(a, b)
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
+
+    for ns, sizes in ((NUM_SLOTS, SIZES), (BIG_SLOTS, (4096,))):
+        base, hot = _banked_table(torch, rng, ns, dev)
+        for n in sizes:
+            for skew, dt in itertools.product((False, True), ("", "uint8", "uint16")):
+                pk, _ = _routed(torch, rng, n, ns, dev, hot, skew)
+                ck, cp = base.clone(), base.clone()
+                what = f"n={n} ns={ns} skew={skew} dtype={dt!r}"
+                note(sh.K6, sh.sharded_routed_step(ck, pk, dt), sh._routed_step_plain(cp, pk, dt),
+                     "afters " + what)
+                note(sh.K6, ck, cp, "table " + what)
+            limits = torch.from_numpy(rng.integers(1, 300, n).astype(np.int32)).to(dev)
+            for distinct, dt in itertools.product((1, max(1, n // 8), n), ("", "uint8", "uint16")):
+                # pads ns + i past the table, about a third of the live
+                # lanes negative (out of a sharded table), duplicates
+                slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, distinct, neg=True)
+                ck, cp = base.clone(), base.clone()
+                what = f"n={n} ns={ns} d={distinct} dtype={dt!r}"
+                note(sh.K7, sh.sharded_general_update(ck, slots, hits, fresh, limits, dt),
+                     sh._general_update_plain(cp, slots, hits, fresh, limits, dt), "out " + what)
+                note(sh.K7, ck, cp, "table " + what)
+    torch.cuda.synchronize()
+    return err
+
+
+def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
     2^20 slots (K4, K5: 2^18, the bank default), plus the bound of each
     (larger of bytes over HBM rate and operations over the 32-bit
@@ -368,7 +463,10 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, dev):
         )
         calls[name] = (call_ms, plain_call_ms)
 
-    pairs = n * (n + 1) // 2
+    # The per-slot prefix needs no more than a sort of the lanes by slot
+    # and a segmented sum: n log2 n compares and n adds.  K2's O(n^2)
+    # walk is its current algorithm, not the least work.
+    prefix_ops = n * (n - 1).bit_length() + n
     row(
         fw.K1,
         lambda: fw.fw_unique_step(t1, pk, ""),
@@ -381,14 +479,14 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, dev):
         lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
         lambda: prefix_plain(slots, hits),
         8 * n + 4 * n,
-        2 * pairs,  # one compare + one add per (i, j <= i)
+        prefix_ops,
     )
     row(
         fw.K3_UPDATE,
         lambda: fw.fw_general_update(t1, slots, hits, fresh),
         lambda: fw._update_plain(t2, slots, hits, fresh),
         9 * n + 8 * distinct + 4 * n,
-        2 * pairs + 4 * n,
+        prefix_ops + 4 * n,
     )
     row(
         fw.K3_DECIDE,
@@ -424,6 +522,29 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, dev):
         20 * n + 8 * a_kept + 8 * a_live + 4 * n,
         40 * n,  # ~40 operations per lane
     )
+
+    # The sharded kernels over BANKS banks of a 2^20-slot table: K6 on
+    # uniformly routed lanes, K7 on the same duplicate lanes as K3.
+    bt, hot = _banked_table(torch, rng, ns, dev)
+    rpk, r_live = _routed(torch, rng, n, ns, dev, hot, skew=False)
+    routed = rpk.shape[0] * rpk.shape[2]  # BANKS x cap, padding included
+    b1, b2 = bt.clone(), bt.clone()
+    row(
+        sh.K6,
+        lambda: sh.sharded_routed_step(b1, rpk, ""),
+        lambda: sh._routed_step_plain(b2, rpk, ""),
+        # packed in and afters out for every routed lane, padding
+        # included; gather + scatter for the live ones
+        16 * routed + 8 * r_live + 4 * routed,
+        8 * routed,
+    )
+    row(
+        sh.K7,
+        lambda: sh.sharded_general_update(b1, slots, hits, fresh),
+        lambda: sh._general_update_plain(b2, slots, hits, fresh, None, ""),
+        9 * n + 8 * distinct + 4 * n,  # the same work as K3's update
+        prefix_ops + 4 * n,
+    )
     return rows, calls
 
 
@@ -443,15 +564,20 @@ def graft_batch():
     )
 
 
-def forward_phase(torch, fw, kernels, dev):
+def graft_device_batch(torch, fw, dev):
+    """graft_batch() and the same batch as a DeviceBatch on `dev`."""
     raw = graft_batch()
-    batch = fw.DeviceBatch(
+    return raw, fw.DeviceBatch(
         slots=torch.from_numpy(raw["slots"]).to(dev),
         hits=torch.from_numpy(raw["hits"].view(np.int32)).to(dev),
         limits=torch.from_numpy(raw["limits"].view(np.int32)).to(dev),
         fresh=torch.from_numpy(raw["fresh"]).to(dev),
         shadow=torch.from_numpy(raw["shadow"]).to(dev),
     )
+
+
+def forward_phase(torch, fw, kernels, dev):
+    raw, batch = graft_device_batch(torch, fw, dev)
     model = fw.FixedWindowModel(NUM_SLOTS, device=dev)
     counts = model.init_state()
     torch.cuda.synchronize()
@@ -491,7 +617,48 @@ def forward_phase(torch, fw, kernels, dev):
     return launches, ms, int((got_codes == 2).sum())
 
 
-# -- phase 5: the served path --------------------------------------------
+# -- phase 5: the sharded forward step -----------------------------------
+
+
+def sharded_forward_phase(torch, fw, sh, kernels, dev):
+    """The graft batch through the bank-sharded model (K7, K2, K3
+    decide).  Its ids are all in the table, where the sharded and the
+    single-table steps agree exactly."""
+    _, batch = graft_device_batch(torch, fw, dev)
+    model = sh.ShardedFixedWindowModel(NUM_SLOTS, sh.make_mesh(BANKS, dev))
+    counts = model.init_state()
+    torch.cuda.synchronize()
+    kernels.launches.clear()
+    counts, dec = model.step(counts, batch)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in (sh.K7, "per_slot_inclusive_prefix", fw.K3_DECIDE):
+        if launches.get(name, 0) < 1:
+            fail(f"sharded forward step did not launch {name}: {launches}")
+
+    one = fw.FixedWindowModel(NUM_SLOTS, device=dev)
+    one_counts, one_dec = one.forward(one.init_state(), batch)
+    plain_counts = model.init_state()
+    plain_afters = sh._general_update_plain(
+        plain_counts, batch.slots, batch.hits, batch.fresh, None, ""
+    )
+    plain = fw._decision_block_plain(
+        plain_afters, batch.hits, batch.limits, batch.shadow, model.near_ratio
+    )
+    for f in dec._fields:
+        if u32_max_abs_err(getattr(dec, f), getattr(one_dec, f)) != 0:
+            fail(f"sharded forward field {f} disagrees with the single-table forward step")
+        if u32_max_abs_err(getattr(dec, f), getattr(plain, f)) != 0:
+            fail(f"sharded forward field {f} disagrees with the sharded plain version")
+    if u32_max_abs_err(counts.t().reshape(-1), one_counts) != 0:
+        fail("sharded table in global order disagrees with the single table")
+    if u32_max_abs_err(counts, plain_counts) != 0:
+        fail("sharded table disagrees with the sharded plain version")
+    step = lambda: model.step(counts, batch)  # noqa: E731
+    return launches, (time_ms(step, reps=10, inner=20), device_ms(step))
+
+
+# -- phases 6 and 7: the served paths -------------------------------------
 
 
 CONFIG = """domain: rl
@@ -525,7 +692,12 @@ descriptors:
 SHADOW_COUNTERS = ("ratelimit.tpu.shadow.gcra.agree", "ratelimit.tpu.shadow.gcra.diverge")
 
 
-def served_phase(kernels, fw, sw, gcra):
+@contextlib.contextmanager
+def serving(backend: str, **runner_kwargs):
+    """The runner in-process with BACKEND_TYPE=`backend` serving CONFIG
+    (TPU_NUM_SLOTS and TPU_ALGORITHM_BANKS at their defaults); yields
+    (runner, request(key, value, hits=0) over one gRPC channel, the
+    response class)."""
     import grpc
 
     with tempfile.TemporaryDirectory() as root:
@@ -533,10 +705,10 @@ def served_phase(kernels, fw, sw, gcra):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
-        # TPU_ALGORITHM_BANKS stays at its default: both banks are built.
-        os.environ.pop("TPU_ALGORITHM_BANKS", None)
+        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS"):
+            os.environ.pop(name, None)
         os.environ.update(
-            BACKEND_TYPE="cuda",
+            BACKEND_TYPE=backend,
             KERNEL_DEADLINE_S="0",
             RUNTIME_ROOT=root,
             RUNTIME_SUBDIRECTORY="ratelimit",
@@ -549,99 +721,137 @@ def served_phase(kernels, fw, sw, gcra):
 
         from envoy.service.ratelimit.v3 import rls_pb2
 
-        runner = Runner()
-        kernels.launches.clear()
+        runner = Runner(**runner_kwargs)
         runner.start()
         try:
-            channel = grpc.insecure_channel(
+            with grpc.insecure_channel(
                 f"127.0.0.1:{runner.grpc_server.bound_port}"
-            )
-            call = channel.unary_unary(
-                "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
-                request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
-                response_deserializer=rls_pb2.RateLimitResponse.FromString,
-            )
+            ) as channel:
+                call = channel.unary_unary(
+                    "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                    request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                    response_deserializer=rls_pb2.RateLimitResponse.FromString,
+                )
 
-            def request(key, value, hits=0):
-                req = rls_pb2.RateLimitRequest(domain="rl", hits_addend=hits)
-                e = req.descriptors.add().entries.add()
-                e.key, e.value = key, value
-                return call(req, timeout=60)
+                def request(key, value, hits=0):
+                    req = rls_pb2.RateLimitRequest(domain="rl", hits_addend=hits)
+                    e = req.descriptors.add().entries.add()
+                    e.key, e.value = key, value
+                    return call(req, timeout=60)
 
-            OK = rls_pb2.RateLimitResponse.OK
-            OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
-            if sorted(runner.cache.algorithm_banks) != ["gcra", "sliding_window"]:
-                fail(f"default banks not built: {sorted(runner.cache.algorithm_banks)}")
-            store = runner.stats_manager.store
-            shadow_before = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
-            # Fixed window (K1), sliding window (K4), GCRA (K5) and a
-            # shadowed GCRA rule that fixed-window enforces: on each
-            # 5/min key the 6th hit is OVER_LIMIT.
-            for key in ("foo", "slide", "tb", "shady"):
-                # Keep the six hits inside one minute window.
-                if time.time() % 60 > 50:
-                    time.sleep(61 - time.time() % 60)
-                codes = [request(key, "x").overall_code for _ in range(6)]
-                if codes != [OK] * 5 + [OVER]:
-                    fail(f"5/min progression wrong on {key}: {codes}")
-            shadow_after = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
-            shadow_moved = [b - a for a, b in zip(shadow_before, shadow_after)]
-            if sum(shadow_moved) < 1:
-                fail(f"shadow gcra counters did not move: {shadow_after}")
-
-            # Concurrent burst over many keys: 2 hits per key.
-            keys = [f"k{i}" for i in range(512)]
-            errors = []
-
-            def worker(chunk):
-                try:
-                    for k in chunk:
-                        if request("burst", k).overall_code != OK:
-                            errors.append(k)
-                except Exception as exc:  # noqa: BLE001 -- reported below
-                    errors.append(repr(exc))
-
-            for _ in range(2):
-                threads = [
-                    threading.Thread(target=worker, args=(keys[i::32],))
-                    for i in range(32)
-                ]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join(timeout=120)
-                if any(t.is_alive() for t in threads) or errors:
-                    fail(f"burst failed: {errors[:3]}")
-            for k in keys[:16]:
-                st = request("burst", k).statuses[0]
-                if st.code != OK or st.limit_remaining != 2:
-                    fail(f"burst key {k} counted wrong: {st}")
-            lanes = runner.cache.dispatcher.max_launch_lanes
-            if lanes <= 1:
-                fail("the burst never coalesced into a multi-lane launch")
-
-            # Warm closed-loop latency, one client.
-            for i in range(50):
-                request("foo", f"warm{i % 10}")
-            n = 400
-            t0 = time.perf_counter()
-            for i in range(n):
-                request("foo", f"lat{i % 50}")
-            us_per_req = (time.perf_counter() - t0) / n * 1e6
-            for i in range(50):
-                request("tb", f"warm{i % 10}")
-            t0 = time.perf_counter()
-            for i in range(n):
-                request("tb", f"lat{i % 50}")
-            us_per_algo_req = (time.perf_counter() - t0) / n * 1e6
-            channel.close()
+                yield runner, request, rls_pb2.RateLimitResponse
         finally:
             runner.stop()
-        launches = dict(kernels.launches)
+
+
+def six_hits(request, key, value):
+    """Six hits on a 5/min key inside one minute window: the responses."""
+    if time.time() % 60 > 50:
+        time.sleep(61 - time.time() % 60)
+    return [request(key, value) for _ in range(6)]
+
+
+def burst(runner, request, OK) -> int:
+    """512 keys of the 5/hour rule, two hits each from 32 concurrent
+    clients; returns the widest launch the dispatcher coalesced."""
+    keys = [f"k{i}" for i in range(512)]
+    errors = []
+
+    def worker(chunk):
+        try:
+            for k in chunk:
+                if request("burst", k).overall_code != OK:
+                    errors.append(k)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(repr(exc))
+
+    for _ in range(2):
+        threads = [threading.Thread(target=worker, args=(keys[i::32],)) for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        if any(t.is_alive() for t in threads) or errors:
+            fail(f"burst failed: {errors[:3]}")
+    for k in keys[:16]:
+        st = request("burst", k).statuses[0]
+        if st.code != OK or st.limit_remaining != 2:
+            fail(f"burst key {k} counted wrong: {st}")
+    lanes = runner.cache.dispatcher.max_launch_lanes
+    if lanes <= 1:
+        fail("the burst never coalesced into a multi-lane launch")
+    return lanes
+
+
+def warm_us(request, key, n=400) -> float:
+    """Warm closed-loop microseconds per request, one client."""
+    for i in range(50):
+        request(key, f"warm{i % 10}")
+    t0 = time.perf_counter()
+    for i in range(n):
+        request(key, f"lat{i % 50}")
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def served_phase(kernels, fw, sw, gcra):
+    kernels.launches.clear()
+    with serving("cuda") as (runner, request, R):
+        OK, OVER = R.OK, R.OVER_LIMIT
+        if sorted(runner.cache.algorithm_banks) != ["gcra", "sliding_window"]:
+            fail(f"default banks not built: {sorted(runner.cache.algorithm_banks)}")
+        store = runner.stats_manager.store
+        shadow_before = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
+        # Fixed window (K1), sliding window (K4), GCRA (K5) and a
+        # shadowed GCRA rule that fixed-window enforces: on each 5/min
+        # key the 6th hit is OVER_LIMIT.
+        for key in ("foo", "slide", "tb", "shady"):
+            codes = [r.overall_code for r in six_hits(request, key, "x")]
+            if codes != [OK] * 5 + [OVER]:
+                fail(f"5/min progression wrong on {key}: {codes}")
+        shadow_after = [store.counter_fn_values()[c] for c in SHADOW_COUNTERS]
+        shadow_moved = [b - a for a, b in zip(shadow_before, shadow_after)]
+        if sum(shadow_moved) < 1:
+            fail(f"shadow gcra counters did not move: {shadow_after}")
+        lanes = burst(runner, request, OK)
+        us_per_req = warm_us(request, "foo")
+        us_per_algo_req = warm_us(request, "tb")
+    launches = dict(kernels.launches)
     for name in (fw.K1, sw.K4, gcra.K5):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
     return launches, lanes, us_per_req, us_per_algo_req, shadow_moved
+
+
+def sharded_served_phase(kernels, sh, dev):
+    """BACKEND_TYPE=cuda-sharded: 2^20 slots over BANKS banks on the card."""
+    kernels.launches.clear()
+    mesh = sh.make_mesh(BANKS, dev)
+    with serving("cuda-sharded", device=dev, mesh=mesh) as (runner, request, R):
+        OK, OVER = R.OK, R.OVER_LIMIT
+        engine = runner.cache.engine
+        if not isinstance(engine, sh.ShardedCounterEngine) or (
+            engine.model.num_banks, engine.model.num_slots
+        ) != (BANKS, NUM_SLOTS):
+            fail(f"cuda-sharded did not build {BANKS} banks of 2^20 slots: {engine}")
+        answers = six_hits(request, "foo", "sharded")
+        codes = [a.overall_code for a in answers]
+        remaining = [a.statuses[0].limit_remaining for a in answers]
+        if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
+            fail(f"5/min progression wrong over {BANKS} banks: {codes} {remaining}")
+        for i in range(40):
+            if request("burst", f"spread{i}").statuses[0].limit_remaining != 4:
+                fail(f"spread key {i} counted wrong")
+        runner.cache.flush()
+        live = np.nonzero(engine.export_counts())[0]
+        banks_used = int(np.unique(live % BANKS).size)
+        if banks_used != BANKS:
+            fail(f"40 keys left live counters in {banks_used} of {BANKS} banks")
+        lanes = burst(runner, request, OK)
+        us_per_req = warm_us(request, "foo")
+    launches = dict(kernels.launches)
+    if launches.get(sh.K6, 0) < 1:
+        fail(f"sharded served path did not launch {sh.K6}: {launches}")
+    return launches, lanes, us_per_req
 
 
 def main() -> None:
@@ -652,6 +862,7 @@ def main() -> None:
     if not os.path.isdir(os.path.join(REPO, "ratelimit_tpu_torch")):
         fail("ratelimit_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
+    started = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -687,6 +898,7 @@ def main() -> None:
 
     from ratelimit_tpu_torch.models import gcra
     from ratelimit_tpu_torch.models import sliding_window as sw
+    from ratelimit_tpu_torch.parallel import sharded as sh
 
     errs = check_kernels(torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev)
     log(
@@ -699,8 +911,15 @@ def main() -> None:
         f"2^24 over {len(ALGO_STEPS)} steps each; max|err| {algo_errs}"
     )
     errs.update(algo_errs)
+    sharded_errs = check_sharded(torch, sh, dev)
+    log(
+        f"sharded kernels: exact over {BANKS} banks for N in {SIZES} at 2^20 "
+        f"slots and 4096 at 2^24, uniform and all-one-bank routing, three "
+        f"readback types; max|err| {sharded_errs}"
+    )
+    errs.update(sharded_errs)
     timing, calls = time_kernels(
-        torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, dev
+        torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, sh, dev
     )
     log(
         "kernel device times at N=4096 (profiler): "
@@ -728,7 +947,17 @@ def main() -> None:
         f"launches {fwd_launches}"
     )
 
-    # 5. served path (main path a)
+    # 5. sharded forward step
+    shf_launches, shf_ms = sharded_forward_phase(torch, fw, sh, kernels, dev)
+    log(
+        f"sharded forward: graft batch over {BANKS} banks equals the single-table "
+        f"forward step and the sharded plain version, table too; "
+        f"{shf_ms[0] * 1e3:.1f} us/step "
+        f"(device {shf_ms[1] * 1e3 if shf_ms[1] else float('nan'):.1f} us); "
+        f"launches {shf_launches}"
+    )
+
+    # 6. served path (main path a)
     srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved = served_phase(
         kernels, fw, sw, gcra
     )
@@ -740,9 +969,18 @@ def main() -> None:
         f"launches {srv_launches}"
     )
 
+    # 7. sharded served path
+    shs_launches, sh_lanes, sh_us_per_req = sharded_served_phase(kernels, sh, dev)
+    log(
+        f"sharded served: 2^20 slots over {BANKS} banks, 6th hit OVER_LIMIT with "
+        f"remaining [4, 3, 2, 1, 0, 0], 40 keys live in all {BANKS} banks, burst "
+        f"coalesced up to {sh_lanes} lanes/launch, warm {sh_us_per_req:.1f} "
+        f"us/request (fixed window); launches {shs_launches}"
+    )
+
+    phases = (fwd_launches, shf_launches, srv_launches, shs_launches)
     main_launches = {
-        k: fwd_launches.get(k, 0) + srv_launches.get(k, 0)
-        for k in set(fwd_launches) | set(srv_launches)
+        k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
     }
     replaces = {
         fw.K1: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
@@ -751,6 +989,8 @@ def main() -> None:
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
         sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
         gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
+        sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.K7: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
     }
     rows = []
     for name, (source, rep) in replaces.items():
@@ -768,6 +1008,7 @@ def main() -> None:
                 **timing[name],
             )
         )
+    log(f"total: {time.perf_counter() - started:.1f} s wall")
     log(json.dumps({"kernels": rows}))
     log(
         json.dumps(

@@ -335,22 +335,19 @@ def decide_generic(
 
 
 class _Staging:
-    """Host buffers of one in-flight submission: the packed int32[rows,
-    N] upload and the readback of up to `out_bytes` per lane (pinned on
-    CUDA, so both copies are truly asynchronous), plus the event
-    recorded after the readback.  A staging object returns to the
-    engine's free list only after step_complete has waited on its event
-    and copied the readback out."""
+    """Host buffers of one in-flight submission: `words` int32 of packed
+    upload and `nbytes` of readback (pinned on CUDA, so both copies are
+    truly asynchronous), plus the event recorded after the readback.  A
+    staging object returns to the engine's free list only after
+    step_complete has waited on its event and copied the readback out."""
 
     __slots__ = ("packed", "packed_np", "readback", "event")
 
-    def __init__(self, max_batch: int, device: torch.device, rows: int, out_bytes: int):
+    def __init__(self, words: int, nbytes: int, device: torch.device):
         pin = device.type == "cuda"
-        self.packed = torch.empty(rows * max_batch, dtype=torch.int32, pin_memory=pin)
+        self.packed = torch.empty(words, dtype=torch.int32, pin_memory=pin)
         self.packed_np = self.packed.numpy()
-        self.readback = torch.empty(
-            out_bytes * max_batch, dtype=torch.uint8, pin_memory=pin
-        )
+        self.readback = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
         self.event = torch.cuda.Event() if pin else None
 
 
@@ -371,7 +368,9 @@ class CounterEngine:
         (step_counters_unique_packed) OR the generic algorithm
         protocol: ``step_serve_packed(state, packed, now)`` on the
         device plus ``lane_counts(out, dedup, hits, limits, now)`` on
-        the host.  `native_table`: None = use the C++ slot table when
+        the host.  A subclass that overrides ``_device_submit`` brings
+        its own device step (parallel.ShardedCounterEngine).
+        `native_table`: None = use the C++ slot table when
         it builds/loads, True = require it, False = pure Python;
         generic models with stable-stem keys (windowed_keys=False)
         always get the Python table with refresh-on-touch expiry."""
@@ -384,11 +383,16 @@ class CounterEngine:
         # Generic algorithm protocol marker: the model owns both the
         # device step and the host lane reconstruction.
         self._generic = hasattr(self.model, "lane_counts")
-        if not self._generic and not hasattr(self.model, "step_counters_unique_packed"):
+        if (
+            not self._generic
+            and type(self)._device_submit is CounterEngine._device_submit
+            and not hasattr(self.model, "step_counters_unique_packed")
+        ):
             raise TypeError(
                 "model must provide the saturating unique-slot serving "
                 "step (step_counters_unique_packed) or the generic "
-                "step_serve_packed/lane_counts protocol"
+                "step_serve_packed/lane_counts protocol; for mesh models "
+                "use parallel.ShardedCounterEngine"
             )
         if self.model.device != self.device:
             raise ValueError(
@@ -469,7 +473,8 @@ class CounterEngine:
                 batch.fresh[start:end],
                 None if batch.dividers is None else batch.dividers[start:end],
             )
-            chunks.append((self._device_submit(dedup, now), start, count, dedup))
+            handle, reassemble = self._device_submit(dedup, now)
+            chunks.append((handle, start, count, dedup, reassemble))
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
         self.stat_live_keys = len(self.slot_table)
         self.stat_evictions = self.slot_table.evictions
@@ -559,7 +564,8 @@ class CounterEngine:
         # Phase 2 -- launch the device step per chunk.
         chunks = []
         for start, count, dedup in dedups:
-            chunks.append((self._device_submit(dedup, now), start, count, dedup))
+            handle, reassemble = self._device_submit(dedup, now)
+            chunks.append((handle, start, count, dedup, reassemble))
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
         self.stat_live_keys = len(table)
         self.stat_evictions = table.evictions
@@ -576,8 +582,10 @@ class CounterEngine:
             empty = np.zeros(0, dtype=np.int32)
             return HostDecisions(*([empty] * 8), empty.astype(bool))
         outs: List[HostDecisions] = []
-        for handle, start, count, dedup in chunks:
+        for handle, start, count, dedup, reassemble in chunks:
             fetched = self._fetch(handle)
+            if reassemble is not None:
+                fetched = reassemble(fetched)
             end = start + count
             if self._generic:
                 outs.append(
@@ -611,14 +619,19 @@ class CounterEngine:
             )
         )
 
+    def _staging_size(self):
+        """(int32 words uploaded, bytes read back) that one submission
+        can need at most.  Fixed window: int32[4, N] up, <= 4 B per lane
+        back; generic models upload a fifth (divider) row and read back
+        up to 8 B per lane (sliding window: u32[2, N])."""
+        rows, out_bytes = (5, 8) if self._generic else (4, 4)
+        return rows * self.max_batch, out_bytes * self.max_batch
+
     def _take_staging(self) -> _Staging:
         try:
             return self._free_staging.pop()
         except IndexError:
-            # Generic models upload a fifth (divider) row and read back
-            # up to 8 B per lane (sliding window: u32[2, N]).
-            rows, out_bytes = (5, 8) if self._generic else (4, 4)
-            return _Staging(self.max_batch, self.device, rows, out_bytes)
+            return _Staging(*self._staging_size(), self.device)
 
     def _fetch(self, handle) -> np.ndarray:
         """Wait for one submission's readback; copy it out and recycle
@@ -632,7 +645,9 @@ class CounterEngine:
 
     def _device_submit(self, dedup: _Dedup, now: int):
         """Launch the device step for one deduped chunk; returns the
-        handle step_complete waits on."""
+        handle step_complete waits on and the function that turns its
+        readback into one value per unique slot (None: the readback is
+        that already)."""
         g = len(dedup.uniq_slots)
         padded = self._bucket(g)
         ns = self.model.num_slots
@@ -666,7 +681,7 @@ class CounterEngine:
             self._counts, afters = self.model.step_counters_unique_packed(
                 self._counts, dt, packed
             )
-            return st, self._read_back(st, afters)
+            return (st, self._read_back(st, afters)), None
 
     def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
         """Generic algorithm path: ONE int32[5, padded] upload -- rows
@@ -695,7 +710,7 @@ class CounterEngine:
         with self._on_stream():
             packed = host.to(self.device, non_blocking=True)
             self._counts, out = self.model.step_serve_packed(self._counts, packed, now)
-            return st, self._read_back(st, out)
+            return (st, self._read_back(st, out)), None
 
     def _read_back(self, st: _Staging, out: torch.Tensor) -> torch.Tensor:
         """Enqueue the copy of `out` into `st`'s pinned readback (same

@@ -5,7 +5,8 @@
 // uint32_t: torch's int32 compares are signed and wrong at 2^31 and up.
 // Slot ids follow JAX's index semantics (slot_index.cuh): an id in
 // [-num_slots, -1] addresses id + num_slots; any other id outside the
-// table is inert.
+// table is inert.  The kernels of K1 and the K3 update live in
+// counter_update.cuh, shared with the bank-sharded table (sharded.cu).
 //
 // K1 fw_unique_step replaces the jitted XLA step
 //   ratelimit_tpu/models/fixed_window.py:171 step_counters_unique_packed
@@ -19,102 +20,20 @@
 // counterpart here.
 //
 // K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
-// duplicate-tolerant step) and :294 decision_block.  A fresh lane zeroes
-// its slot for EVERY lane of that slot, so every zeroing must land
-// before any gather, and every gather before any add: the update runs
-// as separate launches on one stream -- zero fresh slots, gather, the
-// per-slot prefix (K2, csrc/prefix.cu), then add + modular atomicAdd.
-// fw_decision_block is the branch-free threshold machine, one thread
-// per lane; the near-limit threshold is floorf(__fmul_rn(limit, ratio))
-// so that nvcc cannot contract it with anything else.
+// duplicate-tolerant step) and :294 decision_block.  The update runs as
+// separate launches on one stream (counter_update.cuh says why): zero
+// fresh slots, gather, the per-slot prefix (K2, csrc/prefix.cu), then
+// add + modular atomicAdd.  fw_decision_block is the branch-free
+// threshold machine, one thread per lane; the near-limit threshold is
+// floorf(__fmul_rn(limit, ratio)) so that nvcc cannot contract it with
+// anything else.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "slot_index.cuh"
+#include "counter_update.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr uint32_t kU32Max = 0xFFFFFFFFu;
-
-__global__ void fw_unique_step_kernel(uint32_t* __restrict__ counts,
-                                      long long num_slots,
-                                      const int32_t* __restrict__ packed,
-                                      int n, void* __restrict__ out,
-                                      int out_kind) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
-  }
-  const long long slot = slot_index(packed[i], num_slots);
-  const uint32_t hits = static_cast<uint32_t>(packed[n + i]);
-  const uint32_t limit = static_cast<uint32_t>(packed[2 * n + i]);
-  const bool fresh = packed[3 * n + i] != 0;
-  const bool live = slot >= 0;
-
-  const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
-  uint32_t after = before + hits;
-  if (after < before) {  // one u32 add wraps at most once: saturate
-    after = kU32Max;
-  }
-  if (live) {
-    counts[slot] = after;
-  }
-  if (out_kind == 0) {
-    static_cast<uint32_t*>(out)[i] = after;
-    return;
-  }
-  const uint32_t cap = limit + hits;  // modular, as the reference
-  const uint32_t sat = after < cap ? after : cap;
-  if (out_kind == 1) {
-    static_cast<uint8_t*>(out)[i] = static_cast<uint8_t>(sat);
-  } else {
-    static_cast<uint16_t*>(out)[i] = static_cast<uint16_t>(sat);
-  }
-}
-
-__global__ void fw_zero_fresh_kernel(uint32_t* __restrict__ counts,
-                                     long long num_slots,
-                                     const int32_t* __restrict__ slots,
-                                     const uint8_t* __restrict__ fresh,
-                                     int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n && fresh[i]) {
-    const long long slot = slot_index(slots[i], num_slots);
-    if (slot >= 0) {
-      counts[slot] = 0u;
-    }
-  }
-}
-
-__global__ void fw_gather_kernel(const uint32_t* __restrict__ counts,
-                                 long long num_slots,
-                                 const int32_t* __restrict__ slots,
-                                 uint32_t* __restrict__ before, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const long long slot = slot_index(slots[i], num_slots);
-    before[i] = slot >= 0 ? counts[slot] : 0u;
-  }
-}
-
-__global__ void fw_add_kernel(uint32_t* __restrict__ counts,
-                              long long num_slots,
-                              const int32_t* __restrict__ slots,
-                              const uint32_t* __restrict__ hits,
-                              const uint32_t* __restrict__ incl,
-                              uint32_t* __restrict__ afters, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
-  }
-  afters[i] += incl[i];  // modular: the general path does not saturate
-  const long long slot = slot_index(slots[i], num_slots);
-  if (slot >= 0) {
-    atomicAdd(&counts[slot], hits[i]);
-  }
-}
 
 __global__ void fw_decision_block_kernel(const uint32_t* __restrict__ afters,
                                          const uint32_t* __restrict__ hits,
@@ -162,60 +81,27 @@ __global__ void fw_decision_block_kernel(const uint32_t* __restrict__ afters,
   set_lc[i] = over ? 1 : 0;                        // set_local_cache
 }
 
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 extern "C" int rl_fw_unique_step(void* counts, long long num_slots,
                                  const void* packed, int n, void* out,
                                  int out_kind, void* stream) {
-  if (n <= 0) {
-    return 0;
-  }
-  fw_unique_step_kernel<<<blocks_for(n), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(counts), num_slots,
-      static_cast<const int32_t*>(packed), n, out, out_kind);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unique_step(counts, num_slots, packed, 1, n, out, out_kind,
+                            stream);
 }
 
-// First half of the general update: zero fresh slots, then gather the
-// table values into `before` (a second launch, so it sees every zero).
 extern "C" int rl_fw_zero_and_gather(void* counts, long long num_slots,
                                      const void* slots, const void* fresh,
                                      void* before, int n, void* stream) {
-  if (n <= 0) {
-    return 0;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fw_zero_fresh_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<uint32_t*>(counts), num_slots,
-      static_cast<const int32_t*>(slots), static_cast<const uint8_t*>(fresh),
-      n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  fw_gather_kernel<<<blocks_for(n), kThreads, 0, s>>>(
-      static_cast<const uint32_t*>(counts), num_slots,
-      static_cast<const int32_t*>(slots), static_cast<uint32_t*>(before), n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_zero_and_gather(counts, WrappedIndex{num_slots}, slots, fresh,
+                                before, n, stream);
 }
 
-// Second half, after the prefix: afters = before + incl (in place in
-// `afters`, which holds `before` on entry) and the scatter-add of hits.
 extern "C" int rl_fw_add(void* counts, long long num_slots, const void* slots,
                          const void* hits, const void* incl, void* afters,
                          int n, void* stream) {
-  if (n <= 0) {
-    return 0;
-  }
-  fw_add_kernel<<<blocks_for(n), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(counts), num_slots,
-      static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(hits),
-      static_cast<const uint32_t*>(incl), static_cast<uint32_t*>(afters), n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_add(counts, WrappedIndex{num_slots}, slots, hits, incl, afters,
+                    nullptr, nullptr, 0, n, stream);
 }
 
 extern "C" int rl_fw_decision_block(const void* afters, const void* hits,

@@ -1,0 +1,67 @@
+// Bank-sharded fixed-window counter kernels for Hopper (sm_90a).
+//
+// The table is uint32 laid out (num_banks, slots_per_bank), bank-major, on
+// one device (the caller stores it as int32 of the same bits).  The JAX
+// model puts one bank on each chip of a mesh; here every bank lives on one
+// card, so no kernel needs a collective.  The kernels are those of the
+// single table (counter_update.cuh), under another index policy or with a
+// bank per blockIdx.y.
+//
+// K6 rl_sharded_routed_step replaces the routed unique step
+//   ratelimit_tpu/parallel/sharded.py:184-227
+//   step_counters_unique_routed_packed -> _bank_unique (:229-266).
+// The host routes each unique slot to its bank and hands over one packed
+// int32[num_banks, 4, cap] batch of LOCAL ids (padding ids
+// slots_per_bank + i).  One launch serves every bank: grid (cap / 256,
+// num_banks), one thread per routed lane, no atomics (slots are unique
+// within a bank).  Local ids follow JAX's index semantics at width
+// slots_per_bank.  The add saturates; the readback is K1's.  Bound: 16 B
+// in, 4 B gathered, 4 B written and <= 4 B out per routed lane, padding
+// included -- about 0.1 MB for 4096 lanes over 8 banks, so the launch
+// latency bounds it, as it bounds K1.  The TPU's 128-wide row gather
+// (sharded.py:239-253) is a TPU layout trick and has no counterpart.
+//
+// K7 rl_sharded_zero_and_gather + rl_sharded_add replace the general
+// update _bank_core (sharded.py:270-302) and the psum of _bank_update,
+// step_counters_compact and _bank_step (:116-141,304-324) over a
+// replicated batch of GLOBAL ids.  StripedIndex gives each in-table lane
+// its owner bank and position; an out-of-table lane (negative ids
+// included: they never wrap here) reads a virtual zero and scatters
+// nowhere.  The per-slot prefix is K2 on the raw global ids, between the
+// two launches.  Each lane has exactly one owner, so the psum is the
+// write of that lane: no collective.  The scatter-add and the afters are
+// modular; the compact variant writes min(after, limit + hits) as uint8
+// or uint16.  Bound: about 9 B in, 8 B gathered and scattered per distinct
+// slot and 4 B out per lane; the per-slot prefix needs no more than a
+// sort's N log N operations, so the bytes set the bound.  Its time is that
+// of the current O(N^2) prefix launch (K2), which dominates it.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "counter_update.cuh"
+
+extern "C" int rl_sharded_routed_step(void* counts, long long slots_per_bank,
+                                      const void* packed, int num_banks,
+                                      int cap, void* out, int out_kind,
+                                      void* stream) {
+  return launch_unique_step(counts, slots_per_bank, packed, num_banks, cap, out,
+                            out_kind, stream);
+}
+
+extern "C" int rl_sharded_zero_and_gather(void* counts, int num_banks,
+                                          long long slots_per_bank,
+                                          const void* slots, const void* fresh,
+                                          void* before, int n, void* stream) {
+  return launch_zero_and_gather(counts, StripedIndex{num_banks, slots_per_bank},
+                                slots, fresh, before, n, stream);
+}
+
+extern "C" int rl_sharded_add(void* counts, int num_banks,
+                              long long slots_per_bank, const void* slots,
+                              const void* hits, const void* incl, void* afters,
+                              const void* limits, void* out, int out_kind,
+                              int n, void* stream) {
+  return launch_add(counts, StripedIndex{num_banks, slots_per_bank}, slots,
+                    hits, incl, afters, limits, out, out_kind, n, stream);
+}

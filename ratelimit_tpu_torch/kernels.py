@@ -40,6 +40,7 @@ SOURCES = {
     "prefix": "prefix.cu",
     "fixed_window": "fixed_window.cu",
     "algorithms": "algorithms.cu",
+    "sharded": "sharded.cu",
 }
 
 NVCC_FLAGS = (
@@ -75,6 +76,18 @@ SIGNATURES = {
     ),
     "rl_sw_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_gcra_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
+    "rl_sharded_routed_step": (
+        "sharded",
+        [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
+    ),
+    "rl_sharded_zero_and_gather": (
+        "sharded",
+        [_VP, _I32, _I64, _VP, _VP, _VP, _I32, _VP],
+    ),
+    "rl_sharded_add": (
+        "sharded",
+        [_VP, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _VP],
+    ),
 }
 
 #: Launch counts by kernel name (see module docstring).

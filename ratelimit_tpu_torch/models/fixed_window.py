@@ -159,9 +159,18 @@ def _unique_step_plain(
     before = torch.where(live & ~fresh, widen(counts[idx]), torch.zeros_like(hits))
     after = torch.clamp(before + hits, max=U32_MASK)  # saturating
     counts[idx[live]] = narrow(after[live])
+    return readback_plain(after, hits, limits, out_dtype)
+
+
+def readback_plain(
+    after: torch.Tensor, hits: torch.Tensor, limits: torch.Tensor, out_dtype: str
+) -> torch.Tensor:
+    """The serving readback from int64 u32 values: the afters as int32
+    bits (""), or min(after, limit + hits) -- the cap modular, as the
+    reference's -- truncated to uint8 or to uint16 (int16 storage)."""
     if out_dtype == "":
         return narrow(after)
-    sat = torch.minimum(after, (limits + hits) & U32_MASK)
+    sat = torch.minimum(after & U32_MASK, (limits + hits) & U32_MASK)
     if out_dtype == "uint8":
         return (sat & 0xFF).to(torch.uint8)
     return narrow16(sat)

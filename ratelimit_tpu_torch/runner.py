@@ -2,7 +2,8 @@
 
 Port of ratelimit_tpu/runner.py for one fixed-window lane plus the
 algorithm banks: stats, the local over-limit cache, the CUDA counter
-backend (``BACKEND_TYPE=cuda``) with one engine per algorithm named in
+backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for the bank-sharded
+fixed-window table) with one engine per algorithm named in
 ``TPU_ALGORITHM_BANKS``, the service with its runtime config loader,
 the gRPC listener and the statsd exporter.  The HTTP and debug
 listeners, checkpoints and the observability planes are not ported
@@ -38,6 +39,36 @@ _LOG_LEVELS = {
 }
 
 
+def _make_engine(s: Settings, device="cuda", mesh=None):
+    """One construction site for the fixed-window engine of
+    TPU_NUM_SLOTS slots: one table on `device`, or, under
+    ``BACKEND_TYPE=cuda-sharded``, the bank-sharded table over `mesh`
+    (default: one bank per card of `device`, parallel.make_mesh)."""
+    num_slots = s.tpu_num_slots
+    if s.backend_type.lower() == "cuda-sharded":
+        from .models.fixed_window import resolve_device
+        from .parallel import ShardedCounterEngine, make_mesh
+
+        if mesh is None:
+            mesh = make_mesh(device=device)
+        elif mesh.device != resolve_device(device):
+            raise ValueError(f"mesh is on {mesh.device}, runner on {device}")
+        return ShardedCounterEngine(
+            mesh,
+            num_slots=num_slots,
+            near_ratio=s.near_limit_ratio,
+            buckets=tuple(s.tpu_batch_buckets),
+        )
+    from .backends.engine import CounterEngine
+
+    return CounterEngine(
+        num_slots=num_slots,
+        near_ratio=s.near_limit_ratio,
+        buckets=tuple(s.tpu_batch_buckets),
+        device=device,
+    )
+
+
 def make_algorithm_banks(s: Settings, device="cuda"):
     """One generic engine per non-default algorithm named in
     TPU_ALGORITHM_BANKS (models/registry.py), each with a
@@ -66,10 +97,12 @@ def make_algorithm_banks(s: Settings, device="cuda"):
     return banks or None
 
 
-def create_limiter(s: Settings, local_cache, time_source, device="cuda"):
+def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=None):
     """BackendType switch (reference runner.go:50-74).  `device` is
-    where the counter table lives: the GPU unless the caller asks for
-    the CPU (the tests do)."""
+    where the counter tables live: the GPU unless the caller asks for
+    the CPU (the tests do).  `mesh` places the banks of
+    ``BACKEND_TYPE=cuda-sharded``; the algorithm banks stay single-table
+    engines on `device`, as under the JAX package's ``tpu-sharded``."""
     refused = unported_settings(s)
     if refused:
         raise SettingsError(
@@ -77,16 +110,9 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda"):
             "(ROADMAP.md, Queue 3): " + "; ".join(refused)
         )
     from .backends.cuda_cache import CudaRateLimitCache
-    from .backends.engine import CounterEngine
 
-    engine = CounterEngine(
-        num_slots=s.tpu_num_slots,
-        near_ratio=s.near_limit_ratio,
-        buckets=tuple(s.tpu_batch_buckets),
-        device=device,
-    )
     return CudaRateLimitCache(
-        engine,
+        _make_engine(s, device, mesh),
         time_source=time_source,
         local_cache=local_cache,
         expiration_jitter_max_seconds=s.expiration_jitter_max_seconds,
@@ -108,12 +134,16 @@ class Runner:
         settings: Optional[Settings] = None,
         time_source=None,
         device="cuda",
+        mesh=None,
     ):
         """`time_source` is the clock seam (tests pin it); `device`
-        places the counter table (default the GPU)."""
+        places the counter tables (default the GPU); `mesh`
+        (parallel.make_mesh) places the banks of BACKEND_TYPE=cuda-sharded
+        (default: one bank per card of `device`)."""
         self.settings = settings or new_settings()
         self.time_source = time_source or RealTimeSource()
         self.device = device
+        self.mesh = mesh
         self.stats_manager = Manager(extra_tags=self.settings.extra_tags)
         self._stopped = threading.Event()
         self.cache = None
@@ -145,7 +175,9 @@ class Runner:
             local_cache = LocalCache(s.local_cache_size_in_bytes)
             local_cache.register_stats(self.stats_manager.store)
 
-        self.cache = create_limiter(s, local_cache, self.time_source, self.device)
+        self.cache = create_limiter(
+            s, local_cache, self.time_source, self.device, self.mesh
+        )
         self.cache.register_stats(self.stats_manager.store)
         if s.tpu_warmup:
             logger.warning("warming up kernel shapes (TPU_WARMUP=true)...")

@@ -159,7 +159,8 @@ class Settings:
     near_limit_ratio: float = 0.8
     cache_key_prefix: str = ""
     # reference default "redis"; the JAX package's "tpu"; here "cuda"
-    # (the only backend ported so far).
+    # (one counter table) or "cuda-sharded" (the bank-sharded table, the
+    # counterpart of "tpu-sharded").
     backend_type: str = "cuda"
 
     # Custom response headers (settings.go:53-59).
@@ -520,10 +521,15 @@ def unported_settings(s: Settings) -> List[str]:
     modules are ported."""
     out = []
     backend = s.backend_type.lower()
-    if backend != "cuda":
+    if backend == "cuda-sharded-write-behind":
         out.append(
-            f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' is ported "
-            "(sharded, write-behind and memory backends are not)"
+            f"BACKEND_TYPE={s.backend_type!r}: the write-behind backend is "
+            "not ported (ROADMAP.md Queue 1 item 6); 'cuda-sharded' is"
+        )
+    elif backend not in ("cuda", "cuda-sharded"):
+        out.append(
+            f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' and 'cuda-sharded' "
+            "are ported (write-behind and memory backends are not)"
         )
     if s.kernel_deadline_s > 0:
         out.append(

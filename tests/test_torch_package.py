@@ -24,6 +24,7 @@ leaked = sorted(
 )
 print(len(names), leaked)
 assert not leaked, leaked
+assert "ratelimit_tpu_torch.parallel.sharded" in names, names
 """
 
 
