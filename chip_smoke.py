@@ -11,7 +11,9 @@ Phases, one line each; any failure exits non-zero:
    same seeded inputs, exact equality (integer arithmetic and IEEE f32
    steps in one fixed order: the tolerance is 0).  K1-K3 for N in {8,
    100, 128, 4096} at 2^20 slots and once at 2^24 slots, with positive
-   and then with negative slot ids; the algorithm-bank kernels K4
+   and then with negative slot ids; K2 also at the sizes its triangular
+   tiling can get wrong, N in {1, 127, 129, 4097, 16384}, and on a batch
+   whose running sum wraps u32 inside a segment; the algorithm-bank kernels K4
    (sliding window) and K5 (GCRA) for the same N at 2^18 slots (the
    bank default) and 4096 at 2^24, over several steps with the clock
    advancing through same, adjacent and older windows, with fresh,
@@ -20,7 +22,9 @@ Phases, one line each; any failure exits non-zero:
    over global ids, and its compact u8/u16 readback) over 8 banks for
    the same N at 2^20 slots and 4096 at 2^24, with uniform and
    all-one-bank routing, fresh, padding, saturated, duplicate,
-   out-of-table and negative ids; profiler device times at 4096;
+   out-of-table and negative ids; profiler device times at 4096, beside
+   the launch floor (a one-element in-place torch add), with min /
+   median / max per call for K2, K3 update and K7, and K2 at 16384;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
    against the plain version and an independent numpy reference;
@@ -72,6 +76,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 SIZES = (8, 100, 128, 4096)
+# K2's own edge sizes beside SIZES: one lane, a 128-lane tile and one
+# either side, one lane past the largest batch bucket, and 16384.
+PREFIX_EDGE_SIZES = (1, 127, 129, 4097, 16384)
+# One slot's running sum wraps u32 inside its segment: the true modular
+# sum (the Pallas kernel's answer) is WRAP_WANT, where JAX's XLA prefix,
+# which takes a segment's base as a min over it, gives [0xFFFFFFF0,
+# 0xFFFFFFF0, 0, 1].
+WRAP_SLOTS = (1, 2, 2, 2)
+WRAP_HITS = (0xFFFFFFF0, 8, 16, 1)
+WRAP_WANT = (0xFFFFFFF0, 8, 0x18, 0x19)
 BANKS = 8
 NUM_SLOTS = 1 << 20
 BIG_SLOTS = 1 << 24
@@ -127,10 +141,12 @@ def time_ms(fn, reps: int = 20, inner: int = 50) -> float:
     return float(np.median(samples))
 
 
-def device_ms(fn, iters: int = 20):
-    """Milliseconds of device (kernel + copy) time per call of fn(),
-    summed over every CUDA activity torch.profiler records; None when
-    the profiler sees no device activity."""
+def device_samples(fn, iters: int = 20):
+    """Milliseconds of device (kernel + copy + memset) time of each of
+    `iters` calls of fn(), from every CUDA activity torch.profiler
+    records; None when the profiler sees no device activity.  The
+    activities are cut in time order into `iters` equal groups, one per
+    call; where their count does not divide, every call gets the mean."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,11 +157,29 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            total_us += getattr(ev, "device_time", None) or ev.cuda_time
-    return total_us / iters / 1e3 if total_us > 0 else None
+    evs = sorted(
+        (ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA),
+        key=lambda ev: ev.time_range.start,
+    )
+    us = [ev.time_range.elapsed_us() for ev in evs]
+    if sum(us) <= 0:
+        return None
+    if len(us) % iters:
+        return [sum(us) / iters / 1e3] * iters
+    k = len(us) // iters
+    return [sum(us[c * k : (c + 1) * k]) / 1e3 for c in range(iters)]
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device milliseconds per call of fn() (device_samples)."""
+    samples = device_samples(fn, iters)
+    return None if samples is None else float(np.mean(samples))
+
+
+def spread_us(samples) -> str:
+    """'min / median / max us' of per-call device milliseconds."""
+    lo, mid, hi = (q * 1e3 for q in np.percentile(samples, (0, 50, 100)))
+    return f"{lo:.2f} / {mid:.2f} / {hi:.2f} us"
 
 
 # -- phase 3: kernels against their plain versions ----------------------
@@ -265,6 +299,39 @@ def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
                 dp = fw._decision_block_plain(afters, hits, limits, shadow, ratio)
                 for f in dk._fields:
                     note(fw.K3_DECIDE, getattr(dk, f), getattr(dp, f), f"{f} n={n}")
+    torch.cuda.synchronize()
+    return err
+
+
+def check_prefix(torch, prefix_cuda, prefix_plain, dev):
+    """K2 against its plain version at the sizes its triangular tiling
+    can get wrong (one lane, a tile and one either side, one lane past
+    the largest bucket, 16384), with positive and negative ids, and on
+    WRAP_*; returns max |err|."""
+    rng = np.random.default_rng(2027)
+    err = 0
+
+    def note(a, b, what):
+        nonlocal err
+        e = u32_max_abs_err(a, b)
+        err = max(err, e)
+        if e != 0:
+            fail(f"{prefix_cuda.KERNEL} disagrees ({what}): max|err|={e}")
+
+    for neg, n in itertools.product((False, True), PREFIX_EDGE_SIZES):
+        for distinct in (1, max(1, n // 8), n):
+            slots, hits, _ = _dup_lanes(torch, rng, n, NUM_SLOTS, dev, distinct, neg)
+            note(
+                prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
+                prefix_plain(slots, hits),
+                f"n={n} distinct={distinct} negative ids={neg}",
+            )
+    slots = torch.tensor(WRAP_SLOTS, dtype=torch.int32, device=dev)
+    hits = torch.from_numpy(np.array(WRAP_HITS, np.uint32).view(np.int32)).to(dev)
+    want = torch.from_numpy(np.array(WRAP_WANT, np.uint32).view(np.int32)).to(dev)
+    got = prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits)
+    note(got, prefix_plain(slots, hits), "u32 wrap inside a segment, vs plain")
+    note(got, want, "u32 wrap inside a segment, vs the running sum")
     torch.cuda.synchronize()
     return err
 
@@ -426,11 +493,29 @@ def check_sharded(torch, sh, dev):
     return err
 
 
+def bound(nbytes, ops):
+    """(ms, what bounds it): the larger of bytes over the HBM rate and
+    operations over the 32-bit peak."""
+    b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    b_ops = ops / PEAK_OPS_PER_S * 1e3
+    return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def prefix_ops(n: int) -> int:
+    """The least work of the per-slot prefix: a sort of the lanes by slot
+    and a segmented sum, n log2 n compares and n adds (not the N^2/2
+    compare-adds of K2's tiled pass)."""
+    return n * (n - 1).bit_length() + n
+
+
 def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
     2^20 slots (K4, K5: 2^18, the bank default), plus the bound of each
     (larger of bytes over HBM rate and operations over the 32-bit
-    peak), from this run's inputs."""
+    peak), from this run's inputs.  Also returns, as `extra`: the launch
+    floor (a one-element in-place torch add, which the port never
+    calls), the per-call device times of K2, K3 update and K7 (for their
+    spread), and K2 at 16384 lanes."""
     rng = np.random.default_rng(7)
     n, ns = 4096, NUM_SLOTS
     table = _table(torch, rng, ns, dev)
@@ -445,28 +530,33 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     t1, t2 = table.clone(), table.clone()
     rows = {}
     calls = {}
+    samples = {}
 
     def row(name, k, p, nbytes, ops):
-        b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        b_ops = ops / PEAK_OPS_PER_S * 1e3
         call_ms, plain_call_ms = time_ms(k), time_ms(p, reps=5, inner=5)
-        dev_ms, plain_dev_ms = device_ms(k), device_ms(p, iters=5)
+        # K2 and the two updates that run it: 50 calls, kept for their
+        # spread.
+        spread = name in (prefix_cuda.KERNEL, fw.K3_UPDATE, sh.K7)
+        per_call = device_samples(k, iters=50 if spread else 20)
+        if spread and per_call is not None:
+            samples[name] = per_call
+        dev_ms = None if per_call is None else float(np.mean(per_call))
+        plain_dev_ms = device_ms(p, iters=5)
+        bound_ms, bound_by = bound(nbytes, ops)
         rows[name] = dict(
             # Device time from the profiler; the CUDA-event time of
             # back-to-back calls (host enqueue included) where the
             # profiler saw nothing.
             ms=dev_ms if dev_ms is not None else call_ms,
             plain_ms=plain_dev_ms if plain_dev_ms is not None else plain_call_ms,
-            bound_ms=max(b_bytes, b_ops),
-            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            bound_ms=bound_ms,
+            bound_by=bound_by,
             library_ms=None,
         )
         calls[name] = (call_ms, plain_call_ms)
 
-    # The per-slot prefix needs no more than a sort of the lanes by slot
-    # and a segmented sum: n log2 n compares and n adds.  K2's O(n^2)
-    # walk is its current algorithm, not the least work.
-    prefix_ops = n * (n - 1).bit_length() + n
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floor = device_samples(lambda: one.add_(1), iters=50)
     row(
         fw.K1,
         lambda: fw.fw_unique_step(t1, pk, ""),
@@ -479,14 +569,25 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
         lambda: prefix_plain(slots, hits),
         8 * n + 4 * n,
-        prefix_ops,
+        prefix_ops(n),
+    )
+    big = 16384
+    bslots, bhits, _ = _dup_lanes(torch, rng, big, ns, dev, big // 2)
+    big_samples = device_samples(
+        lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(bslots, bhits), iters=50
+    )
+    prefix_big = dict(
+        n=big,
+        samples=big_samples,
+        plain_ms=device_ms(lambda: prefix_plain(bslots, bhits), iters=5),
+        bound=bound(8 * big + 4 * big, prefix_ops(big)),
     )
     row(
         fw.K3_UPDATE,
         lambda: fw.fw_general_update(t1, slots, hits, fresh),
         lambda: fw._update_plain(t2, slots, hits, fresh),
         9 * n + 8 * distinct + 4 * n,
-        prefix_ops + 4 * n,
+        prefix_ops(n) + 4 * n,
     )
     row(
         fw.K3_DECIDE,
@@ -543,9 +644,9 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         lambda: sh.sharded_general_update(b1, slots, hits, fresh),
         lambda: sh._general_update_plain(b2, slots, hits, fresh, None, ""),
         9 * n + 8 * distinct + 4 * n,  # the same work as K3's update
-        prefix_ops + 4 * n,
+        prefix_ops(n) + 4 * n,
     )
-    return rows, calls
+    return rows, calls, dict(floor=floor, samples=samples, prefix_big=prefix_big)
 
 
 # -- phase 4: the flagship forward step ---------------------------------
@@ -905,6 +1006,14 @@ def main() -> None:
         f"kernels: exact for N in {SIZES} at 2^20 slots and 4096 at 2^24, "
         f"positive and negative slot ids; max|err| {errs}"
     )
+    prefix_err = check_prefix(torch, prefix_cuda, per_slot_inclusive_prefix, dev)
+    errs[prefix_cuda.KERNEL] = max(errs[prefix_cuda.KERNEL], prefix_err)
+    log(
+        f"{prefix_cuda.KERNEL}: exact also for N in {PREFIX_EDGE_SIZES}, "
+        f"distinct in (1, N/8, N), positive and negative ids, and on slots "
+        f"{list(WRAP_SLOTS)} hits {[hex(h) for h in WRAP_HITS]} (u32 wrap inside "
+        f"a segment); max|err| {prefix_err}"
+    )
     algo_errs = check_algorithms(torch, sw, gcra, dev)
     log(
         f"algorithm kernels: exact for N in {SIZES} at 2^18 slots and 4096 at "
@@ -918,8 +1027,27 @@ def main() -> None:
         f"readback types; max|err| {sharded_errs}"
     )
     errs.update(sharded_errs)
-    timing, calls = time_kernels(
+    timing, calls, extra = time_kernels(
         torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, sh, dev
+    )
+    floor = extra["floor"]
+    log(
+        "launch floor (profiler device time of a one-element in-place torch "
+        "add on the current stream, a yardstick the port never calls), min / "
+        "median / max over 50 calls: "
+        + (spread_us(floor) if floor else "not measured (no device activity)")
+    )
+    log(
+        "per-call device time at N=4096, min / median / max over 50 calls: "
+        + "; ".join(f"{k} {spread_us(v)}" for k, v in extra["samples"].items())
+    )
+    big = extra["prefix_big"]
+    log(
+        f"{prefix_cuda.KERNEL} at N={big['n']}: "
+        + (spread_us(big["samples"]) if big["samples"] else "not measured")
+        + " device (min / median / max over 50 calls); plain "
+        + (f"{big['plain_ms'] * 1e3:.1f} us" if big["plain_ms"] else "not measured")
+        + f"; bound {big['bound'][0] * 1e3:.4f} us by {big['bound'][1]}"
     )
     log(
         "kernel device times at N=4096 (profiler): "

@@ -17,8 +17,10 @@
 // A fresh lane zeroes its slot for EVERY lane of that slot, so every
 // zeroing must land before any gather, and every gather before any add:
 // the update runs as separate launches on one stream -- zero fresh slots,
-// gather, the per-slot prefix (K2, csrc/prefix.cu), then add + modular
-// atomicAdd.
+// gather, the per-slot prefix (K2, csrc/prefix.cu, which zeroes its
+// output and runs its triangular tiled pass), then add + modular
+// atomicAdd.  The prefix's stream order is what makes its atomics finish
+// before the add reads them.
 //
 // The unique-slot serving step takes one thread per lane and a bank per
 // blockIdx.y (a single table is one bank): slots are unique within a

@@ -22,8 +22,10 @@
 // K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
 // duplicate-tolerant step) and :294 decision_block.  The update runs as
 // separate launches on one stream (counter_update.cuh says why): zero
-// fresh slots, gather, the per-slot prefix (K2, csrc/prefix.cu), then
-// add + modular atomicAdd.  fw_decision_block is the branch-free
+// fresh slots, gather, the per-slot prefix (K2, csrc/prefix.cu: a memset
+// and a triangular tiled pass over the whole card), then add + modular
+// atomicAdd; each is about one launch's cost at the engine's batch
+// sizes.  fw_decision_block is the branch-free
 // threshold machine, one thread per lane; the near-limit threshold is
 // floorf(__fmul_rn(limit, ratio)) so that nvcc cannot contract it with
 // anything else.

@@ -34,7 +34,9 @@
 // or uint16.  Bound: about 9 B in, 8 B gathered and scattered per distinct
 // slot and 4 B out per lane; the per-slot prefix needs no more than a
 // sort's N log N operations, so the bytes set the bound.  Its time is that
-// of the current O(N^2) prefix launch (K2), which dominates it.
+// of its launches: K2's memset and triangular tiled pass, and the three
+// one-thread-per-lane launches here, each near the cost of one launch at
+// the batch sizes the engine makes.
 
 #include <cstdint>
 #include <cuda_runtime.h>

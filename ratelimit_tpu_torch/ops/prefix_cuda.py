@@ -2,8 +2,11 @@
 
 Port of the Pallas TPU kernel ratelimit_tpu/ops/prefix_pallas.py
 (``_prefix_kernel``, ``pl.pallas_call`` at line 82).  The kernel is
-csrc/prefix.cu; its design and bound are described there.  Unlike the
-Pallas kernel it takes any N >= 1, not only multiples of 128.
+csrc/prefix.cu: the launcher zeroes the output, then one block per
+lower-triangle pair of 128-lane tiles (528 blocks at N = 4096) adds its
+partial sums into it with modular atomics, which is exact in any
+order.  Its bound and limits are described there.  Unlike the Pallas
+kernel it takes any N >= 1, not only multiples of 128.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); only a
 tensor on the CPU takes the plain version, ops/prefix.py.
