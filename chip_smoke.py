@@ -22,9 +22,20 @@ Phases, one line each; any failure exits non-zero:
    over global ids, and its compact u8/u16 readback) over 8 banks for
    the same N at 2^20 slots and 4096 at 2^24, with uniform and
    all-one-bank routing, fresh, padding, saturated, duplicate,
-   out-of-table and negative ids; profiler device times at 4096, beside
-   the launch floor (a one-element in-place torch add), with min /
-   median / max per call for K2, K3 update and K7, and K2 at 16384;
+   out-of-table and negative ids; K3's compact update (u8/u16 readback
+   from its add launch) against readback_plain; the served step in both
+   forms: K1 and K6 by value (lanes in the launch's parameters, readback
+   into mapped pinned memory) for N in LANES_SIZES and in the device
+   form for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; profiler
+   device times at 4096 (the by-value forms at their served width),
+   beside the launch floor (a one-element in-place torch add), with min /
+   median / max per call for every kernel, K1 and K6 in each form at the
+   served widths, and K2 at 16384; then the served chunk:
+   engine._device_submit + step_complete at 1, 8 and 13 lanes on one
+   table and on 8 banks, SERVED_CHUNKS chunks under torch.profiler --
+   per chunk the device activities (one: the by-value kernel), memcpys
+   (none), device busy time and span from the first start to the last
+   end -- and as many again without it for the host microseconds;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
    against the plain version and an independent numpy reference;
@@ -40,12 +51,16 @@ Phases, one line each; any failure exits non-zero:
    fixed-window while ratelimit.tpu.shadow.gcra.{agree,diverge}
    moves; a concurrent burst coalesces into multi-lane launches --
    and the warm microseconds per request on a fixed-window and on a
-   GCRA key;
+   GCRA key; every K1 launch of the one-descriptor requests and the
+   burst takes the by-value form, 50 requests make 50 launches and no
+   memcpy on the card, and one 200-descriptor request takes the device
+   form;
 7. sharded served: the runner with BACKEND_TYPE=cuda-sharded, 2^20
    slots over a mesh of 8 banks on the card -- the 6th hit on a 5/min
    key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
    live counter in every bank, a concurrent burst coalesces into
-   multi-lane K6 launches -- and the warm microseconds per request.
+   multi-lane K6 launches -- and the warm microseconds per request;
+   K6 in its two forms as K1 in phase 6.
 
 Kernel launch counts are zeroed just before each main-path phase (4-7)
 and read just after: every kernel must have run there.  The last lines
@@ -76,6 +91,23 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 SIZES = (8, 100, 128, 4096)
+# K1 and K6 in each form: by value up to 128 lanes (banks x cap), the
+# device form past it.
+LANES_SIZES = (1, 8, 13, 16, 100, 128)
+DEVICE_FORM_SIZES = (129, 4096)
+# The served chunk: lanes per chunk, and chunks per pass.
+SERVED_WIDTHS = (1, 8, 13)
+SERVED_CHUNKS = 200
+# One served request this wide is a chunk past the by-value budget on one
+# table (256 padded lanes) and on 8 banks (cap 32 or more): the device
+# form serves it.
+WIDE_DESCRIPTORS = 200
+# torch.profiler now and then drops device activities from a capture: a
+# capture whose activities do not split into its calls is taken again.
+PROFILE_TRIES = 3
+# Of 50 served requests, one launch each, the kernels a capture must
+# show: the launch counters are exact, the capture may drop a few.
+SEEN_KERNELS = 45
 # K2's own edge sizes beside SIZES: one lane, a 128-lane tile and one
 # either side, one lane past the largest batch bucket, and 16384.
 PREFIX_EDGE_SIZES = (1, 127, 129, 4097, 16384)
@@ -146,28 +178,31 @@ def device_samples(fn, iters: int = 20):
     `iters` calls of fn(), from every CUDA activity torch.profiler
     records; None when the profiler sees no device activity.  The
     activities are cut in time order into `iters` equal groups, one per
-    call; where their count does not divide, every call gets the mean."""
+    call.  The profiler now and then drops activities; where their count
+    does not divide, the capture is taken again (up to PROFILE_TRIES
+    times), and after that every call gets the mean."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted(
-        (ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda ev: ev.time_range.start,
-    )
-    us = [ev.time_range.elapsed_us() for ev in evs]
-    if sum(us) <= 0:
-        return None
-    if len(us) % iters:
-        return [sum(us) / iters / 1e3] * iters
-    k = len(us) // iters
-    return [sum(us[c * k : (c + 1) * k]) / 1e3 for c in range(iters)]
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted(
+            (ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda ev: ev.time_range.start,
+        )
+        us = [ev.time_range.elapsed_us() for ev in evs]
+        if sum(us) <= 0:
+            return None
+        if len(us) % iters == 0:
+            k = len(us) // iters
+            return [sum(us[c * k : (c + 1) * k]) / 1e3 for c in range(iters)]
+    return [sum(us) / iters / 1e3] * iters
 
 
 def device_ms(fn, iters: int = 20):
@@ -282,6 +317,18 @@ def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
                 what = f"n={n} ns={ns} d={distinct} negative ids={neg}"
                 note(fw.K3_UPDATE, ak, ap, "afters " + what)
                 note(fw.K3_UPDATE, ck, cp, "table " + what)
+                # step_counters_compact: K3's add writes min(after, limit
+                # + hits) narrowed, against readback_plain of the afters.
+                limits = torch.from_numpy(rng.integers(1, 300, n).astype(np.int32)).to(dev)
+                for dt in ("uint8", "uint16"):
+                    ck = base.clone()
+                    want = fw.readback_plain(
+                        ap.to(torch.int64) & U32, hits.to(torch.int64) & U32,
+                        limits.to(torch.int64), dt,
+                    )
+                    got = fw.fw_general_update(ck, slots, hits, fresh, limits, dt)
+                    note(fw.K3_UPDATE, got, want, f"compact {dt} " + what)
+                    note(fw.K3_UPDATE, ck, cp, f"compact {dt} table " + what)
             if neg:
                 continue  # the decision block takes no slot ids
             afters = torch.from_numpy(
@@ -493,6 +540,101 @@ def check_sharded(torch, sh, dev):
     return err
 
 
+def _pinned(torch, t):
+    """A pinned host copy of tensor `t`."""
+    return t.cpu().pin_memory()
+
+
+def check_served_forms(torch, fw, sh, kernels, dev):
+    """K1 and K6 in both forms, bit for bit against their plain versions:
+    the by-value form (host words; readback into mapped pinned memory)
+    for N in LANES_SIZES, the device form for N in
+    DEVICE_FORM_SIZES, at 2^20 and 2^24 slots, three readback types, with
+    fresh, padding, saturated, negative and out-of-table lanes; K6 over
+    BANKS banks with uniform and all-one-bank routing, by value wherever
+    the routed shape fits.  Also: a slice of pinned memory has its device
+    alias at the same offset, and an unpinned `out` raises KernelError
+    (the next launch still succeeds), and a readback on the card raises
+    ValueError.  Returns (max |err| by kernel, the number of K6 by-value
+    cases)."""
+    rng = np.random.default_rng(2028)
+    err = {fw.K1: 0, fw.K1_LANES: 0, sh.K6: 0, sh.K6_LANES: 0}
+    k6_lanes_cases = 0
+
+    def note(name, a, b, what):
+        e = u32_max_abs_err(a.cpu(), b.cpu())
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
+
+    def by_value(kernel, name, counts, pk, dt, plain_out, plain_table, what):
+        words = _pinned(torch, pk)
+        shape = tuple(pk.shape[:-2]) + (pk.shape[-1],)
+        out = torch.empty(shape, dtype=fw.OUT_DTYPES[dt], pin_memory=True)
+        ck = counts.clone()
+        kernel(ck, words, out, dt)
+        torch.cuda.synchronize()
+        note(name, out, plain_out, "out " + what)
+        note(name, ck, plain_table, "table " + what)
+
+    for ns in (NUM_SLOTS, BIG_SLOTS):
+        base = _table(torch, rng, ns, dev)
+        hot = torch.nonzero((base.to(torch.int64) & U32) > U32 - 16).flatten().cpu().numpy()
+        for n, dt in itertools.product(LANES_SIZES + DEVICE_FORM_SIZES, ("", "uint8", "uint16")):
+            pk = _packed(torch, rng, n, ns, dev, hot, neg=True)
+            if n >= 4:
+                pk[0, n // 2] = -ns - 1 - n  # out of the table below -ns
+            cp = base.clone()
+            want = fw._unique_step_plain(cp, pk, dt)
+            what = f"n={n} ns={ns} dtype={dt!r}"
+            if fw.lanes_by_value(1, n):
+                by_value(fw.fw_unique_step_lanes, fw.K1_LANES, base, pk, dt, want, cp, what)
+            else:
+                ck = base.clone()
+                note(fw.K1, fw.fw_unique_step(ck, pk, dt), want, "afters " + what)
+                note(fw.K1, ck, cp, "table " + what)
+        bt, bhot = _banked_table(torch, rng, ns, dev)
+        for n, skew, dt in itertools.product(
+            LANES_SIZES + DEVICE_FORM_SIZES, (False, True), ("", "uint8", "uint16")
+        ):
+            pk, _ = _routed(torch, rng, n, ns, dev, bhot, skew)
+            cp = bt.clone()
+            want = sh._routed_step_plain(cp, pk, dt)
+            what = f"n={n} cap={pk.shape[2]} ns={ns} skew={skew} dtype={dt!r}"
+            if fw.lanes_by_value(BANKS, pk.shape[2]):
+                k6_lanes_cases += 1
+                by_value(sh.sharded_routed_step_lanes, sh.K6_LANES, bt, pk, dt, want, cp, what)
+            ck = bt.clone()
+            note(sh.K6, sh.sharded_routed_step(ck, pk, dt), want, "afters " + what)
+            note(sh.K6, ck, cp, "table " + what)
+
+    # The readback's device alias: a pinned slice keeps its offset.
+    buf = torch.empty(1 << 16, dtype=torch.uint8, pin_memory=True)
+    base_alias = kernels.mapped_alias(buf.data_ptr())
+    for off in (0, 1, 13, 4096):
+        if kernels.mapped_alias(buf[off:].data_ptr()) != base_alias + off:
+            fail(f"pinned slice at offset {off} has no device alias at the same offset")
+    # No fallback: pageable `out` has no device alias, and raises.
+    counts = torch.zeros(64, dtype=torch.int32, device=dev)
+    words = torch.zeros((4, 8), dtype=torch.int32)
+    try:
+        fw.fw_unique_step_lanes(counts, words, torch.zeros(8, dtype=torch.int32))
+        fail("a pageable readback buffer did not raise KernelError")
+    except kernels.KernelError:
+        pass
+    try:
+        fw.fw_unique_step_lanes(counts, words, torch.zeros(8, dtype=torch.int32, device=dev))
+        fail("a readback buffer on the card did not raise ValueError")
+    except ValueError:
+        pass
+    out = torch.full((8,), 7, dtype=torch.int32, pin_memory=True)
+    fw.fw_unique_step_lanes(counts, words, out)
+    torch.cuda.synchronize()
+    if out.any():
+        fail("the launch after a refused readback buffer did not run")
+    return err, k6_lanes_cases
+
+
 def bound(nbytes, ops):
     """(ms, what bounds it): the larger of bytes over the HBM rate and
     operations over the 32-bit peak."""
@@ -510,12 +652,14 @@ def prefix_ops(n: int) -> int:
 
 def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
-    2^20 slots (K4, K5: 2^18, the bank default), plus the bound of each
-    (larger of bytes over HBM rate and operations over the 32-bit
-    peak), from this run's inputs.  Also returns, as `extra`: the launch
-    floor (a one-element in-place torch add, which the port never
-    calls), the per-call device times of K2, K3 update and K7 (for their
-    spread), and K2 at 16384 lanes."""
+    2^20 slots (K4, K5: 2^18, the bank default; the by-value forms of K1
+    and K6 at the widths they serve, 8 lanes and 8 banks x cap 8), plus
+    the bound of each (larger of bytes over HBM rate and operations over
+    the 32-bit peak), from this run's inputs.  Also returns, as `extra`:
+    the launch floor (a one-element in-place torch add, which the port
+    never calls), the per-call device times of every kernel over 50
+    calls (for their spread), K1 and K6 at the served widths in every
+    form, and K2 at 16384 lanes."""
     rng = np.random.default_rng(7)
     n, ns = 4096, NUM_SLOTS
     table = _table(torch, rng, ns, dev)
@@ -534,11 +678,9 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
 
     def row(name, k, p, nbytes, ops):
         call_ms, plain_call_ms = time_ms(k), time_ms(p, reps=5, inner=5)
-        # K2 and the two updates that run it: 50 calls, kept for their
-        # spread.
-        spread = name in (prefix_cuda.KERNEL, fw.K3_UPDATE, sh.K7)
-        per_call = device_samples(k, iters=50 if spread else 20)
-        if spread and per_call is not None:
+        # 50 calls, kept for the kernel's spread.
+        per_call = device_samples(k, iters=50)
+        if per_call is not None:
             samples[name] = per_call
         dev_ms = None if per_call is None else float(np.mean(per_call))
         plain_dev_ms = device_ms(p, iters=5)
@@ -564,6 +706,28 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         16 * n + 8 * n_live_k1 + 4 * n,  # packed in, gather+scatter, afters out
         8 * n,
     )
+    # K1 at the served width, 8 lanes: the by-value form (its row) and,
+    # for the spread only, the device form and the by-value form at 128.
+    pk8 = _packed(torch, rng, 8, ns, dev, np.zeros(0, np.int64))
+    words8, out8 = _pinned(torch, pk8), torch.empty(8, dtype=torch.int32, pin_memory=True)
+    words128 = _pinned(torch, pk[:, :128].contiguous())
+    out128 = torch.empty(128, dtype=torch.int32, pin_memory=True)
+    n_live8 = int(((pk8[0] >= 0) & (pk8[0] < ns)).sum().item())
+    row(
+        fw.K1_LANES,
+        lambda: fw.fw_unique_step_lanes(t1, words8, out8, ""),
+        lambda: fw._unique_step_plain(t2, pk8, ""),
+        16 * 8 + 8 * n_live8 + 4 * 8,  # lanes in, gather+scatter, afters out
+        8 * 8,
+    )
+    served = {
+        f"{fw.K1} (device form) at 8 lanes": device_samples(
+            lambda: fw.fw_unique_step(t1, pk8, ""), iters=50
+        ),
+        f"{fw.K1_LANES} at 128 lanes": device_samples(
+            lambda: fw.fw_unique_step_lanes(t1, words128, out128, ""), iters=50
+        ),
+    }
     row(
         prefix_cuda.KERNEL,
         lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
@@ -639,6 +803,22 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         16 * routed + 8 * r_live + 4 * routed,
         8 * routed,
     )
+    # K6 at the served width, 8 banks x cap 8: the by-value form's row,
+    # and the device form for the spread.
+    rpk8, r_live8 = _routed(torch, rng, 8, ns, dev, hot, skew=False)
+    rwords8 = _pinned(torch, rpk8)
+    rout8 = torch.empty(tuple(rpk8.shape[::2]), dtype=torch.int32, pin_memory=True)
+    routed8 = rpk8.shape[0] * rpk8.shape[2]
+    row(
+        sh.K6_LANES,
+        lambda: sh.sharded_routed_step_lanes(b1, rwords8, rout8, ""),
+        lambda: sh._routed_step_plain(b2, rpk8, ""),
+        16 * routed8 + 8 * r_live8 + 4 * routed8,
+        8 * routed8,
+    )
+    served[f"{sh.K6} (device form) at {BANKS} banks x cap {rpk8.shape[2]}"] = device_samples(
+        lambda: sh.sharded_routed_step(b1, rpk8, ""), iters=50
+    )
     row(
         sh.K7,
         lambda: sh.sharded_general_update(b1, slots, hits, fresh),
@@ -646,7 +826,121 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         9 * n + 8 * distinct + 4 * n,  # the same work as K3's update
         prefix_ops(n) + 4 * n,
     )
-    return rows, calls, dict(floor=floor, samples=samples, prefix_big=prefix_big)
+    return rows, calls, dict(floor=floor, samples=samples, served=served, prefix_big=prefix_big)
+
+
+# -- the served chunk ------------------------------------------------------
+
+
+def served_chunks(torch, sh, eng, dev, n=SERVED_CHUNKS):
+    """Drive engine._device_submit + step_complete for one chunk of 1, 8
+    and 13 distinct in-table lanes (hits 0, so every chunk answers the
+    same: afters 0, all OK), on one table and on BANKS banks of 2^20
+    slots, `n` chunks each in two passes.  The first runs under
+    torch.profiler (device activities only); a marker kernel on the
+    engine stream brackets it, so its activities split into chunks.  The
+    second runs without the profiler and times the host microseconds of
+    submit + complete: the profiler adds a callback to every CUDA runtime
+    call, so a profiled host time would count it too.  Takes the port's
+    modules `sh` (parallel.sharded) and `eng` (backends.engine) as
+    arguments, so that scripts/torch_served_chunk.py can drive another
+    checkout's engine with it.  Returns {(engine, lanes):
+    dict(activities, memcpys, busy_us, span_us, host_us)}, each a list
+    with one entry per chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    marker = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def is_marker(ev):
+        # A chunk makes memcpys and K1 / K6 (unique_step_kernel,
+        # unique_step_lanes_kernel) only; the marker is an add.
+        return "unique_step" not in ev.name and not ev.name.startswith("Memcpy")
+
+    engines = {
+        "one table": eng.CounterEngine(num_slots=NUM_SLOTS, device=dev, native_table=False),
+        f"{BANKS} banks": sh.ShardedCounterEngine(
+            sh.make_mesh(BANKS, dev), num_slots=NUM_SLOTS, native_table=False
+        ),
+    }
+    results = {}
+    for (label, engine), width in itertools.product(engines.items(), SERVED_WIDTHS):
+        # Distinct slots 7 apart: spread over the banks, all in the table.
+        slots = (np.arange(width, dtype=np.int32) * 7 + 11).astype(np.int32)
+        hits = np.zeros(width, np.uint32)
+        limits = np.full(width, 250, np.uint32)
+        shadow = np.zeros(width, bool)
+        dedup = eng._dedup_chunk(slots, hits, limits, np.zeros(width, bool))
+
+        def chunk():
+            handle, reassemble = engine._device_submit(dedup, 0)
+            d = engine.step_complete((hits, limits, shadow, [(handle, 0, width, dedup, reassemble)], 0))
+            if d.afters.any() or (d.codes != 1).any():
+                fail(f"served chunk answered wrong ({label}, {width} lanes)")
+
+        def mark():
+            with engine._on_stream():
+                marker.add_(1)
+            engine._sync()
+
+        def measure():
+            """One profiled pass: its stats, or (None, why) where the
+            capture does not split into chunks."""
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mark()
+                for _ in range(n):
+                    chunk()
+                mark()
+                torch.cuda.synchronize()
+            evs = sorted(
+                (ev for ev in prof.events() if ev.device_type == cuda),
+                key=lambda ev: ev.time_range.start,
+            )
+            marks = [i for i, ev in enumerate(evs) if is_marker(ev)]
+            if len(marks) != 2:
+                return None, f"{len(marks)} markers among {len(evs)} device activities"
+            seg = evs[marks[0] + 1 : marks[1]]
+            if len(seg) % n:
+                return None, f"{len(seg)} device activities do not split into {n} chunks"
+            k = len(seg) // n
+            st = dict(activities=[], memcpys=[], busy_us=[], span_us=[])
+            for c in range(n):
+                part = seg[c * k : (c + 1) * k]
+                st["activities"].append(k)
+                st["memcpys"].append(sum(ev.name.startswith("Memcpy") for ev in part))
+                st["busy_us"].append(sum(ev.time_range.elapsed_us() for ev in part))
+                st["span_us"].append(part[-1].time_range.end - part[0].time_range.start)
+            return st, None
+
+        for _ in range(3):  # warm: builds, staging buffers, first launches
+            chunk()
+        for _ in range(PROFILE_TRIES):  # again where the profiler dropped some
+            stats, why = measure()
+            if stats is not None:
+                break
+        else:
+            fail(f"served chunk ({label}, {width} lanes): {why}")
+        host_us = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            chunk()
+            host_us.append((time.perf_counter() - t0) * 1e6)
+        stats["host_us"] = host_us
+        results[(label, width)] = stats
+    return results
+
+
+def served_chunk_line(label, width, st) -> str:
+    """One served_chunks result as a line of text."""
+    return (
+        f"served chunk, {label}, {width} lanes: "
+        f"{int(np.median(st['activities']))} device activities "
+        f"({int(np.median(st['memcpys']))} memcpy), device busy "
+        f"{np.median(st['busy_us']):.2f} us, span "
+        f"{spread_us(np.divide(st['span_us'], 1e3))} (profiled); host submit+complete "
+        f"{spread_us(np.divide(st['host_us'], 1e3))} (unprofiled; min / median / max "
+        f"over {len(st['host_us'])} chunks each)"
+    )
 
 
 # -- phase 4: the flagship forward step ---------------------------------
@@ -835,9 +1129,12 @@ def serving(backend: str, **runner_kwargs):
                 )
 
                 def request(key, value, hits=0):
+                    """One request: a descriptor per value (a list of
+                    values makes a multi-descriptor request)."""
                     req = rls_pb2.RateLimitRequest(domain="rl", hits_addend=hits)
-                    e = req.descriptors.add().entries.add()
-                    e.key, e.value = key, value
+                    for v in [value] if isinstance(value, str) else value:
+                        e = req.descriptors.add().entries.add()
+                        e.key, e.value = key, v
                     return call(req, timeout=60)
 
                 yield runner, request, rls_pb2.RateLimitResponse
@@ -894,10 +1191,71 @@ def warm_us(request, key, n=400) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def served_phase(kernels, fw, sw, gcra):
+def served_activity(torch, kernels, by_value, request, key, n=50):
+    """(kernels, memcpys) on the card over n warm requests on `key`,
+    from torch.profiler (device activities only), and the by-value
+    launches the wrappers counted over them.  Every request names a new
+    value, so none is answered from the host's over-limit cache."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(10):
+        request(key, f"act-warm{i}")
+    torch.cuda.synchronize()
+    for t in range(PROFILE_TRIES):  # again where the profiler dropped some
+        before = kernels.launches.get(by_value, 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                request(key, f"act{t}-{i}")
+            torch.cuda.synchronize()
+        launched = kernels.launches.get(by_value, 0) - before
+        names = [
+            ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA
+        ]
+        memcpys = sum(name.startswith("Memcpy") for name in names)
+        if len(names) - memcpys >= n:
+            break
+    return len(names) - memcpys, memcpys, launched
+
+
+def _since(kernels, before, names):
+    return {name: kernels.launches.get(name, 0) - before.get(name, 0) for name in names}
+
+
+def served_forms(kernels, device_form, by_value, before, torch, request, key, what):
+    """Every launch of the served requests since `before` (one-descriptor
+    requests and a burst of them, all chunks of at most 128 lanes) must
+    take the by-value form, and a served request must make no memcpy;
+    then one request of WIDE_DESCRIPTORS descriptors (a chunk past the
+    by-value budget) must take the device form.  Returns (launches by
+    form of the narrow requests, kernels and memcpys over 50 requests,
+    launches by form of the wide request)."""
+    acts = served_activity(torch, kernels, by_value, request, key)
+    narrow = _since(kernels, before, (device_form, by_value))
+    if narrow[device_form] != 0 or narrow[by_value] < 1:
+        fail(f"{what}: launches by form of the narrow requests {narrow}")
+    # The launch counts are exact; the profiler, which now and then drops
+    # an activity, must see nearly every kernel and no memcpy.
+    if acts[2] != 50 or acts[1] != 0 or acts[0] < SEEN_KERNELS:
+        fail(
+            f"{what}: 50 requests made {acts[2]} by-value launches; the profiler "
+            f"saw {acts[0]} kernels and {acts[1]} memcpys on the card"
+        )
+    before = dict(kernels.launches)
+    values = [f"wide{i}" for i in range(WIDE_DESCRIPTORS)]
+    statuses = request("burst", values).statuses
+    if len(statuses) != WIDE_DESCRIPTORS or any(st.limit_remaining != 4 for st in statuses):
+        fail(f"{what}: a {WIDE_DESCRIPTORS}-descriptor request counted wrong")
+    wide = _since(kernels, before, (device_form, by_value))
+    if wide[device_form] < 1:
+        fail(f"{what}: the {WIDE_DESCRIPTORS}-descriptor request took no device form: {wide}")
+    return narrow, acts, wide
+
+
+def served_phase(torch, kernels, fw, sw, gcra):
     kernels.launches.clear()
     with serving("cuda") as (runner, request, R):
         OK, OVER = R.OK, R.OVER_LIMIT
+        started = dict(kernels.launches)
         if sorted(runner.cache.algorithm_banks) != ["gcra", "sliding_window"]:
             fail(f"default banks not built: {sorted(runner.cache.algorithm_banks)}")
         store = runner.stats_manager.store
@@ -916,19 +1274,23 @@ def served_phase(kernels, fw, sw, gcra):
         lanes = burst(runner, request, OK)
         us_per_req = warm_us(request, "foo")
         us_per_algo_req = warm_us(request, "tb")
+        forms = served_forms(
+            kernels, fw.K1, fw.K1_LANES, started, torch, request, "foo", "served"
+        )
     launches = dict(kernels.launches)
-    for name in (fw.K1, sw.K4, gcra.K5):
+    for name in (fw.K1, fw.K1_LANES, sw.K4, gcra.K5):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
-    return launches, lanes, us_per_req, us_per_algo_req, shadow_moved
+    return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms
 
 
-def sharded_served_phase(kernels, sh, dev):
+def sharded_served_phase(torch, kernels, sh, dev):
     """BACKEND_TYPE=cuda-sharded: 2^20 slots over BANKS banks on the card."""
     kernels.launches.clear()
     mesh = sh.make_mesh(BANKS, dev)
     with serving("cuda-sharded", device=dev, mesh=mesh) as (runner, request, R):
         OK, OVER = R.OK, R.OVER_LIMIT
+        started = dict(kernels.launches)
         engine = runner.cache.engine
         if not isinstance(engine, sh.ShardedCounterEngine) or (
             engine.model.num_banks, engine.model.num_slots
@@ -949,10 +1311,14 @@ def sharded_served_phase(kernels, sh, dev):
             fail(f"40 keys left live counters in {banks_used} of {BANKS} banks")
         lanes = burst(runner, request, OK)
         us_per_req = warm_us(request, "foo")
+        forms = served_forms(
+            kernels, sh.K6, sh.K6_LANES, started, torch, request, "foo", "sharded served"
+        )
     launches = dict(kernels.launches)
-    if launches.get(sh.K6, 0) < 1:
-        fail(f"sharded served path did not launch {sh.K6}: {launches}")
-    return launches, lanes, us_per_req
+    for name in (sh.K6, sh.K6_LANES):
+        if launches.get(name, 0) < 1:
+            fail(f"sharded served path did not launch {name}: {launches}")
+    return launches, lanes, us_per_req, forms
 
 
 def main() -> None:
@@ -1027,6 +1393,17 @@ def main() -> None:
         f"readback types; max|err| {sharded_errs}"
     )
     errs.update(sharded_errs)
+    form_errs, k6_lanes_cases = check_served_forms(torch, fw, sh, kernels, dev)
+    for name, e in form_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    log(
+        f"served step in both forms: K1 and K6 exact by value for N in "
+        f"{LANES_SIZES} ({k6_lanes_cases} K6 cases fit {BANKS} banks x cap by "
+        f"value), readback into mapped pinned memory, and in the device form for "
+        f"N in {DEVICE_FORM_SIZES}, at 2^20 and 2^24 slots, three readback types; "
+        f"pinned slices alias at their offset; a pageable readback raises "
+        f"KernelError and a device one ValueError; max|err| {form_errs}"
+    )
     timing, calls, extra = time_kernels(
         torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, sh, dev
     )
@@ -1038,8 +1415,15 @@ def main() -> None:
         + (spread_us(floor) if floor else "not measured (no device activity)")
     )
     log(
-        "per-call device time at N=4096, min / median / max over 50 calls: "
+        "per-call device time of every kernel (N=4096; the by-value forms at "
+        "their served width), min / median / max over 50 calls: "
         + "; ".join(f"{k} {spread_us(v)}" for k, v in extra["samples"].items())
+    )
+    log(
+        "K1 and K6 at the served widths, min / median / max over 50 calls: "
+        + "; ".join(
+            f"{k} {spread_us(v) if v else 'not measured'}" for k, v in extra["served"].items()
+        )
     )
     big = extra["prefix_big"]
     log(
@@ -1050,21 +1434,30 @@ def main() -> None:
         + f"; bound {big['bound'][0] * 1e3:.4f} us by {big['bound'][1]}"
     )
     log(
-        "kernel device times at N=4096 (profiler): "
+        "kernel device times at N=4096, the by-value forms at 8 lanes "
+        "(profiler): "
         + "; ".join(
             f"{k} {v['ms'] * 1e3:.2f} us (plain {v['plain_ms'] * 1e3:.1f} us, "
-            f"bound {v['bound_ms'] * 1e3:.3f} us by {v['bound_by']})"
+            f"bound {v['bound_ms'] * 1e3:.4g} us by {v['bound_by']})"
             for k, v in timing.items()
         )
     )
     log(
-        "call times at N=4096 (CUDA-event median of back-to-back calls, "
+        "call times (as above; CUDA-event median of back-to-back calls, "
         "host enqueue included): "
         + "; ".join(
             f"{k} {c * 1e3:.2f} us (plain {p * 1e3:.1f} us)"
             for k, (c, p) in calls.items()
         )
     )
+
+    # The served chunk, the engine's form: one by-value kernel, no memcpy.
+    from ratelimit_tpu_torch.backends import engine as eng
+
+    for (label, width), st in served_chunks(torch, sh, eng, dev).items():
+        log(served_chunk_line(label, width, st))
+        if max(st["activities"]) != 1 or max(st["memcpys"]) != 0:
+            fail(f"the engine's served chunk ({label}, {width} lanes) is not one kernel")
 
     # 4. flagship forward step (main path b)
     fwd_launches, fwd_ms, n_over = forward_phase(torch, fw, kernels, dev)
@@ -1086,24 +1479,33 @@ def main() -> None:
     )
 
     # 6. served path (main path a)
-    srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved = served_phase(
-        kernels, fw, sw, gcra
+    srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms = served_phase(
+        torch, kernels, fw, sw, gcra
     )
     log(
         f"served: 6th hit OVER_LIMIT on fixed-window, sliding-window, GCRA and "
         f"shadow-GCRA keys (shadow gcra agree/diverge +{shadow_moved}), burst "
         f"coalesced up to {lanes} lanes/launch, warm {us_per_req:.1f} us/request "
         f"(fixed window), {us_per_algo_req:.1f} us/request (GCRA); "
-        f"launches {srv_launches}"
+        f"launches {srv_launches}; by form: one-descriptor requests and the "
+        f"burst {forms[0]}, a {WIDE_DESCRIPTORS}-descriptor request {forms[2]}; 50 "
+        f"requests made {forms[1][2]} by-value launches, the profiler saw "
+        f"{forms[1][0]} kernels and {forms[1][1]} memcpys on the card"
     )
 
     # 7. sharded served path
-    shs_launches, sh_lanes, sh_us_per_req = sharded_served_phase(kernels, sh, dev)
+    shs_launches, sh_lanes, sh_us_per_req, sh_forms = sharded_served_phase(
+        torch, kernels, sh, dev
+    )
     log(
         f"sharded served: 2^20 slots over {BANKS} banks, 6th hit OVER_LIMIT with "
         f"remaining [4, 3, 2, 1, 0, 0], 40 keys live in all {BANKS} banks, burst "
         f"coalesced up to {sh_lanes} lanes/launch, warm {sh_us_per_req:.1f} "
-        f"us/request (fixed window); launches {shs_launches}"
+        f"us/request (fixed window); launches {shs_launches}; by form: "
+        f"one-descriptor requests and the burst {sh_forms[0]}, a "
+        f"{WIDE_DESCRIPTORS}-descriptor request {sh_forms[2]}; 50 requests made "
+        f"{sh_forms[1][2]} by-value launches, the profiler saw {sh_forms[1][0]} "
+        f"kernels and {sh_forms[1][1]} memcpys on the card"
     )
 
     phases = (fwd_launches, shf_launches, srv_launches, shs_launches)
@@ -1112,12 +1514,14 @@ def main() -> None:
     }
     replaces = {
         fw.K1: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
+        fw.K1_LANES: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
         prefix_cuda.KERNEL: ("ratelimit_tpu_torch/csrc/prefix.cu", "ratelimit_tpu/ops/prefix_pallas.py:82"),
         fw.K3_UPDATE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
         sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
         gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
     }
     rows = []

@@ -16,12 +16,17 @@ the model's own readback (u32[2, padded] or i32[padded]) back, and
 (``windowed_keys=False``) get the Python slot table with
 refresh-on-touch expiry, so a hot key keeps its slot and state.
 
-The device half runs on a CUDA stream the engine owns:
-``_device_submit`` fills a pinned staging buffer, makes one non_blocking
-host-to-device copy, launches the model's kernel and one non_blocking
-device-to-host copy of its output into pinned readback memory, then
-records an event.  ``step_complete`` waits on
-that event (never on the whole device) before the host decide pass.
+The device half runs on a CUDA stream the engine owns.
+``_device_submit`` fills a staging buffer with the packed batch.  A
+fixed-window chunk of at most 128 padded lanes (``lanes_by_value``, by
+shape alone) goes by value: ONE launch carries the lanes as kernel
+parameters and its kernel writes the readback straight into pinned host
+memory, so the chunk is one device activity.  A wider chunk (warmup,
+bursts) and every generic-algorithm chunk take the device form: one
+non_blocking host-to-device copy, the kernel, one non_blocking
+device-to-host copy of its output into pinned readback memory.  Either
+way an event is recorded after the last of it.  ``step_complete`` waits
+on that event (never on the whole device) before the host decide pass.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
 stream order stands in for the reference's donated-buffer chain.  The
@@ -40,7 +45,9 @@ import numpy as np
 import torch
 
 from ..models.fixed_window import (
+    OUT_DTYPES,
     FixedWindowModel,
+    lanes_by_value,
     resolve_device,
     state_from_numpy,
     state_to_numpy,
@@ -336,10 +343,13 @@ def decide_generic(
 
 class _Staging:
     """Host buffers of one in-flight submission: `words` int32 of packed
-    upload and `nbytes` of readback (pinned on CUDA, so both copies are
-    truly asynchronous), plus the event recorded after the readback.  A
-    staging object returns to the engine's free list only after
-    step_complete has waited on its event and copied the readback out."""
+    batch and `nbytes` of readback (pinned on CUDA, so both copies are
+    truly asynchronous and a by-value kernel can write the readback
+    through its device alias), plus the event recorded after the last
+    device work of the submission.  A staging object returns to the
+    engine's free list only after step_complete has waited on its event
+    and copied the readback out: until then a kernel or a copy may still
+    be writing into its readback."""
 
     __slots__ = ("packed", "packed_np", "readback", "event")
 
@@ -364,8 +374,9 @@ class CounterEngine:
         """`device` defaults to the GPU and raises there when CUDA is
         absent; only device="cpu" runs the plain versions.  `model`
         defaults to a FixedWindowModel on that device.  A model must
-        provide EITHER the saturating unique-slot serving step
-        (step_counters_unique_packed) OR the generic algorithm
+        provide EITHER the saturating unique-slot serving step in both
+        forms (step_counters_unique_packed and its by-value
+        step_counters_unique_lanes) OR the generic algorithm
         protocol: ``step_serve_packed(state, packed, now)`` on the
         device plus ``lane_counts(out, dedup, hits, limits, now)`` on
         the host.  A subclass that overrides ``_device_submit`` brings
@@ -386,11 +397,15 @@ class CounterEngine:
         if (
             not self._generic
             and type(self)._device_submit is CounterEngine._device_submit
-            and not hasattr(self.model, "step_counters_unique_packed")
+            and not (
+                hasattr(self.model, "step_counters_unique_packed")
+                and hasattr(self.model, "step_counters_unique_lanes")
+            )
         ):
             raise TypeError(
                 "model must provide the saturating unique-slot serving "
-                "step (step_counters_unique_packed) or the generic "
+                "step (step_counters_unique_packed and "
+                "step_counters_unique_lanes) or the generic "
                 "step_serve_packed/lane_counts protocol; for mesh models "
                 "use parallel.ShardedCounterEngine"
             )
@@ -661,7 +676,7 @@ class CounterEngine:
         )
         dt = "uint8" if cap <= 0xFF else ("uint16" if cap <= 0xFFFF else "")
 
-        # ONE packed int32[4, padded] upload.  Rows: slots, hits (u32
+        # ONE packed int32[4, padded] batch.  Rows: slots, hits (u32
         # bits), limits (u32 bits), fresh.  Padding uses DISTINCT
         # out-of-table slots (num_slots + i), which K1 leaves inert.
         st = self._take_staging()
@@ -675,13 +690,37 @@ class CounterEngine:
             pk[1, g:] = 0
             pk[2, g:] = 1
             pk[3, g:] = 0
-        host = st.packed[: 4 * padded].view(4, padded)
+        m = self.model
+        handle = self._serve(
+            st,
+            st.packed[: 4 * padded].view(4, padded),
+            dt,
+            m.step_counters_unique_lanes,
+            m.step_counters_unique_packed,
+        )
+        return handle, None
+
+    def _serve(self, st: _Staging, host: torch.Tensor, dt: str, lanes_step, packed_step):
+        """Run a fixed-window serving step on the packed batch `host`
+        (int32[..., 4, padded], a view of `st.packed`) and return the
+        handle (st, readback) for _fetch.  The batch's shape alone picks
+        the form: by value (`lanes_step`; one launch, the readback
+        written by the kernel into `st.readback`), or through device
+        memory (`packed_step`; upload, kernel, readback copy).  Runs on
+        the engine stream; the event follows the kernel either way."""
+        banks = host.numel() // (4 * host.shape[-1])
         with self._on_stream():
+            if lanes_by_value(banks, host.shape[-1]):
+                shape = tuple(host.shape[:-2]) + (host.shape[-1],)
+                dtype = OUT_DTYPES[dt]
+                nbytes = host.numel() // 4 * dtype.itemsize
+                out = st.readback[:nbytes].view(dtype).view(shape)
+                self._counts, readback = lanes_step(self._counts, dt, host, out)
+                self._record(st)
+                return st, readback
             packed = host.to(self.device, non_blocking=True)
-            self._counts, afters = self.model.step_counters_unique_packed(
-                self._counts, dt, packed
-            )
-            return (st, self._read_back(st, afters)), None
+            self._counts, afters = packed_step(self._counts, dt, packed)
+            return st, self._read_back(st, afters)
 
     def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
         """Generic algorithm path: ONE int32[5, padded] upload -- rows
@@ -719,9 +758,14 @@ class CounterEngine:
         nbytes = out.numel() * out.element_size()
         readback = st.readback[:nbytes].view(out.dtype).view(out.shape)
         readback.copy_(out, non_blocking=True)
+        self._record(st)
+        return readback
+
+    def _record(self, st: _Staging) -> None:
+        """Record `st`'s event on the engine stream, after the work that
+        writes its readback; _fetch waits on it."""
         if st.event is not None:
             st.event.record(self._stream)
-        return readback
 
     # -- checkpoint surface ---------------------------------------------
 

@@ -22,9 +22,23 @@
 // atomicAdd.  The prefix's stream order is what makes its atomics finish
 // before the add reads them.
 //
-// The unique-slot serving step takes one thread per lane and a bank per
-// blockIdx.y (a single table is one bank): slots are unique within a
-// bank, so the scatter needs no atomics.
+// The unique-slot serving step (serve_lane) takes one thread per lane:
+// slots are unique within a bank, so the scatter needs no atomics.  A
+// single table is one bank.  It has two forms, chosen by the batch's
+// shape alone (fixed_window.py lanes_by_value):
+//
+// - the device form, unique_step_kernel: the packed int32[banks, 4, n]
+//   batch in device memory, a bank per blockIdx.y, the readback into a
+//   device tensor.  It serves batches too large for a launch's
+//   parameters (warmup, bursts) and the public wrappers.
+// - the by-value form, unique_step_lanes_kernel: at most kMaxLanes
+//   lanes (banks x cap) ride in the launch's parameters, one 16-byte
+//   (slot, hits, limit, fresh) record per lane, which the launcher
+//   copies from the caller's host words.  One block of banks x cap
+//   threads.  The readback goes straight into the caller's pinned host
+//   memory through its device alias.  A served chunk is then one device
+//   activity: no upload copy, no readback copy, and no dependent load of
+//   the lane before the gather of its counter.
 
 #pragma once
 
@@ -76,10 +90,30 @@ __device__ __forceinline__ void write_readback(void* out, long long lane,
   }
 }
 
-// Bank blockIdx.y of `counts` (num_slots each) against its packed
-// int32[4, n] rows (slot, hits bits, limit bits, fresh) of an int32[banks,
-// 4, n] batch: fresh-zero, gather, saturating add, unique scatter-set,
-// readback into out[banks, n].
+// One lane of the unique-slot step on one bank's `counts` (num_slots
+// each): fresh-zero, gather, saturating add, unique scatter-set, and
+// readback entry `lane` of `out`.
+__device__ __forceinline__ void serve_lane(uint32_t* __restrict__ counts,
+                                           long long num_slots, int32_t id,
+                                           uint32_t hits, uint32_t limit,
+                                           bool fresh, void* __restrict__ out,
+                                           long long lane, int out_kind) {
+  const long long slot = slot_index(id, num_slots);
+  const bool live = slot >= 0;
+  const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
+  uint32_t after = before + hits;
+  if (after < before) {  // one u32 add wraps at most once: saturate
+    after = kU32Max;
+  }
+  if (live) {
+    counts[slot] = after;
+  }
+  write_readback(out, lane, after, limit + hits, out_kind);
+}
+
+// Device form: bank blockIdx.y of `counts` against its packed int32[4, n]
+// rows (slot, hits bits, limit bits, fresh) of an int32[banks, 4, n]
+// batch, readback into out[banks, n].
 __global__ void unique_step_kernel(uint32_t* __restrict__ counts,
                                    long long num_slots,
                                    const int32_t* __restrict__ packed, int n,
@@ -89,23 +123,11 @@ __global__ void unique_step_kernel(uint32_t* __restrict__ counts,
     return;
   }
   const long long bank = blockIdx.y;
-  counts += bank * num_slots;
   packed += bank * 4 * n;
-  const long long slot = slot_index(packed[i], num_slots);
-  const uint32_t hits = static_cast<uint32_t>(packed[n + i]);
-  const uint32_t limit = static_cast<uint32_t>(packed[2 * n + i]);
-  const bool fresh = packed[3 * n + i] != 0;
-  const bool live = slot >= 0;
-
-  const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
-  uint32_t after = before + hits;
-  if (after < before) {  // one u32 add wraps at most once: saturate
-    after = kU32Max;
-  }
-  if (live) {
-    counts[slot] = after;
-  }
-  write_readback(out, bank * n + i, after, limit + hits, out_kind);
+  serve_lane(counts + bank * num_slots, num_slots, packed[i],
+             static_cast<uint32_t>(packed[n + i]),
+             static_cast<uint32_t>(packed[2 * n + i]), packed[3 * n + i] != 0,
+             out, bank * n + i, out_kind);
 }
 
 int launch_unique_step(void* counts, long long num_slots, const void* packed,
@@ -119,6 +141,110 @@ int launch_unique_step(void* counts, long long num_slots, const void* packed,
       static_cast<uint32_t*>(counts), num_slots,
       static_cast<const int32_t*>(packed), n, out, out_kind);
   return static_cast<int>(cudaGetLastError());
+}
+
+// By-value form.  The lanes of a launch are at most kMaxLanes (banks x
+// cap), so the whole batch is 16 B x 128 = 2 KB, inside the classic 4 KB
+// of kernel parameters that every CUDA version accepts.
+constexpr int kMaxLanes = 128;
+
+template <int kLanes>
+struct LaneBatch {
+  uint32_t* counts;
+  void* out;
+  long long num_slots;  // slots per bank
+  int cap;              // lanes per bank
+  int lanes;            // banks x cap
+  int out_kind;
+  int4 lane[kLanes];  // lane t = bank * cap + i: (slot, hits, limit, fresh)
+};
+
+static_assert(sizeof(LaneBatch<kMaxLanes>) <= 4096,
+              "the by-value batch must fit the 4 KB parameter space");
+
+// __grid_constant__ lets each thread index the parameter array in place
+// (a plain by-value struct indexed per thread would be copied to local
+// memory first).  Thread t serves lane t of bank t / cap; out[banks, cap]
+// is indexed by t as well.
+template <int kLanes>
+__global__ void unique_step_lanes_kernel(const __grid_constant__ LaneBatch<kLanes> b) {
+  const int t = threadIdx.x;
+  if (t >= b.lanes) {
+    return;
+  }
+  const long long bank = t / b.cap;
+  const int4 l = b.lane[t];
+  serve_lane(b.counts + bank * b.num_slots, b.num_slots, l.x,
+             static_cast<uint32_t>(l.y), static_cast<uint32_t>(l.z), l.w != 0,
+             b.out, t, b.out_kind);
+}
+
+template <int kLanes>
+int launch_lanes(uint32_t* counts, long long num_slots, const int32_t* words,
+                 int banks, int cap, void* out, int out_kind,
+                 cudaStream_t stream) {
+  LaneBatch<kLanes> b;
+  b.counts = counts;
+  b.out = out;
+  b.num_slots = num_slots;
+  b.cap = cap;
+  b.lanes = banks * cap;
+  b.out_kind = out_kind;
+  // words is int32[banks, 4, cap] row-major; transpose to one record a lane.
+  for (int bank = 0; bank < banks; ++bank) {
+    const int32_t* rows = words + bank * 4 * cap;
+    for (int i = 0; i < cap; ++i) {
+      b.lane[bank * cap + i] =
+          make_int4(rows[i], rows[cap + i], rows[2 * cap + i], rows[3 * cap + i]);
+    }
+  }
+  for (int t = b.lanes; t < kLanes; ++t) {
+    b.lane[t] = make_int4(0, 0, 0, 0);
+  }
+  const int threads = (b.lanes + 31) / 32 * 32;
+  unique_step_lanes_kernel<kLanes><<<1, threads, 0, stream>>>(b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The by-value launcher.  `words` is the HOST address of the int32[banks,
+// 4, cap] batch; its values are copied into the launch, so the caller may
+// reuse the buffer as soon as this returns.  `out` is the host address of
+// pinned memory, and the kernel writes through the device alias that
+// cudaHostGetDevicePointer gives (its error is returned if there is
+// none).  The caller must wait for the stream (an event) before reading
+// `out`.
+int launch_unique_step_lanes(void* counts, long long num_slots,
+                             const void* words, int banks, int cap, void* out,
+                             int out_kind, void* stream) {
+  if (banks <= 0 || cap <= 0) {
+    return 0;
+  }
+  const long long lanes = static_cast<long long>(banks) * cap;
+  if (lanes > kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* dout = nullptr;
+  const cudaError_t err = cudaHostGetDevicePointer(&dout, out, 0);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, or the next launch check reports it
+    return static_cast<int>(err);
+  }
+  uint32_t* c = static_cast<uint32_t*>(counts);
+  const int32_t* w = static_cast<const int32_t*>(words);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 8) {
+    return launch_lanes<8>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  }
+  if (lanes <= 16) {
+    return launch_lanes<16>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  }
+  if (lanes <= 32) {
+    return launch_lanes<32>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  }
+  if (lanes <= 64) {
+    return launch_lanes<64>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  }
+  return launch_lanes<kMaxLanes>(c, num_slots, w, banks, cap, dout, out_kind, s);
 }
 
 template <class Index>

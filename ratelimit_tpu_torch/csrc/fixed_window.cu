@@ -17,10 +17,16 @@
 // back per lane -- about 0.1 MB at 4096 lanes, so the launch latency
 // and not the memory system bounds it.  The TPU's 128-wide row gather
 // (fixed_window.py:210-226) is a TPU layout trick and has no
-// counterpart here.
+// counterpart here.  Two forms (counter_update.cuh): rl_fw_unique_step
+// reads the batch from device memory; rl_fw_unique_step_lanes, for the
+// served widths (N <= 128), takes it from host words into the launch's
+// parameters and writes the readback into mapped pinned memory, so a
+// served chunk is one device activity instead of upload, kernel and
+// readback copy.
 //
 // K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
-// duplicate-tolerant step) and :294 decision_block.  The update runs as
+// duplicate-tolerant step), :108 step_counters_compact (rl_fw_add's
+// optional narrow readback) and :294 decision_block.  The update runs as
 // separate launches on one stream (counter_update.cuh says why): zero
 // fresh slots, gather, the per-slot prefix (K2, csrc/prefix.cu: a memset
 // and a triangular tiled pass over the whole card), then add + modular
@@ -99,11 +105,27 @@ extern "C" int rl_fw_zero_and_gather(void* counts, long long num_slots,
                                 before, n, stream);
 }
 
+extern "C" int rl_fw_unique_step_lanes(void* counts, long long num_slots,
+                                       const void* words, int n, void* out,
+                                       int out_kind, void* stream) {
+  return launch_unique_step_lanes(counts, num_slots, words, 1, n, out,
+                                  out_kind, stream);
+}
+
+// The device alias of pinned host memory at `host` (what the by-value
+// launchers write through), for checks on the card.
+extern "C" int rl_mapped_alias(void* host, void** device) {
+  const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
+  cudaGetLastError();  // a failure must not stick to the next launch check
+  return static_cast<int>(err);
+}
+
 extern "C" int rl_fw_add(void* counts, long long num_slots, const void* slots,
                          const void* hits, const void* incl, void* afters,
-                         int n, void* stream) {
+                         const void* limits, void* out, int out_kind, int n,
+                         void* stream) {
   return launch_add(counts, WrappedIndex{num_slots}, slots, hits, incl, afters,
-                    nullptr, nullptr, 0, n, stream);
+                    limits, out, out_kind, n, stream);
 }
 
 extern "C" int rl_fw_decision_block(const void* afters, const void* hits,

@@ -12,9 +12,14 @@
 //   step_counters_unique_routed_packed -> _bank_unique (:229-266).
 // The host routes each unique slot to its bank and hands over one packed
 // int32[num_banks, 4, cap] batch of LOCAL ids (padding ids
-// slots_per_bank + i).  One launch serves every bank: grid (cap / 256,
-// num_banks), one thread per routed lane, no atomics (slots are unique
-// within a bank).  Local ids follow JAX's index semantics at width
+// slots_per_bank + i).  One launch serves every bank, one thread per
+// routed lane, no atomics (slots are unique within a bank): in the device
+// form (rl_sharded_routed_step) grid (cap / 256, num_banks) over the
+// batch in device memory; in the by-value form
+// (rl_sharded_routed_step_lanes, num_banks x cap <= 128, so 8 banks up to
+// cap 16) one block of num_banks x cap threads over the batch carried in
+// the launch's parameters, the readback into mapped pinned memory
+// (counter_update.cuh).  Local ids follow JAX's index semantics at width
 // slots_per_bank.  The add saturates; the readback is K1's.  Bound: 16 B
 // in, 4 B gathered, 4 B written and <= 4 B out per routed lane, padding
 // included -- about 0.1 MB for 4096 lanes over 8 banks, so the launch
@@ -49,6 +54,15 @@ extern "C" int rl_sharded_routed_step(void* counts, long long slots_per_bank,
                                       void* stream) {
   return launch_unique_step(counts, slots_per_bank, packed, num_banks, cap, out,
                             out_kind, stream);
+}
+
+extern "C" int rl_sharded_routed_step_lanes(void* counts,
+                                            long long slots_per_bank,
+                                            const void* words, int num_banks,
+                                            int cap, void* out, int out_kind,
+                                            void* stream) {
+  return launch_unique_step_lanes(counts, slots_per_bank, words, num_banks,
+                                  cap, out, out_kind, stream);
 }
 
 extern "C" int rl_sharded_zero_and_gather(void* counts, int num_banks,

@@ -69,7 +69,15 @@ SIGNATURES = {
         "fixed_window",
         [_VP, _I64, _VP, _VP, _VP, _I32, _VP],
     ),
-    "rl_fw_add": ("fixed_window", [_VP, _I64, _VP, _VP, _VP, _VP, _I32, _VP]),
+    "rl_fw_unique_step_lanes": (
+        "fixed_window",
+        [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
+    "rl_mapped_alias": ("fixed_window", [_VP, ctypes.POINTER(_VP)]),
+    "rl_fw_add": (
+        "fixed_window",
+        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _VP],
+    ),
     "rl_fw_decision_block": (
         "fixed_window",
         [_VP, _VP, _VP, _VP, ctypes.c_float, _I32, _VP, _VP, _VP],
@@ -77,6 +85,10 @@ SIGNATURES = {
     "rl_sw_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_gcra_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_sharded_routed_step": (
+        "sharded",
+        [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
+    ),
+    "rl_sharded_routed_step_lanes": (
         "sharded",
         [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
     ),
@@ -216,6 +228,15 @@ def check(rc: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
         raise KernelError(f"{kernel}: CUDA launch failed with error {rc}")
+
+
+def mapped_alias(host_ptr: int) -> int:
+    """The device address through which a kernel reaches the pinned
+    host memory at `host_ptr` (cudaHostGetDevicePointer); raises
+    KernelError where there is none."""
+    dev = ctypes.c_void_p()
+    check(function("rl_mapped_alias")(host_ptr, ctypes.byref(dev)), "rl_mapped_alias")
+    return dev.value or 0
 
 
 def stream_ptr(device) -> int:

@@ -6,7 +6,12 @@ int32 tensor of u32 bit patterns (one counter per slot; 2**24 slots =
 
 - the serving step, ``step_counters_unique_packed``: the engine has
   already deduplicated the batch on the host, so every live slot is
-  unique -- K1 ``fw_unique_step`` (csrc/fixed_window.cu);
+  unique -- K1 ``fw_unique_step`` (csrc/fixed_window.cu).  The engine
+  serves a chunk of up to 128 padded lanes through K1's by-value form,
+  ``step_counters_unique_lanes`` (``fw_unique_step_lanes``): the lanes
+  ride in the launch's parameters and the readback lands in pinned host
+  memory, so the chunk is one device activity (``lanes_by_value``
+  decides, from the shape alone);
 - the duplicate-tolerant step, ``forward`` = ``update`` +
   ``decision_block``: zero fresh slots, gather, in-batch per-slot
   prefix (Redis pipeline order), modular scatter-add, threshold
@@ -24,7 +29,7 @@ to 32 bits, kept beside it here -- only for a tensor on the CPU.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +50,7 @@ OUT_DTYPES = {"": torch.int32, "uint8": torch.uint8, "uint16": torch.int16}
 _OUT_KIND = {"": 0, "uint8": 1, "uint16": 2}
 
 K1 = "fw_unique_step"
+K1_LANES = "fw_unique_step_lanes"
 K3_UPDATE = "fw_general_update"
 K3_DECIDE = "fw_decision_block"
 
@@ -147,6 +153,18 @@ def _check_lanes(device: torch.device, n: int, **tensors) -> None:
 
 # -- K1: unique-slot serving step ---------------------------------------
 
+#: The most bytes of lanes (int32[banks, 4, padded]) a launch carries by
+#: value: 128 lanes of 16 B, inside the 4 KB of kernel parameters every
+#: CUDA version accepts (kMaxLanes in csrc/counter_update.cuh).
+BY_VALUE_BYTES = 2048
+
+
+def lanes_by_value(banks: int, padded: int) -> bool:
+    """Whether a served batch of `banks` x `padded` lanes goes by value
+    (K1/K6's by-value form) or through device memory (their device
+    form).  The batch's shape alone decides, never a failure."""
+    return banks * 4 * padded * 4 <= BY_VALUE_BYTES
+
 
 def _unique_step_plain(
     counts: torch.Tensor, packed: torch.Tensor, out_dtype: str
@@ -217,6 +235,67 @@ def fw_unique_step(
     return out
 
 
+def check_lanes_out(words: torch.Tensor, out: torch.Tensor, out_dtype: str) -> None:
+    """The arguments of a by-value launch: host int32 words [..., 4, N]
+    within BY_VALUE_BYTES, and `out` of the readback type shaped [...,
+    N], contiguous, on the host (pinned, where the table is on the card:
+    the kernel writes it through its device alias)."""
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
+    if words.dtype != torch.int32 or words.dim() < 2 or words.shape[-2] != 4:
+        raise TypeError(
+            f"words must be int32[..., 4, N], got {words.dtype} {tuple(words.shape)}"
+        )
+    if words.device.type != "cpu" or not words.is_contiguous():
+        raise ValueError("words must be a contiguous host tensor")
+    if 4 * words.numel() > BY_VALUE_BYTES:
+        raise ValueError(
+            f"{4 * words.numel()} B of lanes exceed the {BY_VALUE_BYTES} B a "
+            "launch carries by value: use the device form"
+        )
+    want = tuple(words.shape[:-2]) + (words.shape[-1],)
+    if out.dtype != OUT_DTYPES[out_dtype] or tuple(out.shape) != want:
+        raise TypeError(
+            f"out must be {OUT_DTYPES[out_dtype]}{list(want)}, got {out.dtype} "
+            f"{tuple(out.shape)}"
+        )
+    if out.device.type != "cpu" or not out.is_contiguous():
+        raise ValueError("out must be a contiguous host tensor")
+
+
+def fw_unique_step_lanes(
+    counts: torch.Tensor, words: torch.Tensor, out: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K1's by-value form: the same step as fw_unique_step on a packed
+    int32[4, N] batch held in HOST memory (N <= 128), whose values the
+    launch carries as parameters, so no upload precedes the kernel.
+    The readback goes into `out` (OUT_DTYPES[out_dtype][N]), host memory
+    that must be pinned on a CUDA table: the kernel writes it through its
+    device alias, and a KernelError is raised where there is none.  Only
+    enqueued on a CUDA table: wait on the stream (an event) before
+    reading `out`.  Returns `out`."""
+    _check_table(counts)
+    check_lanes_out(words, out, out_dtype)
+    if counts.device.type == "cpu":
+        return out.copy_(_unique_step_plain(counts, words, out_dtype))
+    _require_cuda(counts.device)
+    n = words.shape[1]
+    if n == 0:
+        return out
+    rc = kernels.function("rl_fw_unique_step_lanes")(
+        counts.data_ptr(),
+        counts.shape[0],
+        words.data_ptr(),
+        n,
+        out.data_ptr(),
+        _OUT_KIND[out_dtype],
+        kernels.stream_ptr(counts.device),
+    )
+    kernels.check(rc, K1_LANES)
+    kernels.launches[K1_LANES] += 1
+    return out
+
+
 # -- K3: duplicate-tolerant update + decision block ---------------------
 
 
@@ -225,8 +304,11 @@ def _update_plain(
     slots: torch.Tensor,
     hits: torch.Tensor,
     fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    out_dtype: str = "",
 ) -> torch.Tensor:
-    """Plain version of fw_general_update (in place; returns afters)."""
+    """Plain version of fw_general_update (in place; returns the afters
+    or their narrow readback)."""
     ns = counts.shape[0]
     idx, live = slot_index(slots, ns)
     counts[idx[live & fresh]] = 0
@@ -240,7 +322,9 @@ def _update_plain(
     touched = idx[live]
     total.index_add_(0, touched, widen(hits)[live])
     counts[touched] = narrow(widen(counts[touched]) + total[touched])
-    return narrow(afters)
+    if out_dtype == "":
+        return narrow(afters)
+    return readback_plain(afters, widen(hits), widen(limits), out_dtype)
 
 
 def fw_general_update(
@@ -248,26 +332,37 @@ def fw_general_update(
     slots: torch.Tensor,
     hits: torch.Tensor,
     fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    out_dtype: str = "",
 ) -> torch.Tensor:
     """K3 update: zero fresh slots, gather 'before', add the in-batch
     per-slot prefix (K2), modular scatter-add of hits.  Returns the
-    per-lane afters (int32 u32 bits); updates `counts` in place.
-    Duplicate slots are allowed."""
+    per-lane afters (int32 u32 bits), or with out_dtype "uint8" /
+    "uint16" min(after, limit + hits) narrowed (`limits` then required);
+    updates `counts` in place.  Duplicate slots are allowed."""
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
     _check_table(counts)
     n = slots.shape[0]
-    _check_lanes(
-        counts.device,
-        n,
-        slots=(slots, torch.int32),
-        hits=(hits, torch.int32),
-        fresh=(fresh, torch.bool),
+    lanes = dict(
+        slots=(slots, torch.int32), hits=(hits, torch.int32), fresh=(fresh, torch.bool)
     )
+    if out_dtype:
+        if limits is None:
+            raise ValueError(f"out_dtype {out_dtype!r} needs the limits")
+        lanes["limits"] = (limits, torch.int32)
+    _check_lanes(counts.device, n, **lanes)
     if counts.device.type == "cpu":
-        return _update_plain(counts, slots, hits, fresh)
+        return _update_plain(counts, slots, hits, fresh, limits, out_dtype)
     _require_cuda(counts.device)
     afters = torch.empty(n, dtype=torch.int32, device=counts.device)
+    out = (
+        torch.empty(n, dtype=OUT_DTYPES[out_dtype], device=counts.device)
+        if out_dtype
+        else afters
+    )
     if n == 0:
-        return afters
+        return out
     stream = kernels.stream_ptr(counts.device)
     ns = counts.shape[0]
     rc = kernels.function("rl_fw_zero_and_gather")(
@@ -278,11 +373,14 @@ def fw_general_update(
     incl = per_slot_inclusive_prefix_cuda(slots, hits)
     rc = kernels.function("rl_fw_add")(
         counts.data_ptr(), ns, slots.data_ptr(), hits.data_ptr(),
-        incl.data_ptr(), afters.data_ptr(), n, stream,
+        incl.data_ptr(), afters.data_ptr(),
+        limits.data_ptr() if out_dtype else None,
+        out.data_ptr() if out_dtype else None,
+        _OUT_KIND[out_dtype], n, stream,
     )
     kernels.check(rc, K3_UPDATE)
     kernels.launches[K3_UPDATE] += 1
-    return afters
+    return out
 
 
 def _decision_block_plain(
@@ -401,6 +499,56 @@ class FixedWindowModel:
         ratelimit_tpu FixedWindowModel.step_counters_compact for why
         the saturated narrow readback loses no information."""
         return counts, fw_unique_step(counts, packed, out_dtype)
+
+    def step_counters_unique_lanes(
+        self, counts: torch.Tensor, out_dtype: str, words: torch.Tensor, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K1's by-value form: the same batch as
+        step_counters_unique_packed, held in host memory, with the
+        readback into `out` (pinned host memory on the card).  Returns
+        (counts, out); wait on the stream before reading `out`."""
+        return counts, fw_unique_step_lanes(counts, words, out, out_dtype)
+
+    def step_counters_unique(
+        self, counts: torch.Tensor, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Counter update for a batch whose live slots are unique (K1):
+        returns (counts, afters as int32 u32 bits).  Pads use distinct
+        out-of-table ids (num_slots + i)."""
+        return self.step_counters_unique_compact(counts, "", batch)
+
+    def step_counters_unique_compact(
+        self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K1 with the saturated narrow readback min(after, limit + hits)
+        as "uint8" or "uint16" (int16 storage); "" gives the raw
+        afters.  The batch's rows are stacked into one int32[4, N]."""
+        packed = torch.stack(
+            [batch.slots, batch.hits, batch.limits, batch.fresh.to(torch.int32)]
+        )
+        return self.step_counters_unique_packed(counts, out_dtype, packed)
+
+    def step_counters(
+        self, counts: torch.Tensor, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The JAX model's name for `update`: (counts, afters)."""
+        return self.update(counts, batch)
+
+    def step_counters_compact(
+        self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The duplicate-tolerant update (K3 + K2) with the saturated
+        narrow readback min(after, limit + hits) as "uint8" or "uint16"
+        (int16 storage), written by K3's add launch."""
+        return counts, fw_general_update(
+            counts, batch.slots, batch.hits, batch.fresh, batch.limits, out_dtype
+        )
+
+    def step(
+        self, counts: torch.Tensor, batch: DeviceBatch
+    ) -> Tuple[torch.Tensor, DeviceDecisions]:
+        """The JAX model's name for `forward`: update + decision block."""
+        return self.forward(counts, batch)
 
     def update(
         self, counts: torch.Tensor, batch: DeviceBatch

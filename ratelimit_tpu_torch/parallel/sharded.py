@@ -18,9 +18,12 @@ Two kernels, in csrc/sharded.cu:
 
 - K6 ``sharded_routed_step``, the serving step: the engine routes each
   unique slot to its bank on the host (local ids, one packed
-  int32[num_banks, 4, cap] upload) and one launch serves every bank --
+  int32[num_banks, 4, cap] batch) and one launch serves every bank --
   fresh-zero, gather, SATURATING add, unique scatter-set, narrow
-  readback;
+  readback.  Up to 128 routed lanes (8 banks x cap 16) go by value,
+  ``sharded_routed_step_lanes``: the batch rides in the launch's
+  parameters and the readback lands in pinned host memory
+  (``fixed_window.lanes_by_value`` decides, from the shape alone);
 - K7 ``sharded_general_update``, the duplicate-tolerant step over a
   replicated batch of GLOBAL ids: zero fresh slots, gather, the
   per-slot prefix (K2) on the raw ids, MODULAR scatter-add, with an
@@ -55,6 +58,7 @@ from ..ops.prefix_cuda import per_slot_inclusive_prefix_cuda
 from ..ops.u32 import narrow, widen
 
 K6 = "sharded_routed_step"
+K6_LANES = "sharded_routed_step_lanes"
 K7 = "sharded_general_update"
 
 
@@ -167,6 +171,41 @@ def sharded_routed_step(
     )
     kernels.check(rc, K6)
     kernels.launches[K6] += 1
+    return out
+
+
+def sharded_routed_step_lanes(
+    counts: torch.Tensor, words: torch.Tensor, out: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K6's by-value form: the same step as sharded_routed_step on an
+    int32[num_banks, 4, cap] batch held in HOST memory (num_banks x cap
+    <= 128), carried by the launch as parameters.  The readback goes
+    into `out` (OUT_DTYPES[out_dtype][num_banks, cap]), host memory that
+    must be pinned on a CUDA table, written through its device alias.
+    Only enqueued on a CUDA table: wait on the stream (an event) before
+    reading `out`.  Returns `out`."""
+    nb, _ = _check_banked(counts)
+    fw.check_lanes_out(words, out, out_dtype)
+    if words.dim() != 3 or words.shape[0] != nb:
+        raise TypeError(f"words must be int32[{nb}, 4, cap], got {tuple(words.shape)}")
+    if counts.device.type == "cpu":
+        return out.copy_(_routed_step_plain(counts, words, out_dtype))
+    fw._require_cuda(counts.device)
+    cap = words.shape[2]
+    if cap == 0:
+        return out
+    rc = kernels.function("rl_sharded_routed_step_lanes")(
+        counts.data_ptr(),
+        counts.shape[1],
+        words.data_ptr(),
+        nb,
+        cap,
+        out.data_ptr(),
+        fw._OUT_KIND[out_dtype],
+        kernels.stream_ptr(counts.device),
+    )
+    kernels.check(rc, K6_LANES)
+    kernels.launches[K6_LANES] += 1
     return out
 
 
@@ -313,6 +352,15 @@ class ShardedFixedWindowModel:
         4, cap] upload: returns (counts, afters[num_banks, cap])."""
         return counts, sharded_routed_step(counts, packed, out_dtype)
 
+    def step_counters_unique_routed_lanes(
+        self, counts: torch.Tensor, out_dtype: str, words: torch.Tensor, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The routed serving step in K6's by-value form: the batch of
+        step_counters_unique_routed_packed held in host memory, the
+        readback into `out` (pinned host memory on the card).  Returns
+        (counts, out); wait on the stream before reading `out`."""
+        return counts, sharded_routed_step_lanes(counts, words, out, out_dtype)
+
     def step_counters_unique_routed(
         self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,7 +434,7 @@ class ShardedCounterEngine(CounterEngine):
         cap = self._bucket(max(int(counts_pb.max(initial=1)), 1))
         self.stat_bank_lane_counts = counts_pb.tolist()
 
-        # ONE packed int32[nb, 4, cap] upload.  Padding ids spb + i are
+        # ONE packed int32[nb, 4, cap] batch.  Padding ids spb + i are
         # distinct and out of the bank, so K6 leaves them inert.
         st = self._take_staging()
         pk = st.packed_np[: nb * 4 * cap].reshape(nb, 4, cap)
@@ -406,13 +454,13 @@ class ShardedCounterEngine(CounterEngine):
             dedup.limit_max[vi].max(initial=1)
         )
         dt = "uint8" if cap_val <= 0xFF else ("uint16" if cap_val <= 0xFFFF else "")
-        host = st.packed[: nb * 4 * cap].view(nb, 4, cap)
-        with self._on_stream():
-            packed = host.to(self.device, non_blocking=True)
-            self._counts, afters = m.step_counters_unique_routed_packed(
-                self._counts, dt, packed
-            )
-            handle = st, self._read_back(st, afters)
+        handle = self._serve(
+            st,
+            st.packed[: nb * 4 * cap].view(nb, 4, cap),
+            dt,
+            m.step_counters_unique_routed_lanes,
+            m.step_counters_unique_routed_packed,
+        )
 
         def reassemble(fetched: np.ndarray) -> np.ndarray:
             out = np.zeros(g, dtype=np.uint32)

@@ -7,7 +7,7 @@ Times one closed-loop client, warm, at three depths of the main path,
 each on the same one-descriptor requests:
 
 - engine:  CounterEngine.submit_packed + step_complete (slot table,
-           upload, K1, readback, host decide);
+           K1 by value with its readback in pinned memory, host decide);
 - cache:   CudaRateLimitCache.do_limit_resolved through the dispatcher
            threads (adds the collector/completer hand-offs);
 - grpc:    a ShouldRateLimit round trip to an in-process runner (adds

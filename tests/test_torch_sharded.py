@@ -333,26 +333,33 @@ def test_routed_width_is_below_the_batch():
 
 def test_warmup_reaches_every_routed_shape():
     """The cache's warmup drives every (bucket, readback type) routed
-    shape through the all-one-bank probes, and leaves the counters and
-    the slot table untouched."""
+    shape through the all-one-bank probes -- 8 banks x cap 8 in K6's
+    by-value form, cap 32 in its device form -- and leaves the counters
+    and the slot table untouched."""
     buckets = (8, 32)
     te = ShardedCounterEngine(make_mesh(8, "cpu"), num_slots=1 << 10, buckets=buckets)
     cache = CudaRateLimitCache(te)
     seen = []
-    orig = te.model.step_counters_unique_routed_packed
+    m = te.model
+    by_value, packed_step = m.step_counters_unique_routed_lanes, m.step_counters_unique_routed_packed
 
-    def spy(counts, out_dtype, packed):
-        seen.append((out_dtype, packed.shape[2]))
-        return orig(counts, out_dtype, packed)
+    def spy_lanes(counts, out_dtype, words, out):
+        seen.append((out_dtype, words.shape[2], "lanes"))
+        return by_value(counts, out_dtype, words, out)
 
-    te.model.step_counters_unique_routed_packed = spy
+    def spy_packed(counts, out_dtype, packed):
+        seen.append((out_dtype, packed.shape[2], "device"))
+        return packed_step(counts, out_dtype, packed)
+
+    m.step_counters_unique_routed_lanes = spy_lanes
+    m.step_counters_unique_routed_packed = spy_packed
     try:
         cache.warmup()
     finally:
         cache.close()
-    for bucket in buckets:
+    for bucket, form in zip(buckets, ("lanes", "device")):
         for dt in ("uint8", "uint16", ""):
-            assert (dt, bucket) in seen, sorted(set(seen))
+            assert (dt, bucket, form) in seen, sorted(set(seen))
     assert not te.export_counts().any()
     assert len(te.slot_table) == 0
     # Staging sized for the widest routed shape: num_banks x 4 x cap.
