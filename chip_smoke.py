@@ -26,16 +26,19 @@ Phases, one line each; any failure exits non-zero:
    from its add launch) against readback_plain; the served step in both
    forms: K1 and K6 by value (lanes in the launch's parameters, readback
    into mapped pinned memory) for N in LANES_SIZES and in the device
-   form for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; profiler
-   device times at 4096 (the by-value forms at their served width),
-   beside the launch floor (a one-element in-place torch add), with min /
-   median / max per call for every kernel, K1 and K6 in each form at the
-   served widths, and K2 at 16384; then the served chunk:
-   engine._device_submit + step_complete at 1, 8 and 13 lanes on one
-   table and on 8 banks, SERVED_CHUNKS chunks under torch.profiler --
-   per chunk the device activities (one: the by-value kernel), memcpys
-   (none), device busy time and span from the first start to the last
-   end -- and as many again without it for the host microseconds;
+   form for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; K4 and K5
+   by value for N in LANES_SIZES at 2^18 and 2^24 slots over every
+   clock step, against their plain versions and their device forms;
+   profiler device times at 4096 (the by-value forms at their served
+   width), beside the launch floor (a one-element in-place torch add),
+   with min / median / max per call for every kernel, K1, K4, K5 and K6
+   in each form at the served widths, and K2 at 16384; then the served
+   chunk: engine._device_submit + step_complete at 1, 8 and 13 lanes on
+   one table, on 8 banks, on a sliding-window and on a GCRA table,
+   SERVED_CHUNKS chunks under torch.profiler -- per chunk the device
+   activities (one: the by-value kernel), memcpys (none), device busy
+   time and span from the first start to the last end -- and as many
+   again without it for the host microseconds;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
    against the plain version and an independent numpy reference;
@@ -51,8 +54,9 @@ Phases, one line each; any failure exits non-zero:
    fixed-window while ratelimit.tpu.shadow.gcra.{agree,diverge}
    moves; a concurrent burst coalesces into multi-lane launches --
    and the warm microseconds per request on a fixed-window and on a
-   GCRA key; every K1 launch of the one-descriptor requests and the
-   burst takes the by-value form, 50 requests make 50 launches and no
+   GCRA key; on the fixed-window, the GCRA and the sliding-window key
+   every launch of the one-descriptor requests (and of the burst) takes
+   the by-value form (K1, K5, K4), 50 requests make 50 launches and no
    memcpy on the card, and one 200-descriptor request takes the device
    form;
 7. sharded served: the runner with BACKEND_TYPE=cuda-sharded, 2^20
@@ -91,8 +95,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
 SIZES = (8, 100, 128, 4096)
-# K1 and K6 in each form: by value up to 128 lanes (banks x cap), the
-# device form past it.
+# The serving kernels in each form: by value up to 128 lanes (banks x
+# cap), the device form past it.
 LANES_SIZES = (1, 8, 13, 16, 100, 128)
 DEVICE_FORM_SIZES = (129, 4096)
 # The served chunk: lanes per chunk, and chunks per pass.
@@ -429,13 +433,26 @@ def _algo_packed(torch, rng, n, ns, pool, dev):
     return torch.from_numpy(pk).to(dev)
 
 
-def check_algorithms(torch, sw, gcra, dev):
+def check_algorithms(torch, sw, gcra, kernels, dev):
     """K4 and K5 against their plain versions, several steps each with
-    the clock advancing (ALGO_STEPS); returns max |err| by kernel."""
+    the clock advancing (ALGO_STEPS): the device form for N in SIZES at
+    2^18 slots and 4096 at 2^24; the by-value form (host words, readback
+    into mapped pinned memory) for N in LANES_SIZES at 2^18 and 2^24
+    slots, also against the device form on a cloned state.  A pageable
+    readback raises KernelError, one on the card ValueError, and the
+    next launch still runs.  Returns max |err| by kernel."""
     rng = np.random.default_rng(2025)
     steps = {sw.K4: (sw.sw_serve_step, sw._sw_step_plain, "sw"),
              gcra.K5: (gcra.gcra_serve_step, gcra._gcra_step_plain, "gcra")}
-    err = {name: 0 for name in steps}
+    err = {name: 0 for name in (sw.K4, gcra.K5, sw.K4_LANES, gcra.K5_LANES)}
+
+    def note(name, a, b, what):
+        # On a's device: a state (up to 200 MB) never leaves the card.
+        e = u32_max_abs_err(a, b.to(a.device))
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees ({what}): max|err|={e}")
+
     for name, (kernel, plain, algo) in steps.items():
         for ns, sizes in ((ALGO_SLOTS, SIZES), (BIG_SLOTS, (4096,))):
             for n in sizes:
@@ -445,17 +462,57 @@ def check_algorithms(torch, sw, gcra, dev):
                 for dt in ALGO_STEPS:
                     now = ALGO_NOW + dt
                     pk = _algo_packed(torch, rng, n, ns, pool, dev)
-                    for what, a, b in (
-                        ("out", kernel(sk, pk, now), plain(sp, pk, now)),
-                        ("state", sk, sp),
-                    ):
-                        e = u32_max_abs_err(a, b)
-                        err[name] = max(err[name], e)
-                        if e != 0:
-                            fail(
-                                f"{name} disagrees with its plain version ({what} "
-                                f"n={n} ns={ns} now=+{dt}): max|err|={e}"
-                            )
+                    what = f"n={n} ns={ns} now=+{dt}, vs its plain version"
+                    note(name, kernel(sk, pk, now), plain(sp, pk, now), "out " + what)
+                    note(name, sk, sp, "state " + what)
+
+    by_value = {
+        sw.K4_LANES: (sw.sw_serve_step_lanes, sw.sw_serve_step, sw._sw_step_plain, "sw", (2,)),
+        gcra.K5_LANES: (
+            gcra.gcra_serve_step_lanes, gcra.gcra_serve_step, gcra._gcra_step_plain, "gcra", ()
+        ),
+    }
+    for name, (lanes, device, plain, algo, rows) in by_value.items():
+        for ns in (ALGO_SLOTS, BIG_SLOTS):
+            pool = rng.choice(ns, 2 * max(LANES_SIZES), replace=False)
+            base = _algo_state(torch, rng, algo, ns, pool, dev)
+            for n in LANES_SIZES:
+                sl, sd, sp = base.clone(), base.clone(), base.clone()
+                for dt in ALGO_STEPS:
+                    now = ALGO_NOW + dt
+                    pk = _algo_packed(torch, rng, n, ns, pool, dev)
+                    out = torch.empty((*rows, n), dtype=torch.int32, pin_memory=True)
+                    lanes(sl, _pinned(torch, pk), now, out)
+                    want_device = device(sd, pk, now)
+                    want = plain(sp, pk, now)
+                    torch.cuda.synchronize()
+                    what = f"n={n} ns={ns} now=+{dt}"
+                    note(name, out, want, "out vs its plain version " + what)
+                    note(name, sl, sp, "state vs its plain version " + what)
+                    note(name, out, want_device, "out vs its device form " + what)
+                    note(name, sl, sd, "state vs its device form " + what)
+
+        # No fallback: a pageable readback has no device alias and raises;
+        # one on the card is refused before the launch.
+        state = torch.zeros(({"sw": 3, "gcra": 2}[algo], 64), dtype=torch.int32, device=dev)
+        words = torch.zeros((5, 8), dtype=torch.int32)
+        words[0] = 64 + torch.arange(8)  # distinct pads past the table
+        words[4] = 1
+        try:
+            lanes(state, words, ALGO_NOW, torch.zeros((*rows, 8), dtype=torch.int32))
+            fail(f"{name}: a pageable readback buffer did not raise KernelError")
+        except kernels.KernelError:
+            pass
+        try:
+            lanes(state, words, ALGO_NOW, torch.zeros((*rows, 8), dtype=torch.int32, device=dev))
+            fail(f"{name}: a readback buffer on the card did not raise ValueError")
+        except ValueError:
+            pass
+        out = torch.full((*rows, 8), 7, dtype=torch.int32, pin_memory=True)
+        lanes(state, words, ALGO_NOW, out)
+        torch.cuda.synchronize()
+        if (out == 7).all():
+            fail(f"{name}: the launch after a refused readback buffer did not run")
     torch.cuda.synchronize()
     return err
 
@@ -562,7 +619,8 @@ def check_served_forms(torch, fw, sh, kernels, dev):
     k6_lanes_cases = 0
 
     def note(name, a, b, what):
-        e = u32_max_abs_err(a.cpu(), b.cpu())
+        # On a's device: a table (up to 64 MB) never leaves the card.
+        e = u32_max_abs_err(a, b.to(a.device))
         err[name] = max(err[name], e)
         if e != 0:
             fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
@@ -652,14 +710,15 @@ def prefix_ops(n: int) -> int:
 
 def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
-    2^20 slots (K4, K5: 2^18, the bank default; the by-value forms of K1
-    and K6 at the widths they serve, 8 lanes and 8 banks x cap 8), plus
-    the bound of each (larger of bytes over HBM rate and operations over
-    the 32-bit peak), from this run's inputs.  Also returns, as `extra`:
-    the launch floor (a one-element in-place torch add, which the port
-    never calls), the per-call device times of every kernel over 50
-    calls (for their spread), K1 and K6 at the served widths in every
-    form, and K2 at 16384 lanes."""
+    2^20 slots (K4, K5: 2^18, the bank default; the by-value forms of K1,
+    K4, K5 and K6 at the widths they serve, 8 lanes and 8 banks x cap
+    8), plus the bound of each (larger of bytes over HBM rate and
+    operations over the 32-bit peak), from this run's inputs.  Also
+    returns, as `extra`: the launch floor (a one-element in-place torch
+    add, which the port never calls), the per-call device times of every
+    kernel over 50 calls (for their spread), K1, K4, K5 and K6 at the
+    served widths in the other form and by value at 128 lanes, each with
+    its bound, and K2 at 16384 lanes."""
     rng = np.random.default_rng(7)
     n, ns = 4096, NUM_SLOTS
     table = _table(torch, rng, ns, dev)
@@ -710,22 +769,32 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     # for the spread only, the device form and the by-value form at 128.
     pk8 = _packed(torch, rng, 8, ns, dev, np.zeros(0, np.int64))
     words8, out8 = _pinned(torch, pk8), torch.empty(8, dtype=torch.int32, pin_memory=True)
-    words128 = _pinned(torch, pk[:, :128].contiguous())
+    pk128 = pk[:, :128].contiguous()
+    words128 = _pinned(torch, pk128)
     out128 = torch.empty(128, dtype=torch.int32, pin_memory=True)
-    n_live8 = int(((pk8[0] >= 0) & (pk8[0] < ns)).sum().item())
+
+    def k1_bytes(p):
+        """Lanes in, gather + scatter of the live ones, afters out."""
+        n_live = int(((p[0] >= 0) & (p[0] < ns)).sum().item())
+        return 16 * p.shape[1] + 8 * n_live + 4 * p.shape[1]
+
     row(
         fw.K1_LANES,
         lambda: fw.fw_unique_step_lanes(t1, words8, out8, ""),
         lambda: fw._unique_step_plain(t2, pk8, ""),
-        16 * 8 + 8 * n_live8 + 4 * 8,  # lanes in, gather+scatter, afters out
+        k1_bytes(pk8),
         8 * 8,
     )
+    # The serving kernels at the served widths, for their spread: name ->
+    # (per-call device ms over 50 calls, bound at that width).
     served = {
-        f"{fw.K1} (device form) at 8 lanes": device_samples(
-            lambda: fw.fw_unique_step(t1, pk8, ""), iters=50
+        f"{fw.K1} (device form) at 8 lanes": (
+            device_samples(lambda: fw.fw_unique_step(t1, pk8, ""), iters=50),
+            bound(k1_bytes(pk8), 8 * 8),
         ),
-        f"{fw.K1_LANES} at 128 lanes": device_samples(
-            lambda: fw.fw_unique_step_lanes(t1, words128, out128, ""), iters=50
+        f"{fw.K1_LANES} at 128 lanes": (
+            device_samples(lambda: fw.fw_unique_step_lanes(t1, words128, out128, ""), iters=50),
+            bound(k1_bytes(pk128), 8 * 128),
         ),
     }
     row(
@@ -763,20 +832,33 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
 
     ans = ALGO_SLOTS
     pool = rng.choice(ans, 2 * n, replace=False)
+
+    def sw_bound(p):
+        """K4: packed rows slot, hits, fresh, divider (never the limit
+        row) in, gather and scatter of the live lanes, readback out;
+        ~20 integer and f32 operations a lane (csrc/algorithms.cu)."""
+        w = p.shape[1]
+        live = int(((p[0] >= -ans) & (p[0] < ans)).sum().item())
+        return 16 * w + 12 * live + 12 * live + 8 * w, 20 * w
+
+    def gcra_bound(p):
+        """K5: five rows in, the gather of the live lanes that are not
+        fresh, the scatter of the live ones, budgets out; ~40
+        operations a lane."""
+        w = p.shape[1]
+        in_table = (p[0] >= -ans) & (p[0] < ans)
+        live = int(in_table.sum().item())
+        kept = int((in_table & (p[3] == 0)).sum().item())
+        return 20 * w + 8 * kept + 8 * live + 4 * w, 40 * w
+
     apk = _algo_packed(torch, rng, n, ans, pool, dev)
-    in_table = (apk[0] >= -ans) & (apk[0] < ans)
-    a_live = int(in_table.sum().item())
-    a_kept = int((in_table & (apk[3] == 0)).sum().item())  # K5 skips fresh
     s1 = _algo_state(torch, rng, "sw", ans, pool, dev)
     s2 = s1.clone()
     row(
         sw.K4,
         lambda: sw.sw_serve_step(s1, apk, ALGO_NOW),
         lambda: sw._sw_step_plain(s2, apk, ALGO_NOW),
-        # packed rows slot, hits, fresh, divider (never the limit row),
-        # gather, scatter, out
-        16 * n + 12 * a_live + 12 * a_live + 8 * n,
-        20 * n,  # ~20 integer and f32 operations per lane (csrc/algorithms.cu)
+        *sw_bound(apk),
     )
     g1 = _algo_state(torch, rng, "gcra", ans, pool, dev)
     g2 = g1.clone()
@@ -784,8 +866,45 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         gcra.K5,
         lambda: gcra.gcra_serve_step(g1, apk, ALGO_NOW),
         lambda: gcra._gcra_step_plain(g2, apk, ALGO_NOW),
-        20 * n + 8 * a_kept + 8 * a_live + 4 * n,
-        40 * n,  # ~40 operations per lane
+        *gcra_bound(apk),
+    )
+    # K4 and K5 at the served widths: by value at 8 lanes (their rows)
+    # and 128, the device form at 8.
+    apk8, apk128 = (_algo_packed(torch, rng, w, ans, pool, dev) for w in (8, 128))
+    awords8, awords128 = _pinned(torch, apk8), _pinned(torch, apk128)
+    sw_out = {w: torch.empty((2, w), dtype=torch.int32, pin_memory=True) for w in (8, 128)}
+    g_out = {w: torch.empty(w, dtype=torch.int32, pin_memory=True) for w in (8, 128)}
+    row(
+        sw.K4_LANES,
+        lambda: sw.sw_serve_step_lanes(s1, awords8, ALGO_NOW, sw_out[8]),
+        lambda: sw._sw_step_plain(s2, apk8, ALGO_NOW),
+        *sw_bound(apk8),
+    )
+    row(
+        gcra.K5_LANES,
+        lambda: gcra.gcra_serve_step_lanes(g1, awords8, ALGO_NOW, g_out[8]),
+        lambda: gcra._gcra_step_plain(g2, apk8, ALGO_NOW),
+        *gcra_bound(apk8),
+    )
+    served[f"{sw.K4} (device form) at 8 lanes"] = (
+        device_samples(lambda: sw.sw_serve_step(s1, apk8, ALGO_NOW), iters=50),
+        bound(*sw_bound(apk8)),
+    )
+    served[f"{sw.K4_LANES} at 128 lanes"] = (
+        device_samples(
+            lambda: sw.sw_serve_step_lanes(s1, awords128, ALGO_NOW, sw_out[128]), iters=50
+        ),
+        bound(*sw_bound(apk128)),
+    )
+    served[f"{gcra.K5} (device form) at 8 lanes"] = (
+        device_samples(lambda: gcra.gcra_serve_step(g1, apk8, ALGO_NOW), iters=50),
+        bound(*gcra_bound(apk8)),
+    )
+    served[f"{gcra.K5_LANES} at 128 lanes"] = (
+        device_samples(
+            lambda: gcra.gcra_serve_step_lanes(g1, awords128, ALGO_NOW, g_out[128]), iters=50
+        ),
+        bound(*gcra_bound(apk128)),
     )
 
     # The sharded kernels over BANKS banks of a 2^20-slot table: K6 on
@@ -816,8 +935,9 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         16 * routed8 + 8 * r_live8 + 4 * routed8,
         8 * routed8,
     )
-    served[f"{sh.K6} (device form) at {BANKS} banks x cap {rpk8.shape[2]}"] = device_samples(
-        lambda: sh.sharded_routed_step(b1, rpk8, ""), iters=50
+    served[f"{sh.K6} (device form) at {BANKS} banks x cap {rpk8.shape[2]}"] = (
+        device_samples(lambda: sh.sharded_routed_step(b1, rpk8, ""), iters=50),
+        bound(16 * routed8 + 8 * r_live8 + 4 * routed8, 8 * routed8),
     )
     row(
         sh.K7,
@@ -832,21 +952,24 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
 # -- the served chunk ------------------------------------------------------
 
 
-def served_chunks(torch, sh, eng, dev, n=SERVED_CHUNKS):
+def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS):
     """Drive engine._device_submit + step_complete for one chunk of 1, 8
     and 13 distinct in-table lanes (hits 0, so every chunk answers the
-    same: afters 0, all OK), on one table and on BANKS banks of 2^20
-    slots, `n` chunks each in two passes.  The first runs under
+    same: all OK, and on the fixed-window engines afters 0), on one table
+    and on BANKS banks of 2^20 slots, and on a sliding-window and a GCRA
+    table of 2^18 slots (dividers of 60 s in the dedup, the clock at
+    ALGO_NOW), `n` chunks each in two passes.  The first runs under
     torch.profiler (device activities only); a marker kernel on the
     engine stream brackets it, so its activities split into chunks.  The
     second runs without the profiler and times the host microseconds of
     submit + complete: the profiler adds a callback to every CUDA runtime
     call, so a profiled host time would count it too.  Takes the port's
-    modules `sh` (parallel.sharded) and `eng` (backends.engine) as
-    arguments, so that scripts/torch_served_chunk.py can drive another
-    checkout's engine with it.  Returns {(engine, lanes):
-    dict(activities, memcpys, busy_us, span_us, host_us)}, each a list
-    with one entry per chunk."""
+    modules `sh` (parallel.sharded), `eng` (backends.engine), `sw`
+    (models.sliding_window) and `gcra` (models.gcra) as arguments, so
+    that scripts/torch_served_chunk.py can drive another checkout's
+    engines with it.  Returns {(engine, lanes): dict(activities,
+    memcpys, busy_us, span_us, host_us)}, each a list with one entry per
+    chunk."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
@@ -854,14 +977,21 @@ def served_chunks(torch, sh, eng, dev, n=SERVED_CHUNKS):
 
     def is_marker(ev):
         # A chunk makes memcpys and K1 / K6 (unique_step_kernel,
-        # unique_step_lanes_kernel) only; the marker is an add.
-        return "unique_step" not in ev.name and not ev.name.startswith("Memcpy")
+        # unique_step_lanes_kernel) or K4 / K5 (sw_serve_step*,
+        # gcra_serve_step*) only; the marker is an add.
+        return not (
+            "unique_step" in ev.name or "serve_step" in ev.name or ev.name.startswith("Memcpy")
+        )
 
     engines = {
         "one table": eng.CounterEngine(num_slots=NUM_SLOTS, device=dev, native_table=False),
         f"{BANKS} banks": sh.ShardedCounterEngine(
             sh.make_mesh(BANKS, dev), num_slots=NUM_SLOTS, native_table=False
         ),
+        "sliding window": eng.CounterEngine(
+            device=dev, model=sw.SlidingWindowModel(ALGO_SLOTS, device=dev)
+        ),
+        "GCRA": eng.CounterEngine(device=dev, model=gcra.GcraModel(ALGO_SLOTS, device=dev)),
     }
     results = {}
     for (label, engine), width in itertools.product(engines.items(), SERVED_WIDTHS):
@@ -870,12 +1000,17 @@ def served_chunks(torch, sh, eng, dev, n=SERVED_CHUNKS):
         hits = np.zeros(width, np.uint32)
         limits = np.full(width, 250, np.uint32)
         shadow = np.zeros(width, bool)
-        dedup = eng._dedup_chunk(slots, hits, limits, np.zeros(width, bool))
+        generic = engine._generic
+        now = ALGO_NOW if generic else 0
+        dividers = np.full(width, 60, np.uint32) if generic else None
+        dedup = eng._dedup_chunk(slots, hits, limits, np.zeros(width, bool), dividers)
 
         def chunk():
-            handle, reassemble = engine._device_submit(dedup, 0)
-            d = engine.step_complete((hits, limits, shadow, [(handle, 0, width, dedup, reassemble)], 0))
-            if d.afters.any() or (d.codes != 1).any():
+            handle, reassemble = engine._device_submit(dedup, now)
+            d = engine.step_complete(
+                (hits, limits, shadow, [(handle, 0, width, dedup, reassemble)], now)
+            )
+            if (d.codes != 1).any() or (not generic and d.afters.any()):
                 fail(f"served chunk answered wrong ({label}, {width} lanes)")
 
         def mark():
@@ -1221,14 +1356,15 @@ def _since(kernels, before, names):
     return {name: kernels.launches.get(name, 0) - before.get(name, 0) for name in names}
 
 
-def served_forms(kernels, device_form, by_value, before, torch, request, key, what):
-    """Every launch of the served requests since `before` (one-descriptor
-    requests and a burst of them, all chunks of at most 128 lanes) must
-    take the by-value form, and a served request must make no memcpy;
-    then one request of WIDE_DESCRIPTORS descriptors (a chunk past the
-    by-value budget) must take the device form.  Returns (launches by
-    form of the narrow requests, kernels and memcpys over 50 requests,
-    launches by form of the wide request)."""
+def served_forms(kernels, device_form, by_value, before, torch, request, key, wide_key, what):
+    """Every launch of `key`'s kernel in the served requests since
+    `before` (one-descriptor requests and a burst of them, all chunks of
+    at most 128 lanes) must take the by-value form, and a served request
+    on `key` must make no memcpy; then one request of WIDE_DESCRIPTORS
+    descriptors on `wide_key` (a 5/unit rule of the same kernel; a
+    chunk past the by-value budget) must take the device form.  Returns
+    (launches by form of the narrow requests, kernels and memcpys over
+    50 requests, launches by form of the wide request)."""
     acts = served_activity(torch, kernels, by_value, request, key)
     narrow = _since(kernels, before, (device_form, by_value))
     if narrow[device_form] != 0 or narrow[by_value] < 1:
@@ -1242,7 +1378,7 @@ def served_forms(kernels, device_form, by_value, before, torch, request, key, wh
         )
     before = dict(kernels.launches)
     values = [f"wide{i}" for i in range(WIDE_DESCRIPTORS)]
-    statuses = request("burst", values).statuses
+    statuses = request(wide_key, values).statuses
     if len(statuses) != WIDE_DESCRIPTORS or any(st.limit_remaining != 4 for st in statuses):
         fail(f"{what}: a {WIDE_DESCRIPTORS}-descriptor request counted wrong")
     wide = _since(kernels, before, (device_form, by_value))
@@ -1274,11 +1410,19 @@ def served_phase(torch, kernels, fw, sw, gcra):
         lanes = burst(runner, request, OK)
         us_per_req = warm_us(request, "foo")
         us_per_algo_req = warm_us(request, "tb")
-        forms = served_forms(
-            kernels, fw.K1, fw.K1_LANES, started, torch, request, "foo", "served"
-        )
+        forms = {
+            key: served_forms(
+                kernels, device_form, by_value, started, torch, request, key, wide_key,
+                f"served ({key})",
+            )
+            for key, wide_key, device_form, by_value in (
+                ("foo", "burst", fw.K1, fw.K1_LANES),
+                ("tb", "tb", gcra.K5, gcra.K5_LANES),
+                ("slide", "slide", sw.K4, sw.K4_LANES),
+            )
+        }
     launches = dict(kernels.launches)
-    for name in (fw.K1, fw.K1_LANES, sw.K4, gcra.K5):
+    for name in (fw.K1, fw.K1_LANES, sw.K4, sw.K4_LANES, gcra.K5, gcra.K5_LANES):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
     return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms
@@ -1312,7 +1456,8 @@ def sharded_served_phase(torch, kernels, sh, dev):
         lanes = burst(runner, request, OK)
         us_per_req = warm_us(request, "foo")
         forms = served_forms(
-            kernels, sh.K6, sh.K6_LANES, started, torch, request, "foo", "sharded served"
+            kernels, sh.K6, sh.K6_LANES, started, torch, request, "foo", "burst",
+            "sharded served",
         )
     launches = dict(kernels.launches)
     for name in (sh.K6, sh.K6_LANES):
@@ -1332,6 +1477,14 @@ def main() -> None:
     started = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    laps = {}
+    last = [time.perf_counter()]
+
+    def lap(phase):
+        """Note the wall seconds since the previous lap as `phase`'s."""
+        now = time.perf_counter()
+        laps[phase] = round(now - last[0], 1)
+        last[0] = now
 
     # 1. device
     smi = subprocess.run(
@@ -1357,6 +1510,7 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    lap("build")
 
     # 3. kernels vs plain versions
     from ratelimit_tpu_torch.models import fixed_window as fw
@@ -1368,11 +1522,13 @@ def main() -> None:
     from ratelimit_tpu_torch.parallel import sharded as sh
 
     errs = check_kernels(torch, fw, prefix_cuda, per_slot_inclusive_prefix, dev)
+    lap("check_kernels")
     log(
         f"kernels: exact for N in {SIZES} at 2^20 slots and 4096 at 2^24, "
         f"positive and negative slot ids; max|err| {errs}"
     )
     prefix_err = check_prefix(torch, prefix_cuda, per_slot_inclusive_prefix, dev)
+    lap("check_prefix")
     errs[prefix_cuda.KERNEL] = max(errs[prefix_cuda.KERNEL], prefix_err)
     log(
         f"{prefix_cuda.KERNEL}: exact also for N in {PREFIX_EDGE_SIZES}, "
@@ -1380,13 +1536,18 @@ def main() -> None:
         f"{list(WRAP_SLOTS)} hits {[hex(h) for h in WRAP_HITS]} (u32 wrap inside "
         f"a segment); max|err| {prefix_err}"
     )
-    algo_errs = check_algorithms(torch, sw, gcra, dev)
+    algo_errs = check_algorithms(torch, sw, gcra, kernels, dev)
+    lap("check_algorithms")
     log(
         f"algorithm kernels: exact for N in {SIZES} at 2^18 slots and 4096 at "
-        f"2^24 over {len(ALGO_STEPS)} steps each; max|err| {algo_errs}"
+        f"2^24 over {len(ALGO_STEPS)} steps each; by value (readback into mapped "
+        f"pinned memory) for N in {LANES_SIZES} at 2^18 and 2^24 slots over every "
+        f"step, equal to the plain version and to the device form; a pageable "
+        f"readback raises KernelError and a device one ValueError; max|err| {algo_errs}"
     )
     errs.update(algo_errs)
     sharded_errs = check_sharded(torch, sh, dev)
+    lap("check_sharded")
     log(
         f"sharded kernels: exact over {BANKS} banks for N in {SIZES} at 2^20 "
         f"slots and 4096 at 2^24, uniform and all-one-bank routing, three "
@@ -1394,6 +1555,7 @@ def main() -> None:
     )
     errs.update(sharded_errs)
     form_errs, k6_lanes_cases = check_served_forms(torch, fw, sh, kernels, dev)
+    lap("check_served_forms")
     for name, e in form_errs.items():
         errs[name] = max(errs.get(name, 0), e)
     log(
@@ -1407,6 +1569,7 @@ def main() -> None:
     timing, calls, extra = time_kernels(
         torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, sh, dev
     )
+    lap("time_kernels")
     floor = extra["floor"]
     log(
         "launch floor (profiler device time of a one-element in-place torch "
@@ -1420,9 +1583,10 @@ def main() -> None:
         + "; ".join(f"{k} {spread_us(v)}" for k, v in extra["samples"].items())
     )
     log(
-        "K1 and K6 at the served widths, min / median / max over 50 calls: "
+        "the serving kernels at the served widths, min / median / max over 50 calls: "
         + "; ".join(
-            f"{k} {spread_us(v) if v else 'not measured'}" for k, v in extra["served"].items()
+            f"{k} {spread_us(v) if v else 'not measured'} (bound {b[0] * 1e3:.4g} us by {b[1]})"
+            for k, (v, b) in extra["served"].items()
         )
     )
     big = extra["prefix_big"]
@@ -1454,13 +1618,15 @@ def main() -> None:
     # The served chunk, the engine's form: one by-value kernel, no memcpy.
     from ratelimit_tpu_torch.backends import engine as eng
 
-    for (label, width), st in served_chunks(torch, sh, eng, dev).items():
+    for (label, width), st in served_chunks(torch, sh, eng, sw, gcra, dev).items():
         log(served_chunk_line(label, width, st))
         if max(st["activities"]) != 1 or max(st["memcpys"]) != 0:
             fail(f"the engine's served chunk ({label}, {width} lanes) is not one kernel")
+    lap("served_chunks")
 
     # 4. flagship forward step (main path b)
     fwd_launches, fwd_ms, n_over = forward_phase(torch, fw, kernels, dev)
+    lap("forward")
     log(
         f"forward: graft batch 2^20 slots x 4096 lanes exact vs plain and numpy; "
         f"{n_over} lanes OVER_LIMIT; {fwd_ms[0] * 1e3:.1f} us/step "
@@ -1470,6 +1636,7 @@ def main() -> None:
 
     # 5. sharded forward step
     shf_launches, shf_ms = sharded_forward_phase(torch, fw, sh, kernels, dev)
+    lap("sharded_forward")
     log(
         f"sharded forward: graft batch over {BANKS} banks equals the single-table "
         f"forward step and the sharded plain version, table too; "
@@ -1482,21 +1649,27 @@ def main() -> None:
     srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms = served_phase(
         torch, kernels, fw, sw, gcra
     )
+    lap("served")
     log(
         f"served: 6th hit OVER_LIMIT on fixed-window, sliding-window, GCRA and "
         f"shadow-GCRA keys (shadow gcra agree/diverge +{shadow_moved}), burst "
         f"coalesced up to {lanes} lanes/launch, warm {us_per_req:.1f} us/request "
         f"(fixed window), {us_per_algo_req:.1f} us/request (GCRA); "
-        f"launches {srv_launches}; by form: one-descriptor requests and the "
-        f"burst {forms[0]}, a {WIDE_DESCRIPTORS}-descriptor request {forms[2]}; 50 "
-        f"requests made {forms[1][2]} by-value launches, the profiler saw "
-        f"{forms[1][0]} kernels and {forms[1][1]} memcpys on the card"
+        f"launches {srv_launches}; by form, per key: "
+        + "; ".join(
+            f"{key}: one-descriptor requests{' and the burst' if key == 'foo' else ''} "
+            f"{f[0]}, a {WIDE_DESCRIPTORS}-descriptor request {f[2]}, 50 requests made "
+            f"{f[1][2]} by-value launches, the profiler saw {f[1][0]} kernels and "
+            f"{f[1][1]} memcpys on the card"
+            for key, f in forms.items()
+        )
     )
 
     # 7. sharded served path
     shs_launches, sh_lanes, sh_us_per_req, sh_forms = sharded_served_phase(
         torch, kernels, sh, dev
     )
+    lap("sharded_served")
     log(
         f"sharded served: 2^20 slots over {BANKS} banks, 6th hit OVER_LIMIT with "
         f"remaining [4, 3, 2, 1, 0, 0], 40 keys live in all {BANKS} banks, burst "
@@ -1519,7 +1692,9 @@ def main() -> None:
         fw.K3_UPDATE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
         sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
+        sw.K4_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
         gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
+        gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
@@ -1540,7 +1715,7 @@ def main() -> None:
                 **timing[name],
             )
         )
-    log(f"total: {time.perf_counter() - started:.1f} s wall")
+    log(f"total: {time.perf_counter() - started:.1f} s wall; seconds by phase {laps}")
     log(json.dumps({"kernels": rows}))
     log(
         json.dumps(

@@ -18,14 +18,14 @@ refresh-on-touch expiry, so a hot key keeps its slot and state.
 
 The device half runs on a CUDA stream the engine owns.
 ``_device_submit`` fills a staging buffer with the packed batch.  A
-fixed-window chunk of at most 128 padded lanes (``lanes_by_value``, by
-shape alone) goes by value: ONE launch carries the lanes as kernel
-parameters and its kernel writes the readback straight into pinned host
-memory, so the chunk is one device activity.  A wider chunk (warmup,
-bursts) and every generic-algorithm chunk take the device form: one
-non_blocking host-to-device copy, the kernel, one non_blocking
-device-to-host copy of its output into pinned readback memory.  Either
-way an event is recorded after the last of it.  ``step_complete`` waits
+chunk of at most 128 padded lanes (``lanes_by_value``, by shape alone),
+fixed-window or algorithm, goes by value: ONE launch carries the lanes
+as kernel parameters and its kernel (K1, K4 or K5) writes the readback
+straight into pinned host memory, so the chunk is one device activity.
+A wider chunk (warmup, bursts) takes the device form: one non_blocking
+host-to-device copy, the kernel, one non_blocking device-to-host copy
+of its output into pinned readback memory.  Either way an event is
+recorded after the last of it.  ``step_complete`` waits
 on that event (never on the whole device) before the host decide pass.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -377,10 +378,12 @@ class CounterEngine:
         provide EITHER the saturating unique-slot serving step in both
         forms (step_counters_unique_packed and its by-value
         step_counters_unique_lanes) OR the generic algorithm
-        protocol: ``step_serve_packed(state, packed, now)`` on the
-        device plus ``lane_counts(out, dedup, hits, limits, now)`` on
-        the host.  A subclass that overrides ``_device_submit`` brings
-        its own device step (parallel.ShardedCounterEngine).
+        protocol: ``step_serve_packed(state, packed, now)``, its
+        by-value ``step_serve_lanes(state, words, now, out)`` and
+        ``readback_shape(n)`` on the device, plus ``lane_counts(out,
+        dedup, hits, limits, now)`` on the host.  A subclass that
+        overrides ``_device_submit`` brings its own device step
+        (parallel.ShardedCounterEngine).
         `native_table`: None = use the C++ slot table when
         it builds/loads, True = require it, False = pure Python;
         generic models with stable-stem keys (windowed_keys=False)
@@ -394,20 +397,21 @@ class CounterEngine:
         # Generic algorithm protocol marker: the model owns both the
         # device step and the host lane reconstruction.
         self._generic = hasattr(self.model, "lane_counts")
-        if (
-            not self._generic
-            and type(self)._device_submit is CounterEngine._device_submit
-            and not (
-                hasattr(self.model, "step_counters_unique_packed")
-                and hasattr(self.model, "step_counters_unique_lanes")
-            )
+        needs = (
+            ("step_serve_packed", "step_serve_lanes", "readback_shape")
+            if self._generic
+            else ("step_counters_unique_packed", "step_counters_unique_lanes")
+        )
+        if type(self)._device_submit is CounterEngine._device_submit and not all(
+            hasattr(self.model, name) for name in needs
         ):
             raise TypeError(
                 "model must provide the saturating unique-slot serving "
                 "step (step_counters_unique_packed and "
-                "step_counters_unique_lanes) or the generic "
-                "step_serve_packed/lane_counts protocol; for mesh models "
-                "use parallel.ShardedCounterEngine"
+                "step_counters_unique_lanes) or the generic protocol "
+                "(step_serve_packed, step_serve_lanes, readback_shape and "
+                "lane_counts); for mesh models use "
+                "parallel.ShardedCounterEngine"
             )
         if self.model.device != self.device:
             raise ValueError(
@@ -694,41 +698,50 @@ class CounterEngine:
         handle = self._serve(
             st,
             st.packed[: 4 * padded].view(4, padded),
-            dt,
-            m.step_counters_unique_lanes,
-            m.step_counters_unique_packed,
+            OUT_DTYPES[dt],
+            (padded,),
+            lambda counts, words, out: m.step_counters_unique_lanes(counts, dt, words, out),
+            lambda counts, packed: m.step_counters_unique_packed(counts, dt, packed),
         )
         return handle, None
 
-    def _serve(self, st: _Staging, host: torch.Tensor, dt: str, lanes_step, packed_step):
-        """Run a fixed-window serving step on the packed batch `host`
-        (int32[..., 4, padded], a view of `st.packed`) and return the
-        handle (st, readback) for _fetch.  The batch's shape alone picks
-        the form: by value (`lanes_step`; one launch, the readback
+    def _serve(
+        self,
+        st: _Staging,
+        host: torch.Tensor,
+        dtype: torch.dtype,
+        shape,
+        lanes_step,
+        packed_step,
+    ):
+        """Run a serving step on the packed batch `host` (int32[...,
+        rows, padded], a view of `st.packed`) whose readback is
+        dtype[shape], and return the handle (st, readback) for _fetch.
+        The batch's shape alone picks the form: by value
+        (`lanes_step(counts, host, out)`; one launch, the readback
         written by the kernel into `st.readback`), or through device
-        memory (`packed_step`; upload, kernel, readback copy).  Runs on
-        the engine stream; the event follows the kernel either way."""
-        banks = host.numel() // (4 * host.shape[-1])
+        memory (`packed_step(counts, packed)`; upload, kernel, readback
+        copy).  Each returns (counts, readback).  Runs on the engine
+        stream; the event follows the kernel either way."""
+        rows, padded = host.shape[-2:]
         with self._on_stream():
-            if lanes_by_value(banks, host.shape[-1]):
-                shape = tuple(host.shape[:-2]) + (host.shape[-1],)
-                dtype = OUT_DTYPES[dt]
-                nbytes = host.numel() // 4 * dtype.itemsize
+            if lanes_by_value(host.numel() // (rows * padded), padded):
+                nbytes = math.prod(shape) * dtype.itemsize
                 out = st.readback[:nbytes].view(dtype).view(shape)
-                self._counts, readback = lanes_step(self._counts, dt, host, out)
+                self._counts, readback = lanes_step(self._counts, host, out)
                 self._record(st)
                 return st, readback
             packed = host.to(self.device, non_blocking=True)
-            self._counts, afters = packed_step(self._counts, dt, packed)
-            return st, self._read_back(st, afters)
+            self._counts, out = packed_step(self._counts, packed)
+            return st, self._read_back(st, out)
 
     def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
-        """Generic algorithm path: ONE int32[5, padded] upload -- rows
+        """Generic algorithm path: ONE int32[5, padded] batch -- rows
         slots, hits bits, limits bits, fresh, divider bits -- plus the
-        batch clock; the model owns the state layout, the kernel and
-        the host reconstruction.  Padding uses DISTINCT out-of-table
-        slots with divider 1, limit 1 and hits 0, so pad lanes are
-        inert."""
+        batch clock, served in the form its shape picks (_serve); the
+        model owns the state layout, the kernel and the host
+        reconstruction.  Padding uses DISTINCT out-of-table slots with
+        divider 1, limit 1 and hits 0, so pad lanes are inert."""
         st = self._take_staging()
         pk = st.packed_np[: 5 * padded].reshape(5, padded)
         pk[0, :g] = dedup.uniq_slots
@@ -745,11 +758,16 @@ class CounterEngine:
             pk[2, g:] = 1
             pk[3, g:] = 0
             pk[4, g:] = 1
-        host = st.packed[: 5 * padded].view(5, padded)
-        with self._on_stream():
-            packed = host.to(self.device, non_blocking=True)
-            self._counts, out = self.model.step_serve_packed(self._counts, packed, now)
-            return (st, self._read_back(st, out)), None
+        m = self.model
+        handle = self._serve(
+            st,
+            st.packed[: 5 * padded].view(5, padded),
+            torch.int32,
+            m.readback_shape(padded),
+            lambda state, words, out: m.step_serve_lanes(state, words, now, out),
+            lambda state, packed: m.step_serve_packed(state, packed, now),
+        )
+        return handle, None
 
     def _read_back(self, st: _Staging, out: torch.Tensor) -> torch.Tensor:
         """Enqueue the copy of `out` into `st`'s pinned readback (same

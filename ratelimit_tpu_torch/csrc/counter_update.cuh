@@ -31,20 +31,18 @@
 //   batch in device memory, a bank per blockIdx.y, the readback into a
 //   device tensor.  It serves batches too large for a launch's
 //   parameters (warmup, bursts) and the public wrappers.
-// - the by-value form, unique_step_lanes_kernel: at most kMaxLanes
-//   lanes (banks x cap) ride in the launch's parameters, one 16-byte
-//   (slot, hits, limit, fresh) record per lane, which the launcher
-//   copies from the caller's host words.  One block of banks x cap
-//   threads.  The readback goes straight into the caller's pinned host
-//   memory through its device alias.  A served chunk is then one device
-//   activity: no upload copy, no readback copy, and no dependent load of
-//   the lane before the gather of its counter.
+// - the by-value form, unique_step_lanes_kernel (by_value.cuh): at most
+//   kMaxLanes lanes (banks x cap) ride in the launch's parameters, one
+//   16-byte (slot, hits, limit, fresh) record per lane.  One block of
+//   banks x cap threads, the readback into the caller's pinned host
+//   memory through its device alias.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "by_value.cuh"
 #include "slot_index.cuh"
 
 namespace {
@@ -143,31 +141,25 @@ int launch_unique_step(void* counts, long long num_slots, const void* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// By-value form.  The lanes of a launch are at most kMaxLanes (banks x
-// cap), so the whole batch is 16 B x 128 = 2 KB, inside the classic 4 KB
-// of kernel parameters that every CUDA version accepts.
-constexpr int kMaxLanes = 128;
-
-template <int kLanes>
+// By-value form (by_value.cuh): 16 B x 128 lanes = 2 KB of records.
 struct LaneBatch {
   uint32_t* counts;
-  void* out;
+  void* out;            // device alias of the caller's pinned readback
   long long num_slots;  // slots per bank
   int cap;              // lanes per bank
-  int lanes;            // banks x cap
+  int lanes;            // banks x cap; records past it are never read
   int out_kind;
-  int4 lane[kLanes];  // lane t = bank * cap + i: (slot, hits, limit, fresh)
+  int4 lane[kMaxLanes];  // lane t = bank * cap + i: (slot, hits, limit, fresh)
 };
 
-static_assert(sizeof(LaneBatch<kMaxLanes>) <= 4096,
+static_assert(sizeof(LaneBatch) <= kParamBytes,
               "the by-value batch must fit the 4 KB parameter space");
 
 // __grid_constant__ lets each thread index the parameter array in place
 // (a plain by-value struct indexed per thread would be copied to local
 // memory first).  Thread t serves lane t of bank t / cap; out[banks, cap]
 // is indexed by t as well.
-template <int kLanes>
-__global__ void unique_step_lanes_kernel(const __grid_constant__ LaneBatch<kLanes> b) {
+__global__ void unique_step_lanes_kernel(const __grid_constant__ LaneBatch b) {
   const int t = threadIdx.x;
   if (t >= b.lanes) {
     return;
@@ -179,72 +171,41 @@ __global__ void unique_step_lanes_kernel(const __grid_constant__ LaneBatch<kLane
              b.out, t, b.out_kind);
 }
 
-template <int kLanes>
-int launch_lanes(uint32_t* counts, long long num_slots, const int32_t* words,
-                 int banks, int cap, void* out, int out_kind,
-                 cudaStream_t stream) {
-  LaneBatch<kLanes> b;
-  b.counts = counts;
-  b.out = out;
-  b.num_slots = num_slots;
-  b.cap = cap;
-  b.lanes = banks * cap;
-  b.out_kind = out_kind;
-  // words is int32[banks, 4, cap] row-major; transpose to one record a lane.
-  for (int bank = 0; bank < banks; ++bank) {
-    const int32_t* rows = words + bank * 4 * cap;
-    for (int i = 0; i < cap; ++i) {
-      b.lane[bank * cap + i] =
-          make_int4(rows[i], rows[cap + i], rows[2 * cap + i], rows[3 * cap + i]);
-    }
-  }
-  for (int t = b.lanes; t < kLanes; ++t) {
-    b.lane[t] = make_int4(0, 0, 0, 0);
-  }
-  const int threads = (b.lanes + 31) / 32 * 32;
-  unique_step_lanes_kernel<kLanes><<<1, threads, 0, stream>>>(b);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The by-value launcher.  `words` is the HOST address of the int32[banks,
 // 4, cap] batch; its values are copied into the launch, so the caller may
 // reuse the buffer as soon as this returns.  `out` is the host address of
-// pinned memory, and the kernel writes through the device alias that
-// cudaHostGetDevicePointer gives (its error is returned if there is
-// none).  The caller must wait for the stream (an event) before reading
-// `out`.
+// pinned memory (mapped_alias's error is returned where it has no alias).
 int launch_unique_step_lanes(void* counts, long long num_slots,
                              const void* words, int banks, int cap, void* out,
                              int out_kind, void* stream) {
   if (banks <= 0 || cap <= 0) {
     return 0;
   }
-  const long long lanes = static_cast<long long>(banks) * cap;
-  if (lanes > kMaxLanes) {
+  if (static_cast<long long>(banks) * cap > kMaxLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  void* dout = nullptr;
-  const cudaError_t err = cudaHostGetDevicePointer(&dout, out, 0);
+  LaneBatch b;
+  const cudaError_t err = mapped_alias(out, &b.out);
   if (err != cudaSuccess) {
-    cudaGetLastError();  // clear it, or the next launch check reports it
     return static_cast<int>(err);
   }
-  uint32_t* c = static_cast<uint32_t*>(counts);
+  b.counts = static_cast<uint32_t*>(counts);
+  b.num_slots = num_slots;
+  b.cap = cap;
+  b.lanes = banks * cap;
+  b.out_kind = out_kind;
+  // words is int32[banks, 4, cap] row-major; transpose to one record a lane.
   const int32_t* w = static_cast<const int32_t*>(words);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lanes <= 8) {
-    return launch_lanes<8>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  for (int bank = 0; bank < banks; ++bank) {
+    const int32_t* rows = w + bank * 4 * cap;
+    for (int i = 0; i < cap; ++i) {
+      b.lane[bank * cap + i] =
+          make_int4(rows[i], rows[cap + i], rows[2 * cap + i], rows[3 * cap + i]);
+    }
   }
-  if (lanes <= 16) {
-    return launch_lanes<16>(c, num_slots, w, banks, cap, dout, out_kind, s);
-  }
-  if (lanes <= 32) {
-    return launch_lanes<32>(c, num_slots, w, banks, cap, dout, out_kind, s);
-  }
-  if (lanes <= 64) {
-    return launch_lanes<64>(c, num_slots, w, banks, cap, dout, out_kind, s);
-  }
-  return launch_lanes<kMaxLanes>(c, num_slots, w, banks, cap, dout, out_kind, s);
+  unique_step_lanes_kernel<<<1, lane_threads(b.lanes), 0,
+                             static_cast<cudaStream_t>(stream)>>>(b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Index>

@@ -115,9 +115,7 @@ extern "C" int rl_fw_unique_step_lanes(void* counts, long long num_slots,
 // The device alias of pinned host memory at `host` (what the by-value
 // launchers write through), for checks on the card.
 extern "C" int rl_mapped_alias(void* host, void** device) {
-  const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
-  cudaGetLastError();  // a failure must not stick to the next launch check
-  return static_cast<int>(err);
+  return static_cast<int>(mapped_alias(host, device));
 }
 
 extern "C" int rl_fw_add(void* counts, long long num_slots, const void* slots,

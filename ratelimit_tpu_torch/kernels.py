@@ -84,6 +84,8 @@ SIGNATURES = {
     ),
     "rl_sw_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_gcra_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
+    "rl_sw_serve_step_lanes": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
+    "rl_gcra_serve_step_lanes": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_sharded_routed_step": (
         "sharded",
         [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],

@@ -1,30 +1,36 @@
 """Plumbing shared by the algorithm-bank serving kernels (K4, K5).
 
-Both kernels take the engine's packed int32[5, N] upload -- rows: slots,
+Both kernels take the engine's packed int32[5, N] batch -- rows: slots,
 hits bits, limit bits, fresh, divider bits -- and the batch clock
 ``now`` against a [rows, num_slots] state table (int32 tensor of u32
-bits), update the table in place and return a narrow per-lane output.
-This module checks those inputs, launches a kernel through ``kernels``
-and holds the f32-to-integer conversions the plain versions need to
-match the kernels and JAX: truncate, saturate at the type's range, NaN
-to 0 (PTX ``cvt.rzi``, XLA's convert; numpy's cast wraps instead).
+bits), update the table in place and return a narrow per-lane readback.
+Each has K1's two forms: the device form reads the batch from device
+memory and returns a device tensor; the by-value form takes the batch
+in host memory (at most ``MAX_LANES`` lanes, carried in the launch's
+parameters) and writes the readback into the caller's `out`, pinned
+host memory on the card.  This module checks those inputs, launches a
+kernel through ``kernels`` -- or, for a state tensor on the CPU only,
+runs its plain version -- and holds the f32-to-integer conversions the
+plain versions need to match the kernels and JAX: truncate, saturate at
+the type's range, NaN to 0 (PTX ``cvt.rzi``, XLA's convert; numpy's cast
+wraps instead).
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
 from .. import kernels
 from ..ops.u32 import U32_MASK
-from .fixed_window import _require_cuda
+from .fixed_window import _require_cuda, check_lanes_out
 
 _I32_MIN = -(1 << 31)
 _I32_MAX = (1 << 31) - 1
 
 
-def check_step_inputs(state: torch.Tensor, rows: int, packed: torch.Tensor) -> None:
-    """Raise unless `state` is int32[rows, ns] and `packed` int32[5, N]
-    on the same device."""
+def _check_state(state: torch.Tensor, rows: int) -> None:
     if state.dtype != torch.int32 or state.dim() != 2 or state.shape[0] != rows:
         raise TypeError(
             f"state must be int32[{rows}, num_slots], got {state.dtype} "
@@ -32,6 +38,12 @@ def check_step_inputs(state: torch.Tensor, rows: int, packed: torch.Tensor) -> N
         )
     if not state.is_contiguous():
         raise ValueError("state must be contiguous")
+
+
+def check_step_inputs(state: torch.Tensor, rows: int, packed: torch.Tensor) -> None:
+    """Raise unless `state` is int32[rows, ns] and `packed` int32[5, N]
+    on the same device."""
+    _check_state(state, rows)
     if packed.dtype != torch.int32 or packed.dim() != 2 or packed.shape[0] != 5:
         raise TypeError(
             f"packed must be int32[5, N], got {packed.dtype} {tuple(packed.shape)}"
@@ -73,6 +85,32 @@ def launch(
     kernels.check(rc, name)
     kernels.launches[name] += 1
     return out
+
+
+def step_lanes(
+    fn: str,
+    name: str,
+    plain: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor],
+    state: torch.Tensor,
+    rows: int,
+    words: torch.Tensor,
+    now: int,
+    out: torch.Tensor,
+    readback_rows: tuple,
+) -> torch.Tensor:
+    """A kernel's by-value form: `state` int32[rows, ns], `words` the
+    host int32[5, N] batch (N <= MAX_LANES), the readback into `out`
+    int32[*readback_rows, N], a host tensor.  For a state on the CPU
+    `plain`'s readback is copied into `out`; on the card the C function
+    `fn` is launched and counted as kernel `name`, or raises -- wait on
+    the stream (an event) before reading `out`.  Returns `out`."""
+    _check_state(state, rows)
+    if words.dim() != 2:
+        raise TypeError(f"words must be int32[5, N], got {tuple(words.shape)}")
+    check_lanes_out(words, 5, out, torch.int32, (*readback_rows, words.shape[1]))
+    if state.device.type == "cpu":
+        return out.copy_(plain(state, words, now))
+    return launch(fn, name, state, words, now, out)
 
 
 def f32_to_u32(x: torch.Tensor) -> torch.Tensor:

@@ -153,17 +153,18 @@ def _check_lanes(device: torch.device, n: int, **tensors) -> None:
 
 # -- K1: unique-slot serving step ---------------------------------------
 
-#: The most bytes of lanes (int32[banks, 4, padded]) a launch carries by
-#: value: 128 lanes of 16 B, inside the 4 KB of kernel parameters every
-#: CUDA version accepts (kMaxLanes in csrc/counter_update.cuh).
-BY_VALUE_BYTES = 2048
+#: The most lanes a launch carries by value, for every serving kernel
+#: (K1/K6: 16 B a lane, K4/K5: 20 B; each parameter struct fits the 4 KB
+#: every CUDA version accepts): kMaxLanes in csrc/by_value.cuh.
+MAX_LANES = 128
 
 
 def lanes_by_value(banks: int, padded: int) -> bool:
     """Whether a served batch of `banks` x `padded` lanes goes by value
-    (K1/K6's by-value form) or through device memory (their device
-    form).  The batch's shape alone decides, never a failure."""
-    return banks * 4 * padded * 4 <= BY_VALUE_BYTES
+    (the by-value form of K1, K4, K5 or K6) or through device memory
+    (their device form).  The batch's shape alone decides, never a
+    failure."""
+    return banks * padded <= MAX_LANES
 
 
 def _unique_step_plain(
@@ -235,32 +236,41 @@ def fw_unique_step(
     return out
 
 
-def check_lanes_out(words: torch.Tensor, out: torch.Tensor, out_dtype: str) -> None:
-    """The arguments of a by-value launch: host int32 words [..., 4, N]
-    within BY_VALUE_BYTES, and `out` of the readback type shaped [...,
-    N], contiguous, on the host (pinned, where the table is on the card:
-    the kernel writes it through its device alias)."""
-    if out_dtype not in _OUT_KIND:
-        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
-    if words.dtype != torch.int32 or words.dim() < 2 or words.shape[-2] != 4:
+def check_lanes_out(
+    words: torch.Tensor, rows: int, out: torch.Tensor, dtype: torch.dtype, shape
+) -> None:
+    """The arguments of a by-value launch: host int32 words [..., rows,
+    N] of at most MAX_LANES lanes, and `out` dtype[shape], contiguous,
+    on the host (pinned, where the table is on the card: the kernel
+    writes it through its device alias)."""
+    if words.dtype != torch.int32 or words.dim() < 2 or words.shape[-2] != rows:
         raise TypeError(
-            f"words must be int32[..., 4, N], got {words.dtype} {tuple(words.shape)}"
+            f"words must be int32[..., {rows}, N], got {words.dtype} "
+            f"{tuple(words.shape)}"
         )
     if words.device.type != "cpu" or not words.is_contiguous():
         raise ValueError("words must be a contiguous host tensor")
-    if 4 * words.numel() > BY_VALUE_BYTES:
+    lanes = words.numel() // rows
+    if lanes > MAX_LANES:
         raise ValueError(
-            f"{4 * words.numel()} B of lanes exceed the {BY_VALUE_BYTES} B a "
-            "launch carries by value: use the device form"
+            f"{lanes} lanes exceed the {MAX_LANES} a launch carries by value: "
+            "use the device form"
         )
-    want = tuple(words.shape[:-2]) + (words.shape[-1],)
-    if out.dtype != OUT_DTYPES[out_dtype] or tuple(out.shape) != want:
+    if out.dtype != dtype or tuple(out.shape) != tuple(shape):
         raise TypeError(
-            f"out must be {OUT_DTYPES[out_dtype]}{list(want)}, got {out.dtype} "
-            f"{tuple(out.shape)}"
+            f"out must be {dtype}{list(shape)}, got {out.dtype} {tuple(out.shape)}"
         )
     if out.device.type != "cpu" or not out.is_contiguous():
         raise ValueError("out must be a contiguous host tensor")
+
+
+def _check_unique_lanes(words: torch.Tensor, out: torch.Tensor, out_dtype: str) -> None:
+    """check_lanes_out for K1/K6: int32[..., 4, N] words, readback
+    OUT_DTYPES[out_dtype][..., N]."""
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
+    shape = tuple(words.shape[:-2]) + tuple(words.shape[-1:])
+    check_lanes_out(words, 4, out, OUT_DTYPES[out_dtype], shape)
 
 
 def fw_unique_step_lanes(
@@ -275,7 +285,7 @@ def fw_unique_step_lanes(
     enqueued on a CUDA table: wait on the stream (an event) before
     reading `out`.  Returns `out`."""
     _check_table(counts)
-    check_lanes_out(words, out, out_dtype)
+    _check_unique_lanes(words, out, out_dtype)
     if counts.device.type == "cpu":
         return out.copy_(_unique_step_plain(counts, words, out_dtype))
     _require_cuda(counts.device)

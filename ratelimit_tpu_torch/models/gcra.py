@@ -20,12 +20,16 @@ the TAT by ``min(total_h, B)`` cells; the host maps budgets onto the
 shared threshold state machine (``lane_counts``).
 
 The serving step, K5 ``gcra_serve_step`` (csrc/algorithms.cu), takes the
-engine's packed int32[5, N] upload and ``now`` and returns int32[N]
-budgets; it updates ``state`` IN PLACE.  The wrapper launches the kernel
-for a CUDA tensor (or raises) and runs the plain PyTorch version beside
-it only for a tensor on the CPU.  The plain version equals the JAX
-package's numpy ``reference_step`` bit for bit; the jitted JAX step may
-differ by one cell where XLA fuses a multiply and an add.
+engine's packed int32[5, N] batch and ``now`` and returns int32[N]
+budgets; it updates ``state`` IN PLACE.  Its by-value form,
+``gcra_serve_step_lanes``, takes the batch in host memory (N <= 128)
+and writes the budgets into the caller's pinned host `out`: the engine
+serves every chunk of at most 128 padded lanes through it, as one
+device activity.  The wrappers launch the kernel for a CUDA tensor (or
+raise) and run the plain PyTorch version beside it only for a tensor on
+the CPU.  The plain version equals the JAX package's numpy
+``reference_step`` bit for bit; the jitted JAX step may differ by one
+cell where XLA fuses a multiply and an add.
 """
 
 from __future__ import annotations
@@ -42,11 +46,13 @@ from .algorithm_step import (
     f32_to_u32,
     launch,
     now_i32,
+    step_lanes,
 )
 from .fixed_window import resolve_device, slot_index
 from .registry import ALGO_GCRA
 
 K5 = "gcra_serve_step"
+K5_LANES = "gcra_serve_step_lanes"
 
 _FRAC_UNIT = 2.0**-32
 _FRAC_SCALE = 2.0**32
@@ -116,6 +122,19 @@ def gcra_serve_step(state: torch.Tensor, packed: torch.Tensor, now: int) -> torc
     return launch("rl_gcra_serve_step", K5, state, packed, now, out)
 
 
+def gcra_serve_step_lanes(
+    state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+) -> torch.Tensor:
+    """K5's by-value form: the same step as gcra_serve_step on the
+    int32[5, N] batch `words` held in HOST memory (N <= 128), the
+    budgets into `out` int32[N], host memory that must be pinned on a
+    CUDA table.  Only enqueued on a CUDA table: wait on the stream (an
+    event) before reading `out`.  Returns `out`."""
+    return step_lanes(
+        "rl_gcra_serve_step_lanes", K5_LANES, _gcra_step_plain, state, 2, words, now, out, ()
+    )
+
+
 class GcraModel:
     """Configuration + serving step for the TAT table.  `device`
     defaults to the GPU; only an explicit "cpu" runs the plain
@@ -146,6 +165,20 @@ class GcraModel:
         updated in place.  Padding lanes use out-of-table slots with
         divider 1, limit 1 and hits 0, so they are inert."""
         return state, gcra_serve_step(state, packed, now)
+
+    def step_serve_lanes(
+        self, state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K5's by-value form: the same batch as
+        step_serve_packed, held in host memory, the budgets into `out`
+        (pinned host memory on the card).  Returns (state, out); wait on
+        the stream before reading `out`."""
+        return state, gcra_serve_step_lanes(state, words, now, out)
+
+    @staticmethod
+    def readback_shape(n: int) -> Tuple[int, ...]:
+        """Shape of the int32 readback of an n-lane step: the budgets."""
+        return (n,)
 
     # -- host half (backends/engine.py generic protocol) ----------------
 

@@ -20,12 +20,16 @@ window: accumulate; adjacent: prev = curr, curr = 0; older: both zero.
 ``fresh`` lanes (newly assigned slots) start from zero.
 
 The serving step, K4 ``sw_serve_step`` (csrc/algorithms.cu), takes the
-engine's packed int32[5, N] upload and ``now`` and returns u32[2, N]
+engine's packed int32[5, N] batch and ``now`` and returns u32[2, N]
 (weighted prev, curr after) per unique slot; the host rebuilds
 per-lane counts (``lane_counts``) and runs the shared threshold state
-machine.  The step updates ``state`` IN PLACE.  The wrapper launches
-the kernel for a CUDA tensor (or raises) and runs the plain PyTorch
-version beside it only for a tensor on the CPU.
+machine.  The step updates ``state`` IN PLACE.  Its by-value form,
+``sw_serve_step_lanes``, takes the batch in host memory (N <= 128) and
+writes the readback into the caller's pinned host `out`: the engine
+serves every chunk of at most 128 padded lanes through it, as one
+device activity.  The wrappers launch the kernel for a CUDA tensor (or
+raise) and run the plain PyTorch version beside it only for a tensor on
+the CPU.
 """
 
 from __future__ import annotations
@@ -36,11 +40,12 @@ import numpy as np
 import torch
 
 from ..ops.u32 import U32_MASK, narrow, widen
-from .algorithm_step import check_step_inputs, f32_to_u32, launch, now_i32
+from .algorithm_step import check_step_inputs, f32_to_u32, launch, now_i32, step_lanes
 from .fixed_window import resolve_device, slot_index
 from .registry import ALGO_SLIDING_WINDOW
 
 K4 = "sw_serve_step"
+K4_LANES = "sw_serve_step_lanes"
 
 
 def _sw_step_plain(state: torch.Tensor, packed: torch.Tensor, now: int) -> torch.Tensor:
@@ -89,6 +94,19 @@ def sw_serve_step(state: torch.Tensor, packed: torch.Tensor, now: int) -> torch.
     return launch("rl_sw_serve_step", K4, state, packed, now, out)
 
 
+def sw_serve_step_lanes(
+    state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+) -> torch.Tensor:
+    """K4's by-value form: the same step as sw_serve_step on the
+    int32[5, N] batch `words` held in HOST memory (N <= 128), the
+    readback into `out` int32[2, N], host memory that must be pinned on
+    a CUDA table.  Only enqueued on a CUDA table: wait on the stream (an
+    event) before reading `out`.  Returns `out`."""
+    return step_lanes(
+        "rl_sw_serve_step_lanes", K4_LANES, _sw_step_plain, state, 3, words, now, out, (2,)
+    )
+
+
 class SlidingWindowModel:
     """Configuration + serving step for the two-window table.  `device`
     defaults to the GPU; only an explicit "cpu" runs the plain
@@ -118,6 +136,21 @@ class SlidingWindowModel:
         updated in place.  Padding lanes use out-of-table slots with
         divider 1 and hits 0, so they are inert."""
         return state, sw_serve_step(state, packed, now)
+
+    def step_serve_lanes(
+        self, state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K4's by-value form: the same batch as
+        step_serve_packed, held in host memory, the readback into `out`
+        (pinned host memory on the card).  Returns (state, out); wait on
+        the stream before reading `out`."""
+        return state, sw_serve_step_lanes(state, words, now, out)
+
+    @staticmethod
+    def readback_shape(n: int) -> Tuple[int, ...]:
+        """Shape of the int32 readback of an n-lane step: (weighted
+        prev, after) rows."""
+        return (2, n)
 
     # -- host half (backends/engine.py generic protocol) ----------------
 

@@ -185,7 +185,7 @@ def sharded_routed_step_lanes(
     Only enqueued on a CUDA table: wait on the stream (an event) before
     reading `out`.  Returns `out`."""
     nb, _ = _check_banked(counts)
-    fw.check_lanes_out(words, out, out_dtype)
+    fw._check_unique_lanes(words, out, out_dtype)
     if words.dim() != 3 or words.shape[0] != nb:
         raise TypeError(f"words must be int32[{nb}, 4, cap], got {tuple(words.shape)}")
     if counts.device.type == "cpu":
@@ -457,9 +457,12 @@ class ShardedCounterEngine(CounterEngine):
         handle = self._serve(
             st,
             st.packed[: nb * 4 * cap].view(nb, 4, cap),
-            dt,
-            m.step_counters_unique_routed_lanes,
-            m.step_counters_unique_routed_packed,
+            fw.OUT_DTYPES[dt],
+            (nb, cap),
+            lambda counts, words, out: m.step_counters_unique_routed_lanes(
+                counts, dt, words, out
+            ),
+            lambda counts, packed: m.step_counters_unique_routed_packed(counts, dt, packed),
         )
 
         def reassemble(fetched: np.ndarray) -> np.ndarray:

@@ -4,11 +4,12 @@
     python3 scripts/torch_served_chunk.py [--repo PATH] [--label NAME]
 
 Imports ``ratelimit_tpu_torch`` from the checkout at PATH (default: the
-one this script lives in), builds its kernels, and drives its engine's
+one this script lives in), builds its kernels, and drives its engines'
 ``_device_submit`` + ``step_complete`` through ``served_chunks`` of this
 checkout's ``chip_smoke.py``: one chunk of 1, 8 and 13 distinct lanes on
-one table and on 8 banks of 2^20 slots, SERVED_CHUNKS times under
-torch.profiler and as many again without it.  Prints, per engine and
+one table and on 8 banks of 2^20 slots, and on a sliding-window and a
+GCRA table of 2^18 slots, SERVED_CHUNKS times under torch.profiler and
+as many again without it.  Prints, per engine and
 width, the device activities and memcpys per chunk, the device busy
 time and the span from the first start to the last end (profiled), and
 the host microseconds of submit + complete (unprofiled); then the
@@ -20,6 +21,10 @@ directory and run the two in turns in one call::
     git archive <commit> | tar -x -C _smoke_checkout/parent
     for r in _smoke_checkout/parent . . _smoke_checkout/parent; do
         python3 scripts/torch_served_chunk.py --repo $r --label $r; done
+
+The other checkout's engines serve in whatever forms it has: one that
+predates the algorithm kernels' by-value form serves every algorithm
+chunk in the device form.
 """
 
 from __future__ import annotations
@@ -61,17 +66,19 @@ def main() -> None:
     sys.path.insert(0, repo)
     from ratelimit_tpu_torch import kernels
     from ratelimit_tpu_torch.backends import engine as eng
+    from ratelimit_tpu_torch.models import gcra
+    from ratelimit_tpu_torch.models import sliding_window as sw
     from ratelimit_tpu_torch.parallel import sharded as sh
 
     if not os.path.abspath(kernels.__file__).startswith(repo + os.sep):
         sys.exit(f"ratelimit_tpu_torch came from {kernels.__file__}, not from {repo}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    kernels.build_all(["fixed_window", "sharded"])
+    kernels.build_all(["fixed_window", "sharded", "algorithms"])
 
     label = args.label or repo
     cells = []
-    for (engine, width), st in smoke.served_chunks(torch, sh, eng, dev).items():
+    for (engine, width), st in smoke.served_chunks(torch, sh, eng, sw, gcra, dev).items():
         print(f"{label}: {smoke.served_chunk_line(engine, width, st)}", flush=True)
         cells.append(
             dict(

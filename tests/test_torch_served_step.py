@@ -9,7 +9,7 @@ plain versions as the device form, into the caller's `out`, so these
 tests hold:
 
 - the form choice at every default bucket and at 8 banks x cap 8, 16
-  and 32, and its budget against the kernel's kMaxLanes;
+  and 32, and its lane count against the kernels' kMaxLanes;
 - each by-value wrapper against its device-form wrapper on the same
   inputs, in u32, u8 and u16;
 - CounterEngine and ShardedCounterEngine (device="cpu") against the JAX
@@ -51,9 +51,7 @@ FIELDS = (
     "shadow_mode",
     "set_local_cache",
 )
-CSRC = os.path.join(
-    os.path.dirname(__file__), "..", "ratelimit_tpu_torch", "csrc", "counter_update.cuh"
-)
+CSRC = os.path.join(os.path.dirname(__file__), "..", "ratelimit_tpu_torch", "csrc")
 
 
 def _assert_same(dj, dt, what=""):
@@ -80,14 +78,24 @@ def test_form_is_chosen_by_shape(banks, padded, by_value):
 
 
 def test_budget_matches_the_kernel():
-    """BY_VALUE_BYTES is kMaxLanes 16-byte lane records, and the largest
-    parameter struct is checked against 4 KB at compile time."""
-    with open(CSRC) as f:
-        src = f.read()
-    max_lanes = int(re.search(r"constexpr int kMaxLanes = (\d+);", src).group(1))
-    assert fw.BY_VALUE_BYTES == 16 * max_lanes
-    assert "static_assert(sizeof(LaneBatch<kMaxLanes>) <= 4096" in src
+    """MAX_LANES is the kernels' kMaxLanes, and each by-value parameter
+    struct -- K1/K6's LaneBatch, K4/K5's AlgoLanes, both at kMaxLanes
+    records -- is checked against 4 KB at compile time."""
+    src = {}
+    for name in ("by_value.cuh", "counter_update.cuh", "algorithms.cu"):
+        with open(os.path.join(CSRC, name)) as f:
+            src[name] = f.read()
+    head = src["by_value.cuh"]
+    max_lanes = int(re.search(r"constexpr int kMaxLanes = (\d+);", head).group(1))
+    assert fw.MAX_LANES == max_lanes
+    assert "constexpr int kParamBytes = 4096;" in head
+    assert "int4 lane[kMaxLanes];" in src["counter_update.cuh"]
+    assert "static_assert(sizeof(LaneBatch) <= kParamBytes" in src["counter_update.cuh"]
+    assert "int4 lane[kMaxLanes];" in src["algorithms.cu"]
+    assert "uint32_t divider[kMaxLanes];" in src["algorithms.cu"]
+    assert "static_assert(sizeof(AlgoLanes) <= kParamBytes" in src["algorithms.cu"]
     assert fw.lanes_by_value(1, max_lanes) and not fw.lanes_by_value(1, max_lanes + 1)
+    assert fw.lanes_by_value(8, max_lanes // 8) and not fw.lanes_by_value(8, max_lanes // 4)
 
 
 # -- the by-value wrappers against the device-form wrappers ----------------
