@@ -9,21 +9,25 @@ Phases, one line each; any failure exits non-zero:
 2. build: every CUDA kernel from csrc/, one nvcc per source in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card,
    same seeded inputs, exact equality (integer arithmetic and IEEE f32
-   steps in one fixed order: the tolerance is 0).  K1-K3 for N in {8,
-   100, 128, 4096} at 2^20 slots and once at 2^24 slots, with positive
-   and then with negative slot ids; K2 also at the sizes its triangular
-   tiling can get wrong, N in {1, 127, 129, 4097, 16384}, and on a batch
-   whose running sum wraps u32 inside a segment; the algorithm-bank kernels K4
+   steps in one fixed order: the tolerance is 0).  K1, K2 and K3's
+   standalone decision block for N in {8, 100, 128, 4096} at 2^20 slots
+   and once at 2^24 slots, with positive and then with negative slot
+   ids; K2 also at the sizes its triangular tiling can get wrong, N in
+   {1, 127, 129, 4097, 16384}, and on a batch whose running sum wraps
+   u32 inside a segment; the algorithm-bank kernels K4
    (sliding window) and K5 (GCRA) for the same N at 2^18 slots (the
    bank default) and 4096 at 2^24, over several steps with the clock
    advancing through same, adjacent and older windows, with fresh,
    padding, saturated and limit-0 lanes and ids in [-ns, -1]; the
-   bank-sharded kernels K6 (routed serving step) and K7 (general update
-   over global ids, and its compact u8/u16 readback) over 8 banks for
-   the same N at 2^20 slots and 4096 at 2^24, with uniform and
-   all-one-bank routing, fresh, padding, saturated, duplicate,
-   out-of-table and negative ids; K3's compact update (u8/u16 readback
-   from its add launch) against readback_plain; the served step in both
+   bank-sharded routed serving step K6 over 8 banks for the same N at
+   2^20 slots and 4096 at 2^24, with uniform and all-one-bank routing,
+   fresh, padding, saturated, out-of-table and negative ids; the fused
+   general step (one cooperative launch: K3 on one table, K7 over 8
+   banks of global ids) in each epilogue -- raw afters, u8/u16 readback,
+   decision block -- at 2^20 and 2^24 slots for N in SIZES and K2's
+   edge sizes, on duplicates with positive and negative ids, one slot
+   fresh on its last lane, a u32 wrap inside a segment and -1 beside
+   ns - 1; the served step in both
    forms: K1 and K6 by value (lanes in the launch's parameters, readback
    into mapped pinned memory) for N in LANES_SIZES and in the device
    form for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; K4 and K5
@@ -40,10 +44,13 @@ Phases, one line each; any failure exits non-zero:
    time and span from the first start to the last end -- and as many
    again without it for the host microseconds;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
-   slots, 4096 lanes, seed 0, 10% fresh) through K2 and K3 on the card,
-   against the plain version and an independent numpy reference;
+   slots, 4096 lanes, seed 0, 10% fresh) on the card, against the plain
+   version and an independent numpy reference: exactly one launch (the
+   fused general step, K3 with its decision block), and over 20
+   profiled steps one device activity a step, no memset, no memcpy;
 5. sharded forward: the same batch through the bank-sharded model (8
-   banks on the card) -- K7, K2 and K3's decision block -- against the
+   banks on the card) -- one launch of the fused step, K7 with K3's
+   decision block, one device activity a step -- against the
    single-table forward step and the sharded plain version, its table
    in global order against the single table;
 6. served: the runner in-process with BACKEND_TYPE=cuda and the
@@ -67,7 +74,9 @@ Phases, one line each; any failure exits non-zero:
    K6 in its two forms as K1 in phase 6.
 
 Kernel launch counts are zeroed just before each main-path phase (4-7)
-and read just after: every kernel must have run there.  The last lines
+and read just after: every kernel must have run there, where a launch
+of the fused general step counts for each body it runs (K2's tile pass,
+the K3 update, K3's decision block, K7).  The last lines
 are a JSON summary of the kernels and
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -285,7 +294,7 @@ def _dup_lanes(torch, rng, n, ns, dev, distinct, neg=False):
 def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
     """Every kernel vs its plain version; returns max |err| by kernel."""
     rng = np.random.default_rng(2024)
-    err = {fw.K1: 0, prefix_cuda.KERNEL: 0, fw.K3_UPDATE: 0, fw.K3_DECIDE: 0}
+    err = {fw.K1: 0, prefix_cuda.KERNEL: 0, fw.K3_DECIDE: 0}
 
     def note(name, a, b, what):
         e = u32_max_abs_err(a, b)
@@ -315,24 +324,6 @@ def check_kernels(torch, fw, prefix_cuda, prefix_plain, dev):
                     prefix_plain(slots, hits),
                     f"n={n} distinct={distinct} negative ids={neg}",
                 )
-                ck, cp = base.clone(), base.clone()
-                ak = fw.fw_general_update(ck, slots, hits, fresh)
-                ap = fw._update_plain(cp, slots, hits, fresh)
-                what = f"n={n} ns={ns} d={distinct} negative ids={neg}"
-                note(fw.K3_UPDATE, ak, ap, "afters " + what)
-                note(fw.K3_UPDATE, ck, cp, "table " + what)
-                # step_counters_compact: K3's add writes min(after, limit
-                # + hits) narrowed, against readback_plain of the afters.
-                limits = torch.from_numpy(rng.integers(1, 300, n).astype(np.int32)).to(dev)
-                for dt in ("uint8", "uint16"):
-                    ck = base.clone()
-                    want = fw.readback_plain(
-                        ap.to(torch.int64) & U32, hits.to(torch.int64) & U32,
-                        limits.to(torch.int64), dt,
-                    )
-                    got = fw.fw_general_update(ck, slots, hits, fresh, limits, dt)
-                    note(fw.K3_UPDATE, got, want, f"compact {dt} " + what)
-                    note(fw.K3_UPDATE, ck, cp, f"compact {dt} table " + what)
             if neg:
                 continue  # the decision block takes no slot ids
             afters = torch.from_numpy(
@@ -562,10 +553,10 @@ def _routed(torch, rng, n, ns, dev, hot, skew):
 
 
 def check_sharded(torch, sh, dev):
-    """K6 and K7 against their plain versions over BANKS banks; returns
-    max |err| by kernel."""
+    """K6 against its plain version over BANKS banks (K7 is in
+    check_general_step); returns max |err| by kernel."""
     rng = np.random.default_rng(2026)
-    err = {sh.K6: 0, sh.K7: 0}
+    err = {sh.K6: 0}
 
     def note(name, a, b, what):
         e = u32_max_abs_err(a, b)
@@ -583,16 +574,92 @@ def check_sharded(torch, sh, dev):
                 note(sh.K6, sh.sharded_routed_step(ck, pk, dt), sh._routed_step_plain(cp, pk, dt),
                      "afters " + what)
                 note(sh.K6, ck, cp, "table " + what)
-            limits = torch.from_numpy(rng.integers(1, 300, n).astype(np.int32)).to(dev)
-            for distinct, dt in itertools.product((1, max(1, n // 8), n), ("", "uint8", "uint16")):
-                # pads ns + i past the table, about a third of the live
-                # lanes negative (out of a sharded table), duplicates
-                slots, hits, fresh = _dup_lanes(torch, rng, n, ns, dev, distinct, neg=True)
+    torch.cuda.synchronize()
+    return err
+
+
+def _general_batches(torch, rng, n, ns, hot, dev):
+    """(what, slots, hits, fresh) on `dev` for the fused general step at
+    n lanes: duplicates over 1, n/8 and n distinct slots with positive
+    and with negative ids (_dup_lanes: pads past the table, hits near
+    u32 max); every lane on one near-u32-max slot, fresh only on the
+    last; WRAP_HITS on one slot among duplicates (its running sum wraps
+    u32 inside the segment); ids -1 and ns - 1 beside each other (one
+    table: one counter, two prefixes; banks: -1 is out of the table)."""
+    for distinct, neg in itertools.product((1, max(1, n // 8), n), (False, True)):
+        yield (f"d={distinct} negative ids={neg}",
+               *_dup_lanes(torch, rng, n, ns, dev, distinct, neg))
+
+    def lanes(slots, hits, fresh):
+        return (
+            torch.from_numpy(np.asarray(slots, np.int64).astype(np.int32)).to(dev),
+            torch.from_numpy(np.asarray(hits, np.uint64).astype(np.uint32).view(np.int32)).to(dev),
+            torch.from_numpy(np.asarray(fresh, bool)).to(dev),
+        )
+
+    small = rng.integers(1, 4, n)
+    last = np.arange(n) == n - 1
+    yield ("one slot, fresh on its last lane", *lanes(np.full(n, hot[0]), small, last))
+    slots = rng.choice(ns, max(1, n // 8), replace=False)[rng.integers(0, max(1, n // 8), n)]
+    wrap = np.arange(n) % max(1, n // len(WRAP_HITS)) == 0
+    slots[wrap] = hot[1]
+    hits = small.astype(np.uint64)
+    hits[np.nonzero(wrap)[0]] = np.resize(WRAP_HITS, int(wrap.sum()))
+    yield ("u32 wrap inside a segment", *lanes(slots, hits, rng.random(n) < 0.1))
+    yield ("-1 beside ns - 1",
+           *lanes(rng.choice([-1, ns - 1, int(hot[2])], n), small, rng.random(n) < 0.1))
+
+
+def check_general_step(torch, fw, sh, dev):
+    """The fused general step (one cooperative launch: K3 on one table,
+    K7 on BANKS banks) against its plain versions in every epilogue --
+    the raw afters, the narrow u8 / u16 readback and the decision block
+    -- at 2^20 and 2^24 slots, for N in SIZES + PREFIX_EDGE_SIZES, on
+    _general_batches; limits small and near u32 max (the readback cap
+    wraps), shadow on about a third of the lanes.  Returns max |err| by
+    kernel."""
+    rng = np.random.default_rng(2029)
+    err = {fw.K3_UPDATE: 0, fw.K3_STEP: 0, sh.K7: 0, sh.K7_STEP: 0}
+
+    def note(name, a, b, what):
+        e = u32_max_abs_err(a, b)
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
+
+    tables = {
+        "one table": (fw.fw_general_update, fw._update_plain, fw.fw_general_step,
+                      fw.K3_UPDATE, fw.K3_STEP),
+        f"{BANKS} banks": (sh.sharded_general_update, sh._general_update_plain,
+                           sh.sharded_general_step, sh.K7, sh.K7_STEP),
+    }
+    for ns in (NUM_SLOTS, BIG_SLOTS):
+        one = _table(torch, rng, ns, dev)
+        hot = torch.nonzero((one.to(torch.int64) & U32) > U32 - 16).flatten().cpu().numpy()
+        bases = {"one table": (one, hot), f"{BANKS} banks": _banked_table(torch, rng, ns, dev)}
+        for (label, (update, plain, step, k_update, k_step)), n in itertools.product(
+            tables.items(), SIZES + PREFIX_EDGE_SIZES
+        ):
+            base, hot = bases[label]
+            limits = rng.integers(1, 300, n).astype(np.uint32)
+            limits[rng.random(n) < 0.2] = U32 - rng.integers(0, 4, 1).astype(np.uint32)
+            limits = torch.from_numpy(limits.view(np.int32)).to(dev)
+            shadow = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+            for what, slots, hits, fresh in _general_batches(torch, rng, n, ns, hot, dev):
+                what = f"{label} n={n} ns={ns} {what}"
+                for dt in ("", "uint8", "uint16"):
+                    ck, cp = base.clone(), base.clone()
+                    note(k_update, update(ck, slots, hits, fresh, limits, dt),
+                         plain(cp, slots, hits, fresh, limits, dt), f"out {dt!r} {what}")
+                    note(k_update, ck, cp, f"table {dt!r} {what}")
                 ck, cp = base.clone(), base.clone()
-                what = f"n={n} ns={ns} d={distinct} dtype={dt!r}"
-                note(sh.K7, sh.sharded_general_update(ck, slots, hits, fresh, limits, dt),
-                     sh._general_update_plain(cp, slots, hits, fresh, limits, dt), "out " + what)
-                note(sh.K7, ck, cp, "table " + what)
+                got = step(ck, slots, hits, fresh, limits, shadow, 0.8)
+                want = fw._decision_block_plain(
+                    plain(cp, slots, hits, fresh, None, ""), hits, limits, shadow, 0.8
+                )
+                for f in got._fields:
+                    note(k_step, getattr(got, f), getattr(want, f), f"decide {f} {what}")
+                note(k_step, ck, cp, f"decide table {what}")
     torch.cuda.synchronize()
     return err
 
@@ -706,6 +773,14 @@ def prefix_ops(n: int) -> int:
     and a segmented sum, n log2 n compares and n adds (not the N^2/2
     compare-adds of K2's tiled pass)."""
     return n * (n - 1).bit_length() + n
+
+
+def general_step_work(n: int, distinct: int):
+    """(bytes, operations) of the general step with its decision block:
+    slot, hits, fresh, limit and shadow in (14 B a lane), the gather and
+    scatter of each distinct slot, the nine fields out (33 B a lane); the
+    prefix at its least work, the update's and the decisions' arithmetic."""
+    return 14 * n + 8 * distinct + 33 * n, prefix_ops(n) + 4 * n + 30 * n
 
 
 def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
@@ -829,6 +904,14 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         13 * n + 33 * n,
         30 * n,
     )
+    row(
+        fw.K3_STEP,
+        lambda: fw.fw_general_step(t1, slots, hits, fresh, limits, shadow, 0.8),
+        lambda: fw._decision_block_plain(
+            fw._update_plain(t2, slots, hits, fresh), hits, limits, shadow, 0.8
+        ),
+        *general_step_work(n, distinct),
+    )
 
     ans = ALGO_SLOTS
     pool = rng.choice(ans, 2 * n, replace=False)
@@ -945,6 +1028,14 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         lambda: sh._general_update_plain(b2, slots, hits, fresh, None, ""),
         9 * n + 8 * distinct + 4 * n,  # the same work as K3's update
         prefix_ops(n) + 4 * n,
+    )
+    row(
+        sh.K7_STEP,
+        lambda: sh.sharded_general_step(b1, slots, hits, fresh, limits, shadow, 0.8),
+        lambda: fw._decision_block_plain(
+            sh._general_update_plain(b2, slots, hits, fresh, None, ""), hits, limits, shadow, 0.8
+        ),
+        *general_step_work(n, distinct),
     )
     return rows, calls, dict(floor=floor, samples=samples, served=served, prefix_big=prefix_big)
 
@@ -1106,6 +1197,47 @@ def graft_device_batch(torch, fw, dev):
     )
 
 
+# Forward steps per profiler capture.
+STEP_CAPTURE = 20
+
+
+def step_activities(torch, step, iters=STEP_CAPTURE):
+    """Device activities of `iters` calls of step() under torch.profiler
+    (device activities only): dict(activities, memsets, memcpys per
+    call, names, busy_us per call).  A capture whose activities do not
+    split into its calls is taken again (up to PROFILE_TRIES times)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                step()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if evs and len(evs) % iters == 0:
+            break
+    return dict(
+        activities=len(evs) / iters,
+        memsets=sum(ev.name.startswith("Memset") for ev in evs) / iters,
+        memcpys=sum(ev.name.startswith("Memcpy") for ev in evs) / iters,
+        names=sorted({ev.name.replace("(anonymous namespace)::", "").split("<")[0] for ev in evs}),
+        busy_us=sum(ev.time_range.elapsed_us() for ev in evs) / iters,
+    )
+
+
+def one_launch(what, launches, kernel, acts):
+    """Fail unless a step launched `kernel` once and nothing else, and
+    its profiler capture shows one device activity a step, no memset
+    and no memcpy."""
+    if launches != {kernel: 1}:
+        fail(f"{what} launched {launches}, not one {kernel}")
+    if (acts["activities"], acts["memsets"], acts["memcpys"]) != (1, 0, 0):
+        fail(f"{what}: {acts} over {STEP_CAPTURE} steps, not one device activity a step")
+
+
 def forward_phase(torch, fw, kernels, dev):
     raw, batch = graft_device_batch(torch, fw, dev)
     model = fw.FixedWindowModel(NUM_SLOTS, device=dev)
@@ -1115,9 +1247,6 @@ def forward_phase(torch, fw, kernels, dev):
     counts, dec = model.forward(counts, batch)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    for name in (fw.K3_UPDATE, fw.K3_DECIDE, "per_slot_inclusive_prefix"):
-        if launches.get(name, 0) < 1:
-            fail(f"forward step did not launch {name}: {launches}")
 
     plain_counts = torch.zeros(NUM_SLOTS, dtype=torch.int32, device=dev)
     plain_afters = fw._update_plain(plain_counts, batch.slots, batch.hits, batch.fresh)
@@ -1143,17 +1272,19 @@ def forward_phase(torch, fw, kernels, dev):
     if not (np.array_equal(got_after, want_after) and np.array_equal(got_codes, want_codes)):
         fail("forward step disagrees with the numpy reference")
     step = lambda: model.forward(counts, batch)  # noqa: E731
+    acts = step_activities(torch, step)
+    one_launch("forward step", launches, fw.K3_STEP, acts)
     ms = (time_ms(step, reps=10, inner=20), device_ms(step))
-    return launches, ms, int((got_codes == 2).sum())
+    return launches, ms, int((got_codes == 2).sum()), acts
 
 
 # -- phase 5: the sharded forward step -----------------------------------
 
 
 def sharded_forward_phase(torch, fw, sh, kernels, dev):
-    """The graft batch through the bank-sharded model (K7, K2, K3
-    decide).  Its ids are all in the table, where the sharded and the
-    single-table steps agree exactly."""
+    """The graft batch through the bank-sharded model (K7 with K3's
+    decision block, one fused launch).  Its ids are all in the table,
+    where the sharded and the single-table steps agree exactly."""
     _, batch = graft_device_batch(torch, fw, dev)
     model = sh.ShardedFixedWindowModel(NUM_SLOTS, sh.make_mesh(BANKS, dev))
     counts = model.init_state()
@@ -1162,9 +1293,6 @@ def sharded_forward_phase(torch, fw, sh, kernels, dev):
     counts, dec = model.step(counts, batch)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    for name in (sh.K7, "per_slot_inclusive_prefix", fw.K3_DECIDE):
-        if launches.get(name, 0) < 1:
-            fail(f"sharded forward step did not launch {name}: {launches}")
 
     one = fw.FixedWindowModel(NUM_SLOTS, device=dev)
     one_counts, one_dec = one.forward(one.init_state(), batch)
@@ -1185,7 +1313,9 @@ def sharded_forward_phase(torch, fw, sh, kernels, dev):
     if u32_max_abs_err(counts, plain_counts) != 0:
         fail("sharded table disagrees with the sharded plain version")
     step = lambda: model.step(counts, batch)  # noqa: E731
-    return launches, (time_ms(step, reps=10, inner=20), device_ms(step))
+    acts = step_activities(torch, step)
+    one_launch("sharded forward step", launches, sh.K7_STEP, acts)
+    return launches, (time_ms(step, reps=10, inner=20), device_ms(step)), acts
 
 
 # -- phases 6 and 7: the served paths -------------------------------------
@@ -1549,11 +1679,21 @@ def main() -> None:
     sharded_errs = check_sharded(torch, sh, dev)
     lap("check_sharded")
     log(
-        f"sharded kernels: exact over {BANKS} banks for N in {SIZES} at 2^20 "
+        f"sharded routed step: exact over {BANKS} banks for N in {SIZES} at 2^20 "
         f"slots and 4096 at 2^24, uniform and all-one-bank routing, three "
         f"readback types; max|err| {sharded_errs}"
     )
     errs.update(sharded_errs)
+    general_errs = check_general_step(torch, fw, sh, dev)
+    lap("check_general_step")
+    log(
+        f"fused general step (one cooperative launch): exact on one table and over "
+        f"{BANKS} banks, raw afters, u8 / u16 readback and the decision block, for N "
+        f"in {SIZES + PREFIX_EDGE_SIZES} at 2^20 and 2^24 slots, duplicates over 1, "
+        f"N/8, N slots with positive and negative ids, one slot fresh on its last "
+        f"lane, a u32 wrap inside a segment, -1 beside ns - 1; max|err| {general_errs}"
+    )
+    errs.update(general_errs)
     form_errs, k6_lanes_cases = check_served_forms(torch, fw, sh, kernels, dev)
     lap("check_served_forms")
     for name, e in form_errs.items():
@@ -1625,24 +1765,24 @@ def main() -> None:
     lap("served_chunks")
 
     # 4. flagship forward step (main path b)
-    fwd_launches, fwd_ms, n_over = forward_phase(torch, fw, kernels, dev)
+    fwd_launches, fwd_ms, n_over, fwd_acts = forward_phase(torch, fw, kernels, dev)
     lap("forward")
     log(
         f"forward: graft batch 2^20 slots x 4096 lanes exact vs plain and numpy; "
         f"{n_over} lanes OVER_LIMIT; {fwd_ms[0] * 1e3:.1f} us/step "
         f"(device {fwd_ms[1] * 1e3 if fwd_ms[1] else float('nan'):.1f} us); "
-        f"launches {fwd_launches}"
+        f"launches {fwd_launches}; per step over {STEP_CAPTURE} profiled steps {fwd_acts}"
     )
 
     # 5. sharded forward step
-    shf_launches, shf_ms = sharded_forward_phase(torch, fw, sh, kernels, dev)
+    shf_launches, shf_ms, shf_acts = sharded_forward_phase(torch, fw, sh, kernels, dev)
     lap("sharded_forward")
     log(
         f"sharded forward: graft batch over {BANKS} banks equals the single-table "
         f"forward step and the sharded plain version, table too; "
         f"{shf_ms[0] * 1e3:.1f} us/step "
         f"(device {shf_ms[1] * 1e3 if shf_ms[1] else float('nan'):.1f} us); "
-        f"launches {shf_launches}"
+        f"launches {shf_launches}; per step over {STEP_CAPTURE} profiled steps {shf_acts}"
     )
 
     # 6. served path (main path a)
@@ -1685,23 +1825,34 @@ def main() -> None:
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
     }
+    # The fused general step runs the bodies of K2, the K3 update and
+    # decide, and K7: its launches count for each body it runs.
+    bodies = {
+        prefix_cuda.KERNEL: (prefix_cuda.KERNEL, fw.K3_UPDATE, fw.K3_STEP, sh.K7, sh.K7_STEP),
+        fw.K3_UPDATE: (fw.K3_UPDATE, fw.K3_STEP),
+        fw.K3_DECIDE: (fw.K3_DECIDE, fw.K3_STEP, sh.K7_STEP),
+        sh.K7: (sh.K7, sh.K7_STEP),
+    }
+    fused = "ratelimit_tpu_torch/csrc/counter_update.cuh"
     replaces = {
         fw.K1: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
         fw.K1_LANES: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
         prefix_cuda.KERNEL: ("ratelimit_tpu_torch/csrc/prefix.cu", "ratelimit_tpu/ops/prefix_pallas.py:82"),
-        fw.K3_UPDATE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:247"),
+        fw.K3_UPDATE: (fused, "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
+        fw.K3_STEP: (fused, "ratelimit_tpu/models/fixed_window.py:282"),
         sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
         sw.K4_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
         gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
         gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
-        sh.K7: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
+        sh.K7: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
+        sh.K7_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
     }
     rows = []
     for name, (source, rep) in replaces.items():
-        launches = main_launches.get(name, 0)
+        launches = sum(main_launches.get(k, 0) for k in bodies.get(name, (name,)))
         if launches < 1:
             fail(f"{name} never launched on the main path")
         rows.append(

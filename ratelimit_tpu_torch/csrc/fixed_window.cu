@@ -25,16 +25,15 @@
 // readback copy.
 //
 // K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
-// duplicate-tolerant step), :108 step_counters_compact (rl_fw_add's
-// optional narrow readback) and :294 decision_block.  The update runs as
-// separate launches on one stream (counter_update.cuh says why): zero
-// fresh slots, gather, the per-slot prefix (K2, csrc/prefix.cu: a memset
-// and a triangular tiled pass over the whole card), then add + modular
-// atomicAdd; each is about one launch's cost at the engine's batch
-// sizes.  fw_decision_block is the branch-free
-// threshold machine, one thread per lane; the near-limit threshold is
-// floorf(__fmul_rn(limit, ratio)) so that nvcc cannot contract it with
-// anything else.
+// duplicate-tolerant step), :108 step_counters_compact (its narrow
+// readback) and :294 decision_block.  rl_fw_general_step runs the whole
+// general step -- zero fresh slots, gather, the per-slot prefix (K2's
+// tile pass), modular scatter-add, and the raw afters, their narrow
+// readback or the decision block as its epilogue -- in ONE cooperative
+// launch, general_step_kernel in counter_update.cuh (which says what
+// bounds it and why it is one launch).  rl_fw_decision_block is the
+// decision block alone, one thread per lane, the same decide_lane
+// function as the fused epilogue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,42 +50,10 @@ __global__ void fw_decision_block_kernel(const uint32_t* __restrict__ afters,
                                          uint32_t* __restrict__ out,
                                          uint8_t* __restrict__ set_lc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
+  if (i < n) {
+    decide_lane(afters[i], hits[i], limits[i], shadow[i] != 0, near_ratio, out,
+                n, i, set_lc);
   }
-  const uint32_t after = afters[i];
-  const uint32_t h = hits[i];
-  const uint32_t limit = limits[i];
-  const uint32_t before = after - h;
-  const float near_f =
-      floorf(__fmul_rn(__uint2float_rn(limit), near_ratio));
-  const uint32_t near =
-      near_f <= 0.0f ? 0u
-                     : (near_f >= 4294967296.0f ? kU32Max
-                                                : static_cast<uint32_t>(near_f));
-
-  const bool over = after > limit;
-  const bool ok = !over;
-  const bool fully_over = over && before >= limit;
-  const bool partly_over = over && !fully_over;
-  const uint32_t over_delta =
-      fully_over ? h : (partly_over ? after - limit : 0u);
-  const uint32_t max_near_before = near > before ? near : before;
-  const uint32_t near_from_over = partly_over ? limit - max_near_before : 0u;
-  const bool near_ok = ok && after > near;
-  const uint32_t near_from_ok =
-      (near_ok && before >= near) ? h : (near_ok ? after - near : 0u);
-  const bool shadowed = over && shadow[i] != 0;
-
-  out[i] = (over && !shadowed) ? 2u : 1u;          // codes
-  out[n + i] = ok ? limit - after : 0u;            // limit_remaining
-  out[2 * n + i] = before;                         // befores
-  out[3 * n + i] = after;                          // afters
-  out[4 * n + i] = over_delta;                     // over_limit
-  out[5 * n + i] = near_from_over + near_from_ok;  // near_limit
-  out[6 * n + i] = ok ? h : 0u;                    // within_limit
-  out[7 * n + i] = shadowed ? h : 0u;              // shadow_mode
-  set_lc[i] = over ? 1 : 0;                        // set_local_cache
 }
 
 }  // namespace
@@ -96,13 +63,6 @@ extern "C" int rl_fw_unique_step(void* counts, long long num_slots,
                                  int out_kind, void* stream) {
   return launch_unique_step(counts, num_slots, packed, 1, n, out, out_kind,
                             stream);
-}
-
-extern "C" int rl_fw_zero_and_gather(void* counts, long long num_slots,
-                                     const void* slots, const void* fresh,
-                                     void* before, int n, void* stream) {
-  return launch_zero_and_gather(counts, WrappedIndex{num_slots}, slots, fresh,
-                                before, n, stream);
 }
 
 extern "C" int rl_fw_unique_step_lanes(void* counts, long long num_slots,
@@ -118,12 +78,18 @@ extern "C" int rl_mapped_alias(void* host, void** device) {
   return static_cast<int>(mapped_alias(host, device));
 }
 
-extern "C" int rl_fw_add(void* counts, long long num_slots, const void* slots,
-                         const void* hits, const void* incl, void* afters,
-                         const void* limits, void* out, int out_kind, int n,
-                         void* stream) {
-  return launch_add(counts, WrappedIndex{num_slots}, slots, hits, incl, afters,
-                    limits, out, out_kind, n, stream);
+// The general step (K3) of n lanes on one table; `epilogue` is an
+// Epilogue of counter_update.cuh.
+extern "C" int rl_fw_general_step(void* counts, long long num_slots,
+                                  const void* slots, const void* hits,
+                                  const void* fresh, const void* limits,
+                                  const void* shadow, float near_ratio,
+                                  void* afters, void* incl, void* out,
+                                  void* set_lc, int epilogue, int n,
+                                  void* stream) {
+  return launch_general_step(counts, WrappedIndex{num_slots}, slots, hits,
+                             fresh, limits, shadow, near_ratio, afters, incl,
+                             out, set_lc, epilogue, n, stream);
 }
 
 extern "C" int rl_fw_decision_block(const void* afters, const void* hits,

@@ -31,6 +31,10 @@
 // the atomics gives the same bits: the result is exact, not within a
 // tolerance.  The launcher zeroes `out` on the same stream first.
 //
+// The pass itself (tile_pair, tile_sum, the staging loop) lives in
+// prefix_tiles.cuh, which the fused general step (counter_update.cuh)
+// runs as its phase B: this kernel and the fused one run the same code.
+//
 // Limit.  The work still grows as N^2.  That fits every batch the engine
 // makes: on an H100 80GB HBM3 at 700 W (chip_smoke.py) a call, memset
 // included, takes 4.6 us at N = 4096, where one launch of anything costs
@@ -44,85 +48,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "prefix_tiles.cuh"
+
 namespace {
 
-constexpr int kTile = 128;  // lanes per tile = threads per block
 constexpr long long kMaxBlocks = 2048;
-
-// Tile pair p of the lower triangle in row-major order:
-// p = it * (it + 1) / 2 + jt with 0 <= jt <= it.  The double sqrt is
-// correctly rounded, which makes the floor exact for every pair of up to
-// 2^31 - 1 lanes (tests/test_torch_prefix.py checks each row's edges).
-__device__ __forceinline__ void tile_pair(long long p, long long* it,
-                                          long long* jt) {
-  const long long r = static_cast<long long>(
-      (sqrt(8.0 * static_cast<double>(p) + 1.0) - 1.0) * 0.5);
-  *it = r;
-  *jt = p - r * (r + 1) / 2;
-}
-
-// Sum of the staged hits whose slot equals `mine`; on the diagonal tile
-// only staged lanes k <= t (j <= i) count.
-template <bool kDiagonal>
-__device__ __forceinline__ uint32_t tile_sum(const int4* s4, const uint4* h4,
-                                             int32_t mine, int t) {
-  uint32_t acc = 0u;
-#pragma unroll 8
-  for (int q = 0; q < kTile / 4; ++q) {
-    const int4 s = s4[q];
-    const uint4 h = h4[q];
-    const int k = 4 * q;
-    acc += (s.x == mine && (!kDiagonal || k <= t)) ? h.x : 0u;
-    acc += (s.y == mine && (!kDiagonal || k + 1 <= t)) ? h.y : 0u;
-    acc += (s.z == mine && (!kDiagonal || k + 2 <= t)) ? h.z : 0u;
-    acc += (s.w == mine && (!kDiagonal || k + 3 <= t)) ? h.w : 0u;
-  }
-  return acc;
-}
 
 __global__ void __launch_bounds__(kTile) per_slot_inclusive_prefix_kernel(
     const int32_t* __restrict__ slots, const uint32_t* __restrict__ hits,
     uint32_t* __restrict__ out, int n, long long pairs, bool aligned) {
-  __shared__ __align__(16) int32_t s_slots[kTile];
-  __shared__ __align__(16) uint32_t s_hits[kTile];
-  const int t = threadIdx.x;
-
-  for (long long p = blockIdx.x; p < pairs; p += gridDim.x) {
-    long long it, jt;
-    tile_pair(p, &it, &jt);
-    const long long i = it * kTile + t;
-    const long long j0 = jt * kTile;
-    const int32_t mine = i < n ? slots[i] : 0;
-
-    // Stage the j tile.  Lanes past n get hits 0, so they add nothing
-    // whatever their slot.
-    if (aligned && j0 + kTile <= n) {
-      constexpr int kVecs = kTile / 4;
-      if (t < kVecs) {
-        reinterpret_cast<int4*>(s_slots)[t] =
-            reinterpret_cast<const int4*>(slots + j0)[t];
-      } else if (t < 2 * kVecs) {
-        reinterpret_cast<uint4*>(s_hits)[t - kVecs] =
-            reinterpret_cast<const uint4*>(hits + j0)[t - kVecs];
-      }
-    } else {
-      const long long j = j0 + t;
-      s_slots[t] = j < n ? slots[j] : 0;
-      s_hits[t] = j < n ? hits[j] : 0u;
-    }
-    __syncthreads();
-
-    if (i < n) {
-      const int4* s4 = reinterpret_cast<const int4*>(s_slots);
-      const uint4* h4 = reinterpret_cast<const uint4*>(s_hits);
-      const uint32_t acc = it == jt ? tile_sum<true>(s4, h4, mine, t)
-                                    : tile_sum<false>(s4, h4, mine, t);
-      if (acc != 0u) {
-        atomicAdd(&out[i], acc);
-      }
-    }
-    __syncthreads();
-  }
+  prefix_tile_pass(slots, hits, out, n, pairs, aligned);
 }
 
 }  // namespace
@@ -138,14 +73,10 @@ extern "C" int rl_per_slot_inclusive_prefix(
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
-  const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
-  const long long pairs = tiles * (tiles + 1) / 2;
+  const long long pairs = tile_pairs(n);
   const int blocks = static_cast<int>(pairs < kMaxBlocks ? pairs : kMaxBlocks);
-  const bool aligned = ((reinterpret_cast<uintptr_t>(slots) |
-                         reinterpret_cast<uintptr_t>(hits)) &
-                        15u) == 0;
   per_slot_inclusive_prefix_kernel<<<blocks, kTile, 0, s>>>(
       static_cast<const int32_t*>(slots), static_cast<const uint32_t*>(hits),
-      static_cast<uint32_t*>(out), n, pairs, aligned);
+      static_cast<uint32_t*>(out), n, pairs, tiles_aligned(slots, hits));
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,22 +26,18 @@
 // latency bounds it, as it bounds K1.  The TPU's 128-wide row gather
 // (sharded.py:239-253) is a TPU layout trick and has no counterpart.
 //
-// K7 rl_sharded_zero_and_gather + rl_sharded_add replace the general
-// update _bank_core (sharded.py:270-302) and the psum of _bank_update,
+// K7 rl_sharded_general_step replaces the general update _bank_core
+// (sharded.py:270-302) and the psum of _bank_update,
 // step_counters_compact and _bank_step (:116-141,304-324) over a
 // replicated batch of GLOBAL ids.  StripedIndex gives each in-table lane
 // its owner bank and position; an out-of-table lane (negative ids
 // included: they never wrap here) reads a virtual zero and scatters
-// nowhere.  The per-slot prefix is K2 on the raw global ids, between the
-// two launches.  Each lane has exactly one owner, so the psum is the
-// write of that lane: no collective.  The scatter-add and the afters are
-// modular; the compact variant writes min(after, limit + hits) as uint8
-// or uint16.  Bound: about 9 B in, 8 B gathered and scattered per distinct
-// slot and 4 B out per lane; the per-slot prefix needs no more than a
-// sort's N log N operations, so the bytes set the bound.  Its time is that
-// of its launches: K2's memset and triangular tiled pass, and the three
-// one-thread-per-lane launches here, each near the cost of one launch at
-// the batch sizes the engine makes.
+// nowhere.  The per-slot prefix runs on the raw global ids.  Each lane
+// has exactly one owner, so the psum is the write of that lane: no
+// collective.  It is K3's general step under another index policy, one
+// cooperative launch (general_step_kernel, counter_update.cuh, says what
+// bounds it), with the raw afters, the narrow u8/u16 readback
+// min(after, limit + hits) or the decision block as its epilogue.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,19 +61,12 @@ extern "C" int rl_sharded_routed_step_lanes(void* counts,
                                   cap, out, out_kind, stream);
 }
 
-extern "C" int rl_sharded_zero_and_gather(void* counts, int num_banks,
-                                          long long slots_per_bank,
-                                          const void* slots, const void* fresh,
-                                          void* before, int n, void* stream) {
-  return launch_zero_and_gather(counts, StripedIndex{num_banks, slots_per_bank},
-                                slots, fresh, before, n, stream);
-}
-
-extern "C" int rl_sharded_add(void* counts, int num_banks,
-                              long long slots_per_bank, const void* slots,
-                              const void* hits, const void* incl, void* afters,
-                              const void* limits, void* out, int out_kind,
-                              int n, void* stream) {
-  return launch_add(counts, StripedIndex{num_banks, slots_per_bank}, slots,
-                    hits, incl, afters, limits, out, out_kind, n, stream);
+extern "C" int rl_sharded_general_step(
+    void* counts, int num_banks, long long slots_per_bank, const void* slots,
+    const void* hits, const void* fresh, const void* limits,
+    const void* shadow, float near_ratio, void* afters, void* incl, void* out,
+    void* set_lc, int epilogue, int n, void* stream) {
+  return launch_general_step(counts, StripedIndex{num_banks, slots_per_bank},
+                             slots, hits, fresh, limits, shadow, near_ratio,
+                             afters, incl, out, set_lc, epilogue, n, stream);
 }

@@ -56,6 +56,13 @@ NVCC_FLAGS = (
 _VP = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_longlong
+_F32 = ctypes.c_float
+
+#: The general step's arguments after its table (counts and its shape):
+#: slots, hits, fresh, limits, shadow, near_ratio, afters, incl, out,
+#: set_lc, epilogue, n, stream (csrc/counter_update.cuh,
+#: launch_general_step).
+_GENERAL_STEP = [_VP, _VP, _VP, _VP, _VP, _F32, _VP, _VP, _VP, _VP, _I32, _I32, _VP]
 
 #: C signatures: name -> (library, argtypes).  Every function returns
 #: the cudaError_t of its launch(es) as an int (0 = success).
@@ -65,22 +72,18 @@ SIGNATURES = {
         "fixed_window",
         [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
     ),
-    "rl_fw_zero_and_gather": (
-        "fixed_window",
-        [_VP, _I64, _VP, _VP, _VP, _I32, _VP],
-    ),
     "rl_fw_unique_step_lanes": (
         "fixed_window",
         [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
     ),
     "rl_mapped_alias": ("fixed_window", [_VP, ctypes.POINTER(_VP)]),
-    "rl_fw_add": (
+    "rl_fw_general_step": (
         "fixed_window",
-        [_VP, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _VP],
+        [_VP, _I64, *_GENERAL_STEP],
     ),
     "rl_fw_decision_block": (
         "fixed_window",
-        [_VP, _VP, _VP, _VP, ctypes.c_float, _I32, _VP, _VP, _VP],
+        [_VP, _VP, _VP, _VP, _F32, _I32, _VP, _VP, _VP],
     ),
     "rl_sw_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
     "rl_gcra_serve_step": ("algorithms", [_VP, _I64, _VP, _I32, _I32, _VP, _VP]),
@@ -94,13 +97,9 @@ SIGNATURES = {
         "sharded",
         [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
     ),
-    "rl_sharded_zero_and_gather": (
+    "rl_sharded_general_step": (
         "sharded",
-        [_VP, _I32, _I64, _VP, _VP, _VP, _I32, _VP],
-    ),
-    "rl_sharded_add": (
-        "sharded",
-        [_VP, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _VP, _I32, _I32, _VP],
+        [_VP, _I32, _I64, *_GENERAL_STEP],
     ),
 }
 

@@ -15,8 +15,12 @@ int32 tensor of u32 bit patterns (one counter per slot; 2**24 slots =
 - the duplicate-tolerant step, ``forward`` = ``update`` +
   ``decision_block``: zero fresh slots, gather, in-batch per-slot
   prefix (Redis pipeline order), modular scatter-add, threshold
-  decisions -- K3 ``fw_general_update`` (which runs K2, ops/prefix_cuda)
-  and ``fw_decision_block``.
+  decisions -- K3, ONE cooperative launch of the fused general step
+  (csrc/counter_update.cuh, which runs K2's tile pass inside), whose
+  epilogue writes the decisions (``fw_general_step``), the afters or
+  their narrow readback (``fw_general_update``).  ``fw_decision_block``
+  is the decision block alone, the counterpart of the JAX
+  ``decision_block``.
 
 Unlike the JAX functions, which return a new (donated) table, the
 steps update ``counts`` IN PLACE and return the same tensor, so the
@@ -36,7 +40,6 @@ import torch
 
 from .. import kernels
 from ..ops.prefix import per_slot_inclusive_prefix
-from ..ops.prefix_cuda import per_slot_inclusive_prefix_cuda
 from ..ops.u32 import U32_MASK, narrow, narrow16, widen
 
 # api.Code values, as device-friendly constants (api.py Code enum).
@@ -53,6 +56,11 @@ K1 = "fw_unique_step"
 K1_LANES = "fw_unique_step_lanes"
 K3_UPDATE = "fw_general_update"
 K3_DECIDE = "fw_decision_block"
+K3_STEP = "fw_general_step"
+
+#: The fused general step's decision epilogue (Epilogue kDecide in
+#: csrc/counter_update.cuh); its other epilogues are the _OUT_KIND codes.
+_DECIDE = 3
 
 
 class DeviceBatch(NamedTuple):
@@ -337,6 +345,85 @@ def _update_plain(
     return readback_plain(afters, widen(hits), widen(limits), out_dtype)
 
 
+def check_general_lanes(
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    out_dtype: str = "",
+    shadow: Optional[torch.Tensor] = None,
+) -> None:
+    """The lanes of a general step on `counts`: int32 slots and hits,
+    bool fresh, and int32 limits (needed by a narrow readback) and bool
+    shadow where given, all [N], contiguous, on the table's device."""
+    if out_dtype not in _OUT_KIND:
+        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
+    lanes = dict(
+        slots=(slots, torch.int32), hits=(hits, torch.int32), fresh=(fresh, torch.bool)
+    )
+    if out_dtype and limits is None:
+        raise ValueError(f"out_dtype {out_dtype!r} needs the limits")
+    if limits is not None:
+        lanes["limits"] = (limits, torch.int32)
+    if shadow is not None:
+        lanes["shadow"] = (shadow, torch.bool)
+    _check_lanes(counts.device, slots.shape[0], **lanes)
+
+
+def launch_general_step(
+    entry: str,
+    table: Tuple[int, ...],
+    kernel: str,
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    out_dtype: str = "",
+    shadow: Optional[torch.Tensor] = None,
+    near_ratio: Optional[float] = None,
+):
+    """One cooperative launch of the fused general step through the C
+    entry `entry` (its table's shape `table` after `counts`), counted as
+    `kernel`.  With a `near_ratio` (and the `shadow` lanes) the epilogue
+    is the decision block and the result DeviceDecisions; else the afters
+    (int32 u32 bits) or their narrow readback (`out_dtype`).  The
+    outputs and the prefix scratch come from torch.empty; the kernel
+    allocates nothing.  A refused launch raises KernelError."""
+    _require_cuda(counts.device)
+    n = slots.shape[0]
+    dev = counts.device
+    set_lc = None
+    if near_ratio is not None:
+        # Rows 0-7: the decision fields (row 3 the afters); row 8: the
+        # prefix scratch.
+        buf = torch.empty((9, n), dtype=torch.int32, device=dev)
+        afters, incl, out = buf[3], buf[8], buf
+        set_lc = torch.empty(n, dtype=torch.bool, device=dev)
+        epilogue = _DECIDE
+        result = DeviceDecisions(*buf[:8].unbind(0), set_lc)
+    else:
+        buf = torch.empty((2, n), dtype=torch.int32, device=dev)
+        afters, incl = buf[0], buf[1]
+        out = torch.empty(n, dtype=OUT_DTYPES[out_dtype], device=dev) if out_dtype else afters
+        epilogue = _OUT_KIND[out_dtype]
+        result = out
+    if n == 0:
+        return result
+    rc = kernels.function(entry)(
+        counts.data_ptr(), *table, slots.data_ptr(), hits.data_ptr(), fresh.data_ptr(),
+        None if limits is None else limits.data_ptr(),
+        None if shadow is None else shadow.data_ptr(),
+        float(near_ratio or 0.0), afters.data_ptr(), incl.data_ptr(), out.data_ptr(),
+        None if set_lc is None else set_lc.data_ptr(), epilogue, n,
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(rc, kernel)
+    kernels.launches[kernel] += 1
+    return result
+
+
 def fw_general_update(
     counts: torch.Tensor,
     slots: torch.Tensor,
@@ -346,51 +433,43 @@ def fw_general_update(
     out_dtype: str = "",
 ) -> torch.Tensor:
     """K3 update: zero fresh slots, gather 'before', add the in-batch
-    per-slot prefix (K2), modular scatter-add of hits.  Returns the
-    per-lane afters (int32 u32 bits), or with out_dtype "uint8" /
-    "uint16" min(after, limit + hits) narrowed (`limits` then required);
-    updates `counts` in place.  Duplicate slots are allowed."""
-    if out_dtype not in _OUT_KIND:
-        raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
+    per-slot prefix, modular scatter-add of hits -- one launch of the
+    fused general step.  Returns the per-lane afters (int32 u32 bits),
+    or with out_dtype "uint8" / "uint16" min(after, limit + hits)
+    narrowed (`limits` then required); updates `counts` in place.
+    Duplicate slots are allowed."""
     _check_table(counts)
-    n = slots.shape[0]
-    lanes = dict(
-        slots=(slots, torch.int32), hits=(hits, torch.int32), fresh=(fresh, torch.bool)
-    )
-    if out_dtype:
-        if limits is None:
-            raise ValueError(f"out_dtype {out_dtype!r} needs the limits")
-        lanes["limits"] = (limits, torch.int32)
-    _check_lanes(counts.device, n, **lanes)
+    check_general_lanes(counts, slots, hits, fresh, limits, out_dtype)
     if counts.device.type == "cpu":
         return _update_plain(counts, slots, hits, fresh, limits, out_dtype)
-    _require_cuda(counts.device)
-    afters = torch.empty(n, dtype=torch.int32, device=counts.device)
-    out = (
-        torch.empty(n, dtype=OUT_DTYPES[out_dtype], device=counts.device)
-        if out_dtype
-        else afters
+    return launch_general_step(
+        "rl_fw_general_step", (counts.shape[0],), K3_UPDATE,
+        counts, slots, hits, fresh, limits, out_dtype,
     )
-    if n == 0:
-        return out
-    stream = kernels.stream_ptr(counts.device)
-    ns = counts.shape[0]
-    rc = kernels.function("rl_fw_zero_and_gather")(
-        counts.data_ptr(), ns, slots.data_ptr(), fresh.data_ptr(),
-        afters.data_ptr(), n, stream,
+
+
+def fw_general_step(
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: torch.Tensor,
+    shadow: torch.Tensor,
+    near_ratio: float,
+) -> DeviceDecisions:
+    """K3 whole: the update of fw_general_update and the decision block
+    of fw_decision_block on its afters, in ONE cooperative launch (the
+    fused general step with its decision epilogue).  Updates `counts`
+    in place."""
+    _check_table(counts)
+    check_general_lanes(counts, slots, hits, fresh, limits, shadow=shadow)
+    if counts.device.type == "cpu":
+        afters = _update_plain(counts, slots, hits, fresh)
+        return _decision_block_plain(afters, hits, limits, shadow, near_ratio)
+    return launch_general_step(
+        "rl_fw_general_step", (counts.shape[0],), K3_STEP,
+        counts, slots, hits, fresh, limits, shadow=shadow, near_ratio=near_ratio,
     )
-    kernels.check(rc, K3_UPDATE)
-    incl = per_slot_inclusive_prefix_cuda(slots, hits)
-    rc = kernels.function("rl_fw_add")(
-        counts.data_ptr(), ns, slots.data_ptr(), hits.data_ptr(),
-        incl.data_ptr(), afters.data_ptr(),
-        limits.data_ptr() if out_dtype else None,
-        out.data_ptr() if out_dtype else None,
-        _OUT_KIND[out_dtype], n, stream,
-    )
-    kernels.check(rc, K3_UPDATE)
-    kernels.launches[K3_UPDATE] += 1
-    return out
 
 
 def _decision_block_plain(
@@ -547,9 +626,9 @@ class FixedWindowModel:
     def step_counters_compact(
         self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The duplicate-tolerant update (K3 + K2) with the saturated
-        narrow readback min(after, limit + hits) as "uint8" or "uint16"
-        (int16 storage), written by K3's add launch."""
+        """The duplicate-tolerant update (K3) with the saturated narrow
+        readback min(after, limit + hits) as "uint8" or "uint16" (int16
+        storage), written by the fused step's epilogue."""
         return counts, fw_general_update(
             counts, batch.slots, batch.hits, batch.fresh, batch.limits, out_dtype
         )
@@ -563,7 +642,7 @@ class FixedWindowModel:
     def update(
         self, counts: torch.Tensor, batch: DeviceBatch
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Duplicate-tolerant counter update (K3 + K2): returns
+        """Duplicate-tolerant counter update (K3): returns
         (counts, afters).  MODULAR u32 arithmetic, like the reference's
         scatter-add; serving never reaches it."""
         return counts, fw_general_update(counts, batch.slots, batch.hits, batch.fresh)
@@ -571,9 +650,9 @@ class FixedWindowModel:
     def forward(
         self, counts: torch.Tensor, batch: DeviceBatch
     ) -> Tuple[torch.Tensor, DeviceDecisions]:
-        """The flagship forward step: update + decision block."""
-        counts, afters = self.update(counts, batch)
-        decisions = fw_decision_block(
-            afters, batch.hits, batch.limits, batch.shadow, self.near_ratio
+        """The flagship forward step: update + decision block, one launch
+        (fw_general_step)."""
+        return counts, fw_general_step(
+            counts, batch.slots, batch.hits, batch.fresh, batch.limits,
+            batch.shadow, self.near_ratio,
         )
-        return counts, decisions

@@ -6,7 +6,10 @@ csrc/prefix.cu: the launcher zeroes the output, then one block per
 lower-triangle pair of 128-lane tiles (528 blocks at N = 4096) adds its
 partial sums into it with modular atomics, which is exact in any
 order.  Its bound and limits are described there.  Unlike the Pallas
-kernel it takes any N >= 1, not only multiples of 128.
+kernel it takes any N >= 1, not only multiples of 128.  Its tile pass
+(csrc/prefix_tiles.cuh) is also phase B of the fused general step (K3,
+K7), which zeroes its own scratch: the forward steps never launch this
+kernel alone.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); only a
 tensor on the CPU takes the plain version, ops/prefix.py.

@@ -26,8 +26,10 @@ Two kernels, in csrc/sharded.cu:
   (``fixed_window.lanes_by_value`` decides, from the shape alone);
 - K7 ``sharded_general_update``, the duplicate-tolerant step over a
   replicated batch of GLOBAL ids: zero fresh slots, gather, the
-  per-slot prefix (K2) on the raw ids, MODULAR scatter-add, with an
-  optional narrow readback; ``step`` then runs K3's decision block.
+  per-slot prefix (K2's tile pass) on the raw ids, MODULAR scatter-add,
+  with an optional narrow readback -- K3's fused general step under the
+  striped index policy, one cooperative launch; ``step`` takes its
+  decision epilogue (``sharded_general_step``), still one launch.
 
 Like the single-table steps, both update ``counts`` IN PLACE.  Each
 wrapper launches its kernel for a CUDA tensor (or raises) and runs its
@@ -48,18 +50,17 @@ from ..models import fixed_window as fw
 from ..models.fixed_window import (
     DeviceBatch,
     DeviceDecisions,
-    fw_decision_block,
     resolve_device,
     state_from_numpy,
     state_to_numpy,
 )
 from ..ops.prefix import per_slot_inclusive_prefix
-from ..ops.prefix_cuda import per_slot_inclusive_prefix_cuda
 from ..ops.u32 import narrow, widen
 
 K6 = "sharded_routed_step"
 K6_LANES = "sharded_routed_step_lanes"
 K7 = "sharded_general_update"
+K7_STEP = "sharded_general_step"
 
 
 @dataclass(frozen=True)
@@ -250,53 +251,45 @@ def sharded_general_update(
     out_dtype: str = "",
 ) -> torch.Tensor:
     """K7: zero fresh slots, gather, add the per-slot prefix of the raw
-    GLOBAL ids (K2), modular scatter-add of hits, over the (num_banks,
-    slots_per_bank) table.  An id in [0, num_banks * slots_per_bank) is
-    owned by bank id % num_banks at id // num_banks; any other id --
-    negative ones included -- reads a zero counter and scatters nowhere.
-    Duplicate ids are allowed.  Returns the per-lane afters (int32 u32
-    bits), or with out_dtype "uint8"/"uint16" min(after, limit + hits)
-    narrowed (`limits` then required); updates `counts` in place."""
-    if out_dtype not in fw.OUT_DTYPES:
-        raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
+    GLOBAL ids, modular scatter-add of hits, over the (num_banks,
+    slots_per_bank) table, in one launch of the fused general step.  An
+    id in [0, num_banks * slots_per_bank) is owned by bank id %
+    num_banks at id // num_banks; any other id -- negative ones
+    included -- reads a zero counter and scatters nowhere.  Duplicate
+    ids are allowed.  Returns the per-lane afters (int32 u32 bits), or
+    with out_dtype "uint8"/"uint16" min(after, limit + hits) narrowed
+    (`limits` then required); updates `counts` in place."""
     nb, spb = _check_banked(counts)
-    n = slots.shape[0]
-    lanes = dict(
-        slots=(slots, torch.int32), hits=(hits, torch.int32), fresh=(fresh, torch.bool)
-    )
-    if out_dtype:
-        if limits is None:
-            raise ValueError(f"out_dtype {out_dtype!r} needs the limits")
-        lanes["limits"] = (limits, torch.int32)
-    fw._check_lanes(counts.device, n, **lanes)
+    fw.check_general_lanes(counts, slots, hits, fresh, limits, out_dtype)
     if counts.device.type == "cpu":
         return _general_update_plain(counts, slots, hits, fresh, limits, out_dtype)
-    fw._require_cuda(counts.device)
-    afters = torch.empty(n, dtype=torch.int32, device=counts.device)
-    out = (
-        torch.empty(n, dtype=fw.OUT_DTYPES[out_dtype], device=counts.device)
-        if out_dtype
-        else afters
+    return fw.launch_general_step(
+        "rl_sharded_general_step", (nb, spb), K7,
+        counts, slots, hits, fresh, limits, out_dtype,
     )
-    if n == 0:
-        return out
-    stream = kernels.stream_ptr(counts.device)
-    rc = kernels.function("rl_sharded_zero_and_gather")(
-        counts.data_ptr(), nb, spb, slots.data_ptr(), fresh.data_ptr(),
-        afters.data_ptr(), n, stream,
+
+
+def sharded_general_step(
+    counts: torch.Tensor,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: torch.Tensor,
+    shadow: torch.Tensor,
+    near_ratio: float,
+) -> DeviceDecisions:
+    """K7 with K3's decision block on its afters, in ONE cooperative
+    launch (the fused general step's decision epilogue).  Updates
+    `counts` in place."""
+    nb, spb = _check_banked(counts)
+    fw.check_general_lanes(counts, slots, hits, fresh, limits, shadow=shadow)
+    if counts.device.type == "cpu":
+        afters = _general_update_plain(counts, slots, hits, fresh, None, "")
+        return fw._decision_block_plain(afters, hits, limits, shadow, near_ratio)
+    return fw.launch_general_step(
+        "rl_sharded_general_step", (nb, spb), K7_STEP,
+        counts, slots, hits, fresh, limits, shadow=shadow, near_ratio=near_ratio,
     )
-    kernels.check(rc, K7)
-    incl = per_slot_inclusive_prefix_cuda(slots, hits)
-    rc = kernels.function("rl_sharded_add")(
-        counts.data_ptr(), nb, spb, slots.data_ptr(), hits.data_ptr(),
-        incl.data_ptr(), afters.data_ptr(),
-        limits.data_ptr() if out_dtype else None,
-        out.data_ptr() if out_dtype else None,
-        fw._OUT_KIND[out_dtype], n, stream,
-    )
-    kernels.check(rc, K7)
-    kernels.launches[K7] += 1
-    return out
 
 
 class ShardedFixedWindowModel:
@@ -324,10 +317,11 @@ class ShardedFixedWindowModel:
     def step(
         self, counts: torch.Tensor, batch: DeviceBatch
     ) -> Tuple[torch.Tensor, DeviceDecisions]:
-        """The sharded forward step: K7 + K3's decision block."""
-        counts, afters = self.step_counters(counts, batch)
-        return counts, fw_decision_block(
-            afters, batch.hits, batch.limits, batch.shadow, self.near_ratio
+        """The sharded forward step: K7 + K3's decision block, one launch
+        (sharded_general_step)."""
+        return counts, sharded_general_step(
+            counts, batch.slots, batch.hits, batch.fresh, batch.limits,
+            batch.shadow, self.near_ratio,
         )
 
     def step_counters(

@@ -102,21 +102,22 @@ def test_prefix_wraps_inside_a_segment_like_the_pallas_kernel():
     )
 
 
-# A numpy model of K2's decomposition on the card (csrc/prefix.cu): the
-# lower-triangle tile pairs decoded from a linear block id, the j <= i
-# mask on the diagonal tile only, lanes past N staged with hits 0, and
-# each lane's non-zero per-tile partials summed mod 2^32 (the atomics).
+# A numpy model of K2's decomposition on the card (csrc/prefix.cu and its
+# tile pass, csrc/prefix_tiles.cuh, which the fused general step runs
+# too): the lower-triangle tile pairs decoded from a linear block id, the
+# j <= i mask on the diagonal tile only, lanes past N staged with hits 0,
+# and each lane's non-zero per-tile partials summed mod 2^32 (the
+# atomics).
 
-_CU = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "ratelimit_tpu_torch", "csrc", "prefix.cu",
+_CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ratelimit_tpu_torch", "csrc"
 )
-TILE = 128  # kTile in csrc/prefix.cu
+TILE = 128  # kTile in csrc/prefix_tiles.cuh
 MAX_BLOCKS = 2048  # kMaxBlocks in csrc/prefix.cu
 
 
 def _tile_pair(p):
-    """tile_pair() of csrc/prefix.cu, on int64 arrays or ints:
+    """tile_pair() of csrc/prefix_tiles.cuh, on int64 arrays or ints:
     p = it * (it + 1) / 2 + jt, from a correctly rounded float64 sqrt."""
     r = ((np.sqrt(8.0 * np.asarray(p, dtype=np.float64) + 1.0) - 1.0) * 0.5).astype(np.int64)
     return r, p - r * (r + 1) // 2
@@ -150,8 +151,10 @@ def _tiled_prefix_model(slots, hits, max_blocks):
 
 
 def test_prefix_model_constants_match_the_kernel_source():
-    with open(_CU) as f:
-        src = f.read()
+    src = ""
+    for name in ("prefix.cu", "prefix_tiles.cuh"):
+        with open(os.path.join(_CSRC, name)) as f:
+            src += f.read()
     assert re.search(r"constexpr int kTile = (\d+);", src).group(1) == str(TILE)
     assert re.search(r"constexpr long long kMaxBlocks = (\d+);", src).group(1) == str(
         MAX_BLOCKS
