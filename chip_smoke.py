@@ -42,7 +42,10 @@ Phases, one line each; any failure exits non-zero:
    SERVED_CHUNKS chunks under torch.profiler -- per chunk the device
    activities (one: the by-value kernel), memcpys (none), device busy
    time and span from the first start to the last end -- and as many
-   again without it for the host microseconds;
+   again without it for the host microseconds; and the host mirror
+   (the numpy engine a quarantined bank falls back to) against K1 at
+   2^20 slots, K4 and K5 at 2^18 on the same seeded packs: codes and
+   remaining equal;
 4. forward: the flagship forward step (the __graft_entry__ batch: 2^20
    slots, 4096 lanes, seed 0, 10% fresh) on the card, against the plain
    version and an independent numpy reference: exactly one launch (the
@@ -71,9 +74,20 @@ Phases, one line each; any failure exits non-zero:
    key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
    live counter in every bank, a concurrent burst coalesces into
    multi-lane K6 launches -- and the warm microseconds per request;
-   K6 in its two forms as K1 in phase 6.
+   K6 in its two forms as K1 in phase 6;
+8. fault: the runner with BACKEND_TYPE=cuda and every default but a
+   short restart backoff; on the fixed-window bank and then on the GCRA
+   bank: 40 hits on a 120/hour rule, a snapshot, a kernel spinning for
+   8 kernel deadlines on the bank's own stream, 40 hits during the
+   stall (each back within the deadline plus STALL_RPC_MARGIN_S,
+   answered by the host mirror: one hang fault, health DEGRADED), the
+   supervised restart on a new stream (health SERVING), 100 more hits
+   through the kernel again: exactly 120 of the 180 admitted.
 
-Kernel launch counts are zeroed just before each main-path phase (4-7)
+Phases 6 and 7 run with the fault domain armed at its defaults
+(KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
+answer, no bank quarantined and health SERVING.  Kernel launch counts
+are zeroed just before each main-path phase (4-8)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -1107,7 +1121,7 @@ def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS):
         def mark():
             with engine._on_stream():
                 marker.add_(1)
-            engine._sync()
+            engine._stream.synchronize()
 
         def measure():
             """One profiled pass: its stats, or (None, why) where the
@@ -1347,17 +1361,39 @@ descriptors:
       requests_per_unit: 5
       algorithm: gcra
       shadow: true
+  - key: probe
+    rate_limit:
+      unit: hour
+      requests_per_unit: 120
+  - key: probe_tb
+    rate_limit:
+      unit: hour
+      requests_per_unit: 120
+      algorithm: gcra
 """
+
+#: Settings that would move the fault domain off its defaults; every
+#: served phase starts from none of them.
+FAULT_ENV = (
+    "KERNEL_DEADLINE_S",
+    "DEVICE_FAILURE_MODE",
+    "DEVICE_RESTART_BACKOFF_S",
+    "DEVICE_WATCHDOG_INTERVAL_S",
+    "TPU_CHECKPOINT_INTERVAL_S",
+)
+#: The runner's kernel deadline at its default (settings.py).
+DEFAULT_DEADLINE_S = 0.25
 
 SHADOW_COUNTERS = ("ratelimit.tpu.shadow.gcra.agree", "ratelimit.tpu.shadow.gcra.diverge")
 
 
 @contextlib.contextmanager
-def serving(backend: str, **runner_kwargs):
+def serving(backend: str, env=None, **runner_kwargs):
     """The runner in-process with BACKEND_TYPE=`backend` serving CONFIG
-    (TPU_NUM_SLOTS and TPU_ALGORITHM_BANKS at their defaults); yields
-    (runner, request(key, value, hits=0) over one gRPC channel, the
-    response class)."""
+    (TPU_NUM_SLOTS, TPU_ALGORITHM_BANKS and every fault-domain setting
+    at its default -- KERNEL_DEADLINE_S 0.25 s -- but those in `env`);
+    yields (runner, request(key, value, hits=0) over one gRPC channel,
+    the response class)."""
     import grpc
 
     with tempfile.TemporaryDirectory() as root:
@@ -1365,11 +1401,11 @@ def serving(backend: str, **runner_kwargs):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
-        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS"):
+        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", *FAULT_ENV):
             os.environ.pop(name, None)
+        os.environ.update(env or {})
         os.environ.update(
             BACKEND_TYPE=backend,
-            KERNEL_DEADLINE_S="0",
             RUNTIME_ROOT=root,
             RUNTIME_SUBDIRECTORY="ratelimit",
             GRPC_HOST="127.0.0.1",
@@ -1405,6 +1441,36 @@ def serving(backend: str, **runner_kwargs):
                 yield runner, request, rls_pb2.RateLimitResponse
         finally:
             runner.stop()
+
+
+def fault_free(runner, what):
+    """The served phase ran with the fault domain armed at its defaults
+    and it never acted: no fault of any kind, no fallback or
+    caller-deadline answer, no bank quarantined, health SERVING.  A
+    kernel that failed or stalled on the main path fails the smoke here
+    instead of being absorbed by the host mirror.  Returns the counts."""
+    fd = runner.cache.fault_domain
+    if fd is None or fd.kernel_deadline_s != DEFAULT_DEADLINE_S or fd.failure_mode != "host":
+        fail(f"{what}: the fault domain is not armed at its defaults: {fd}")
+    s = fd.summary()
+    counts = dict(
+        faults=s["faults"],
+        fallback_decisions=s["fallback_decisions"],
+        deadline_answers=runner.cache.stat_deadline_answers,
+        quarantined_banks=s["quarantined_banks"],
+        health="SERVING"
+        if runner.health.healthy and not runner.health.degraded
+        else "DEGRADED" if runner.health.healthy else "NOT_SERVING",
+    )
+    if (
+        any(s["faults"].values())
+        or s["fallback_decisions"]
+        or counts["deadline_answers"]
+        or s["quarantined_banks"]
+        or counts["health"] != "SERVING"
+    ):
+        fail(f"{what}: the fault domain acted on the main path: {counts}; {s}")
+    return counts
 
 
 def six_hits(request, key, value):
@@ -1551,11 +1617,12 @@ def served_phase(torch, kernels, fw, sw, gcra):
                 ("slide", "slide", sw.K4, sw.K4_LANES),
             )
         }
+        faults = fault_free(runner, "served")
     launches = dict(kernels.launches)
     for name in (fw.K1, fw.K1_LANES, sw.K4, sw.K4_LANES, gcra.K5, gcra.K5_LANES):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
-    return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms
+    return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms, faults
 
 
 def sharded_served_phase(torch, kernels, sh, dev):
@@ -1589,11 +1656,260 @@ def sharded_served_phase(torch, kernels, sh, dev):
             kernels, sh.K6, sh.K6_LANES, started, torch, request, "foo", "burst",
             "sharded served",
         )
+        faults = fault_free(runner, "sharded served")
     launches = dict(kernels.launches)
     for name in (sh.K6, sh.K6_LANES):
         if launches.get(name, 0) < 1:
             fail(f"sharded served path did not launch {name}: {launches}")
-    return launches, lanes, us_per_req, forms
+    return launches, lanes, us_per_req, forms, faults
+
+
+# -- the host mirror against the kernels ----------------------------------
+
+MIRROR_WIDTHS = (1, 13, 100, 128, 1000, 4096)
+
+
+def _mirror_pack(rng, algo, width, now, algo_id):
+    """A seeded pack of `width` lanes over width // 2 + 1 keys (so
+    duplicates), as the cache builds it: fixed window with shadow lanes,
+    hits and limits near u32 max beside small ones; the algorithm banks
+    with 60 s windows and GCRA limits up to u32 max."""
+    from ratelimit_tpu_torch.backends.dispatcher import LANE_DTYPE
+
+    generic = algo != "fixed_window"
+    keys = [f"m{int(k)}".encode() for k in rng.integers(0, width // 2 + 1, width)]
+    meta = np.zeros(width, LANE_DTYPE)
+    meta["expiry"] = now - now % 60 + 60
+    meta["len"] = [len(k) for k in keys]
+    if generic:
+        meta["hits"] = rng.integers(1, 4, width)
+        meta["limits"] = rng.choice([1, 2, 5, 10, 30, 60, 1000, 0xFFFFFFFF], width)
+        meta["divider"] = 60
+        meta["algo"] = algo_id
+    else:
+        meta["hits"] = rng.choice([1, 2, 3, 0x7FFFFFFF], width)
+        meta["limits"] = rng.choice([3, 10, 25, 0xFFFFFFF0, 0xFFFFFFFF], width)
+        meta["shadow"] = rng.integers(0, 2, width)
+    return b"".join(keys), meta
+
+
+def check_mirror(torch, dev):
+    """The host mirror (backends/host_engine.py, numpy) against the
+    kernels it stands in for: the same seeded packs go through a
+    HostEngine and a CounterEngine on the card -- fixed window (K1) at
+    2^20 slots, sliding window (K4) and GCRA (K5) at 2^18 -- over
+    MIRROR_WIDTHS lanes (by value up to 128 padded lanes, the device
+    form beyond), the clock stepping through ALGO_STEPS.  Codes and
+    remaining must be equal; returns the max |difference| by kernel."""
+    from ratelimit_tpu_torch.backends.engine import CounterEngine
+    from ratelimit_tpu_torch.backends.host_engine import HostEngine
+    from ratelimit_tpu_torch.models.registry import get_algorithm
+
+    rng = np.random.default_rng(17)
+    errs = {}
+    for algo, ns in (
+        ("fixed_window", NUM_SLOTS),
+        ("sliding_window", ALGO_SLOTS),
+        ("gcra", ALGO_SLOTS),
+    ):
+        spec = get_algorithm(algo)
+        engine = CounterEngine(device=dev, model=spec.make_model(ns, 0.8, device=dev))
+        mirror = HostEngine(num_slots=ns, algorithm=algo)
+        err = over = 0
+        for step in ALGO_STEPS:
+            now = ALGO_NOW + step
+            for width in MIRROR_WIDTHS:
+                blob, meta = _mirror_pack(rng, algo, width, now, spec.algo_id)
+                got = engine.step_complete(engine.submit_packed(now, blob, meta.copy()))
+                want = mirror.step_complete(mirror.submit_packed(now, blob, meta.copy()))
+                over += int(np.count_nonzero(want.codes == 2))  # OVER_LIMIT
+                for field in ("codes", "limit_remaining"):
+                    diff = np.abs(
+                        getattr(got, field).astype(np.int64) - getattr(want, field).astype(np.int64)
+                    )
+                    err = max(err, int(diff.max(initial=0)))
+        errs[algo] = err
+        if err or not over:
+            fail(
+                f"the host mirror disagrees with the {algo} kernel on the card: max|err| "
+                f"{err}, {over} OVER_LIMIT answers"
+            )
+    return errs
+
+
+# -- phase 8: the fault domain on the card ---------------------------------
+
+#: The stall: a spinning kernel on the bank's own stream for about this
+#: many kernel deadlines.
+STALL_DEADLINES = 8
+#: Restart backoff of the fault phase (the default is 2 s).
+FAULT_BACKOFF_S = "1.0"
+#: An RPC during the stall must return within the deadline plus this
+#: margin: the first one waits out the deadline, then builds the bank's
+#: host mirror (2^20 slots) and seeds it from the snapshot.
+STALL_RPC_MARGIN_S = 0.5
+PROBE_LIMIT = 120  # the probe rules' requests per hour
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """GPU clock cycles torch.cuda._sleep spins per millisecond, timed
+    with CUDA events on the current stream."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles // 10)  # warm
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms):
+    """One episode on `bank`: 40 hits on a fresh `key` value (a 120/hour
+    rule), a snapshot, a kernel spinning for STALL_DEADLINES deadlines
+    on the bank's own stream, 40 hits during the stall (answered by the
+    host mirror), the supervised restart, 100 more hits.  Exactly 120 of
+    the 180 must be admitted.  Returns the episode's numbers."""
+    fd = runner.cache.fault_domain
+    rec = fd._records[bank]
+    engine = fd.engine_at(bank)
+    old_d = runner.cache._dispatchers[id(engine)]
+    value = f"ep{bank}-{time.time_ns()}"
+    t_first = time.monotonic()
+    codes = [request(key, value).overall_code for _ in range(40)]
+    if fd.snapshot_now(bank) != 1:
+        fail(f"bank {bank}: no snapshot taken")
+    faults0 = dict(fd.stat_faults)
+    fallback0 = fd.stat_fallback_decisions
+    restarts0 = rec.restarts
+    stall_ms = STALL_DEADLINES * fd.kernel_deadline_s * 1e3
+    stall_end = torch.cuda.Event()
+    with torch.cuda.stream(engine._stream):
+        torch.cuda._sleep(int(stall_ms * cycles_per_ms))
+        stall_end.record()
+    t_stall = time.monotonic()
+    rpc_ms = []
+    degraded = None
+    quarantined_at = None
+    for i in range(40):
+        t0 = time.perf_counter()
+        codes.append(request(key, value).overall_code)
+        rpc_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            degraded = runner.health.degraded
+            quarantined_at = rec.quarantined_at
+    fallback = fd.stat_fallback_decisions - fallback0
+    faults = {k: v - faults0[k] for k, v in fd.stat_faults.items()}
+    t_over = None  # when the stall was first seen over
+    t_give_up = time.monotonic() + 60
+    while rec.restarts == restarts0 and time.monotonic() < t_give_up:
+        if t_over is None and stall_end.query():
+            t_over = time.monotonic()
+        time.sleep(0.002)
+    t_restart = time.monotonic()
+    if rec.restarts != restarts0 + 1:
+        fail(f"bank {bank}: no restart within 60 s: {fd.summary()}")
+    stall_end.synchronize()
+    if t_over is None:
+        t_over = time.monotonic()
+    new_engine = fd.engine_at(bank)
+    health = (runner.health.healthy, runner.health.degraded)
+    before = kernels.launches.get(by_value, 0)
+    codes += [request(key, value).overall_code for _ in range(100)]
+    after_swap = kernels.launches.get(by_value, 0) - before
+    episode_s = time.monotonic() - t_first
+    old_d._thread.join(timeout=10)
+    old_d._completer.join(timeout=10)
+    admitted = sum(c == OK for c in codes)
+    out = dict(
+        stall_ms=stall_ms,
+        quarantine_ms=(quarantined_at - t_stall) * 1e3 if quarantined_at else None,
+        rpc_max_ms=max(rpc_ms),
+        rpc_p99_ms=float(np.percentile(rpc_ms, 99)),
+        fallback=fallback,
+        faults=faults,
+        restart_s=t_restart - t_stall,
+        stall_s=t_over - t_stall,
+        restart_during_stall=t_restart < t_over,
+        own_stream=new_engine._stream.cuda_stream != engine._stream.cuda_stream,
+        launches_after_swap=after_swap,
+        admitted=admitted,
+        offered=len(codes),
+        episode_s=episode_s,
+        old_threads_ended=not (old_d._thread.is_alive() or old_d._completer.is_alive()),
+    )
+    bound_ms = (fd.kernel_deadline_s + STALL_RPC_MARGIN_S) * 1e3
+    if codes[:80] != [OK] * 80:
+        fail(f"bank {bank}: a hit before or during the stall was refused: {out}")
+    if out["rpc_max_ms"] > bound_ms:
+        fail(f"bank {bank}: an RPC during the stall took {out['rpc_max_ms']:.1f} ms > {bound_ms:.0f} ms")
+    if faults != {"hang": 1, "exception": 0, "device_lost": 0} or fallback != 40:
+        fail(f"bank {bank}: want one hang fault and 40 fallback answers: {out}")
+    if not degraded or quarantined_at is None:
+        fail(f"bank {bank}: not quarantined / DEGRADED during the stall: {out}")
+    if health != (True, False):
+        fail(f"bank {bank}: health after the restart is {health}, not SERVING")
+    if not out["own_stream"] or after_swap < 100:
+        fail(f"bank {bank}: the restarted engine did not serve on its own stream: {out}")
+    if episode_s >= 30:
+        # A 120/hour GCRA rule refills one cell per 30 s: past that the
+        # exact count is not defined.
+        fail(f"bank {bank}: the episode took {episode_s:.1f} s (>= 30 s)")
+    if admitted != PROBE_LIMIT:
+        fail(f"bank {bank}: admitted {admitted} of {len(codes)}, want {PROBE_LIMIT}")
+    if not out["old_threads_ended"]:
+        fail(f"bank {bank}: the killed dispatcher's threads outlived the stall")
+    return out
+
+
+def fault_phase(torch, kernels, fw, gcra):
+    """The runner with BACKEND_TYPE=cuda and every default but a
+    restart backoff of FAULT_BACKOFF_S: a stall episode on the
+    fixed-window bank (K1) and one on the GCRA bank (K5).  The other
+    banks must stay closed."""
+    kernels.launches.clear()
+    cycles_per_ms = sleep_cycles_per_ms(torch)
+    if time.time() % 3600 > 3600 - 60:
+        # The fixed-window probe rule counts per hour: no rollover inside.
+        time.sleep(3601 - time.time() % 3600)
+    with serving("cuda", env={"DEVICE_RESTART_BACKOFF_S": FAULT_BACKOFF_S}) as (
+        runner,
+        request,
+        R,
+    ):
+        fd = runner.cache.fault_domain
+        if fd is None or fd.kernel_deadline_s != DEFAULT_DEADLINE_S:
+            fail(f"fault phase: the fault domain is not armed at its defaults: {fd}")
+        episodes = {
+            "fixed window": stall_episode(
+                torch, kernels, runner, request, R.OK, 0, "probe", fw.K1_LANES, cycles_per_ms
+            ),
+            "GCRA": stall_episode(
+                torch, kernels, runner, request, R.OK, runner.cache._algo_bank["gcra"],
+                "probe_tb", gcra.K5_LANES, cycles_per_ms,
+            ),
+        }
+        summary = fd.summary()
+        if summary["faults"] != {"hang": 2, "exception": 0, "device_lost": 0} or summary[
+            "quarantined_banks"
+        ]:
+            fail(f"fault phase: faults beyond the two stalls: {summary}")
+    return dict(kernels.launches), episodes, cycles_per_ms
+
+
+def episode_line(name, e) -> str:
+    return (
+        f"fault ({name}): a {e['stall_ms']:.0f} ms stall on the bank's stream; quarantined "
+        f"{e['quarantine_ms']:.1f} ms after it; 40 RPCs during it max {e['rpc_max_ms']:.1f} ms, "
+        f"p99 {e['rpc_p99_ms']:.1f} ms (bound {(DEFAULT_DEADLINE_S + STALL_RPC_MARGIN_S) * 1e3:.0f} "
+        f"ms), {e['fallback']} answered by the host mirror, faults {e['faults']}, DEGRADED; "
+        f"restarted {e['restart_s']:.2f} s after the stall began (stall over at "
+        f"{e['stall_s']:.2f} s; restart during the stall: {e['restart_during_stall']}) on its "
+        f"own stream, SERVING, {e['launches_after_swap']} by-value launches after the swap; "
+        f"admitted {e['admitted']}/{e['offered']} in {e['episode_s']:.1f} s; the killed "
+        f"dispatcher's threads ended: {e['old_threads_ended']}"
+    )
 
 
 def main() -> None:
@@ -1706,6 +2022,15 @@ def main() -> None:
         f"pinned slices alias at their offset; a pageable readback raises "
         f"KernelError and a device one ValueError; max|err| {form_errs}"
     )
+    mirror_errs = check_mirror(torch, dev)
+    lap("check_mirror")
+    log(
+        f"host mirror (numpy, backends/host_engine.py) against the kernels on the "
+        f"card: codes and remaining equal for fixed window (K1, 2^20 slots), "
+        f"sliding window (K4) and GCRA (K5, 2^18 slots) over {len(ALGO_STEPS)} clock "
+        f"steps x N in {MIRROR_WIDTHS}; max|err| {mirror_errs}"
+    )
+
     timing, calls, extra = time_kernels(
         torch, fw, prefix_cuda, per_slot_inclusive_prefix, sw, gcra, sh, dev
     )
@@ -1786,8 +2111,8 @@ def main() -> None:
     )
 
     # 6. served path (main path a)
-    srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms = served_phase(
-        torch, kernels, fw, sw, gcra
+    srv_launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms, srv_faults = (
+        served_phase(torch, kernels, fw, sw, gcra)
     )
     lap("served")
     log(
@@ -1803,10 +2128,11 @@ def main() -> None:
             f"{f[1][1]} memcpys on the card"
             for key, f in forms.items()
         )
+        + f"; fault domain armed at KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {srv_faults}"
     )
 
     # 7. sharded served path
-    shs_launches, sh_lanes, sh_us_per_req, sh_forms = sharded_served_phase(
+    shs_launches, sh_lanes, sh_us_per_req, sh_forms, shs_faults = sharded_served_phase(
         torch, kernels, sh, dev
     )
     lap("sharded_served")
@@ -1818,10 +2144,21 @@ def main() -> None:
         f"one-descriptor requests and the burst {sh_forms[0]}, a "
         f"{WIDE_DESCRIPTORS}-descriptor request {sh_forms[2]}; 50 requests made "
         f"{sh_forms[1][2]} by-value launches, the profiler saw {sh_forms[1][0]} "
-        f"kernels and {sh_forms[1][1]} memcpys on the card"
+        f"kernels and {sh_forms[1][1]} memcpys on the card; fault domain armed at "
+        f"KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {shs_faults}"
     )
 
-    phases = (fwd_launches, shf_launches, srv_launches, shs_launches)
+    # 8. the fault domain on the card
+    flt_launches, episodes, cycles_per_ms = fault_phase(torch, kernels, fw, gcra)
+    lap("fault")
+    log(
+        f"fault phase: torch.cuda._sleep spins {cycles_per_ms:.0f} cycles/ms; launches "
+        f"{flt_launches}"
+    )
+    for name, e in episodes.items():
+        log(episode_line(name, e))
+
+    phases = (fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches)
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
     }

@@ -7,10 +7,13 @@ bank, one dispatcher per bank.  Rules carrying ``algorithm:
 sliding_window`` or ``algorithm: gcra`` route to that algorithm's bank
 -- as the ENFORCING bank, or with ``shadow: true`` as a CANDIDATE whose
 would-be decision is compared with the fixed-window one that still
-enforces (``ratelimit.tpu.shadow.<algo>.{agree,diverge}``).  Per-second
-banks, several host lanes, the device fault domain, hot-key tracking
-and the flight/launch recorders are not ported yet (ROADMAP.md); the
-runner refuses the settings that select them.  The request path is the
+enforces (``ratelimit.tpu.shadow.<algo>.{agree,diverge}``).  With
+``kernel_deadline_s > 0`` and a dispatcher per bank, the device fault
+domain (backends/fault_domain.py) watches every bank: a stalled or
+failing bank is quarantined, answered per DEVICE_FAILURE_MODE and
+restarted.  Per-second banks, several host lanes, hot-key tracking and
+the flight/launch recorders are not ported yet (ROADMAP.md); the runner
+refuses the settings that select them.  The request path is the
 reference's:
 
 1. ``hits_addend = max(1, request.hits_addend)``;
@@ -23,7 +26,8 @@ reference's:
 5. statuses with duration-until-reset; first over-limit transitions
    populate the host cache with TTL = full window.
 
-Backend failures surface as service.CacheError.
+Without a fault domain, backend failures surface as
+service.CacheError.
 """
 
 from __future__ import annotations
@@ -56,6 +60,14 @@ from .dispatcher import (
     run_items,
 )
 from .engine import CounterEngine, HostBatch, HostDecisions
+from .fault_domain import (
+    FAILURE_MODES,
+    FAULT_HANG,
+    DeviceFaultDomain,
+    classify_fault,
+    kernel_defect,
+)
+from .host_engine import STATIC_ALLOW, STATIC_DENY
 
 # Device code -> api Code without an enum __call__ per lane.
 _CODE_BY_VALUE = {c.value: c for c in Code}
@@ -66,50 +78,14 @@ _CAT_ENGINE = 1  # goes to the counter engine
 _CAT_LOCAL = 2  # host cache says over-limit: short-circuit
 _CAT_SKIP = 3  # shadow rule + cached over-limit: skip counter, OK
 
-#: DEVICE_FAILURE_MODE values (the reference's fault_domain names).
-#: Without the fault domain only the caller-deadline path reads it:
-#: "deny" answers OVER_LIMIT, "allow" and "host" answer OK.
-FAILURE_MODES = frozenset({"allow", "deny", "host"})
-
-
-class _StaticAnswer:
-    """allow/deny synthesizer for the caller-deadline path (the
-    reference's host_engine.StaticFallbackEngine): a fixed code per
-    lane, zero stat deltas, no state.  Shadow rules never enforce."""
-
-    def __init__(self, allow: bool):
-        self.allow = bool(allow)
-
-    def submit_packed(self, now: int, key_blob, meta: np.ndarray):
-        n = len(meta)
-        z = np.zeros(n, dtype=np.int64)
-        limits = meta["limits"].astype(np.int64)
-        if self.allow:
-            codes = np.full(n, int(Code.OK), dtype=np.int32)
-            remaining = limits
-        else:
-            codes = np.where(
-                meta["shadow"] != 0, int(Code.OK), int(Code.OVER_LIMIT)
-            ).astype(np.int32)
-            remaining = z
-        return HostDecisions(
-            codes, remaining, z, z, z, z, z, z, np.zeros(n, dtype=bool)
-        )
-
-    def step_complete(self, token):
-        return token
-
-
-_STATIC_ALLOW = _StaticAnswer(allow=True)
-_STATIC_DENY = _StaticAnswer(allow=False)
-
 
 def warmup_engine(engine) -> None:
     """Run every (bucket, readback-dtype) kernel shape once with inert
     batches -- distinct in-table slots, hits=0, fresh=False, which set
     each counter to its own value -- so the first real RPC pays no
     kernel build or first-launch cost.  Counter state and the slot
-    table are untouched."""
+    table are untouched.  The fault domain's supervisor runs it on a
+    restarted engine before re-admitting it."""
     for bucket in engine.buckets:
         probe_slots = engine.warmup_probe_slots(bucket)
         width = len(probe_slots)
@@ -148,10 +124,21 @@ class CudaRateLimitCache:
         resolution_cache_entries: int = 1 << 16,
         device_failure_mode: str = "host",
         algorithm_banks: Optional[dict] = None,
+        kernel_deadline_s: float = 0.0,
+        fault_clock=None,
+        fault_restart_backoff_s: float = 2.0,
+        fault_snapshot_interval_s: float = 30.0,
+        fault_interval_s: Optional[float] = None,
+        fault_probe_timeout_s: Optional[float] = None,
+        engine_factory=None,
     ):
         """`algorithm_banks` maps a non-default algorithm name
         (models/registry.py) to the CounterEngine serving it; rules
-        naming an algorithm with no bank fold back to fixed-window."""
+        naming an algorithm with no bank fold back to fixed-window.
+        `kernel_deadline_s` > 0 (with batch_window_us > 0) builds the
+        device fault domain; the `fault_*` knobs and `engine_factory`
+        are its own (backends/fault_domain.py DeviceFaultDomain), and
+        `fault_clock` also stamps the dispatchers' liveness marks."""
         if device_failure_mode not in FAILURE_MODES:
             raise ValueError(
                 f"DEVICE_FAILURE_MODE must be one of "
@@ -165,6 +152,8 @@ class CudaRateLimitCache:
             if name not in ALGORITHMS:
                 raise ValueError(f"unknown algorithm bank {name!r}")
         self._algo_order = sorted(self.algorithm_banks)
+        # Bank index of each algorithm bank (engines() order).
+        self._algo_bank = {name: 1 + i for i, name in enumerate(self._algo_order)}
         # Shadow-rollout divergence tallies per algorithm: [agree,
         # diverge] plain ints bumped on the RPC thread (stats-only GIL
         # races accepted, like the resolver tallies).
@@ -198,20 +187,87 @@ class CudaRateLimitCache:
         # RPC caller thread under that engine's lock; otherwise one
         # dispatcher thread pair per bank owns its engine exclusively.
         self._inline_locks = {id(e): threading.Lock() for e in self.engines()}
+        # Dispatcher construction knobs, kept so a warm restart builds
+        # the new dispatcher exactly like the first (_make_dispatcher).
+        self._batch_window_us = int(batch_window_us)
+        self._batch_limit = int(batch_limit)
+        self._pipeline_depth = pipeline_depth
+        self._unhealthy_after = unhealthy_after
+        self._stamp_clock = fault_clock
+        #: Every bank's current engine by bank index (engines() order);
+        #: _swap_bank replaces an entry in place.
+        self._bank_engines = self.engines()
         self._dispatchers: dict = {}
         if batch_window_us > 0:
             for eng, name in zip(
                 self.engines(),
                 ["cuda-dispatcher"] + ["cuda-dispatcher-" + n for n in self._algo_order],
             ):
-                self._dispatchers[id(eng)] = BatchDispatcher(
-                    eng,
-                    int(batch_window_us),
-                    int(batch_limit),
-                    name=name,
-                    pipeline_depth=pipeline_depth,
-                    unhealthy_after=unhealthy_after,
-                )
+                self._dispatchers[id(eng)] = self._make_dispatcher(eng, name)
+        self._health = None
+        # Dispatchers (by id) whose last health report was unhealthy,
+        # and whether the service was last reported NOT_SERVING.
+        self._health_lock = threading.Lock()
+        self._unhealthy: set = set()
+        self._reported_down = False
+        # Device-path fault domain: KERNEL_DEADLINE_S=0 (the library
+        # default; the runner's default is 0.25) builds none, and the
+        # serving path is then the one without the layer.
+        self.fault_domain = None
+        if kernel_deadline_s > 0 and self._dispatchers:
+            self.fault_domain = DeviceFaultDomain(
+                self,
+                kernel_deadline_s,
+                failure_mode=device_failure_mode,
+                clock=fault_clock,
+                restart_backoff_s=fault_restart_backoff_s,
+                snapshot_interval_s=fault_snapshot_interval_s,
+                interval_s=fault_interval_s,
+                engine_factory=engine_factory,
+                probe_timeout_s=fault_probe_timeout_s,
+            )
+            self.fault_domain.start()
+
+    def _make_dispatcher(self, engine, name: str) -> BatchDispatcher:
+        """One dispatcher with THE serving parameters: construction and
+        warm restart (fault_domain._try_restart) must agree."""
+        return BatchDispatcher(
+            engine,
+            self._batch_window_us,
+            self._batch_limit,
+            name=name,
+            pipeline_depth=self._pipeline_depth,
+            unhealthy_after=self._unhealthy_after,
+            stamp_clock=self._stamp_clock,
+        )
+
+    def _swap_bank(self, bank: int, new_engine, new_dispatcher) -> None:
+        """Install a warm-restarted engine and dispatcher at `bank`
+        (called by the fault-domain supervisor with the bank's fallback
+        lock held).  Bank indices are stable; the batch-shape
+        histograms and the health binding carry over to the new
+        dispatcher.  The new dispatcher is routable before the bank
+        list names its engine; a lock-free resolve that still read the
+        old engine finds its dead dispatcher or none, and either fails
+        into a re-route (_route: the fault is stale and quarantines
+        nothing)."""
+        old = self._bank_engines[bank]
+        old_d = self._dispatchers.get(id(old))
+        if old_d is not None:
+            new_dispatcher.batch_lanes_hist = old_d.batch_lanes_hist
+            new_dispatcher.batch_items_hist = old_d.batch_items_hist
+        if self._health is not None:
+            new_dispatcher.on_state = self._dispatcher_health(new_dispatcher)
+        self._inline_locks[id(new_engine)] = threading.Lock()
+        self._dispatchers[id(new_engine)] = new_dispatcher
+        self._bank_engines[bank] = new_engine
+        if bank == 0:
+            self.engine = new_engine
+        else:
+            self.algorithm_banks[self._algo_order[bank - 1]] = new_engine
+        self._dispatchers.pop(id(old), None)
+        with self._health_lock:
+            self._unhealthy.discard(id(old_d))
 
     @property
     def dispatcher(self) -> Optional[BatchDispatcher]:
@@ -265,6 +321,7 @@ class CudaRateLimitCache:
         if rows:
             items.append(
                 (
+                    0,
                     self.engine,
                     self._make_item(rows, keys, limits, hits_addend, now, statuses),
                 )
@@ -277,7 +334,7 @@ class CudaRateLimitCache:
         per-bank pack assembly fused into a single pass over the
         descriptors.  Returns (items, statuses, categories, limits,
         is_unlimited, hits_addend, now, shadow_info); items are
-        (engine, WorkItem) pairs."""
+        (bank, engine, WorkItem) triples."""
         resolver = self.resolver
         descriptors = request.descriptors
         domain = request.domain
@@ -395,6 +452,7 @@ class CudaRateLimitCache:
         if rows:
             items.append(
                 (
+                    0,
                     self.engine,
                     self._make_packed_item(
                         rows, keys, limits, hits_addend, now, statuses, enc,
@@ -408,6 +466,7 @@ class CudaRateLimitCache:
             for name, (a_rows, a_enc, a_tparts) in algo_accs.items():
                 items.append(
                     (
+                        self._algo_bank[name],
                         self.algorithm_banks[name],
                         self._make_packed_item(
                             a_rows, keys, limits, hits_addend, now, statuses,
@@ -422,6 +481,7 @@ class CudaRateLimitCache:
             for name, (s_rows, s_enc, s_tparts) in shadow_accs.items():
                 items.append(
                     (
+                        self._algo_bank[name],
                         self.algorithm_banks[name],
                         self._make_candidate_item(
                             s_rows, hits_addend, now, s_enc, s_tparts, cand_over
@@ -545,27 +605,56 @@ class CudaRateLimitCache:
         n: int,
         deadline: Optional[float] = None,
     ) -> List[DescriptorStatus]:
-        """The device half: submit, wait -- bounded by the dispatch
-        timeout and the caller's remaining RPC deadline (`deadline`,
-        absolute time.monotonic seconds) -- then fill the non-engine
-        categories.  `items` are (engine, WorkItem) pairs; every bank's
-        item is submitted before the first wait, so the banks' device
-        steps overlap.  A wait cut short by the CALLER's deadline
-        answers per DEVICE_FAILURE_MODE; device errors raise
-        CacheError."""
-        done: List[WorkItem] = []
-        for engine, item in items:
+        """The device half: submit every bank's WorkItem, wait -- bounded
+        by KERNEL_DEADLINE_S once the bank has completed a launch, by
+        the dispatch timeout before (a first launch may build the
+        kernels with nvcc), and by the caller's remaining RPC deadline
+        (`deadline`, absolute time.monotonic seconds) -- then fill the
+        non-engine categories.  `items` are (bank, engine, WorkItem)
+        triples; every bank's item is submitted before the first wait,
+        so the banks' device steps overlap.
+
+        Quarantined banks never reach the device: their items answer
+        from the DEVICE_FAILURE_MODE fallback (_route).  A wait that
+        trips the kernel deadline records a hang fault (quarantining the
+        bank) and answers the same way; an exception is classified and
+        answered likewise.  A wait cut short by the CALLER's deadline
+        answers per the failure mode WITHOUT faulting the bank.  With no
+        fault domain, device errors raise CacheError, and so does a
+        kernel that fails to build, load or launch with a non-sticky
+        error with one (fault_domain.kernel_defect)."""
+        fd = self.fault_domain
+        pending: List[tuple] = []  # (bank, engine, item) awaiting wait
+        done: List[WorkItem] = []  # answered items (events recyclable)
+        inline: List[tuple] = []
+        for bank, engine, item in items:
+            if fd is not None:
+                self._route(bank, item, pending, done)
+                continue
             d = self._dispatchers.get(id(engine))
             if d is None:
-                with self._inline_locks[id(engine)]:
-                    run_items(engine, [item])
-            else:
-                try:
-                    d.submit(item)
-                except Exception as e:
-                    raise _engine_failure(e) from e
-        for _engine, item in items:
+                inline.append((bank, engine, item))
+                continue
+            try:
+                d.submit(item)
+            except Exception as e:
+                raise _engine_failure(e) from e
+            pending.append((bank, engine, item))
+        for bank, engine, item in inline:
+            with self._inline_locks[id(engine)]:
+                run_items(engine, [item])
+            pending.append((bank, engine, item))
+        kd = fd.kernel_deadline_s if fd is not None else None
+        # _fault_fallback may append a re-routed clone to `pending`.
+        i = 0
+        while i < len(pending):
+            bank, engine, item = pending[i]
+            i += 1
             timeout = self.dispatch_timeout_s
+            if kd is not None:
+                d = self._dispatchers.get(id(engine))
+                if d is not None and d.completed_launches > 0:
+                    timeout = min(timeout, kd)
             caller_bound = False
             if deadline is not None:
                 remaining = deadline - time.monotonic()
@@ -576,12 +665,24 @@ class CudaRateLimitCache:
                 item.wait(timeout)
             except TimeoutError as e:
                 if caller_bound:
+                    # The CALLER's deadline expired first: the bank may
+                    # be healthy, just slower than this RPC can wait.
                     self._answer_failure_mode(item)
                     continue
-                raise _engine_failure(e) from e
+                if fd is None:
+                    raise _engine_failure(e) from e
+                self._fault_fallback(bank, engine, FAULT_HANG, e, item, pending, done)
+                continue
             except Exception as e:
-                raise _engine_failure(e) from e
+                if fd is None:
+                    raise _engine_failure(e) from e
+                self._fault_fallback(bank, engine, classify_fault(e), e, item, pending, done)
+                continue
             done.append(item)
+        # Every item in `done` was answered and nothing touches its
+        # event again, so the event may be recycled.  An item whose
+        # wait failed keeps its event out of the pool: a completer
+        # released from a stalled stream may still set it.
         pool = self._event_pool
         if len(pool) < 1024:
             for item in done:
@@ -618,60 +719,145 @@ class CudaRateLimitCache:
                 )
         return statuses  # type: ignore[return-value]
 
-    def _answer_failure_mode(self, item: WorkItem) -> None:
-        """Caller-deadline expiry on a healthy (just slow) device:
-        answer per DEVICE_FAILURE_MODE with zero stat deltas, through
-        a fresh twin of `item` (a late completer may still signal the
-        original's event)."""
-        clone = WorkItem(
+    @staticmethod
+    def _clone_item(item: WorkItem) -> WorkItem:
+        """A fallback twin of `item`: same pack and apply closure, a
+        FRESH event -- the original's may still be set later by a
+        completer held on a stalled stream, and a recycled event that
+        fires twice would corrupt a later request."""
+        return WorkItem(
             now=item.now, lanes=(), pack=item.get_pack(), apply=item.apply,
             defer_apply=True,
         )
+
+    def _route(self, bank: int, item: WorkItem, pending: list, done: list) -> None:
+        """Send one bank-bound item where the fault domain routes its
+        bank: the fallback while the bank is quarantined (into `done`),
+        else the bank's current dispatcher (into `pending`)."""
+        fd = self.fault_domain
+        if fd.is_quarantined(bank) and fd.run_fallback(bank, item):
+            done.append(item)
+            return
+        engine = fd.engine_at(bank)  # swap-safe resolve
+        try:
+            self._dispatchers[id(engine)].submit(item)
+        except Exception as e:
+            self._fault_fallback(bank, engine, classify_fault(e), e, item, pending, done)
+            return
+        pending.append((bank, engine, item))
+
+    def _fault_fallback(
+        self, bank: int, engine, kind: str, exc, item: WorkItem, pending: list, done: list
+    ) -> None:
+        """Record a `kind` fault of `engine` on `bank` (quarantining the
+        bank; a no-op if it already is, or if a restart has replaced
+        that engine) and route a clone of `item` again: to the
+        fallback, or to the bank's new engine.  A kernel defect
+        (fault_domain.kernel_defect) faults nothing and raises
+        CacheError: it would fail every restart as well, and the
+        mirror must not hide it."""
+        if kernel_defect(exc):
+            raise _engine_failure(exc) from exc
+        self.fault_domain.record_fault(bank, kind, exc, engine=engine)
+        self._route(bank, self._clone_item(item), pending, done)
+
+    def _answer_failure_mode(self, item: WorkItem) -> None:
+        """Caller-deadline expiry on a HEALTHY (just slow) bank: answer
+        per DEVICE_FAILURE_MODE with zero stat deltas -- deny answers
+        OVER_LIMIT, allow (and host, which has no mirror outside
+        quarantine) answers OK -- through a clone of `item`."""
+        clone = self._clone_item(item)
         run_items(
-            _STATIC_DENY if self.device_failure_mode == "deny" else _STATIC_ALLOW,
+            STATIC_DENY if self.device_failure_mode == "deny" else STATIC_ALLOW,
             [clone],
         )
         clone.wait(5.0)
         self.stat_deadline_answers += 1
 
     def bind_health(self, health) -> None:
-        """Dispatcher death or N consecutive device-step failures flip
-        grpc.health.v1 to NOT_SERVING; a later success flips back."""
+        """Wire backend liveness into the health checker.  A bank's
+        dispatcher death or N consecutive device-step failures flip
+        grpc.health.v1 to NOT_SERVING, and SERVING comes back once every
+        bank's dispatcher is healthy again: one bank recovering must not
+        mask another still failing.  With a fault domain, a quarantined
+        bank leaves that count: the service keeps SERVING through the
+        fallback and reports DEGRADED while a bank is quarantined
+        (HealthChecker.set_degraded).  A kernel defect quarantines no
+        bank, so it goes NOT_SERVING as without the domain."""
+        self._health = health
+        for d in self._dispatchers.values():
+            d.on_state = self._dispatcher_health(d)
+
+    def _dispatcher_health(self, d: BatchDispatcher):
+        """The on_state seam of dispatcher `d`: note its report, then
+        recompute the service's health."""
         import logging
 
         log = logging.getLogger("ratelimit.health")
-        # SERVING only while EVERY bank's dispatcher is healthy: one bank
-        # recovering must not mask another still failing.
-        states = {key: True for key in self._dispatchers}
-        lock = threading.Lock()
 
-        def make_on_state(key: int):
-            def on_state(healthy: bool, reason: str) -> None:
-                with lock:
-                    states[key] = healthy
-                    if healthy:
-                        log.info("cuda backend healthy again: %s", reason)
-                        if all(states.values()):
-                            health.ok()
-                    else:
-                        log.error("cuda backend unhealthy: %s", reason)
-                        health.fail()
+        def on_state(healthy: bool, reason: str) -> None:
+            if healthy:
+                log.info("cuda backend healthy again: %s", reason)
+            else:
+                log.error("cuda backend unhealthy: %s", reason)
+            with self._health_lock:
+                if healthy:
+                    self._unhealthy.discard(id(d))
+                else:
+                    self._unhealthy.add(id(d))
+            self._refresh_health()
 
-            return on_state
+        return on_state
 
-        for key, d in self._dispatchers.items():
-            d.on_state = make_on_state(key)
+    def _refresh_health(self) -> None:
+        """NOT_SERVING while the dispatcher of a bank that is not
+        quarantined reports unhealthy, SERVING again once none does
+        (flipped back only after this backend flipped it down);
+        DEGRADED while the fault domain holds a bank quarantined."""
+        health = self._health
+        if health is None:
+            return
+        fd = self.fault_domain
+        with self._health_lock:
+            down = False
+            for bank, engine in enumerate(self._bank_engines):
+                if fd is not None and fd.is_quarantined(bank):
+                    continue
+                d = self._dispatchers.get(id(engine))
+                if d is not None and id(d) in self._unhealthy:
+                    down = True
+            if down != self._reported_down:
+                self._reported_down = down
+                if down:
+                    health.fail()
+                else:
+                    health.ok()
+            if fd is not None:
+                n = fd.quarantined_count()
+                health.set_degraded(
+                    n > 0,
+                    f"{n} device bank(s) quarantined, serving via "
+                    f"{fd.failure_mode} fallback",
+                )
 
     def flush(self) -> None:
         """Drain the dispatcher queues (deterministic test hook; the
-        graceful-drain leg of runner.stop)."""
+        graceful-drain leg of runner.stop).  Dead (quarantined)
+        dispatchers are skipped: their queues were already fast-failed
+        into the fallback."""
         for d in list(self._dispatchers.values()):
             if d.dead is None:
                 d.flush()
 
     def close(self) -> None:
+        """Stop the fault domain's supervisor, then the dispatchers."""
+        fd, self.fault_domain = self.fault_domain, None
+        if fd is not None:
+            fd.stop()
         dispatchers, self._dispatchers = list(self._dispatchers.values()), {}
         for d in dispatchers:
+            # A dead dispatcher may have a thread held on a stalled
+            # stream that cannot be joined; don't burn the full timeout.
             d.stop(timeout=0.5 if d.dead is not None else 10.0)
 
     # Batch-size histogram ladder: powers of two up to the default
@@ -709,30 +895,59 @@ class CudaRateLimitCache:
             scope + ".fault.deadline_answers",
             lambda: self.stat_deadline_answers,
         )
+        if self.fault_domain is not None:
+            self.fault_domain.register_stats(store, scope + ".fault")
         for idx, eng in enumerate(self.engines()):
             base = f"{scope}.bank{idx}"
-            store.gauge_fn(base + ".live_keys", lambda e=eng: e.stat_live_keys)
-            store.counter_fn(base + ".evictions", lambda e=eng: e.stat_evictions)
-            store.counter_fn(
-                base + ".window_rollovers", lambda e=eng: e.stat_window_rollovers
+            # Closures resolve the engine BY INDEX per scrape: a warm
+            # restart replaces the engine object, and the gauges follow.
+            store.gauge_fn(
+                base + ".live_keys", lambda i=idx: self._engine_at(i).stat_live_keys
             )
-            store.gauge_fn(base + ".num_slots", lambda e=eng: e.model.num_slots)
+            store.counter_fn(
+                base + ".evictions", lambda i=idx: self._engine_at(i).stat_evictions
+            )
+            store.counter_fn(
+                base + ".window_rollovers",
+                lambda i=idx: self._engine_at(i).stat_window_rollovers,
+            )
+            store.gauge_fn(
+                base + ".num_slots", lambda i=idx: self._engine_at(i).model.num_slots
+            )
             store.gauge_fn(
                 base + ".slot_fill_pct",
-                lambda e=eng: 100 * e.stat_live_keys // max(1, e.model.num_slots),
+                lambda i=idx: 100
+                * self._engine_at(i).stat_live_keys
+                // max(1, self._engine_at(i).model.num_slots),
             )
             d = self._dispatchers.get(id(eng))
             if d is not None:
-                store.gauge_fn(base + ".dispatch_queue", d.queue_depth)
-                store.gauge_fn(base + ".dispatch_queue_hwm", d.queue_depth_hwm)
-                store.gauge_fn(base + ".inflight_launches", d.inflight)
-                store.gauge_fn(base + ".inflight_hwm", d.inflight_hwm)
+                for gauge, method in (
+                    ("dispatch_queue", "queue_depth"),
+                    ("dispatch_queue_hwm", "queue_depth_hwm"),
+                    ("inflight_launches", "inflight"),
+                    ("inflight_hwm", "inflight_hwm"),
+                ):
+                    store.gauge_fn(
+                        f"{base}.{gauge}",
+                        lambda i=idx, m=method: self._disp_stat(i, m),
+                    )
                 d.batch_lanes_hist = store.histogram(
                     base + ".batch_lanes", self._BATCH_BOUNDS
                 )
                 d.batch_items_hist = store.histogram(
                     base + ".batch_items", self._BATCH_BOUNDS
                 )
+
+    def _engine_at(self, idx: int):
+        """Swap-safe engine accessor for scrape closures."""
+        return self.engines()[idx]
+
+    def _disp_stat(self, idx: int, method: str) -> int:
+        """Swap-safe dispatcher gauge read; 0 while a bank has no live
+        dispatcher."""
+        d = self._dispatchers.get(id(self.engines()[idx]))
+        return 0 if d is None else getattr(d, method)()
 
     def warmup(self) -> None:
         """Run every (bucket, readback-dtype) shape of every bank before

@@ -3,9 +3,12 @@
 Port of ratelimit_tpu/backends/dispatcher.py.  The launch/complete
 split maps onto the torch engine's CUDA stream and events: the
 collector's launch enqueues copies and the kernel on the engine stream
-and returns; the completer waits on the submission's event.  The
-launch flight recorder of the reference (observability) is not ported
-yet.
+and returns; the completer waits on the submission's event.  Each side
+stamps when its device call begins (the watchdog seam of the device
+fault domain, backends/fault_domain.py): a kernel stalled on the card
+holds the completer inside that event wait, and a stamp older than the
+kernel deadline quarantines the bank.  The launch flight recorder of
+the reference (observability) is not ported yet.
 
 The reference gets cross-request batching for free from radix's
 implicit pipelining (one Redis round trip aggregates commands from
@@ -37,6 +40,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.time import REAL_MONOTONIC
 from .engine import HostDecisions
 
 
@@ -371,6 +375,7 @@ class BatchDispatcher:
         unhealthy_after: int = 3,
         on_state=None,
         eager_idle: bool = True,
+        stamp_clock=None,
     ):
         """`on_state(healthy: bool, reason: str)` is the backend-health
         seam (the Redis pool active-connection health analog,
@@ -419,6 +424,20 @@ class BatchDispatcher:
         self._consecutive_failures = 0
         self._reported_unhealthy = False
         self._dead: Optional[BaseException] = None
+        # Watchdog liveness stamps (backends/fault_domain.py): the
+        # collector marks when a device LAUNCH begins, the completer
+        # when a readback WAIT (the event synchronize) begins; each
+        # clears its own stamp when the call returns.  Single-writer
+        # plain attributes read lock-free by the watchdog thread.
+        # `stamp_clock` is the injectable MonotonicClock seam, so
+        # hang-detection tests run on synthetic time.
+        self._stamp_now = (stamp_clock or REAL_MONOTONIC).now
+        self._launch_busy_since: Optional[float] = None
+        self._complete_busy_since: Optional[float] = None
+        # Successful device-step completions: the watchdog arms the
+        # kernel deadline only after the first one, so a first launch
+        # that builds the kernels with nvcc never reads as a hang.
+        self.completed_launches = 0
         # Intake is a plain list + condition variable, drained by the
         # collector in ONE swap per wakeup: queue.Queue pays a lock
         # acquisition per get (~0.8 ms per 1024-item batch on the
@@ -498,6 +517,31 @@ class BatchDispatcher:
             raise TimeoutError("dispatcher did not run the call in time")
         if token.error is not None:
             raise token.error
+
+    def stuck_age(self, now: float) -> float:
+        """Seconds the oldest in-progress device call (launch or
+        readback wait) has been running, 0.0 when idle.  Lock-free
+        reads of the single-writer stamps; `now` must come from the
+        same clock as `stamp_clock`."""
+        age = 0.0
+        for since in (self._launch_busy_since, self._complete_busy_since):
+            if since is not None and now - since > age:
+                age = now - since
+        return age
+
+    def kill(self, exc: BaseException) -> None:
+        """Abandon this dispatcher WITHOUT joining its threads: mark
+        dead, fail everything queued or waiting for completion, report
+        unhealthy.  The quarantine path uses this: a completer held in
+        the event wait of a stalled stream cannot be joined (a CUDA
+        stream cannot be cancelled), but the waiters must be released
+        and new submits must fast-fail, so the fallback answers them.
+        The threads are told to stop: each exits once its current call
+        returns (the completer when the stall ends)."""
+        self._die(exc)
+        with self._buf_cv:
+            self._buf.append(_STOP)
+            self._buf_cv.notify()
 
     def stop(self, timeout: float = 10.0) -> None:
         with self._buf_cv:
@@ -598,7 +642,11 @@ class BatchDispatcher:
             self.batch_lanes_hist.observe(lanes_total)
         if self.batch_items_hist is not None:
             self.batch_items_hist.observe(len(batch))
-        token = submit_items(self.engine, batch)
+        self._launch_busy_since = self._stamp_now()
+        try:
+            token = submit_items(self.engine, batch)
+        finally:
+            self._launch_busy_since = None
         if token is _SUBMIT_FAILED:
             self._note_step(False)
         elif token is not None:
@@ -746,7 +794,13 @@ class BatchDispatcher:
                 if kind == "token":
                     payload.event.set()
                 else:
-                    ok = complete_items(self.engine, payload, token)
+                    self._complete_busy_since = self._stamp_now()
+                    try:
+                        ok = complete_items(self.engine, payload, token)
+                    finally:
+                        self._complete_busy_since = None
+                    if ok:
+                        self.completed_launches += 1
                     with self._state_lock:
                         self._inflight -= 1
                     self._note_step(ok)

@@ -442,15 +442,14 @@ class CounterEngine:
         self.stat_window_rollovers = 0
 
     def _on_stream(self):
-        """Context that puts this thread's work on the engine stream."""
+        """Context that puts this thread's work on the engine stream.
+        Every copy out of the table runs there too, ordered after the
+        engine's own kernels: nothing of an engine waits on the whole
+        device or on another engine's stream, so a stream stalled by one
+        bank cannot hold up the restart of another."""
         if self._stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
-
-    def _sync(self) -> None:
-        """Wait for everything enqueued on the engine stream."""
-        if self._stream is not None:
-            self._stream.synchronize()
 
     # -- host-side key handling -----------------------------------------
 
@@ -801,8 +800,8 @@ class CounterEngine:
         rows = getattr(self.model, "state_rows", ("counts",))
         if rows == ("counts",):
             return {"counts": self.export_counts()}
-        self._sync()
-        arr = state_to_numpy(self._counts)
+        with self._on_stream():
+            arr = state_to_numpy(self._counts)
         return {name: arr[i].copy() for i, name in enumerate(rows)}
 
     def import_state(self, state: dict) -> None:
@@ -827,10 +826,83 @@ class CounterEngine:
         with self._on_stream():
             self._counts = state_from_numpy(stacked, self.device)
 
+    # -- live key export/import (the fault domain's restart merge) -------
+
+    def export_keys(self, pred, drop: bool = True):
+        """Export the live keys matching ``pred(key) -> bool``: returns
+        ``(state, entries)`` where ``state`` holds one column-subset
+        array per export_state row (column i is key i's per-slot state)
+        and ``entries`` is ``[(key, expiry), ...]``.  With ``drop`` (the
+        default) the exported keys leave THIS engine -- their slots are
+        zeroed and released -- so a key that comes back later can never
+        resurrect stale state.
+
+        Must run with exclusive engine access (the dispatcher thread),
+        like every slot-table touch."""
+        ents = self.slot_table.entries()
+        sel = [(k, s, e) for k, s, e in ents if pred(k)]
+        state = {
+            name: np.array(arr, copy=True)
+            for name, arr in self.export_state().items()
+        }
+        if not sel:
+            return {name: arr[:0].copy() for name, arr in state.items()}, []
+        idx = np.array([s for _, s, _ in sel], dtype=np.int64)
+        out = {name: arr[idx].copy() for name, arr in state.items()}
+        if drop:
+            for arr in state.values():
+                arr[idx] = 0
+            self.import_state(state)
+            keep = [(k, s, e) for k, s, e in ents if not pred(k)]
+            table_cls = type(self.slot_table)
+            if getattr(self.slot_table, "refresh_expiry", False):
+                self.slot_table = table_cls.from_entries(
+                    self.model.num_slots, keep, refresh_expiry=True
+                )
+            else:
+                self.slot_table = table_cls.from_entries(self.model.num_slots, keep)
+        return out, [(k, e) for k, _s, e in sel]
+
+    def import_keys(self, state: dict, entries, now: int) -> dict:
+        """Inverse of export_keys, into THIS engine's table: assign a
+        local slot per key and land its state columns.  A key already
+        live here MERGES instead of overwriting: fixed-window ``counts``
+        add (saturating: both sides counted disjoint hits), every other
+        row takes the element-wise max (GCRA's later TAT, sliding
+        window's newer window: the stricter side -- a merge may briefly
+        over-deny, never over-admit).  Entries whose lease already
+        expired at ``now`` are dropped.  Returns {imported, merged,
+        dropped}.
+
+        Must run with exclusive engine access (the dispatcher thread)."""
+        res = {"imported": 0, "merged": 0, "dropped": 0}
+        if not entries:
+            return res
+        full = {
+            name: np.array(arr, copy=True)
+            for name, arr in self.export_state().items()
+        }
+        for i, (key, expiry) in enumerate(entries):
+            if int(expiry) <= now:
+                res["dropped"] += 1
+                continue
+            slot, fresh = self.slot_table.assign(key, now, int(expiry))
+            for name, arr in full.items():
+                col = state[name][i]
+                if fresh:
+                    arr[slot] = col
+                elif name == "counts":
+                    arr[slot] = min(int(arr[slot]) + int(col), 0xFFFFFFFF)
+                else:
+                    arr[slot] = max(arr[slot], col)
+            res["imported" if fresh else "merged"] += 1
+        self.import_state(full)
+        return res
+
     def export_counts(self) -> np.ndarray:
         """Flat uint32 copy of the counter table."""
-        self._sync()
-        return state_to_numpy(self._counts).reshape(-1)
+        with self._on_stream():
+            return state_to_numpy(self._counts).reshape(-1)
 
     def import_counts(self, counts: np.ndarray) -> None:
         arr = np.asarray(counts, dtype=np.uint32).reshape(-1)

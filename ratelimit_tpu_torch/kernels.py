@@ -115,7 +115,12 @@ _LOCK = threading.Lock()
 
 
 class KernelError(RuntimeError):
-    """A kernel failed to build, load or launch."""
+    """A kernel failed to build, load or launch.  `code` is the
+    cudaError_t a launch returned (None for a build or load failure)."""
+
+    def __init__(self, message: str, code=None):
+        super().__init__(message)
+        self.code = code
 
 
 def find_nvcc() -> str:
@@ -228,7 +233,7 @@ def function(fn: str):
 def check(rc: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
-        raise KernelError(f"{kernel}: CUDA launch failed with error {rc}")
+        raise KernelError(f"{kernel}: CUDA launch failed with error {rc}", code=rc)
 
 
 def mapped_alias(host_ptr: int) -> int:

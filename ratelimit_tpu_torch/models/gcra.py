@@ -29,7 +29,9 @@ device activity.  The wrappers launch the kernel for a CUDA tensor (or
 raise) and run the plain PyTorch version beside it only for a tensor on
 the CPU.  The plain version equals the JAX package's numpy
 ``reference_step`` bit for bit; the jitted JAX step may differ by one
-cell where XLA fuses a multiply and an add.
+cell where XLA fuses a multiply and an add.  ``GcraModel.reference_step``
+is that numpy step, copied: the step of a quarantined bank's host
+mirror (backends/host_engine.py), which runs no torch op.
 """
 
 from __future__ import annotations
@@ -206,3 +208,49 @@ class GcraModel:
         )
         afters = befores + hits_u32.astype(np.int64)
         return befores, afters
+
+    def reference_step(
+        self,
+        state: np.ndarray,
+        slots: np.ndarray,
+        hits: np.ndarray,
+        limits: np.ndarray,
+        fresh: np.ndarray,
+        divider: np.ndarray,
+        now: int,
+    ) -> np.ndarray:
+        """Numpy twin of K5 over unique in-table slots, on host arrays:
+        the host mirror's step (backends/host_engine.py).  Mutates
+        ``state`` (uint32[2, num_slots]) in place and returns the
+        per-slot budgets; the f32 ops are the kernel's, in its order.
+        Runs no torch op."""
+        now_u = np.uint32(now)
+        sec = state[0, slots].copy()
+        frac = state[1, slots].copy()
+        fresh = fresh.astype(bool)
+        sec[fresh] = 0
+        frac[fresh] = 0
+        rel = (sec - now_u).view(np.int32)
+        d = rel.astype(np.float32) + frac.astype(np.float32) * np.float32(
+            _FRAC_UNIT
+        )
+        v = np.maximum(d, np.float32(0.0))
+        limits = limits.astype(np.uint32)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t_emit = divider.astype(np.float32) / limits.astype(np.float32)
+            tau = divider.astype(np.float32) - t_emit
+            b_f = np.floor((tau - v) / t_emit) + np.float32(1.0)
+        b_f = np.where(limits > 0, b_f, np.float32(0.0))
+        b_f = np.clip(b_f, np.float32(0.0), np.float32(_B_MAX))
+        adm = np.minimum(hits.astype(np.float32), b_f)
+        upd = adm > 0
+        new_d = v + adm * np.where(upd, t_emit, np.float32(0.0))
+        floor_d = np.floor(new_d)
+        new_sec = (now_u + floor_d.astype(np.uint32)).astype(np.uint32)
+        new_frac = np.minimum(
+            (new_d - floor_d) * np.float32(_FRAC_SCALE),
+            np.float32(_FRAC_MAX),
+        ).astype(np.uint32)
+        state[0, slots] = np.where(upd, new_sec, sec)
+        state[1, slots] = np.where(upd, new_frac, frac)
+        return b_f.astype(np.int32)

@@ -29,7 +29,9 @@ writes the readback into the caller's pinned host `out`: the engine
 serves every chunk of at most 128 padded lanes through it, as one
 device activity.  The wrappers launch the kernel for a CUDA tensor (or
 raise) and run the plain PyTorch version beside it only for a tensor on
-the CPU.
+the CPU.  ``SlidingWindowModel.reference_step`` is K4 once more in
+numpy on host arrays, the step of a quarantined bank's host mirror
+(backends/host_engine.py): it runs no torch op.
 """
 
 from __future__ import annotations
@@ -185,3 +187,45 @@ class SlidingWindowModel:
         )
         afters = befores + hits_u32.astype(np.int64)
         return befores, afters
+
+    def reference_step(
+        self,
+        state: np.ndarray,
+        slots: np.ndarray,
+        hits: np.ndarray,
+        limits: np.ndarray,
+        fresh: np.ndarray,
+        divider: np.ndarray,
+        now: int,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Numpy twin of K4 over unique in-table slots, on host arrays:
+        the host mirror's step (backends/host_engine.py).  Mutates
+        ``state`` (uint32[3, num_slots]) in place and returns (wprev,
+        after); the f32 ops are the kernel's, in its order.  Runs no
+        torch op."""
+        win = state[0, slots].copy()
+        curr = state[1, slots].copy()
+        prev = state[2, slots].copy()
+        now_u = np.uint32(now)
+        divider = divider.astype(np.uint32)
+        w = now_u - now_u % divider
+        fresh = fresh.astype(bool)
+        same = (win == w) & ~fresh
+        adjacent = (win == w - divider) & ~fresh
+        new_prev = np.where(same, prev, np.where(adjacent, curr, 0)).astype(
+            np.uint32
+        )
+        base = np.where(same, curr, 0).astype(np.uint32)
+        elapsed = now_u - w
+        frac = (divider - elapsed).astype(np.float32) / divider.astype(
+            np.float32
+        )
+        wprev = np.floor(new_prev.astype(np.float32) * frac).astype(np.uint32)
+        after = np.minimum(
+            base.astype(np.uint64) + hits.astype(np.uint64),
+            np.uint64(0xFFFFFFFF),
+        ).astype(np.uint32)
+        state[0, slots] = w
+        state[1, slots] = after
+        state[2, slots] = new_prev
+        return wprev, after

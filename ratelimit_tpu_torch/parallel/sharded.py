@@ -485,8 +485,8 @@ class ShardedCounterEngine(CounterEngine):
         """Flat uint32 copy in GLOBAL slot order: bank b's position l
         holds global slot l * num_banks + b, so the (num_banks,
         slots_per_bank) layout transposes back."""
-        self._sync()
-        return state_to_numpy(self._counts).T.reshape(-1)
+        with self._on_stream():
+            return state_to_numpy(self._counts).T.reshape(-1)
 
     def import_counts(self, counts) -> None:
         arr = np.asarray(counts, dtype=np.uint32).reshape(-1)

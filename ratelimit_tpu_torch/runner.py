@@ -5,10 +5,11 @@ algorithm banks: stats, the local over-limit cache, the CUDA counter
 backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for the bank-sharded
 fixed-window table) with one engine per algorithm named in
 ``TPU_ALGORITHM_BANKS``, the service with its runtime config loader,
-the gRPC listener and the statsd exporter.  The HTTP and debug
-listeners, checkpoints and the observability planes are not ported
-yet; settings that select an unported feature are refused at boot
-(settings.unported_settings).
+the gRPC listener and the statsd exporter, with the device fault
+domain armed by KERNEL_DEADLINE_S (0.25 s by default).  The HTTP and
+debug listeners, checkpoint files and the observability planes are not
+ported yet; settings that select an unported feature are refused at
+boot (settings.unported_settings).
 
 Run directly:  python -m ratelimit_tpu_torch.runner
 """
@@ -123,8 +124,18 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=No
         pipeline_depth=s.tpu_pipeline_depth,
         unhealthy_after=s.tpu_unhealthy_after,
         resolution_cache_entries=s.resolution_cache_entries,
-        device_failure_mode=s.device_failure_mode,
         algorithm_banks=make_algorithm_banks(s, device),
+        # The device fault domain (backends/fault_domain.py), on by
+        # default: a kernel stalled on the card quarantines its bank
+        # within KERNEL_DEADLINE_S instead of stalling RPCs for the
+        # dispatch timeout.
+        kernel_deadline_s=s.kernel_deadline_s,
+        device_failure_mode=s.device_failure_mode,
+        fault_restart_backoff_s=s.device_restart_backoff_s,
+        fault_snapshot_interval_s=s.tpu_checkpoint_interval_s,
+        fault_interval_s=(
+            s.device_watchdog_interval_s if s.device_watchdog_interval_s > 0 else None
+        ),
     )
 
 

@@ -209,26 +209,27 @@ class Settings:
     tpu_unhealthy_after: int = 3
     # Pre-compile every (bucket, dtype) kernel shape at startup.
     tpu_warmup: bool = False
-    # Device-path fault domain (backends/fault_domain.py;
-    # docs/RESILIENCE.md).  KERNEL_DEADLINE_S bounds every kernel
-    # launch once a bank has completed its first one (first-batch XLA
-    # compilation keeps the generous dispatch timeout): a launch stuck
-    # past it trips the watchdog, quarantines the bank, and re-routes
-    # its lanes per DEVICE_FAILURE_MODE — `host` (default) serves them
-    # from a numpy mirror that keeps counting, `allow`/`deny` answer
-    # statically.  0 disables the fault domain entirely (the pre-PR-10
-    # behavior: a hung launch stalls its RPCs for the dispatch
-    # timeout).  The supervisor retries a quarantined bank's warm
-    # restart every DEVICE_RESTART_BACKOFF_S (doubling, capped 60 s);
-    # periodic in-memory snapshots every TPU_CHECKPOINT_INTERVAL_S
-    # bound restart loss to one interval.
+    # Device-path fault domain (backends/fault_domain.py).
+    # KERNEL_DEADLINE_S bounds every device wait once a bank has
+    # completed its first launch (a first launch may build the kernels
+    # with nvcc and keeps the dispatch timeout): a call stuck past it
+    # trips the watchdog, quarantines the bank, and re-routes its lanes
+    # per DEVICE_FAILURE_MODE -- `host` (default) serves them from a
+    # numpy mirror that keeps counting, `allow`/`deny` answer
+    # statically.  0 disables the fault domain (a stalled kernel then
+    # holds its RPCs for the dispatch timeout).  The supervisor retries
+    # a quarantined bank's warm restart every DEVICE_RESTART_BACKOFF_S
+    # (doubling, capped 60 s); in-memory snapshots every
+    # TPU_CHECKPOINT_INTERVAL_S seed the mirror and bound restart loss
+    # to one interval.
     kernel_deadline_s: float = 0.25
     device_failure_mode: str = "host"
     device_restart_backoff_s: float = 2.0
     # Watchdog cadence; 0 = auto (half the kernel deadline, capped 1s).
     device_watchdog_interval_s: float = 0.0
-    # Counter-state checkpointing (closes the restart-amnesia gap the
-    # reference delegates to Redis durability; empty = disabled).
+    # Counter-state checkpoint files (empty = disabled; not ported yet,
+    # the runner refuses a value).  TPU_CHECKPOINT_INTERVAL_S is also
+    # the fault domain's snapshot cadence.
     tpu_checkpoint_dir: str = ""
     tpu_checkpoint_interval_s: float = 30.0
 
@@ -531,17 +532,15 @@ def unported_settings(s: Settings) -> List[str]:
             f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' and 'cuda-sharded' "
             "are ported (write-behind and memory backends are not)"
         )
-    if s.kernel_deadline_s > 0:
-        out.append(
-            f"KERNEL_DEADLINE_S={s.kernel_deadline_s}: the device fault "
-            "domain is not ported; set it to 0"
-        )
     if s.tpu_num_lanes > 1:
         out.append(f"TPU_NUM_LANES={s.tpu_num_lanes}: only one lane is ported")
     if s.tpu_per_second:
         out.append("TPU_PERSECOND=true: the per-second bank is not ported")
     if s.tpu_checkpoint_dir:
-        out.append("TPU_CHECKPOINT_DIR: checkpointing is not ported")
+        out.append(
+            "TPU_CHECKPOINT_DIR: checkpoint files are not ported "
+            "(ROADMAP.md Queue 1 item 1b)"
+        )
     if s.statsd_srv:
         out.append("STATSD_SRV: SRV discovery of the stats sink is not ported")
     if (

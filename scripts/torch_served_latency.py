@@ -67,7 +67,11 @@ def engine_us(device, n):
     return _us(step, n)
 
 
-def cache_and_grpc_us(device, n):
+def cache_and_grpc_us(device, n, kernel_deadline_s=0.0):
+    """(cache, grpc) µs per request through a runner whose fault domain
+    is off (KERNEL_DEADLINE_S=0) or armed at `kernel_deadline_s`; an
+    armed domain that acted during the run raises, since its answers
+    would not be the kernel's."""
     import grpc
 
     from ratelimit_tpu_torch.api import Descriptor, Entry, RateLimitRequest
@@ -90,7 +94,7 @@ def cache_and_grpc_us(device, n):
                 runtime_path=root,
                 runtime_subdirectory="ratelimit",
                 tpu_algorithm_banks="",
-                kernel_deadline_s=0.0,
+                kernel_deadline_s=kernel_deadline_s,
             ),
             device=device,
         )
@@ -124,6 +128,11 @@ def cache_and_grpc_us(device, n):
                 pbs.append(r)
             rpc = _us(lambda i: call(pbs[i % 64], timeout=30), n)
             channel.close()
+            fd = runner.cache.fault_domain
+            if fd is not None:
+                summary = fd.summary()
+                if any(summary["faults"].values()) or summary["fallback_decisions"]:
+                    raise RuntimeError(f"the fault domain acted during the run: {summary}")
         finally:
             runner.stop()
     return cache, rpc

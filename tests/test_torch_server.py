@@ -249,7 +249,7 @@ def test_default_algorithm_banks_boot_and_serve(tmp_path):
     "override,needle",
     [
         (dict(overload_shed_enabled=True), "OVERLOAD"),
-        (dict(kernel_deadline_s=0.25), "KERNEL_DEADLINE_S"),
+        (dict(cluster_handoff_enabled=True), "CLUSTER_HANDOFF_ENABLED"),
         (dict(tpu_num_lanes=2), "TPU_NUM_LANES"),
         (dict(tpu_per_second=True), "TPU_PERSECOND"),
         (dict(backend_type="tpu-write-behind"), "BACKEND_TYPE"),
