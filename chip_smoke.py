@@ -82,12 +82,25 @@ Phases, one line each; any failure exits non-zero:
    stall (each back within the deadline plus STALL_RPC_MARGIN_S,
    answered by the host mirror: one hang fault, health DEGRADED), the
    supervised restart on a new stream (health SERVING), 100 more hits
-   through the kernel again: exactly 120 of the 180 admitted.
+   through the kernel again: exactly 120 of the 180 admitted;
+9. listeners: the runner with BACKEND_TYPE=cuda, every default but the
+   config, the ports and DEBUG_PROFILING=1, over its HTTP and debug
+   listeners -- the 6th /json hit on a 5/min key is 429 on the
+   fixed-window, sliding-window and GCRA keys; /healthcheck answers 200
+   OK on both listeners; requests sent with a sampled traceparent
+   commit traces with every phase down to kernel.step, shown in
+   /debug/tracez, no kernel.step shorter than K1's device time;
+   /debug/xla_trace (a torch.profiler capture) during a concurrent
+   /json burst names the by-value kernels K1, K4 and K5;
+   /debug/profile during another burst prints the top ten functions by
+   self samples; warm microseconds per request over /json beside gRPC
+   on fresh fixed-window keys, in alternating pairs.
 
-Phases 6 and 7 run with the fault domain armed at its defaults
+Phases 6, 7 and 9 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
-answer, no bank quarantined and health SERVING.  Kernel launch counts
-are zeroed just before each main-path phase (4-8)
+answer, no bank quarantined and health SERVING; every served phase
+binds its three listeners to free local ports.  Kernel launch counts
+are zeroed just before each main-path phase (4-9)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -163,6 +176,8 @@ def log(msg: str) -> None:
 
 def fail(msg: str) -> None:
     log(f"FAIL: {msg}")
+    # Also on stderr: a caller that keeps only its end still sees why.
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -203,17 +218,19 @@ def time_ms(fn, reps: int = 20, inner: int = 50) -> float:
 def device_samples(fn, iters: int = 20):
     """Milliseconds of device (kernel + copy + memset) time of each of
     `iters` calls of fn(), from every CUDA activity torch.profiler
-    records; None when the profiler sees no device activity.  The
-    activities are cut in time order into `iters` equal groups, one per
-    call.  The profiler now and then drops activities; where their count
-    does not divide, the capture is taken again (up to PROFILE_TRIES
-    times), and after that every call gets the mean."""
+    records; None when no capture of PROFILE_TRIES sees device activity.
+    The activities are cut in time order into `iters` equal groups, one
+    per call.  The profiler now and then drops activities, or all of
+    them: where none was seen or their count does not divide, the
+    capture is taken again (up to PROFILE_TRIES times), and after that
+    every call gets the mean of the last capture that saw any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    seen = None
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -225,11 +242,12 @@ def device_samples(fn, iters: int = 20):
         )
         us = [ev.time_range.elapsed_us() for ev in evs]
         if sum(us) <= 0:
-            return None
+            continue
+        seen = us
         if len(us) % iters == 0:
             k = len(us) // iters
             return [sum(us[c * k : (c + 1) * k]) / 1e3 for c in range(iters)]
-    return [sum(us) / iters / 1e3] * iters
+    return None if seen is None else [sum(seen) / iters / 1e3] * iters
 
 
 def device_ms(fn, iters: int = 20):
@@ -1401,15 +1419,21 @@ def serving(backend: str, env=None, **runner_kwargs):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
-        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", *FAULT_ENV):
+        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", *FAULT_ENV):
             os.environ.pop(name, None)
         os.environ.update(env or {})
+        # The three listeners on free local ports: the HTTP and debug
+        # defaults (0.0.0.0:8080, :6070) may be taken on the machine.
         os.environ.update(
             BACKEND_TYPE=backend,
             RUNTIME_ROOT=root,
             RUNTIME_SUBDIRECTORY="ratelimit",
+            HOST="127.0.0.1",
+            PORT="0",
             GRPC_HOST="127.0.0.1",
             GRPC_PORT="0",
+            DEBUG_HOST="127.0.0.1",
+            DEBUG_PORT="0",
             USE_STATSD="false",
         )
         from ratelimit_tpu_torch.runner import Runner
@@ -1778,8 +1802,9 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
     value = f"ep{bank}-{time.time_ns()}"
     t_first = time.monotonic()
     codes = [request(key, value).overall_code for _ in range(40)]
-    if fd.snapshot_now(bank) != 1:
-        fail(f"bank {bank}: no snapshot taken")
+    taken = fd.snapshot_now(bank)
+    if taken != 1:
+        fail(f"bank {bank}: snapshot_now took {taken} snapshots, want 1")
     faults0 = dict(fd.stat_faults)
     fallback0 = fd.stat_fallback_decisions
     restarts0 = rec.restarts
@@ -1909,6 +1934,273 @@ def episode_line(name, e) -> str:
         f"own stream, SERVING, {e['launches_after_swap']} by-value launches after the swap; "
         f"admitted {e['admitted']}/{e['offered']} in {e['episode_s']:.1f} s; the killed "
         f"dispatcher's threads ended: {e['old_threads_ended']}"
+    )
+
+
+# -- phase 9: the HTTP and debug listeners ----------------------------------
+
+#: Alternating pairs of /json and gRPC legs, and requests per leg.
+LISTENER_PAIRS = 10
+LISTENER_LEG = 100
+#: Client threads of the /json burst under each capture.
+BURST_CLIENTS = 8
+#: Requests sent with a sampled traceparent.
+TRACED = 20
+#: The spans a traced request's tree must hold.
+TRACE_PHASES = (
+    "http.json",
+    "decode",
+    "service.should_rate_limit",
+    "backend.do_limit",
+    "backend.dispatch",
+    "kernel.step",
+    "serialize",
+)
+#: Functions (name and file) a sampled thread sits in while it waits: a
+#: lock or event, a socket read or accept, the listeners' select and
+#: grpcio's serving loop, a CUDA event wait.  The host profile's top ten
+#: are printed with and without them.
+IDLE_FRAMES = (
+    "wait (threading.py",
+    "readinto (socket.py",
+    "accept (socket.py",
+    "select (selectors.py",
+    "_serve (_server.py",
+    "synchronize (streams.py",
+)
+#: The by-value kernels (K1, K4, K5) by their names in a CUDA trace.
+BY_VALUE_KERNELS = (
+    "unique_step_lanes_kernel",
+    "sw_serve_step_lanes_kernel",
+    "gcra_serve_step_lanes_kernel",
+)
+
+
+class JsonClient:
+    """One keep-alive HTTP/1.1 connection posting to the runner's /json."""
+
+    def __init__(self, port):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def post(self, key, value, headers=None):
+        """(status, body, traceparent header or None) of one request."""
+        body = json.dumps(
+            {"domain": "rl", "descriptors": [{"entries": [{"key": key, "value": value}]}]}
+        ).encode()
+        self.conn.request("POST", "/json", body, {"Content-Type": "application/json", **(headers or {})})
+        resp = self.conn.getresponse()
+        return resp.status, resp.read(), resp.getheader("traceparent")
+
+    def close(self):
+        self.conn.close()
+
+
+def http_get(port, path):
+    """(status, body) of one GET on 127.0.0.1:`port`."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def burst_main() -> None:
+    """The body of json_burst's client process: argv port, tag, seconds,
+    clients.  Prints {"counts": {status: n}, "errors": [...]} as JSON."""
+    port, tag, seconds, clients = sys.argv[1], sys.argv[2], float(sys.argv[3]), int(sys.argv[4])
+    stop_at = time.monotonic() + seconds
+    lock = threading.Lock()
+    counts = {}
+    errors = []
+
+    def worker(w):
+        client = JsonClient(int(port))
+        try:
+            i = 0
+            while time.monotonic() < stop_at:
+                status = client.post(("foo", "slide", "tb")[i % 3], f"{tag}{w}-{i}")[0]
+                with lock:
+                    counts[status] = counts.get(status, 0) + 1
+                i += 1
+        except Exception as exc:  # noqa: BLE001 -- reported to the parent
+            errors.append(repr(exc))
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(json.dumps({"counts": counts, "errors": errors[:3]}))
+
+
+@contextlib.contextmanager
+def json_burst(port, tag, seconds):
+    """BURST_CLIENTS client threads, one keep-alive connection each,
+    posting /json on fresh values of the fixed-window, sliding-window and
+    GCRA keys (one kernel launch each) for `seconds`, from a process of
+    their own, so that a profile of this one sees the server and not its
+    clients.  Yields a dict that holds the answers by status once the
+    block has ended."""
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.burst_main()",
+         str(port), tag, str(seconds), str(BURST_CLIENTS)],
+        cwd=REPO,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        text=True,
+    )
+    counts = {}
+    try:
+        time.sleep(0.3)  # the clients start and connect
+        yield counts
+    finally:
+        try:
+            out, err = proc.communicate(timeout=seconds + 60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"/json burst {tag}: the client process exited {proc.returncode}: {err[-500:]}")
+    result = json.loads(out.strip().splitlines()[-1])
+    counts.update({int(k): v for k, v in result["counts"].items()})
+    if result["errors"] or set(counts) != {200}:
+        fail(f"/json burst {tag}: answers {counts}, errors {result['errors']}")
+
+
+def listeners_phase(torch, kernels, fw, sw, gcra, k1_ms):
+    """The runner with BACKEND_TYPE=cuda, every default but the config,
+    the ports and DEBUG_PROFILING=1: /json, /healthcheck on both
+    listeners, traced requests in /debug/tracez, a torch.profiler capture
+    and the host profile during a /json burst, /json against gRPC warm,
+    and no fault of the armed domain through all of it.  `k1_ms` is K1
+    by value's device time, which a kernel.step span must not undercut."""
+    from ratelimit_tpu_torch.observability import TRACER
+
+    kernels.launches.clear()
+    out = {}
+    with serving("cuda", env={"DEBUG_PROFILING": "1"}) as (runner, request, R):
+        api, dbg = runner.http_server.bound_port, runner.debug_server.bound_port
+        client = JsonClient(api)
+        try:
+            if time.time() % 60 > 50:
+                time.sleep(61 - time.time() % 60)
+            for key in ("foo", "slide", "tb"):
+                statuses = [client.post(key, "http")[0] for _ in range(6)]
+                if statuses != [200] * 5 + [429]:
+                    fail(f"listeners: /json progression on {key}: {statuses}")
+            for port in (api, dbg):
+                if http_get(port, "/healthcheck") != (200, b"OK"):
+                    fail(f"listeners: /healthcheck on :{port} is not 200 OK")
+            spans = []
+            for i in range(TRACED):
+                tid = f"{i + 1:032x}"
+                status, _, echo = client.post(
+                    "foo", f"traced{i}", {"traceparent": f"00-{tid}-{'ab' * 8}-01"}
+                )
+                if status != 200 or echo is None or echo.split("-")[1] != tid:
+                    fail(f"listeners: traced /json answered {status}, traceparent {echo}")
+                trace = [t for t in TRACER.recent() if t.trace_id == tid]
+                names = {s["name"]: s for s in trace[-1].spans} if trace else {}
+                if set(TRACE_PHASES) - set(names):
+                    fail(f"listeners: trace {tid} lacks {set(TRACE_PHASES) - set(names)}")
+                spans.append(names["kernel.step"]["duration_ms"])
+            tracez = http_get(dbg, "/debug/tracez")[1].decode()
+            if tid not in tracez or "kernel.step" not in tracez:
+                fail("listeners: /debug/tracez does not show the traced request")
+            if min(spans) < k1_ms:
+                fail(f"listeners: a kernel.step span ({min(spans)} ms) is shorter than K1 ({k1_ms} ms)")
+            out["kernel_step_ms"] = spans
+            with json_burst(api, "xt", 2.0) as burst:
+                status, body = http_get(dbg, "/debug/xla_trace?seconds=1")
+            if status != 200:
+                fail(f"listeners: /debug/xla_trace answered {status}: {body[:200]!r}")
+            trace_dir = body.decode().splitlines()[0].split("trace written to ")[1]
+            path = os.path.join(trace_dir, "trace.json")
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            names = [ev.get("name", "") for ev in events if ev.get("cat") == "kernel"]
+            seen = {k: sum(k in n for n in names) for k in BY_VALUE_KERNELS}
+            if not all(seen.values()):
+                fail(f"listeners: the torch.profiler trace names {seen} of the by-value kernels")
+            out["xla_trace"] = dict(
+                kernels=seen, events=len(events), bytes=os.path.getsize(path), burst=dict(burst)
+            )
+            with json_burst(api, "pr", 3.0) as burst:
+                status, body = http_get(dbg, "/debug/profile?seconds=2")
+            if status != 200:
+                fail(f"listeners: /debug/profile answered {status}")
+            lines = body.decode().splitlines()
+            busy = [l for l in lines[2:] if not l.split(None, 3)[3].startswith(IDLE_FRAMES)]
+            out["profile"] = dict(head=lines[0], top=lines[2:12], busy=busy[:10], burst=dict(burst))
+            for i in range(50):
+                client.post("foo", f"warm{i}")
+                request("foo", f"warm{i}")
+            legs = {"json": [], "grpc": []}
+            for p in range(LISTENER_PAIRS):
+                for leg in ("json", "grpc") if p % 2 == 0 else ("grpc", "json"):
+                    t0 = time.perf_counter()
+                    for i in range(LISTENER_LEG):
+                        value = f"{leg}{p}-{i}"
+                        if leg == "json":
+                            ok = client.post("foo", value)[0] == 200
+                        else:
+                            ok = request("foo", value).overall_code == R.OK
+                        if not ok:
+                            fail(f"listeners: a warm {leg} request was not OK")
+                    legs[leg].append((time.perf_counter() - t0) / LISTENER_LEG * 1e6)
+            out["warm_us"] = legs
+            for port in (api, dbg):
+                if http_get(port, "/healthcheck") != (200, b"OK"):
+                    fail(f"listeners: /healthcheck on :{port} after the captures is not 200 OK")
+        finally:
+            client.close()
+        out["faults"] = fault_free(runner, "listeners")
+    launches = dict(kernels.launches)
+    for name in (fw.K1_LANES, sw.K4_LANES, gcra.K5_LANES):
+        if launches.get(name, 0) < 1:
+            fail(f"the listeners phase did not launch {name}: {launches}")
+    return launches, out
+
+
+def listeners_lines(out, k1_ms):
+    """The phase's report, a line each."""
+    spans = np.asarray(out["kernel_step_ms"]) * 1e3
+    json_us, grpc_us = (np.asarray(out["warm_us"][k]) for k in ("json", "grpc"))
+    faster = int(np.sum(json_us < grpc_us))
+    yield (
+        f"listeners: 6th /json hit 429 on fixed-window, sliding-window and GCRA keys; "
+        f"/healthcheck 200 OK on both listeners; {TRACED} traced /json requests: "
+        f"kernel.step min / median / max {spans.min():.1f} / {np.median(spans):.1f} / "
+        f"{spans.max():.1f} us beside K1 by value {k1_ms * 1e3:.2f} us (profiler, 8 lanes)"
+    )
+    x = out["xla_trace"]
+    yield (
+        f"listeners: /debug/xla_trace?seconds=1 during a {BURST_CLIENTS}-client /json burst "
+        f"from another process "
+        f"({x['burst']}): {x['events']} events, {x['bytes']} bytes, by-value kernels {x['kernels']}"
+    )
+    pr = out["profile"]
+    yield f"listeners: /debug/profile?seconds=2 during a burst ({pr['burst']}): {pr['head']}"
+    for line in pr["top"]:
+        yield f"  {line}"
+    yield f"listeners: the same profile's top ten without the waits {IDLE_FRAMES}:"
+    for line in pr["busy"]:
+        yield f"  {line}"
+    yield (
+        f"listeners: warm us per request, {LISTENER_PAIRS} alternating pairs of "
+        f"{LISTENER_LEG} on fresh fixed-window keys: /json median {np.median(json_us):.1f} "
+        f"(IQR {np.subtract(*np.percentile(json_us, (75, 25))):.1f}), gRPC median "
+        f"{np.median(grpc_us):.1f} (IQR {np.subtract(*np.percentile(grpc_us, (75, 25))):.1f}); "
+        f"/json faster in {faster} of {LISTENER_PAIRS}; legs json {np.round(json_us, 1).tolist()} "
+        f"grpc {np.round(grpc_us, 1).tolist()}; fault domain armed at "
+        f"KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {out['faults']}"
     )
 
 
@@ -2158,7 +2450,15 @@ def main() -> None:
     for name, e in episodes.items():
         log(episode_line(name, e))
 
-    phases = (fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches)
+    # 9. the HTTP and debug listeners
+    k1_ms = timing[fw.K1_LANES]["ms"]
+    lst_launches, listeners = listeners_phase(torch, kernels, fw, sw, gcra, k1_ms)
+    lap("listeners")
+    log(f"listeners: launches {lst_launches}")
+    for line in listeners_lines(listeners, k1_ms):
+        log(line)
+
+    phases = (fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches)
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
     }

@@ -5,8 +5,7 @@ the fault domain calls: ``bank_roles`` names each bank of a cache, and
 ``snapshot_engine`` copies one bank's state and live keys, the seed of a
 quarantined bank's host mirror.  Checkpoint files (CheckpointManager,
 save_engine / restore_engine, the npz format, TPU_CHECKPOINT_DIR) are
-not ported yet (ROADMAP.md Queue 1 item 1b); the runner refuses
-TPU_CHECKPOINT_DIR.
+not ported yet; the runner refuses TPU_CHECKPOINT_DIR.
 """
 
 from __future__ import annotations

@@ -45,6 +45,7 @@ from ..limiter.cache_key import CacheKeyGenerator, EMPTY_KEY
 from ..limiter.local_cache import LocalCache
 from ..limiter.resolution import ResolutionCache
 from ..models.registry import ALGORITHMS
+from ..observability import TRACER
 from ..utils.time import (
     TimeSource,
     RealTimeSource,
@@ -154,6 +155,10 @@ class CudaRateLimitCache:
         self._algo_order = sorted(self.algorithm_banks)
         # Bank index of each algorithm bank (engines() order).
         self._algo_bank = {name: 1 + i for i, name in enumerate(self._algo_order)}
+        # Trace label of each bank index, the JAX package's names for
+        # the same banks: the one fixed-window lane, then the algorithm
+        # banks.
+        self._bank_labels = ["lane0"] + ["algo_" + n for n in self._algo_order]
         # Shadow-rollout divergence tallies per algorithm: [agree,
         # diverge] plain ints bumped on the RPC thread (stats-only GIL
         # races accepted, like the resolver tallies).
@@ -622,12 +627,23 @@ class CudaRateLimitCache:
         answers per the failure mode WITHOUT faulting the bank.  With no
         fault domain, device errors raise CacheError, and so does a
         kernel that fails to build, load or launch with a non-sticky
-        error with one (fault_domain.kernel_defect)."""
+        error with one (fault_domain.kernel_defect).
+
+        When this request's trace is recording, each item's dispatcher
+        passage is stamped (submit here; launch and complete on the
+        dispatcher threads, complete after the CUDA event wait) and the
+        stamps become spans after the waits (_record_item_spans)."""
         fd = self.fault_domain
+        span = TRACER.current()
         pending: List[tuple] = []  # (bank, engine, item) awaiting wait
         done: List[WorkItem] = []  # answered items (events recyclable)
         inline: List[tuple] = []
         for bank, engine, item in items:
+            if span is not None:
+                item.trace = {
+                    "bank": self._bank_labels[bank],
+                    "submit": time.perf_counter(),
+                }
             if fd is not None:
                 self._route(bank, item, pending, done)
                 continue
@@ -688,6 +704,8 @@ class CudaRateLimitCache:
             for item in done:
                 item.event.clear()
                 pool.append(item.event)
+        if span is not None:
+            self._record_item_spans(span, [it for _, _, it in items])
 
         # Non-engine categories.
         reset_cache: dict = {}
@@ -718,6 +736,33 @@ class CudaRateLimitCache:
                     duration_until_reset=duration,
                 )
         return statuses  # type: ignore[return-value]
+
+    @staticmethod
+    def _record_item_spans(span, items: List[WorkItem]) -> None:
+        """Turn each item's (submit, launch, complete) perf_counter
+        stamps into two child spans of `span` -- ``backend.dispatch``
+        (intake queue, collect, batch assembly and the enqueue, on the
+        host) and ``kernel.step`` (enqueue to the CUDA event's
+        completion, readback and decide) -- on the waiting RPC thread,
+        after the completion event's happens-before edge made the
+        dispatcher threads' stamps visible.  An item answered by the
+        fault domain's fallback, or a failed step, leaves stamps
+        missing: record what exists."""
+        for item in items:
+            tr = item.trace
+            if tr is None:
+                continue
+            launch = tr.get("launch")
+            complete = tr.get("complete")
+            attrs = {"bank": tr["bank"], "lanes": item.n_lanes}
+            if launch is not None:
+                TRACER.record_span(
+                    "backend.dispatch", tr["submit"], launch, attrs=attrs, parent=span
+                )
+                if complete is not None:
+                    TRACER.record_span(
+                        "kernel.step", launch, complete, attrs=attrs, parent=span
+                    )
 
     @staticmethod
     def _clone_item(item: WorkItem) -> WorkItem:

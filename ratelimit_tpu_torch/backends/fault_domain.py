@@ -49,8 +49,9 @@ CacheError and the service goes NOT_SERVING, as without the domain.
 
 Health: a quarantined bank that is still served is DEGRADED, not down
 (cuda_cache ``_refresh_health``, through ``HealthChecker.set_degraded``).
-The launch flight recorder and the event journal of the reference are
-not ported yet (ROADMAP.md Queue 1 item 6).
+The launch flight recorder and the event journal of the reference
+(observability/launches.py, observability/events.py) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -373,10 +374,12 @@ class DeviceFaultDomain:
             rec.backoff_s = self.restart_backoff_s
             rec.next_restart = now + rec.backoff_s
             rec.state = "quarantined"
+        # Health before the kill: an RPC that the kill sends to the
+        # fallback reads DEGRADED once it has its answer.
+        self._report_health()
         d = self.cache._dispatchers.get(id(engine))
         if d is not None and d.dead is None:
             d.kill(RuntimeError(f"bank {bank} ({rec.role}) quarantined: {kind} fault"))
-        self._report_health()
         logger.error(
             "device bank %d (%s) quarantined: %s fault (%s); failure "
             "mode %s, restart in %.1fs",
@@ -447,17 +450,18 @@ class DeviceFaultDomain:
             d = self.cache._dispatchers.get(id(self._engines[i]))
             if d is None:
                 continue
-            before = self.stat_snapshots
-            self._snapshot_bank(i, rec, d, now)
-            taken += self.stat_snapshots - before
+            # Count this call's own snapshots: the supervisor thread may
+            # snapshot another bank (or this one) meanwhile, and that
+            # also bumps stat_snapshots.
+            taken += self._snapshot_bank(i, rec, d, now)
         return taken
 
-    def _snapshot_bank(self, bank: int, rec: BankRecord, d, now: float):
+    def _snapshot_bank(self, bank: int, rec: BankRecord, d, now: float) -> bool:
         """Periodic snapshot (a state copy on the dispatcher thread, the
         engine's owner): the seed of the host mirror, bounding restart
         loss to one interval.  A timeout here is NOT a fault (a deep but
         moving queue can delay the token); the stuck-stamp check catches
-        real stalls."""
+        real stalls.  Returns whether this call took a snapshot."""
         from .checkpoint import snapshot_engine
 
         engine = self._engines[bank]
@@ -475,15 +479,17 @@ class DeviceFaultDomain:
                 bank,
             )
             rec.next_snapshot = now + self.snapshot_interval_s
-            return
+            return False
         except Exception as e:
             self.record_fault(bank, classify_fault(e), e)
-            return
+            return False
         snap = grabbed.get("snap")
-        if snap is not None:
-            rec.snapshot = snap
-            rec.next_snapshot = now + self.snapshot_interval_s
-            self.stat_snapshots += 1
+        if snap is None:
+            return False
+        rec.snapshot = snap
+        rec.next_snapshot = now + self.snapshot_interval_s
+        self.stat_snapshots += 1
+        return True
 
     def _try_restart(self, bank: int, rec: BankRecord, now: float) -> None:
         """One supervised warm-restart attempt: fresh engine + probe
@@ -544,10 +550,12 @@ class DeviceFaultDomain:
                 rec.fault_error = None
                 rec.quarantined_at = None
                 rec.backoff_s = 0.0
-                rec.restarts += 1
                 rec.state = "closed"
+                # Health before the count: whoever sees the restart
+                # count move reads the bank's health as re-admitted.
+                self._report_health()
+                rec.restarts += 1
         self.stat_restarts += 1
-        self._report_health()
         logger.warning(
             "device bank %d (%s) re-admitted after supervised warm "
             "restart (restart #%d)",

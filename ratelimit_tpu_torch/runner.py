@@ -5,9 +5,12 @@ algorithm banks: stats, the local over-limit cache, the CUDA counter
 backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for the bank-sharded
 fixed-window table) with one engine per algorithm named in
 ``TPU_ALGORITHM_BANKS``, the service with its runtime config loader,
-the gRPC listener and the statsd exporter, with the device fault
-domain armed by KERNEL_DEADLINE_S (0.25 s by default).  The HTTP and
-debug listeners, checkpoint files and the observability planes are not
+the request tracer (TRACE_*), the three listeners -- HTTP on
+HOST:PORT (/json, /healthcheck), gRPC on GRPC_HOST:GRPC_PORT, debug
+on DEBUG_HOST:DEBUG_PORT (/stats, /metrics, /rlconfig, /debug/*) --
+and the statsd exporter (STATSD_SRV discovery included), with the
+device fault domain armed by KERNEL_DEADLINE_S (0.25 s by default).
+Checkpoint files and the observability planes past tracing are not
 ported yet; settings that select an unported feature are refused at
 boot (settings.unported_settings).
 
@@ -22,6 +25,7 @@ import threading
 from typing import Optional
 
 from .config.runtime import RuntimeLoader
+from .observability import TRACER, JsonlExporter, log_exporter
 from .service import RateLimitService
 from .settings import Settings, SettingsError, new_settings, unported_settings
 from .stats.manager import Manager
@@ -161,8 +165,11 @@ class Runner:
         self.service = None
         self.runtime = None
         self.grpc_server = None
+        self.http_server = None
+        self.debug_server = None
         self.statsd = None
         self.health = None
+        self._trace_jsonl = None
 
     def start(self) -> None:
         """Wire everything and start the listeners (non-blocking)."""
@@ -178,6 +185,28 @@ class Runner:
         )
         from .server.grpc_server import create_grpc_server, server_credentials
         from .server.health import HealthChecker
+        from .server.http_server import (
+            HttpServer,
+            add_debug_routes,
+            add_healthcheck,
+            add_json_handler,
+        )
+
+        # The process-wide tracer is configured here, once, from
+        # Settings; the serving layers reference it like logging.
+        TRACER.configure(
+            sample_rate=s.trace_sample_rate,
+            sample_errors=s.trace_sample_errors,
+            enabled=s.trace_sample_rate > 0 or s.trace_sample_errors,
+            ring_size=s.trace_ring_size,
+            slow_size=s.trace_slow_size,
+        )
+        TRACER.clear_exporters()
+        if s.trace_export_jsonl:
+            self._trace_jsonl = JsonlExporter(s.trace_export_jsonl)
+            TRACER.add_exporter(self._trace_jsonl)
+        if s.trace_log:
+            TRACER.add_exporter(log_exporter)
 
         local_cache = None
         if s.local_cache_size_in_bytes > 0:
@@ -248,9 +277,28 @@ class Runner:
         )
         self.grpc_server.start()
 
+        self.http_server = HttpServer(s.host, s.port, name="api")
+        add_json_handler(self.http_server, self.service)
+        add_healthcheck(self.http_server, self.health)
+        self.http_server.start()
+
+        self.debug_server = HttpServer(s.debug_host, s.debug_port, name="debug")
+        add_debug_routes(
+            self.debug_server,
+            self.stats_manager.store,
+            self.service,
+            profiling_enabled=s.debug_profiling,
+        )
+        add_healthcheck(self.debug_server, self.health)
+        self.debug_server.start()
+
         if s.use_statsd:
             self.statsd = StatsdExporter(
-                self.stats_manager.store, s.statsd_host, s.statsd_port
+                self.stats_manager.store,
+                s.statsd_host,
+                s.statsd_port,
+                srv_record=s.statsd_srv,
+                srv_refresh_s=s.statsd_srv_refresh_s,
             )
             self.statsd.start()
 
@@ -263,8 +311,10 @@ class Runner:
             gc.freeze()
 
         logger.warning(
-            "ratelimit serving: grpc=%s backend=%s device=%s",
+            "ratelimit serving: http=%s grpc=%s debug=%s backend=%s device=%s",
+            self.http_server.bound_port,
             self.grpc_server.bound_port,
+            self.debug_server.bound_port,
             s.backend_type,
             self.cache.engine.device,
         )
@@ -286,7 +336,8 @@ class Runner:
     def stop(self) -> None:
         """Graceful drain + stop, in the reference's order: health
         NOT_SERVING, gRPC grace for in-flight RPCs, dispatcher drain,
-        then the remaining listeners and the backend."""
+        then the HTTP and debug listeners, the runtime loader, statsd,
+        the backend and the trace exporter."""
         if self.health is not None:
             self.health.fail()
         if self.grpc_server is not None:
@@ -296,12 +347,19 @@ class Runner:
                 self.cache.flush()
             except Exception:
                 logger.exception("dispatcher drain failed during shutdown")
+        for srv in (self.http_server, self.debug_server):
+            if srv is not None:
+                srv.stop()
         if self.runtime is not None:
             self.runtime.stop()
         if self.statsd is not None:
             self.statsd.stop()
         if self.cache is not None:
             self.cache.close()
+        if self._trace_jsonl is not None:
+            TRACER.clear_exporters()
+            self._trace_jsonl.close()
+            self._trace_jsonl = None
         self._stopped.set()
 
 

@@ -1,8 +1,10 @@
 """gRPC transport: RateLimitService + grpc.health.v1 on one server.
 
-Port of ratelimit_tpu/server/grpc_server.py without the observability
-hooks (trace intake, flight recorder, SLO rollups, correlation ids),
-which are not ported yet.
+Port of ratelimit_tpu/server/grpc_server.py with its trace intake (an
+inbound W3C ``traceparent`` adopts the caller's trace; the root span
+``grpc.should_rate_limit`` has ``decode`` and ``serialize`` children).
+The flight recorder, SLO rollups and correlation ids are not ported
+yet.
 
 The reference registers the generated pb service on grpc-go with a
 metrics interceptor and keepalive MaxConnectionAge options
@@ -29,6 +31,8 @@ from . import pb  # noqa: F401  (sys.path setup)
 from envoy.service.ratelimit.v3 import rls_pb2  # noqa: E402
 from grpchealth.v1 import health_pb2  # noqa: E402
 
+from ..api import Code  # noqa: E402
+from ..observability import TRACEPARENT_HEADER, TRACER  # noqa: E402
 from ..service import CacheError, ServiceError  # noqa: E402
 from ..stats.manager import StatsStore  # noqa: E402
 from .codec import request_from_pb, response_to_pb  # noqa: E402
@@ -78,30 +82,52 @@ def _ratelimit_handler(service, reporter: Optional[ServerReporter]):
 
     def should_rate_limit(request_pb, context):
         start = time.perf_counter()
+        # Trace intake: an inbound W3C traceparent (Envoy and any OTel
+        # client send one as plain metadata) adopts the caller's trace
+        # id and sampling decision; otherwise head-sampling applies.
+        # The metadata scan is gated so a disabled tracer costs one
+        # attribute load.
+        traceparent = None
+        if TRACER.enabled:
+            for k, v in context.invocation_metadata():
+                if k == TRACEPARENT_HEADER:
+                    traceparent = v
+        root = TRACER.start_span("grpc.should_rate_limit", traceparent)
         try:
-            request = request_from_pb(request_pb)
-            # Propagate the caller's gRPC deadline into the backend
-            # dispatch wait (cuda_cache._execute answers per
-            # DEVICE_FAILURE_MODE instead of blocking past it).
-            remaining = context.time_remaining()
-            if remaining is not None:
-                request.deadline = time.monotonic() + remaining
-            t_decoded = time.perf_counter()
-            try:
-                response = service.should_rate_limit(request)
-            except (ServiceError, CacheError) as e:
-                # grpc-go turns a plain returned error into UNKNOWN;
-                # mirror that mapping (service/ratelimit.go:239-265).
-                context.abort(grpc.StatusCode.UNKNOWN, str(e))
-            t_serviced = time.perf_counter()
-            # Serialize HERE on the handler thread (the method is
-            # registered with an identity response_serializer).
-            payload = serialize(response_to_pb(response))
-            if reporter is not None:
-                reporter.observe_phases(
-                    start, t_decoded, t_serviced, time.perf_counter()
-                )
-            return payload
+            with root:
+                with TRACER.span("decode"):
+                    request = request_from_pb(request_pb)
+                # Propagate the caller's gRPC deadline into the backend
+                # dispatch wait (cuda_cache._execute answers per
+                # DEVICE_FAILURE_MODE instead of blocking past it).
+                remaining = context.time_remaining()
+                if remaining is not None:
+                    request.deadline = time.monotonic() + remaining
+                t_decoded = time.perf_counter()
+                try:
+                    response = service.should_rate_limit(request)
+                except (ServiceError, CacheError) as e:
+                    # grpc-go turns a plain returned error into UNKNOWN;
+                    # mirror that mapping (service/ratelimit.go:239-265).
+                    root.set_status("error", str(e))
+                    context.abort(grpc.StatusCode.UNKNOWN, str(e))
+                t_serviced = time.perf_counter()
+                # Serialize HERE on the handler thread (the method is
+                # registered with an identity response_serializer).
+                with TRACER.span("serialize"):
+                    payload = serialize(response_to_pb(response))
+                t_serialized = time.perf_counter()
+                root.set_attr("domain", request.domain)
+                root.set_attr("descriptors", len(request.descriptors))
+                if response.overall_code == Code.OVER_LIMIT:
+                    # Tail-sampling override: over-limit decisions are
+                    # always worth keeping (observability/trace.py).
+                    root.set_status("over_limit")
+                if reporter is not None:
+                    reporter.observe_phases(
+                        start, t_decoded, t_serviced, t_serialized
+                    )
+                return payload
         finally:
             if reporter is not None:
                 reporter.observe("ShouldRateLimit", time.perf_counter() - start)

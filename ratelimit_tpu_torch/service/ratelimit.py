@@ -1,9 +1,10 @@
 """The RPC brain: ShouldRateLimit request handling.
 
-Port of ratelimit_tpu/service/ratelimit.py.  The reference's tracing
-spans, SLO engine, overload controller and event journal are
-observability hooks not ported yet (ROADMAP.md): the service here
-carries no hook for them.
+Port of ratelimit_tpu/service/ratelimit.py with its tracing spans
+(``service.should_rate_limit`` around the request, ``backend.do_limit``
+around the backend leg).  The reference's SLO engine, overload
+controller and event journal are observability hooks not ported yet
+(ROADMAP.md): the service here carries no hook for them.
 
 Python restatement of reference src/service/ratelimit.go: config
 snapshot + per-descriptor lookup (:104-146), unlimited short-circuit
@@ -31,6 +32,7 @@ from ..api import (
     RateLimitResponse,
 )
 from ..config.loader import ConfigError, ConfigFile, RateLimitConfig, load_config
+from ..observability import TRACER
 from ..stats.manager import Manager
 from ..utils.time import RealTimeSource, TimeSource, calculate_reset
 
@@ -170,16 +172,23 @@ class RateLimitService:
             # Descriptor-resolution fast path: rule lookup, key
             # generation and lane packing fuse into ONE pass inside
             # the backend (cuda_cache.do_limit_resolved), one dict hit
-            # per descriptor.
+            # per descriptor.  The do_limit span therefore contains
+            # rule lookup here (it is part of the fused leg).
             config = self._config  # plain attribute read — no lock
             if config is None:
                 raise ServiceError("no rate limit configuration loaded")
-            statuses, limits, is_unlimited = self.cache.do_limit_resolved(
-                request, config
-            )
+            with TRACER.span("backend.do_limit") as span:
+                span.set_attr("backend", type(self.cache).__name__)
+                statuses, limits, is_unlimited = (
+                    self.cache.do_limit_resolved(request, config)
+                )
         else:
             limits, is_unlimited = self._construct_limits_to_check(request)
-            statuses = self.cache.do_limit(request, limits)
+            # The backend leg as its own span; the CUDA cache nests
+            # dispatch/kernel spans inside (backends/cuda_cache.py).
+            with TRACER.span("backend.do_limit") as span:
+                span.set_attr("backend", type(self.cache).__name__)
+                statuses = self.cache.do_limit(request, limits)
         assert len(limits) == len(statuses)
 
         response = RateLimitResponse()
@@ -237,11 +246,12 @@ class RateLimitService:
     def should_rate_limit(self, request: RateLimitRequest) -> RateLimitResponse:
         """Entry point; raises ServiceError/CacheError after counting
         them (the recover() block, ratelimit.go:243-265)."""
-        try:
-            return self._should_rate_limit_worker(request)
-        except CacheError:
-            self.stats.should_rate_limit.redis_error.inc()
-            raise
-        except ServiceError:
-            self.stats.should_rate_limit.service_error.inc()
-            raise
+        with TRACER.span("service.should_rate_limit"):
+            try:
+                return self._should_rate_limit_worker(request)
+            except CacheError:
+                self.stats.should_rate_limit.redis_error.inc()
+                raise
+            except ServiceError:
+                self.stats.should_rate_limit.service_error.inc()
+                raise

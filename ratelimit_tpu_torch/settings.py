@@ -252,7 +252,7 @@ class Settings:
     # tpu / tpu-sharded backends (the resolution fast path) feed it.
     hotkeys_top_k: int = 128
     # On-demand capture endpoints (/debug/profile statistical CPU
-    # profile, /debug/xla_trace jax.profiler capture) are disabled
+    # profile, /debug/xla_trace torch.profiler capture) are disabled
     # unless this is set: both sample/trace the LIVE serving process,
     # which is an operator action, not a default-open surface.
     debug_profiling: bool = False
@@ -516,16 +516,16 @@ def new_settings() -> Settings:
 def unported_settings(s: Settings) -> List[str]:
     """One message per setting that selects a feature not ported to
     ratelimit_tpu_torch yet; the runner refuses to boot when any is
-    set.  Observability knobs (tracing, flight/launch recorders, event
-    journal, time series, anomaly detectors, SLO engine, hot keys) and
-    the HTTP/debug listeners are read but have no effect until their
-    modules are ported."""
+    set.  The observability planes' knobs (flight/launch recorders,
+    event journal, time series, anomaly detectors, SLO engine, hot keys,
+    FLIGHT_CORR_ENABLED) are read but have no effect until their modules
+    are ported."""
     out = []
     backend = s.backend_type.lower()
     if backend == "cuda-sharded-write-behind":
         out.append(
-            f"BACKEND_TYPE={s.backend_type!r}: the write-behind backend is "
-            "not ported (ROADMAP.md Queue 1 item 6); 'cuda-sharded' is"
+            f"BACKEND_TYPE={s.backend_type!r}: the write-behind backend "
+            "(backends/write_behind.py) is not ported; 'cuda-sharded' is"
         )
     elif backend not in ("cuda", "cuda-sharded"):
         out.append(
@@ -538,11 +538,9 @@ def unported_settings(s: Settings) -> List[str]:
         out.append("TPU_PERSECOND=true: the per-second bank is not ported")
     if s.tpu_checkpoint_dir:
         out.append(
-            "TPU_CHECKPOINT_DIR: checkpoint files are not ported "
-            "(ROADMAP.md Queue 1 item 1b)"
+            "TPU_CHECKPOINT_DIR: checkpoint files (CheckpointManager in "
+            "backends/checkpoint.py) are not ported"
         )
-    if s.statsd_srv:
-        out.append("STATSD_SRV: SRV discovery of the stats sink is not ported")
     if (
         s.overload_shed_enabled
         or s.overload_promote_enabled

@@ -6,8 +6,12 @@ mapping for Prometheus (examples/prom-statsd-exporter/conf.yaml).
 Counters flush as deltas (statsd ``|c``), gauges as absolute values
 (``|g``), matching gostats' sink behavior.
 
-Port of ratelimit_tpu/stats/statsd.py without DNS SRV discovery of
-the target (STATSD_SRV), which the runner refuses for now.
+The target can also be discovered via a DNS SRV record
+(STATSD_SRV, e.g. ``_statsd._udp.metrics.local``) with periodic
+re-resolution (utils/srv.py) -- the same discovery pattern the
+reference applies to its memcached servers (MEMCACHE_SRV +
+MEMCACHE_SRV_REFRESH, src/memcached/cache_impl.go:180-228,
+src/srv/srv.go).  Port of ratelimit_tpu/stats/statsd.py.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ from __future__ import annotations
 import logging
 import socket
 import threading
-from typing import Optional
+import time
+from typing import Optional, Tuple
 
 from .manager import StatsStore
 
@@ -29,10 +34,27 @@ class StatsdExporter:
         host: str = "localhost",
         port: int = 8125,
         interval_s: float = 5.0,
+        srv_record: str = "",
+        srv_refresh_s: float = 0.0,
+        srv_resolver: Optional[Tuple[str, int]] = None,
     ):
+        """`srv_record`, when set, overrides host/port: the first
+        (priority, weight)-ordered SRV answer becomes the target, and
+        `srv_refresh_s` > 0 re-resolves on that cadence (keeping the
+        last good target when a refresh fails).  Startup resolution
+        failures raise -- a misconfigured record should fail fast, like
+        the reference's memcached SRV startup path.  `srv_resolver` is
+        the DNS server's (host, port); None reads the system's."""
         self.store = store
         self.addr = (host, port)
         self.interval_s = interval_s
+        self.srv_record = srv_record
+        self.srv_refresh_s = float(srv_refresh_s)
+        self._srv_resolver = srv_resolver
+        self._next_refresh = 0.0
+        if srv_record:
+            self.addr = self._resolve_srv()  # raises SrvError on bad
+            self._next_refresh = time.monotonic() + self.srv_refresh_s
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
         self._closed = False
         self._stop = threading.Event()
@@ -43,6 +65,33 @@ class StatsdExporter:
         # own deltas; these are plain ints read at flush time, so the
         # exporter keeps the last-flushed value per name.
         self._fn_last: dict = {}
+
+    def _resolve_srv(self) -> Tuple[str, int]:
+        from ..utils.srv import server_strings_from_srv
+
+        target = server_strings_from_srv(
+            self.srv_record, resolver=self._srv_resolver
+        )[0]
+        host, _, port = target.rpartition(":")
+        return host.rstrip("."), int(port)
+
+    def _maybe_refresh_srv(self) -> None:
+        if not self.srv_record or self.srv_refresh_s <= 0:
+            return
+        now = time.monotonic()
+        if now < self._next_refresh:
+            return
+        self._next_refresh = now + self.srv_refresh_s
+        try:
+            addr = self._resolve_srv()
+        except Exception as e:
+            logger.warning(
+                "statsd srv refresh failed (%s); keeping %s", e, self.addr
+            )
+            return
+        if addr != self.addr:
+            logger.info("statsd target moved: %s -> %s", self.addr, addr)
+            self.addr = addr
 
     def start(self) -> None:
         if self._thread is not None:
@@ -114,6 +163,7 @@ class StatsdExporter:
     def _loop(self) -> None:
         while not self._stop.wait(self.interval_s):
             try:
+                self._maybe_refresh_srv()
                 self.flush()
             except Exception:
                 logger.exception("statsd flush failed")

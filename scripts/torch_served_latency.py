@@ -88,8 +88,12 @@ def cache_and_grpc_us(device, n, kernel_deadline_s=0.0):
             f.write(CONFIG)
         runner = Runner(
             Settings(
+                host="127.0.0.1",
+                port=0,
                 grpc_host="127.0.0.1",
                 grpc_port=0,
+                debug_host="127.0.0.1",
+                debug_port=0,
                 use_statsd=False,
                 runtime_path=root,
                 runtime_subdirectory="ratelimit",

@@ -3,11 +3,15 @@ CPU.
 
 With every fault setting at its default (KERNEL_DEADLINE_S unset, so
 0.25 s) the runner starts, arms the domain over all three banks and
-serves; the fault settings are read from the environment;
+serves over gRPC and over its HTTP listener (/json, /healthcheck on
+both the API and the debug listener); the fault settings are read from the environment;
 TPU_CHECKPOINT_DIR is still refused.  The ``cuda-sharded`` runner arms
 the domain too, and a restart of its bank rebuilds what the JAX
 package's factory rebuilds from a ``tpu-sharded`` bank.
 """
+
+import json
+import urllib.request
 
 import grpc
 import pytest
@@ -47,6 +51,9 @@ descriptors:
 #: starts from none of them.
 FAULT_ENV = (
     "BACKEND_TYPE",
+    "DEBUG_PROFILING",
+    "TRACE_SAMPLE_RATE",
+    "TRACE_EXPORT_JSONL",
     "KERNEL_DEADLINE_S",
     "DEVICE_FAILURE_MODE",
     "DEVICE_RESTART_BACKOFF_S",
@@ -65,8 +72,10 @@ OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
 @pytest.fixture
 def env(tmp_path, monkeypatch):
     """The environment of a boot with every default, but for where the
-    config lives, a free local port, no statsd sink, and no gc.freeze()
-    in the test process."""
+    config lives, free local ports for the three listeners (the HTTP
+    and debug defaults, 0.0.0.0:8080 and :6070, would collide between
+    tests running side by side), no statsd sink, and no gc.freeze() in
+    the test process."""
     config_dir = tmp_path / "ratelimit" / "config"
     config_dir.mkdir(parents=True)
     (config_dir / "rl.yaml").write_text(CONFIG)
@@ -75,8 +84,12 @@ def env(tmp_path, monkeypatch):
     for name, value in dict(
         RUNTIME_ROOT=str(tmp_path),
         RUNTIME_SUBDIRECTORY="ratelimit",
+        HOST="127.0.0.1",
+        PORT="0",
         GRPC_HOST="127.0.0.1",
         GRPC_PORT="0",
+        DEBUG_HOST="127.0.0.1",
+        DEBUG_PORT="0",
         USE_STATSD="false",
         GC_TUNING="false",
     ).items():
@@ -97,6 +110,22 @@ def _codes(runner, key, n):
         return [call(req, timeout=30).overall_code for _ in range(n)]
 
 
+def _http(port, path, body=None):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _json_codes(runner, key, n):
+    body = json.dumps(
+        {"domain": "rl", "descriptors": [{"entries": [{"key": key, "value": "http"}]}]}
+    ).encode()
+    return [_http(runner.http_server.bound_port, "/json", body)[0] for _ in range(n)]
+
+
 def test_runner_boots_with_every_default_and_serves(env):
     s = new_settings()
     assert s.kernel_deadline_s == 0.25 and s.device_failure_mode == "host"
@@ -110,6 +139,9 @@ def test_runner_boots_with_every_default_and_serves(env):
         assert [r.role for r in fd._records] == ["lane0of1", "algo_gcra", "algo_sliding_window"]
         for key in ("fw", "slide", "tb"):
             assert _codes(runner, key, 4) == [OK] * 3 + [OVER], key
+            assert _json_codes(runner, key, 4) == [200] * 3 + [429], key
+        for port in (runner.http_server.bound_port, runner.debug_server.bound_port):
+            assert _http(port, "/healthcheck") == (200, b"OK")
         summary = fd.summary()
         assert summary["faults"] == {"hang": 0, "exception": 0, "device_lost": 0}
         assert summary["fallback_decisions"] == 0 and summary["quarantined_banks"] == 0
@@ -120,6 +152,34 @@ def test_runner_boots_with_every_default_and_serves(env):
     finally:
         runner.stop()
     assert runner.cache.fault_domain is None  # close() stopped the supervisor
+
+
+def test_trace_and_profiling_settings_take_effect(env, tmp_path):
+    """TRACE_* configure the port's tracer (ring, sampling, the JSONL
+    exporter, closed at stop) and DEBUG_PROFILING opens the captures."""
+    from ratelimit_tpu_torch.observability import TRACER
+
+    jsonl = tmp_path / "traces.jsonl"
+    env.setenv("TRACE_SAMPLE_RATE", "1")
+    env.setenv("TRACE_RING_SIZE", "4")
+    env.setenv("TRACE_EXPORT_JSONL", str(jsonl))
+    env.setenv("DEBUG_PROFILING", "1")
+    runner = Runner(new_settings(), device="cpu")
+    runner.start()
+    try:
+        assert _json_codes(runner, "fw", 6) == [200] * 3 + [429] * 3
+        recent = TRACER.recent()
+        assert len(recent) == 4 and TRACER.sample_rate == 1.0
+        assert {"http.json", "kernel.step"} <= {s["name"] for s in recent[0].spans}
+        port = runner.debug_server.bound_port
+        status, out = _http(port, "/debug/profile?seconds=0.1")
+        assert status == 200 and b"statistical cpu profile" in out
+    finally:
+        runner.stop()
+        TRACER.configure(sample_rate=0.0, ring_size=256)
+    assert TRACER._exporters == []
+    lines = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert [t["root"] for t in lines] == ["http.json"] * 6
 
 
 def test_fault_settings_are_read_from_the_environment(env):

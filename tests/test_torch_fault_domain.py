@@ -955,3 +955,95 @@ def test_stale_fault_of_a_replaced_engine_quarantines_nothing():
     finally:
         inj.heal()
         cache.close()
+
+
+def test_snapshot_now_counts_only_its_own_snapshots(monkeypatch):
+    """snapshot_now(bank) answers how many snapshots IT took, even when
+    the supervisor snapshots another bank meanwhile (its first pass,
+    a few tenths of a second after boot, snapshots every bank)."""
+    from ratelimit_tpu_torch.backends import checkpoint
+    from ratelimit_tpu_torch.models.registry import get_algorithm
+
+    gcra = CounterEngine(
+        buckets=(8,), device="cpu", model=get_algorithm("gcra").make_model(256, 0.8, device="cpu")
+    )
+    cache = make_cache(PORT, algorithm_banks={"gcra": gcra})
+    fd = cache.fault_domain
+    real = checkpoint.snapshot_engine
+    fixed_window = cache._bank_engines[0]
+
+    def snapshot_engine(engine):
+        if engine is fixed_window:
+            # The supervisor's snapshot of the GCRA bank lands while this
+            # one is on the fixed-window bank's dispatcher thread.
+            other = threading.Thread(
+                target=fd._snapshot_bank,
+                args=(1, fd._records[1], cache._dispatchers[id(gcra)], 0.0),
+            )
+            other.start()
+            other.join()
+        return real(engine)
+
+    monkeypatch.setattr(checkpoint, "snapshot_engine", snapshot_engine)
+    try:
+        assert fd.snapshot_now(0) == 1
+        assert fd.stat_snapshots == 2
+        assert fd._records[0].snapshot is not None and fd._records[1].snapshot is not None
+    finally:
+        cache.close()
+
+
+def test_restart_count_moves_after_health_is_restored():
+    """A reader that waits for a bank's restart count to move (the card
+    smoke, an operator polling /debug/faults) then reads SERVING, not
+    DEGRADED: the restart refreshes health before it counts."""
+    inj = Injector()
+    cache, clock, health, rule = _port_cache(inj)
+    fd = cache.fault_domain
+    rec = fd._records[0]
+    seen = []
+    real = fd._report_health
+
+    def report_health():
+        real()
+        seen.append((rec.state, rec.restarts, health.degraded))
+
+    fd._report_health = report_health
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        inj.set("lane0", "raise")
+        assert _code(PORT, cache, rule) == "OK"
+        assert (health.healthy, health.degraded) == (True, True)
+        inj.heal()
+        _restart(fd, clock)
+        assert rec.restarts == 1 and (health.healthy, health.degraded) == (True, False)
+        assert seen[-1] == ("closed", 0, False)
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def test_quarantine_reports_degraded_before_it_releases_the_rpcs():
+    """The kill that sends a quarantined bank's waiting RPCs to the
+    fallback comes after the DEGRADED report, so an RPC answered by
+    the mirror never reads a health that has not seen the fault."""
+    inj = Injector()
+    cache, clock, health, rule = _port_cache(inj)
+    fd = cache.fault_domain
+    d = cache._dispatchers[id(cache.engine)]
+    seen = []
+    real = d.kill
+
+    def kill(exc):
+        seen.append(health.degraded)
+        real(exc)
+
+    d.kill = kill
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        fd.record_fault(0, FAULT_HANG, TimeoutError("stuck"))
+        assert seen == [True]
+        assert _code(PORT, cache, rule) == "OK" and health.degraded
+    finally:
+        inj.heal()
+        cache.close()
