@@ -94,13 +94,30 @@ Phases, one line each; any failure exits non-zero:
    /json burst names the by-value kernels K1, K4 and K5;
    /debug/profile during another burst prints the top ten functions by
    self samples; warm microseconds per request over /json beside gRPC
-   on fresh fixed-window keys, in alternating pairs.
+   on fresh fixed-window keys, in alternating pairs;
+10. topology: the runner with TPU_NUM_LANES=4, TPU_PERSECOND=true and
+   TPU_CHECKPOINT_DIR, every other setting at its default (2^20 slots
+   split 4 x 2^18, the per-second bank at 2^20, the algorithm banks at
+   2^18, the fault domain armed) -- its banks by role, no two live banks
+   on one CUDA stream (at boot and after a restart); 8 gRPC clients over
+   keys on every lane admit exactly each key's limit, every lane
+   launches K1, SECOND-unit keys live only in the per-second bank, no
+   fault; phase 8's stall on one lane's stream: that lane quarantined
+   and answered by its mirror while the other lanes launch K1 with no
+   fallback answer, restarted without forgiving a window; one lane
+   filled to 2^18 live keys and every bank's checkpoint file written
+   during an 8-client burst (exclusive ms, bytes and keys per bank, RPC
+   ms during the snapshot against outside it, no fault); half of a limit
+   admitted, stop() (the final checkpoint), a second runner on the same
+   files admitting exactly the other half, and a runner of two lanes
+   refusing the lane files by role.
 
-Phases 6, 7 and 9 run with the fault domain armed at its defaults
+Phases 6, 7, 9 and 10 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
-answer, no bank quarantined and health SERVING; every served phase
-binds its three listeners to free local ports.  Kernel launch counts
-are zeroed just before each main-path phase (4-9)
+answer, no bank quarantined and health SERVING (phase 10 but for its
+one stall); every served phase binds its three listeners to free local
+ports.  Kernel launch counts are zeroed just before each main-path
+phase (4-10)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -119,6 +136,7 @@ import sys
 import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 
@@ -1388,6 +1406,18 @@ descriptors:
       unit: hour
       requests_per_unit: 120
       algorithm: gcra
+  - key: topo
+    rate_limit:
+      unit: hour
+      requests_per_unit: 10
+  - key: half
+    rate_limit:
+      unit: hour
+      requests_per_unit: 20
+  - key: persec
+    rate_limit:
+      unit: second
+      requests_per_unit: 1000000
 """
 
 #: Settings that would move the fault domain off its defaults; every
@@ -1399,6 +1429,9 @@ FAULT_ENV = (
     "DEVICE_WATCHDOG_INTERVAL_S",
     "TPU_CHECKPOINT_INTERVAL_S",
 )
+#: Settings of the bank topology (phase 10); every other served phase
+#: starts from none of them: one lane, no per-second bank, no files.
+TOPOLOGY_ENV = ("TPU_NUM_LANES", "TPU_PERSECOND", "TPU_CHECKPOINT_DIR")
 #: The runner's kernel deadline at its default (settings.py).
 DEFAULT_DEADLINE_S = 0.25
 
@@ -1419,7 +1452,8 @@ def serving(backend: str, env=None, **runner_kwargs):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
-        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", *FAULT_ENV):
+        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", *FAULT_ENV,
+                     *TOPOLOGY_ENV):
             os.environ.pop(name, None)
         os.environ.update(env or {})
         # The three listeners on free local ports: the HTTP and debug
@@ -1789,17 +1823,20 @@ def sleep_cycles_per_ms(torch) -> float:
     return cycles / start.elapsed_time(end)
 
 
-def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms):
+def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms,
+                  value=None, during=None):
     """One episode on `bank`: 40 hits on a fresh `key` value (a 120/hour
-    rule), a snapshot, a kernel spinning for STALL_DEADLINES deadlines
-    on the bank's own stream, 40 hits during the stall (answered by the
-    host mirror), the supervised restart, 100 more hits.  Exactly 120 of
-    the 180 must be admitted.  Returns the episode's numbers."""
+    rule; `value` names one that lands on `bank`), a snapshot, a kernel
+    spinning for STALL_DEADLINES deadlines on the bank's own stream, 40
+    hits during the stall (answered by the host mirror), `during(stall
+    end event)` if given, the supervised restart, 100 more hits.
+    Exactly 120 of the 180 must be admitted.  Returns the episode's
+    numbers."""
     fd = runner.cache.fault_domain
     rec = fd._records[bank]
     engine = fd.engine_at(bank)
     old_d = runner.cache._dispatchers[id(engine)]
-    value = f"ep{bank}-{time.time_ns()}"
+    value = value or f"ep{bank}-{time.time_ns()}"
     t_first = time.monotonic()
     codes = [request(key, value).overall_code for _ in range(40)]
     taken = fd.snapshot_now(bank)
@@ -1826,6 +1863,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
             quarantined_at = rec.quarantined_at
     fallback = fd.stat_fallback_decisions - fallback0
     faults = {k: v - faults0[k] for k, v in fd.stat_faults.items()}
+    extra = during(stall_end) if during is not None else None
     t_over = None  # when the stall was first seen over
     t_give_up = time.monotonic() + 60
     while rec.restarts == restarts0 and time.monotonic() < t_give_up:
@@ -1863,6 +1901,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         offered=len(codes),
         episode_s=episode_s,
         old_threads_ended=not (old_d._thread.is_alive() or old_d._completer.is_alive()),
+        during=extra,
     )
     bound_ms = (fd.kernel_deadline_s + STALL_RPC_MARGIN_S) * 1e3
     if codes[:80] != [OK] * 80:
@@ -1908,10 +1947,11 @@ def fault_phase(torch, kernels, fw, gcra):
             fail(f"fault phase: the fault domain is not armed at its defaults: {fd}")
         episodes = {
             "fixed window": stall_episode(
-                torch, kernels, runner, request, R.OK, 0, "probe", fw.K1_LANES, cycles_per_ms
+                torch, kernels, runner, request, R.OK, bank_of(runner, "lane0of1"), "probe",
+                fw.K1_LANES, cycles_per_ms,
             ),
             "GCRA": stall_episode(
-                torch, kernels, runner, request, R.OK, runner.cache._algo_bank["gcra"],
+                torch, kernels, runner, request, R.OK, bank_of(runner, "algo_gcra"),
                 "probe_tb", gcra.K5_LANES, cycles_per_ms,
             ),
         }
@@ -1944,6 +1984,9 @@ LISTENER_PAIRS = 10
 LISTENER_LEG = 100
 #: Client threads of the /json burst under each capture.
 BURST_CLIENTS = 8
+#: The line the burst's client process prints once every client has had
+#: an answer.
+BURST_RUNNING = "burst running"
 #: Requests sent with a sampled traceparent.
 TRACED = 20
 #: The spans a traced request's tree must hold.
@@ -2011,30 +2054,41 @@ def http_get(port, path):
 
 def burst_main() -> None:
     """The body of json_burst's client process: argv port, tag, seconds,
-    clients.  Prints {"counts": {status: n}, "errors": [...]} as JSON."""
+    clients.  Prints BURST_RUNNING once every client has had an answer,
+    then keeps the burst up for `seconds` and prints {"counts": {status:
+    n}, "errors": [...]} as JSON."""
     port, tag, seconds, clients = sys.argv[1], sys.argv[2], float(sys.argv[3]), int(sys.argv[4])
-    stop_at = time.monotonic() + seconds
+    stop = threading.Event()
     lock = threading.Lock()
     counts = {}
     errors = []
+    answered = threading.Semaphore(0)
 
     def worker(w):
         client = JsonClient(int(port))
         try:
             i = 0
-            while time.monotonic() < stop_at:
+            while not stop.is_set():
                 status = client.post(("foo", "slide", "tb")[i % 3], f"{tag}{w}-{i}")[0]
                 with lock:
                     counts[status] = counts.get(status, 0) + 1
+                if i == 0:
+                    answered.release()
                 i += 1
         except Exception as exc:  # noqa: BLE001 -- reported to the parent
             errors.append(repr(exc))
+            answered.release()
         finally:
             client.close()
 
     threads = [threading.Thread(target=worker, args=(w,)) for w in range(clients)]
     for t in threads:
         t.start()
+    for _ in threads:
+        answered.acquire(timeout=60)
+    print(BURST_RUNNING, flush=True)
+    time.sleep(seconds)
+    stop.set()
     for t in threads:
         t.join()
     print(json.dumps({"counts": counts, "errors": errors[:3]}))
@@ -2046,7 +2100,9 @@ def json_burst(port, tag, seconds):
     posting /json on fresh values of the fixed-window, sliding-window and
     GCRA keys (one kernel launch each) for `seconds`, from a process of
     their own, so that a profile of this one sees the server and not its
-    clients.  Yields a dict that holds the answers by status once the
+    clients.  The block runs once every client has had its first answer:
+    a capture taken in it sees the burst, however long the process took
+    to start.  Yields a dict that holds the answers by status once the
     block has ended."""
     proc = subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke; chip_smoke.burst_main()",
@@ -2058,7 +2114,9 @@ def json_burst(port, tag, seconds):
     )
     counts = {}
     try:
-        time.sleep(0.3)  # the clients start and connect
+        if proc.stdout.readline().strip() != BURST_RUNNING:
+            proc.kill()
+            fail(f"/json burst {tag}: the clients never ran: {proc.communicate()[1][-500:]}")
         yield counts
     finally:
         try:
@@ -2202,6 +2260,493 @@ def listeners_lines(out, k1_ms):
         f"grpc {np.round(grpc_us, 1).tolist()}; fault domain armed at "
         f"KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {out['faults']}"
     )
+
+
+# -- phase 10: the bank topology --------------------------------------------
+
+TOPOLOGY_LANES = 4
+TOPOLOGY_ROLES = [f"lane{i}of{TOPOLOGY_LANES}" for i in range(TOPOLOGY_LANES)] + [
+    "per_second",
+    "algo_gcra",
+    "algo_sliding_window",
+]
+TOPOLOGY_CLIENTS = 8
+TOPO_LIMIT = 10  # the topo rule's requests per hour
+TOPO_KEYS_PER_LANE = 8
+TOPO_ROUNDS = 3
+HALF_LIMIT = 20  # the half rule's requests per hour
+HALF_KEYS_PER_LANE = 4
+#: The filled lane holds this many live keys: its whole table (2^20
+#: slots split over four lanes).
+FULL_LANE_KEYS = 1 << 18
+#: Fill keys expire this long after the fill, before any key of an hour
+#: rule can (the phase starts at least PHASE10_HOUR_MARGIN_S before the
+#: hour's end), so a key that a full lane takes in evicts a fill key.
+FILL_TTL_S = 90
+PHASE10_HOUR_MARGIN_S = 150
+SNAPSHOT_BURST_S = 3.0
+
+
+def bank_of(runner, role) -> int:
+    """The bank index of `role` in the runner's topology: banks are
+    addressed by role (checkpoint.bank_roles), since lanes and the
+    per-second bank shift the algorithm banks' indices."""
+    from ratelimit_tpu_torch.backends.checkpoint import bank_roles
+
+    roles = bank_roles(runner.cache)
+    if role not in roles:
+        fail(f"no bank {role} in {roles}")
+    return roles.index(role)
+
+
+def lane_value(key, lane, n_lanes, tag) -> str:
+    """A value of `key` whose cache key lands on `lane`: crc32 of the
+    key's stem, as the cache routes it."""
+    from ratelimit_tpu_torch.api import Descriptor
+    from ratelimit_tpu_torch.limiter.cache_key import build_stem
+
+    for i in itertools.count():
+        v = f"{tag}{i}"
+        stem = build_stem("", "rl", Descriptor.of((key, v)).entries).encode()
+        if zlib.crc32(stem) % n_lanes == lane:
+            return v
+
+
+def live_streams(runner, what) -> dict:
+    """Every live bank's CUDA stream handle by role; fails unless no two
+    banks share one."""
+    from ratelimit_tpu_torch.backends.checkpoint import bank_roles
+
+    cache = runner.cache
+    handles = {
+        role: e._stream.cuda_stream for role, e in zip(bank_roles(cache), cache.engines())
+    }
+    if len(set(handles.values())) != len(handles):
+        fail(f"{what}: two live banks share a CUDA stream: {handles}")
+    return handles
+
+
+def streams_past_the_pool(torch, runner) -> dict:
+    """Claim more streams beside the live banks than torch's pool holds:
+    each claim must be distinct from every live bank's stream and from
+    the others, the claims past the pool are streams made for them
+    (engine._create_stream), and work runs on those.  All go back."""
+    from ratelimit_tpu_torch.backends import engine as engine_mod
+
+    class Holder:
+        pass
+
+    dev = runner.cache.engine.device
+    live = set(live_streams(runner, "past the pool").values())
+    holders = [Holder() for _ in range(engine_mod.STREAM_POOL_SIZE + 2)]
+    try:
+        for h in holders:
+            h._stream = engine_mod.claim_stream(dev, h)
+        claimed = [h._stream for h in holders]
+        handles = [c.cuda_stream for c in claimed]
+        if len(set(handles)) != len(handles) or live & set(handles):
+            fail(f"past the pool: a claim shares a stream: {handles} against {live}")
+        own = {x.cuda_stream for x in engine_mod._OWN_STREAMS.get(dev.index, [])}
+        made = [c for c in claimed if c.cuda_stream in own]
+        if len(made) < 2:
+            fail(f"past the pool: {len(made)} streams of its own, want at least 2")
+        for stream in made:
+            with torch.cuda.stream(stream):
+                got = (torch.arange(8, device=dev) * 2).sum()
+            stream.synchronize()
+            if int(got) != 56:
+                fail(f"past the pool: work on a stream of its own gave {int(got)}")
+    finally:
+        for h in holders:
+            engine_mod.release_stream(h)
+    return {"claimed": len(handles), "made": len(made)}
+
+
+def bank_keys(runner, bank) -> list:
+    """The live keys of `bank`, read on its dispatcher thread."""
+    cache = runner.cache
+    engine = cache.engines()[bank]
+    out = []
+    cache.run_exclusive(engine, lambda: out.extend(k for k, _s, _e in engine.slot_table.entries()))
+    return out
+
+
+def grpc_clients(runner, n, work):
+    """`n` client threads with a gRPC channel each, running
+    work(i, call) where call(key, value) returns (code, t0, t1); returns
+    the works' results by client.  Any error fails the phase."""
+    import grpc
+
+    from ratelimit_tpu_torch.server import pb  # noqa: F401
+
+    from envoy.service.ratelimit.v3 import rls_pb2
+
+    port = runner.grpc_server.bound_port
+    results = [None] * n
+    errors = []
+
+    def client(i):
+        try:
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                stub = channel.unary_unary(
+                    "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                    request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                    response_deserializer=rls_pb2.RateLimitResponse.FromString,
+                )
+
+                def call(key, value):
+                    req = rls_pb2.RateLimitRequest(domain="rl")
+                    e = req.descriptors.add().entries.add()
+                    e.key, e.value = key, value
+                    t0 = time.perf_counter()
+                    code = stub(req, timeout=60).overall_code
+                    return code, t0, time.perf_counter()
+
+                results[i] = work(i, call)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"topology clients failed: {errors[:3]}")
+    return results
+
+
+def topology_counting(runner, OK, fw, kernels):
+    """TOPOLOGY_CLIENTS clients, each TOPO_ROUNDS times over
+    TOPO_KEYS_PER_LANE keys of a 10/hour rule on every lane, and a
+    SECOND-unit key of their own: every key admits exactly its limit,
+    every lane launches K1 (its own dispatcher's launches move), the
+    SECOND-unit keys live only in the per-second bank, and the domain
+    never acts."""
+    n = TOPOLOGY_LANES
+    values = [
+        lane_value("topo", lane, n, f"c{lane}-{j}-")
+        for lane in range(n)
+        for j in range(TOPO_KEYS_PER_LANE)
+    ]
+    cache = runner.cache
+    disp = [cache._dispatchers[id(e)] for e in cache.engines()]
+    before = [d.completed_launches for d in disp]
+    k1_before = kernels.launches.get(fw.K1_LANES, 0)
+
+    def work(i, call):
+        admitted = {v: 0 for v in values}
+        per_second = []
+        for _ in range(TOPO_ROUNDS):
+            for j, v in enumerate(values):
+                admitted[v] += call("topo", v)[0] == OK
+                if j % 8 == i % 8:
+                    per_second.append(call("persec", f"s{i}")[0])
+        return admitted, per_second
+
+    t0 = time.perf_counter()
+    results = grpc_clients(runner, TOPOLOGY_CLIENTS, work)
+    seconds = time.perf_counter() - t0
+    totals = {v: sum(r[0][v] for r in results) for v in values}
+    if any(t != TOPO_LIMIT for t in totals.values()):
+        fail(f"topology: admitted {sorted(set(totals.values()))} per key, want {TOPO_LIMIT}")
+    per_second = [c for r in results for c in r[1]]
+    if any(c != OK for c in per_second):
+        fail("topology: a SECOND-unit request was refused")
+    moved = [d.completed_launches - b for d, b in zip(disp, before)]
+    ps = bank_of(runner, "per_second")
+    if any(m < 1 for m in moved[:n]) or moved[ps] < 1:
+        fail(f"topology: launches by bank {moved}: a lane or the per-second bank never launched")
+    ps_keys = bank_keys(runner, ps)
+    lane_keys = [bank_keys(runner, lane) for lane in range(n)]
+    if not ps_keys or any(not k.startswith("rl_persec_") for k in ps_keys):
+        fail(f"topology: the per-second bank holds {ps_keys[:4]}")
+    if any(k.startswith("rl_persec_") for keys in lane_keys for k in keys):
+        fail("topology: a SECOND-unit key landed on a lane")
+    faults = fault_free(runner, "topology")
+    rpcs = TOPOLOGY_CLIENTS * TOPO_ROUNDS * len(values) + len(per_second)
+    return dict(
+        keys=len(values),
+        rpcs=rpcs,
+        seconds=seconds,
+        per_s=rpcs / seconds,
+        launches_by_bank=dict(zip(TOPOLOGY_ROLES, moved)),
+        k1_lanes=kernels.launches.get(fw.K1_LANES, 0) - k1_before,
+        per_second_keys=len(ps_keys),
+        lane_keys=[len(k) for k in lane_keys],
+        faults=faults,
+    )
+
+
+def topology_stall(torch, kernels, runner, request, OK, fw, cycles_per_ms):
+    """Phase 8's stall on lane 2's stream: that lane is quarantined and
+    answered by its mirror while the other lanes keep launching K1 with
+    no fallback answer; it restarts without forgiving a window, on a
+    stream no live bank holds."""
+    n = TOPOLOGY_LANES
+    stalled = 2
+    cache = runner.cache
+    fd = cache.fault_domain
+    others = [lane for lane in range(n) if lane != stalled]
+    other_values = {lane: lane_value("topo", lane, n, f"o{lane}-") for lane in others}
+
+    def during(stall_end):
+        disp = {lane: cache._dispatchers[id(fd.engine_at(lane))] for lane in others}
+        before = {lane: d.completed_launches for lane, d in disp.items()}
+        fallback = {lane: fd._records[lane].fallback_decisions for lane in others}
+        k1 = kernels.launches.get(fw.K1_LANES, 0)
+        codes = [request("topo", other_values[lane]).overall_code for lane in others for _ in range(5)]
+        out = dict(
+            stall_over=stall_end.query(),
+            codes_ok=all(c == OK for c in codes),
+            launches={lane: disp[lane].completed_launches - before[lane] for lane in others},
+            fallback={lane: fd._records[lane].fallback_decisions - fallback[lane] for lane in others},
+            k1_lanes=kernels.launches.get(fw.K1_LANES, 0) - k1,
+            quarantined=[fd.is_quarantined(b) for b in range(len(fd._records))],
+        )
+        if out["stall_over"]:
+            fail(f"topology stall: the stall ended before the other lanes were driven: {out}")
+        if (
+            not out["codes_ok"]
+            or any(v < 5 for v in out["launches"].values())
+            or any(out["fallback"].values())
+            or out["k1_lanes"] < 15
+            or out["quarantined"] != [lane == stalled for lane in range(len(fd._records))]
+        ):
+            fail(f"topology stall: the other lanes did not serve on the card: {out}")
+        return out
+
+    before = live_streams(runner, "before the restart")
+    value = lane_value("probe", stalled, n, "stall-")
+    episode = stall_episode(
+        torch, kernels, runner, request, OK, stalled, "probe", fw.K1_LANES, cycles_per_ms,
+        value=value, during=during,
+    )
+    after = live_streams(runner, "after the restart")
+    if after[TOPOLOGY_ROLES[stalled]] in before.values():
+        fail("topology stall: the restarted lane drew a stream a live bank held")
+    episode["streams_before"] = before
+    episode["streams_after"] = after
+    return episode
+
+
+def fill_lane(runner, kernels, bank, n=FULL_LANE_KEYS) -> tuple:
+    """Fill `bank` to `n` live keys through its engine, on its
+    dispatcher thread, in chunks of the widest batch.  Returns the
+    seconds and the fill's launches by kernel: a harness loop beside
+    the served entry points, which the `kernels` line does not count."""
+    from ratelimit_tpu_torch.backends.dispatcher import LANE_DTYPE
+
+    cache = runner.cache
+    engine = cache.engines()[bank]
+    now = int(time.time())
+    chunk = engine.max_batch
+
+    def fill():
+        for lo in range(0, n, chunk):
+            keys = [f"rl_fill_{i}_".encode() for i in range(lo, min(n, lo + chunk))]
+            meta = np.zeros(len(keys), LANE_DTYPE)
+            meta["expiry"] = now + FILL_TTL_S
+            meta["hits"] = 1
+            meta["limits"] = 1000
+            meta["len"] = [len(k) for k in keys]
+            engine.step_complete(engine.submit_packed(now, b"".join(keys), meta))
+
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    cache.run_exclusive(engine, fill)
+    seconds = time.perf_counter() - t0
+    launched = {k: v - before.get(k, 0) for k, v in kernels.launches.items()}
+    return seconds, {k: v for k, v in launched.items() if v}
+
+
+def topology_snapshot(runner, kernels, OK):
+    """Fill lane 0 to FULL_LANE_KEYS live keys, then write every bank's
+    checkpoint file during a TOPOLOGY_CLIENTS-client gRPC burst over all
+    lanes: the snapshot's exclusive ms, bytes and keys per bank, and the
+    RPC times during the snapshot against those outside it.  The armed
+    domain must not act.  Also timed, on the full lane's dispatcher
+    thread: the reference's way, decoding every key there
+    (slot_table.entries())."""
+    cache = runner.cache
+    fd = cache.fault_domain
+    full = bank_of(runner, TOPOLOGY_ROLES[0])
+    fill_s, fill_launches = fill_lane(runner, kernels, full)
+    live = cache.engines()[full].stat_live_keys
+    if live < FULL_LANE_KEYS:
+        fail(f"topology snapshot: the filled lane holds {live} live keys")
+    engine = cache.engines()[full]
+    decode = {}
+
+    def reference_decode():
+        t0 = time.perf_counter()
+        decode["keys"] = len(engine.slot_table.entries())
+        decode["ms"] = (time.perf_counter() - t0) * 1e3
+
+    cache.run_exclusive(engine, reference_decode)
+    faults0 = dict(fd.stat_faults)
+    fallback0 = fd.stat_fallback_decisions
+    stop = threading.Event()
+    window = {}
+
+    def work(i, call):
+        times = []
+        j = 0
+        while not stop.is_set():
+            code, t0, t1 = call("burst", f"snap{i}-{j}")
+            times.append((t0, t1, code))
+            j += 1
+        return times
+
+    def snapshot():
+        time.sleep(SNAPSHOT_BURST_S / 3)
+        window["t0"] = time.perf_counter()
+        runner.checkpointer.checkpoint()
+        window["t1"] = time.perf_counter()
+        time.sleep(SNAPSHOT_BURST_S / 3)
+        stop.set()
+
+    taker = threading.Thread(target=snapshot)
+    taker.start()
+    results = grpc_clients(runner, TOPOLOGY_CLIENTS, work)
+    taker.join()
+    times = [t for r in results for t in r]
+    if any(c != OK for _t0, _t1, c in times):
+        fail("topology snapshot: an RPC of the burst was refused")
+    inside = [(t1 - t0) * 1e3 for t0, t1, _c in times if t1 > window["t0"] and t0 < window["t1"]]
+    outside = [(t1 - t0) * 1e3 for t0, t1, _c in times if t1 <= window["t0"] or t0 >= window["t1"]]
+    faults = {k: v - faults0[k] for k, v in fd.stat_faults.items()}
+    out = dict(
+        fill_s=fill_s,
+        fill_launches=fill_launches,
+        live_keys=live,
+        reference_decode_ms=decode["ms"],
+        banks=runner.checkpointer.last,
+        snapshot_ms=(window["t1"] - window["t0"]) * 1e3,
+        rpcs=len(times),
+        inside=(len(inside), float(np.median(inside)) if inside else None, max(inside, default=None)),
+        outside=(len(outside), float(np.median(outside)) if outside else None, max(outside, default=None)),
+        faults=faults,
+        fallback=fd.stat_fallback_decisions - fallback0,
+        quarantined=fd.quarantined_count(),
+    )
+    if any(faults.values()) or out["fallback"] or out["quarantined"]:
+        fail(f"topology snapshot: the fault domain acted during the snapshot: {out}")
+    if len(out["banks"]) != len(TOPOLOGY_ROLES) or any("skipped" in b for b in out["banks"]):
+        fail(f"topology snapshot: not every bank was written: {out['banks']}")
+    return out
+
+
+def topology_phase(torch, kernels, fw, cycles_per_ms):
+    """TPU_NUM_LANES=4, TPU_PERSECOND=true and TPU_CHECKPOINT_DIR, every
+    other setting at its default: the banks and their streams, exact
+    counting under 8 clients, a stalled lane, a snapshot of a full lane
+    under a burst, and a restart on the same files that forgives no
+    window -- then a runner of two lanes that refuses the lane files."""
+    kernels.launches.clear()
+    if time.time() % 3600 > 3600 - PHASE10_HOUR_MARGIN_S:
+        # The hour rules count per hour: no rollover inside the phase.
+        time.sleep(3601 - time.time() % 3600)
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        env = {"TPU_NUM_LANES": str(TOPOLOGY_LANES), "TPU_PERSECOND": "true",
+               "TPU_CHECKPOINT_DIR": ckpt}
+        n = TOPOLOGY_LANES
+        half_values = [
+            lane_value("half", lane, n, f"h{lane}-{j}-")
+            for lane in range(n)
+            for j in range(HALF_KEYS_PER_LANE)
+        ]
+        t_boot = time.perf_counter()
+        with serving("cuda", env=env) as (runner, request, R):
+            out["boot_s"] = time.perf_counter() - t_boot
+            OK, OVER = R.OK, R.OVER_LIMIT
+            cache = runner.cache
+            from ratelimit_tpu_torch.backends.checkpoint import bank_roles
+
+            roles = bank_roles(cache)
+            slots = [e.model.num_slots for e in cache.engines()]
+            want = [NUM_SLOTS // n] * n + [NUM_SLOTS, ALGO_SLOTS, ALGO_SLOTS]
+            if roles != TOPOLOGY_ROLES or slots != want or runner.checkpointer is None:
+                fail(f"topology: banks {roles} of {slots} slots, want {TOPOLOGY_ROLES} of {want}")
+            if cache.fault_domain is None or cache.fault_domain.kernel_deadline_s != DEFAULT_DEADLINE_S:
+                fail("topology: the fault domain is not armed at its defaults")
+            out["streams"] = live_streams(runner, "at boot")
+            out["past_the_pool"] = streams_past_the_pool(torch, runner)
+            out["counting"] = topology_counting(runner, OK, fw, kernels)
+            out["stall"] = topology_stall(torch, kernels, runner, request, OK, fw, cycles_per_ms)
+            out["snapshot"] = topology_snapshot(runner, kernels, OK)
+            first = [request("half", v).overall_code for v in half_values for _ in range(HALF_LIMIT // 2)]
+            if any(c != OK for c in first):
+                fail("topology: half a limit was refused before the restart")
+            t_stop = time.perf_counter()
+        out["stop_s"] = time.perf_counter() - t_stop
+        files = sorted(os.listdir(ckpt))
+        if files != [f"bank{i}.npz" for i in range(len(TOPOLOGY_ROLES))]:
+            fail(f"topology: the drain wrote {files}")
+        t_boot = time.perf_counter()
+        with serving("cuda", env=env) as (runner, request, R):
+            out["restore_boot_s"] = time.perf_counter() - t_boot
+            restored = [e.stat_live_keys for e in runner.cache.engines()]
+            second = {
+                v: [request("half", v).overall_code for _ in range(HALF_LIMIT // 2 + 1)]
+                for v in half_values
+            }
+            want = [R.OK] * (HALF_LIMIT // 2) + [R.OVER_LIMIT]
+            if any(codes != want for codes in second.values()):
+                fail(f"topology: after the restart a key admitted {second}")
+            out["restored_live_keys"] = dict(zip(TOPOLOGY_ROLES, restored))
+            out["restart_faults"] = fault_free(runner, "topology after the restart")
+        env["TPU_NUM_LANES"] = "2"
+        with serving("cuda", env=env) as (runner, request, R):
+            live = [len(k) for k in (bank_keys(runner, b) for b in range(len(runner.cache.engines())))]
+            if any(live):
+                fail(f"topology: a two-lane runner restored live keys {live} from four-lane files")
+            codes = [request("half", half_values[0]).statuses[0].limit_remaining]
+            if codes != [HALF_LIMIT - 1]:
+                fail(f"topology: the two-lane runner did not start fresh: remaining {codes}")
+            out["two_lane_roles"] = bank_roles(runner.cache)
+            out["two_lane_faults"] = fault_free(runner, "topology with two lanes")
+    fill = out["snapshot"]["fill_launches"]
+    return {k: v - fill.get(k, 0) for k, v in kernels.launches.items()}, out
+
+
+def topology_lines(t) -> list:
+    """The phase's report, a line each."""
+    c, st, sn = t["counting"], t["stall"], t["snapshot"]
+    lines = [
+        f"topology: banks {TOPOLOGY_ROLES} (boot {t['boot_s']:.1f} s), streams at boot "
+        f"{t['streams']} (all distinct); {t['past_the_pool']['claimed']} more streams "
+        f"claimed beside them, all distinct, {t['past_the_pool']['made']} of them made past "
+        f"torch's pool of 32 and run on",
+        f"topology counting: {TOPOLOGY_CLIENTS} gRPC clients, {c['keys']} keys of a "
+        f"{TOPO_LIMIT}/hour rule over {TOPOLOGY_LANES} lanes, each admitted exactly "
+        f"{TOPO_LIMIT}; {c['rpcs']} RPCs in {c['seconds']:.3f} s ({c['per_s']:.1f}/s); "
+        f"launches by bank {c['launches_by_bank']}; K1 by value {c['k1_lanes']}; SECOND-unit "
+        f"keys {c['per_second_keys']} in the per-second bank and none on a lane (lanes hold "
+        f"{c['lane_keys']} keys); fault domain: {c['faults']}",
+        episode_line("topology, lane 2", st),
+        f"topology stall, the other lanes during it: {st['during']}; streams after the "
+        f"restart {st['streams_after']} (all distinct; the restarted lane's is new)",
+        f"topology snapshot: lane 0 filled to {sn['live_keys']} live keys in "
+        f"{sn['fill_s']:.2f} s through the engine, not the served path (its launches "
+        f"{sn['fill_launches']} are left out of the phase's and the kernels line's); the reference's decode of every key on the dispatcher thread "
+        f"{sn['reference_decode_ms']:.1f} ms; checkpoint() during an {TOPOLOGY_CLIENTS}-client "
+        f"burst took {sn['snapshot_ms']:.1f} ms, per bank "
+        + "; ".join(
+            f"{b['role']} exclusive {b['exclusive_ms']:.2f} ms, {b['bytes']} bytes, {b['keys']} keys"
+            for b in sn["banks"]
+        )
+        + f"; RPC ms (n, median, max) during the snapshot {sn['inside']}, outside it "
+        f"{sn['outside']}; faults {sn['faults']}, fallback {sn['fallback']}",
+        f"topology restart: half of a {HALF_LIMIT}/hour limit on {HALF_KEYS_PER_LANE} keys a "
+        f"lane, stop() {t['stop_s']:.2f} s with the final checkpoint, a second runner "
+        f"(boot {t['restore_boot_s']:.1f} s, restored live keys {t['restored_live_keys']}) "
+        f"admitted exactly the other half on every key, fault domain {t['restart_faults']}; a "
+        f"two-lane runner ({t['two_lane_roles']}) refused the lane files by role and started "
+        f"fresh, fault domain {t['two_lane_faults']}",
+    ]
+    return lines
 
 
 def main() -> None:
@@ -2458,7 +3003,17 @@ def main() -> None:
     for line in listeners_lines(listeners, k1_ms):
         log(line)
 
-    phases = (fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches)
+    # 10. the bank topology: lanes, the per-second bank, checkpoint files
+    top_launches, topology = topology_phase(torch, kernels, fw, cycles_per_ms)
+    lap("topology")
+    log(f"topology: launches {top_launches}")
+    for line in topology_lines(topology):
+        log(line)
+
+    phases = (
+        fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
+        top_launches,
+    )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
     }

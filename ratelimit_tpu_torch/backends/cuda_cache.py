@@ -1,19 +1,21 @@
 """CudaRateLimitCache: the RateLimitCache implementation over the torch
 counter engine.
 
-Port of ratelimit_tpu/backends/tpu_cache.py (TpuRateLimitCache) for
-one fixed-window lane plus the algorithm banks: one CounterEngine per
-bank, one dispatcher per bank.  Rules carrying ``algorithm:
-sliding_window`` or ``algorithm: gcra`` route to that algorithm's bank
--- as the ENFORCING bank, or with ``shadow: true`` as a CANDIDATE whose
-would-be decision is compared with the fixed-window one that still
-enforces (``ratelimit.tpu.shadow.<algo>.{agree,diverge}``).  With
+Port of ratelimit_tpu/backends/tpu_cache.py (TpuRateLimitCache).  Its
+banks, in the reference's order (engines()): N fixed-window host LANES,
+each with its own engine, slot table, dispatcher pair and CUDA stream,
+keys split across them by crc32 of the key stem; an optional PER-SECOND
+bank for SECOND-unit rules; then one engine per algorithm bank.  Rules
+carrying ``algorithm: sliding_window`` or ``algorithm: gcra`` route to
+that algorithm's bank -- as the ENFORCING bank, or with ``shadow: true``
+as a CANDIDATE whose would-be decision is compared with the
+fixed-window one that still enforces
+(``ratelimit.tpu.shadow.<algo>.{agree,diverge}``).  With
 ``kernel_deadline_s > 0`` and a dispatcher per bank, the device fault
 domain (backends/fault_domain.py) watches every bank: a stalled or
 failing bank is quarantined, answered per DEVICE_FAILURE_MODE and
-restarted.  Per-second banks, several host lanes, hot-key tracking and
-the flight/launch recorders are not ported yet (ROADMAP.md); the runner
-refuses the settings that select them.  The request path is the
+restarted on its own.  Hot-key tracking and the flight/launch recorders
+are not ported yet (ROADMAP.md).  The request path is the
 reference's:
 
 1. ``hits_addend = max(1, request.hits_addend)``;
@@ -35,7 +37,8 @@ from __future__ import annotations
 import random
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
+from zlib import crc32
 
 import numpy as np
 
@@ -60,7 +63,13 @@ from .dispatcher import (
     WorkItem,
     run_items,
 )
-from .engine import CounterEngine, HostBatch, HostDecisions
+from .engine import (
+    CounterEngine,
+    HostBatch,
+    HostDecisions,
+    release_stream,
+    stream_idle,
+)
 from .fault_domain import (
     FAILURE_MODES,
     FAULT_HANG,
@@ -111,8 +120,9 @@ def _engine_failure(exc):
 class CudaRateLimitCache:
     def __init__(
         self,
-        engine: CounterEngine,
+        engine: Union[CounterEngine, Sequence[CounterEngine]],
         time_source: Optional[TimeSource] = None,
+        per_second_engine: Optional[CounterEngine] = None,
         local_cache: Optional[LocalCache] = None,
         expiration_jitter_max_seconds: int = 0,
         cache_key_prefix: str = "",
@@ -133,7 +143,12 @@ class CudaRateLimitCache:
         fault_probe_timeout_s: Optional[float] = None,
         engine_factory=None,
     ):
-        """`algorithm_banks` maps a non-default algorithm name
+        """`engine` may be a LIST of engines: N independent host lanes,
+        each with its own slot table, dispatcher thread pair and CUDA
+        stream; keys split across them by crc32 of the key stem, so the
+        lanes' serial host legs can run side by side (the reference's
+        docs/HOST_LANES.md).  `per_second_engine` serves SECOND-unit
+        rules.  `algorithm_banks` maps a non-default algorithm name
         (models/registry.py) to the CounterEngine serving it; rules
         naming an algorithm with no bank fold back to fixed-window.
         `kernel_deadline_s` > 0 (with batch_window_us > 0) builds the
@@ -145,7 +160,12 @@ class CudaRateLimitCache:
                 f"DEVICE_FAILURE_MODE must be one of "
                 f"{sorted(FAILURE_MODES)}, got {device_failure_mode!r}"
             )
-        self.engine = engine
+        lanes = list(engine) if isinstance(engine, (list, tuple)) else [engine]
+        if not lanes:
+            raise ValueError("need at least one engine lane")
+        self.lanes: List[CounterEngine] = lanes
+        self.engine = lanes[0]  # lane 0
+        self.per_second_engine = per_second_engine
         self.algorithm_banks: dict = {
             name: eng for name, eng in (algorithm_banks or {}).items() if eng is not None
         }
@@ -153,12 +173,18 @@ class CudaRateLimitCache:
             if name not in ALGORITHMS:
                 raise ValueError(f"unknown algorithm bank {name!r}")
         self._algo_order = sorted(self.algorithm_banks)
-        # Bank index of each algorithm bank (engines() order).
-        self._algo_bank = {name: 1 + i for i, name in enumerate(self._algo_order)}
+        # Bank index of each algorithm bank (engines() order): after the
+        # lanes and the per-second bank.
+        self._n_base = len(lanes) + (per_second_engine is not None)
+        self._algo_bank = {
+            name: self._n_base + i for i, name in enumerate(self._algo_order)
+        }
         # Trace label of each bank index, the JAX package's names for
-        # the same banks: the one fixed-window lane, then the algorithm
-        # banks.
-        self._bank_labels = ["lane0"] + ["algo_" + n for n in self._algo_order]
+        # the same banks.
+        self._bank_labels = [f"lane{i}" for i in range(len(lanes))]
+        if per_second_engine is not None:
+            self._bank_labels.append("per_second")
+        self._bank_labels += ["algo_" + n for n in self._algo_order]
         # Shadow-rollout divergence tallies per algorithm: [agree,
         # diverge] plain ints bumped on the RPC thread (stats-only GIL
         # races accepted, like the resolver tallies).
@@ -171,7 +197,7 @@ class CudaRateLimitCache:
         self.resolver = (
             ResolutionCache(
                 prefix=cache_key_prefix,
-                n_lanes=1,
+                n_lanes=len(lanes),
                 lane_dtype=LANE_DTYPE,
                 capacity=resolution_cache_entries,
                 algorithms=frozenset(self.algorithm_banks),
@@ -202,12 +228,21 @@ class CudaRateLimitCache:
         #: Every bank's current engine by bank index (engines() order);
         #: _swap_bank replaces an entry in place.
         self._bank_engines = self.engines()
+        #: (engine, dispatcher) pairs that a restart replaced.  Each keeps
+        #: its stream, which may still be stalled, until release_retired
+        #: finds it done with; close() gives back the rest.
+        self._retired: list = []
         self._dispatchers: dict = {}
         if batch_window_us > 0:
-            for eng, name in zip(
-                self.engines(),
-                ["cuda-dispatcher"] + ["cuda-dispatcher-" + n for n in self._algo_order],
-            ):
+            names = (
+                ["cuda-dispatcher"]
+                if len(lanes) == 1
+                else [f"cuda-dispatcher-lane{i}" for i in range(len(lanes))]
+            )
+            if per_second_engine is not None:
+                names.append("cuda-dispatcher-persecond")
+            names += ["cuda-dispatcher-" + n for n in self._algo_order]
+            for eng, name in zip(self.engines(), names):
                 self._dispatchers[id(eng)] = self._make_dispatcher(eng, name)
         self._health = None
         # Dispatchers (by id) whose last health report was unhealthy,
@@ -266,23 +301,63 @@ class CudaRateLimitCache:
         self._inline_locks[id(new_engine)] = threading.Lock()
         self._dispatchers[id(new_engine)] = new_dispatcher
         self._bank_engines[bank] = new_engine
-        if bank == 0:
-            self.engine = new_engine
+        n_lanes = len(self.lanes)
+        if bank < n_lanes:
+            self.lanes[bank] = new_engine
+            if bank == 0:
+                self.engine = new_engine
+        elif self.per_second_engine is not None and bank == n_lanes:
+            self.per_second_engine = new_engine
         else:
-            self.algorithm_banks[self._algo_order[bank - 1]] = new_engine
+            self.algorithm_banks[self._algo_order[bank - self._n_base]] = new_engine
+        self._retired.append((old, old_d))
         self._dispatchers.pop(id(old), None)
         with self._health_lock:
             self._unhealthy.discard(id(old_d))
 
+    def release_retired(self) -> int:
+        """Give back the stream of each engine a restart replaced once it
+        is done with: its killed dispatcher's threads have returned and
+        its stream holds no more work.  A stream still stalled stays
+        held, so no new bank draws it (engine.claim_stream).  The fault
+        domain calls this before each restart; returns how many streams
+        went back."""
+        kept = []
+        for engine, d in self._retired:
+            if (d is None or d.exited()) and stream_idle(engine):
+                release_stream(engine)
+            else:
+                kept.append((engine, d))
+        released = len(self._retired) - len(kept)
+        self._retired = kept
+        return released
+
     @property
     def dispatcher(self) -> Optional[BatchDispatcher]:
-        """The fixed-window lane's dispatcher (None in inline mode)."""
+        """Lane 0's dispatcher (None in inline mode)."""
         return self._dispatchers.get(id(self.engine))
 
     def engines(self) -> list:
-        """Every bank: the fixed-window lane, then the algorithm banks
-        in sorted-name order (the reference's bank order)."""
-        return [self.engine] + [self.algorithm_banks[n] for n in self._algo_order]
+        """Every bank, in the reference's order: the lanes in lane
+        order, the per-second bank, then the algorithm banks in
+        sorted-name order.  Bank indices (checkpoint files, stats,
+        the fault domain) follow it and are stable across restarts."""
+        out = list(self.lanes)
+        if self.per_second_engine is not None:
+            out.append(self.per_second_engine)
+        out.extend(self.algorithm_banks[n] for n in self._algo_order)
+        return out
+
+    def run_exclusive(self, engine, fn) -> None:
+        """Run `fn()` with exclusive access to `engine`'s slot table and
+        state: on its dispatcher thread when batching is on, under its
+        inline lock otherwise."""
+        d = self._dispatchers.get(id(engine))
+        if d is not None:
+            d.run_on_thread(fn)
+        else:
+            with self._inline_locks[id(engine)]:
+                fn()
 
     # -- RateLimitCache seam --------------------------------------------
 
@@ -310,6 +385,9 @@ class CudaRateLimitCache:
             if rule is not None and not rule.unlimited:
                 rule.stats.total_hits.add(hits_addend)
 
+        n_lanes = len(self.lanes)
+        # Rows per bank: one list per lane, then the per-second bank.
+        rows_by_bank: List[List[int]] = [[] for _ in range(n_lanes + 1)]
         for i, (key, rule) in enumerate(zip(keys, limits)):
             if key.key == "":
                 continue
@@ -319,19 +397,35 @@ class CudaRateLimitCache:
                 categories[i] = _CAT_SKIP if rule.shadow_mode else _CAT_LOCAL
                 continue
             categories[i] = _CAT_ENGINE
-            rows.append(i)
+            rows_by_bank[self._lane_of(key)].append(i)
 
         statuses: List[Optional[DescriptorStatus]] = [None] * n
         items = []
-        if rows:
-            items.append(
-                (
-                    0,
-                    self.engine,
-                    self._make_item(rows, keys, limits, hits_addend, now, statuses),
+        for bank, (engine, rows) in enumerate(
+            zip(self.lanes + [self.per_second_engine], rows_by_bank)
+        ):
+            if rows:
+                items.append(
+                    (
+                        bank,
+                        engine,
+                        self._make_item(rows, keys, limits, hits_addend, now, statuses),
+                    )
                 )
-            )
         return items, statuses, categories, hits_addend, now
+
+    def _lane_of(self, key) -> int:
+        """The bank of a fixed-window cache key: the per-second bank
+        (index len(lanes)) for a SECOND-unit key when there is one, else
+        the lane of crc32 of the key's utf-8 stem, so a key keeps its
+        lane across windows and agrees with the resolution cache."""
+        n_lanes = len(self.lanes)
+        if self.per_second_engine is not None and key.per_second:
+            return n_lanes
+        if n_lanes == 1:
+            return 0
+        b = key.key.encode("utf-8")
+        return crc32(b[: key.stem_blen] if key.stem_blen else b) % n_lanes
 
     def _prepare_resolved(self, request: RateLimitRequest, config):
         """The one-dict-hit front half (limiter/resolution.py): rule
@@ -352,12 +446,19 @@ class CudaRateLimitCache:
         is_unlimited = [False] * n
         keys: list = [EMPTY_KEY] * n
         categories = [_CAT_NONE] * n
-        rows: List[int] = []
-        enc: List[bytes] = []
-        tparts: List[bytes] = []
+        n_lanes = len(self.lanes)
+        # Per-bank accumulators (row indices, key bytes, record bytes):
+        # the lanes, then the per-second bank.  One lane and no
+        # per-second bank route through bound appends with no bank
+        # indirection.
+        banks = [([], [], []) for _ in range(n_lanes)]
+        ps_bank = ([], [], []) if self.per_second_engine is not None else None
+        single_bank = n_lanes == 1 and ps_bank is None
+        rows, enc, tparts = banks[0]
         local_cache = self.local_cache
         entries_map = resolver._entries
         generation = config.generation
+        resolver_lanes = resolver.n_lanes
         resolution_hits = 0
         overrides: Optional[list] = None
         # Algorithm-bank routing state, allocated lazily: an
@@ -380,6 +481,8 @@ class CudaRateLimitCache:
                 continue
             rd = entries_map.get((domain, desc.entries))
             if rd is not None and rd.generation == generation:
+                if rd.n_lanes != resolver_lanes:
+                    rd.rehash_lanes(resolver_lanes)
                 resolution_hits += 1
             else:
                 rd = resolver.resolve(config, domain, desc)
@@ -437,9 +540,15 @@ class CudaRateLimitCache:
                 sa[1].append(ws.algo_key_bytes)
                 sa[2].append(ws.algo_template_bytes)
                 shadow_rows.append((i, rd.algorithm))
-            rows.append(i)
-            enc.append(ws.key_bytes)
-            tparts.append(ws.template_bytes)
+            if single_bank:
+                rows.append(i)
+                enc.append(ws.key_bytes)
+                tparts.append(ws.template_bytes)
+                continue
+            bank = ps_bank if ps_bank is not None and rd.per_second else banks[rd.lane]
+            bank[0].append(i)
+            bank[1].append(ws.key_bytes)
+            bank[2].append(ws.template_bytes)
         if prev_rule is not None:
             prev_rule.stats.total_hits.add(prev_hits)
         if resolution_hits:
@@ -448,23 +557,25 @@ class CudaRateLimitCache:
         if overrides is not None:
             self._route_overrides(
                 overrides, request, config, limits, is_unlimited, keys,
-                categories, rows, enc, tparts, hits_addend, hits_clamped,
-                now,
+                categories, banks, ps_bank, hits_addend, hits_clamped, now,
             )
 
         statuses: List[Optional[DescriptorStatus]] = [None] * n
         items = []
-        if rows:
-            items.append(
-                (
-                    0,
-                    self.engine,
-                    self._make_packed_item(
-                        rows, keys, limits, hits_addend, now, statuses, enc,
-                        tparts, raw_over,
-                    ),
+        if ps_bank is not None:
+            banks.append(ps_bank)
+        for bank, (b_rows, b_enc, b_tparts) in enumerate(banks):
+            if b_rows:
+                items.append(
+                    (
+                        bank,
+                        self._bank_engines[bank],
+                        self._make_packed_item(
+                            b_rows, keys, limits, hits_addend, now, statuses,
+                            b_enc, b_tparts, raw_over,
+                        ),
+                    )
                 )
-            )
         if algo_accs is not None:
             # Enforcing banks: statuses and stats assemble exactly like
             # the lane's, from the generic engine's decisions.
@@ -508,16 +619,16 @@ class CudaRateLimitCache:
         is_unlimited,
         keys,
         categories,
-        rows,
-        enc,
-        tparts,
+        banks,
+        ps_bank,
         hits_addend: int,
         hits_clamped: int,
         now: int,
     ) -> None:
         """Uncached leg for request-supplied override descriptors: the
-        get_limit + key-generator pipeline, appended to the same pack
-        accumulators as the fast path."""
+        get_limit + key-generator pipeline, routed into the same per-bank
+        accumulators as the fast path (the same stem hash, so an
+        override and its configured twin share a lane)."""
         local_cache = self.local_cache
         scratch = np.empty(1, dtype=LANE_DTYPE)
         expiry_by_unit: dict = {}
@@ -538,6 +649,8 @@ class CudaRateLimitCache:
                 continue
             categories[i] = _CAT_ENGINE
             b = key.key.encode("utf-8")
+            lane = self._lane_of(key)
+            bank = ps_bank if lane == len(self.lanes) else banks[lane]
             unit = rule.limit.unit
             e = expiry_by_unit.get(unit)
             if e is None:
@@ -553,9 +666,9 @@ class CudaRateLimitCache:
                 0,  # divider: overrides always enforce fixed-window
                 0,  # algo: fixed_window
             )
-            rows.append(i)
-            enc.append(b)
-            tparts.append(scratch.tobytes())
+            bank[0].append(i)
+            bank[1].append(b)
+            bank[2].append(scratch.tobytes())
 
     def do_limit(
         self,
@@ -895,7 +1008,9 @@ class CudaRateLimitCache:
                 d.flush()
 
     def close(self) -> None:
-        """Stop the fault domain's supervisor, then the dispatchers."""
+        """Stop the fault domain's supervisor, then the dispatchers, and
+        give every engine's stream back (engine.release_stream), those
+        that restarts replaced too."""
         fd, self.fault_domain = self.fault_domain, None
         if fd is not None:
             fd.stop()
@@ -904,6 +1019,8 @@ class CudaRateLimitCache:
             # A dead dispatcher may have a thread held on a stalled
             # stream that cannot be joined; don't burn the full timeout.
             d.stop(timeout=0.5 if d.dead is not None else 10.0)
+        for engine in self._bank_engines + [e for e, _ in self._retired]:
+            release_stream(engine)
 
     # Batch-size histogram ladder: powers of two up to the default
     # batch limit (these histograms count lanes/items, not ms).

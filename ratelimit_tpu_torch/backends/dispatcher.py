@@ -543,6 +543,10 @@ class BatchDispatcher:
             self._buf.append(_STOP)
             self._buf_cv.notify()
 
+    def exited(self) -> bool:
+        """Whether both threads have returned (after kill or stop)."""
+        return not (self._thread.is_alive() or self._completer.is_alive())
+
     def stop(self, timeout: float = 10.0) -> None:
         with self._buf_cv:
             # No dead gate: stop must always reach the collector.

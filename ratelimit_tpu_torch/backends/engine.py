@@ -31,14 +31,19 @@ Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
 stream order stands in for the reference's donated-buffer chain.  The
 stream is passed explicitly wherever it is used: ``step_complete`` runs
-on another thread, and a stream context is thread-local.
+on another thread, and a stream context is thread-local.  No two live
+engines share a stream (``claim_stream``): a stall on one bank's stream
+must hold up no other bank.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import math
+import threading
+import weakref
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
@@ -61,6 +66,84 @@ DEFAULT_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 # Host numpy views of the readback storage types (u16 lives in int16).
 _HOST_VIEW = {torch.int32: np.uint32, torch.int16: np.uint16, torch.uint8: np.uint8}
+
+#: torch hands out the CUDA streams of one priority from a pool of this
+#: many per device, in turn (kStreamsPerPool in c10/cuda/CUDAStream.cpp).
+STREAM_POOL_SIZE = 32
+
+#: cuda_stream handle -> the engine that holds that stream, weakly: a
+#: stream is held until its engine is released or collected.
+_HELD_STREAMS: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+#: Streams made outside torch's pool (_create_stream), per device index.
+#: None is ever destroyed: a released one serves a later claim.
+_OWN_STREAMS: dict = {}
+_HELD_LOCK = threading.Lock()
+
+
+def _draw_stream(device: torch.device):
+    """The next stream of torch's pool on `device`, or None off CUDA."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.Stream(device)
+
+
+def _create_stream(device: torch.device):
+    """A new stream on `device` outside torch's pool: cudaStreamCreate
+    through torch's own cudart binding, wrapped as an ExternalStream."""
+    handle = ctypes.c_void_p(0)
+    with torch.cuda.device(device):
+        err = torch.cuda.cudart().cudaStreamCreate(ctypes.addressof(handle))
+    if int(err) != 0 or not handle.value:
+        raise RuntimeError(f"cudaStreamCreate failed on {device} (error {int(err)})")
+    return torch.cuda.ExternalStream(handle.value, device=device)
+
+
+def claim_stream(device: torch.device, holder):
+    """A stream of `device` that no live engine holds, now held by
+    `holder` (None off CUDA).  torch's pool hands its streams out in
+    turn, so once it wraps a plain draw gives a new engine -- a
+    restarted bank among them -- the stream of a live one, and a stall
+    on either would stall both.  Draws until a free stream comes up;
+    once every stream of the pool is held, takes a released stream of
+    its own or makes a new one (_create_stream)."""
+    with _HELD_LOCK:
+        for _ in range(STREAM_POOL_SIZE):
+            stream = _draw_stream(device)
+            if stream is None:
+                return None
+            if stream.cuda_stream not in _HELD_STREAMS:
+                _HELD_STREAMS[stream.cuda_stream] = holder
+                return stream
+        own = _OWN_STREAMS.setdefault(device.index, [])
+        stream = next((s for s in own if s.cuda_stream not in _HELD_STREAMS), None)
+        if stream is None:
+            stream = _create_stream(device)
+            own.append(stream)
+        _HELD_STREAMS[stream.cuda_stream] = holder
+        return stream
+
+
+def release_stream(holder) -> None:
+    """Give `holder`'s stream back: a later engine may draw it."""
+    stream = getattr(holder, "_stream", None)
+    if stream is None:
+        return
+    with _HELD_LOCK:
+        if _HELD_STREAMS.get(stream.cuda_stream) is holder:
+            del _HELD_STREAMS[stream.cuda_stream]
+
+
+def stream_idle(holder) -> bool:
+    """Whether `holder`'s stream has finished all the work queued on it
+    (True off CUDA).  A stream whose query fails -- a lost context --
+    counts as busy: it stays held."""
+    stream = getattr(holder, "_stream", None)
+    if stream is None:
+        return True
+    try:
+        return bool(stream.query())
+    except Exception:
+        return False
 
 
 @dataclass
@@ -428,9 +511,7 @@ class CounterEngine:
         self.slot_table = self._table_cls(self.model.num_slots)
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
-        self._stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        )
+        self._stream = claim_stream(self.device, self)
         self._free_staging: List[_Staging] = []
         with self._on_stream():
             self._counts = self.model.init_state()
@@ -447,7 +528,7 @@ class CounterEngine:
         engine's own kernels: nothing of an engine waits on the whole
         device or on another engine's stream, so a stream stalled by one
         bank cannot hold up the restart of another."""
-        if self._stream is None:
+        if self.device.type != "cuda":
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 

@@ -56,6 +56,7 @@ yet.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 from typing import Callable, List, Optional
@@ -161,26 +162,18 @@ def default_engine_factory(bank: int, old_engine):
     algorithm model (fresh state), same slot budget and buckets, on the
     old engine's device -- as the reference's factory, a bank-sharded
     engine comes back as one table of the same slot count.  The new
-    engine must not share the old one's stream, which may be stalled:
-    torch hands streams out of a pool in turn, so an engine that drew
-    the old stream is built once more, on the next one."""
+    engine draws a stream that no live engine holds
+    (engine.claim_stream): not the old one's, which may be stalled, and
+    not another bank's."""
     from ..models.registry import get_algorithm
     from .engine import CounterEngine
 
     spec = get_algorithm(getattr(old_engine, "algorithm", "fixed_window"))
     device = old_engine.device
-
-    def build():
-        model = spec.make_model(
-            old_engine.model.num_slots, old_engine.model.near_ratio, device=device
-        )
-        return CounterEngine(model=model, buckets=tuple(old_engine.buckets), device=device)
-
-    engine = build()
-    old_stream = getattr(old_engine, "_stream", None)
-    if old_stream is not None and engine._stream.cuda_stream == old_stream.cuda_stream:
-        engine = build()
-    return engine
+    model = spec.make_model(
+        old_engine.model.num_slots, old_engine.model.near_ratio, device=device
+    )
+    return CounterEngine(model=model, buckets=tuple(old_engine.buckets), device=device)
 
 
 class BankRecord:
@@ -196,6 +189,7 @@ class BankRecord:
         "lock",
         "fallback",
         "snapshot",
+        "snapshot_seq",
         "next_snapshot",
         "fault_kind",
         "fault_error",
@@ -215,6 +209,9 @@ class BankRecord:
         self.lock = threading.Lock()
         self.fallback: Optional[HostEngine] = None
         self.snapshot: Optional[tuple] = None  # (state dict, entries)
+        # Order of the copy behind `snapshot` on the dispatcher thread:
+        # a snapshot copied earlier never replaces one copied later.
+        self.snapshot_seq = 0
         self.next_snapshot = 0.0
         self.fault_kind: Optional[str] = None
         self.fault_error: Optional[str] = None
@@ -287,6 +284,7 @@ class DeviceFaultDomain:
         self.stat_restarts = 0
         self.stat_probe_failures = 0
         self.stat_snapshots = 0
+        self._snapshot_seq = itertools.count(1)
 
     # -- hot-path surface (cuda_cache._execute) --------------------------
 
@@ -394,6 +392,22 @@ class DeviceFaultDomain:
     def quarantined_count(self) -> int:
         return sum(1 for r in self._records if r.state != "closed")
 
+    def mirror_snapshot(self, bank: int):
+        """A consistent (state, entries) copy of a quarantined bank's
+        host mirror, or None when the failure mode keeps no mirror: the
+        checkpoint files' source while the bank is down
+        (checkpoint.CheckpointManager.checkpoint).  As checkpoint.
+        copy_engine, the mirror lock, which the bank's answers wait on,
+        is held only for the copy; the caller decodes it after."""
+        rec = self._records[bank]
+        with rec.lock:
+            if rec.fallback is None:
+                return None
+            return (
+                rec.fallback.export_state(),
+                rec.fallback.slot_table.export_entries(),
+            )
+
     def _report_health(self) -> None:
         self.cache._refresh_health()
 
@@ -457,18 +471,20 @@ class DeviceFaultDomain:
         return taken
 
     def _snapshot_bank(self, bank: int, rec: BankRecord, d, now: float) -> bool:
-        """Periodic snapshot (a state copy on the dispatcher thread, the
-        engine's owner): the seed of the host mirror, bounding restart
+        """Periodic snapshot: a copy of the state and the slot table on
+        the dispatcher thread, the engine's owner, and the keys decoded
+        here after it -- the seed of the host mirror, bounding restart
         loss to one interval.  A timeout here is NOT a fault (a deep but
         moving queue can delay the token); the stuck-stamp check catches
         real stalls.  Returns whether this call took a snapshot."""
-        from .checkpoint import snapshot_engine
+        from .checkpoint import copy_engine
 
         engine = self._engines[bank]
         grabbed = {}
 
         def grab():
-            grabbed["snap"] = snapshot_engine(engine)
+            grabbed["copy"] = copy_engine(engine)
+            grabbed["seq"] = next(self._snapshot_seq)
 
         try:
             d.run_on_thread(grab, timeout=max(1.0, 4.0 * self.kernel_deadline_s))
@@ -483,10 +499,14 @@ class DeviceFaultDomain:
         except Exception as e:
             self.record_fault(bank, classify_fault(e), e)
             return False
-        snap = grabbed.get("snap")
-        if snap is None:
+        if "copy" not in grabbed:
             return False
-        rec.snapshot = snap
+        state, copied = grabbed["copy"]
+        snap = (state, copied.entries())
+        with rec.lock:
+            if grabbed["seq"] > rec.snapshot_seq:
+                rec.snapshot = snap
+                rec.snapshot_seq = grabbed["seq"]
         rec.next_snapshot = now + self.snapshot_interval_s
         self.stat_snapshots += 1
         return True
@@ -495,6 +515,9 @@ class DeviceFaultDomain:
         """One supervised warm-restart attempt: fresh engine + probe
         (half-open) -> import the host mirror's counters -> swap."""
         engine = self._engines[bank]
+        # Streams of engines that earlier restarts replaced go back once
+        # those are done with; a stalled one stays held.
+        self.cache.release_retired()
         try:
             new_engine = self.engine_factory(bank, engine)
             # Run the serving shapes OFF the serving path, on the new

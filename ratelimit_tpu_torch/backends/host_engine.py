@@ -221,10 +221,10 @@ class HostEngine:
             self.state[i] = arr
 
     def import_snapshot(self, state: dict, entries) -> int:
-        """Seed the mirror from a bank's last pre-fault snapshot
-        (checkpoint.snapshot_engine's shape): state rows + live (key,
-        slot, expiry) entries.  The quarantined bank then counts on from
-        where the device was at the snapshot."""
+        """Seed the mirror from a bank's last pre-fault snapshot: the
+        state rows of checkpoint.copy_engine and the live (key, slot,
+        expiry) entries of its table copy.  The quarantined bank then
+        counts on from where the device was at the snapshot."""
         self.import_state({k: np.asarray(v) for k, v in state.items()})
         self.slot_table = SlotTable.from_entries(
             self.model.num_slots,

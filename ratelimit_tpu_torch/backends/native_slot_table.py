@@ -22,6 +22,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .slot_table import EntryArrays
+
 logger = logging.getLogger("ratelimit.native")
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -511,27 +513,22 @@ class NativeSlotTable:
     # -- checkpoint surface ---------------------------------------------
 
     def entries(self) -> List[Tuple[str, int, int]]:
+        return self.export_entries().entries()
+
+    def export_entries(self) -> EntryArrays:
+        """The live entries as arrays, in one native pass; decoding the
+        keys (``.entries()``) can run later, off the owner thread."""
         total_bytes = ctypes.c_int64(0)
         n = int(self._lib.sk_export_size(self._handle, ctypes.byref(total_bytes)))
-        if n == 0:
-            return []
-        blob = np.empty(total_bytes.value, dtype=np.uint8)
+        blob = np.empty(total_bytes.value if n else 0, dtype=np.uint8)
         lens = np.empty(n, dtype=np.int64)
         slots = np.empty(n, dtype=np.int64)
         expiries = np.empty(n, dtype=np.int64)
-        self._lib.sk_export(
-            self._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(expiries)
-        )
-        out = []
-        raw = blob.tobytes()
-        off = 0
-        for i in range(n):
-            ln = int(lens[i])
-            out.append(
-                (raw[off : off + ln].decode("utf-8"), int(slots[i]), int(expiries[i]))
+        if n:
+            self._lib.sk_export(
+                self._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(expiries)
             )
-            off += ln
-        return out
+        return EntryArrays(blob, lens, slots, expiries)
 
     @classmethod
     def from_entries(cls, num_slots: int, entries) -> "NativeSlotTable":

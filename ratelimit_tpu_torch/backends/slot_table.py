@@ -25,7 +25,58 @@ run_on_thread instead of locking), so its state carries no locks.
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
+
+
+class EntryArrays(NamedTuple):
+    """A table's live (key, slot, expiry) entries as the arrays of a
+    checkpoint file: the utf-8 keys back to back, their lengths, their
+    slots and expiries."""
+
+    key_blob: np.ndarray  # uint8
+    key_lens: np.ndarray  # int64
+    slots: np.ndarray  # int64
+    expiries: np.ndarray  # int64
+
+    @classmethod
+    def from_entries(cls, entries) -> "EntryArrays":
+        encoded = [e[0].encode("utf-8") for e in entries]
+        return cls(
+            np.frombuffer(b"".join(encoded), dtype=np.uint8),
+            np.array([len(b) for b in encoded], dtype=np.int64),
+            np.array([e[1] for e in entries], dtype=np.int64),
+            np.array([e[2] for e in entries], dtype=np.int64),
+        )
+
+    def arrays(self) -> "EntryArrays":
+        return self
+
+    def entries(self) -> List[Tuple[str, int, int]]:
+        raw = self.key_blob.tobytes()
+        out = []
+        off = 0
+        for n, slot, expiry in zip(
+            self.key_lens.tolist(), self.slots.tolist(), self.expiries.tolist()
+        ):
+            out.append((raw[off : off + n].decode("utf-8"), slot, expiry))
+            off += n
+        return out
+
+
+class _MapCopy:
+    """A Python table's entries, copied in one C-level pass under the
+    table owner's exclusivity and turned into triples or arrays after."""
+
+    def __init__(self, items):
+        self._items = items
+
+    def entries(self) -> List[Tuple[str, int, int]]:
+        return [(k, s, e) for k, (s, e) in self._items]
+
+    def arrays(self) -> EntryArrays:
+        return EntryArrays.from_entries(self.entries())
 
 
 class SlotTable:
@@ -114,6 +165,11 @@ class SlotTable:
     def entries(self) -> List[Tuple[str, int, int]]:
         """Live (key, slot, expiry) triples (checkpoint export)."""
         return [(k, s, e) for k, (s, e) in self._map.items()]
+
+    def export_entries(self) -> _MapCopy:
+        """The live entries, copied at once; ``.entries()`` and
+        ``.arrays()`` of the copy run later, off the owner thread."""
+        return _MapCopy(list(self._map.items()))
 
     @classmethod
     def from_entries(

@@ -1,16 +1,18 @@
 """Process bootstrap: Settings -> backend -> service -> listeners.
 
-Port of ratelimit_tpu/runner.py for one fixed-window lane plus the
-algorithm banks: stats, the local over-limit cache, the CUDA counter
-backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for the bank-sharded
-fixed-window table) with one engine per algorithm named in
-``TPU_ALGORITHM_BANKS``, the service with its runtime config loader,
-the request tracer (TRACE_*), the three listeners -- HTTP on
-HOST:PORT (/json, /healthcheck), gRPC on GRPC_HOST:GRPC_PORT, debug
-on DEBUG_HOST:DEBUG_PORT (/stats, /metrics, /rlconfig, /debug/*) --
-and the statsd exporter (STATSD_SRV discovery included), with the
-device fault domain armed by KERNEL_DEADLINE_S (0.25 s by default).
-Checkpoint files and the observability planes past tracing are not
+Port of ratelimit_tpu/runner.py: stats, the local over-limit cache, the
+CUDA counter backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for
+bank-sharded fixed-window tables) with TPU_NUM_LANES fixed-window lanes
+sharing TPU_NUM_SLOTS, the per-second bank (TPU_PERSECOND) and one
+engine per algorithm named in ``TPU_ALGORITHM_BANKS``, checkpoint files
+of every bank (TPU_CHECKPOINT_DIR: restored at boot, written every
+TPU_CHECKPOINT_INTERVAL_S and at the end of the drain), the service with
+its runtime config loader, the request tracer (TRACE_*), the three
+listeners -- HTTP on HOST:PORT (/json, /healthcheck), gRPC on
+GRPC_HOST:GRPC_PORT, debug on DEBUG_HOST:DEBUG_PORT (/stats, /metrics,
+/rlconfig, /debug/*) -- and the statsd exporter (STATSD_SRV discovery
+included), with the device fault domain armed by KERNEL_DEADLINE_S
+(0.25 s by default).  The observability planes past tracing are not
 ported yet; settings that select an unported feature are refused at
 boot (settings.unported_settings).
 
@@ -44,12 +46,23 @@ _LOG_LEVELS = {
 }
 
 
-def _make_engine(s: Settings, device="cuda", mesh=None):
-    """One construction site for the fixed-window engine of
-    TPU_NUM_SLOTS slots: one table on `device`, or, under
+def lane_slot_split(total_slots: int, n_lanes: int) -> list:
+    """Per-lane slot counts summing to `total_slots`: base = floor
+    division, with the remainder distributed one slot each to the first
+    lanes.  Every lane gets at least 1 slot (an empty engine table cannot
+    serve), so for the degenerate total < n_lanes the sum exceeds the
+    total rather than wedging a lane."""
+    base, rem = divmod(max(0, int(total_slots)), n_lanes)
+    return [max(1, base + (1 if i < rem else 0)) for i in range(n_lanes)]
+
+
+def _make_engine(s: Settings, device="cuda", mesh=None, num_slots=None):
+    """One construction site for a fixed-window engine of `num_slots`
+    slots (TPU_NUM_SLOTS by default): one table on `device`, or, under
     ``BACKEND_TYPE=cuda-sharded``, the bank-sharded table over `mesh`
     (default: one bank per card of `device`, parallel.make_mesh)."""
-    num_slots = s.tpu_num_slots
+    if num_slots is None:
+        num_slots = s.tpu_num_slots
     if s.backend_type.lower() == "cuda-sharded":
         from .models.fixed_window import resolve_device
         from .parallel import ShardedCounterEngine, make_mesh
@@ -105,9 +118,13 @@ def make_algorithm_banks(s: Settings, device="cuda"):
 def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=None):
     """BackendType switch (reference runner.go:50-74).  `device` is
     where the counter tables live: the GPU unless the caller asks for
-    the CPU (the tests do).  `mesh` places the banks of
-    ``BACKEND_TYPE=cuda-sharded``; the algorithm banks stay single-table
-    engines on `device`, as under the JAX package's ``tpu-sharded``."""
+    the CPU (the tests do).  TPU_NUM_SLOTS is the total budget of the
+    TPU_NUM_LANES lanes (lane_slot_split); the per-second bank has
+    TPU_PERSECOND_NUM_SLOTS of its own.  `mesh` places the banks of
+    ``BACKEND_TYPE=cuda-sharded``, where every lane and the per-second
+    bank are bank-sharded tables over it; the algorithm banks stay
+    single-table engines on `device`, as under the JAX package's
+    ``tpu-sharded``."""
     refused = unported_settings(s)
     if refused:
         raise SettingsError(
@@ -116,9 +133,19 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=No
         )
     from .backends.cuda_cache import CudaRateLimitCache
 
+    n_lanes = max(1, int(s.tpu_num_lanes))
+    lanes = [
+        _make_engine(s, device, mesh, per_lane)
+        for per_lane in lane_slot_split(s.tpu_num_slots, n_lanes)
+    ]
     return CudaRateLimitCache(
-        _make_engine(s, device, mesh),
+        lanes if n_lanes > 1 else lanes[0],
         time_source=time_source,
+        per_second_engine=(
+            _make_engine(s, device, mesh, s.tpu_per_second_num_slots)
+            if s.tpu_per_second
+            else None
+        ),
         local_cache=local_cache,
         expiration_jitter_max_seconds=s.expiration_jitter_max_seconds,
         cache_key_prefix=s.cache_key_prefix,
@@ -169,6 +196,7 @@ class Runner:
         self.debug_server = None
         self.statsd = None
         self.health = None
+        self.checkpointer = None
         self._trace_jsonl = None
 
     def start(self) -> None:
@@ -222,6 +250,15 @@ class Runner:
         if s.tpu_warmup:
             logger.warning("warming up kernel shapes (TPU_WARMUP=true)...")
             self.cache.warmup()
+
+        if s.tpu_checkpoint_dir:
+            from .backends.checkpoint import CheckpointManager
+
+            self.checkpointer = CheckpointManager(
+                self.cache, s.tpu_checkpoint_dir, s.tpu_checkpoint_interval_s
+            )
+            self.checkpointer.restore()
+            self.checkpointer.start()
 
         self.runtime = RuntimeLoader(
             s.runtime_path,
@@ -336,8 +373,9 @@ class Runner:
     def stop(self) -> None:
         """Graceful drain + stop, in the reference's order: health
         NOT_SERVING, gRPC grace for in-flight RPCs, dispatcher drain,
-        then the HTTP and debug listeners, the runtime loader, statsd,
-        the backend and the trace exporter."""
+        the final checkpoint of the drained counters (a restart then
+        forgives no window), then the HTTP and debug listeners, the
+        runtime loader, statsd, the backend and the trace exporter."""
         if self.health is not None:
             self.health.fail()
         if self.grpc_server is not None:
@@ -347,6 +385,9 @@ class Runner:
                 self.cache.flush()
             except Exception:
                 logger.exception("dispatcher drain failed during shutdown")
+        if self.checkpointer is not None:
+            self.checkpointer.stop(final_checkpoint=True)
+            self.checkpointer = None
         for srv in (self.http_server, self.debug_server):
             if srv is not None:
                 srv.stop()

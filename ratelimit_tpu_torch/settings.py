@@ -227,9 +227,10 @@ class Settings:
     device_restart_backoff_s: float = 2.0
     # Watchdog cadence; 0 = auto (half the kernel deadline, capped 1s).
     device_watchdog_interval_s: float = 0.0
-    # Counter-state checkpoint files (empty = disabled; not ported yet,
-    # the runner refuses a value).  TPU_CHECKPOINT_INTERVAL_S is also
-    # the fault domain's snapshot cadence.
+    # Counter-state checkpoint files (empty = disabled): restored at
+    # boot, written every TPU_CHECKPOINT_INTERVAL_S and at the end of the
+    # drain.  TPU_CHECKPOINT_INTERVAL_S is also the fault domain's
+    # snapshot cadence.
     tpu_checkpoint_dir: str = ""
     tpu_checkpoint_interval_s: float = 30.0
 
@@ -531,15 +532,6 @@ def unported_settings(s: Settings) -> List[str]:
         out.append(
             f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' and 'cuda-sharded' "
             "are ported (write-behind and memory backends are not)"
-        )
-    if s.tpu_num_lanes > 1:
-        out.append(f"TPU_NUM_LANES={s.tpu_num_lanes}: only one lane is ported")
-    if s.tpu_per_second:
-        out.append("TPU_PERSECOND=true: the per-second bank is not ported")
-    if s.tpu_checkpoint_dir:
-        out.append(
-            "TPU_CHECKPOINT_DIR: checkpoint files (CheckpointManager in "
-            "backends/checkpoint.py) are not ported"
         )
     if (
         s.overload_shed_enabled

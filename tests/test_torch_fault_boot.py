@@ -5,7 +5,7 @@ With every fault setting at its default (KERNEL_DEADLINE_S unset, so
 0.25 s) the runner starts, arms the domain over all three banks and
 serves over gRPC and over its HTTP listener (/json, /healthcheck on
 both the API and the debug listener); the fault settings are read from the environment;
-TPU_CHECKPOINT_DIR is still refused.  The ``cuda-sharded`` runner arms
+a TPU_CHECKPOINT_DIR with no positive interval is refused.  The ``cuda-sharded`` runner arms
 the domain too, and a restart of its bank rebuilds what the JAX
 package's factory rebuilds from a ``tpu-sharded`` bank.
 """
@@ -24,7 +24,7 @@ from ratelimit_tpu.parallel import make_mesh as jax_make_mesh
 from ratelimit_tpu_torch.backends.fault_domain import default_engine_factory
 from ratelimit_tpu_torch.parallel import ShardedCounterEngine, make_mesh
 from ratelimit_tpu_torch.runner import Runner
-from ratelimit_tpu_torch.settings import SettingsError, new_settings
+from ratelimit_tpu_torch.settings import new_settings
 
 from ratelimit_tpu_torch.server import pb  # noqa: F401  (sys.path for generated)
 from envoy.service.ratelimit.v3 import rls_pb2  # noqa: E402
@@ -199,9 +199,12 @@ def test_fault_settings_are_read_from_the_environment(env):
 
 
 def test_checkpoint_dir_is_still_refused(env, tmp_path):
+    """Checkpoint files are ported: a TPU_CHECKPOINT_DIR is refused only
+    with no positive TPU_CHECKPOINT_INTERVAL_S, as by the JAX runner."""
     env.setenv("TPU_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+    env.setenv("TPU_CHECKPOINT_INTERVAL_S", "0")
     runner = Runner(new_settings(), device="cpu")
-    with pytest.raises(SettingsError, match="TPU_CHECKPOINT_DIR"):
+    with pytest.raises(ValueError, match="TPU_CHECKPOINT_DIR"):
         runner.start()
     runner.stop()
 

@@ -969,10 +969,10 @@ def test_snapshot_now_counts_only_its_own_snapshots(monkeypatch):
     )
     cache = make_cache(PORT, algorithm_banks={"gcra": gcra})
     fd = cache.fault_domain
-    real = checkpoint.snapshot_engine
+    real = checkpoint.copy_engine
     fixed_window = cache._bank_engines[0]
 
-    def snapshot_engine(engine):
+    def copy_engine(engine):
         if engine is fixed_window:
             # The supervisor's snapshot of the GCRA bank lands while this
             # one is on the fixed-window bank's dispatcher thread.
@@ -984,7 +984,7 @@ def test_snapshot_now_counts_only_its_own_snapshots(monkeypatch):
             other.join()
         return real(engine)
 
-    monkeypatch.setattr(checkpoint, "snapshot_engine", snapshot_engine)
+    monkeypatch.setattr(checkpoint, "copy_engine", copy_engine)
     try:
         assert fd.snapshot_now(0) == 1
         assert fd.stat_snapshots == 2

@@ -250,10 +250,7 @@ def test_default_algorithm_banks_boot_and_serve(tmp_path):
     [
         (dict(overload_shed_enabled=True), "OVERLOAD"),
         (dict(cluster_handoff_enabled=True), "CLUSTER_HANDOFF_ENABLED"),
-        (dict(tpu_num_lanes=2), "TPU_NUM_LANES"),
-        (dict(tpu_per_second=True), "TPU_PERSECOND"),
         (dict(backend_type="tpu-write-behind"), "BACKEND_TYPE"),
-        (dict(tpu_checkpoint_dir="checkpoints"), "TPU_CHECKPOINT_DIR"),
     ],
 )
 def test_unported_settings_refused_at_boot(tmp_path, override, needle):
