@@ -110,14 +110,29 @@ Phases, one line each; any failure exits non-zero:
    ms during the snapshot against outside it, no fault); half of a limit
    admitted, stop() (the final checkpoint), a second runner on the same
    files admitting exactly the other half, and a runner of two lanes
-   refusing the lane files by role.
+   refusing the lane files by role;
+11. write-behind and memory: the runner with BACKEND_TYPE=cuda-write-behind
+   (one bank at the default 2^20 slots, TPU_WARMUP and TPU_CHECKPOINT_DIR
+   set) -- 8 gRPC clients over 64 keys each of a 2/minute rule, every key
+   hit 3 times: each key admits exactly 2, its counter on the card is 3
+   after flush(), and a MemoryRateLimitCache fed each client's requests
+   agrees on every status; a kernel spinning about 1 s on the bank's
+   stream while one client keeps hitting a key: every RPC back within 50
+   ms, exactly the limit admitted, the dispatcher's intake above 0, and
+   after flush() the card holds every hit; 2^18 keys filled through
+   do_limit in requests of 512 descriptors (the completer's _reconcile
+   timed per 4096 lanes), stop() and a boot on the files (on_restored
+   timed, the view whole, keys at their limit OVER_LIMIT on their first
+   hit); cuda-sharded-write-behind over 8 banks exact, K6 launched; and
+   BACKEND_TYPE=memory answering gRPC and /json exactly with no kernel
+   launched.
 
 Phases 6, 7, 9 and 10 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
 one stall); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-10)
+phase (4-11)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -1418,6 +1433,18 @@ descriptors:
     rate_limit:
       unit: second
       requests_per_unit: 1000000
+  - key: wb
+    rate_limit:
+      unit: minute
+      requests_per_unit: 2
+  - key: wbstall
+    rate_limit:
+      unit: hour
+      requests_per_unit: 150
+  - key: wbfill
+    rate_limit:
+      unit: hour
+      requests_per_unit: 1
 """
 
 #: Settings that would move the fault domain off its defaults; every
@@ -1452,8 +1479,8 @@ def serving(backend: str, env=None, **runner_kwargs):
         os.makedirs(cfg)
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
-        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", *FAULT_ENV,
-                     *TOPOLOGY_ENV):
+        for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", "TPU_WARMUP",
+                     *FAULT_ENV, *TOPOLOGY_ENV):
             os.environ.pop(name, None)
         os.environ.update(env or {})
         # The three listeners on free local ports: the HTTP and debug
@@ -2373,8 +2400,9 @@ def bank_keys(runner, bank) -> list:
 
 def grpc_clients(runner, n, work):
     """`n` client threads with a gRPC channel each, running
-    work(i, call) where call(key, value) returns (code, t0, t1); returns
-    the works' results by client.  Any error fails the phase."""
+    work(i, call) where call(key, value) returns (code, t0, t1), or
+    (the response, t0, t1) with response=True; returns the works'
+    results by client.  Any error fails the phase."""
     import grpc
 
     from ratelimit_tpu_torch.server import pb  # noqa: F401
@@ -2394,13 +2422,13 @@ def grpc_clients(runner, n, work):
                     response_deserializer=rls_pb2.RateLimitResponse.FromString,
                 )
 
-                def call(key, value):
+                def call(key, value, response=False):
                     req = rls_pb2.RateLimitRequest(domain="rl")
                     e = req.descriptors.add().entries.add()
                     e.key, e.value = key, value
                     t0 = time.perf_counter()
-                    code = stub(req, timeout=60).overall_code
-                    return code, t0, time.perf_counter()
+                    resp = stub(req, timeout=60)
+                    return resp if response else resp.overall_code, t0, time.perf_counter()
 
                 results[i] = work(i, call)
         except Exception as exc:  # noqa: BLE001 -- reported below
@@ -2412,7 +2440,7 @@ def grpc_clients(runner, n, work):
     for t in threads:
         t.join(timeout=300)
     if errors or any(t.is_alive() for t in threads):
-        fail(f"topology clients failed: {errors[:3]}")
+        fail(f"gRPC clients failed: {errors[:3]}")
     return results
 
 
@@ -2749,6 +2777,377 @@ def topology_lines(t) -> list:
     return lines
 
 
+# -- phase 11: the write-behind and memory backends ------------------------
+
+WB_CLIENTS = 8
+WB_KEYS = 64  # per client
+WB_LIMIT = 2  # the wb rule's requests per minute
+WB_SHARDED_CLIENTS = 4
+WB_SHARDED_KEYS = 16  # per client
+#: The stall on the write-behind bank's stream, and the bound on every
+#: RPC during it: the RPC decides from the host view and never waits.
+WB_STALL_MS = 1000
+WB_RPC_BOUND_MS = 50.0
+WB_STALL_LIMIT = 150  # the wbstall rule's requests per hour
+WB_AFTER_STALL = 20
+#: The full view: a quarter of the default 2^20-slot table, filled in
+#: requests of WB_FILL_WIDTH descriptors of a 1/hour rule.
+WB_FILL_KEYS = 1 << 18
+WB_FILL_WIDTH = 512
+WB_RECONCILE_LANES = 4096
+WB_RECONCILE_REPS = 10
+WB_PROBE_KEYS = 32
+
+
+def card_counts(cache, prefix) -> dict:
+    """After cache.flush(): {key: count on the card} of every live key
+    starting with `prefix`, read on the bank's dispatcher thread."""
+    engine = cache.engine
+    out = {}
+
+    def read():
+        counts = engine.export_counts()
+        out.update(
+            (k, int(counts[slot]))
+            for k, slot, _exp in engine.slot_table.entries()
+            if k.startswith(prefix)
+        )
+
+    cache.run_exclusive(engine, read)
+    return out
+
+
+def wb_counting(runner, R, clients, keys, what) -> dict:
+    """`clients` gRPC clients, each over `keys` keys of its own on the
+    WB_LIMIT/minute rule, every key hit WB_LIMIT + 1 times: each key
+    admits exactly its limit; after flush() its counter on the card
+    equals the hits sent; a MemoryRateLimitCache fed each client's
+    requests in the client's order agrees on every status (code and
+    remaining).  A run that straddled a minute boundary is run again on
+    fresh keys."""
+    from ratelimit_tpu_torch.api import Descriptor, RateLimitRequest
+    from ratelimit_tpu_torch.backends.memory_cache import MemoryRateLimitCache
+    from ratelimit_tpu_torch.config.loader import ConfigFile, load_config
+    from ratelimit_tpu_torch.stats.manager import Manager
+    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+    for attempt in range(2):
+        tag = f"{what}-{time.time_ns()}-"
+        values = [[f"{tag}c{i}k{j}" for j in range(keys)] for i in range(clients)]
+
+        def work(i, call):
+            out = []
+            for _ in range(WB_LIMIT + 1):
+                for v in values[i]:
+                    resp, _t0, _t1 = call("wb", v, response=True)
+                    out.append((v, resp.overall_code, resp.statuses[0].limit_remaining))
+            return out
+
+        t0 = time.time()
+        started = time.perf_counter()
+        results = grpc_clients(runner, clients, work)
+        seconds = time.perf_counter() - started
+        if int(t0 // 60) == int(time.time() // 60):
+            break
+    else:
+        fail(f"{what}: two runs straddled a minute boundary")
+    admitted = {}
+    for r in results:
+        for v, code, _rem in r:
+            admitted[v] = admitted.get(v, 0) + (code == R.OK)
+    if set(admitted.values()) != {WB_LIMIT} or len(admitted) != clients * keys:
+        fail(f"{what}: admitted {sorted(set(admitted.values()))} per key, want {WB_LIMIT}")
+    runner.cache.flush()
+    on_card = card_counts(runner.cache, "rl_wb_" + tag)
+    if on_card != {f"rl_wb_{v}_{int(t0 // 60) * 60}": WB_LIMIT + 1 for v in admitted}:
+        wrong = {k: c for k, c in on_card.items() if c != WB_LIMIT + 1}
+        fail(f"{what}: {len(on_card)} keys on the card, counts off the hits sent: {list(wrong.items())[:4]}")
+    config = load_config([ConfigFile("rl.yaml", CONFIG)], Manager())
+    memory = MemoryRateLimitCache(PinnedTimeSource(int(t0)))
+    disagree = 0
+    for r in results:
+        for v, code, rem in r:
+            desc = Descriptor.of(("wb", v))
+            [st] = memory.do_limit(RateLimitRequest("rl", [desc], 0), [config.get_limit("rl", desc)])
+            disagree += (int(st.code), st.limit_remaining) != (code, rem)
+    if disagree:
+        fail(f"{what}: the memory backend disagreed on {disagree} statuses")
+    rpcs = sum(len(r) for r in results)
+    return dict(keys=len(admitted), rpcs=rpcs, seconds=seconds, per_s=rpcs / seconds,
+                attempts=attempt + 1)
+
+
+def stall_stream(torch, engine, ms, cycles_per_ms):
+    """A kernel spinning `ms` on `engine`'s stream; returns the event
+    recorded after it."""
+    end = torch.cuda.Event()
+    with torch.cuda.stream(engine._stream):
+        torch.cuda._sleep(int(ms * cycles_per_ms))
+        end.record()
+    return end
+
+
+def wb_stall(torch, runner, R, cycles_per_ms) -> dict:
+    """A stall of about WB_STALL_MS on the write-behind bank's stream
+    while one client keeps hitting one key of the WB_STALL_LIMIT/hour
+    rule: every RPC answered within WB_RPC_BOUND_MS, exactly the limit
+    admitted, the dispatcher's intake above 0 during the stall; then
+    flush() reconciles and the key's counter on the card equals the hits
+    sent."""
+    cache = runner.cache
+    store = runner.stats_manager.store
+    gauge = "ratelimit.tpu.bank0.dispatch_queue"
+    value = f"stall-{time.time_ns()}"
+    hour = int(time.time() // 3600)
+
+    def work(_i, call):
+        call("wbstall", value)  # the key's first hit, before the stall
+        end = stall_stream(torch, cache.engine, WB_STALL_MS, cycles_per_ms)
+        t_stall = time.perf_counter()
+        during, after, queue = [], [], []
+        while not end.query():
+            code, t0, t1 = call("wbstall", value)
+            during.append((code, (t1 - t0) * 1e3))
+            queue.append(store.gauges()[gauge])
+        stall_s = time.perf_counter() - t_stall
+        for _ in range(WB_AFTER_STALL):
+            code, t0, t1 = call("wbstall", value)
+            after.append((code, (t1 - t0) * 1e3))
+        return during, after, queue, stall_s
+
+    [(during, after, queue, stall_s)] = grpc_clients(runner, 1, work)
+    t_flush = time.perf_counter()
+    cache.flush()
+    flush_ms = (time.perf_counter() - t_flush) * 1e3
+    sent = 1 + len(during) + len(after)
+    admitted = 1 + sum(c == R.OK for c, _ms in during + after)
+    key = f"rl_wbstall_{value}_{hour * 3600}"
+    on_card = card_counts(cache, key)
+    rpc_ms = [ms for _c, ms in during]
+    out = dict(
+        stall_s=stall_s,
+        rpcs_during=len(during),
+        rpc_ms_max=max(rpc_ms, default=None),
+        rpc_ms_median=float(np.median(rpc_ms)) if rpc_ms else None,
+        queue_max=max(queue, default=0),
+        queue_hwm=cache._dispatcher.queue_depth_hwm(),
+        sent=sent,
+        admitted=admitted,
+        on_card=on_card.get(key),
+        flush_ms=flush_ms,
+        pending=sum(e[1] for e in cache._view.values()),
+    )
+    if not during or out["rpc_ms_max"] > WB_RPC_BOUND_MS:
+        fail(f"write-behind stall: RPCs during the stall {out}")
+    if admitted != min(sent, WB_STALL_LIMIT) or sent <= WB_STALL_LIMIT:
+        fail(f"write-behind stall: admitted {admitted} of {sent}, want {WB_STALL_LIMIT}: {out}")
+    if out["queue_max"] < 1:
+        fail(f"write-behind stall: the dispatcher's intake never grew: {out}")
+    if out["on_card"] != sent or out["pending"]:
+        fail(f"write-behind stall: after flush the card holds {out['on_card']} of {sent}: {out}")
+    if int(time.time() // 3600) != hour:
+        fail("write-behind stall: the hour rolled over inside the check")
+    return out
+
+
+def wb_fill(runner, R) -> dict:
+    """WB_FILL_KEYS distinct keys of the 1/hour rule through
+    cache.do_limit in requests of WB_FILL_WIDTH descriptors, then
+    flush(): every key stands at its limit.  Times the completer's
+    _reconcile over the fill, and a direct call over
+    WB_RECONCILE_LANES keys of the view (the work of one full batch)."""
+    from types import SimpleNamespace
+
+    from ratelimit_tpu_torch.api import Descriptor, RateLimitRequest
+
+    cache = runner.cache
+    config = runner.service.get_current_config()
+    rule = config.get_limit("rl", Descriptor.of(("wbfill", "x")))
+    tag = f"f{time.time_ns()}-"
+    spent = []
+    reconcile = cache._reconcile
+
+    def timed(keys, hits, decisions):
+        t0 = time.perf_counter()
+        reconcile(keys, hits, decisions)
+        spent.append((len(keys), time.perf_counter() - t0))
+
+    cache._reconcile = timed  # the completer's apply looks it up per call
+    refused = 0
+    t0 = time.perf_counter()
+    try:
+        for lo in range(0, WB_FILL_KEYS, WB_FILL_WIDTH):
+            descs = [Descriptor.of(("wbfill", f"{tag}{i}")) for i in range(lo, lo + WB_FILL_WIDTH)]
+            statuses = cache.do_limit(RateLimitRequest("rl", descs, 0), [rule] * WB_FILL_WIDTH)
+            refused += sum(st.code != R.OK for st in statuses)
+        cache.flush()
+    finally:
+        del cache._reconcile
+    fill_s = time.perf_counter() - t0
+    if refused:
+        fail(f"write-behind fill: {refused} first hits refused")
+    keys = [k for k in cache._view if k.startswith("rl_wbfill_" + tag)]
+    if len(keys) != WB_FILL_KEYS or any(cache._view[k][:2] != [1, 0] for k in keys):
+        fail(f"write-behind fill: the view holds {len(keys)} fill keys, or one is not at 1")
+    lanes = keys[:WB_RECONCILE_LANES]
+    decisions = SimpleNamespace(afters=np.array([cache._view[k][0] for k in lanes], np.int64))
+    direct = []
+    for _ in range(WB_RECONCILE_REPS):
+        t1 = time.perf_counter()
+        cache._reconcile(lanes, 0, decisions)  # hits 0: leaves the view as it is
+        direct.append((time.perf_counter() - t1) * 1e3)
+    lanes_done = sum(n for n, _s in spent)
+    return dict(
+        keys=len(keys),
+        fill_s=fill_s,
+        live_keys=cache.engine.stat_live_keys,
+        max_launch_lanes=cache._dispatcher.max_launch_lanes,
+        reconcile_calls=len(spent),
+        reconcile_ms_per_4096=sum(s for _n, s in spent) * 1e3 * WB_RECONCILE_LANES / max(1, lanes_done),
+        reconcile_direct_ms=(min(direct), float(np.median(direct)), max(direct)),
+        probe=[k for k in keys[:: WB_FILL_KEYS // WB_PROBE_KEYS]][:WB_PROBE_KEYS],
+        tag=tag,
+    )
+
+
+def wb_healthy(runner, what) -> None:
+    """No commit failed and the dispatcher lives: health SERVING."""
+    d = runner.cache._dispatcher
+    if d.dead is not None or d._consecutive_failures or not runner.health.healthy:
+        fail(f"{what}: dispatcher dead {d.dead!r}, failures {d._consecutive_failures}, "
+             f"healthy {runner.health.healthy}")
+
+
+def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
+    """BACKEND_TYPE=cuda-write-behind at the default 2^20 slots with
+    TPU_CHECKPOINT_DIR: exact counts under WB_CLIENTS clients, the
+    envelope under a stall on the bank's stream, a quarter of the table
+    filled and carried across stop() and a boot on the files; then
+    cuda-sharded-write-behind on BANKS banks, and memory, which must
+    launch nothing."""
+    from ratelimit_tpu_torch.backends import write_behind as wb_mod
+    from ratelimit_tpu_torch.backends.memory_cache import MemoryRateLimitCache
+
+    kernels.launches.clear()
+    out = {}
+    if time.time() % 3600 > 3600 - PHASE10_HOUR_MARGIN_S:
+        time.sleep(3601 - time.time() % 3600)  # the hour rules: no rollover inside
+    with tempfile.TemporaryDirectory() as ckpt:
+        env = {"TPU_CHECKPOINT_DIR": ckpt, "TPU_WARMUP": "true"}
+        t_boot = time.perf_counter()
+        with serving("cuda-write-behind", env=env) as (runner, request, R):
+            out["boot_s"] = time.perf_counter() - t_boot
+            cache = runner.cache
+            if (
+                not isinstance(cache, wb_mod.WriteBehindRateLimitCache)
+                or cache.engine.model.num_slots != NUM_SLOTS
+                or cache.engine.device != dev
+            ):
+                fail(f"cuda-write-behind did not build one 2^20-slot bank on {dev}")
+            out["warmup"] = dict(kernels.launches)
+            if out["warmup"].get(fw.K1, 0) < 1:
+                fail(f"write-behind warmup launched no device-form K1: {out['warmup']}")
+            out["counting"] = wb_counting(runner, R, WB_CLIENTS, WB_KEYS, "wb")
+            out["stall"] = wb_stall(torch, runner, R, cycles_per_ms)
+            out["fill"] = wb_fill(runner, R)
+            wb_healthy(runner, "write-behind")
+            out["view_keys_before"] = len(cache._view)
+            t_stop = time.perf_counter()
+        out["stop_s"] = time.perf_counter() - t_stop
+        restored_ms = []
+        on_restored = wb_mod.WriteBehindRateLimitCache.on_restored
+
+        def timed(self):
+            t0 = time.perf_counter()
+            on_restored(self)
+            restored_ms.append((time.perf_counter() - t0) * 1e3)
+
+        wb_mod.WriteBehindRateLimitCache.on_restored = timed
+        t_boot = time.perf_counter()
+        try:
+            with serving("cuda-write-behind", env=env) as (runner, request, R):
+                out["restore_boot_s"] = time.perf_counter() - t_boot
+                out["view_keys_after"] = len(runner.cache._view)
+                codes = [request("wbfill", k[len("rl_wbfill_"):].rsplit("_", 1)[0]).overall_code
+                         for k in out["fill"]["probe"]]
+                if codes != [R.OVER_LIMIT] * len(codes) or not codes:
+                    fail(f"write-behind restart: a key at its limit answered {codes}")
+                wb_healthy(runner, "write-behind after the restart")
+        finally:
+            wb_mod.WriteBehindRateLimitCache.on_restored = on_restored
+        out["on_restored_ms"] = restored_ms
+        if len(restored_ms) != 1 or out["view_keys_after"] != out["view_keys_before"]:
+            fail(f"write-behind restart: on_restored {restored_ms}, view "
+                 f"{out['view_keys_before']} -> {out['view_keys_after']} keys")
+    before = dict(kernels.launches)
+    mesh = sh.make_mesh(BANKS, dev)
+    with serving("cuda-sharded-write-behind", env={"TPU_WARMUP": "true"}, device=dev,
+                 mesh=mesh) as (runner, request, R):
+        engine = runner.cache.engine
+        if not isinstance(engine, sh.ShardedCounterEngine) or (
+            engine.model.num_banks, engine.model.num_slots
+        ) != (BANKS, NUM_SLOTS):
+            fail(f"cuda-sharded-write-behind did not build {BANKS} banks of 2^20 slots")
+        out["sharded"] = wb_counting(runner, R, WB_SHARDED_CLIENTS, WB_SHARDED_KEYS, "wbsh")
+        wb_healthy(runner, "sharded write-behind")
+    out["sharded"]["launches"] = _since(kernels, before, (sh.K6, sh.K6_LANES))
+    if min(out["sharded"]["launches"].values()) < 1:
+        fail(f"sharded write-behind: K6 launches {out['sharded']['launches']}")
+    before = dict(kernels.launches)
+    with serving("memory") as (runner, request, R):
+        if not isinstance(runner.cache, MemoryRateLimitCache):
+            fail("BACKEND_TYPE=memory did not build the memory backend")
+        # The 5/hour rule: the phase runs inside one hour.
+        value = f"mem{time.time_ns()}"
+        codes = [request("burst", value).overall_code for _ in range(6)]
+        client = JsonClient(runner.http_server.bound_port)
+        try:
+            statuses = [client.post("burst", value + "j")[0] for _ in range(6)]
+        finally:
+            client.close()
+        out["memory"] = dict(grpc=codes, json=statuses, counter_keys=len(runner.cache._counters))
+        if codes != [R.OK] * 5 + [R.OVER_LIMIT] or statuses != [200] * 5 + [429]:
+            fail(f"memory: gRPC {codes}, /json {statuses}")
+    if dict(kernels.launches) != before:
+        fail(f"memory launched kernels: {_since(kernels, before, kernels.launches)}")
+    return dict(kernels.launches), out
+
+
+def write_behind_lines(w) -> list:
+    """The phase's report, a line each."""
+    c, st, f, shd = w["counting"], w["stall"], w["fill"], w["sharded"]
+    lo, med, hi = f["reconcile_direct_ms"]
+    return [
+        f"write-behind: cuda-write-behind, one bank of 2^20 slots (boot {w['boot_s']:.1f} s, "
+        f"warmup launches {w['warmup']}); {WB_CLIENTS} gRPC clients x {WB_KEYS} keys of a "
+        f"{WB_LIMIT}/minute rule, each hit {WB_LIMIT + 1} times: each admitted exactly "
+        f"{WB_LIMIT}, each counter on the card {WB_LIMIT + 1} after flush, the memory backend "
+        f"equal on every status; {c['rpcs']} RPCs in {c['seconds']:.3f} s ({c['per_s']:.1f}/s; "
+        f"{c['attempts']} run(s))",
+        f"write-behind stall: {WB_STALL_MS} ms on the bank's stream ({st['stall_s']:.3f} s seen "
+        f"by the client); {st['rpcs_during']} RPCs during it, median {st['rpc_ms_median']:.2f} "
+        f"ms, max {st['rpc_ms_max']:.2f} ms (bound {WB_RPC_BOUND_MS:.0f}); dispatch_queue up "
+        f"to {st['queue_max']} (hwm {st['queue_hwm']}); {st['admitted']} of {st['sent']} "
+        f"admitted on a {WB_STALL_LIMIT}/hour rule; flush {st['flush_ms']:.1f} ms, then "
+        f"{st['on_card']} on the card, 0 pending",
+        f"write-behind fill: {f['keys']} keys through do_limit in requests of {WB_FILL_WIDTH} "
+        f"in {f['fill_s']:.2f} s (live keys {f['live_keys']}, widest launch "
+        f"{f['max_launch_lanes']} lanes); _reconcile on the completer "
+        f"{f['reconcile_ms_per_4096']:.2f} ms per {WB_RECONCILE_LANES} lanes over "
+        f"{f['reconcile_calls']} calls; one call of {WB_RECONCILE_LANES} lanes min / median / "
+        f"max {lo:.2f} / {med:.2f} / {hi:.2f} ms",
+        f"write-behind restart: stop() {w['stop_s']:.2f} s with the final checkpoint; a boot on "
+        f"the files {w['restore_boot_s']:.1f} s, on_restored {w['on_restored_ms'][0]:.1f} ms, "
+        f"view {w['view_keys_after']} keys (before the stop {w['view_keys_before']}); "
+        f"{WB_PROBE_KEYS} keys at their limit answered OVER_LIMIT on their first hit",
+        f"sharded write-behind: {BANKS} banks of 2^20 slots; {WB_SHARDED_CLIENTS} clients x "
+        f"{WB_SHARDED_KEYS} keys exact and equal to the memory backend, {shd['rpcs']} RPCs in "
+        f"{shd['seconds']:.3f} s; launches {shd['launches']}",
+        f"memory: gRPC 5 x OK then OVER_LIMIT, /json 5 x 200 then 429, "
+        f"{w['memory']['counter_keys']} window counters on the host; no kernel launched",
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -3010,9 +3409,16 @@ def main() -> None:
     for line in topology_lines(topology):
         log(line)
 
+    # 11. the write-behind and memory backends
+    wb_launches, write_behind = write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms)
+    lap("write_behind")
+    log(f"write-behind and memory: launches {wb_launches}")
+    for line in write_behind_lines(write_behind):
+        log(line)
+
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
-        top_launches,
+        top_launches, wb_launches,
     )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)

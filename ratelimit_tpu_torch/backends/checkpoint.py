@@ -235,8 +235,9 @@ def restore_engine(
 
 
 class CheckpointManager:
-    """Periodic background snapshots of a CudaRateLimitCache's banks to
-    ``bank{idx}.npz`` files, one per cache.engines() position."""
+    """Periodic background snapshots of a cache's banks (CudaRateLimitCache
+    or WriteBehindRateLimitCache) to ``bank{idx}.npz`` files, one per
+    cache.engines() position."""
 
     def __init__(self, cache, directory: str, interval_s: float = 30.0):
         if interval_s <= 0:
@@ -262,7 +263,9 @@ class CheckpointManager:
         returns how many were restored.  The fault domain's mirror seeds
         are then retaken from the restored tables: a seed the
         supervisor took before the restore would forgive the restored
-        windows in a quarantine."""
+        windows in a quarantine.  A backend with decision state on the
+        host (write-behind's view) rebuilds it from the restored bank
+        (``cache.on_restored``)."""
         restored = 0
         roles = bank_roles(self.cache)
         for idx, engine in enumerate(self.cache.engines()):
@@ -276,6 +279,8 @@ class CheckpointManager:
         fd = getattr(self.cache, "fault_domain", None)
         if restored and fd is not None:
             fd.snapshot_now()
+        if restored and hasattr(self.cache, "on_restored"):
+            self.cache.on_restored()
         return restored
 
     def checkpoint(self) -> None:

@@ -1,8 +1,12 @@
 """Process bootstrap: Settings -> backend -> service -> listeners.
 
-Port of ratelimit_tpu/runner.py: stats, the local over-limit cache, the
-CUDA counter backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for
-bank-sharded fixed-window tables) with TPU_NUM_LANES fixed-window lanes
+Port of ratelimit_tpu/runner.py: a logging hook for crashed background
+threads, stats, the local over-limit cache, the backend -- the CUDA
+counter backend (``BACKEND_TYPE=cuda``, or ``cuda-sharded`` for
+bank-sharded fixed-window tables), the write-behind backend
+(``cuda-write-behind`` / ``cuda-sharded-write-behind``: decide on a host
+view, commit to either table behind the RPC) or the host-only
+``memory`` backend -- for ``cuda``: TPU_NUM_LANES fixed-window lanes
 sharing TPU_NUM_SLOTS, the per-second bank (TPU_PERSECOND) and one
 engine per algorithm named in ``TPU_ALGORITHM_BANKS``, checkpoint files
 of every bank (TPU_CHECKPOINT_DIR: restored at boot, written every
@@ -11,8 +15,9 @@ its runtime config loader, the request tracer (TRACE_*), the three
 listeners -- HTTP on HOST:PORT (/json, /healthcheck), gRPC on
 GRPC_HOST:GRPC_PORT, debug on DEBUG_HOST:DEBUG_PORT (/stats, /metrics,
 /rlconfig, /debug/*) -- and the statsd exporter (STATSD_SRV discovery
-included), with the device fault domain armed by KERNEL_DEADLINE_S
-(0.25 s by default).  The observability planes past tracing are not
+included), with the device fault domain of ``cuda`` and ``cuda-sharded``
+armed by KERNEL_DEADLINE_S (0.25 s by default; the write-behind and
+memory backends have none, as in the JAX package).  The observability planes past tracing are not
 ported yet; settings that select an unported feature are refused at
 boot (settings.unported_settings).
 
@@ -60,10 +65,11 @@ def _make_engine(s: Settings, device="cuda", mesh=None, num_slots=None):
     """One construction site for a fixed-window engine of `num_slots`
     slots (TPU_NUM_SLOTS by default): one table on `device`, or, under
     ``BACKEND_TYPE=cuda-sharded``, the bank-sharded table over `mesh`
-    (default: one bank per card of `device`, parallel.make_mesh)."""
+    (default: one bank per card of `device`, parallel.make_mesh), as
+    under ``cuda-sharded-write-behind``."""
     if num_slots is None:
         num_slots = s.tpu_num_slots
-    if s.backend_type.lower() == "cuda-sharded":
+    if s.backend_type.lower() in ("cuda-sharded", "cuda-sharded-write-behind"):
         from .models.fixed_window import resolve_device
         from .parallel import ShardedCounterEngine, make_mesh
 
@@ -124,12 +130,52 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=No
     ``BACKEND_TYPE=cuda-sharded``, where every lane and the per-second
     bank are bank-sharded tables over it; the algorithm banks stay
     single-table engines on `device`, as under the JAX package's
-    ``tpu-sharded``."""
+    ``tpu-sharded``.  ``memory`` needs no device, and the write-behind
+    backends take one bank of TPU_NUM_SLOTS."""
     refused = unported_settings(s)
     if refused:
         raise SettingsError(
             "settings select features not ported to ratelimit_tpu_torch "
             "(ROADMAP.md, Queue 3): " + "; ".join(refused)
+        )
+    backend = s.backend_type.lower()
+    if backend == "memory":
+        from .backends.memory_cache import MemoryRateLimitCache
+
+        return MemoryRateLimitCache(
+            time_source=time_source,
+            local_cache=local_cache,
+            near_ratio=s.near_limit_ratio,
+            cache_key_prefix=s.cache_key_prefix,
+            expiration_jitter_max_seconds=s.expiration_jitter_max_seconds,
+        )
+    write_behind = backend in ("cuda-write-behind", "cuda-sharded-write-behind")
+    if write_behind and int(s.tpu_num_lanes) > 1:
+        # Lanes exist only for the sync backends (the write-behind path
+        # decides on the host view; its dispatcher never gates request
+        # latency).  A silently ignored knob reads as "on".
+        logger.warning(
+            "TPU_NUM_LANES=%s is ignored by backend %r (lanes apply to "
+            "cuda / cuda-sharded)",
+            s.tpu_num_lanes,
+            s.backend_type,
+        )
+    if write_behind:
+        # The memcached-mode analog (backends/write_behind.py for the
+        # envelope): one bank on either table, no fault domain, no
+        # per-second or algorithm banks, as in the JAX package.
+        from .backends.write_behind import WriteBehindRateLimitCache
+
+        return WriteBehindRateLimitCache(
+            _make_engine(s, device, mesh, s.tpu_num_slots),
+            time_source=time_source,
+            local_cache=local_cache,
+            expiration_jitter_max_seconds=s.expiration_jitter_max_seconds,
+            cache_key_prefix=s.cache_key_prefix,
+            batch_window_us=s.tpu_batch_window_us,
+            batch_limit=s.tpu_batch_limit,
+            unhealthy_after=s.tpu_unhealthy_after,
+            pipeline_depth=s.tpu_pipeline_depth,
         )
     from .backends.cuda_cache import CudaRateLimitCache
 
@@ -211,6 +257,13 @@ class Runner:
                 else "%(asctime)s %(levelname)s %(name)s %(message)s"
             ),
         )
+        # A dispatcher or write-behind completer thread dying from an
+        # uncaught exception must be logged, not vanish into stderr
+        # (utils/threads.py).
+        from .utils.threads import install_thread_excepthook
+
+        install_thread_excepthook()
+
         from .server.grpc_server import create_grpc_server, server_credentials
         from .server.health import HealthChecker
         from .server.http_server import (
@@ -246,12 +299,15 @@ class Runner:
         self.cache = create_limiter(
             s, local_cache, self.time_source, self.device, self.mesh
         )
-        self.cache.register_stats(self.stats_manager.store)
-        if s.tpu_warmup:
+        # Only the counter backends have stats, kernels to warm up,
+        # banks to checkpoint and a dispatcher's health; memory has none.
+        if hasattr(self.cache, "register_stats"):
+            self.cache.register_stats(self.stats_manager.store)
+        if s.tpu_warmup and hasattr(self.cache, "warmup"):
             logger.warning("warming up kernel shapes (TPU_WARMUP=true)...")
             self.cache.warmup()
 
-        if s.tpu_checkpoint_dir:
+        if s.tpu_checkpoint_dir and hasattr(self.cache, "engines"):
             from .backends.checkpoint import CheckpointManager
 
             self.checkpointer = CheckpointManager(
@@ -283,7 +339,8 @@ class Runner:
         self.runtime.start()
 
         self.health = HealthChecker()
-        self.cache.bind_health(self.health)
+        if hasattr(self.cache, "bind_health"):
+            self.cache.bind_health(self.health)
 
         credentials = None
         if bool(s.grpc_server_tls_cert) != bool(s.grpc_server_tls_key):
@@ -347,13 +404,14 @@ class Runner:
             gc.collect()
             gc.freeze()
 
+        engine = getattr(self.cache, "engine", None)
         logger.warning(
-            "ratelimit serving: http=%s grpc=%s debug=%s backend=%s device=%s",
+            "ratelimit serving: http=%s grpc=%s debug=%s backend=%s%s",
             self.http_server.bound_port,
             self.grpc_server.bound_port,
             self.debug_server.bound_port,
             s.backend_type,
-            self.cache.engine.device,
+            "" if engine is None else f" device={engine.device}",
         )
 
     def run(self) -> None:
@@ -395,7 +453,7 @@ class Runner:
             self.runtime.stop()
         if self.statsd is not None:
             self.statsd.stop()
-        if self.cache is not None:
+        if self.cache is not None and hasattr(self.cache, "close"):
             self.cache.close()
         if self._trace_jsonl is not None:
             TRACER.clear_exporters()

@@ -159,8 +159,11 @@ class Settings:
     near_limit_ratio: float = 0.8
     cache_key_prefix: str = ""
     # reference default "redis"; the JAX package's "tpu"; here "cuda"
-    # (one counter table) or "cuda-sharded" (the bank-sharded table, the
-    # counterpart of "tpu-sharded").
+    # (one counter table), "cuda-sharded" (the bank-sharded table, the
+    # counterpart of "tpu-sharded"), "cuda-write-behind" and
+    # "cuda-sharded-write-behind" (decide on the host, commit to either
+    # table behind the RPC: the memcached analog) or "memory" (the
+    # exact host-only backend).
     backend_type: str = "cuda"
 
     # Custom response headers (settings.go:53-59).
@@ -514,24 +517,30 @@ def new_settings() -> Settings:
     return s
 
 
+#: Every BACKEND_TYPE the port serves: the JAX package's five under the
+#: port's names ("tpu" -> "cuda").
+BACKEND_TYPES = (
+    "cuda",
+    "cuda-sharded",
+    "cuda-write-behind",
+    "cuda-sharded-write-behind",
+    "memory",
+)
+
+
 def unported_settings(s: Settings) -> List[str]:
     """One message per setting that selects a feature not ported to
-    ratelimit_tpu_torch yet; the runner refuses to boot when any is
-    set.  The observability planes' knobs (flight/launch recorders,
+    ratelimit_tpu_torch yet, or a BACKEND_TYPE it does not know (the
+    JAX package's names among them); the runner refuses to boot when
+    any is set.  The observability planes' knobs (flight/launch recorders,
     event journal, time series, anomaly detectors, SLO engine, hot keys,
     FLIGHT_CORR_ENABLED) are read but have no effect until their modules
     are ported."""
     out = []
-    backend = s.backend_type.lower()
-    if backend == "cuda-sharded-write-behind":
+    if s.backend_type.lower() not in BACKEND_TYPES:
         out.append(
-            f"BACKEND_TYPE={s.backend_type!r}: the write-behind backend "
-            "(backends/write_behind.py) is not ported; 'cuda-sharded' is"
-        )
-    elif backend not in ("cuda", "cuda-sharded"):
-        out.append(
-            f"BACKEND_TYPE={s.backend_type!r}: only 'cuda' and 'cuda-sharded' "
-            "are ported (write-behind and memory backends are not)"
+            f"BACKEND_TYPE={s.backend_type!r}: not a backend of this package "
+            f"(one of {', '.join(BACKEND_TYPES)})"
         )
     if (
         s.overload_shed_enabled

@@ -1,3 +1,4 @@
+from .threads import ThreadExceptionRecorder, install_thread_excepthook
 from .time import (
     MonotonicBatchClock,
     PinnedTimeSource,
@@ -18,4 +19,6 @@ __all__ = [
     "calculate_reset",
     "reset_seconds",
     "window_start",
+    "ThreadExceptionRecorder",
+    "install_thread_excepthook",
 ]

@@ -166,7 +166,7 @@ def test_concurrent_burst_byte_equal(runners):
     [
         (dict(backend_type="cuda-sharded"), None),
         (dict(backend_type="CUDA-SHARDED"), None),
-        (dict(backend_type="cuda-sharded-write-behind"), "backends/write_behind.py"),
+        (dict(backend_type="cuda-sharded-write-behind"), None),
         (dict(backend_type="tpu-sharded"), "BACKEND_TYPE"),
     ],
 )
