@@ -125,14 +125,36 @@ Phases, one line each; any failure exits non-zero:
    timed, the view whole, keys at their limit OVER_LIMIT on their first
    hit); cuda-sharded-write-behind over 8 banks exact, K6 launched; and
    BACKEND_TYPE=memory answering gRPC and /json exactly with no kernel
-   launched.
+   launched;
+12. observability: the runner with BACKEND_TYPE=cuda and every default
+   (2^20 fixed-window slots, 2^18 per algorithm bank, every plane on)
+   but the sampler intervals (TSDB_INTERVAL_S and ANOMALY_INTERVAL_S
+   0.5 s), INCIDENT_DIR and DEBUG_PROFILING=1 -- an 8-client gRPC and
+   /json burst over fixed-window, sliding-window and GCRA keys, one
+   value clearly the hottest: one launch record for each completed
+   launch of each bank, all ok, items adding up to the requests and the
+   per-algorithm tallies to the keys sent, every complete_ns positive;
+   one flight record per RPC with its code; the SLO counts; the hot key
+   on top of the sketch at or above its true count; the time series
+   moving; no fault -- then phase 8's stall on the fixed-window bank:
+   the journal tells bank_quarantine, bank_fallback ... bank_restart in
+   seq order, the OUTCOME_FALLBACK records and the flight records with
+   the fallback code equal the fallback answers, the stalled launch's
+   record is stamped once its event completed, the latency detector
+   trips and its incident (in memory and in INCIDENT_DIR) holds the
+   flight rows, the journal and the series; during a second burst the
+   longest interpreter-lock gap of one incident capture and of one
+   time-series sample (bound: half the kernel deadline; no fault); and
+   warm microseconds per request with every plane at its default
+   against every plane off, two runners side by side, in alternating
+   pairs.
 
-Phases 6, 7, 9 and 10 run with the fault domain armed at its defaults
+Phases 6, 7, 9, 10 and 12 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
-one stall); every served phase binds its three listeners to free local
+one stall, and phase 12 for its); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-11)
+phase (4-12)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -1445,6 +1467,20 @@ descriptors:
     rate_limit:
       unit: hour
       requests_per_unit: 1
+  - key: obs_fw
+    rate_limit:
+      unit: hour
+      requests_per_unit: 1000000
+  - key: obs_sw
+    rate_limit:
+      unit: minute
+      requests_per_unit: 1000000
+      algorithm: sliding_window
+  - key: obs_tb
+    rate_limit:
+      unit: hour
+      requests_per_unit: 1000000
+      algorithm: gcra
 """
 
 #: Settings that would move the fault domain off its defaults; every
@@ -1459,6 +1495,17 @@ FAULT_ENV = (
 #: Settings of the bank topology (phase 10); every other served phase
 #: starts from none of them: one lane, no per-second bank, no files.
 TOPOLOGY_ENV = ("TPU_NUM_LANES", "TPU_PERSECOND", "TPU_CHECKPOINT_DIR")
+#: Settings of the observability planes (phase 12); every served phase
+#: starts from none of them, so every plane is at its default.
+PLANES_ENV = (
+    "FLIGHT_RECORDER_SIZE",
+    "EVENT_JOURNAL_SIZE",
+    "LAUNCH_RECORDER_SIZE",
+    "TSDB_INTERVAL_S",
+    "ANOMALY_INTERVAL_S",
+    "HOTKEYS_TOP_K",
+    "INCIDENT_DIR",
+)
 #: The runner's kernel deadline at its default (settings.py).
 DEFAULT_DEADLINE_S = 0.25
 
@@ -1480,7 +1527,7 @@ def serving(backend: str, env=None, **runner_kwargs):
         with open(os.path.join(cfg, "rl.yaml"), "w") as f:
             f.write(CONFIG)
         for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", "TPU_WARMUP",
-                     *FAULT_ENV, *TOPOLOGY_ENV):
+                     *FAULT_ENV, *TOPOLOGY_ENV, *PLANES_ENV):
             os.environ.pop(name, None)
         os.environ.update(env or {})
         # The three listeners on free local ports: the HTTP and debug
@@ -3148,6 +3195,472 @@ def write_behind_lines(w) -> list:
     ]
 
 
+# -- phase 12: the observability planes ------------------------------------
+
+#: The sampler intervals of the observability phase (5 s by default).
+PLANES_INTERVAL_S = "0.5"
+#: The healthy burst: client threads (half gRPC, half /json), requests
+#: each, and the share of them on the one hot value.
+OBS_CLIENTS = 8
+OBS_PER_CLIENT = 100
+OBS_HOT_SHARE = 0.4
+OBS_HOT = ("obs_fw", "hot")
+OBS_KEYS = ("obs_fw", "obs_sw", "obs_tb")
+OBS_ALGO = {"obs_fw": "fixed_window", "obs_sw": "sliding_window", "obs_tb": "gcra"}
+#: Sampler ticks of calm one-client traffic before the stall, so the
+#: latency detector's baseline is the calm path's.
+CALM_TICKS = 4
+#: Interpreter-lock probes during the second burst: captures, samples
+#: and plain windows, each this many times.
+GIL_PROBES = 3
+#: An incident capture or a time-series sample may keep the interpreter
+#: lock from another thread for at most this share of the deadline.
+GIL_GAP_SHARE = 0.5
+#: The plane cost: alternating pairs, warm requests per leg, and the
+#: settings that turn every plane off.
+PLANES_PAIRS = 10
+PLANES_LEG = 150
+PLANES_OFF = {
+    "FLIGHT_RECORDER_SIZE": "0",
+    "EVENT_JOURNAL_SIZE": "0",
+    "LAUNCH_RECORDER_SIZE": "0",
+    "TSDB_INTERVAL_S": "0",
+    "ANOMALY_INTERVAL_S": "0",
+    "HOTKEYS_TOP_K": "0",
+}
+
+
+class GilProbe:
+    """A thread that sleeps 0.2 ms at a time and stamps each wakeup.
+    The longest stretch between two stamps across a window is the
+    longest the interpreter lock (and the host's scheduler) kept one
+    ready Python thread waiting there."""
+
+    def __init__(self):
+        self.stamps = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="gil-probe", daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    def _loop(self):
+        stamps, stop = self.stamps, self._stop
+        while not stop.is_set():
+            stamps.append(time.perf_counter())
+            time.sleep(0.0002)
+
+    def max_gap_ms(self, t0, t1) -> float:
+        """The longest stretch between two stamps that overlaps [t0, t1]."""
+        import bisect
+
+        s = self.stamps
+        lo = max(0, bisect.bisect_left(s, t0) - 1)
+        hi = min(len(s) - 1, bisect.bisect_right(s, t1))
+        return max((s[i + 1] - s[i] for i in range(lo, hi)), default=0.0) * 1e3
+
+
+def obs_clients(runner, per_client, tag, stop=None):
+    """OBS_CLIENTS client threads, half over gRPC (a channel each) and
+    half over /json (a keep-alive connection each), sending `per_client`
+    requests each (or until `stop` is set) over the fixed-window,
+    sliding-window and GCRA keys, OBS_HOT_SHARE of them on the one hot
+    value.  Returns {(key, value): requests} of every answered request;
+    any refusal or error fails the phase."""
+    import grpc
+
+    from ratelimit_tpu_torch.server import pb  # noqa: F401
+
+    from envoy.service.ratelimit.v3 import rls_pb2
+
+    sent = {}
+    lock = threading.Lock()
+    errors = []
+
+    def client(w):
+        rng = np.random.default_rng(1200 + w)
+        counts = {}
+        try:
+            if w % 2 == 0:
+                channel = grpc.insecure_channel(f"127.0.0.1:{runner.grpc_server.bound_port}")
+                stub = channel.unary_unary(
+                    "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                    request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                    response_deserializer=rls_pb2.RateLimitResponse.FromString,
+                )
+
+                def call(key, value):
+                    req = rls_pb2.RateLimitRequest(domain="rl")
+                    e = req.descriptors.add().entries.add()
+                    e.key, e.value = key, value
+                    return stub(req, timeout=60).overall_code == rls_pb2.RateLimitResponse.OK
+
+                close = channel.close
+            else:
+                jc = JsonClient(runner.http_server.bound_port)
+
+                def call(key, value):
+                    return jc.post(key, value)[0] == 200
+
+                close = jc.close
+            try:
+                i = 0
+                while (stop is None and i < per_client) or (stop is not None and not stop.is_set()):
+                    if rng.random() < OBS_HOT_SHARE:
+                        key, value = OBS_HOT
+                    else:
+                        key, value = OBS_KEYS[i % 3], f"{tag}{w}-{i}"
+                    if not call(key, value):
+                        errors.append(f"{key}/{value} refused")
+                        return
+                    counts[(key, value)] = counts.get((key, value), 0) + 1
+                    i += 1
+            finally:
+                close()
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(repr(exc))
+        with lock:
+            for k, n in counts.items():
+                sent[k] = sent.get(k, 0) + n
+
+    threads = [threading.Thread(target=client, args=(w,)) for w in range(OBS_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads, sent, errors
+
+
+def join_clients(threads, errors, what):
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"{what}: clients failed: {errors[:3]}")
+
+
+def bank_dispatchers(runner) -> list:
+    """(bank, dispatcher) of every bank that has one, by bank index."""
+    cache = runner.cache
+    return [
+        (b, cache._dispatchers[id(e)])
+        for b, e in enumerate(cache.engines())
+        if id(e) in cache._dispatchers
+    ]
+
+
+def wait_ticks(store, n, timeout=10.0):
+    """Block until the time-series store has ticked `n` more times."""
+    seq = store.snapshot()["seq"]
+    deadline = time.monotonic() + timeout
+    while store.snapshot()["seq"] < seq + n and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if store.snapshot()["seq"] < seq + n:
+        fail(f"the time-series sampler did not tick {n} times in {timeout} s")
+
+
+def planes_healthy(runner):
+    """The healthy burst and its checks: one launch record for each
+    completed launch of each bank, all ok, items adding up to the items
+    served, per-algorithm tallies equal to the keys sent, every
+    complete_ns positive; one flight record per RPC with its code; the
+    SLO counts; the hot key on top; the time series moving; no fault."""
+    from ratelimit_tpu_torch.observability import OUTCOME_OK
+
+    launches, flight, slo, ts = runner.launches, runner.flight, runner.slo, runner.timeseries
+    sketch = runner.cache.hotkeys
+    l0, f0 = launches.stamped(), flight.stamped()
+    items0 = launches.items_by_algo()
+    done0 = {b: d.completed_launches for b, d in bank_dispatchers(runner)}
+    cum0 = dict(slo.summary()["domains"]["rl"]["cumulative"])
+    ts0 = ts.snapshot()["seq"]
+    t0 = time.perf_counter()
+    threads, sent, errors = obs_clients(runner, OBS_PER_CLIENT, "h")
+    join_clients(threads, errors, "healthy burst")
+    elapsed = time.perf_counter() - t0
+    runner.cache.flush()
+    wait_ticks(ts, 2)
+    n_sent = sum(sent.values())
+    if n_sent != OBS_CLIENTS * OBS_PER_CLIENT:
+        fail(f"healthy burst: sent {n_sent}, want {OBS_CLIENTS * OBS_PER_CLIENT}")
+    live = launches.snapshot(since=l0)
+    records = launches.snapshot_dicts(since=l0)
+    done = {b: d.completed_launches - done0[b] for b, d in bank_dispatchers(runner)}
+    by_bank = {}
+    for r in records:
+        by_bank[r["bank"]] = by_bank.get(r["bank"], 0) + 1
+    want_algo = {}
+    for (key, _), n in sent.items():
+        want_algo[OBS_ALGO[key]] = want_algo.get(OBS_ALGO[key], 0) + n
+    items = {a: n - items0[a] for a, n in launches.items_by_algo().items() if n - items0[a]}
+    out = dict(
+        requests=n_sent,
+        seconds=elapsed,
+        launches=len(records),
+        by_bank=by_bank,
+        items=int(live["items"].sum()),
+        items_by_algo=items,
+        coalesce=round(float(live["items"].mean()), 3),
+        complete_us_min=float(live["complete_ns"].min()) / 1e3,
+        complete_us_median=float(np.median(live["complete_ns"])) / 1e3,
+        launch_us_median=float(np.median(live["launch_ns"])) / 1e3,
+    )
+    if launches.stamped() - l0 != len(records) or by_bank != {b: n for b, n in done.items() if n}:
+        fail(f"healthy burst: launch records {by_bank} != completed launches {done}")
+    if (live["outcome"] != OUTCOME_OK).any() or out["items"] != n_sent:
+        fail(f"healthy burst: records not all ok or items {out['items']} != {n_sent}: {out}")
+    if items != want_algo:
+        fail(f"healthy burst: per-algorithm tallies {items} != keys sent {want_algo}")
+    if (live["complete_ns"] <= 0).any():
+        fail(f"healthy burst: a launch record with complete_ns <= 0: {out}")
+    frecs = [r for r in flight.snapshot_dicts() if r["seq"] > f0]
+    codes = {r["code"] for r in frecs}
+    out["flight"] = len(frecs)
+    if len(frecs) != n_sent or flight.stamped() - f0 != n_sent or codes != {1}:
+        fail(f"healthy burst: {len(frecs)} flight records with codes {codes}, want {n_sent} OK")
+    cum = slo.summary()["domains"]["rl"]["cumulative"]
+    out["slo"] = {k: cum[k] - cum0[k] for k in cum}
+    if out["slo"]["requests"] != n_sent or out["slo"]["over_limit"] or out["slo"]["errors"]:
+        fail(f"healthy burst: SLO counts {out['slo']}, want {n_sent} requests")
+    top = sketch.snapshot(limit=1)[0]
+    hot_stem = f"rl_{OBS_HOT[0]}_{OBS_HOT[1]}_"
+    out["hot"] = dict(key=top["key"], hits=top["hits"], sent=sent[OBS_HOT])
+    if top["key"] != hot_stem or top["hits"] < sent[OBS_HOT]:
+        fail(f"healthy burst: the hot key is not on top: {out['hot']}")
+    series = ts.snapshot(since=ts0)["series"]
+    out["series"] = {
+        name: max((v for v in series[name] if v is not None), default=None)
+        for name in ("decisions_per_s", "launches_per_s", "decisions_per_s.fixed_window",
+                     "decisions_per_s.sliding_window", "decisions_per_s.gcra")
+    }
+    if not all(v and v > 0 for v in out["series"].values()):
+        fail(f"healthy burst: a series did not move: {out['series']}")
+    out["faults"] = fault_free(runner, "observability phase (healthy)")
+    return out
+
+
+def planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms):
+    """Phase 8's stall on the fixed-window bank, after CALM_TICKS ticks
+    of calm traffic: the journal tells quarantine, fallback, restart in
+    seq order; the OUTCOME_FALLBACK records equal the fallback answers,
+    and so do the flight records carrying the fallback code; the
+    stalled launch's record is stamped once its event completed; the
+    latency detector trips and the incident, in memory and in
+    INCIDENT_DIR, holds the flight rows, the journal and the series."""
+    from ratelimit_tpu_torch.observability import FLIGHT_CODE_FALLBACK
+
+    bank = bank_of(runner, "lane0of1")
+    fd = runner.cache.fault_domain
+    ts = runner.timeseries
+    seq = ts.snapshot()["seq"]
+    i = 0
+    while ts.snapshot()["seq"] < seq + CALM_TICKS:
+        request("obs_fw", f"calm{i}")
+        i += 1
+    e0 = runner.events.emitted
+    l0, f0 = runner.launches.stamped(), runner.flight.stamped()
+    fallback0 = fd.stat_fallback_decisions
+    incidents0 = runner.detectors.captured
+    t_stall = time.time()
+    episode = stall_episode(
+        torch, kernels, runner, request, R.OK, bank, "probe", fw.K1_LANES, cycles_per_ms
+    )
+    fallback = fd.stat_fallback_decisions - fallback0
+    # The detectors capture on their own tick: wait for one past the stall.
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        new = runner.detectors.incidents()[: runner.detectors.captured - incidents0]
+        if any(inc["detector"] == "latency_spike" for inc in new):
+            break
+        time.sleep(0.05)
+    new = runner.detectors.incidents()[: runner.detectors.captured - incidents0]
+    events = [
+        e for e in runner.events.snapshot(since=e0)
+        if e["type"].startswith("bank_") and e.get("bank") == bank
+    ]
+    types = [e["type"] for e in events]
+    seqs = [e["seq"] for e in events]
+    records = [r for r in runner.launches.snapshot_dicts(since=l0) if r["bank"] == bank]
+    fallback_records = [r for r in records if r["outcome"] == "fallback"]
+    stalled = max((r["complete_us"] for r in records if r["outcome"] == "ok"), default=0.0)
+    fcodes = [r["code"] for r in runner.flight.snapshot_dicts() if r["seq"] > f0]
+    files = sorted(os.listdir(runner.detectors.incident_dir))
+    out = dict(
+        episode=episode,
+        events=types,
+        fallback=fallback,
+        fallback_records=len(fallback_records),
+        fallback_flight=fcodes.count(FLIGHT_CODE_FALLBACK),
+        stalled_complete_ms=stalled / 1e3,
+        tripped=[inc["detector"] for inc in new][::-1],
+        incident_files=len(files),
+    )
+    if not types or types[0] != "bank_quarantine" or types[1:2] != ["bank_fallback"] or types[-1] != "bank_restart" or seqs != sorted(seqs):
+        fail(f"stall: journal {list(zip(types, seqs))}, want bank_quarantine, bank_fallback ... bank_restart in seq order")
+    if not (out["fallback_records"] == out["fallback_flight"] == fallback == 40):
+        fail(f"stall: fallback answers {fallback}, OUTCOME_FALLBACK records {out['fallback_records']}, fallback flight records {out['fallback_flight']}")
+    if out["stalled_complete_ms"] < 0.5 * episode["stall_ms"]:
+        fail(f"stall: no launch record waited out the stall ({out['stalled_complete_ms']:.1f} ms)")
+    if "latency_spike" not in out["tripped"]:
+        fail(f"stall: the latency detector did not trip (tripped: {out['tripped']}; all: "
+             f"{[(i['detector'], i['reason']) for i in runner.detectors.incidents()]})")
+    inc = next(i for i in new if i["detector"] == "latency_spike")
+    on_disk = [f for f in files if inc["id"] in f]
+    out["incident"] = dict(
+        id=inc["id"],
+        reason=inc["reason"],
+        ring=len(inc["ring"]),
+        events=[e["type"] for e in inc["events"] if e["type"].startswith("bank_")],
+        series=len(inc["timeseries"]),
+        on_disk=len(on_disk),
+    )
+    if not (inc["ring"] and "bank_quarantine" in out["incident"]["events"] and inc["timeseries"] and on_disk):
+        fail(f"stall: the incident lacks evidence: {out['incident']}")
+    with open(os.path.join(runner.detectors.incident_dir, on_disk[0])) as f:
+        if json.load(f)["id"] != inc["id"]:
+            fail("stall: the incident file holds another incident")
+    return out
+
+
+def planes_lock_gaps(runner):
+    """During a second burst, the longest interpreter-lock gap that one
+    incident capture and one time-series sample leave another thread,
+    beside plain windows of the same length; no fault may come of it."""
+    fd = runner.cache.fault_domain
+    faults0 = dict(fd.stat_faults)
+    stop = threading.Event()
+    out = {"capture": [], "sample": [], "plain": [], "capture_ms": [], "sample_ms": []}
+    with GilProbe() as probe:
+        threads, sent, errors = obs_clients(runner, 0, "g", stop=stop)
+        time.sleep(0.5)
+        try:
+            for _ in range(GIL_PROBES):
+                t0 = time.perf_counter()
+                runner.detectors._capture("gil_probe", "interpreter-lock gap of one capture")
+                t1 = time.perf_counter()
+                out["capture"].append(probe.max_gap_ms(t0, t1))
+                out["capture_ms"].append((t1 - t0) * 1e3)
+                time.sleep(0.1)
+                t0 = time.perf_counter()
+                runner.timeseries.tick()
+                t1 = time.perf_counter()
+                out["sample"].append(probe.max_gap_ms(t0, t1))
+                out["sample_ms"].append((t1 - t0) * 1e3)
+                time.sleep(0.1)
+                t0 = time.perf_counter()
+                time.sleep(max(out["capture_ms"][-1], 1.0) / 1e3)
+                out["plain"].append(probe.max_gap_ms(t0, time.perf_counter()))
+                time.sleep(0.1)
+        finally:
+            stop.set()
+            join_clients(threads, errors, "lock-gap burst")
+    out["requests"] = sum(sent.values())
+    if fd.stat_faults != faults0 or fd.quarantined_count():
+        fail(f"lock gaps: the fault domain acted during the burst: {fd.summary()}")
+    bound = GIL_GAP_SHARE * DEFAULT_DEADLINE_S * 1e3
+    if max(out["capture"] + out["sample"]) >= bound:
+        fail(f"lock gaps: a capture or sample held the interpreter lock {max(out['capture'] + out['sample']):.1f} ms >= {bound:.0f} ms")
+    return out
+
+
+def planes_cost():
+    """Warm served microseconds per request with every plane at its
+    default against every plane off: two runners side by side, legs in
+    PLANES_PAIRS alternating pairs of PLANES_LEG requests."""
+    legs = {"on": [], "off": []}
+    with serving("cuda") as (on_runner, on_request, _):
+        with serving("cuda", env=PLANES_OFF) as (off_runner, off_request, _):
+            if on_runner.flight is None or on_runner.timeseries is None:
+                fail("plane cost: the default runner has a plane off")
+            if any(
+                p is not None
+                for p in (off_runner.flight, off_runner.launches, off_runner.events,
+                          off_runner.timeseries, off_runner.cache.hotkeys)
+            ) or off_runner.detectors._thread is not None:
+                fail("plane cost: the planes-off runner has a plane on")
+            runs = {"on": on_request, "off": off_request}
+            for p in range(PLANES_PAIRS):
+                for side in ("on", "off") if p % 2 == 0 else ("off", "on"):
+                    legs[side].append(warm_us(runs[side], "obs_fw", n=PLANES_LEG))
+            fault_free(on_runner, "plane cost (on)")
+            fault_free(off_runner, "plane cost (off)")
+    diffs = [a - b for a, b in zip(legs["on"], legs["off"])]
+    return dict(legs=legs, diffs=diffs)
+
+
+def planes_phase(torch, kernels, fw, cycles_per_ms, smi):
+    """The runner with BACKEND_TYPE=cuda and every default but the
+    sampler intervals (PLANES_INTERVAL_S), INCIDENT_DIR and
+    DEBUG_PROFILING=1, on the card's default state size (2^20
+    fixed-window slots, 2^18 per algorithm bank): the healthy burst,
+    the stall, the interpreter-lock gaps; then the plane cost."""
+    kernels.launches.clear()
+    if time.time() % 3600 > 3600 - 60:
+        # The stall's probe rule counts per hour: no rollover inside.
+        time.sleep(3601 - time.time() % 3600)
+    with tempfile.TemporaryDirectory() as incidents:
+        env = {
+            "TSDB_INTERVAL_S": PLANES_INTERVAL_S,
+            "ANOMALY_INTERVAL_S": PLANES_INTERVAL_S,
+            "INCIDENT_DIR": incidents,
+            "DEBUG_PROFILING": "1",
+        }
+        with serving("cuda", env=env) as (runner, request, R):
+            s = runner.settings
+            if (s.tpu_num_slots, s.tpu_algorithm_num_slots) != (NUM_SLOTS, ALGO_SLOTS):
+                fail(f"observability phase: not the default state size: {s.tpu_num_slots}")
+            out = dict(healthy=planes_healthy(runner))
+            port = runner.debug_server.bound_port
+            views = {}
+            for path in ("/debug/hotkeys", "/debug/events", "/debug/launches", "/debug/timeseries",
+                         "/debug/incidents", "/debug/slo", "/debug/flight"):
+                status, body = http_get(port, path)
+                views[path] = (status, len(body))
+                if status != 200:
+                    fail(f"observability phase: {path} answered {status}")
+            out["views"] = views
+            out["stall"] = planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms)
+            out["gaps"] = planes_lock_gaps(runner)
+    out["cost"] = planes_cost()
+    return dict(kernels.launches), out
+
+
+def planes_lines(o, smi) -> list:
+    h, st, g, c = o["healthy"], o["stall"], o["gaps"], o["cost"]
+    ep = st["episode"]
+
+    def spread(v):
+        return f"median {np.median(v):.1f}, min {min(v):.1f}, max {max(v):.1f}"
+
+    return [
+        f"planes (healthy): {h['requests']} requests from {OBS_CLIENTS} clients (gRPC and /json) "
+        f"in {h['seconds']:.2f} s; {h['launches']} launch records {h['by_bank']} = the banks' "
+        f"completed launches, all ok, items {h['items']} = requests, per algorithm "
+        f"{h['items_by_algo']}, coalesce {h['coalesce']}, complete_us min "
+        f"{h['complete_us_min']:.1f} median {h['complete_us_median']:.1f}, launch_us median "
+        f"{h['launch_us_median']:.1f}; {h['flight']} flight records, all OK; SLO {h['slo']}; "
+        f"hot key {h['hot']}; series maxima {h['series']}; {h['faults']}",
+        f"planes (views): {o['views']}",
+        f"planes (stall): journal {st['events']}; {st['fallback']} fallback answers = "
+        f"{st['fallback_records']} OUTCOME_FALLBACK records = {st['fallback_flight']} flight "
+        f"records with the fallback code; the stalled launch's record stamped after its event "
+        f"completed, complete {st['stalled_complete_ms']:.1f} ms; tripped {st['tripped']}; "
+        f"incident {st['incident']}; {st['incident_files']} files in INCIDENT_DIR; "
+        f"RPCs during the stall max {ep['rpc_max_ms']:.1f} ms",
+        f"planes (interpreter lock, {smi}): during a {OBS_CLIENTS}-client burst "
+        f"({g['requests']} requests), one incident capture took {spread(g['capture_ms'])} ms "
+        f"and left another thread at most {spread(g['capture'])} ms; one time-series sample "
+        f"took {spread(g['sample_ms'])} ms, gap {spread(g['sample'])} ms; plain windows gap "
+        f"{spread(g['plain'])} ms (bound {GIL_GAP_SHARE * DEFAULT_DEADLINE_S * 1e3:.0f} ms); "
+        f"no fault",
+        f"planes (cost, {smi}): warm us/request over gRPC, {PLANES_PAIRS} alternating pairs of "
+        f"{PLANES_LEG}: every plane on {spread(c['legs']['on'])}; every plane off "
+        f"{spread(c['legs']['off'])}; on - off per pair {spread(c['diffs'])}",
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -3416,9 +3929,16 @@ def main() -> None:
     for line in write_behind_lines(write_behind):
         log(line)
 
+    # 12. the observability planes
+    obs_launches, planes = planes_phase(torch, kernels, fw, cycles_per_ms, smi)
+    lap("observability")
+    log(f"observability: launches {obs_launches}")
+    for line in planes_lines(planes, smi):
+        log(line)
+
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
-        top_launches, wb_launches,
+        top_launches, wb_launches, obs_launches,
     )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)

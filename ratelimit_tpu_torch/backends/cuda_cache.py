@@ -14,8 +14,12 @@ fixed-window one that still enforces
 ``kernel_deadline_s > 0`` and a dispatcher per bank, the device fault
 domain (backends/fault_domain.py) watches every bank: a stalled or
 failing bank is quarantined, answered per DEVICE_FAILURE_MODE and
-restarted on its own.  Hot-key tracking and the flight/launch recorders
-are not ported yet (ROADMAP.md).  The request path is the
+restarted on its own.  The observability planes hook in as in the
+reference: the hot-key sketch (``hotkeys_top_k``) fed on the resolution
+fast path, the flight recorder's per-thread notes (decisive descriptor,
+shadow candidate, fallback answer), the launch recorder on every bank
+dispatcher (attach_launch_recorder) and the event journal, which the
+runner hands to the fault domain.  The request path is the
 reference's:
 
 1. ``hits_addend = max(1, request.hits_addend)``;
@@ -48,7 +52,7 @@ from ..limiter.cache_key import CacheKeyGenerator, EMPTY_KEY
 from ..limiter.local_cache import LocalCache
 from ..limiter.resolution import ResolutionCache
 from ..models.registry import ALGORITHMS
-from ..observability import TRACER
+from ..observability import TRACER, HotKeySketch
 from ..utils.time import (
     TimeSource,
     RealTimeSource,
@@ -142,6 +146,7 @@ class CudaRateLimitCache:
         fault_interval_s: Optional[float] = None,
         fault_probe_timeout_s: Optional[float] = None,
         engine_factory=None,
+        hotkeys_top_k: int = 0,
     ):
         """`engine` may be a LIST of engines: N independent host lanes,
         each with its own slot table, dispatcher thread pair and CUDA
@@ -154,7 +159,9 @@ class CudaRateLimitCache:
         `kernel_deadline_s` > 0 (with batch_window_us > 0) builds the
         device fault domain; the `fault_*` knobs and `engine_factory`
         are its own (backends/fault_domain.py DeviceFaultDomain), and
-        `fault_clock` also stamps the dispatchers' liveness marks."""
+        `fault_clock` also stamps the dispatchers' liveness marks.
+        `hotkeys_top_k` > 0 builds the hot-key sketch (it needs the
+        resolution fast path)."""
         if device_failure_mode not in FAILURE_MODES:
             raise ValueError(
                 f"DEVICE_FAILURE_MODE must be one of "
@@ -205,6 +212,31 @@ class CudaRateLimitCache:
             if resolution_cache_entries > 0
             else None
         )
+        # Hot-key sketch (observability/hotkeys.py): Space-Saving top-K
+        # over interned descriptor stems, fed by the resolution fast
+        # path (one counter bump per descriptor on a pinned handle).
+        # 0 disables; needs the resolver (the handle lives on its
+        # entries).
+        self.hotkeys = (
+            HotKeySketch(hotkeys_top_k)
+            if hotkeys_top_k > 0 and self.resolver is not None
+            else None
+        )
+        # Near-limit threshold ratio for the sketch's outcome shares
+        # (the engines' decide threshold).
+        self._near_ratio = float(getattr(lanes[0].model, "near_ratio", 0.8))
+        # Flight recorder (observability/flight.py), attached by the
+        # runner when FLIGHT_RECORDER_SIZE > 0: the fast path deposits
+        # the decisive descriptor's (stem hash, bank) into its
+        # thread-local note, and the transport stamps the record.
+        self.flight = None
+        # Lifecycle event journal (observability/events.py), attached by
+        # the runner when EVENT_JOURNAL_SIZE > 0; the runner hands it to
+        # the fault domain as well.
+        self.events = None
+        # Launch flight recorder (observability/launches.py), attached
+        # through attach_launch_recorder when LAUNCH_RECORDER_SIZE > 0.
+        self.launches = None
         self.device_failure_mode = device_failure_mode
         self.stat_deadline_answers = 0
         self.expiration_jitter_max_seconds = int(expiration_jitter_max_seconds)
@@ -298,6 +330,10 @@ class CudaRateLimitCache:
             new_dispatcher.batch_items_hist = old_d.batch_items_hist
         if self._health is not None:
             new_dispatcher.on_state = self._dispatcher_health(new_dispatcher)
+        if self.launches is not None:
+            new_dispatcher.launches = self.launches
+            new_dispatcher.launch_bank = bank
+            new_dispatcher.launch_algo = self._bank_algo_id(bank)
         self._inline_locks[id(new_engine)] = threading.Lock()
         self._dispatchers[id(new_engine)] = new_dispatcher
         self._bank_engines[bank] = new_engine
@@ -314,6 +350,28 @@ class CudaRateLimitCache:
         self._dispatchers.pop(id(old), None)
         with self._health_lock:
             self._unhealthy.discard(id(old_d))
+
+    def attach_launch_recorder(self, recorder) -> None:
+        """Wire the launch flight recorder into every bank dispatcher
+        and the fault domain's fallback path (runner.start; _swap_bank
+        hands it to restarted dispatchers)."""
+        self.launches = recorder
+        if self.fault_domain is not None:
+            self.fault_domain.launches = recorder
+        for bank, eng in enumerate(self.engines()):
+            d = self._dispatchers.get(id(eng))
+            if d is not None:
+                d.launch_bank = bank
+                d.launch_algo = self._bank_algo_id(bank)
+                d.launches = recorder
+
+    def _bank_algo_id(self, bank: int) -> int:
+        """models/registry algo_id serving at `bank` (engines() order):
+        the lanes and the per-second bank run fixed-window models; the
+        algorithm banks carry their registry id."""
+        if bank < self._n_base:
+            return 0
+        return ALGORITHMS[self._algo_order[bank - self._n_base]].algo_id
 
     def release_retired(self) -> int:
         """Give back the stream of each engine a restart replaced once it
@@ -432,8 +490,9 @@ class CudaRateLimitCache:
         lookup, key, TotalHits, local-cache check, bank routing and
         per-bank pack assembly fused into a single pass over the
         descriptors.  Returns (items, statuses, categories, limits,
-        is_unlimited, hits_addend, now, shadow_info); items are
-        (bank, engine, WorkItem) triples."""
+        is_unlimited, hits_addend, now, hot, shadow_info); items are
+        (bank, engine, WorkItem) triples, ``hot`` the per-row hot-key
+        entries (None when the sketch is off)."""
         resolver = self.resolver
         descriptors = request.descriptors
         domain = request.domain
@@ -466,9 +525,21 @@ class CudaRateLimitCache:
         # descriptor and nothing else.
         algo_accs: Optional[dict] = None  # name -> (rows, enc, tpl)
         shadow_accs: Optional[dict] = None  # name -> (rows, enc, tpl)
-        shadow_rows: Optional[list] = None  # (i, name)
+        shadow_rows: Optional[list] = None  # (i, name, algo_id)
         raw_over: Optional[list] = None  # enforced pre-shadow over-ness
         cand_over: Optional[list] = None  # candidate over-ness
+        cand_code: Optional[list] = None  # candidate would-be code
+        # Hot-key feed: one counter bump per limited descriptor on the
+        # handle pinned to its ResolvedDescriptor; track() (locked) runs
+        # only on first sight of a stem or after an eviction.  Overrides
+        # bypass the resolver and are not tracked.
+        hk = self.hotkeys
+        hot: Optional[list] = [None] * n if hk is not None else None
+        hk_observed = 0
+        # Flight-recorder note: the FIRST limited descriptor is the
+        # request's identity in the ring (stem hash + bank).
+        fl = self.flight
+        fl_pending = fl is not None
         # TotalHits adds batched by rule identity.
         prev_rule = None
         prev_hits = 0
@@ -493,6 +564,23 @@ class CudaRateLimitCache:
                 is_unlimited[i] = True
                 continue  # limits[i] stays None (service contract)
             limits[i] = rule
+            if fl_pending:
+                fl_pending = False
+                if rd.algo_id and not rd.algo_shadow:
+                    note_bank = self._algo_bank[rd.algorithm]
+                elif ps_bank is not None and rd.per_second:
+                    note_bank = n_lanes
+                else:
+                    note_bank = rd.lane
+                fl.note(rd.stem_hash, note_bank)
+            if hk is not None:
+                e = rd.hot
+                if e is None or e.key is None:
+                    e = hk.track(rd.stem)
+                    rd.hot = e
+                e.hits += hits_addend
+                hk_observed += hits_addend
+                hot[i] = e
             if rule is prev_rule:
                 prev_hits += hits_addend
             else:
@@ -533,13 +621,14 @@ class CudaRateLimitCache:
                     shadow_rows = []
                     raw_over = [False] * n
                     cand_over = [None] * n
+                    cand_code = [None] * n
                 sa = shadow_accs.get(rd.algorithm)
                 if sa is None:
                     sa = shadow_accs[rd.algorithm] = ([], [], [])
                 sa[0].append(i)
                 sa[1].append(ws.algo_key_bytes)
                 sa[2].append(ws.algo_template_bytes)
-                shadow_rows.append((i, rd.algorithm))
+                shadow_rows.append((i, rd.algorithm, algo_id))
             if single_bank:
                 rows.append(i)
                 enc.append(ws.key_bytes)
@@ -553,6 +642,8 @@ class CudaRateLimitCache:
             prev_rule.stats.total_hits.add(prev_hits)
         if resolution_hits:
             resolver.hits += resolution_hits
+        if hk_observed:
+            hk.observed += hk_observed
 
         if overrides is not None:
             self._route_overrides(
@@ -600,14 +691,15 @@ class CudaRateLimitCache:
                         self._algo_bank[name],
                         self.algorithm_banks[name],
                         self._make_candidate_item(
-                            s_rows, hits_addend, now, s_enc, s_tparts, cand_over
+                            s_rows, hits_addend, now, s_enc, s_tparts,
+                            cand_over, cand_code,
                         ),
                     )
                 )
-            shadow_info = (shadow_rows, raw_over, cand_over)
+            shadow_info = (shadow_rows, raw_over, cand_over, cand_code)
         return (
             items, statuses, categories, limits, is_unlimited, hits_addend,
-            now, shadow_info,
+            now, hot, shadow_info,
         )
 
     def _route_overrides(
@@ -689,28 +781,58 @@ class CudaRateLimitCache:
         get_limit + do_limit pair."""
         (
             items, statuses, categories, limits, is_unlimited, hits_addend,
-            now, shadow_info,
+            now, hot, shadow_info,
         ) = self._prepare_resolved(request, config)
         statuses = self._execute(
             limits, items, statuses, categories, hits_addend, now,
             len(request.descriptors), deadline=request.deadline,
         )
+        if hot is not None:
+            self._note_hotkey_outcomes(hot, statuses, hits_addend)
         if shadow_info is not None:
             self._note_shadow_outcomes(*shadow_info)
         return statuses, limits, is_unlimited
 
-    def _note_shadow_outcomes(self, shadow_rows, raw_over, cand_over) -> None:
+    def _note_shadow_outcomes(self, shadow_rows, raw_over, cand_over, cand_code) -> None:
         """Tally shadow-rollout divergence: for every shadowed
         descriptor that reached the engines, compare the candidate
         kernel's would-be over-ness with the enforced fixed-window one
         (both before shadow_mode, so a rule that also suppresses
-        OVER_LIMIT still measures real divergence)."""
+        OVER_LIMIT still measures real divergence), and deposit the
+        first candidate's (code, algo) into the flight-recorder note so
+        the ring record carries both codes."""
         counts = self._shadow_counts
-        for i, name in shadow_rows:
+        fl = self.flight
+        noted = fl is None
+        for i, name, algo_id in shadow_rows:
             co = cand_over[i]
             if co is None:
                 continue  # candidate never evaluated
             counts[name][0 if co == raw_over[i] else 1] += 1
+            if not noted:
+                noted = True
+                fl.note_shadow(int(cand_code[i]), algo_id)
+
+    def _note_hotkey_outcomes(self, hot, statuses, hits_addend: int) -> None:
+        """Fold this request's decisions into its hot-key entries:
+        over-limit hits by status code, near-limit hits by the decide
+        threshold (after > limit * near_ratio, recovered from
+        limit_remaining for OK statuses).  Request-granular, lock-free
+        bumps; see observability/hotkeys.py."""
+        ratio = self._near_ratio
+        over = Code.OVER_LIMIT
+        for i, e in enumerate(hot):
+            if e is None:
+                continue
+            st = statuses[i]
+            if st.code is over:
+                e.over_limit += hits_addend
+            else:
+                lim = st.current_limit
+                if lim is not None:
+                    rpu = lim.requests_per_unit
+                    if rpu - st.limit_remaining > rpu * ratio:
+                        e.near_limit += hits_addend
 
     def _execute(
         self,
@@ -748,10 +870,20 @@ class CudaRateLimitCache:
         stamps become spans after the waits (_record_item_spans)."""
         fd = self.fault_domain
         span = TRACER.current()
+        # One thread-local read per request: the launch recorder joins a
+        # slow launch back to the request rings through the submitting
+        # thread's sticky correlation id (0 when either ring is off).
+        req_corr = (
+            self.flight.current_corr()
+            if self.launches is not None and self.flight is not None
+            else 0
+        )
         pending: List[tuple] = []  # (bank, engine, item) awaiting wait
         done: List[WorkItem] = []  # answered items (events recyclable)
         inline: List[tuple] = []
         for bank, engine, item in items:
+            if req_corr:
+                item.corr = req_corr
             if span is not None:
                 item.trace = {
                     "bank": self._bank_labels[bank],
@@ -885,7 +1017,7 @@ class CudaRateLimitCache:
         fires twice would corrupt a later request."""
         return WorkItem(
             now=item.now, lanes=(), pack=item.get_pack(), apply=item.apply,
-            defer_apply=True,
+            defer_apply=True, corr=item.corr,
         )
 
     def _route(self, bank: int, item: WorkItem, pending: list, done: list) -> None:
@@ -894,6 +1026,7 @@ class CudaRateLimitCache:
         else the bank's current dispatcher (into `pending`)."""
         fd = self.fault_domain
         if fd.is_quarantined(bank) and fd.run_fallback(bank, item):
+            self._note_fallback()
             done.append(item)
             return
         engine = fd.engine_at(bank)  # swap-safe resolve
@@ -931,6 +1064,15 @@ class CudaRateLimitCache:
         )
         clone.wait(5.0)
         self.stat_deadline_answers += 1
+        self._note_fallback()
+
+    def _note_fallback(self) -> None:
+        """Mark this thread's in-flight request as answered by the
+        failure-mode fallback: its flight-ring record stamps
+        FLIGHT_CODE_FALLBACK."""
+        fl = self.flight
+        if fl is not None:
+            fl.note_fallback()
 
     def bind_health(self, health) -> None:
         """Wire backend liveness into the health checker.  A bank's
@@ -998,6 +1140,15 @@ class CudaRateLimitCache:
                     f"{fd.failure_mode} fallback",
                 )
 
+    def queue_hwm_drain(self) -> int:
+        """Deepest per-tick intake drain across every bank's
+        dispatcher, reset on read: the queue-saturation detector's input
+        (observability/detectors.py)."""
+        return max(
+            (d.queue_hwm_drain() for d in list(self._dispatchers.values())),
+            default=0,
+        )
+
     def flush(self) -> None:
         """Drain the dispatcher queues (deterministic test hook; the
         graceful-drain leg of runner.stop).  Dead (quarantined)
@@ -1045,6 +1196,8 @@ class CudaRateLimitCache:
                 scope + ".resolution_cache.clears", lambda: res.clears
             )
             store.gauge_fn(scope + ".resolution_cache.entries", lambda: len(res))
+        if self.hotkeys is not None:
+            self.hotkeys.register_stats(store, scope + ".hotkeys")
         # One agree/diverge pair per algorithm bank: bounded by the
         # algorithm table, not by traffic.
         for name in self._algo_order:
@@ -1191,11 +1344,12 @@ class CudaRateLimitCache:
         )
 
     def _make_candidate_item(
-        self, rows, hits_addend, now, enc, tparts, cand_over: list
+        self, rows, hits_addend, now, enc, tparts, cand_over: list, cand_code: list
     ) -> WorkItem:
         """Shadow-candidate packer: the same template pack as
         _make_packed_item, but the apply records ONLY the candidate
-        kernel's would-be over-ness (before shadow_mode) -- no
+        kernel's would-be outcome (over-ness before shadow_mode, and its
+        code) -- no
         statuses, no rule stats, no local cache, so a shadowed rule's
         responses stay byte-identical to plain fixed-window."""
         pack = self._template_pack(hits_addend, enc, tparts)
@@ -1204,7 +1358,9 @@ class CudaRateLimitCache:
             codes = decisions.codes.tolist()
             shadow = decisions.shadow_mode.tolist()
             for j, i in enumerate(rows):
-                cand_over[i] = codes[j] == _OVER_VALUE or shadow[j] > 0
+                c = int(codes[j])
+                cand_code[i] = c
+                cand_over[i] = c == _OVER_VALUE or shadow[j] > 0
 
         return WorkItem(
             now=now,

@@ -7,8 +7,13 @@ and returns; the completer waits on the submission's event.  Each side
 stamps when its device call begins (the watchdog seam of the device
 fault domain, backends/fault_domain.py): a kernel stalled on the card
 holds the completer inside that event wait, and a stamp older than the
-kernel deadline quarantines the bank.  The launch flight recorder of
-the reference (observability) is not ported yet.
+kernel deadline quarantines the bank.  With a launch flight recorder
+attached (observability/launches.py), each launch leaves one record:
+``launch_ns`` from submit_items entry until the kernel is enqueued on
+the stream, ``complete_ns`` from the start of the event wait through
+decide and scatter, stamped on the completer after the event has
+completed.  A record that fails to stamp is logged and dropped; it
+never fails the launch.
 
 The reference gets cross-request batching for free from radix's
 implicit pipelining (one Redis round trip aggregates commands from
@@ -32,16 +37,21 @@ Tests for its async memcache writes (src/memcached/cache_impl.go:54,
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..observability.launches import OUTCOME_FAULT, OUTCOME_OK
 from ..utils.time import REAL_MONOTONIC
 from .engine import HostDecisions
+
+logger = logging.getLogger("ratelimit.dispatcher")
 
 
 @dataclass(frozen=True)
@@ -159,6 +169,14 @@ class WorkItem:
     # converts the stamps to dispatch/kernel spans after wait()
     # (observability/trace.py).  None on the unsampled hot path.
     trace: Optional[dict] = None
+    # Launch-recorder stamps (observability/launches.py), set only
+    # when a recorder is attached to the receiving dispatcher:
+    # `submit_ns` is monotonic_ns at intake (the queue-wait baseline);
+    # `corr` carries the request's correlation id so the launch record
+    # can name its longest-queued rider.  Both stay 0 on the
+    # recorder-off path.
+    submit_ns: int = 0
+    corr: int = 0
     event: threading.Event = field(default_factory=threading.Event)
     error: Optional[BaseException] = None
 
@@ -402,6 +420,10 @@ class BatchDispatcher:
         # Intake high-water mark, written only by the collector under
         # the intake cv (one max() per drain swap, not per item).
         self._queue_hwm = 0
+        # Same mark but resettable: the anomaly sampler drains it each
+        # tick (queue_hwm_drain), so a between-scrapes burst is a
+        # per-tick number instead of a forever-latched maximum.
+        self._queue_hwm_tick = 0
         # Batch-shape histograms (stats.Histogram or None), wired by
         # CudaRateLimitCache.register_stats; observed once per launch
         # on the collector thread.  Lanes/items counts, not ms.
@@ -409,6 +431,18 @@ class BatchDispatcher:
         self.batch_items_hist = None
         # Largest launch so far, in lanes (collector-written gauge).
         self.max_launch_lanes = 0
+        # Launch flight recorder (observability/launches.py), attached
+        # by CudaRateLimitCache.attach_launch_recorder together with
+        # this dispatcher's bank index and algorithm id.  None = off (one
+        # attribute load + branch per LAUNCH, never per item).  The meta
+        # deque carries the collector's per-launch measurements (shape,
+        # queue wait, launch duration, corr) to the completer in
+        # completion-queue order: one FIFO producer, one FIFO consumer,
+        # so entry k always meets its own batch.
+        self.launches = None
+        self.launch_bank = 0
+        self.launch_algo = 0
+        self._launch_meta: deque = deque()
         # Proactive slot-table gc: without it, expired keys linger in
         # the table until the free list empties (Redis expires keys
         # lazily too, but also actively samples; fixed 10-key-space
@@ -498,7 +532,21 @@ class BatchDispatcher:
         saturated when this pins at the configured depth."""
         return self._inflight_hwm
 
+    def queue_hwm_drain(self) -> int:
+        """Deepest intake drain since the LAST call, reset on read
+        (the queue-saturation detector's per-tick input,
+        observability/detectors.py).  Includes the current intake depth
+        so a still-growing backlog registers before the collector swaps
+        it."""
+        with self._buf_cv:
+            v = self._queue_hwm_tick
+            self._queue_hwm_tick = 0
+            return max(v, len(self._buf))
+
     def submit(self, item: WorkItem) -> None:
+        if self.launches is not None:
+            # Queue-wait baseline for the launch record.
+            item.submit_ns = time.monotonic_ns()
         self._enqueue(item)
 
     def flush(self) -> None:
@@ -591,6 +639,8 @@ class BatchDispatcher:
                 n_drained = len(drained)
                 if n_drained > self._queue_hwm:
                     self._queue_hwm = n_drained
+                if n_drained > self._queue_hwm_tick:
+                    self._queue_hwm_tick = n_drained
 
             cut = None
             try:
@@ -646,14 +696,54 @@ class BatchDispatcher:
             self.batch_lanes_hist.observe(lanes_total)
         if self.batch_items_hist is not None:
             self.batch_items_hist.observe(len(batch))
+        lr = self.launches
+        queue_wait = corr = t0 = 0
+        if lr is not None:
+            # Launch-record front half: queue_wait is oldest submit ->
+            # here; the oldest item's corr joins the record to the
+            # request rings.  Once per LAUNCH, on this thread only.
+            t0 = time.monotonic_ns()
+            oldest = 0
+            for it in batch:
+                s = it.submit_ns
+                if s and (oldest == 0 or s < oldest):
+                    oldest = s
+                    corr = it.corr
+            if oldest:
+                queue_wait = t0 - oldest
         self._launch_busy_since = self._stamp_now()
         try:
             token = submit_items(self.engine, batch)
         finally:
             self._launch_busy_since = None
         if token is _SUBMIT_FAILED:
+            if lr is not None:
+                self._record_launch(
+                    lr,
+                    lanes_total,
+                    len(batch),
+                    int(getattr(self.engine, "stat_dedup_groups", 0)),
+                    queue_wait,
+                    time.monotonic_ns() - t0,
+                    0,
+                    OUTCOME_FAULT,
+                    corr,
+                )
             self._note_step(False)
         elif token is not None:
+            if lr is not None:
+                # Appended strictly before the matching _put_completion:
+                # the completer poplefts one entry per batch.
+                self._launch_meta.append(
+                    (
+                        lanes_total,
+                        len(batch),
+                        int(getattr(self.engine, "stat_dedup_groups", 0)),
+                        queue_wait,
+                        time.monotonic_ns() - t0,
+                        corr,
+                    )
+                )
             with self._state_lock:
                 self._inflight += 1
                 if self._inflight > self._inflight_hwm:
@@ -798,11 +888,34 @@ class BatchDispatcher:
                 if kind == "token":
                     payload.event.set()
                 else:
+                    lr = self.launches
+                    t0 = time.monotonic_ns() if lr is not None else 0
                     self._complete_busy_since = self._stamp_now()
                     try:
                         ok = complete_items(self.engine, payload, token)
                     finally:
                         self._complete_busy_since = None
+                    if lr is not None:
+                        # Stamped after the CUDA event has completed
+                        # and the decisions are scattered.
+                        try:
+                            meta = self._launch_meta.popleft()
+                        except IndexError:
+                            # Recorder attached between this batch's
+                            # launch and its completion: no front-half
+                            # measurements, still one record.
+                            meta = (0, len(payload), 0, 0, 0, 0)
+                        self._record_launch(
+                            lr,
+                            meta[0],
+                            meta[1],
+                            meta[2],
+                            meta[3],
+                            meta[4],
+                            time.monotonic_ns() - t0,
+                            OUTCOME_OK if ok else OUTCOME_FAULT,
+                            meta[5],
+                        )
                     if ok:
                         self.completed_launches += 1
                     with self._state_lock:
@@ -810,6 +923,16 @@ class BatchDispatcher:
                     self._note_step(ok)
         except BaseException as e:  # noqa: BLE001 — liveness boundary
             self._die(e)
+
+    def _record_launch(self, lr, *fields) -> None:
+        """Stamp one launch record for this dispatcher's bank.  A
+        recorder that raises loses the record, never the launch: the
+        dispatcher thread must not die into the fault domain's fallback
+        over an observability hook."""
+        try:
+            lr.record(self.launch_bank, self.launch_algo, *fields)
+        except Exception:
+            logger.exception("%s: launch record dropped", self._thread.name)
 
     @staticmethod
     def _run_call(t: "_CallToken") -> None:

@@ -49,9 +49,17 @@ CacheError and the service goes NOT_SERVING, as without the domain.
 
 Health: a quarantined bank that is still served is DEGRADED, not down
 (cuda_cache ``_refresh_health``, through ``HealthChecker.set_degraded``).
-The launch flight recorder and the event journal of the reference
-(observability/launches.py, observability/events.py) are not ported
-yet.
+
+Observability, as in the reference: the event journal
+(observability/events.py) gets ``bank_quarantine``, the first
+``bank_fallback`` of an episode, ``bank_half_open``, ``bank_restart``
+and ``bank_restart_failed``; the launch flight recorder
+(observability/launches.py) gets one ``OUTCOME_FALLBACK`` record per
+fallback answer.  Health is published before the journal hears of a
+transition: ``bank_quarantine`` comes out after DEGRADED and before any
+fallback answer of the episode (the bank's fallback lock holds them
+back), ``bank_restart`` after SERVING and before the restart count
+moves.
 """
 
 from __future__ import annotations
@@ -59,19 +67,16 @@ from __future__ import annotations
 import itertools
 import logging
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..observability.launches import OUTCOME_FALLBACK
 from ..utils.time import REAL_MONOTONIC, MonotonicClock
 from .host_engine import STATIC_ALLOW, STATIC_DENY, HostEngine
 
 logger = logging.getLogger("ratelimit.faults")
-
-#: Launch-record outcome of a fallback answer (the reference's
-#: observability/launches.py value), for the flight recorder that is
-#: not ported yet.
-OUTCOME_FALLBACK = 2
 
 FAULT_HANG = "hang"
 FAULT_EXCEPTION = "exception"
@@ -198,6 +203,7 @@ class BankRecord:
         "backoff_s",
         "restarts",
         "fallback_decisions",
+        "fallback_evented",
     )
 
     def __init__(self, bank: int, role: str):
@@ -220,6 +226,8 @@ class BankRecord:
         self.backoff_s = 0.0
         self.restarts = 0
         self.fallback_decisions = 0
+        # Whether this quarantine episode's bank_fallback event is out.
+        self.fallback_evented = False
 
 
 class DeviceFaultDomain:
@@ -285,6 +293,15 @@ class DeviceFaultDomain:
         self.stat_probe_failures = 0
         self.stat_snapshots = 0
         self._snapshot_seq = itertools.count(1)
+        # Lifecycle event journal (observability/events.py), wired by
+        # the runner when EVENT_JOURNAL_SIZE > 0; transitions only,
+        # never per request.
+        self.events = None
+        # Launch flight recorder (observability/launches.py), wired by
+        # cache.attach_launch_recorder: each fallback answer is a
+        # one-item host-side "launch" stamped OUTCOME_FALLBACK, so the
+        # /debug/launches timeline shows a quarantined bank's traffic.
+        self.launches = None
 
     # -- hot-path surface (cuda_cache._execute) --------------------------
 
@@ -308,6 +325,8 @@ class DeviceFaultDomain:
 
         rec = self._records[bank]
         mode = self.failure_mode
+        lr = self.launches
+        t0 = time.monotonic_ns() if lr is not None else 0
         with rec.lock:
             # Read under the lock that the restart's swap holds: a
             # closed bank has no mirror left to answer from.
@@ -319,12 +338,40 @@ class DeviceFaultDomain:
                 run_items(STATIC_ALLOW, [item])
             else:
                 run_items(rec.fallback, [item])
+        if lr is not None:
+            # One OUTCOME_FALLBACK record per fallback answer: a
+            # one-item host-side "launch" with its whole duration in
+            # complete_ns (there is no device submit leg).
+            try:
+                lr.record(
+                    bank, 0, item.n_lanes, 1, 0, 0, 0,
+                    time.monotonic_ns() - t0, OUTCOME_FALLBACK, item.corr,
+                )
+            except Exception:
+                logger.exception("bank %d: launch record dropped", bank)
         # The event is already set; wait() applies the deferred slices
         # on THIS thread exactly like a healthy dispatcher completion.
         item.wait(5.0)
         rec.fallback_decisions += 1
         self.stat_fallback_decisions += 1
+        if not rec.fallback_evented:
+            # First fallback answer of THIS quarantine episode: one
+            # timeline entry (per-answer volume stays in the counters).
+            # A racing second emitter is benign: two entries, not a
+            # wrong timeline.
+            rec.fallback_evented = True
+            self._emit("bank_fallback", bank=bank, mode=self.failure_mode)
         return True
+
+    def _emit(self, etype: str, **detail) -> None:
+        """One journal event, when a journal is wired; a journal that
+        raises loses the event, never the transition it reports."""
+        if self.events is None:
+            return
+        try:
+            self.events.emit(etype, **detail)
+        except Exception:
+            logger.exception("event %s dropped", etype)
 
     # -- fault intake ----------------------------------------------------
 
@@ -342,11 +389,48 @@ class DeviceFaultDomain:
         on; a fault of an engine that a restart has already replaced is
         stale and quarantines nothing."""
         rec = self._records[bank]
+        # The bank's fallback lock (taken before the domain lock, as the
+        # restart takes them) holds this episode's fallback answers back
+        # until DEGRADED and the bank_quarantine event are out.
+        with rec.lock:
+            if not self._quarantine(bank, rec, kind, exc, engine):
+                return
+            # Health before the journal and the kill: an RPC that the
+            # kill sends to the fallback reads DEGRADED once it has its
+            # answer, and the journal reports a state already published.
+            self._report_health()
+            self._emit(
+                "bank_quarantine",
+                bank=bank,
+                role=rec.role,
+                kind=kind,
+                error=rec.fault_error,
+                failure_mode=self.failure_mode,
+            )
+        engine = self._engines[bank]
+        d = self.cache._dispatchers.get(id(engine))
+        if d is not None and d.dead is None:
+            d.kill(RuntimeError(f"bank {bank} ({rec.role}) quarantined: {kind} fault"))
+        logger.error(
+            "device bank %d (%s) quarantined: %s fault (%s); failure "
+            "mode %s, restart in %.1fs",
+            bank,
+            rec.role,
+            kind,
+            rec.fault_error,
+            self.failure_mode,
+            rec.backoff_s,
+        )
+
+    def _quarantine(self, bank: int, rec: BankRecord, kind: str, exc, engine) -> bool:
+        """The state flip of record_fault, under the domain lock:
+        False (nothing done) when the bank is not closed or `engine` is
+        no longer its engine."""
         with self._lock:
             if rec.state != "closed":
-                return
+                return False
             if engine is not None and engine is not self._engines[bank]:
-                return
+                return False
             engine = self._engines[bank]
             self.stat_faults[kind] = self.stat_faults.get(kind, 0) + 1
             now = self._clock.now()
@@ -371,23 +455,9 @@ class DeviceFaultDomain:
             rec.quarantined_at = now
             rec.backoff_s = self.restart_backoff_s
             rec.next_restart = now + rec.backoff_s
+            rec.fallback_evented = False  # new episode, new timeline entry
             rec.state = "quarantined"
-        # Health before the kill: an RPC that the kill sends to the
-        # fallback reads DEGRADED once it has its answer.
-        self._report_health()
-        d = self.cache._dispatchers.get(id(engine))
-        if d is not None and d.dead is None:
-            d.kill(RuntimeError(f"bank {bank} ({rec.role}) quarantined: {kind} fault"))
-        logger.error(
-            "device bank %d (%s) quarantined: %s fault (%s); failure "
-            "mode %s, restart in %.1fs",
-            bank,
-            rec.role,
-            kind,
-            rec.fault_error,
-            self.failure_mode,
-            rec.backoff_s,
-        )
+        return True
 
     def quarantined_count(self) -> int:
         return sum(1 for r in self._records if r.state != "closed")
@@ -526,16 +596,24 @@ class DeviceFaultDomain:
             from .cuda_cache import warmup_engine
 
             warmup_engine(new_engine)
-        except Exception:
+        except Exception as factory_exc:
             logger.exception(
                 "bank %d: engine factory failed; staying quarantined", bank
             )
             self._backoff(rec, now)
+            self._emit(
+                "bank_restart_failed",
+                bank=bank,
+                stage="factory",
+                error=repr(factory_exc),
+                next_attempt_in_s=round(rec.backoff_s, 3),
+            )
             return
         new_disp = self.cache._make_dispatcher(
             new_engine, name=f"cuda-dispatcher-restart{bank}-{rec.restarts}"
         )
         rec.state = "half_open"
+        self._emit("bank_half_open", bank=bank, attempt=rec.restarts + 1)
         ok = False
         try:
             ok = self._probe(bank, rec, new_engine, new_disp)
@@ -574,9 +652,11 @@ class DeviceFaultDomain:
                 rec.quarantined_at = None
                 rec.backoff_s = 0.0
                 rec.state = "closed"
-                # Health before the count: whoever sees the restart
-                # count move reads the bank's health as re-admitted.
+                # Health, then the journal, then the count: whoever sees
+                # the restart count move reads the bank's health as
+                # re-admitted and finds bank_restart in the journal.
                 self._report_health()
+                self._emit("bank_restart", bank=bank, restarts=rec.restarts + 1)
                 rec.restarts += 1
         self.stat_restarts += 1
         logger.warning(
@@ -599,6 +679,12 @@ class DeviceFaultDomain:
             bank,
             stage,
             rec.backoff_s,
+        )
+        self._emit(
+            "bank_restart_failed",
+            bank=bank,
+            stage=stage,
+            next_attempt_in_s=round(rec.backoff_s, 3),
         )
 
     def _backoff(self, rec: BankRecord, now: float) -> None:

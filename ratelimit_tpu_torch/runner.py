@@ -17,9 +17,15 @@ GRPC_HOST:GRPC_PORT, debug on DEBUG_HOST:DEBUG_PORT (/stats, /metrics,
 /rlconfig, /debug/*) -- and the statsd exporter (STATSD_SRV discovery
 included), with the device fault domain of ``cuda`` and ``cuda-sharded``
 armed by KERNEL_DEADLINE_S (0.25 s by default; the write-behind and
-memory backends have none, as in the JAX package).  The observability planes past tracing are not
-ported yet; settings that select an unported feature are refused at
-boot (settings.unported_settings).
+memory backends have none, as in the JAX package), and the observability
+planes the JAX runner wires at its defaults: the decision flight
+recorder (FLIGHT_RECORDER_SIZE), the launch recorder on every bank
+dispatcher (LAUNCH_RECORDER_SIZE), the event journal
+(EVENT_JOURNAL_SIZE), the per-domain SLO engine, the hot-key sketch
+(HOTKEYS_TOP_K), the time-series store (TSDB_INTERVAL_S) and the anomaly
+detectors with incident capture (ANOMALY_INTERVAL_S, INCIDENT_DIR).
+Settings that select an unported feature (overload control, the cluster
+handoff) are refused at boot (settings.unported_settings).
 
 Run directly:  python -m ratelimit_tpu_torch.runner
 """
@@ -32,7 +38,22 @@ import threading
 from typing import Optional
 
 from .config.runtime import RuntimeLoader
-from .observability import TRACER, JsonlExporter, log_exporter
+from .observability import (
+    TRACER,
+    AnomalyDetectors,
+    ErrorRateDetector,
+    JsonlExporter,
+    LatencySpikeDetector,
+    OverLimitSurgeDetector,
+    QueueSaturationDetector,
+    SloEngine,
+    log_exporter,
+    make_event_journal,
+    make_flight_recorder,
+    make_launch_recorder,
+    make_timeseries,
+    register_default_series,
+)
 from .service import RateLimitService
 from .settings import Settings, SettingsError, new_settings, unported_settings
 from .stats.manager import Manager
@@ -213,6 +234,7 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=No
         fault_interval_s=(
             s.device_watchdog_interval_s if s.device_watchdog_interval_s > 0 else None
         ),
+        hotkeys_top_k=s.hotkeys_top_k,
     )
 
 
@@ -244,6 +266,12 @@ class Runner:
         self.health = None
         self.checkpointer = None
         self._trace_jsonl = None
+        self.flight = None
+        self.launches = None
+        self.events = None
+        self.slo = None
+        self.timeseries = None
+        self.detectors = None
 
     def start(self) -> None:
         """Wire everything and start the listeners (non-blocking)."""
@@ -303,6 +331,7 @@ class Runner:
         # banks to checkpoint and a dispatcher's health; memory has none.
         if hasattr(self.cache, "register_stats"):
             self.cache.register_stats(self.stats_manager.store)
+        self._wire_planes(s, local_cache)
         if s.tpu_warmup and hasattr(self.cache, "warmup"):
             logger.warning("warming up kernel shapes (TPU_WARMUP=true)...")
             self.cache.warmup()
@@ -336,7 +365,16 @@ class Runner:
             # the reference's settings.NewSettings() in its reload path.
             settings_reloader=new_settings,
         )
+        # SLO domains follow the config: attach the engine, then adopt
+        # the already-loaded snapshot (construction above reloaded
+        # before the attribute existed).
+        self.service.slo = self.slo
+        self.service.events = self.events
+        config = self.service.get_current_config()
+        if config is not None:
+            self.slo.set_domains(config.domains.keys())
         self.runtime.start()
+        self._start_detectors(s)
 
         self.health = HealthChecker()
         if hasattr(self.cache, "bind_health"):
@@ -368,11 +406,14 @@ class Runner:
             max_workers=s.grpc_max_workers,
             credentials=credentials,
             auth_token=s.grpc_auth_token,
+            flight=self.flight,
+            slo=self.slo,
+            corr_enabled=s.flight_corr_enabled,
         )
         self.grpc_server.start()
 
         self.http_server = HttpServer(s.host, s.port, name="api")
-        add_json_handler(self.http_server, self.service)
+        add_json_handler(self.http_server, self.service, flight=self.flight, slo=self.slo)
         add_healthcheck(self.http_server, self.health)
         self.http_server.start()
 
@@ -382,6 +423,12 @@ class Runner:
             self.stats_manager.store,
             self.service,
             profiling_enabled=s.debug_profiling,
+            detectors=self.detectors,
+            slo=self.slo,
+            flight=self.flight,
+            events=self.events,
+            launches=self.launches,
+            timeseries=self.timeseries,
         )
         add_healthcheck(self.debug_server, self.health)
         self.debug_server.start()
@@ -414,6 +461,94 @@ class Runner:
             "" if engine is None else f" device={engine.device}",
         )
 
+    def _wire_planes(self, s: Settings, local_cache) -> None:
+        """The observability planes, wired as the JAX runner wires them
+        (ratelimit_tpu/runner.py): the flight recorder on the backend's
+        note seam, the launch recorder on every bank dispatcher and the
+        fault domain's fallback (backends without dispatchers keep no
+        route rather than an empty ring), the event journal on the
+        backend and its fault domain, the SLO engine, and the
+        time-series store, whose series are registered here before its
+        sampler starts."""
+        store = self.stats_manager.store
+        self.flight = make_flight_recorder(s.flight_recorder_size)
+        if self.flight is not None:
+            self.flight.register_stats(store)
+            if hasattr(self.cache, "flight"):
+                self.cache.flight = self.flight
+        self.launches = make_launch_recorder(s.launch_recorder_size)
+        if self.launches is not None:
+            if hasattr(self.cache, "attach_launch_recorder"):
+                self.cache.attach_launch_recorder(self.launches)
+                self.launches.register_stats(store)
+            else:
+                self.launches = None
+        self.events = make_event_journal(
+            s.event_journal_size, jsonl_path=s.event_journal_jsonl
+        )
+        if self.events is not None:
+            self.events.register_stats(store)
+            if hasattr(self.cache, "events"):
+                self.cache.events = self.events
+            fd = getattr(self.cache, "fault_domain", None)
+            if fd is not None:
+                fd.events = self.events
+        self.slo = SloEngine(
+            self.stats_manager,
+            target=s.slo_target,
+            window_s=s.slo_window_s,
+            latency_threshold_ms=s.slo_latency_ms,
+        )
+        self.timeseries = make_timeseries(s.tsdb_interval_s, s.tsdb_retention_s)
+        if self.timeseries is not None:
+            register_default_series(
+                self.timeseries,
+                store,
+                cache=self.cache,
+                launches=self.launches,
+                local_cache=local_cache,
+            )
+            self.timeseries.register_stats(store)
+            self.timeseries.start()
+
+    def _start_detectors(self, s: Settings) -> None:
+        """The anomaly detectors and incident capture: always built
+        (/debug/incidents and the deterministic tick() work with the
+        sampler off), the sampler thread only with ANOMALY_INTERVAL_S >
+        0."""
+        store = self.stats_manager.store
+        self.detectors = AnomalyDetectors(
+            store,
+            [
+                LatencySpikeDetector(
+                    store.histogram("ratelimit_server.ShouldRateLimit.response_ms"),
+                    factor=s.anomaly_spike_factor,
+                    min_samples=s.anomaly_min_samples,
+                ),
+                OverLimitSurgeDetector(
+                    self.slo,
+                    factor=s.anomaly_spike_factor,
+                    min_requests=s.anomaly_min_samples,
+                ),
+                QueueSaturationDetector(
+                    getattr(self.cache, "queue_hwm_drain", lambda: 0),
+                    threshold=s.anomaly_queue_depth,
+                ),
+                ErrorRateDetector(store),
+            ],
+            flight=self.flight,
+            tracer=TRACER,
+            slo=self.slo,
+            incident_dir=s.incident_dir,
+            incident_max=s.incident_max,
+            interval_s=s.anomaly_interval_s,
+            cooldown_s=s.anomaly_cooldown_s,
+            events=self.events,
+            timeseries=self.timeseries,
+        )
+        self.detectors.register_stats(store)
+        self.detectors.start()
+
     def run(self) -> None:
         """start() + install signal handlers + block until stopped."""
         self.start()
@@ -433,7 +568,8 @@ class Runner:
         NOT_SERVING, gRPC grace for in-flight RPCs, dispatcher drain,
         the final checkpoint of the drained counters (a restart then
         forgives no window), then the HTTP and debug listeners, the
-        runtime loader, statsd, the backend and the trace exporter."""
+        runtime loader, the anomaly and time-series samplers, statsd, the
+        backend, the trace exporter and the event journal's file."""
         if self.health is not None:
             self.health.fail()
         if self.grpc_server is not None:
@@ -451,6 +587,10 @@ class Runner:
                 srv.stop()
         if self.runtime is not None:
             self.runtime.stop()
+        if self.detectors is not None:
+            self.detectors.stop()
+        if self.timeseries is not None:
+            self.timeseries.stop()
         if self.statsd is not None:
             self.statsd.stop()
         if self.cache is not None and hasattr(self.cache, "close"):
@@ -459,6 +599,8 @@ class Runner:
             TRACER.clear_exporters()
             self._trace_jsonl.close()
             self._trace_jsonl = None
+        if self.events is not None:
+            self.events.close()
         self._stopped.set()
 
 

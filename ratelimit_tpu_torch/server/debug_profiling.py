@@ -274,8 +274,6 @@ def add_profiling_routes(
     server.add_route("GET", "/debug/pprof/", debug_index)
 
 
-_NOT_PORTED = "(plane not ported: 404)"
-
 # One-line blurbs for the index page.  Endpoints registered WITHOUT a
 # blurb still render (the index enumerates the live router, so it can
 # never silently omit a route) — they just carry no description.
@@ -288,19 +286,29 @@ ENDPOINT_BLURBS = {
     "/debug/": "this index",
     "/debug/pprof/": "this index (Go pprof path alias)",
     "/debug/tracez": "slowest + most recent request traces",
+    "/debug/hotkeys": "top-K hottest descriptor stems (JSON)",
     "/debug/faults": (
         "device-path fault domain: per-bank quarantine state, fault "
         "counters, restart history (JSON)"
     ),
+    "/debug/events": (
+        "lifecycle event journal, time-ordered with ?since= cursor (JSON)"
+    ),
+    "/debug/launches": (
+        "per-launch device-batch timeline: phase durations + "
+        "coalescing, ?since= cursor (JSON)"
+    ),
+    "/debug/timeseries": (
+        "in-process capacity/latency history "
+        "?since=&series=a,b (or ?summary=1 digest) (JSON)"
+    ),
+    "/debug/incidents": "captured anomaly incident reports (JSON)",
+    "/debug/slo": "per-domain SLI / error-budget burn summary (JSON)",
+    "/debug/overload": "(overload control not ported: 404)",
+    "/debug/flight": (
+        "flight-ring capture ?format=jsonl|json (DEBUG_PROFILING=1)"
+    ),
     "/debug/cluster": "this replica's counter-handoff summary (JSON)",
-    "/debug/hotkeys": _NOT_PORTED,
-    "/debug/events": _NOT_PORTED,
-    "/debug/launches": _NOT_PORTED,
-    "/debug/timeseries": _NOT_PORTED,
-    "/debug/incidents": _NOT_PORTED,
-    "/debug/slo": _NOT_PORTED,
-    "/debug/overload": _NOT_PORTED,
-    "/debug/flight": _NOT_PORTED,
     "/debug/threadz": "all-thread stack dump",
     "/debug/profile": (
         "statistical CPU profile ?seconds=N (DEBUG_PROFILING=1)"

@@ -2,9 +2,9 @@
 
 Port of ratelimit_tpu/server/grpc_server.py with its trace intake (an
 inbound W3C ``traceparent`` adopts the caller's trace; the root span
-``grpc.should_rate_limit`` has ``decode`` and ``serialize`` children).
-The flight recorder, SLO rollups and correlation ids are not ported
-yet.
+``grpc.should_rate_limit`` has ``decode`` and ``serialize`` children),
+the flight-recorder stamp and SLO rollups of every decision, and the
+correlation-id intake (``x-ratelimit-corr`` metadata, FLIGHT_CORR_ENABLED).
 
 The reference registers the generated pb service on grpc-go with a
 metrics interceptor and keepalive MaxConnectionAge options
@@ -32,7 +32,14 @@ from envoy.service.ratelimit.v3 import rls_pb2  # noqa: E402
 from grpchealth.v1 import health_pb2  # noqa: E402
 
 from ..api import Code  # noqa: E402
-from ..observability import TRACEPARENT_HEADER, TRACER  # noqa: E402
+from ..observability import (  # noqa: E402
+    CORR_HEADER,
+    FLIGHT_CODE_SHED,
+    TRACEPARENT_HEADER,
+    TRACER,
+    format_corr,
+    parse_corr,
+)
 from ..service import CacheError, ServiceError  # noqa: E402
 from ..stats.manager import StatsStore  # noqa: E402
 from .codec import request_from_pb, response_to_pb  # noqa: E402
@@ -77,21 +84,39 @@ class ServerReporter:
         self._response.observe((serialized - recv) * 1e3)
 
 
-def _ratelimit_handler(service, reporter: Optional[ServerReporter]):
+def _ratelimit_handler(
+    service,
+    reporter: Optional[ServerReporter],
+    flight=None,
+    slo=None,
+    corr_enabled: bool = False,
+):
     serialize = rls_pb2.RateLimitResponse.SerializeToString
+    # Correlation intake only pays when BOTH the knob is on and a ring
+    # exists to stamp (FLIGHT_CORR_ENABLED, off by default).
+    corr_on = bool(corr_enabled) and flight is not None
 
     def should_rate_limit(request_pb, context):
         start = time.perf_counter()
         # Trace intake: an inbound W3C traceparent (Envoy and any OTel
         # client send one as plain metadata) adopts the caller's trace
         # id and sampling decision; otherwise head-sampling applies.
-        # The metadata scan is gated so a disabled tracer costs one
-        # attribute load.
+        # The metadata scan is gated so a disabled tracer (and a
+        # disabled correlation knob) costs one attribute load; one pass
+        # serves both keys.
         traceparent = None
-        if TRACER.enabled:
+        corr = 0
+        if TRACER.enabled or corr_on:
             for k, v in context.invocation_metadata():
                 if k == TRACEPARENT_HEADER:
                     traceparent = v
+                elif k == CORR_HEADER:
+                    corr = parse_corr(v)
+        if corr_on:
+            # Sticky intake stamp: EVERY request (re)writes the
+            # thread-local, including corr=0, so a handler thread never
+            # bleeds a previous request's id into this one's records.
+            flight.note_corr(corr)
         root = TRACER.start_span("grpc.should_rate_limit", traceparent)
         try:
             with root:
@@ -109,6 +134,10 @@ def _ratelimit_handler(service, reporter: Optional[ServerReporter]):
                 except (ServiceError, CacheError) as e:
                     # grpc-go turns a plain returned error into UNKNOWN;
                     # mirror that mapping (service/ratelimit.go:239-265).
+                    if slo is not None:
+                        # Availability SLI: a failed decision is a bad
+                        # event for its domain (observability/slo.py).
+                        slo.observe_error(request.domain)
                     root.set_status("error", str(e))
                     context.abort(grpc.StatusCode.UNKNOWN, str(e))
                 t_serviced = time.perf_counter()
@@ -119,6 +148,10 @@ def _ratelimit_handler(service, reporter: Optional[ServerReporter]):
                 t_serialized = time.perf_counter()
                 root.set_attr("domain", request.domain)
                 root.set_attr("descriptors", len(request.descriptors))
+                if corr:
+                    # The span-tree side of the cross-hop join: the same
+                    # hex16 id the flight ring renders.
+                    root.set_attr("corr", format_corr(corr))
                 if response.overall_code == Code.OVER_LIMIT:
                     # Tail-sampling override: over-limit decisions are
                     # always worth keeping (observability/trace.py).
@@ -126,6 +159,30 @@ def _ratelimit_handler(service, reporter: Optional[ServerReporter]):
                 if reporter is not None:
                     reporter.observe_phases(
                         start, t_decoded, t_serviced, t_serialized
+                    )
+                # Decision flight recorder + per-domain SLO rollups,
+                # stamped next to the per-phase histogram sink with
+                # everything on hand (the backend noted stem and bank
+                # thread-locally).
+                total_ms = (t_serialized - start) * 1e3
+                if flight is not None:
+                    # Overload sheds carry their own ring code: the
+                    # wire says OVER_LIMIT, the black box says why.
+                    flight.record(
+                        request.domain,
+                        (
+                            FLIGHT_CODE_SHED
+                            if response.shed_reason is not None
+                            else int(response.overall_code)
+                        ),
+                        request.hits_addend,
+                        total_ms,
+                    )
+                if slo is not None:
+                    slo.observe(
+                        request.domain,
+                        response.overall_code == Code.OVER_LIMIT,
+                        total_ms,
                     )
                 return payload
         finally:
@@ -264,13 +321,18 @@ def create_grpc_server(
     max_workers: int = 32,
     credentials: Optional[grpc.ServerCredentials] = None,
     auth_token: str = "",
+    flight=None,
+    slo=None,
+    corr_enabled: bool = False,
 ) -> grpc.Server:
     """Build (not start) the server; port 0 picks a free port.  The
     bound port is stored on the returned server as ``bound_port``.
     `credentials` switches the listener to TLS/mTLS (see
     server_credentials); `auth_token` requires bearer-token metadata
     on RateLimitService RPCs.  Both default off: plaintext, like the
-    reference's REDIS_TLS/REDIS_AUTH defaults."""
+    reference's REDIS_TLS/REDIS_AUTH defaults.  `flight` and `slo`
+    (observability/) stamp every decision; `corr_enabled`
+    (FLIGHT_CORR_ENABLED) adopts the caller's correlation id."""
     options = [
         # Forces client re-resolution for elastic scaling
         # (settings.go:23-27, README "GRPC Keepalive").
@@ -290,7 +352,9 @@ def create_grpc_server(
     )
     server.add_generic_rpc_handlers(
         (
-            _ratelimit_handler(service, reporter),
+            _ratelimit_handler(
+                service, reporter, flight=flight, slo=slo, corr_enabled=corr_enabled
+            ),
             _health_handler(health),
         )
     )

@@ -16,15 +16,22 @@ Debug server routes (server_impl.go:238-269, runner.go:117-124):
 - GET /rlconfig         current config dump
 - GET /debug/tracez     slowest + most recent request traces
 - GET /debug/faults     the device fault domain's summary (JSON)
+- GET /debug/hotkeys    Space-Saving top-K of the hottest descriptor
+                        stems (JSON)
+- GET /debug/incidents  captured anomaly incident reports (JSON)
+- GET /debug/slo        per-domain SLI / error-budget burn summary
+- GET /debug/events     lifecycle event journal (?since= cursor)
+- GET /debug/launches   per-launch dispatch timeline (?since= cursor)
+- GET /debug/timeseries in-process capacity/latency history
+- GET /debug/flight     flight-ring capture (gated by DEBUG_PROFILING)
 - GET /debug/cluster    this replica's handoff summary (no handoff
                         here: the cluster tier is not ported)
 - GET /debug/, /debug/pprof/, /debug/threadz, /debug/profile,
   /debug/xla_trace      server/debug_profiling.py
 
-The views of observability planes not ported yet (hot keys, incidents,
-SLO, overload, events, launches, time series, the flight ring) answer
-as the JAX server does when the plane is off: the same status and
-body bytes.  So do the cluster-handoff admin POSTs, whose setting the
+A view whose plane is off answers as the JAX server does: the same
+status and body bytes.  So do /debug/overload (the overload controller
+is not ported) and the cluster-handoff admin POSTs, whose setting the
 runner refuses.
 """
 
@@ -33,6 +40,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 
@@ -42,7 +50,8 @@ from . import pb  # noqa: F401
 
 from envoy.service.ratelimit.v3 import rls_pb2  # noqa: E402
 
-from ..observability import TRACEPARENT_HEADER, TRACER  # noqa: E402
+from ..api import Code  # noqa: E402
+from ..observability import FLIGHT_CODE_SHED, TRACEPARENT_HEADER, TRACER  # noqa: E402
 from ..service import CacheError, ServiceError  # noqa: E402
 from .codec import request_from_pb, response_to_pb  # noqa: E402
 from .health import HealthChecker  # noqa: E402
@@ -146,14 +155,18 @@ class HttpServer:
         self._server.server_close()
 
 
-def add_json_handler(server: HttpServer, service) -> None:
+def add_json_handler(server: HttpServer, service, flight=None, slo=None) -> None:
     """POST /json bridge (reference NewJsonHandler,
     server_impl.go:71-109).  Participates in tracing like the gRPC
     handler: an inbound ``traceparent`` header adopts the caller's
     trace, and a recording request echoes its own traceparent back as
-    a response header so the client can find it in /debug/tracez."""
+    a response header so the client can find it in /debug/tracez.
+    Decisions served here stamp the flight recorder and the per-domain
+    SLO rollups exactly like the gRPC handler: both transports are
+    user-facing, so both count."""
 
     def handle(h) -> None:
+        t_start = time.perf_counter()
         root = TRACER.start_span(
             "http.json", h.headers.get(TRACEPARENT_HEADER)
         )
@@ -178,6 +191,8 @@ def add_json_handler(server: HttpServer, service) -> None:
                 try:
                     response = service.should_rate_limit(request)
                 except (ServiceError, CacheError) as e:
+                    if slo is not None:
+                        slo.observe_error(request.domain)
                     root.set_status("error", str(e))
                     status, out = 500, f"{e}\n".encode()
                 else:
@@ -197,6 +212,26 @@ def add_json_handler(server: HttpServer, service) -> None:
                         root.set_status("over_limit")
                     else:
                         status = 500
+                    total_ms = (time.perf_counter() - t_start) * 1e3
+                    if flight is not None:
+                        # Sheds carry the distinguishable ring code
+                        # (the gRPC handler's twin).
+                        flight.record(
+                            request.domain,
+                            (
+                                FLIGHT_CODE_SHED
+                                if response.shed_reason is not None
+                                else int(response.overall_code)
+                            ),
+                            request.hits_addend,
+                            total_ms,
+                        )
+                    if slo is not None:
+                        slo.observe(
+                            request.domain,
+                            response.overall_code == Code.OVER_LIMIT,
+                            total_ms,
+                        )
         headers = (
             [(TRACEPARENT_HEADER, root.traceparent())]
             if root.recording
@@ -222,41 +257,6 @@ def add_healthcheck(server: HttpServer, health: HealthChecker) -> None:
     server.add_route("GET", "/healthcheck", handle)
 
 
-#: (path, status, body) of each debug view whose plane is not ported:
-#: the JAX server's answer with that plane off.
-_PLANES_OFF = (
-    (
-        "/debug/hotkeys",
-        404,
-        b"hot-key tracking disabled (HOTKEYS_TOP_K=0 or "
-        b"backend without a resolution fast path)\n",
-    ),
-    (
-        "/debug/incidents",
-        404,
-        b"anomaly detectors disabled (ANOMALY_INTERVAL_S=0 "
-        b"and no detectors wired)\n",
-    ),
-    ("/debug/slo", 404, b"slo engine disabled\n"),
-    (
-        "/debug/overload",
-        404,
-        b"overload control disabled (no OVERLOAD_* setting enabled)\n",
-    ),
-    ("/debug/events", 404, b"event journal disabled (EVENT_JOURNAL_SIZE=0)\n"),
-    (
-        "/debug/launches",
-        404,
-        b"launch recorder disabled (LAUNCH_RECORDER_SIZE=0)\n",
-    ),
-    (
-        "/debug/timeseries",
-        404,
-        b"time-series store disabled (TSDB_INTERVAL_S=0)\n",
-    ),
-)
-
-
 def _fixed(status: int, body: bytes):
     def handle(h) -> None:
         h._reply(status, body)
@@ -264,17 +264,37 @@ def _fixed(status: int, body: bytes):
     return handle
 
 
+def _query(h) -> dict:
+    from urllib.parse import parse_qs, urlsplit
+
+    return parse_qs(urlsplit(h.path).query)
+
+
 def add_debug_routes(
     server: HttpServer,
     store,
     service=None,
     profiling_enabled: bool = False,
+    detectors=None,
+    slo=None,
+    flight=None,
+    events=None,
+    launches=None,
+    timeseries=None,
 ) -> None:
     """/stats, /rlconfig, /metrics, /debug/* (server_impl.go:254-261,
     runner.go:117-124).  ``profiling_enabled`` (the DEBUG_PROFILING
-    setting) opens the capture endpoints in debug_profiling.py; the
-    flight-ring capture at /debug/flight then answers 404 (no ring)
-    instead of 403."""
+    setting) opens the capture endpoints in debug_profiling.py AND the
+    flight-ring capture at /debug/flight; ``detectors`` / ``slo``
+    (observability/) open /debug/incidents and /debug/slo; ``events``
+    (EVENT_JOURNAL_SIZE) opens /debug/events, the lifecycle timeline
+    with a ``since=`` seq cursor; ``launches`` (LAUNCH_RECORDER_SIZE)
+    opens /debug/launches, the per-launch dispatch timeline with the
+    same cursor; ``timeseries`` (TSDB_INTERVAL_S) opens
+    /debug/timeseries (``?since=&series=``, or ``?summary=1``).  The
+    hot-key view reads the backend's sketch.  A view whose plane is off
+    answers the JAX server's 404, and /debug/overload always does: the
+    overload controller is not ported."""
 
     def stats(h) -> None:
         lines = []
@@ -347,7 +367,59 @@ def add_debug_routes(
             content_type="application/json",
         )
 
+    def hotkeys(h) -> None:
+        # The backend's Space-Saving sketch of the hottest descriptor
+        # stems, resolved per request (404 when tracking is off).
+        sketch = getattr(getattr(service, "cache", None), "hotkeys", None)
+        if sketch is None:
+            h._reply(
+                404,
+                b"hot-key tracking disabled (HOTKEYS_TOP_K=0 or "
+                b"backend without a resolution fast path)\n",
+            )
+            return
+        h._reply(
+            200,
+            json.dumps(sketch.snapshot_dict()).encode(),
+            content_type="application/json",
+        )
+
+    def incidents(h) -> None:
+        # The bounded ring of captured anomaly reports, newest first
+        # (observability/detectors.py); INCIDENT_DIR holds the same JSON.
+        if detectors is None:
+            h._reply(
+                404,
+                b"anomaly detectors disabled (ANOMALY_INTERVAL_S=0 "
+                b"and no detectors wired)\n",
+            )
+            return
+        body = {
+            "incident_dir": detectors.incident_dir,
+            "captured_total": detectors.captured,
+            "retained": len(detectors.incidents()),
+            "incidents": detectors.incidents(),
+        }
+        h._reply(
+            200,
+            json.dumps(body, default=str).encode(),
+            content_type="application/json",
+        )
+
+    def slo_summary(h) -> None:
+        if slo is None:
+            h._reply(404, b"slo engine disabled\n")
+            return
+        h._reply(
+            200,
+            json.dumps(slo.summary()).encode(),
+            content_type="application/json",
+        )
+
     def flight_dump(h) -> None:
+        # The last FLIGHT_RECORDER_SIZE decisions as JSONL (or JSON),
+        # oldest first.  Gated like /debug/profile: dumping per-request
+        # decision evidence is an operator action.
         if not profiling_enabled:
             h._reply(
                 403,
@@ -355,17 +427,127 @@ def add_debug_routes(
                 b"with DEBUG_PROFILING=1 to enable /debug/flight\n",
             )
             return
-        h._reply(404, b"flight recorder disabled (FLIGHT_RECORDER_SIZE=0)\n")
+        if flight is None:
+            h._reply(404, b"flight recorder disabled (FLIGHT_RECORDER_SIZE=0)\n")
+            return
+        fmt = _query(h).get("format", ["jsonl"])[0]
+        records = flight.snapshot_dicts()[::-1]
+        if fmt == "json":
+            h._reply(
+                200,
+                json.dumps({"capacity": flight.size, "records": records}).encode(),
+                content_type="application/json",
+            )
+            return
+        body = "".join(json.dumps(r) + "\n" for r in records)
+        h._reply(200, body.encode(), content_type="application/x-ndjson")
+
+    def events_view(h) -> None:
+        # The ordered transition timeline; ?since=<seq> resumes a
+        # poller at its last-seen cursor.
+        if events is None:
+            h._reply(404, b"event journal disabled (EVENT_JOURNAL_SIZE=0)\n")
+            return
+        try:
+            since = int(_query(h).get("since", ["0"])[0])
+        except ValueError:
+            h._reply(400, b"bad since= cursor (want an integer)\n")
+            return
+        h._reply(
+            200,
+            json.dumps(
+                {
+                    "emitted": events.emitted,
+                    "counts": events.counts(),
+                    "events": events.snapshot(since=since),
+                }
+            ).encode(),
+            content_type="application/json",
+        )
+
+    def launches_view(h) -> None:
+        # One row per device batch with phase durations and coalescing
+        # counts; ?since=<seq> is the /debug/events cursor contract.
+        if launches is None:
+            h._reply(404, b"launch recorder disabled (LAUNCH_RECORDER_SIZE=0)\n")
+            return
+        qs = _query(h)
+        try:
+            since = int(qs.get("since", ["0"])[0])
+            limit = int(qs.get("limit", ["0"])[0]) or None
+        except ValueError:
+            h._reply(400, b"bad since=/limit= (want integers)\n")
+            return
+        h._reply(
+            200,
+            json.dumps(
+                {
+                    "stamped": launches.stamped(),
+                    "capacity": launches.size,
+                    "p99_launch_ns": launches.p99_launch_ns(),
+                    "coalesce_ratio": launches.coalesce_ratio(),
+                    "items_by_algo": launches.items_by_algo(),
+                    "launches": launches.snapshot_dicts(since=since, limit=limit),
+                }
+            ).encode(),
+            content_type="application/json",
+        )
+
+    def timeseries_view(h) -> None:
+        # ?since=<seq> resumes a poller; ?series=a,b filters columns;
+        # ?summary=1 returns the per-series {last,avg,max} digest.
+        if timeseries is None:
+            h._reply(404, b"time-series store disabled (TSDB_INTERVAL_S=0)\n")
+            return
+        qs = _query(h)
+        if qs.get("summary", ["0"])[0] not in ("0", ""):
+            h._reply(
+                200,
+                json.dumps(
+                    {
+                        "interval_s": timeseries.interval_s,
+                        "summary": timeseries.summary(),
+                    }
+                ).encode(),
+                content_type="application/json",
+            )
+            return
+        try:
+            since = int(qs.get("since", ["0"])[0])
+        except ValueError:
+            h._reply(400, b"bad since= cursor (want an integer)\n")
+            return
+        series = None
+        if "series" in qs:
+            series = [
+                name for chunk in qs["series"] for name in chunk.split(",") if name
+            ]
+        h._reply(
+            200,
+            json.dumps(timeseries.snapshot(since=since, series=series)).encode(),
+            content_type="application/json",
+        )
 
     server.add_route("GET", "/stats", stats)
     server.add_route("GET", "/stats.json", stats_json)
     server.add_route("GET", "/metrics", metrics)
     server.add_route("GET", "/debug/tracez", tracez)
+    server.add_route("GET", "/debug/hotkeys", hotkeys)
+    server.add_route("GET", "/debug/events", events_view)
+    server.add_route("GET", "/debug/launches", launches_view)
+    server.add_route("GET", "/debug/timeseries", timeseries_view)
     server.add_route("GET", "/debug/faults", faults)
-    server.add_route("GET", "/debug/cluster", cluster_view)
+    server.add_route("GET", "/debug/incidents", incidents)
+    server.add_route("GET", "/debug/slo", slo_summary)
+    # The JAX server's answer with overload control off: the
+    # controller is not ported.
+    server.add_route(
+        "GET",
+        "/debug/overload",
+        _fixed(404, b"overload control disabled (no OVERLOAD_* setting enabled)\n"),
+    )
     server.add_route("GET", "/debug/flight", flight_dump)
-    for path, status, body in _PLANES_OFF:
-        server.add_route("GET", path, _fixed(status, body))
+    server.add_route("GET", "/debug/cluster", cluster_view)
     handoff_off = _fixed(
         403,
         b"cluster handoff is disabled; start the replica with "

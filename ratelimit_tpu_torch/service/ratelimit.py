@@ -2,9 +2,9 @@
 
 Port of ratelimit_tpu/service/ratelimit.py with its tracing spans
 (``service.should_rate_limit`` around the request, ``backend.do_limit``
-around the backend leg).  The reference's SLO engine, overload
-controller and event journal are observability hooks not ported yet
-(ROADMAP.md): the service here carries no hook for them.
+around the backend leg), the SLO engine's domain set and the event
+journal's ``config_reload``.  The reference's overload controller (its
+admission hook) is not ported yet (ROADMAP.md).
 
 Python restatement of reference src/service/ratelimit.go: config
 snapshot + per-descriptor lookup (:104-146), unlimited short-circuit
@@ -50,6 +50,14 @@ class CacheError(Exception):
 
 
 class RateLimitService:
+    # Per-domain SLO engine (observability/slo.py), attached by the
+    # runner after construction; reload_config feeds it the configured
+    # domain set so per-domain metric families stay bounded by config.
+    slo = None
+    # Lifecycle event journal (observability/events.py), attached by the
+    # runner: every adopted config generation lands on the timeline.
+    events = None
+
     def __init__(
         self,
         runtime,
@@ -118,6 +126,16 @@ class RateLimitService:
             logger.error("error loading new configuration from runtime: %s", e)
             return
         self.stats.config_load_success.inc()
+        if self.slo is not None:
+            # Adopt the new configured domain set BEFORE the swap so a
+            # request racing the reload finds its domain interned.
+            self.slo.set_domains(new_config.domains.keys())
+        if self.events is not None:
+            self.events.emit(
+                "config_reload",
+                generation=new_config.generation,
+                domains=len(new_config.domains),
+            )
         with self._config_lock:
             self._config = new_config
             if self._settings_reloader is not None:

@@ -4,8 +4,11 @@ Port of ratelimit_tpu/settings.py: the same env var names and
 defaults, except BACKEND_TYPE, whose default here is ``cuda`` (the
 counter engine on the GPU; the reference's ``tpu``) and the jax
 compilation cache (TPU_COMPILE_CACHE_DIR), which has no counterpart.
-Settings that select a feature the port does not have yet are refused
-at boot by :func:`unported_settings` (ROADMAP.md lists them).
+Every observability plane's setting takes effect as in the reference
+(FLIGHT_*, EVENT_JOURNAL_*, LAUNCH_RECORDER_SIZE, TSDB_*, ANOMALY_*,
+INCIDENT_*, SLO_*, HOTKEYS_TOP_K).  Settings that select a feature the
+port does not have yet -- overload control, the cluster handoff -- are
+refused at boot by :func:`unported_settings` (ROADMAP.md lists them).
 
 Mirrors the reference's envconfig-driven Settings struct
 (reference src/settings/settings.go:11-119): same env var names and
@@ -532,10 +535,7 @@ def unported_settings(s: Settings) -> List[str]:
     """One message per setting that selects a feature not ported to
     ratelimit_tpu_torch yet, or a BACKEND_TYPE it does not know (the
     JAX package's names among them); the runner refuses to boot when
-    any is set.  The observability planes' knobs (flight/launch recorders,
-    event journal, time series, anomaly detectors, SLO engine, hot keys,
-    FLIGHT_CORR_ENABLED) are read but have no effect until their modules
-    are ported."""
+    any is set."""
     out = []
     if s.backend_type.lower() not in BACKEND_TYPES:
         out.append(

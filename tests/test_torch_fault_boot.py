@@ -7,7 +7,11 @@ serves over gRPC and over its HTTP listener (/json, /healthcheck on
 both the API and the debug listener); the fault settings are read from the environment;
 a TPU_CHECKPOINT_DIR with no positive interval is refused.  The ``cuda-sharded`` runner arms
 the domain too, and a restart of its bank rebuilds what the JAX
-package's factory rebuilds from a ``tpu-sharded`` bank.
+package's factory rebuilds from a ``tpu-sharded`` bank.  The
+observability planes are on at their defaults, as in the JAX runner
+(flight and launch recorders, event journal, SLO engine, hot keys, time
+series, anomaly detectors), and each of their settings read from the
+environment takes effect.
 """
 
 import json
@@ -63,6 +67,24 @@ FAULT_ENV = (
     "TPU_ALGORITHM_BANKS",
     "TPU_NUM_SLOTS",
     "TPU_BATCH_WINDOW_US",
+    "FLIGHT_RECORDER_SIZE",
+    "FLIGHT_CORR_ENABLED",
+    "EVENT_JOURNAL_SIZE",
+    "EVENT_JOURNAL_JSONL",
+    "LAUNCH_RECORDER_SIZE",
+    "TSDB_INTERVAL_S",
+    "TSDB_RETENTION_S",
+    "ANOMALY_INTERVAL_S",
+    "ANOMALY_SPIKE_FACTOR",
+    "ANOMALY_MIN_SAMPLES",
+    "ANOMALY_QUEUE_DEPTH",
+    "ANOMALY_COOLDOWN_S",
+    "INCIDENT_DIR",
+    "INCIDENT_MAX",
+    "SLO_TARGET",
+    "SLO_WINDOW_S",
+    "SLO_LATENCY_MS",
+    "HOTKEYS_TOP_K",
 )
 
 OK = rls_pb2.RateLimitResponse.OK
@@ -275,3 +297,150 @@ def test_factory_rebuilds_an_algorithm_bank_fresh(algo):
     assert new is not old and new.algorithm == algo
     assert (new.model.num_slots, new.model.near_ratio, new.buckets) == (64, 0.7, (8,))
     assert not new.export_state()[get_algorithm(algo).state_rows[0]].any()
+
+
+def test_observability_planes_are_on_at_their_defaults(env):
+    """A boot with every default wires each plane as the JAX runner
+    does, and serving stamps them: one flight record per RPC, one
+    launch record per launch of each bank, the SLO rollups, the hot-key
+    sketch; the samplers run and stop with the runner."""
+    runner = Runner(new_settings(), device="cpu")
+    runner.start()
+    try:
+        assert runner.flight.size == 4096 and runner.launches.size == 1024
+        assert runner.events.size == 1024 and runner.cache.events is runner.events
+        assert runner.cache.fault_domain.events is runner.events
+        assert runner.cache.fault_domain.launches is runner.launches
+        assert runner.cache.flight is runner.flight
+        assert runner.cache.hotkeys.capacity == 128
+        assert runner.timeseries.interval_s == 5.0 and runner.timeseries._thread is not None
+        assert runner.detectors.interval_s == 5.0 and runner.detectors._thread is not None
+        assert (runner.slo.target, runner.slo.window_s, runner.slo.latency_threshold_ms) == (
+            0.999, 3600.0, 50.0,
+        )
+        assert [d.name for d in runner.detectors.detectors] == [
+            "latency_spike", "over_limit_surge", "queue_saturation", "error_rate",
+        ]
+        for key in ("fw", "slide", "tb"):
+            assert _codes(runner, key, 4) == [OK] * 3 + [OVER], key
+        runner.cache.flush()
+        records = runner.flight.snapshot_dicts()
+        assert len(records) == 12 and {r["domain"] for r in records} == {"rl"}
+        algos = {r["algorithm"] for r in runner.launches.snapshot_dicts()}
+        assert algos == {"fixed_window", "sliding_window", "gcra"}
+        assert all(r["outcome"] == "ok" for r in runner.launches.snapshot_dicts())
+        assert runner.slo.summary()["domains"]["rl"]["cumulative"]["requests"] == 12
+        assert [e["hits"] for e in runner.cache.hotkeys.snapshot()] == [4, 4, 4]
+        status, body = _http(runner.debug_server.bound_port, "/debug/launches")
+        assert status == 200 and json.loads(body)["stamped"] == runner.launches.stamped()
+    finally:
+        runner.stop()
+    assert runner.timeseries._thread is None and runner.detectors._thread is None
+
+
+def _check(attr, want):
+    def check(runner):
+        obj = runner
+        for part in attr.split("."):
+            obj = obj[int(part)] if part.isdigit() else getattr(obj, part)
+        assert obj == want, (attr, obj, want)
+
+    return check
+
+
+PLANE_SETTINGS = [
+    ({"FLIGHT_RECORDER_SIZE": "0"}, _check("flight", None)),
+    ({"FLIGHT_RECORDER_SIZE": "64"}, _check("flight.size", 64)),
+    ({"EVENT_JOURNAL_SIZE": "0"}, _check("cache.fault_domain.events", None)),
+    ({"EVENT_JOURNAL_SIZE": "8"}, _check("events.size", 8)),
+    ({"LAUNCH_RECORDER_SIZE": "0"}, _check("cache.dispatcher.launches", None)),
+    ({"LAUNCH_RECORDER_SIZE": "32"}, _check("cache.dispatcher.launches.size", 32)),
+    ({"TSDB_INTERVAL_S": "0"}, _check("timeseries", None)),
+    ({"TSDB_INTERVAL_S": "2", "TSDB_RETENTION_S": "60"}, _check("timeseries.slots", 30)),
+    ({"ANOMALY_INTERVAL_S": "0"}, _check("detectors._thread", None)),
+    ({"ANOMALY_COOLDOWN_S": "7", "ANOMALY_INTERVAL_S": "9"}, _check("detectors.cooldown_s", 7.0)),
+    ({"ANOMALY_SPIKE_FACTOR": "6"}, _check("detectors.detectors.0.factor", 6.0)),
+    ({"ANOMALY_MIN_SAMPLES": "11"}, _check("detectors.detectors.1.min_requests", 11)),
+    ({"ANOMALY_QUEUE_DEPTH": "33"}, _check("detectors.detectors.2.threshold", 33)),
+    ({"INCIDENT_MAX": "3"}, _check("detectors.incident_max", 3)),
+    ({"SLO_TARGET": "0.99"}, _check("slo.target", 0.99)),
+    ({"SLO_WINDOW_S": "60", "SLO_LATENCY_MS": "7.5"}, _check("slo.latency_threshold_ms", 7.5)),
+    ({"HOTKEYS_TOP_K": "0"}, _check("cache.hotkeys", None)),
+    ({"HOTKEYS_TOP_K": "16"}, _check("cache.hotkeys.capacity", 16)),
+]
+
+
+@pytest.mark.parametrize(
+    "overrides,check", PLANE_SETTINGS, ids=[",".join(f"{k}={v}" for k, v in o.items()) for o, _ in PLANE_SETTINGS]
+)
+def test_plane_settings_take_effect(env, overrides, check):
+    """Each observability setting read from the environment reaches its
+    plane, as in the JAX runner (the settings were read and ignored
+    before the planes were ported)."""
+    for name, value in overrides.items():
+        env.setenv(name, value)
+    runner = Runner(new_settings(), device="cpu")
+    runner.start()
+    try:
+        check(runner)
+        assert _codes(runner, "fw", 4) == [OK] * 3 + [OVER]
+    finally:
+        runner.stop()
+
+
+def test_incident_dir_and_event_jsonl_take_effect(env, tmp_path):
+    """INCIDENT_DIR receives each captured incident as a JSON file, and
+    EVENT_JOURNAL_JSONL mirrors the journal, the capture's own event
+    included."""
+    incidents, jsonl = tmp_path / "incidents", tmp_path / "events.jsonl"
+    env.setenv("INCIDENT_DIR", str(incidents))
+    env.setenv("EVENT_JOURNAL_JSONL", str(jsonl))
+    env.setenv("ANOMALY_INTERVAL_S", "0")
+    runner = Runner(new_settings(), device="cpu")
+    runner.start()
+    try:
+        assert _codes(runner, "fw", 2) == [OK, OK]
+
+        class Trip:
+            name = "synthetic"
+
+            def evaluate(self):
+                return "forced"
+
+        runner.detectors.detectors.append(Trip())
+        (inc,) = runner.detectors.tick()
+        files = sorted(incidents.glob("incident_*.json"))
+        assert len(files) == 1 and json.loads(files[0].read_text())["id"] == inc["id"]
+        assert len(json.loads(files[0].read_text())["ring"]) == 2
+    finally:
+        runner.stop()
+    lines = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    assert [e["type"] for e in lines] == ["incident"]
+
+
+def test_correlation_ids_take_effect(env):
+    """FLIGHT_CORR_ENABLED adopts the caller's x-ratelimit-corr metadata
+    into the flight ring and the launch record of the request."""
+    env.setenv("FLIGHT_CORR_ENABLED", "true")
+    env.setenv("TRACE_SAMPLE_RATE", "0")
+    runner = Runner(new_settings(), device="cpu")
+    runner.start()
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{runner.grpc_server.bound_port}") as channel:
+            call = channel.unary_unary(
+                "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                response_deserializer=rls_pb2.RateLimitResponse.FromString,
+            )
+            req = rls_pb2.RateLimitRequest(domain="rl")
+            e = req.descriptors.add().entries.add()
+            e.key, e.value = "fw", "corr"
+            call(req, timeout=30, metadata=[("x-ratelimit-corr", "00000000000beef1")])
+            call(req, timeout=30)
+        runner.cache.flush()
+        first, second = runner.flight.snapshot_dicts()[::-1]
+        assert first["corr"] == "00000000000beef1" and "corr" not in second
+        launches = runner.launches.snapshot_dicts()
+        assert launches[0]["corr"] == "00000000000beef1" and "corr" not in launches[1]
+    finally:
+        runner.stop()

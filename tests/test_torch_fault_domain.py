@@ -1,9 +1,8 @@
 """The device fault domain (ratelimit_tpu_torch/backends/fault_domain.py)
 against the JAX package's, on the CPU.
 
-Every scenario of the JAX package's tests/test_fault_domain.py (but the
-flight-recorder one: that recorder is not ported) runs through both
-packages -- ratelimit_tpu's TpuRateLimitCache over its CounterEngine,
+Every scenario of the JAX package's tests/test_fault_domain.py runs
+through both packages -- ratelimit_tpu's TpuRateLimitCache over its CounterEngine,
 and the port's CudaRateLimitCache over CounterEngine(device="cpu") --
 and must give the same outcome: fault kinds, quarantine state and when
 it started, the per-request codes under host / allow / deny, the exact
@@ -17,6 +16,13 @@ tick().  The port's CUDA fault taxonomy is checked on its own, and so
 are its kernel defects (a kernel that does not build, load or launch
 raises and goes NOT_SERVING, never to the mirror) and its restart races
 (an RPC held on the mirror lock across the swap, a merge that fails).
+The observability hooks run through both packages too: a fallback
+answer's flight record carries FLIGHT_CODE_FALLBACK, the journal tells
+quarantine -> fallback -> half-open -> restart (or restart_failed) in
+seq order, and each fallback answer is one OUTCOME_FALLBACK launch
+record.  In the port the journal hears of a transition only after its
+health is published, and a fallback answer waits for the
+bank_quarantine event.
 """
 
 import threading
@@ -26,7 +32,9 @@ from types import SimpleNamespace
 import pytest
 
 import ratelimit_tpu.backends.fault_domain as jax_fd
+import ratelimit_tpu.observability as jax_obs
 import ratelimit_tpu_torch.backends.fault_domain as fd_mod
+import ratelimit_tpu_torch.observability as port_obs
 from ratelimit_tpu import api as jax_api
 from ratelimit_tpu.backends.engine import CounterEngine as JaxEngine
 from ratelimit_tpu.backends.tpu_cache import TpuRateLimitCache
@@ -76,6 +84,7 @@ JAX = SimpleNamespace(
     Manager=JaxManager,
     time=jax_time,
     Health=JaxHealth,
+    obs=jax_obs,
 )
 PORT = SimpleNamespace(
     name="port",
@@ -88,6 +97,7 @@ PORT = SimpleNamespace(
     Manager=Manager,
     time=port_time,
     Health=HealthChecker,
+    obs=port_obs,
 )
 CLOCK0 = 100.0
 
@@ -628,6 +638,138 @@ def failing_factory_keeps_bank_on_the_mirror(P):
         cache.close()
 
 
+def fallback_stamps_flight_code(P):
+    """A request answered by the fallback stamps FLIGHT_CODE_FALLBACK in
+    the flight ring; the note is consumed, so the next record is a plain
+    decision."""
+    inj = Injector()
+    cache = make_cache(P, inj, clock=P.time.FakeMonotonicClock(CLOCK0))
+    cache.flight = P.obs.make_flight_recorder(64, clock=P.time.FakeMonotonicClock(CLOCK0))
+    rule = _rule(P, P.Manager())
+    try:
+        inj.set("lane0", "raise")
+        status = cache.do_limit(_req(P), [rule])[0]
+        # The transport stamps after the decision, on the same thread
+        # (the note is thread-local).
+        cache.flight.record("d", int(status.code), 1, 1.0)
+        first = cache.flight.snapshot_dicts()[0]
+        assert first["code"] == P.obs.FLIGHT_CODE_FALLBACK and first["fallback"] is True
+        cache.flight.record("d", int(P.api.Code.OK), 1, 1.0)
+        after = cache.flight.snapshot_dicts()[0]
+        assert "fallback" not in after
+        return dict(first=first, after=after, status=status.code.name)
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def _journal(P, cache):
+    j = P.obs.make_event_journal(64, clock=P.time.FakeMonotonicClock(5.0), wall=lambda: 1.7e9)
+    cache.events = j
+    cache.fault_domain.events = j
+    return j
+
+
+def journal_tells_quarantine_fallback_restart_in_order(P):
+    """Snapshot, hang, fallback answers, supervised restart: the journal
+    holds one bank_quarantine, ONE bank_fallback for the episode, the
+    half-open probe and the restart, in seq order, with the reference's
+    details."""
+    inj, clock = Injector(), P.time.FakeMonotonicClock(CLOCK0)
+    cache = make_cache(P, inj, deadline=0.2, clock=clock)
+    j = _journal(P, cache)
+    rule = _rule(P, P.Manager())
+    fd = cache.fault_domain
+    try:
+        codes = [_code(P, cache, rule) for _ in range(3)]
+        assert fd.snapshot_now() == 1
+        inj.set("lane0", "raise")
+        codes += [_code(P, cache, rule) for _ in range(5)]
+        inj.heal()
+        _restart(fd, clock)
+        codes += [_code(P, cache, rule) for _ in range(3)]
+        events = j.snapshot()
+        assert [e["type"] for e in events] == [
+            "bank_quarantine", "bank_fallback", "bank_half_open", "bank_restart",
+        ]
+        assert [e["seq"] for e in events] == [1, 2, 3, 4]
+        return dict(codes=codes, events=events, counts=j.counts())
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def journal_records_failed_restarts(P):
+    """A probe that fails and a factory that fails each leave a
+    bank_restart_failed naming its stage and the next backoff."""
+    inj, clock = Injector(), P.time.FakeMonotonicClock(CLOCK0)
+    builds = []
+
+    def factory(bank, old):
+        builds.append(bank)
+        if len(builds) == 1:
+            raise RuntimeError("rebuild refused")
+        return inj.wrap("lane0", P.fd.default_engine_factory(bank, old))
+
+    cache = make_cache(
+        P, inj, deadline=0.2, clock=clock, engine_factory=factory, fault_probe_timeout_s=0.5
+    )
+    j = _journal(P, cache)
+    rule = _rule(P, P.Manager())
+    fd = cache.fault_domain
+    try:
+        codes = [_code(P, cache, rule)]
+        inj.set("lane0", "raise")
+        codes.append(_code(P, cache, rule))
+        rec = fd._records[0]
+        for _ in range(2):  # the factory fails, then the probe
+            clock.advance(rec.backoff_s + 0.01)
+            fd.tick()
+        inj.heal()
+        _restart(fd, clock, step=0.21)
+        events = j.snapshot()
+        assert [e["type"] for e in events] == [
+            "bank_quarantine", "bank_fallback", "bank_restart_failed",
+            "bank_half_open", "bank_restart_failed", "bank_half_open", "bank_restart",
+        ]
+        return dict(codes=codes, events=events)
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def fallback_answers_stamp_launch_records(P):
+    """Each fallback answer of a quarantined bank is one OUTCOME_FALLBACK
+    launch record of that bank; the failed launch is one OUTCOME_FAULT
+    record; healthy launches are ok.  Phase durations are measured time
+    and masked; a fault and the fallback that answers it race, so the
+    records compare as a multiset."""
+    inj = Injector()
+    cache = make_cache(P, inj, clock=P.time.FakeMonotonicClock(CLOCK0))
+    lr = P.obs.make_launch_recorder(64, clock=P.time.FakeMonotonicClock(1.0))
+    cache.attach_launch_recorder(lr)
+    rule = _rule(P, P.Manager())
+    fd = cache.fault_domain
+    try:
+        codes = [_code(P, cache, rule) for _ in range(2)]
+        inj.set("lane0", "raise")
+        codes += [_code(P, cache, rule) for _ in range(4)]
+        records = [
+            {k: v for k, v in r.items() if k not in ("seq", "ts_ns", "queue_wait_us", "launch_us", "complete_us")}
+            for r in lr.snapshot_dicts()
+        ]
+        outcomes = [r["outcome"] for r in records]
+        assert outcomes.count("fallback") == fd.stat_fallback_decisions == 4
+        return dict(
+            codes=codes,
+            records=sorted(records, key=lambda r: sorted(r.items())),
+            items_by_algo=lr.items_by_algo(),
+        )
+    finally:
+        inj.heal()
+        cache.close()
+
+
 SCENARIOS = [
     hang_bounds_the_rpc_and_quarantines,
     exception_fault_classified_and_served,
@@ -646,6 +788,10 @@ SCENARIOS = [
     bad_failure_mode_rejected,
     health_degraded_while_quarantined,
     failing_factory_keeps_bank_on_the_mirror,
+    fallback_stamps_flight_code,
+    journal_tells_quarantine_fallback_restart_in_order,
+    journal_records_failed_restarts,
+    fallback_answers_stamp_launch_records,
 ]
 
 
@@ -1044,6 +1190,103 @@ def test_quarantine_reports_degraded_before_it_releases_the_rpcs():
         fd.record_fault(0, FAULT_HANG, TimeoutError("stuck"))
         assert seen == [True]
         assert _code(PORT, cache, rule) == "OK" and health.degraded
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def test_journal_hears_of_a_transition_after_its_health():
+    """bank_quarantine comes out once DEGRADED is published, and
+    bank_restart once SERVING is, before the restart count moves: a
+    reader that waits on the journal or on the count reads the health
+    the event reports."""
+    inj = Injector()
+    cache, clock, health, rule = _port_cache(inj)
+    fd = cache.fault_domain
+    rec = fd._records[0]
+    seen = []
+
+    class Journal:
+        def emit(self, etype, **detail):
+            seen.append((etype, health.healthy, health.degraded, rec.restarts))
+
+    fd.events = Journal()
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        inj.set("lane0", "raise")
+        assert _code(PORT, cache, rule) == "OK"
+        inj.heal()
+        _restart(fd, clock)
+        assert seen == [
+            ("bank_quarantine", True, True, 0),
+            ("bank_fallback", True, True, 0),
+            ("bank_half_open", True, True, 0),
+            ("bank_restart", True, False, 0),
+        ]
+        assert rec.restarts == 1
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def test_fallback_answers_wait_for_the_quarantine_event():
+    """An RPC that finds the bank quarantined while bank_quarantine is
+    still being written waits on the bank's fallback lock, so its
+    bank_fallback never precedes the quarantine in the journal."""
+    inj = Injector()
+    cache, clock, health, rule = _port_cache(inj)
+    fd = cache.fault_domain
+    emitting = threading.Event()
+    journal = port_obs.make_event_journal(32)
+    real_emit = journal.emit
+
+    def emit(etype, **detail):
+        if etype == "bank_quarantine":
+            emitting.set()
+            time.sleep(0.2)
+        return real_emit(etype, **detail)
+
+    journal.emit = emit
+    fd.events = journal
+    codes = []
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        inj.set("lane0", "raise")
+        first = threading.Thread(target=lambda: codes.append(_code(PORT, cache, rule)))
+        first.start()
+        assert emitting.wait(5)
+        second = threading.Thread(target=lambda: codes.append(_code(PORT, cache, rule)))
+        second.start()
+        first.join(5)
+        second.join(5)
+        assert codes == ["OK", "OK"]
+        assert [e["type"] for e in journal.snapshot()] == ["bank_quarantine", "bank_fallback"]
+        assert fd.stat_fallback_decisions == 2
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def test_a_raising_journal_never_blocks_a_quarantine():
+    """A journal that raises loses the event; the bank is still
+    quarantined, answered by the mirror and restarted."""
+    inj = Injector()
+    cache, clock, health, rule = _port_cache(inj)
+    fd = cache.fault_domain
+
+    class Broken:
+        def emit(self, etype, **detail):
+            raise RuntimeError("journal broke")
+
+    fd.events = Broken()
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        inj.set("lane0", "raise")
+        assert _code(PORT, cache, rule) == "OK"
+        assert fd.is_quarantined(0) and health.degraded
+        inj.heal()
+        _restart(fd, clock)
+        assert fd.stat_restarts == 1 and not health.degraded
     finally:
         inj.heal()
         cache.close()

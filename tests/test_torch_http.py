@@ -8,10 +8,16 @@ The /json bridge answers with equal status and body bytes (OK ->
 OVER_LIMIT on a fixed-window, a sliding-window and a GCRA key, unknown
 descriptors, an empty domain, hostile bodies); /healthcheck, /rlconfig,
 /stats, /stats.json and /metrics agree; a sampled request's trace has
-the same spans in both packages' rings, kernel.step included; the views
-of planes the port lacks answer with the JAX server's bytes with those
-planes off; the capture endpoints are gated, one at a time, and write a
-torch.profiler trace.  Health follows the port's fault domain over
+the same spans in both packages' rings, kernel.step included.  Booted
+at every default on the same config and requests, both runners serve
+the same observability views (/debug/hotkeys, /debug/events,
+/debug/launches, /debug/timeseries, /debug/incidents, /debug/slo,
+/debug/flight) and the same plane families on /stats and /metrics,
+masking only named fields measured in time (TIME_KEYS); with a plane's
+setting at 0 its view answers the JAX server's 404.  /debug/overload,
+/debug/faults without a fault domain and the cluster admin POSTs answer
+with the JAX server's bytes.  The capture endpoints are gated, one at a
+time, and write a torch.profiler trace.  Health follows the port's fault domain over
 HTTP: a stalled bank is "OK (degraded: ...)" as in the JAX package, a
 kernel defect is 500 NOT_HEALTHY.
 """
@@ -31,6 +37,7 @@ from ratelimit_tpu.runner import Runner as JaxRunner
 from ratelimit_tpu.server import http_server as jax_http
 from ratelimit_tpu.settings import Settings as JaxSettings
 from ratelimit_tpu.stats.manager import StatsStore as JaxStore
+from ratelimit_tpu.utils.time import FakeMonotonicClock as JaxFakeClock
 from ratelimit_tpu.utils.time import PinnedTimeSource as JaxPinned
 from ratelimit_tpu_torch.kernels import KernelError
 from ratelimit_tpu_torch.observability import TRACER
@@ -412,8 +419,15 @@ def planes_off(runners):
                 s.stop()
 
 
+#: The views whose plane the port does not have (overload control, the
+#: cluster handoff) or that answer without a backend's fault domain.
+PLANES_STILL_OFF = [v for v in PLANE_VIEWS[:11] if v[1] in (
+    "/debug/overload", "/debug/faults", "/debug/cluster/export", "/debug/cluster/import",
+)]
+
+
 @pytest.mark.parametrize("profiling", [False, True], ids=["profiling_off", "profiling_on"])
-@pytest.mark.parametrize("method,path", PLANE_VIEWS[:11], ids=[p for _, p in PLANE_VIEWS[:11]])
+@pytest.mark.parametrize("method,path", PLANES_STILL_OFF, ids=[p for _, p in PLANES_STILL_OFF])
 def test_views_of_unported_planes_answer_as_jax_with_planes_off(planes_off, profiling, method, path):
     body = b"{}" if method == "POST" else None
     want = _http(planes_off[("jax", profiling)], path, body, method=method)[:2]
@@ -453,6 +467,243 @@ def test_debug_index_lists_every_get_route(runners):
         assert [l.split()[0] for l in lines] == routes
         assert all(len(l.split()) > 1 for l in lines), lines
     assert "torch.profiler" in out.decode()
+
+
+# -- the observability planes at their defaults ----------------------------------
+
+#: Fields measured in time (stamps, durations, latency buckets, the
+#: process-wide config generation): masked by name wherever they occur.
+TIME_KEYS = {
+    "ts_ns", "ts_mono_ns", "ts_unix", "latency_le_ms", "queue_wait_us", "launch_us",
+    "complete_us", "p99_launch_ns", "captured_unix", "captured_monotonic",
+    "slowest_traces", "generation", "slow", "latency_sli", "latency_burn_rate",
+    "seq", "seqs",
+}
+#: Time-series columns measured in time: the phase latencies and RSS.
+TIME_SERIES = ("p99_", "rss_mb")
+#: The plane families on /stats and /metrics, by their name prefix.
+PLANE_FAMILIES = {
+    "flight": "ratelimit.tpu.flight.",
+    "launches": "ratelimit.tpu.launch.",
+    "events": "ratelimit.events.",
+    "hotkeys": "ratelimit.tpu.hotkeys.",
+    "timeseries": "ratelimit.tsdb.",
+    "detectors": "ratelimit.incidents.",
+    "slo": "ratelimit.tpu.slo.",
+}
+#: Stats of those families that are measured in time.
+TIME_STATS = (".p99_launch_ns", ".slow", ".latency_sli", ".latency_burn_rate")
+
+
+def _mask(obj):
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            if k in TIME_KEYS:
+                continue
+            if isinstance(k, str) and k.startswith(TIME_SERIES):
+                continue
+            if isinstance(k, str) and k.startswith(tuple(PLANE_FAMILIES.values())):
+                if k.endswith(TIME_STATS):
+                    continue
+            out[k] = _mask(v)
+        return out
+    if isinstance(obj, list):
+        return [_mask(v) for v in obj]
+    return obj
+
+
+class _TripOnce:
+    name = "synthetic"
+
+    def __init__(self):
+        self.reasons = ["forced capture"]
+
+    def evaluate(self):
+        return self.reasons.pop(0) if self.reasons else None
+
+
+def _quiet_samplers(runner, clock_cls):
+    """Stop the time-series and anomaly samplers right after boot and
+    put the series on a fake clock and wall, so both runners' ticks
+    happen at the same points of the same traffic."""
+    runner.detectors.stop()
+    ts = runner.timeseries
+    ts.stop()
+    ts.clock = clock_cls(50.0)
+    ts._wall = lambda: 1_700_000_000.0
+    ts._last_mono = None
+
+
+@pytest.fixture(scope="module")
+def default_runners(tmp_path_factory):
+    """Both runners at every default (DEBUG_PROFILING on for the flight
+    capture, no fault domain: a JAX shape compiling past the deadline
+    would quarantine), driven through the same traffic: gRPC and /json
+    over fixed-window, sliding-window and GCRA keys past their limits,
+    a config reload, two time-series ticks one fake second apart, and a
+    forced incident capture."""
+    root = tmp_path_factory.mktemp("runtime_defaults")
+    config_dir = root / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "rl.yaml").write_text(CONFIG)
+    kw = dict(COMMON, debug_profiling=True, runtime_path=str(root), runtime_subdirectory="ratelimit")
+    jax_runner = JaxRunner(JaxSettings(backend_type="tpu", **kw), time_source=JaxPinned(2_000_000))
+    port_runner = Runner(
+        Settings(backend_type="cuda", **kw), time_source=PinnedTimeSource(2_000_000), device="cpu"
+    )
+    jax_runner.start()
+    _quiet_samplers(jax_runner, JaxFakeClock)
+    try:
+        port_runner.start()
+        _quiet_samplers(port_runner, FakeMonotonicClock)
+        runners = (jax_runner, port_runner)
+        for r in runners:
+            r.timeseries.tick()
+            r.service.reload_config()
+        for round_ in range(2):
+            for r in runners:
+                for key in ("foo", "slide", "tb"):
+                    for _ in range(4):
+                        _grpc(r, key, "planes")
+                        _http(r.http_server.bound_port, "/json", _json("rl", (key, "planes")))
+                _grpc(r, "one_per_minute", "something")
+                r.cache.flush()
+                r.timeseries.clock.advance(1.0)
+                r.timeseries.tick()
+        for r in runners:
+            r.detectors.detectors.append(_TripOnce())
+            r.detectors.tick()
+        yield runners
+    finally:
+        try:
+            port_runner.stop()
+        finally:
+            jax_runner.stop()
+
+
+LIVE_VIEWS = [
+    "/debug/hotkeys",
+    "/debug/events",
+    "/debug/launches",
+    "/debug/timeseries",
+    "/debug/incidents",
+    "/debug/slo",
+    "/debug/flight?format=json",
+]
+
+
+def _plane_families(obj):
+    return {k: v for k, v in obj.items() if k.startswith(tuple(PLANE_FAMILIES.values()))}
+
+
+@pytest.mark.parametrize("path", LIVE_VIEWS)
+def test_views_of_live_planes_answer_as_jax_at_defaults(default_runners, path):
+    """Each view of a default-on plane answers as the JAX runner's on
+    the same config and requests: the same status and body, masking the
+    fields measured in time.  An incident's counters and gauges are
+    compared for the plane families (the cluster tier's families exist
+    only in the JAX package)."""
+    (s1, want), (s2, got) = [
+        _http(r.debug_server.bound_port, path)[:2] for r in default_runners
+    ]
+    assert s1 == s2 == 200
+    want, got = json.loads(want), json.loads(got)
+    if path == "/debug/incidents":
+        for body in (want, got):
+            body.pop("incident_dir")
+            for inc in body["incidents"]:
+                inc["counters"] = _plane_families(inc["counters"])
+                inc["gauges"] = _plane_families(inc["gauges"])
+    assert _mask(got) == _mask(want)
+    checks = {
+        "/debug/hotkeys": lambda b: b["tracked"] == 4 and b["keys"][0]["over_limit"] > 0,
+        "/debug/events": lambda b: [e["type"] for e in b["events"]] == ["config_reload", "incident"],
+        "/debug/launches": lambda b: {r["algorithm"] for r in b["launches"]}
+        == {"fixed_window", "sliding_window", "gcra"},
+        "/debug/timeseries": lambda b: b["series"]["launches_per_s"][-2:] == [23.0, 17.0],
+        "/debug/incidents": lambda b: b["captured_total"] == 1 and b["incidents"][0]["ring"],
+        "/debug/slo": lambda b: b["domains"]["rl"]["cumulative"]["requests"] == 50,
+        "/debug/flight?format=json": lambda b: len(b["records"]) == 50,
+    }
+    assert checks[path](got), got
+
+
+@pytest.mark.parametrize("endpoint", ["/stats", "/metrics"])
+@pytest.mark.parametrize("family", sorted(PLANE_FAMILIES))
+def test_plane_families_on_stats_and_metrics_equal(default_runners, family, endpoint):
+    """/stats and /metrics carry each plane's family with the JAX
+    runner's names and, but for the stats measured in time, values."""
+    prefix = PLANE_FAMILIES[family]
+    if endpoint == "/metrics":
+        prefix = prefix.replace(".", "_")
+    lines = []
+    for r in default_runners:
+        status, out, _ = _http(r.debug_server.bound_port, endpoint)
+        assert status == 200
+        sep = " " if endpoint == "/metrics" else ": "
+        fam = {}
+        for line in out.decode().splitlines():
+            if line.startswith(prefix):
+                name, value = line.rsplit(sep, 1) if sep == " " else line.split(sep, 1)
+                if not name.split("{")[0].endswith(tuple(s.replace(".", "_") for s in TIME_STATS) + TIME_STATS):
+                    fam[name] = value
+        lines.append(fam)
+    assert lines[1] == lines[0] and lines[1]
+
+
+@pytest.fixture(scope="module")
+def planes_zero(tmp_path_factory):
+    """Both runners with every plane's setting at 0 (DEBUG_PROFILING on,
+    so /debug/flight reaches its ring check)."""
+    root = tmp_path_factory.mktemp("runtime_planes_zero")
+    config_dir = root / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "rl.yaml").write_text(CONFIG)
+    kw = dict(
+        COMMON,
+        debug_profiling=True,
+        runtime_path=str(root),
+        runtime_subdirectory="ratelimit",
+        flight_recorder_size=0,
+        event_journal_size=0,
+        launch_recorder_size=0,
+        tsdb_interval_s=0.0,
+        anomaly_interval_s=0.0,
+        hotkeys_top_k=0,
+    )
+    jax_runner = JaxRunner(JaxSettings(backend_type="tpu", **kw), time_source=JaxPinned(2_000_000))
+    port_runner = Runner(
+        Settings(backend_type="cuda", **kw), time_source=PinnedTimeSource(2_000_000), device="cpu"
+    )
+    jax_runner.start()
+    try:
+        port_runner.start()
+        try:
+            yield jax_runner, port_runner
+        finally:
+            port_runner.stop()
+    finally:
+        jax_runner.stop()
+
+
+@pytest.mark.parametrize("path", LIVE_VIEWS)
+def test_views_with_the_plane_at_zero_answer_as_jax(planes_zero, path):
+    """With a plane's setting at 0 its view answers the JAX runner's
+    bytes: 404 for the recorders, the journal, the series and the
+    sketch; the SLO engine and the detectors are always built, as in
+    the JAX runner, and answer 200 with no captures."""
+    jax_runner, port_runner = planes_zero
+    for r in planes_zero:
+        assert r.flight is None and r.launches is None and r.events is None
+        assert r.timeseries is None and r.cache.hotkeys is None
+    (s1, want), (s2, got) = [_http(r.debug_server.bound_port, path)[:2] for r in planes_zero]
+    assert s1 == s2
+    if s1 == 200:
+        assert _mask(json.loads(got)) == _mask(json.loads(want))
+        assert path in ("/debug/incidents", "/debug/slo")
+    else:
+        assert (s2, got) == (404, want)
 
 
 def test_replies_leave_without_waiting_for_an_ack():

@@ -6,7 +6,9 @@ exposition and timer tests runs once through each package: W3C
 traceparent parse/inject, the sampling and commit policy, the trace
 ring, the cross-thread stamp seam, the JSONL exporter, the tracez span
 tree, histogram bucket and quantile math, the golden Prometheus text
-(equal bytes in both packages), and timer sample-drop accounting.
+(equal bytes in both packages), and timer sample-drop accounting.  The
+twin of the JAX package's scripts/metrics_smoke.py passes against a
+port runner on the CPU.
 """
 
 import importlib
@@ -367,3 +369,20 @@ def test_timer_counts_dropped_samples(P):
     assert t.drain_dropped() == 7
     assert t.drain_dropped() == 0  # delta semantics
     assert t.summary()["samples_dropped"] == 7
+
+
+def test_metrics_smoke_twin_passes_on_the_cpu(capsys):
+    """scripts/torch_metrics_smoke.py, the twin of the JAX package's
+    scripts/metrics_smoke.py, makes every one of its assertions against
+    a port runner with its tables on the CPU."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts", "torch_metrics_smoke.py")
+    spec = importlib.util.spec_from_file_location("torch_metrics_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.main(["--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metrics_smoke"] == "ok" and out["device"] == "cpu"
+    assert set(out["incidents"]) >= {"latency_spike", "over_limit_surge"}

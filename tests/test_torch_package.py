@@ -25,6 +25,8 @@ leaked = sorted(
 print(len(names), leaked)
 assert not leaked, leaked
 assert "ratelimit_tpu_torch.parallel.sharded" in names, names
+for plane in ("events", "flight", "launches", "slo", "hotkeys", "detectors", "timeseries"):
+    assert "ratelimit_tpu_torch.observability." + plane in names, plane
 """
 
 
@@ -100,3 +102,31 @@ def test_kernel_wrappers_refuse_unknown_devices():
     packed = torch.zeros((4, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fw_unique_step(counts, packed, "")
+
+
+PLANES = ("events", "flight", "launches", "slo", "hotkeys", "detectors", "timeseries")
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_observability_plane_is_the_port_own_copy(plane):
+    """Each observability plane is a module of the port with the JAX
+    module's public names, importing nothing of the JAX package: its
+    globals name no module outside ratelimit_tpu_torch but the standard
+    library and numpy."""
+    import importlib
+    import types
+
+    port = importlib.import_module("ratelimit_tpu_torch.observability." + plane)
+    ref = importlib.import_module("ratelimit_tpu.observability." + plane)
+    public = lambda m: sorted(  # noqa: E731
+        n for n, v in vars(m).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)
+        and getattr(v, "__module__", m.__name__) == m.__name__
+    )
+    assert public(port) == public(ref)
+    for value in vars(port).values():
+        mod = getattr(value, "__module__", None) or (
+            value.__name__ if isinstance(value, types.ModuleType) else None
+        )
+        if mod:
+            assert not (mod == "ratelimit_tpu" or mod.startswith("ratelimit_tpu.")), (plane, mod)
