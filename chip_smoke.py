@@ -147,14 +147,43 @@ Phases, one line each; any failure exits non-zero:
    time-series sample (bound: half the kernel deadline; no fault); and
    warm microseconds per request with every plane at its default
    against every plane off, two runners side by side, in alternating
-   pairs.
+   pairs;
+13. overload control and the cluster handoff: the runner with
+   BACKEND_TYPE=cuda at every default but OVERLOAD_{PROMOTE,SHED,
+   BACKPRESSURE}_ENABLED, PROMOTE_TTL_S=1, ANOMALY_INTERVAL_S=0.5,
+   BACKPRESSURE_TOKENS=4 and BACKPRESSURE_HOLD_S=1, serving two
+   domains (bulk, priority 1; checkout, priority 5) -- 13a: 4 clients
+   on one bulk key until the controller promotes it (live in
+   /debug/overload), then 100 hits on it OVER_LIMIT with no K1 launch
+   while 100 cold keys launch K1, the entry expiring after the TTL and
+   the key launching K1 again, and warm microseconds per request on
+   the promoted key against a device key in alternating pairs; 13b: 4
+   clients a domain, one request each every 40 ms, through phase 8's
+   stall: the journal's backpressure engage before the shed floor's
+   raise, then its lower and the release, every floor shed a bulk one
+   with flight code 8 and no
+   backend work, checkout never shed by the floor and each checkout key
+   admitting exactly its limit, the ratelimit.overload families moving
+   on /metrics, every RPC within the deadline + 0.5 s, health SERVING;
+   13c: runner A (cuda, two lanes) and runner B (cuda-sharded, 8 banks)
+   with CLUSTER_HANDOFF_ENABLED, TPU_PERSECOND and one CACHE_KEY_PREFIX
+   on a pinned clock: 4096 keys of a minute, a second-unit, a
+   sliding-window and a GCRA rule at half their limit on A, the
+   HandoffCoordinator over the debug listeners moving membership [A]
+   -> [A, B], every key admitting exactly the other half on its owner,
+   /debug/cluster and the journals telling it; then one lane of A
+   filled to 2^18 live keys, the reference's export_keys and
+   import_keys timed on it, and the port's two-leg export and chunked
+   import during an 8-client burst on both runners (each exclusive
+   leg's ms, RPC ms during against outside, no fault); 13d:
+   scripts/torch_chaos_smoke.py --device cuda, every check passing.
 
-Phases 6, 7, 9, 10 and 12 run with the fault domain armed at its defaults
+Phases 6, 7, 9, 10, 12 and 13 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
 one stall, and phase 12 for its); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-12)
+phase (4-13)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -165,6 +194,7 @@ are a JSON summary of the kernels and
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -1506,6 +1536,18 @@ PLANES_ENV = (
     "HOTKEYS_TOP_K",
     "INCIDENT_DIR",
 )
+#: Settings of phase 13 (overload control, the cluster handoff); every
+#: other served phase starts from none of them.
+PHASE13_ENV = (
+    "OVERLOAD_SHED_ENABLED",
+    "OVERLOAD_PROMOTE_ENABLED",
+    "OVERLOAD_BACKPRESSURE_ENABLED",
+    "PROMOTE_TTL_S",
+    "BACKPRESSURE_TOKENS",
+    "BACKPRESSURE_HOLD_S",
+    "CLUSTER_HANDOFF_ENABLED",
+    "CACHE_KEY_PREFIX",
+)
 #: The runner's kernel deadline at its default (settings.py).
 DEFAULT_DEADLINE_S = 0.25
 
@@ -1513,21 +1555,22 @@ SHADOW_COUNTERS = ("ratelimit.tpu.shadow.gcra.agree", "ratelimit.tpu.shadow.gcra
 
 
 @contextlib.contextmanager
-def serving(backend: str, env=None, **runner_kwargs):
+def serving(backend: str, env=None, config=None, **runner_kwargs):
     """The runner in-process with BACKEND_TYPE=`backend` serving CONFIG
-    (TPU_NUM_SLOTS, TPU_ALGORITHM_BANKS and every fault-domain setting
-    at its default -- KERNEL_DEADLINE_S 0.25 s -- but those in `env`);
-    yields (runner, request(key, value, hits=0) over one gRPC channel,
-    the response class)."""
+    (or `config`, {file name: YAML}) (TPU_NUM_SLOTS, TPU_ALGORITHM_BANKS
+    and every fault-domain setting at its default -- KERNEL_DEADLINE_S
+    0.25 s -- but those in `env`); yields (runner, request(key, value,
+    hits=0, domain="rl") over one gRPC channel, the response class)."""
     import grpc
 
     with tempfile.TemporaryDirectory() as root:
         cfg = os.path.join(root, "ratelimit", "config")
         os.makedirs(cfg)
-        with open(os.path.join(cfg, "rl.yaml"), "w") as f:
-            f.write(CONFIG)
+        for name, text in (config or {"rl.yaml": CONFIG}).items():
+            with open(os.path.join(cfg, name), "w") as f:
+                f.write(text)
         for name in ("TPU_ALGORITHM_BANKS", "TPU_NUM_SLOTS", "DEBUG_PROFILING", "TPU_WARMUP",
-                     *FAULT_ENV, *TOPOLOGY_ENV, *PLANES_ENV):
+                     *FAULT_ENV, *TOPOLOGY_ENV, *PLANES_ENV, *PHASE13_ENV):
             os.environ.pop(name, None)
         os.environ.update(env or {})
         # The three listeners on free local ports: the HTTP and debug
@@ -1561,10 +1604,10 @@ def serving(backend: str, env=None, **runner_kwargs):
                     response_deserializer=rls_pb2.RateLimitResponse.FromString,
                 )
 
-                def request(key, value, hits=0):
+                def request(key, value, hits=0, domain="rl"):
                     """One request: a descriptor per value (a list of
                     values makes a multi-descriptor request)."""
-                    req = rls_pb2.RateLimitRequest(domain="rl", hits_addend=hits)
+                    req = rls_pb2.RateLimitRequest(domain=domain, hits_addend=hits)
                     for v in [value] if isinstance(value, str) else value:
                         e = req.descriptors.add().entries.add()
                         e.key, e.value = key, v
@@ -2447,9 +2490,9 @@ def bank_keys(runner, bank) -> list:
 
 def grpc_clients(runner, n, work):
     """`n` client threads with a gRPC channel each, running
-    work(i, call) where call(key, value) returns (code, t0, t1), or
-    (the response, t0, t1) with response=True; returns the works'
-    results by client.  Any error fails the phase."""
+    work(i, call) where call(key, value, domain="rl") returns (code,
+    t0, t1), or (the response, t0, t1) with response=True; returns the
+    works' results by client.  Any error fails the phase."""
     import grpc
 
     from ratelimit_tpu_torch.server import pb  # noqa: F401
@@ -2469,8 +2512,8 @@ def grpc_clients(runner, n, work):
                     response_deserializer=rls_pb2.RateLimitResponse.FromString,
                 )
 
-                def call(key, value, response=False):
-                    req = rls_pb2.RateLimitRequest(domain="rl")
+                def call(key, value, response=False, domain="rl"):
+                    req = rls_pb2.RateLimitRequest(domain=domain)
                     e = req.descriptors.add().entries.add()
                     e.key, e.value = key, value
                     t0 = time.perf_counter()
@@ -3661,6 +3704,732 @@ def planes_lines(o, smi) -> list:
     ]
 
 
+# -- 13. overload control and the replica half of the cluster tier ----------------
+
+OVERLOAD_DOMAIN = """domain: {domain}
+priority: {priority}
+descriptors:
+  - key: fw
+    rate_limit: {{unit: minute, requests_per_unit: 5}}
+  - key: sw
+    rate_limit: {{unit: minute, requests_per_unit: 5, algorithm: sliding_window}}
+  - key: tb
+    rate_limit: {{unit: minute, requests_per_unit: 5, algorithm: gcra}}
+"""
+OVERLOAD_CONFIG = {
+    "bulk.yaml": OVERLOAD_DOMAIN.format(domain="bulk", priority=1),
+    "checkout.yaml": OVERLOAD_DOMAIN.format(domain="checkout", priority=5),
+}
+OVERLOAD_LIMIT = 5
+#: The runner of 13a and 13b: every default but these.
+OVERLOAD_ENV = {
+    "OVERLOAD_PROMOTE_ENABLED": "true",
+    "OVERLOAD_SHED_ENABLED": "true",
+    "OVERLOAD_BACKPRESSURE_ENABLED": "true",
+    "PROMOTE_TTL_S": "1",
+    "ANOMALY_INTERVAL_S": "0.5",
+    "BACKPRESSURE_TOKENS": "4",
+    "BACKPRESSURE_HOLD_S": "1",
+    "DEVICE_RESTART_BACKOFF_S": FAULT_BACKOFF_S,
+}
+PROMOTE_CLIENTS = 4
+HOT = ("fw", "hot")
+PROMOTED_HITS = 100
+PROMOTE_PAIRS = 10
+PROMOTE_LEG = 100
+#: 13b: clients per domain, the calm sampler ticks before the stall,
+#: and the stall's length (phase 8's).
+SHED_CLIENTS = 4
+SHED_CALM_TICKS = 4
+SHED_KEYS = 4  # values a checkout client cycles, each offered past its limit
+SHED_AFTER_S = 1.0  # of traffic after the restart
+SHED_PERIOD_S = 0.04  # each client's request period
+HANDOFF_CONFIG = """domain: ho
+descriptors:
+  - key: hm
+    rate_limit: {unit: minute, requests_per_unit: 10}
+  - key: hs
+    rate_limit: {unit: second, requests_per_unit: 10}
+  - key: hsw
+    rate_limit: {unit: minute, requests_per_unit: 10, algorithm: sliding_window}
+  - key: htb
+    rate_limit: {unit: minute, requests_per_unit: 10, algorithm: gcra}
+"""
+HANDOFF_KEYS = 4096  # a quarter on each rule
+HANDOFF_LIMIT = 10
+HANDOFF_WIDTH = 64  # descriptors a request
+HANDOFF_PREFIX = "c13:"
+HANDOFF_ENV = {
+    "CLUSTER_HANDOFF_ENABLED": "true",
+    "TPU_PERSECOND": "true",
+    "CACHE_KEY_PREFIX": HANDOFF_PREFIX,
+}
+HANDOFF_CLIENTS = 8
+#: Where runner B's 8 banks live.
+MESH_DEVICE = "cuda:0"
+HANDOFF_BURST_S = 1.0  # of burst on each side of the full-lane handoff
+
+
+def k1_launches(kernels, fw) -> int:
+    return kernels.launches.get(fw.K1_LANES, 0) + kernels.launches.get(fw.K1, 0)
+
+
+def overload_summary(runner) -> dict:
+    status, body = http_get(runner.debug_server.bound_port, "/debug/overload")
+    if status != 200:
+        fail(f"/debug/overload answered {status}")
+    return json.loads(body)
+
+
+def promotion_phase(runner, request, R, fw, kernels):
+    """13a: PROMOTE_CLIENTS clients on one bulk key until the controller
+    promotes its stem (shown live in /debug/overload); then
+    PROMOTED_HITS hits on it answer OVER_LIMIT with no K1 launch while as
+    many hits on as many cold keys launch K1; after the TTL with no
+    traffic the entry expires and the key launches K1 again; and warm
+    µs a request on the promoted key against a device key, in
+    alternating pairs."""
+    promo = runner.overload.promotion
+    stem = f"bulk_{HOT[0]}_{HOT[1]}_"
+    stop = threading.Event()
+    t_start = time.monotonic()
+
+    def work(i, call):
+        n = 0
+        while not stop.is_set() and time.monotonic() < t_start + 20:
+            call(*HOT, domain="bulk")
+            n += 1
+        return n
+
+    def watch():
+        while stem not in promo.entries and time.monotonic() < t_start + 20:
+            time.sleep(0.005)
+        stop.set()
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    sent = sum(grpc_clients(runner, PROMOTE_CLIENTS, work))
+    watcher.join()
+    if stem not in promo.entries:
+        fail(f"promotion: {stem} not promoted after {sent} hits in 20 s")
+    promoted_after_s = time.monotonic() - t_start
+    live = [e["key"] for e in overload_summary(runner)["promotion"]["live"]]
+    if stem not in live:
+        fail(f"promotion: /debug/overload does not show {stem} live: {live}")
+    k0, h0 = k1_launches(kernels, fw), promo.hits
+    codes = [request(*HOT, domain="bulk").overall_code for _ in range(PROMOTED_HITS)]
+    promoted_k1, promoted_hits = k1_launches(kernels, fw) - k0, promo.hits - h0
+    k0 = k1_launches(kernels, fw)
+    cold = [request("fw", f"cold{i}", domain="bulk").overall_code for i in range(PROMOTED_HITS)]
+    cold_k1 = k1_launches(kernels, fw) - k0
+    if codes != [R.OVER_LIMIT] * PROMOTED_HITS or promoted_k1 or promoted_hits != PROMOTED_HITS:
+        fail(f"promotion: the promoted key reached the card ({promoted_k1} K1 launches, "
+             f"{promoted_hits} promotion hits, codes {set(codes)})")
+    if cold != [R.OK] * PROMOTED_HITS or cold_k1 < PROMOTED_HITS:
+        fail(f"promotion: {PROMOTED_HITS} cold keys made {cold_k1} K1 launches")
+    t0 = time.monotonic()
+    while stem in promo.entries and time.monotonic() < t0 + 10:
+        time.sleep(0.02)
+    expired_after_s = time.monotonic() - t0
+    k0 = k1_launches(kernels, fw)
+    after = request(*HOT, domain="bulk").overall_code
+    expired_k1 = k1_launches(kernels, fw) - k0
+    if stem in promo.entries or expired_k1 != 1 or after != R.OVER_LIMIT:
+        fail(f"promotion: after the TTL the key made {expired_k1} K1 launches ({after})")
+    legs = {"promoted": [], "device": []}
+    for p in range(PROMOTE_PAIRS):
+        for side in ("promoted", "device") if p % 2 == 0 else ("device", "promoted"):
+            if side == "promoted":
+                promo.promote(stem)  # re-armed for the leg, as a hot tick would
+                h0 = promo.hits
+            t0 = time.perf_counter()
+            for i in range(PROMOTE_LEG):
+                if side == "promoted":
+                    request(*HOT, domain="bulk")
+                else:
+                    request("fw", f"dev{p}-{i}", domain="bulk")
+            legs[side].append((time.perf_counter() - t0) / PROMOTE_LEG * 1e6)
+            if side == "promoted" and promo.hits - h0 != PROMOTE_LEG:
+                fail("promotion: a promoted leg reached the card")
+    return dict(
+        sent_to_promote=sent,
+        promoted_after_s=promoted_after_s,
+        promoted_k1=promoted_k1,
+        cold_k1=cold_k1,
+        expired_after_s=expired_after_s,
+        expired_k1=expired_k1,
+        legs=legs,
+        summary=overload_summary(runner)["promotion"],
+    )
+
+
+def metric_values(runner, prefix) -> dict:
+    """The /metrics samples whose name starts with `prefix`."""
+    status, body = http_get(runner.debug_server.bound_port, "/metrics")
+    if status != 200:
+        fail(f"/metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith(prefix):
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def shed_stall_phase(torch, runner, R, cycles_per_ms):
+    """13b: SHED_CLIENTS clients on bulk and as many on checkout, each
+    sending a request every SHED_PERIOD_S, through phase 8's stall on
+    the fixed-window bank, after SHED_CALM_TICKS calm
+    sampler ticks.  The clients pause while the snapshot is taken and the
+    stall enqueued (so the mirror starts from every hit), then run until
+    the bank has restarted, the shed floor has lowered and the gate has
+    released.  Checks: the journal's backpressure engage before the shed
+    floor's raise, then its lower and the release; every shed answer a
+    bulk one with flight code 8 and no backend work; checkout never shed
+    and every checkout key admitting exactly its limit; the overload
+    families moving on /metrics; no RPC past the deadline + margin;
+    health SERVING at the end."""
+    from ratelimit_tpu_torch.observability import FLIGHT_CODE_SHED
+
+    if time.time() % 60 > 35:
+        # The 5/minute rules count per minute: no rollover inside.
+        time.sleep(61 - time.time() % 60)
+    cache, ov, fd = runner.cache, runner.overload, runner.cache.fault_domain
+    bank = bank_of(runner, "lane0of1")
+    rec = fd._records[bank]
+    engine = fd.engine_at(bank)
+    f0 = runner.flight.stamped()
+    shed0 = ov.shed_total
+    seen0 = cache.resolver.hits + cache.resolver.misses
+    metrics0 = metric_values(runner, "ratelimit_overload_")
+    restarts0 = rec.restarts
+    paused = threading.Event()
+    idle = threading.Semaphore(0)
+    stop = threading.Event()
+
+    def work(i, call):
+        domain = "bulk" if i < SHED_CLIENTS else "checkout"
+        keys = ("fw", "sw", "tb") if domain == "bulk" else ("fw", "sw")
+        out = []
+        j = 0
+        while not stop.is_set():
+            if paused.is_set():
+                idle.release()
+                while paused.is_set():
+                    time.sleep(0.001)
+            key = keys[j % len(keys)]
+            value = f"{domain[0]}{i}-{(j // len(keys)) % SHED_KEYS}"
+            code, t0, t1 = call(key, value, domain=domain)
+            out.append((domain, key, value, code, t0, t1))
+            j += 1
+            # Paced, so the stall's slow answers are a share of a tick
+            # the SLO burn can see.
+            time.sleep(max(0.0, SHED_PERIOD_S - (time.perf_counter() - t0)))
+        return out
+
+    timeline = {}
+
+    def conduct():
+        # Calm: SHED_CALM_TICKS ticks in a row with no backpressure trip,
+        # the gate off and no floor, so the latency baseline is the 8
+        # clients'.
+        trips, since = ov.bp_trips, ov.ticks
+        give_up = time.monotonic() + 30
+        while time.monotonic() < give_up:
+            calm = ov.summary()
+            if ov.bp_trips != trips or calm["backpressure"]["active"] or calm["shed"]["active"]:
+                trips, since = ov.bp_trips, ov.ticks
+            elif ov.ticks >= since + SHED_CALM_TICKS:
+                break
+            time.sleep(0.01)
+        timeline["events"] = runner.events.emitted
+        paused.set()
+        for _ in range(2 * SHED_CLIENTS):
+            if not idle.acquire(timeout=30):
+                stop.set()
+                paused.clear()
+                return
+        fd.snapshot_now(bank)
+        timeline["stall"] = time.perf_counter()
+        stall_stream(torch, engine, STALL_DEADLINES * fd.kernel_deadline_s * 1e3, cycles_per_ms)
+        paused.clear()
+        deadline = time.monotonic() + 30
+        while rec.restarts == restarts0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        timeline["restart"] = time.perf_counter()
+        time.sleep(SHED_AFTER_S)
+        stop.set()
+
+    conductor = threading.Thread(target=conduct)
+    conductor.start()
+    results = grpc_clients(runner, 2 * SHED_CLIENTS, work)
+    conductor.join()
+    if "restart" not in timeline:
+        fail("shed stall: the clients did not pause for the snapshot")
+    # With the traffic over, the burn decays and the hold runs out.
+    give_up = time.monotonic() + 30
+    while time.monotonic() < give_up:
+        s = ov.summary()
+        if not s["shed"]["active"] and not s["backpressure"]["active"]:
+            break
+        time.sleep(0.05)
+    timeline["calm"] = time.perf_counter()
+    rows = [r for res in results for r in res]
+    events = [
+        e for e in runner.events.snapshot(since=timeline["events"])
+        if e["type"] in ("backpressure", "shed_floor")
+    ]
+    marks = [
+        (e["type"], e.get("action") or e.get("direction"), e["seq"]) for e in events
+    ]
+
+    def first(kind, what):
+        return next((seq for t, a, seq in marks if t == kind and a == what), None)
+
+    order = [first("backpressure", "engage"), first("shed_floor", "raise"),
+             first("shed_floor", "lower"), first("backpressure", "release")]
+    engage = next((e for e in events if e["type"] == "backpressure"), {})
+    frecs = [r for r in runner.flight.snapshot_dicts() if r["seq"] > f0]
+    shed_recs = [r for r in frecs if r["code"] == FLIGHT_CODE_SHED]
+    shed = ov.shed_total - shed0
+    seen = cache.resolver.hits + cache.resolver.misses - seen0
+    admitted = {}
+    for domain, key, value, code, _t0, _t1 in rows:
+        if domain == "checkout":
+            admitted.setdefault((key, value), [0, 0])
+            admitted[(key, value)][0] += code == R.OK
+            admitted[(key, value)][1] += 1
+    rpc_ms = [(t1 - t0) * 1e3 for *_x, t0, t1 in rows]
+    stall_rpc = [(t1 - t0) * 1e3 for *_x, t0, t1 in rows if t1 > timeline["stall"] and t0 < timeline["restart"]]
+    metrics = metric_values(runner, "ratelimit_overload_")
+    moved = sorted(k for k, v in metrics.items() if v != metrics0.get(k, 0.0))
+    health = (runner.health.healthy, runner.health.degraded)
+    summary = ov.summary()
+    out = dict(
+        requests=len(rows),
+        seconds=timeline["calm"] - timeline["stall"],
+        restart_s=timeline["restart"] - timeline["stall"],
+        events=marks,
+        engage=dict(detector=engage.get("detector"), tokens=engage.get("tokens")),
+        shed=shed,
+        shed_flight=len(shed_recs),
+        shed_domains=sorted({r["domain"] for r in shed_recs}),
+        shed_counts=summary["shed"]["counts"],
+        backend_requests=seen,
+        checkout_keys=len(admitted),
+        checkout_admitted=sorted({a for a, _n in admitted.values()}),
+        checkout_offered_min=min((n for _a, n in admitted.values()), default=0),
+        rpc_max_ms=max(rpc_ms),
+        rpc_p99_ms=float(np.percentile(rpc_ms, 99)),
+        stall_rpcs=len(stall_rpc),
+        stall_rpc_max_ms=max(stall_rpc, default=0.0),
+        bp_trips=summary["backpressure"]["trips"],
+        metrics_moved=moved,
+        health=health,
+        faults=dict(fd.stat_faults),
+    )
+    if None in order or order[0] > order[1] or order[1] > order[2] or order[0] > order[3]:
+        fail(f"shed stall: journal {marks}, want backpressure engage, shed_floor raise, "
+             f"then lower and release in seq order; {summary['shed']}; {summary['backpressure']}")
+    if engage.get("detector") not in ("latency_spike", "queue_saturation"):
+        fail(f"shed stall: backpressure engaged by {engage}")
+    counts = summary["shed"]["counts"]
+    checkout_bp = counts.get("checkout", {}).get("backpressure", 0)
+    out["checkout_shed_flight"] = sum(r["domain"] == "checkout" for r in shed_recs)
+    if not shed or shed != len(shed_recs) or "bulk" not in out["shed_domains"]:
+        fail(f"shed stall: {shed} sheds, {len(shed_recs)} flight records with code "
+             f"{FLIGHT_CODE_SHED} from {out['shed_domains']}")
+    if not counts.get("bulk", {}).get("slo_burn"):
+        fail(f"shed stall: the floor never shed bulk: {counts}")
+    if seen != len(rows) - shed:
+        fail(f"shed stall: {seen} requests reached the backend, want {len(rows)} - {shed} shed")
+    # The top level is never shed by the floor; the backpressure gate
+    # admits every domain alike, and its sheds are counted apart.
+    if counts.get("checkout", {}).get("slo_burn") or out["checkout_shed_flight"] != checkout_bp:
+        fail(f"shed stall: checkout was shed by the floor: {counts}")
+    if out["checkout_admitted"] != [OVERLOAD_LIMIT] or out["checkout_offered_min"] <= OVERLOAD_LIMIT:
+        fail(f"shed stall: checkout keys admitted {out['checkout_admitted']} "
+             f"(offered at least {out['checkout_offered_min']}), want exactly {OVERLOAD_LIMIT}")
+    if not any("shed" in k for k in moved) or not any("backpressure_trips" in k for k in moved):
+        fail(f"shed stall: the overload families did not move on /metrics: {moved}")
+    bound_ms = (fd.kernel_deadline_s + STALL_RPC_MARGIN_S) * 1e3
+    if out["rpc_max_ms"] > bound_ms:
+        fail(f"shed stall: an RPC took {out['rpc_max_ms']:.1f} ms > {bound_ms:.0f} ms")
+    if rec.restarts != restarts0 + 1 or health != (True, False):
+        fail(f"shed stall: restarts {rec.restarts - restarts0}, health {health}")
+    return out
+
+
+def ho_call(runner):
+    """call(pairs) -> the statuses' (code, remaining) of one request of
+    domain ho with a descriptor per (key, value)."""
+    import grpc
+
+    from ratelimit_tpu_torch.server import pb  # noqa: F401
+
+    from envoy.service.ratelimit.v3 import rls_pb2
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{runner.grpc_server.bound_port}")
+    stub = channel.unary_unary(
+        "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+        request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+        response_deserializer=rls_pb2.RateLimitResponse.FromString,
+    )
+
+    def call(pairs):
+        req = rls_pb2.RateLimitRequest(domain="ho")
+        for key, value in pairs:
+            e = req.descriptors.add().entries.add()
+            e.key, e.value = key, value
+        return [(s.code, s.limit_remaining) for s in stub(req, timeout=60).statuses]
+
+    return call, channel
+
+
+def handoff_keys():
+    per = HANDOFF_KEYS // 4
+    return [(k, f"{k}{i}") for k in ("hm", "hs", "hsw", "htb") for i in range(per)]
+
+
+def hit_all(call, pairs, times):
+    """Each (key, value) hit `times` times, HANDOFF_WIDTH descriptors a
+    request; returns each pair's answers."""
+    out = {p: [] for p in pairs}
+    for _ in range(times):
+        for lo in range(0, len(pairs), HANDOFF_WIDTH):
+            part = pairs[lo : lo + HANDOFF_WIDTH]
+            for p, st in zip(part, call(part)):
+                out[p].append(st)
+    return out
+
+
+def exclusive_timer(cache, log):
+    """Wrap cache.run_exclusive so each call notes (its function's name,
+    ms it held the bank)."""
+    run = cache.run_exclusive
+
+    def timed(engine, fn):
+        def held():
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                log.append((getattr(fn, "__name__", "?"), (time.perf_counter() - t0) * 1e3))
+
+        run(engine, held)
+
+    cache.run_exclusive = timed
+
+
+def handoff_phase(kernels):
+    """13c: runner A (cuda, two lanes) and runner B (cuda-sharded, 8
+    banks on the card), both with CLUSTER_HANDOFF_ENABLED, TPU_PERSECOND
+    and one CACHE_KEY_PREFIX, on a pinned clock.  HANDOFF_KEYS keys of a
+    minute, a second-unit, a sliding-window and a GCRA rule hit to half
+    their limit on A; the HandoffCoordinator over the debug listeners
+    moves membership [A] -> [A, B]; every key then admits exactly the
+    other half on its owner; both /debug/cluster views and journals tell
+    it.  Then lane 0 of A is filled to FULL_LANE_KEYS live keys: the
+    reference's way timed on it (export_keys and the rebuild its drop
+    adds; import_keys of the moved keys into a fresh engine), then the
+    port's export and import during a HANDOFF_CLIENTS-client burst on
+    both runners: each exclusive leg's ms, RPC ms during against outside,
+    no fault."""
+    from ratelimit_tpu_torch.backends.engine import CounterEngine, release_stream
+    from ratelimit_tpu_torch.cluster import handoff as ho
+    from ratelimit_tpu_torch.cluster.hashing import owner_id, stem_of_cache_key
+    from ratelimit_tpu_torch.parallel import make_mesh
+    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+    pinned = int(time.time()) // 60 * 60 + 30  # mid-minute, never far from now
+    env_a = dict(HANDOFF_ENV, TPU_NUM_LANES="2")
+    cfg = {"ho.yaml": HANDOFF_CONFIG}
+    with serving("cuda", env=env_a, config=cfg, time_source=PinnedTimeSource(pinned)) as (a, _ra, R):
+        with serving("cuda-sharded", env=HANDOFF_ENV, config=cfg, time_source=PinnedTimeSource(pinned),
+                     mesh=make_mesh(BANKS, MESH_DEVICE)) as (b, _rb, _):
+            call_a, chan_a = ho_call(a)
+            call_b, chan_b = ho_call(b)
+            try:
+                pairs = handoff_keys()
+                first = hit_all(call_a, pairs, HANDOFF_LIMIT // 2)
+                if any(st[0] != R.OK for sts in first.values() for st in sts):
+                    fail("handoff: a hit before the move was refused")
+                urls = {
+                    "A": f"http://127.0.0.1:{a.debug_server.bound_port}",
+                    "B": f"http://127.0.0.1:{b.debug_server.bound_port}",
+                }
+                admins = {rid: ho.HttpAdminTransport(url) for rid, url in urls.items()}
+                a_e0, b_e0 = a.events.emitted, b.events.emitted
+                summary = ho.HandoffCoordinator(admins.get).run(["A"], ["A", "B"])
+                from ratelimit_tpu_torch.limiter.cache_key import build_stem
+                from ratelimit_tpu_torch.api import Descriptor
+
+                owners = {
+                    p: owner_id(build_stem("", "ho", Descriptor.of(p).entries), ["A", "B"]) for p in pairs
+                }
+                to_b = [p for p in pairs if owners[p] == "B"]
+                on_a = [p for p in pairs if owners[p] == "A"]
+                rest = {**hit_all(call_b, to_b, HANDOFF_LIMIT // 2 + 1), **hit_all(call_a, on_a, HANDOFF_LIMIT // 2 + 1)}
+                want = [(R.OK, HANDOFF_LIMIT // 2 - 1 - i) for i in range(HANDOFF_LIMIT // 2)] + [(R.OVER_LIMIT, 0)]
+                wrong = [p for p, sts in rest.items() if sts != want]
+                views = {rid: json.loads(http_get(r.debug_server.bound_port, "/debug/cluster")[1])["handoff"]
+                         for rid, r in (("A", a), ("B", b))}
+                journal = {
+                    "A": [(e["type"], e.get("keys")) for e in a.events.snapshot(since=a_e0) if e["type"].startswith("handoff")],
+                    "B": [(e["type"], e.get("imported")) for e in b.events.snapshot(since=b_e0) if e["type"].startswith("handoff")],
+                }
+                moved = dict(
+                    keys=len(pairs), to_b=len(to_b), kept=len(on_a), summary=summary,
+                    views={rid: {k: v[k] for k in ("exported_keys", "imported_keys", "merged_keys", "dropped_keys")}
+                           for rid, v in views.items()},
+                    journal=journal, wrong=len(wrong),
+                )
+                if summary["errors"] or summary["moved_keys"] != len(to_b) or summary["imported"] != len(to_b):
+                    fail(f"handoff: the coordinator moved {summary}, want {len(to_b)} keys to B")
+                if wrong:
+                    p = wrong[0]
+                    fail(f"handoff: {len(wrong)} keys did not admit exactly the rest on their owner, "
+                         f"e.g. {p} ({owners[p]}): {rest[p]}")
+                if views["A"]["exported_keys"] != len(to_b) or views["B"]["imported_keys"] != len(to_b):
+                    fail(f"handoff: /debug/cluster shows {moved['views']}")
+                if journal["A"] != [("handoff_export", len(to_b))] or journal["B"] != [("handoff_import", len(to_b))]:
+                    fail(f"handoff: journals {journal}")
+                full = fill_and_move(kernels, a, b, admins, R, (CounterEngine, release_stream),
+                                     ho, owner_id, stem_of_cache_key)
+            finally:
+                chan_a.close()
+                chan_b.close()
+    return moved, full
+
+
+def fill_and_move(kernels, a, b, admins, R, engine_api, ho, owner_id, stem_of_cache_key):
+    """13c's second half (handoff_phase's docstring)."""
+    CounterEngine, release_stream = engine_api
+    lane = bank_of(a, "lane0of2")
+    fill_s, fill_launches = fill_lane(a, kernels, lane, FULL_LANE_KEYS)
+    engine = a.cache.engines()[lane]
+    live = engine.stat_live_keys
+    if live < FULL_LANE_KEYS:
+        fail(f"handoff: the filled lane holds {live} live keys")
+    members = ["A", "B"]
+
+    def moved(key):
+        return owner_id(stem_of_cache_key(key, HANDOFF_PREFIX), members) != "A"
+
+    ref = {}
+
+    def reference():
+        # export_keys without its drop, then what the drop adds: the
+        # state's round trip and the slot table's rebuild from the kept
+        # entries (built, not installed).
+        t0 = time.perf_counter()
+        state, entries = engine.export_keys(moved, drop=False)
+        ref["export_ms"] = (time.perf_counter() - t0) * 1e3
+        gone = {k for k, _e in entries}
+        keep = [e for e in engine.slot_table.entries() if e[0] not in gone]
+        t0 = time.perf_counter()
+        engine.import_state(engine.export_state())
+        type(engine.slot_table).from_entries(engine.model.num_slots, keep)
+        ref["drop_ms"] = (time.perf_counter() - t0) * 1e3
+        ref["state"], ref["entries"] = state, entries
+        ref["moved"] = len(entries)
+
+    a.cache.run_exclusive(engine, reference)
+    scratch = CounterEngine(num_slots=engine.model.num_slots, buckets=engine.buckets, device=engine.device)
+    t0 = time.perf_counter()
+    ref_import = scratch.import_keys(ref["state"], ref["entries"], int(time.time()))
+    ref["import_ms"] = (time.perf_counter() - t0) * 1e3
+    release_stream(scratch)
+    # The reference's per-key tuples are this harness's garbage: gone
+    # before the burst, so no collection of them lands in it.
+    del ref["state"], ref["entries"], scratch
+    gc.collect()
+    legs = {"A": [], "B": []}
+    exclusive_timer(a.cache, legs["A"])
+    exclusive_timer(b.cache, legs["B"])
+    fds = {"A": a.cache.fault_domain, "B": b.cache.fault_domain}
+    faults0 = {rid: dict(fd.stat_faults) for rid, fd in fds.items()}
+    stop = threading.Event()
+    window = {}
+
+    def work(i, call):
+        # Keys the side's own replica owns, so the export moves fill
+        # keys only.
+        side = "A" if i < HANDOFF_CLIENTS // 2 else "B"
+        times = []
+        j = 0
+        while not stop.is_set():
+            j += 1
+            value = f"burst{i}-{j}"
+            if owner_id(f"ho_hm_{value}_", members) != side:
+                continue
+            code, t0, t1 = call("hm", value, domain="ho")
+            times.append((t0, t1, code))
+        return times
+
+    def move():
+        time.sleep(HANDOFF_BURST_S)
+        window["t0"] = time.perf_counter()
+        window["summary"] = ho.HandoffCoordinator(admins.get).run(["A"], members)
+        window["t1"] = time.perf_counter()
+        time.sleep(HANDOFF_BURST_S)
+        stop.set()
+
+    mover = threading.Thread(target=move)
+    half = HANDOFF_CLIENTS // 2
+    res = [None, None]
+    side_b = threading.Thread(
+        target=lambda: res.__setitem__(1, grpc_clients(b, half, lambda i, call: work(half + i, call)))
+    )
+    with GilProbe() as probe:
+        mover.start()
+        side_b.start()
+        res[0] = grpc_clients(a, half, work)
+        side_b.join()
+        mover.join()
+    lock_gap_ms = probe.max_gap_ms(window["t0"], window["t1"])
+    times = [t for side in res for r in side for t in r]
+    if any(c != R.OK for _t0, _t1, c in times):
+        fail("handoff burst: an RPC was refused")
+    inside = [(t1 - t0) * 1e3 for t0, t1, _c in times if t1 > window["t0"] and t0 < window["t1"]]
+    outside = [(t1 - t0) * 1e3 for t0, t1, _c in times if t1 <= window["t0"] or t0 >= window["t1"]]
+    faults = {rid: {k: v - faults0[rid][k] for k, v in fd.stat_faults.items()} for rid, fd in fds.items()}
+    summary = window["summary"]
+    out = dict(
+        fill_s=fill_s,
+        fill_launches=fill_launches,
+        live_keys=live,
+        reference=dict(export_ms=ref["export_ms"], drop_ms=ref["drop_ms"], import_ms=ref["import_ms"],
+                       moved=ref["moved"], imported=ref_import["imported"]),
+        moved=summary["moved_keys"],
+        imported=summary["imported"],
+        handoff_s=window["t1"] - window["t0"],
+        legs={rid: sorted(((n, round(ms, 3)) for n, ms in log), key=lambda x: -x[1])[:6] for rid, log in legs.items()},
+        leg_max_ms={rid: max((ms for _n, ms in log), default=0.0) for rid, log in legs.items()},
+        leg_count={rid: len(log) for rid, log in legs.items()},
+        rpcs=len(times),
+        inside=(len(inside), float(np.median(inside)) if inside else None, max(inside, default=None)),
+        outside=(len(outside), float(np.median(outside)) if outside else None, max(outside, default=None)),
+        lock_gap_ms=lock_gap_ms,
+        faults=faults,
+        quarantined={rid: fd.quarantined_count() for rid, fd in fds.items()},
+    )
+    if summary["errors"] or summary["moved_keys"] != ref["moved"] or summary["imported"] != ref["moved"]:
+        fail(f"handoff burst: moved {summary}, want {ref['moved']} fill keys to B")
+    if any(v for f in faults.values() for v in f.values()) or any(out["quarantined"].values()):
+        fail(f"handoff burst: the fault domain acted: {out}")
+    return out
+
+
+#: The chaos twin's device.
+CHAOS_DEVICE = "cuda"
+
+
+def chaos_twin() -> dict:
+    """13d: scripts/torch_chaos_smoke.py --device cuda, in this process."""
+    import importlib.util
+
+    path = os.path.join(REPO, "scripts", "torch_chaos_smoke.py")
+    spec = importlib.util.spec_from_file_location("torch_chaos_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "chaos.json")
+        t0 = time.perf_counter()
+        rc = mod.main(["--device", CHAOS_DEVICE, "--out", out])
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            result = json.load(f)
+    if rc != 0:
+        fail(f"chaos twin failed: {[c['name'] for c in result['checks'] if not c['ok']]}")
+    return dict(seconds=seconds, controlled=result["controlled"], uncontrolled=result["uncontrolled"],
+                matrix=result["failure_mode_matrix"], checks=len(result["checks"]))
+
+
+def overload_phase(torch, kernels, fw, cycles_per_ms):
+    """Phase 13: 13a promotion and 13b shedding and backpressure on one
+    runner (BACKEND_TYPE=cuda, every default but OVERLOAD_ENV, the two
+    domains of OVERLOAD_CONFIG), 13c the handoff between two runners,
+    13d the chaos twin."""
+    kernels.launches.clear()
+    out = {}
+
+    def overload():
+        with serving("cuda", env=OVERLOAD_ENV, config=OVERLOAD_CONFIG) as (runner, request, R):
+            s = runner.settings
+            if (s.tpu_num_slots, s.tpu_algorithm_num_slots) != (NUM_SLOTS, ALGO_SLOTS) or runner.overload is None:
+                fail(f"overload phase: not the default state size or no controller: {s.tpu_num_slots}")
+            t0 = time.perf_counter()
+            out["promotion"] = promotion_phase(runner, request, R, fw, kernels)
+            out["promotion"]["s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["shed"] = shed_stall_phase(torch, runner, R, cycles_per_ms)
+            out["shed"]["s"] = time.perf_counter() - t0
+
+    def handoff():
+        t0 = time.perf_counter()
+        out["handoff"], out["full"] = handoff_phase(kernels)
+        out["handoff"]["s"] = time.perf_counter() - t0
+        out["chaos"] = chaos_twin()
+
+    # 13b's 5/minute rules must not see a minute roll over; late in a
+    # minute the handoff and the chaos twin (about 30 s) go first, so
+    # 13b seldom has to wait for the next minute.
+    for part in (overload, handoff) if time.time() % 60 <= 28 else (handoff, overload):
+        part()
+    fill = out["full"]["fill_launches"]
+    return {k: v - fill.get(k, 0) for k, v in kernels.launches.items()}, out
+
+
+def overload_lines(o, smi) -> list:
+    p, sd, h, f, c = o["promotion"], o["shed"], o["handoff"], o["full"], o["chaos"]
+
+    def spread(v):
+        return f"median {np.median(v):.1f}, min {min(v):.1f}, max {max(v):.1f}"
+
+    return [
+        f"overload (promotion, {smi}): {p['sent_to_promote']} hits from {PROMOTE_CLIENTS} clients "
+        f"promoted the hot stem in {p['promoted_after_s']:.2f} s (live in /debug/overload); "
+        f"{PROMOTED_HITS} hits on it OVER_LIMIT with {p['promoted_k1']} K1 launches, {PROMOTED_HITS} "
+        f"cold keys {p['cold_k1']} K1 launches; expired {p['expired_after_s']:.2f} s after the traffic "
+        f"stopped, then {p['expired_k1']} K1 launch; warm us/request over gRPC, {PROMOTE_PAIRS} "
+        f"alternating pairs of {PROMOTE_LEG}: promoted {spread(p['legs']['promoted'])}; device "
+        f"{spread(p['legs']['device'])}; {p['s']:.1f} s",
+        f"overload (shed and backpressure, {smi}): {sd['requests']} requests from "
+        f"{2 * SHED_CLIENTS} clients over a {STALL_DEADLINES}-deadline stall; journal {sd['events']}; "
+        f"engaged by {sd['engage']}; {sd['shed']} sheds = {sd['shed_flight']} flight records with "
+        f"code 8 from {sd['shed_domains']} (checkout only by the gate: "
+        f"{sd['checkout_shed_flight']}); counts {sd['shed_counts']}; {sd['backend_requests']} "
+        f"requests reached the backend; {sd['checkout_keys']} checkout keys each admitted "
+        f"{sd['checkout_admitted']} (offered at least {sd['checkout_offered_min']}); restart "
+        f"{sd['restart_s']:.2f} s after the stall, calm after {sd['seconds']:.2f} s; RPC max "
+        f"{sd['rpc_max_ms']:.1f} ms, p99 {sd['rpc_p99_ms']:.1f} ms ({sd['stall_rpcs']} during "
+        f"the stall, max {sd['stall_rpc_max_ms']:.1f} ms); trips {sd['bp_trips']}; moved on "
+        f"/metrics {sd['metrics_moved']}; health {sd['health']}; faults {sd['faults']}; {sd['s']:.1f} s",
+        f"handoff ({smi}): {h['keys']} keys at half their limit on A (cuda, 2 lanes), [A] -> [A, B "
+        f"(cuda-sharded, {BANKS} banks)]: {h['to_b']} moved, {h['kept']} kept, every one admitted "
+        f"exactly the rest on its owner; coordinator {h['summary']['duration_s']:.3f} s; "
+        f"/debug/cluster {h['views']}; journals {h['journal']}; {h['s']:.1f} s",
+        f"handoff (full lane, {smi}): lane filled to {f['live_keys']} keys in {f['fill_s']:.2f} s "
+        f"through the engine, not the served path (its launches {f['fill_launches']} are left out "
+        f"of the phase's and the kernels line's); "
+        f"the reference's way on it: export_keys {f['reference']['export_ms']:.1f} ms + its drop "
+        f"(state round trip, table rebuild) {f['reference']['drop_ms']:.1f} ms exclusive, "
+        f"import_keys of {f['reference']['moved']} keys {f['reference']['import_ms']:.1f} ms; "
+        f"the port's during a {HANDOFF_CLIENTS}-client burst: {f['moved']} moved, {f['imported']} "
+        f"imported in {f['handoff_s']:.3f} s, exclusive legs A {f['leg_count']['A']} (max "
+        f"{f['leg_max_ms']['A']:.1f} ms) B {f['leg_count']['B']} (max {f['leg_max_ms']['B']:.1f} "
+        f"ms), longest {f['legs']}; {f['rpcs']} RPCs, during (n, median, max) {f['inside']}, "
+        f"outside {f['outside']}; longest interpreter-lock gap during the handoff "
+        f"{f['lock_gap_ms']:.1f} ms; faults {f['faults']}",
+        f"chaos twin ({smi}): {c['checks']} checks passed in {c['seconds']:.1f} s; controlled "
+        f"quarantine {c['controlled']['quarantine_latency_s']} s, p99 {c['controlled']['p99_ms']} "
+        f"ms, admitted {c['controlled']['probe_admitted']}/{c['controlled']['probe_limit']}; "
+        f"uncontrolled max {c['uncontrolled']['max_ms']} ms, {c['uncontrolled']['cache_errors']} "
+        f"failed; matrix {c['matrix']}",
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -3936,9 +4705,16 @@ def main() -> None:
     for line in planes_lines(planes, smi):
         log(line)
 
+    # 13. overload control and the replica half of the cluster tier
+    ovl_launches, overload = overload_phase(torch, kernels, fw, cycles_per_ms)
+    lap("overload")
+    log(f"overload and handoff: launches {ovl_launches}")
+    for line in overload_lines(overload, smi):
+        log(line)
+
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
-        top_launches, wb_launches, obs_launches,
+        top_launches, wb_launches, obs_launches, ovl_launches,
     )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
@@ -3959,10 +4735,10 @@ def main() -> None:
         fw.K3_UPDATE: (fused, "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
         fw.K3_STEP: (fused, "ratelimit_tpu/models/fixed_window.py:282"),
-        sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
-        sw.K4_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:70"),
-        gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
-        gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:86"),
+        sw.K4: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:71"),
+        sw.K4_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:71"),
+        gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
+        gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: (fused, "ratelimit_tpu/parallel/sharded.py:270"),

@@ -19,7 +19,10 @@ reference: the hot-key sketch (``hotkeys_top_k``) fed on the resolution
 fast path, the flight recorder's per-thread notes (decisive descriptor,
 shadow candidate, fallback answer), the launch recorder on every bank
 dispatcher (attach_launch_recorder) and the event journal, which the
-runner hands to the fault domain.  The request path is the
+runner hands to the fault domain.  The overload controller's promotion
+set (``promotion``) answers a promoted stem OVER_LIMIT before it
+reaches a bank, and ``handoff_log`` keeps the counter handoff's
+bookkeeping (cluster/handoff.py).  The request path is the
 reference's:
 
 1. ``hits_addend = max(1, request.hits_addend)``;
@@ -71,7 +74,6 @@ from .engine import (
     CounterEngine,
     HostBatch,
     HostDecisions,
-    release_stream,
     stream_idle,
 )
 from .fault_domain import (
@@ -199,6 +201,12 @@ class CudaRateLimitCache:
         self.time_source = time_source or RealTimeSource()
         self.local_cache = local_cache
         self.key_generator = CacheKeyGenerator(cache_key_prefix)
+        # Cluster counter-handoff bookkeeping (cluster/handoff.py's
+        # export_from_cache / import_into_cache write it; /debug/cluster
+        # and the ratelimit.cluster.* family read it).
+        from ..cluster.handoff import HandoffLog
+
+        self.handoff_log = HandoffLog()
         # Descriptor-resolution fast path (limiter/resolution.py): one
         # dict hit per descriptor; 0 disables it.
         self.resolver = (
@@ -237,6 +245,12 @@ class CudaRateLimitCache:
         # Launch flight recorder (observability/launches.py), attached
         # through attach_launch_recorder when LAUNCH_RECORDER_SIZE > 0.
         self.launches = None
+        # Hot-key promotion cache (overload/controller.py), attached by
+        # the runner when OVERLOAD_PROMOTE_ENABLED: stems the sketch
+        # marked repeat offenders carry a short-TTL host-side OVER_LIMIT
+        # decision checked in _prepare_resolved, so they skip the card.
+        # None = disabled (one attribute load + branch per request).
+        self.promotion = None
         self.device_failure_mode = device_failure_mode
         self.stat_deadline_answers = 0
         self.expiration_jitter_max_seconds = int(expiration_jitter_max_seconds)
@@ -383,7 +397,7 @@ class CudaRateLimitCache:
         kept = []
         for engine, d in self._retired:
             if (d is None or d.exited()) and stream_idle(engine):
-                release_stream(engine)
+                engine.give_back_stream()
             else:
                 kept.append((engine, d))
         released = len(self._retired) - len(kept)
@@ -515,6 +529,11 @@ class CudaRateLimitCache:
         single_bank = n_lanes == 1 and ps_bank is None
         rows, enc, tparts = banks[0]
         local_cache = self.local_cache
+        promotion = self.promotion
+        # Promotion miss fast path: membership on the raw entries dict
+        # (one dict probe per descriptor); only hits call contains()
+        # (expiry check and counting).
+        promo_entries = promotion.entries if promotion is not None else None
         entries_map = resolver._entries
         generation = config.generation
         resolver_lanes = resolver.n_lanes
@@ -607,6 +626,17 @@ class CudaRateLimitCache:
                 acc[0].append(i)
                 acc[1].append(ws.algo_key_bytes)
                 acc[2].append(ws.algo_template_bytes)
+                continue
+            if (
+                promo_entries is not None
+                and rd.stem in promo_entries
+                and promotion.contains(rd.stem)
+            ):
+                # Hot-key promotion (overload/controller.py): the sketch
+                # marked this stem a repeat offender; serve the short-TTL
+                # host decision and skip the card.  Shadow rules stay
+                # non-enforcing, as with the host over-limit cache below.
+                categories[i] = _CAT_SKIP if rule.shadow_mode else _CAT_LOCAL
                 continue
             if local_cache is not None and local_cache.contains(key.key):
                 categories[i] = _CAT_SKIP if rule.shadow_mode else _CAT_LOCAL
@@ -1160,7 +1190,7 @@ class CudaRateLimitCache:
 
     def close(self) -> None:
         """Stop the fault domain's supervisor, then the dispatchers, and
-        give every engine's stream back (engine.release_stream), those
+        give every engine's stream back (engine.give_back_stream), those
         that restarts replaced too."""
         fd, self.fault_domain = self.fault_domain, None
         if fd is not None:
@@ -1171,7 +1201,7 @@ class CudaRateLimitCache:
             # stream that cannot be joined; don't burn the full timeout.
             d.stop(timeout=0.5 if d.dead is not None else 10.0)
         for engine in self._bank_engines + [e for e, _ in self._retired]:
-            release_stream(engine)
+            engine.give_back_stream()
 
     # Batch-size histogram ladder: powers of two up to the default
     # batch limit (these histograms count lanes/items, not ms).
@@ -1198,6 +1228,8 @@ class CudaRateLimitCache:
             store.gauge_fn(scope + ".resolution_cache.entries", lambda: len(res))
         if self.hotkeys is not None:
             self.hotkeys.register_stats(store, scope + ".hotkeys")
+        # The cluster handoff family under its fixed cluster-tier scope.
+        self.handoff_log.register_stats(store, "ratelimit.cluster")
         # One agree/diverge pair per algorithm bank: bounded by the
         # algorithm table, not by traffic.
         for name in self._algo_order:

@@ -58,7 +58,7 @@ from ..models.fixed_window import (
     state_from_numpy,
     state_to_numpy,
 )
-from .slot_table import SlotTable
+from .slot_table import EntryArrays, SlotTable
 
 # Pad batches up to one of these sizes so a handful of kernel shapes
 # serve every batch length (batch-axis bucketing to fixed shapes).
@@ -133,17 +133,17 @@ def release_stream(holder) -> None:
             del _HELD_STREAMS[stream.cuda_stream]
 
 
-def stream_idle(holder) -> bool:
+def stream_idle(holder, lost: bool = False) -> bool:
     """Whether `holder`'s stream has finished all the work queued on it
     (True off CUDA).  A stream whose query fails -- a lost context --
-    counts as busy: it stays held."""
+    answers `lost`: busy by default, so it stays held."""
     stream = getattr(holder, "_stream", None)
     if stream is None:
         return True
     try:
         return bool(stream.query())
     except Exception:
-        return False
+        return lost
 
 
 @dataclass
@@ -531,6 +531,12 @@ class CounterEngine:
         if self.device.type != "cuda":
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
+
+    def give_back_stream(self) -> None:
+        """release_stream of this engine.  An engine proxy
+        (cluster/faults.py) delegates the call, so the stream goes back
+        from the engine that claimed it."""
+        release_stream(self)
 
     # -- host-side key handling -----------------------------------------
 
@@ -979,6 +985,89 @@ class CounterEngine:
             res["imported" if fresh else "merged"] += 1
         self.import_state(full)
         return res
+
+    # -- the handoff's short legs (cluster/handoff.py) -------------------
+
+    def _slot_index(self, slots):
+        """Index into the state tensor of every state row at `slots`
+        (a fixed-window table has one row, an algorithm table one per
+        state_rows name)."""
+        idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int64))
+        return (Ellipsis, idx.to(self.device))
+
+    def read_slots(self, slots) -> dict:
+        """The state rows at `slots` as uint32 columns, by row name."""
+        rows = getattr(self.model, "state_rows", ("counts",))
+        with self._on_stream():
+            got = state_to_numpy(self._counts[self._slot_index(slots)])
+        if rows == ("counts",):
+            return {"counts": got.reshape(-1)}
+        return {name: got[i] for i, name in enumerate(rows)}
+
+    def write_slots(self, slots, state: dict) -> None:
+        """Set the state rows at `slots` to the uint32 columns of
+        `state` (one per state_rows name)."""
+        rows = getattr(self.model, "state_rows", ("counts",))
+        vals = np.stack([np.asarray(state[name], dtype=np.uint32) for name in rows])
+        if rows == ("counts",):
+            vals = vals[0]
+        host = torch.from_numpy(np.ascontiguousarray(vals).view(np.int32))
+        with self._on_stream():
+            self._counts[self._slot_index(slots)] = host.to(self.device)
+
+    def release_keys(self, moved: EntryArrays) -> int:
+        """The second leg of a handoff export: release each entry of
+        `moved` (EntryArrays built off the owner thread) that the slot
+        table still holds as given and zero its state, by slot id.  A
+        slot that gc gave to another key since the copy is left alone.
+        Returns how many keys left.
+
+        Must run with exclusive engine access, and is short: one probe a
+        moved key (a C call for the C table), a scatter of zeros to the
+        freed slots, no pass over the whole table and no copy of the
+        state."""
+        freed = self.slot_table.release_arrays(moved)
+        if len(freed):
+            rows = getattr(self.model, "state_rows", ("counts",))
+            zero = np.zeros(len(freed), dtype=np.uint32)
+            self.write_slots(freed, {name: zero for name in rows})
+        return int(len(freed))
+
+    def land_keys(self, keys, expiries, state: dict, now: int) -> dict:
+        """The exclusive leg of a handoff import: assign a slot per key
+        in one batch and land its state columns, merging as import_keys
+        does (fixed-window ``counts`` add saturating, other rows take
+        the max), with a gather and a scatter of the touched slots
+        only.  Entries must be live at `now` (the caller drops expired
+        ones off the owner thread).  Returns {imported, merged}."""
+        n = len(keys)
+        if not n:
+            return {"imported": 0, "merged": 0}
+        exp = np.asarray(expiries, dtype=np.int64)
+        slots, fresh = self.slot_table.assign_batch(list(keys), now, exp.tolist())
+        slots = np.asarray(slots, dtype=np.int64)
+        fresh = np.asarray(fresh, dtype=bool)
+        uniq, inv = np.unique(slots, return_inverse=True)
+        # A slot is new when its first key in the batch was: later
+        # duplicates of that key merge into it, as one at a time.
+        new = np.zeros(len(uniq), dtype=bool)
+        np.logical_or.at(new, inv, fresh)
+        cur = self.read_slots(uniq)
+        out = {}
+        for name, have in cur.items():
+            col = np.asarray(state[name], dtype=np.uint32)
+            base = np.where(new, np.uint32(0), have)
+            if name == "counts":
+                total = base.astype(np.uint64)
+                np.add.at(total, inv, col.astype(np.uint64))
+                out[name] = np.minimum(total, 0xFFFFFFFF).astype(np.uint32)
+            else:
+                top = base.copy()
+                np.maximum.at(top, inv, col)
+                out[name] = top
+        self.write_slots(uniq, out)
+        imported = int(fresh.sum())
+        return {"imported": imported, "merged": n - imported}
 
     def export_counts(self) -> np.ndarray:
         """Flat uint32 copy of the counter table."""

@@ -29,11 +29,18 @@ open window.  With it:
   fresh engine and dispatcher for the bank -- the engine on its own
   CUDA stream, since a stalled stream cannot be cancelled -- probes it
   with synthetic traffic (half-open), imports the host mirror's
-  counters (export_keys/import_keys) and swaps it in.  Nothing on that
-  path waits on the whole device, so a restart can complete while the
-  old stream is still stalled; the old dispatcher's completer, released
-  when the stall ends, finishes only items whose clones were already
-  answered and touches nothing the new engine owns.
+  counters (export_keys/import_keys) and swaps it in.  The restart
+  waits for the quarantined engine's stream to drain: a new engine's
+  first pinned-memory allocation blocks until a stalled kernel ends,
+  and meanwhile holds every other bank's launches, so a restart inside
+  a stall quarantined healthy banks that had traffic (measured on the
+  H100: chip_smoke.py phase 13b).  A kernel that never ends keeps its
+  bank on the mirror: the journal's ``bank_restart_failed`` with stage
+  ``stream_busy`` and /debug/faults' ``restart_waits_for_stream`` say
+  why.  A stream whose query raises is not waited for.  The old
+  dispatcher's completer, released when the stall ends, finishes only
+  items whose clones were already answered and touches nothing the new
+  engine owns.
 
 CUDA's sticky errors (an illegal address, a device-side assert, a
 launch failure, an uncorrectable ECC error) poison the process's
@@ -74,6 +81,7 @@ import numpy as np
 
 from ..observability.launches import OUTCOME_FALLBACK
 from ..utils.time import REAL_MONOTONIC, MonotonicClock
+from .engine import stream_idle
 from .host_engine import STATIC_ALLOW, STATIC_DENY, HostEngine
 
 logger = logging.getLogger("ratelimit.faults")
@@ -204,6 +212,7 @@ class BankRecord:
         "restarts",
         "fallback_decisions",
         "fallback_evented",
+        "restart_deferred",
     )
 
     def __init__(self, bank: int, role: str):
@@ -228,6 +237,8 @@ class BankRecord:
         self.fallback_decisions = 0
         # Whether this quarantine episode's bank_fallback event is out.
         self.fallback_evented = False
+        # Whether this episode's restart waits for a busy stream.
+        self.restart_deferred = False
 
 
 class DeviceFaultDomain:
@@ -456,6 +467,7 @@ class DeviceFaultDomain:
             rec.backoff_s = self.restart_backoff_s
             rec.next_restart = now + rec.backoff_s
             rec.fallback_evented = False  # new episode, new timeline entry
+            rec.restart_deferred = False
             rec.state = "quarantined"
         return True
 
@@ -583,8 +595,25 @@ class DeviceFaultDomain:
 
     def _try_restart(self, bank: int, rec: BankRecord, now: float) -> None:
         """One supervised warm-restart attempt: fresh engine + probe
-        (half-open) -> import the host mirror's counters -> swap."""
+        (half-open) -> import the host mirror's counters -> swap.  No
+        attempt while the quarantined engine's stream answers that it
+        still has work (module docstring): the next tick looks again, and
+        the episode's first deferral goes to the journal.  A stream whose
+        query raises (a lost context) does not defer: the factory runs
+        and reports the fault."""
         engine = self._engines[bank]
+        if not stream_idle(engine, lost=True):
+            rec.next_restart = now + self.interval_s
+            if not rec.restart_deferred:
+                rec.restart_deferred = True
+                self._emit(
+                    "bank_restart_failed",
+                    bank=bank,
+                    stage="stream_busy",
+                    error="the quarantined engine's stream still has work",
+                    next_attempt_in_s=round(self.interval_s, 3),
+                )
+            return
         # Streams of engines that earlier restarts replaced go back once
         # those are done with; a stalled one stays held.
         self.cache.release_retired()
@@ -803,6 +832,8 @@ class DeviceFaultDomain:
                 if rec.quarantined_at is not None:
                     b["quarantined_for_s"] = round(now - rec.quarantined_at, 3)
                 b["next_restart_in_s"] = round(max(0.0, rec.next_restart - now), 3)
+                if rec.restart_deferred:
+                    b["restart_waits_for_stream"] = True
                 if rec.fallback is not None:
                     b["mirror_live_keys"] = rec.fallback.stat_live_keys
             banks.append(b)

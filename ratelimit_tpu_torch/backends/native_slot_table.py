@@ -34,10 +34,16 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
+# The port's own translation unit includes native/slot_table.cpp and
+# adds the handoff's release (csrc/slot_release.cpp).
 _SRCS = [
-    os.path.join(_NATIVE_DIR, "slot_table.cpp"),
+    os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "slot_release.cpp"
+    ),
     os.path.join(_NATIVE_DIR, "decide.cpp"),
 ]
+#: Every source the build reads, the included slot table too.
+_DIGEST_SRCS = _SRCS + [os.path.join(_NATIVE_DIR, "slot_table.cpp")]
 _SO = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "_build",
@@ -54,7 +60,7 @@ _STAMP = _SO + ".stamp"
 def _src_digest() -> Optional[str]:
     h = hashlib.sha256()
     try:
-        for s in _SRCS:
+        for s in _DIGEST_SRCS:
             with open(s, "rb") as f:
                 h.update(f.read())
     except OSError:
@@ -63,7 +69,7 @@ def _src_digest() -> Optional[str]:
 
 
 def _build(digest: Optional[str] = None) -> bool:
-    if not all(os.path.exists(s) for s in _SRCS):
+    if not all(os.path.exists(s) for s in _DIGEST_SRCS):
         return False
     # Build to a temp path + atomic rename: concurrent processes never
     # dlopen a half-written .so, and a rebuild never truncates a file
@@ -134,6 +140,8 @@ def _signatures(lib: ctypes.CDLL) -> None:
     lib.sk_export.argtypes = [vp, vp, vp, vp, vp]
     lib.sk_import.restype = i64
     lib.sk_import.argtypes = [vp, vp, vp, vp, vp, i64]
+    lib.sk_release_batch.restype = i64
+    lib.sk_release_batch.argtypes = [vp, vp, vp, vp, vp, i64, vp]
     lib.sk_decide_reconstruct.restype = None
     lib.sk_decide_reconstruct.argtypes = [
         vp, vp, i64,  # afters_g, totals, g
@@ -529,6 +537,23 @@ class NativeSlotTable:
                 self._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(expiries)
             )
         return EntryArrays(blob, lens, slots, expiries)
+
+    def release_arrays(self, moved: EntryArrays) -> np.ndarray:
+        """Drop each entry of `moved` that the table still holds as
+        given (same key, slot and expiry) and free its slot, in one C
+        call (csrc/slot_release.cpp); returns the freed slots."""
+        n = len(moved.slots)
+        if n == 0:
+            return np.zeros(0, dtype=np.int64)
+        blob = np.ascontiguousarray(moved.key_blob, dtype=np.uint8)
+        lens = np.ascontiguousarray(moved.key_lens, dtype=np.int64)
+        slots = np.ascontiguousarray(moved.slots, dtype=np.int64)
+        exp = np.ascontiguousarray(moved.expiries, dtype=np.int64)
+        out = np.zeros(n, dtype=np.uint8)
+        self._lib.sk_release_batch(
+            self._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(exp), n, _ptr(out)
+        )
+        return slots[out.astype(bool)]
 
     @classmethod
     def from_entries(cls, num_slots: int, entries) -> "NativeSlotTable":

@@ -53,6 +53,24 @@ class EntryArrays(NamedTuple):
     def arrays(self) -> "EntryArrays":
         return self
 
+    def select(self, mask: np.ndarray) -> "EntryArrays":
+        """The entries where `mask` is True, in order."""
+        mask = np.asarray(mask, dtype=bool)
+        return EntryArrays(
+            self.key_blob[np.repeat(mask, self.key_lens)],
+            self.key_lens[mask],
+            self.slots[mask],
+            self.expiries[mask],
+        )
+
+    def keys(self) -> List[str]:
+        """The keys alone, decoded: one str per entry and no tuple, so a
+        pass over a full table leaves the cyclic collector nothing to
+        trace."""
+        raw = self.key_blob.tobytes()
+        ends = np.cumsum(self.key_lens).tolist()
+        return [raw[a:b].decode("utf-8") for a, b in zip([0] + ends[:-1], ends)]
+
     def entries(self) -> List[Tuple[str, int, int]]:
         raw = self.key_blob.tobytes()
         out = []
@@ -170,6 +188,25 @@ class SlotTable:
         """The live entries, copied at once; ``.entries()`` and
         ``.arrays()`` of the copy run later, off the owner thread."""
         return _MapCopy(list(self._map.items()))
+
+    def release_arrays(self, moved: EntryArrays) -> np.ndarray:
+        """Drop each entry of `moved` that the table still holds as
+        given (same key, slot and expiry) and free its slot; returns the
+        freed slots, as NativeSlotTable.release_arrays does.  A key
+        since reclaimed by gc, or whose slot went to another key, stays.
+        A refreshing table extends a live key's lease on every touch,
+        so there a later expiry still matches."""
+        freed = []
+        for key, slot, expiry in moved.entries():
+            cur = self._map.get(key)
+            if cur is None or cur[0] != slot:
+                continue
+            if cur[1] != expiry and not (self.refresh_expiry and cur[1] > expiry):
+                continue
+            del self._map[key]
+            self._free.append(slot)
+            freed.append(slot)
+        return np.asarray(freed, dtype=np.int64)
 
     @classmethod
     def from_entries(

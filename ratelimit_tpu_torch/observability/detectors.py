@@ -3,8 +3,8 @@
 Port of ratelimit_tpu/observability/detectors.py, unchanged.  Nothing
 here reads a bank's tensors: a tick and a capture read host counters,
 histograms and rings only, so a stalled CUDA stream never holds the
-sampler.  The ``overload`` seam waits for the overload controller,
-which the port has not yet.
+sampler.  The ``overload`` seam carries trips and ticks to the
+overload controller (overload/controller.py) when the runner builds one.
 
 A sampler thread evaluates EWMA-baselined triggers once per
 ``ANOMALY_INTERVAL_S`` tick:

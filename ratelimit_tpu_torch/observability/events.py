@@ -1,9 +1,11 @@
 """Lifecycle event journal: the ordered timeline behind an incident.
 
 Port of ratelimit_tpu/observability/events.py, unchanged.  In the port
-the fault domain (``bank_*``), the service (``config_reload``) and the
-anomaly detectors (``incident``) emit; the handoff, overload and
-membership types stay in the family for the modules still to port.
+the fault domain (``bank_*``), the service (``config_reload``), the
+anomaly detectors (``incident``), the overload controller
+(``shed_floor``, ``backpressure``) and the replica's handoff
+(``handoff_export``, ``handoff_import``) emit; the proxy's handoff and
+membership types stay in the family for the front tier still to port.
 
 Counters say *how many* quarantines, handoffs, shed-floor moves and
 membership changes happened; they cannot say *in what order* — and the

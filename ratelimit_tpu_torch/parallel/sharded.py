@@ -481,6 +481,13 @@ class ShardedCounterEngine(CounterEngine):
         width = min(int(bucket), m.slots_per_bank)
         return (np.arange(width, dtype=np.int64) * m.num_banks).astype(np.int32)
 
+    def _slot_index(self, slots):
+        """Global slot g lives in bank g % num_banks at position
+        g // num_banks."""
+        nb = self.model.num_banks
+        idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int64)).to(self.device)
+        return (idx % nb, idx // nb)
+
     def export_counts(self) -> np.ndarray:
         """Flat uint32 copy in GLOBAL slot order: bank b's position l
         holds global slot l * num_banks + b, so the (num_banks,

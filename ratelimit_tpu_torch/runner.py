@@ -23,9 +23,12 @@ recorder (FLIGHT_RECORDER_SIZE), the launch recorder on every bank
 dispatcher (LAUNCH_RECORDER_SIZE), the event journal
 (EVENT_JOURNAL_SIZE), the per-domain SLO engine, the hot-key sketch
 (HOTKEYS_TOP_K), the time-series store (TSDB_INTERVAL_S) and the anomaly
-detectors with incident capture (ANOMALY_INTERVAL_S, INCIDENT_DIR).
-Settings that select an unported feature (overload control, the cluster
-handoff) are refused at boot (settings.unported_settings).
+detectors with incident capture (ANOMALY_INTERVAL_S, INCIDENT_DIR); the
+overload controller when an OVERLOAD_* setting asks for it (shedding in
+the service, hot-key promotion in the CUDA cache, backpressure from the
+detectors), and the replica's counter-handoff admin POSTs under
+/debug/cluster with CLUSTER_HANDOFF_ENABLED.  Only a BACKEND_TYPE the
+port does not serve is refused at boot (settings.unported_settings).
 
 Run directly:  python -m ratelimit_tpu_torch.runner
 """
@@ -156,8 +159,8 @@ def create_limiter(s: Settings, local_cache, time_source, device="cuda", mesh=No
     refused = unported_settings(s)
     if refused:
         raise SettingsError(
-            "settings select features not ported to ratelimit_tpu_torch "
-            "(ROADMAP.md, Queue 3): " + "; ".join(refused)
+            "settings select a backend ratelimit_tpu_torch does not serve: "
+            + "; ".join(refused)
         )
     backend = s.backend_type.lower()
     if backend == "memory":
@@ -272,6 +275,7 @@ class Runner:
         self.slo = None
         self.timeseries = None
         self.detectors = None
+        self.overload = None
 
     def start(self) -> None:
         """Wire everything and start the listeners (non-blocking)."""
@@ -369,10 +373,13 @@ class Runner:
         # the already-loaded snapshot (construction above reloaded
         # before the attribute existed).
         self.service.slo = self.slo
+        self.service.overload = self.overload
         self.service.events = self.events
         config = self.service.get_current_config()
         if config is not None:
             self.slo.set_domains(config.domains.keys())
+            if self.overload is not None:
+                self.overload.set_priorities(config.priorities)
         self.runtime.start()
         self._start_detectors(s)
 
@@ -425,7 +432,9 @@ class Runner:
             profiling_enabled=s.debug_profiling,
             detectors=self.detectors,
             slo=self.slo,
+            overload=self.overload,
             flight=self.flight,
+            cluster_handoff_enabled=s.cluster_handoff_enabled,
             events=self.events,
             launches=self.launches,
             timeseries=self.timeseries,
@@ -467,9 +476,11 @@ class Runner:
         note seam, the launch recorder on every bank dispatcher and the
         fault domain's fallback (backends without dispatchers keep no
         route rather than an empty ring), the event journal on the
-        backend and its fault domain, the SLO engine, and the
-        time-series store, whose series are registered here before its
-        sampler starts."""
+        backend and its fault domain, the SLO engine, the overload
+        controller (only when an OVERLOAD_* setting asks for it: with
+        every one off the serving path carries no controller at all),
+        and the time-series store, whose series are registered here
+        before its sampler starts."""
         store = self.stats_manager.store
         self.flight = make_flight_recorder(s.flight_recorder_size)
         if self.flight is not None:
@@ -499,6 +510,34 @@ class Runner:
             window_s=s.slo_window_s,
             latency_threshold_ms=s.slo_latency_ms,
         )
+        if (
+            s.overload_shed_enabled
+            or s.overload_promote_enabled
+            or s.overload_backpressure_enabled
+        ):
+            from .overload import OverloadController
+
+            self.overload = OverloadController(
+                slo=self.slo,
+                hotkeys=getattr(self.cache, "hotkeys", None),
+                shed_enabled=s.overload_shed_enabled,
+                shed_burn_threshold=s.shed_burn_threshold,
+                shed_clear_ratio=s.shed_clear_ratio,
+                shed_min_requests=s.shed_min_requests,
+                promote_enabled=s.overload_promote_enabled,
+                promote_ttl_s=s.promote_ttl_s,
+                promote_over_share=s.promote_over_share,
+                promote_min_hits=s.promote_min_hits,
+                promote_capacity=s.promote_capacity,
+                backpressure_enabled=s.overload_backpressure_enabled,
+                backpressure_tokens=s.backpressure_tokens,
+                backpressure_max_wait_s=s.backpressure_max_wait_s,
+                backpressure_hold_s=s.backpressure_hold_s,
+            )
+            self.overload.events = self.events
+            self.overload.register_stats(store)
+            if self.overload.promotion is not None and hasattr(self.cache, "promotion"):
+                self.cache.promotion = self.overload.promotion
         self.timeseries = make_timeseries(s.tsdb_interval_s, s.tsdb_retention_s)
         if self.timeseries is not None:
             register_default_series(
@@ -506,6 +545,7 @@ class Runner:
                 store,
                 cache=self.cache,
                 launches=self.launches,
+                overload=self.overload,
                 local_cache=local_cache,
             )
             self.timeseries.register_stats(store)
@@ -543,6 +583,7 @@ class Runner:
             incident_max=s.incident_max,
             interval_s=s.anomaly_interval_s,
             cooldown_s=s.anomaly_cooldown_s,
+            overload=self.overload,
             events=self.events,
             timeseries=self.timeseries,
         )

@@ -304,11 +304,17 @@ ENDPOINT_BLURBS = {
     ),
     "/debug/incidents": "captured anomaly incident reports (JSON)",
     "/debug/slo": "per-domain SLI / error-budget burn summary (JSON)",
-    "/debug/overload": "(overload control not ported: 404)",
+    "/debug/overload": (
+        "live overload-control state: shed floor, burns, promotion "
+        "set, backpressure gate (JSON)"
+    ),
     "/debug/flight": (
         "flight-ring capture ?format=jsonl|json (DEBUG_PROFILING=1)"
     ),
-    "/debug/cluster": "this replica's counter-handoff summary (JSON)",
+    "/debug/cluster": (
+        "this replica's counter-handoff summary (JSON; admin POSTs "
+        "under it need CLUSTER_HANDOFF_ENABLED=1)"
+    ),
     "/debug/threadz": "all-thread stack dump",
     "/debug/profile": (
         "statistical CPU profile ?seconds=N (DEBUG_PROFILING=1)"

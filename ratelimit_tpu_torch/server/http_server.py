@@ -24,15 +24,16 @@ Debug server routes (server_impl.go:238-269, runner.go:117-124):
 - GET /debug/launches   per-launch dispatch timeline (?since= cursor)
 - GET /debug/timeseries in-process capacity/latency history
 - GET /debug/flight     flight-ring capture (gated by DEBUG_PROFILING)
-- GET /debug/cluster    this replica's handoff summary (no handoff
-                        here: the cluster tier is not ported)
+- GET /debug/overload   the overload controller's shed floor, burns,
+                        promotion set and backpressure gate (JSON)
+- GET /debug/cluster    this replica's handoff summary
+- POST /debug/cluster/export, /debug/cluster/import
+                        counter handoff (gated by CLUSTER_HANDOFF_ENABLED)
 - GET /debug/, /debug/pprof/, /debug/threadz, /debug/profile,
   /debug/xla_trace      server/debug_profiling.py
 
 A view whose plane is off answers as the JAX server does: the same
-status and body bytes.  So do /debug/overload (the overload controller
-is not ported) and the cluster-handoff admin POSTs, whose setting the
-runner refuses.
+status and body bytes.
 """
 
 from __future__ import annotations
@@ -257,13 +258,6 @@ def add_healthcheck(server: HttpServer, health: HealthChecker) -> None:
     server.add_route("GET", "/healthcheck", handle)
 
 
-def _fixed(status: int, body: bytes):
-    def handle(h) -> None:
-        h._reply(status, body)
-
-    return handle
-
-
 def _query(h) -> dict:
     from urllib.parse import parse_qs, urlsplit
 
@@ -277,7 +271,9 @@ def add_debug_routes(
     profiling_enabled: bool = False,
     detectors=None,
     slo=None,
+    overload=None,
     flight=None,
+    cluster_handoff_enabled: bool = False,
     events=None,
     launches=None,
     timeseries=None,
@@ -286,15 +282,18 @@ def add_debug_routes(
     runner.go:117-124).  ``profiling_enabled`` (the DEBUG_PROFILING
     setting) opens the capture endpoints in debug_profiling.py AND the
     flight-ring capture at /debug/flight; ``detectors`` / ``slo``
-    (observability/) open /debug/incidents and /debug/slo; ``events``
+    (observability/) open /debug/incidents and /debug/slo; ``overload``
+    (overload/controller.py) opens /debug/overload;
+    ``cluster_handoff_enabled`` (CLUSTER_HANDOFF_ENABLED) opens the
+    counter-handoff admin POSTs under /debug/cluster (the GET summary
+    is always on); ``events``
     (EVENT_JOURNAL_SIZE) opens /debug/events, the lifecycle timeline
     with a ``since=`` seq cursor; ``launches`` (LAUNCH_RECORDER_SIZE)
     opens /debug/launches, the per-launch dispatch timeline with the
     same cursor; ``timeseries`` (TSDB_INTERVAL_S) opens
     /debug/timeseries (``?since=&series=``, or ``?summary=1``).  The
     hot-key view reads the backend's sketch.  A view whose plane is off
-    answers the JAX server's 404, and /debug/overload always does: the
-    overload controller is not ported."""
+    answers the JAX server's 404."""
 
     def stats(h) -> None:
         lines = []
@@ -358,12 +357,103 @@ def add_debug_routes(
             content_type="application/json",
         )
 
+    def _handoff_cache(h):
+        """The cache behind the handoff surface, or None (replied)."""
+        cache = getattr(service, "cache", None)
+        if cache is None or not hasattr(cache, "handoff_log"):
+            # The JAX server's words, whose backends are named tpu.
+            h._reply(
+                404,
+                b"no cluster-handoff-capable backend (tpu/tpu-sharded only)\n",
+            )
+            return None
+        return cache
+
     def cluster_view(h) -> None:
-        # The JAX server's cluster zPage with CLUSTER_HANDOFF_ENABLED
-        # off and no handoff log: the cluster tier is not ported.
+        # THIS replica's handoff bookkeeping: what moved in and out, and
+        # when.  The routing half lives on the proxy's own listener.
+        log = getattr(getattr(service, "cache", None), "handoff_log", None)
+        body = {
+            "handoff_enabled": cluster_handoff_enabled,
+            "handoff": None if log is None else log.snapshot(),
+        }
         h._reply(
             200,
-            json.dumps({"handoff_enabled": False, "handoff": None}).encode(),
+            json.dumps(body, default=str).encode(),
+            content_type="application/json",
+        )
+
+    def _gate_handoff(h) -> bool:
+        if not cluster_handoff_enabled:
+            h._reply(
+                403,
+                b"cluster handoff is disabled; start the replica with "
+                b"CLUSTER_HANDOFF_ENABLED=1 to open the export/import "
+                b"admin endpoints\n",
+            )
+            return False
+        return True
+
+    def _read_body(h) -> bytes:
+        return h.rfile.read(int(h.headers.get("Content-Length", "0") or 0))
+
+    def cluster_export(h) -> None:
+        # Counter-handoff export (cluster/handoff.py): the body names the
+        # NEW membership and this replica's cluster identity; the reply
+        # is the packed keys this replica no longer owns, which also
+        # LEAVE it (the proxy's forwarding window covers the gap).
+        if not _gate_handoff(h):
+            return
+        cache = _handoff_cache(h)
+        if cache is None:
+            return
+        from ..cluster import handoff as _handoff
+
+        try:
+            req = json.loads(_read_body(h).decode("utf-8"))
+            membership = list(req["membership"])
+            self_id = req["self"]
+            drop = bool(req.get("drop", True))
+        except Exception as e:
+            h._reply(400, f"bad export request: {e}\n".encode())
+            return
+        sections = _handoff.export_from_cache(cache, membership, self_id, drop=drop)
+        h._reply(
+            200,
+            _handoff.pack_sections(sections),
+            content_type="application/octet-stream",
+        )
+
+    def cluster_import(h) -> None:
+        # Counter-handoff import: the packed sections land in this
+        # replica's banks (lane re-routing, merge on collision).
+        if not _gate_handoff(h):
+            return
+        cache = _handoff_cache(h)
+        if cache is None:
+            return
+        from ..cluster import handoff as _handoff
+
+        try:
+            sections = _handoff.unpack_sections(_read_body(h))
+        except Exception as e:
+            h._reply(400, f"bad handoff blob: {e}\n".encode())
+            return
+        res = _handoff.import_into_cache(cache, sections)
+        h._reply(200, json.dumps(res).encode(), content_type="application/json")
+
+    def overload_view(h) -> None:
+        # The live shed floor, per-domain burns, promotion set and
+        # backpressure gate.
+        if overload is None:
+            h._reply(
+                404,
+                b"overload control disabled (no OVERLOAD_* setting enabled)\n",
+            )
+            return
+        h._reply(
+            200,
+            json.dumps(overload.summary()).encode(),
             content_type="application/json",
         )
 
@@ -539,23 +629,11 @@ def add_debug_routes(
     server.add_route("GET", "/debug/faults", faults)
     server.add_route("GET", "/debug/incidents", incidents)
     server.add_route("GET", "/debug/slo", slo_summary)
-    # The JAX server's answer with overload control off: the
-    # controller is not ported.
-    server.add_route(
-        "GET",
-        "/debug/overload",
-        _fixed(404, b"overload control disabled (no OVERLOAD_* setting enabled)\n"),
-    )
+    server.add_route("GET", "/debug/overload", overload_view)
     server.add_route("GET", "/debug/flight", flight_dump)
     server.add_route("GET", "/debug/cluster", cluster_view)
-    handoff_off = _fixed(
-        403,
-        b"cluster handoff is disabled; start the replica with "
-        b"CLUSTER_HANDOFF_ENABLED=1 to open the export/import "
-        b"admin endpoints\n",
-    )
-    server.add_route("POST", "/debug/cluster/export", handoff_off)
-    server.add_route("POST", "/debug/cluster/import", handoff_off)
+    server.add_route("POST", "/debug/cluster/export", cluster_export)
+    server.add_route("POST", "/debug/cluster/import", cluster_import)
 
     if service is not None:
 

@@ -2,9 +2,11 @@
 
 Port of ratelimit_tpu/service/ratelimit.py with its tracing spans
 (``service.should_rate_limit`` around the request, ``backend.do_limit``
-around the backend leg), the SLO engine's domain set and the event
-journal's ``config_reload``.  The reference's overload controller (its
-admission hook) is not ported yet (ROADMAP.md).
+around the backend leg), the SLO engine's domain set, the event
+journal's ``config_reload`` and the overload controller's admission
+hook (overload/controller.py): a shed request is answered before any
+backend work, and a request admitted through the backpressure gate
+gives its permit back when the backend leg ends.
 
 Python restatement of reference src/service/ratelimit.go: config
 snapshot + per-descriptor lookup (:104-146), unlimited short-circuit
@@ -57,6 +59,10 @@ class RateLimitService:
     # Lifecycle event journal (observability/events.py), attached by the
     # runner: every adopted config generation lands on the timeline.
     events = None
+    # Overload controller (overload/controller.py), attached by the
+    # runner when an OVERLOAD_* setting is on; reload_config feeds it
+    # the configured priorities.
+    overload = None
 
     def __init__(
         self,
@@ -130,6 +136,9 @@ class RateLimitService:
             # Adopt the new configured domain set BEFORE the swap so a
             # request racing the reload finds its domain interned.
             self.slo.set_domains(new_config.domains.keys())
+        if self.overload is not None:
+            # Same ordering contract for the shed-priority ladder.
+            self.overload.set_priorities(new_config.priorities)
         if self.events is not None:
             self.events.emit(
                 "config_reload",
@@ -183,7 +192,31 @@ class RateLimitService:
         if len(request.descriptors) == 0:
             raise ServiceError("rate limit descriptor list must not be empty")
 
-        return self._decide(request)
+        # Overload admission control (overload/controller.py): shed
+        # BEFORE any backend work -- the whole point is not doing it --
+        # and release the backpressure gate (when one admitted us) after
+        # the backend leg.  A shed answer is OVER_LIMIT on every
+        # descriptor with no headers, and global shadow mode does NOT
+        # soften it: shadow mode is about not enforcing limits, shedding
+        # is the service protecting itself.
+        ov = self.overload
+        if ov is None:
+            return self._decide(request)
+        shed_reason, gate = ov.admit(request.domain)
+        if shed_reason is not None:
+            response = RateLimitResponse()
+            response.overall_code = Code.OVER_LIMIT
+            response.shed_reason = shed_reason
+            response.statuses = [
+                DescriptorStatus(code=Code.OVER_LIMIT) for _ in request.descriptors
+            ]
+            return response
+        if gate is None:
+            return self._decide(request)
+        try:
+            return self._decide(request)
+        finally:
+            gate.release()
 
     def _decide(self, request: RateLimitRequest) -> RateLimitResponse:
         if self._resolver is not None:

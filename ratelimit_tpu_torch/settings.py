@@ -6,9 +6,10 @@ counter engine on the GPU; the reference's ``tpu``) and the jax
 compilation cache (TPU_COMPILE_CACHE_DIR), which has no counterpart.
 Every observability plane's setting takes effect as in the reference
 (FLIGHT_*, EVENT_JOURNAL_*, LAUNCH_RECORDER_SIZE, TSDB_*, ANOMALY_*,
-INCIDENT_*, SLO_*, HOTKEYS_TOP_K).  Settings that select a feature the
-port does not have yet -- overload control, the cluster handoff -- are
-refused at boot by :func:`unported_settings` (ROADMAP.md lists them).
+INCIDENT_*, SLO_*, HOTKEYS_TOP_K), and so do overload control
+(OVERLOAD_*, SHED_*, PROMOTE_*, BACKPRESSURE_*) and the replica's
+counter handoff (CLUSTER_HANDOFF_ENABLED).  Only a BACKEND_TYPE the
+port does not serve is refused at boot (:func:`unported_settings`).
 
 Mirrors the reference's envconfig-driven Settings struct
 (reference src/settings/settings.go:11-119): same env var names and
@@ -532,22 +533,13 @@ BACKEND_TYPES = (
 
 
 def unported_settings(s: Settings) -> List[str]:
-    """One message per setting that selects a feature not ported to
-    ratelimit_tpu_torch yet, or a BACKEND_TYPE it does not know (the
-    JAX package's names among them); the runner refuses to boot when
-    any is set."""
+    """One message per setting the port cannot serve: a BACKEND_TYPE it
+    does not know (the JAX package's names among them).  The runner
+    refuses to boot when there is any."""
     out = []
     if s.backend_type.lower() not in BACKEND_TYPES:
         out.append(
             f"BACKEND_TYPE={s.backend_type!r}: not a backend of this package "
             f"(one of {', '.join(BACKEND_TYPES)})"
         )
-    if (
-        s.overload_shed_enabled
-        or s.overload_promote_enabled
-        or s.overload_backpressure_enabled
-    ):
-        out.append("OVERLOAD_*_ENABLED: overload control is not ported")
-    if s.cluster_handoff_enabled:
-        out.append("CLUSTER_HANDOFF_ENABLED: the cluster tier is not ported")
     return out

@@ -1290,3 +1290,84 @@ def test_a_raising_journal_never_blocks_a_quarantine():
     finally:
         inj.heal()
         cache.close()
+
+
+def test_restart_waits_for_the_stalled_stream_to_drain():
+    """The supervisor makes no restart attempt while the quarantined
+    engine's stream still has work: on the card a new engine's first
+    pinned allocation waits for a stalled kernel and holds every other
+    bank's launches meanwhile.  Once the stream drains, the next tick
+    restarts the bank as before.  The episode's first deferral goes to
+    the journal once, and /debug/faults says the restart waits."""
+    inj, clock = Injector(), port_time.FakeMonotonicClock(CLOCK0)
+    cache = make_cache(PORT, inj, clock=clock)
+    rule = _rule(PORT, Manager())
+    fd = cache.fault_domain
+    j = _journal(PORT, cache)
+    try:
+        codes = [_code(PORT, cache, rule)]
+        inj.set("lane0", "raise")
+        codes.append(_code(PORT, cache, rule))
+        assert fd.is_quarantined(0)
+        inj.heal()
+        busy = [True]
+        stalled = fd.engine_at(0)
+        stalled._stream = SimpleNamespace(query=lambda: not busy[0], cuda_stream=-1)
+        for _ in range(10):
+            clock.advance(0.06)
+            fd.tick()
+        assert fd.is_quarantined(0) and fd.stat_restarts == 0
+        assert fd.stat_probe_failures == 0
+        deferred = [e for e in j.snapshot() if e["type"] == "bank_restart_failed"]
+        assert [e["stage"] for e in deferred] == ["stream_busy"]
+        bank = fd.summary()["banks"][0]
+        assert bank["restart_waits_for_stream"] is True
+        assert bank["next_restart_in_s"] == pytest.approx(fd.interval_s, abs=0.07)
+        busy[0] = False
+        _restart(fd, clock)
+        assert fd.stat_restarts == 1 and fd.engine_at(0) is not stalled
+        codes.append(_code(PORT, cache, rule))
+        assert codes == ["OK", "OK", "OK"]
+    finally:
+        inj.heal()
+        cache.close()
+
+
+def test_a_stream_whose_query_raises_does_not_hold_the_restart():
+    """A lost context makes the stream's query raise: that is no busy
+    stream.  The restart attempt goes ahead, its factory fails as on a
+    sticky error, the journal says so and the backoff grows."""
+    inj, clock = Injector(), port_time.FakeMonotonicClock(CLOCK0)
+    calls = []
+
+    def factory(bank, old):
+        calls.append(bank)
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    cache = make_cache(PORT, inj, clock=clock, engine_factory=factory)
+    rule = _rule(PORT, Manager())
+    fd = cache.fault_domain
+    j = _journal(PORT, cache)
+    try:
+        assert _code(PORT, cache, rule) == "OK"
+        inj.set("lane0", "raise")
+        assert _code(PORT, cache, rule) == "OK"
+        inj.heal()
+
+        def lost():
+            raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+        fd.engine_at(0)._stream = SimpleNamespace(query=lost, cuda_stream=-1)
+        backoffs = []
+        for _ in range(3):
+            clock.advance(fd._records[0].next_restart - clock.now() + 0.01)
+            fd.tick()
+            backoffs.append(fd._records[0].backoff_s)
+        assert calls == [0, 0, 0] and fd.is_quarantined(0)
+        assert backoffs == sorted(backoffs) and backoffs[-1] > backoffs[0]
+        failed = [e["stage"] for e in j.snapshot() if e["type"] == "bank_restart_failed"]
+        assert failed == ["factory"] * 3
+        assert "restart_waits_for_stream" not in fd.summary()["banks"][0]
+    finally:
+        inj.heal()
+        cache.close()

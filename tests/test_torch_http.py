@@ -16,7 +16,10 @@ the same observability views (/debug/hotkeys, /debug/events,
 masking only named fields measured in time (TIME_KEYS); with a plane's
 setting at 0 its view answers the JAX server's 404.  /debug/overload,
 /debug/faults without a fault domain and the cluster admin POSTs answer
-with the JAX server's bytes.  The capture endpoints are gated, one at a
+with the JAX server's bytes with their settings off, and with the
+overload controller and the handoff on both runners serve
+/debug/overload, /debug/cluster, the admin POSTs and the
+ratelimit.overload.* and ratelimit.cluster.* families alike.  The capture endpoints are gated, one at a
 time, and write a torch.profiler trace.  Health follows the port's fault domain over
 HTTP: a stalled bank is "OK (degraded: ...)" as in the JAX package, a
 kernel defect is 500 NOT_HEALTHY.
@@ -419,7 +422,7 @@ def planes_off(runners):
                 s.stop()
 
 
-#: The views whose plane the port does not have (overload control, the
+#: The views of planes off in the default runner (overload control, the
 #: cluster handoff) or that answer without a backend's fault domain.
 PLANES_STILL_OFF = [v for v in PLANE_VIEWS[:11] if v[1] in (
     "/debug/overload", "/debug/faults", "/debug/cluster/export", "/debug/cluster/import",
@@ -447,10 +450,131 @@ def test_capture_endpoints_gated_as_jax(runners, path):
 
 
 def test_debug_cluster_has_no_handoff(runners):
+    """With CLUSTER_HANDOFF_ENABLED off, both runners' cluster view says
+    so and carries the same (untouched) handoff summary."""
     (s1, jax_out), (s2, port_out) = _both(runners, "/debug/cluster", debug=True)
     assert s1 == s2 == 200
-    assert json.loads(port_out) == {"handoff_enabled": False, "handoff": None}
-    assert json.loads(jax_out)["handoff_enabled"] is False
+    assert json.loads(port_out) == json.loads(jax_out)
+    assert json.loads(port_out)["handoff_enabled"] is False
+    assert json.loads(port_out)["handoff"]["exports"] == 0
+
+
+OVERLOAD_ON = dict(
+    overload_shed_enabled=True,
+    overload_promote_enabled=True,
+    overload_backpressure_enabled=True,
+    cluster_handoff_enabled=True,
+    promote_min_hits=4,
+)
+
+
+@pytest.fixture(scope="module")
+def overload_runners(tmp_path_factory):
+    """Both runners with every OVERLOAD_*_ENABLED and
+    CLUSTER_HANDOFF_ENABLED on, driven through the same traffic: the
+    fixed-window key past its limit, one controller tick on each (the
+    samplers stopped), so the hot key is promoted and then answered
+    from the promotion set."""
+    root = tmp_path_factory.mktemp("runtime_overload")
+    config_dir = root / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "rl.yaml").write_text(CONFIG + "priority: 2\n")
+    kw = dict(COMMON, runtime_path=str(root), runtime_subdirectory="ratelimit", **OVERLOAD_ON)
+    jax_runner = JaxRunner(JaxSettings(backend_type="tpu", **kw), time_source=JaxPinned(3_000_000))
+    port_runner = Runner(
+        Settings(backend_type="cuda", **kw), time_source=PinnedTimeSource(3_000_000), device="cpu"
+    )
+    jax_runner.start()
+    jax_runner.detectors.stop()
+    try:
+        port_runner.start()
+        port_runner.detectors.stop()
+        runners = (jax_runner, port_runner)
+        for r in runners:
+            for _ in range(12):  # 7 of 12 over the 5/min limit
+                _grpc(r, "foo", "hot")
+            r.overload.tick()
+        yield runners
+    finally:
+        try:
+            port_runner.stop()
+        finally:
+            jax_runner.stop()
+
+
+#: Fields of the overload view measured on a clock.
+OVERLOAD_TIME_KEYS = {"hold_remaining_s", "expires_in_s", "at"}
+
+
+def _mask_clock(obj):
+    if isinstance(obj, dict):
+        return {k: ("<t>" if k in OVERLOAD_TIME_KEYS else _mask_clock(v)) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_mask_clock(v) for v in obj]
+    return obj
+
+
+def test_overload_and_cluster_views_answer_as_jax_with_the_planes_on(overload_runners):
+    """/debug/overload and /debug/cluster with the controller and the
+    handoff on: the same status and body as the JAX runner's, the hot
+    key in both promotion sets; a promoted key answers alike."""
+    views = {}
+    for path in ("/debug/overload", "/debug/cluster"):
+        (s1, want), (s2, got) = _both(overload_runners, path, debug=True)
+        assert s1 == s2 == 200, path
+        assert _mask_clock(json.loads(got)) == _mask_clock(json.loads(want)), path
+        views[path] = json.loads(got)
+    assert [e["key"] for e in views["/debug/overload"]["promotion"]["live"]] == ["rl_foo_hot_"]
+    assert views["/debug/cluster"]["handoff_enabled"] is True
+    answers = [_grpc(r, "foo", "hot") for r in overload_runners]
+    assert answers[0] == answers[1]
+    # /json alike: the promoted key, a fresh key, algorithm keys.
+    for key, value in (("foo", "hot"), ("foo", "cold"), ("slide", "s"), ("tb", "t")):
+        (s1, b1), (s2, b2) = _both(overload_runners, "/json", _json("rl", (key, value)))
+        assert (s2, b2) == (s1, b1), key
+    assert s1 in (200, 429)
+
+
+def test_overload_and_cluster_families_on_stats_and_metrics_as_jax(overload_runners):
+    """The ratelimit.overload.* and ratelimit.cluster.* families on
+    /stats and /metrics: the same names and values in both runners."""
+    prefixes = ("ratelimit.overload.", "ratelimit.cluster.", "ratelimit_overload_", "ratelimit_cluster_")
+    for path in ("/stats", "/metrics"):
+        (s1, want), (s2, got) = _both(overload_runners, path, debug=True)
+        assert s1 == s2 == 200
+        pick = lambda body: sorted(  # noqa: E731
+            line for line in body.decode().splitlines()
+            if line.lstrip("# TYPEHELP").startswith(prefixes)
+        )
+        assert pick(got) == pick(want), path
+        assert any("overload.promotion.promoted" in x or "overload_promotion_promoted" in x for x in pick(got))
+
+
+def test_cluster_posts_answer_as_jax_with_handoff_on(overload_runners):
+    """The admin POSTs open with CLUSTER_HANDOFF_ENABLED: an export to a
+    membership that takes nothing (this replica keeps every key) and an
+    import of an empty blob answer alike, and a bad body is 400 on both."""
+    from ratelimit_tpu.cluster import handoff as jax_handoff
+
+    keep = json.dumps({"membership": ["A"], "self": "A"}).encode()
+    cases = [
+        ("/debug/cluster/export", keep),
+        ("/debug/cluster/import", jax_handoff.pack_sections([])),
+        ("/debug/cluster/export", b"not json"),
+        ("/debug/cluster/import", b"not a blob"),
+    ]
+    for path, body in cases:
+        (s1, want), (s2, got) = [
+            _http(r.debug_server.bound_port, path, body, method="POST")[:2] for r in overload_runners
+        ]
+        assert s1 == s2, path
+        if s1 == 200 and path.endswith("export"):
+            want, got = jax_handoff.unpack_sections(want), jax_handoff.unpack_sections(got)
+            assert got == want == []
+        elif s1 == 200:
+            assert json.loads(got) == json.loads(want)
+        else:
+            assert s1 == 400
 
 
 def test_debug_index_lists_every_get_route(runners):

@@ -668,22 +668,35 @@ def test_restarts_outnumber_the_pool(pool, monkeypatch):
 
 
 def test_a_stalled_stream_stays_held_until_it_drains(pool, monkeypatch):
-    """A bank replaced while its stream is still stalled keeps that
-    stream through the restarts of the other banks: no new engine draws
-    it.  Once the stream drains, the next release gives it back."""
+    """A bank whose stream is still stalled stays quarantined and keeps
+    that stream through the restarts of the other banks: its own restart
+    waits for the stream (fault_domain._try_restart), and no new engine
+    draws it.  Once the stream drains, the bank restarts and the next
+    release gives the stream back."""
     monkeypatch.setattr(engine_mod, "_create_stream", _no_stream_of_its_own)
     cache = _four_lanes_on_the_pool()
+    fd = cache.fault_domain
     try:
         stalled = cache.engines()[1]
         handle = stalled._stream.cuda_stream
         stalled._stream.busy = True
-        _quarantine_and_restart(cache, 1)
+        old_d = cache._dispatchers[id(stalled)]
+        fd.record_fault(1, "hang")
+        deadline = time.monotonic() + 10
+        while not old_d.exited():
+            assert time.monotonic() < deadline, "killed dispatcher never returned"
+            time.sleep(0.005)
+        fd._try_restart(1, fd._records[1], 1e9)
+        assert fd.is_quarantined(1) and cache.engines()[1] is stalled
         for restart in range(6):
             _quarantine_and_restart(cache, (0, 2, 3)[restart % 3])
-            assert handle not in {e._stream.cuda_stream for e in cache.engines()}
+            others = [e for b, e in enumerate(cache.engines()) if b != 1]
+            assert handle not in {e._stream.cuda_stream for e in others}
             assert engine_mod._HELD_STREAMS.get(handle) is stalled
         assert cache.release_retired() == 1
         stalled._stream.busy = False
+        fd._try_restart(1, fd._records[1], 1e9)
+        assert not fd.is_quarantined(1) and cache.engines()[1] is not stalled
         assert cache.release_retired() == 1
         assert handle not in engine_mod._HELD_STREAMS
         assert cache._retired == []

@@ -27,6 +27,8 @@ assert not leaked, leaked
 assert "ratelimit_tpu_torch.parallel.sharded" in names, names
 for plane in ("events", "flight", "launches", "slo", "hotkeys", "detectors", "timeseries"):
     assert "ratelimit_tpu_torch.observability." + plane in names, plane
+for mod in ("overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults"):
+    assert "ratelimit_tpu_torch." + mod in names, mod
 """
 
 
@@ -130,3 +132,38 @@ def test_observability_plane_is_the_port_own_copy(plane):
         )
         if mod:
             assert not (mod == "ratelimit_tpu" or mod.startswith("ratelimit_tpu.")), (plane, mod)
+
+
+COPIES = ("overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults")
+
+
+@pytest.mark.parametrize("name", COPIES)
+def test_overload_and_cluster_modules_are_the_port_own_copies(name):
+    """The overload controller and the replica half of the cluster tier
+    are modules of the port with the JAX modules' public names, naming
+    no module of the JAX package.  The cluster package leaves out the
+    front tier's router, which is still to be ported.  The handoff adds
+    HANDOFF_CHUNK, the keys its import lands per exclusive leg, and
+    YIELD_EVERY, the keys a per-key pass handles between two yields of
+    the interpreter lock."""
+    import importlib
+    import types
+
+    port = importlib.import_module("ratelimit_tpu_torch." + name)
+    ref = importlib.import_module("ratelimit_tpu." + name)
+    public = lambda m: sorted(  # noqa: E731
+        n for n, v in vars(m).items()
+        if not n.startswith("_") and not isinstance(v, types.ModuleType)
+        and getattr(v, "__module__", m.__name__) == m.__name__
+    )
+    extra = ["HANDOFF_CHUNK", "YIELD_EVERY"] if name == "cluster.handoff" else []
+    assert public(port) == sorted(public(ref) + extra)
+    for value in vars(port).values():
+        mod = getattr(value, "__module__", None) or (
+            value.__name__ if isinstance(value, types.ModuleType) else None
+        )
+        if mod:
+            assert not (mod == "ratelimit_tpu" or mod.startswith("ratelimit_tpu.")), (name, mod)
+    cluster = importlib.import_module("ratelimit_tpu_torch.cluster")
+    with pytest.raises(AttributeError, match="ROADMAP.md"):
+        cluster.ReplicaRouter

@@ -3,6 +3,8 @@ request stream: the JAX runner (BACKEND_TYPE=tpu on the CPU) and the
 port's runner (BACKEND_TYPE=cuda with its counter table on the CPU)
 must answer with byte-equal ShouldRateLimit responses."""
 
+import json
+
 import grpc
 import pytest
 
@@ -248,14 +250,92 @@ def test_default_algorithm_banks_boot_and_serve(tmp_path):
 @pytest.mark.parametrize(
     "override,needle",
     [
-        (dict(overload_shed_enabled=True), "OVERLOAD"),
-        (dict(cluster_handoff_enabled=True), "CLUSTER_HANDOFF_ENABLED"),
+        (dict(backend_type="tpu"), "BACKEND_TYPE"),
         (dict(backend_type="tpu-write-behind"), "BACKEND_TYPE"),
+        (dict(backend_type="redis"), "BACKEND_TYPE"),
     ],
 )
 def test_unported_settings_refused_at_boot(tmp_path, override, needle):
+    """A BACKEND_TYPE the port does not serve (the JAX package's names
+    among them) is the one setting still refused at boot."""
     base = dict(COMMON, runtime_path=str(tmp_path), backend_type="cuda")
     runner = Runner(Settings(**{**base, **override}), device="cpu")
     with pytest.raises(SettingsError, match=needle):
         runner.start()
     runner.stop()
+
+
+PRIORITY_CONFIG = CONFIG + "priority: 3\n"
+
+
+def _debug(runner, path, body=None):
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{runner.debug_server.bound_port}{path}"
+    req = urllib.request.Request(url, data=body, method="POST" if body is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+@pytest.mark.parametrize(
+    "setting",
+    [
+        "overload_shed_enabled",
+        "overload_promote_enabled",
+        "overload_backpressure_enabled",
+        "cluster_handoff_enabled",
+    ],
+)
+def test_overload_and_handoff_settings_boot_and_answer_as_jax(tmp_path, setting):
+    """Each OVERLOAD_*_ENABLED and CLUSTER_HANDOFF_ENABLED boots the
+    port's runner, and both runners answer the gRPC stream byte-equal
+    and /debug/overload, /debug/cluster and the cluster POSTs with the
+    same status and body (the export blob as the sections it packs)."""
+    from ratelimit_tpu.cluster import handoff as jax_handoff
+
+    config_dir = tmp_path / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "rl.yaml").write_text(PRIORITY_CONFIG)
+    kw = dict(COMMON, runtime_path=str(tmp_path), runtime_subdirectory="ratelimit")
+    kw[setting] = True
+    jax_runner = JaxRunner(JaxSettings(backend_type="tpu", **kw), time_source=JaxPinned(1_000_000))
+    port_runner = Runner(Settings(backend_type="cuda", **kw), time_source=PinnedTimeSource(1_000_000), device="cpu")
+    jax_runner.start()
+    try:
+        port_runner.start()
+        try:
+            assert (port_runner.overload is None) == (setting == "cluster_handoff_enabled")
+            for payload in _stream():
+                assert _call(port_runner, payload) == _call(jax_runner, payload)
+            export = json.dumps({"membership": ["B"], "self": "A"}).encode()
+            for path, body in (
+                ("/debug/overload", None),
+                ("/debug/cluster", None),
+                ("/debug/cluster/export", export),
+                ("/debug/cluster/import", jax_handoff.pack_sections([])),
+            ):
+                (s1, b1), (s2, b2) = _debug(jax_runner, path, body), _debug(port_runner, path, body)
+                assert s1 == s2, path
+                if s1 == 200 and path == "/debug/cluster/export":
+                    b1 = sorted(sorted(s["keys"]) for s in jax_handoff.unpack_sections(b1))
+                    b2 = sorted(sorted(s["keys"]) for s in jax_handoff.unpack_sections(b2))
+                elif s1 == 200:
+                    b1, b2 = _masked(json.loads(b1)), _masked(json.loads(b2))
+                assert b2 == b1, path
+        finally:
+            port_runner.stop()
+    finally:
+        jax_runner.stop()
+
+
+def _masked(x):
+    """Fields measured on a clock, masked by name."""
+    if isinstance(x, dict):
+        return {k: ("<t>" if k in ("at", "hold_remaining_s", "expires_in_s", "burns") else _masked(v)) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_masked(v) for v in x]
+    return x

@@ -167,6 +167,9 @@ def test_concurrent_burst_byte_equal(runners):
         (dict(backend_type="cuda-sharded"), None),
         (dict(backend_type="CUDA-SHARDED"), None),
         (dict(backend_type="cuda-sharded-write-behind"), None),
+        (dict(backend_type="cuda-sharded", overload_shed_enabled=True,
+              overload_promote_enabled=True, overload_backpressure_enabled=True), None),
+        (dict(backend_type="cuda-sharded", cluster_handoff_enabled=True), None),
         (dict(backend_type="tpu-sharded"), "BACKEND_TYPE"),
     ],
 )
