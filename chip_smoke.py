@@ -82,7 +82,11 @@ Phases, one line each; any failure exits non-zero:
    stall (each back within the deadline plus STALL_RPC_MARGIN_S,
    answered by the host mirror: one hang fault, health DEGRADED), the
    supervised restart on a new stream (health SERVING), 100 more hits
-   through the kernel again: exactly 120 of the 180 admitted;
+   through the kernel again: exactly 120 of the 180 admitted; a third
+   episode on the fixed-window bank queues a snapshot just behind the
+   stall (the supervisor's, landing there by chance): it gives up at
+   the deadline and the hang is seen as ever, while a snapshot of the
+   GCRA bank during the stall copies at once;
 9. listeners: the runner with BACKEND_TYPE=cuda, every default but the
    config, the ports and DEBUG_PROFILING=1, over its HTTP and debug
    listeners -- the 6th /json hit on a 5/min key is 429 on the
@@ -152,7 +156,8 @@ Phases, one line each; any failure exits non-zero:
    BACKEND_TYPE=cuda at every default but OVERLOAD_{PROMOTE,SHED,
    BACKPRESSURE}_ENABLED, PROMOTE_TTL_S=1, ANOMALY_INTERVAL_S=0.5,
    BACKPRESSURE_TOKENS=4 and BACKPRESSURE_HOLD_S=1, serving two
-   domains (bulk, priority 1; checkout, priority 5) -- 13a: 4 clients
+   domains (bulk, priority 1; checkout, priority 5) on a pinned clock
+   (no minute rolls over inside the 5/minute rules) -- 13a: 4 clients
    on one bulk key until the controller promotes it (live in
    /debug/overload), then 100 hits on it OVER_LIMIT with no K1 launch
    while 100 cold keys launch K1, the entry expiring after the TTL and
@@ -176,14 +181,32 @@ Phases, one line each; any failure exits non-zero:
    import_keys timed on it, and the port's two-leg export and chunked
    import during an 8-client burst on both runners (each exclusive
    leg's ms, RPC ms during against outside, no fault); 13d:
-   scripts/torch_chaos_smoke.py --device cuda, every check passing.
+   scripts/torch_chaos_smoke.py --device cuda, every check passing;
+14. the cluster's front tier: runners A, B and C with BACKEND_TYPE=cuda
+   at the default state size, CLUSTER_HANDOFF_ENABLED and one pinned
+   clock in this process, and `python -m ratelimit_tpu_torch.cluster.proxy`
+   in a process of its own (which must map no torch or CUDA library)
+   over a replicas file [A, B], an admin map of all three debug
+   listeners and a debug listener on a free port -- warm microseconds
+   per request via the proxy against direct to the owner on keys A
+   owns, in alternating pairs; a 120/minute target key that A owns
+   under [A, B] and C under [A, C] offered 240 hits through the proxy
+   beside 4 background clients, B stopped (ejection and failover), the
+   file rewritten to [A, C] (the proxy swaps and its coordinator drives
+   POST /debug/cluster/export|import over HTTP), 240 more hits: exactly
+   120 admitted; the handoff summary from the proxy's /stats.json, RPC
+   ms during the churn against outside it, the longest interpreter-lock
+   gap on the replicas' side, each live replica's exclusive legs and
+   /debug/cluster with no fault; /fleet.json merging the live replicas
+   (liveness, SLO sections, the timeline membership_change ...
+   handoff_end); K1 launched on each live replica; exit 0 on SIGTERM.
 
-Phases 6, 7, 9, 10, 12 and 13 run with the fault domain armed at its defaults
+Phases 6, 7, 9, 10, 12, 13 and 14 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
 one stall, and phase 12 for its); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-13)
+phase (4-14)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -1941,14 +1964,18 @@ def sleep_cycles_per_ms(torch) -> float:
 
 
 def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms,
-                  value=None, during=None):
+                  value=None, during=None, behind=None):
     """One episode on `bank`: 40 hits on a fresh `key` value (a 120/hour
     rule; `value` names one that lands on `bank`), a snapshot, a kernel
     spinning for STALL_DEADLINES deadlines on the bank's own stream, 40
     hits during the stall (answered by the host mirror), `during(stall
     end event)` if given, the supervised restart, 100 more hits.
-    Exactly 120 of the 180 must be admitted.  Returns the episode's
-    numbers."""
+    Exactly 120 of the 180 must be admitted.  With `behind`, another
+    bank, a snapshot of `bank` is queued just behind the stall (the
+    supervisor's periodic one, landing there by chance): it must give
+    up at the deadline and the hang be seen as ever, while a snapshot
+    of `behind` during the stall copies at once.  Returns the
+    episode's numbers."""
     fd = runner.cache.fault_domain
     rec = fd._records[bank]
     engine = fd.engine_at(bank)
@@ -1968,6 +1995,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         torch.cuda._sleep(int(stall_ms * cycles_per_ms))
         stall_end.record()
     t_stall = time.monotonic()
+    snapshots = snapshot_behind(fd, bank, behind, old_d) if behind is not None else None
     rpc_ms = []
     degraded = None
     quarantined_at = None
@@ -2019,6 +2047,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         episode_s=episode_s,
         old_threads_ended=not (old_d._thread.is_alive() or old_d._completer.is_alive()),
         during=extra,
+        snapshots=snapshots,
     )
     bound_ms = (fd.kernel_deadline_s + STALL_RPC_MARGIN_S) * 1e3
     if codes[:80] != [OK] * 80:
@@ -2041,14 +2070,43 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         fail(f"bank {bank}: admitted {admitted} of {len(codes)}, want {PROBE_LIMIT}")
     if not out["old_threads_ended"]:
         fail(f"bank {bank}: the killed dispatcher's threads outlived the stall")
+    if snapshots is not None:
+        snapshots["thread"].join(timeout=10)
+        snapshots.pop("thread")
+        if snapshots.get("taken") != 0 or snapshots["gave_up_s"] >= 1.0:
+            fail(f"bank {bank}: the snapshot behind the stall did not give up at the deadline: {snapshots}")
+        if snapshots["other_taken"] != 1 or snapshots["other_ms"] >= fd.kernel_deadline_s * 1e3:
+            fail(f"bank {behind}: its snapshot during the stall waited: {snapshots}")
+    return out
+
+
+def snapshot_behind(fd, bank, other, d) -> dict:
+    """A snapshot of `bank` queued behind its stalled stream, in a thread
+    (as the supervisor's would be), then one of `other` timed here."""
+    out = {}
+
+    def behind():
+        t0 = time.monotonic()
+        out["taken"] = fd.snapshot_now(bank)
+        out["gave_up_s"] = time.monotonic() - t0
+
+    out["thread"] = threading.Thread(target=behind)
+    out["thread"].start()
+    give_up = time.monotonic() + 2
+    while d._launch_busy_since is None and time.monotonic() < give_up:
+        time.sleep(0.0005)  # until the copy runs, stamped, behind the stall
+    t0 = time.perf_counter()
+    out["other_taken"] = fd.snapshot_now(other)
+    out["other_ms"] = (time.perf_counter() - t0) * 1e3
     return out
 
 
 def fault_phase(torch, kernels, fw, gcra):
     """The runner with BACKEND_TYPE=cuda and every default but a
     restart backoff of FAULT_BACKOFF_S: a stall episode on the
-    fixed-window bank (K1) and one on the GCRA bank (K5).  The other
-    banks must stay closed."""
+    fixed-window bank (K1), one on the GCRA bank (K5), and one more on
+    the fixed-window bank with a snapshot queued behind the stall.  The
+    other banks must stay closed."""
     kernels.launches.clear()
     cycles_per_ms = sleep_cycles_per_ms(torch)
     if time.time() % 3600 > 3600 - 60:
@@ -2071,9 +2129,13 @@ def fault_phase(torch, kernels, fw, gcra):
                 torch, kernels, runner, request, R.OK, bank_of(runner, "algo_gcra"),
                 "probe_tb", gcra.K5_LANES, cycles_per_ms,
             ),
+            "fixed window, a snapshot behind the stall": stall_episode(
+                torch, kernels, runner, request, R.OK, bank_of(runner, "lane0of1"), "probe",
+                fw.K1_LANES, cycles_per_ms, behind=bank_of(runner, "algo_gcra"),
+            ),
         }
         summary = fd.summary()
-        if summary["faults"] != {"hang": 2, "exception": 0, "device_lost": 0} or summary[
+        if summary["faults"] != {"hang": 3, "exception": 0, "device_lost": 0} or summary[
             "quarantined_banks"
         ]:
             fail(f"fault phase: faults beyond the two stalls: {summary}")
@@ -2091,6 +2153,13 @@ def episode_line(name, e) -> str:
         f"own stream, SERVING, {e['launches_after_swap']} by-value launches after the swap; "
         f"admitted {e['admitted']}/{e['offered']} in {e['episode_s']:.1f} s; the killed "
         f"dispatcher's threads ended: {e['old_threads_ended']}"
+        + (
+            ""
+            if e["snapshots"] is None
+            else f"; the snapshot queued behind the stall gave up after {e['snapshots']['gave_up_s']:.3f} s "
+            f"(took {e['snapshots']['taken']}), another bank's during it took "
+            f"{e['snapshots']['other_ms']:.1f} ms"
+        )
     )
 
 
@@ -3891,9 +3960,8 @@ def shed_stall_phase(torch, runner, R, cycles_per_ms):
     health SERVING at the end."""
     from ratelimit_tpu_torch.observability import FLIGHT_CODE_SHED
 
-    if time.time() % 60 > 35:
-        # The 5/minute rules count per minute: no rollover inside.
-        time.sleep(61 - time.time() % 60)
+    # The runner's clock is pinned (overload_phase): the 5/minute rules
+    # see no rollover, so the phase starts at once.
     cache, ov, fd = runner.cache, runner.overload, runner.cache.fault_domain
     bank = bank_of(runner, "lane0of1")
     rec = fd._records[bank]
@@ -4355,7 +4423,13 @@ def overload_phase(torch, kernels, fw, cycles_per_ms):
     out = {}
 
     def overload():
-        with serving("cuda", env=OVERLOAD_ENV, config=OVERLOAD_CONFIG) as (runner, request, R):
+        # A pinned clock, as 13c's: the 5/minute rules of 13a and 13b
+        # never see a minute roll over.  The controller, the SLO windows
+        # and the detectors read their own monotonic clock, not this one.
+        from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+        pinned = PinnedTimeSource(int(time.time()) // 60 * 60 + 30)
+        with serving("cuda", env=OVERLOAD_ENV, config=OVERLOAD_CONFIG, time_source=pinned) as (runner, request, R):
             s = runner.settings
             if (s.tpu_num_slots, s.tpu_algorithm_num_slots) != (NUM_SLOTS, ALGO_SLOTS) or runner.overload is None:
                 fail(f"overload phase: not the default state size or no controller: {s.tpu_num_slots}")
@@ -4372,11 +4446,8 @@ def overload_phase(torch, kernels, fw, cycles_per_ms):
         out["handoff"]["s"] = time.perf_counter() - t0
         out["chaos"] = chaos_twin()
 
-    # 13b's 5/minute rules must not see a minute roll over; late in a
-    # minute the handoff and the chaos twin (about 30 s) go first, so
-    # 13b seldom has to wait for the next minute.
-    for part in (overload, handoff) if time.time() % 60 <= 28 else (handoff, overload):
-        part()
+    overload()
+    handoff()
     fill = out["full"]["fill_launches"]
     return {k: v - fill.get(k, 0) for k, v in kernels.launches.items()}, out
 
@@ -4427,6 +4498,388 @@ def overload_lines(o, smi) -> list:
         f"ms, admitted {c['controlled']['probe_admitted']}/{c['controlled']['probe_limit']}; "
         f"uncontrolled max {c['uncontrolled']['max_ms']} ms, {c['uncontrolled']['cache_errors']} "
         f"failed; matrix {c['matrix']}",
+    ]
+
+
+# -- 14. the cluster's front tier: a port proxy in its own process ----------------
+
+CLUSTER_CONFIG = """domain: ct
+descriptors:
+  - key: churn
+    rate_limit: {unit: minute, requests_per_unit: 120}
+  - key: bg
+    rate_limit: {unit: minute, requests_per_unit: 1000000}
+  - key: hop
+    rate_limit: {unit: hour, requests_per_unit: 1000000}
+"""
+CHURN_LIMIT = 120
+CHURN_HITS = 240  # offered to the target before the churn, and again after it
+CHURN_CLIENTS = 4  # background clients through the proxy
+CHURN_KEYS = 64  # background values each client cycles
+HOP_PAIRS = 10
+HOP_LEG = 100
+#: The proxy's flags beyond the replicas file, the admin map and the ports.
+PROXY_POLL_S = "0.1"
+PROXY_START_S = 60.0
+CLUSTER_ENV = {"CLUSTER_HANDOFF_ENABLED": "true"}
+#: Where the replicas' banks live.
+FRONT_TIER_DEVICE = "cuda"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ProxyProcess:
+    """`python -m ratelimit_tpu_torch.cluster.proxy` in a process of its
+    own, its standard error in a file; `fail` prints that file's tail
+    before failing the smoke, and leaving the block stops the process."""
+
+    def __init__(self, tmp, replicas_file, admin, port, debug_port):
+        self.port, self.debug_port = port, debug_port
+        self.err_path = os.path.join(tmp, "proxy.err")
+        self._err = open(self.err_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ratelimit_tpu_torch.cluster.proxy",
+             "--replicas-file", replicas_file, "--replica-admin", admin,
+             "--host", "127.0.0.1", "--port", str(port), "--debug-port", str(debug_port),
+             "--poll-seconds", PROXY_POLL_S],
+            cwd=REPO, stdout=subprocess.DEVNULL, stderr=self._err,
+        )
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._err.close()
+
+    def tail(self, n=4000) -> str:
+        self._err.flush()
+        with open(self.err_path) as f:
+            return f.read()[-n:]
+
+    def fail(self, msg):
+        log(f"proxy process (rc {self.proc.poll()}) stderr tail:\n{self.tail()}")
+        fail(msg)
+
+    def stats(self) -> dict:
+        status, body = http_get(self.debug_port, "/stats.json")
+        if status != 200:
+            self.fail(f"proxy /stats.json answered {status}")
+        return json.loads(body)
+
+    def wait_serving(self, health_pb2, channel):
+        """Seconds until gRPC health answers SERVING and the debug
+        listener, which the proxy starts after its gRPC server, answers
+        /healthcheck."""
+        check = channel.unary_unary(
+            "/grpc.health.v1.Health/Check",
+            request_serializer=health_pb2.HealthCheckRequest.SerializeToString,
+            response_deserializer=health_pb2.HealthCheckResponse.FromString,
+        )
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < PROXY_START_S:
+            if self.proc.poll() is not None:
+                self.fail(f"the proxy exited with {self.proc.returncode} before serving")
+            try:
+                if (check(health_pb2.HealthCheckRequest(), timeout=2).status
+                        == health_pb2.HealthCheckResponse.SERVING
+                        and http_get(self.debug_port, "/healthcheck")[0] == 200):
+                    return time.perf_counter() - t0
+            except Exception:  # noqa: BLE001 -- not listening yet
+                pass
+            time.sleep(0.05)
+        self.fail(f"the proxy did not serve within {PROXY_START_S:.0f} s")
+
+    def maps_no_torch(self) -> bool:
+        with open(f"/proc/{self.proc.pid}/maps") as f:
+            maps = f.read()
+        return not any(lib in maps for lib in ("libtorch", "libc10", "libcuda.so", "libcudart"))
+
+    def terminate(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            return self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.fail("the proxy did not exit within 30 s of SIGTERM")
+
+
+def write_replicas(path, ids):
+    """Replace the replicas file in one rename, as the proxy's watcher asks."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    os.replace(tmp, path)
+
+
+def hop_pairs(proxy_call, direct_call, values):
+    """Warm µs a request via the proxy against direct to the owner, in
+    HOP_PAIRS alternating pairs of HOP_LEG requests on `values`."""
+    legs = {"proxy": [], "direct": []}
+    for call in (proxy_call, direct_call):  # warm both paths
+        for v in values[:20]:
+            call("hop", v)
+    for p in range(HOP_PAIRS):
+        for side in ("proxy", "direct") if p % 2 == 0 else ("direct", "proxy"):
+            call = proxy_call if side == "proxy" else direct_call
+            t0 = time.perf_counter()
+            for i in range(HOP_LEG):
+                call("hop", values[i % len(values)])
+            legs[side].append((time.perf_counter() - t0) / HOP_LEG * 1e6)
+    return legs
+
+
+def front_tier_phase(kernels, fw, smi):
+    """Phase 14: runners A, B and C (BACKEND_TYPE=cuda at the default
+    state size, CLUSTER_HANDOFF_ENABLED, one pinned clock) in this
+    process and the port's proxy in another, over the replicas file [A,
+    B] and an admin map of all three: the proxy hop against a direct
+    call, membership churn with the target key exact, the handoff its
+    coordinator drives over HTTP, /fleet.json, and SIGTERM."""
+    import grpc
+
+    from ratelimit_tpu_torch.cluster.hashing import owner_of
+    from ratelimit_tpu_torch.server import pb  # noqa: F401
+    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+    from envoy.service.ratelimit.v3 import rls_pb2
+    from grpchealth.v1 import health_pb2
+
+    kernels.launches.clear()
+    pinned = int(time.time()) // 60 * 60 + 30
+    cfg = {"ct.yaml": CLUSTER_CONFIG}
+    OK = rls_pb2.RateLimitResponse.OK
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        reps = {}
+        for name in "ABC":
+            runner, _request, _R = stack.enter_context(
+                serving("cuda", env=CLUSTER_ENV, config=cfg, time_source=PinnedTimeSource(pinned))
+            )
+            reps[name] = runner
+        for name, r in reps.items():
+            s = r.settings
+            devices = {e.device.type for e in r.cache.engines()}
+            if devices != {FRONT_TIER_DEVICE} or (s.tpu_num_slots, s.tpu_algorithm_num_slots) != (NUM_SLOTS, ALGO_SLOTS):
+                fail(f"front tier: replica {name} serves on {devices}, {s.tpu_num_slots} slots")
+        ids = {n: f"127.0.0.1:{r.grpc_server.bound_port}" for n, r in reps.items()}
+        admin = ",".join(f"{ids[n]}=http://127.0.0.1:{r.debug_server.bound_port}" for n, r in reps.items())
+        replicas_file = os.path.join(tmp, "replicas.txt")
+        write_replicas(replicas_file, [ids["A"], ids["B"]])
+        stamped0 = {n: r.launches.stamped() for n, r in reps.items()}
+        proxy = stack.enter_context(ProxyProcess(tmp, replicas_file, admin, free_port(), free_port()))
+        channels = [stack.enter_context(grpc.insecure_channel(f"127.0.0.1:{proxy.port}"))
+                    for _ in range(2 + CHURN_CLIENTS)]
+        direct_channel = stack.enter_context(grpc.insecure_channel(ids["A"]))
+        out["start_s"] = proxy.wait_serving(health_pb2, channels[0])
+        out["maps_no_torch"] = proxy.maps_no_torch()
+        if not out["maps_no_torch"]:
+            proxy.fail("the proxy process maps a torch or CUDA library")
+
+        def caller(channel):
+            stub = channel.unary_unary(
+                "/envoy.service.ratelimit.v3.RateLimitService/ShouldRateLimit",
+                request_serializer=rls_pb2.RateLimitRequest.SerializeToString,
+                response_deserializer=rls_pb2.RateLimitResponse.FromString,
+            )
+
+            def call(key, value):
+                req = rls_pb2.RateLimitRequest(domain="ct")
+                e = req.descriptors.add().entries.add()
+                e.key, e.value = key, value
+                return stub(req, timeout=30)
+
+            return call
+
+        # 1. The hop: keys A owns under [A, B].
+        ab, ac = [ids["A"], ids["B"]], [ids["A"], ids["C"]]
+        hop_values = [f"h{i}" for i in range(10_000) if owner_of(f"ct_hop_h{i}_", ab) == 0][:50]
+        out["hop"] = hop_pairs(caller(channels[0]), caller(direct_channel), hop_values)
+
+        # 2. Membership churn: the target key is A's under [A, B] and C's
+        # under [A, C].
+        target = next(
+            f"t{i}" for i in range(100_000)
+            if owner_of(f"ct_churn_t{i}_", ab) == 0 and owner_of(f"ct_churn_t{i}_", ac) == 1
+        )
+        legs = {"A": [], "C": []}
+        for n, log_ in legs.items():
+            exclusive_timer(reps[n].cache, log_)
+        rows, stop, errors = [], threading.Event(), []
+        rows_lock = threading.Lock()
+
+        def background(i):
+            call, local, n = caller(channels[2 + i]), [], 0
+            try:
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    call("bg", f"b{i}-{n % CHURN_KEYS}")
+                    local.append((t0, time.perf_counter()))
+                    n += 1
+            except Exception as exc:  # noqa: BLE001 -- fails the phase below
+                errors.append(repr(exc))
+            with rows_lock:
+                rows.extend(local)
+
+        target_call = caller(channels[1])
+
+        def offer(n):
+            admitted = 0
+            for _ in range(n):
+                t0 = time.perf_counter()
+                admitted += target_call("churn", target).overall_code == OK
+                with rows_lock:
+                    rows.append((t0, time.perf_counter()))
+            return admitted
+
+        bg = [threading.Thread(target=background, args=(i,)) for i in range(CHURN_CLIENTS)]
+        for t in bg:
+            t.start()
+        with GilProbe() as probe:
+            before = offer(CHURN_HITS)
+            t_kill = time.perf_counter()
+            reps["B"].stop()
+            give_up = time.monotonic() + 15
+            while proxy.stats()["ejections"] < 1 and time.monotonic() < give_up:
+                time.sleep(0.02)
+            at_kill = proxy.stats()
+            t_swap = time.perf_counter()
+            write_replicas(replicas_file, ac)
+            give_up = time.monotonic() + 20
+            while time.monotonic() < give_up:
+                st = proxy.stats()
+                if st["replica_ids"] == ac and "last_handoff" in st:
+                    break
+                time.sleep(0.02)
+            t_done = time.perf_counter()
+            after = offer(CHURN_HITS)
+            stop.set()
+            for t in bg:
+                t.join(timeout=60)
+        if errors or any(t.is_alive() for t in bg):
+            proxy.fail(f"front tier: background clients failed: {errors[:3]}")
+        st = proxy.stats()
+        summary = st.get("last_handoff")
+        if st["replica_ids"] != ac or summary is None:
+            proxy.fail(f"front tier: the proxy did not swap to [A, C] with a handoff: {st}")
+        inside = [(t1 - t0) * 1e3 for t0, t1 in rows if t1 > t_kill and t0 < t_done]
+        outside = [(t1 - t0) * 1e3 for t0, t1 in rows if not (t1 > t_kill and t0 < t_done)]
+        out["churn"] = dict(
+            target=target, before=before, after=after, admitted=before + after,
+            rpcs=len(rows), bg_rpcs=len(rows) - 2 * CHURN_HITS,
+            ejections=at_kill["ejections"], failovers=at_kill["failovers"],
+            fallback=at_kill["fallback_descriptors"], retries=at_kill["retries"],
+            kill_to_eject_s=t_swap - t_kill, swap_to_handoff_s=t_done - t_swap,
+            inside=(len(inside), float(np.median(inside)), max(inside)) if inside else (0, 0.0, 0.0),
+            outside=(len(outside), float(np.median(outside)), max(outside)),
+            lock_gap_ms=probe.max_gap_ms(t_kill, t_done),
+            summary={k: summary.get(k) for k in ("moved_keys", "imported", "merged", "dropped",
+                                                    "duration_s", "exports", "errors")},
+            forwarded=st["forwarded"],
+        )
+        c = out["churn"]
+        if c["admitted"] != CHURN_LIMIT:
+            proxy.fail(f"front tier: the target admitted {c['admitted']} of {2 * CHURN_HITS} "
+                       f"({before} before, {after} after), want exactly {CHURN_LIMIT}")
+        if c["ejections"] < 1 or c["failovers"] < 1:
+            proxy.fail(f"front tier: stopping B made {c['ejections']} ejections, {c['failovers']} failovers")
+        if summary["imported"] + summary["merged"] < 1 or any(ids["B"] not in e for e in summary["errors"]):
+            proxy.fail(f"front tier: handoff {summary}")
+
+        # 3. The coordinator in the other process: the legs it drove here.
+        views = {}
+        for n in ("A", "C"):
+            status, body = http_get(reps[n].debug_server.bound_port, "/debug/cluster")
+            if status != 200:
+                proxy.fail(f"front tier: {n}'s /debug/cluster answered {status}")
+            view = json.loads(body)["handoff"]
+            views[n] = dict(
+                exported=view["exported_keys"], imported=view["imported_keys"], merged=view["merged_keys"],
+                legs=len(legs[n]), leg_max_ms=max((ms for _f, ms in legs[n]), default=0.0),
+                leg_ms=[round(ms, 3) for _f, ms in legs[n]],
+                faults=fault_free(reps[n], f"front tier ({n})"),
+            )
+        out["coordinator"] = views
+        if views["A"]["exported"] < 1 or views["C"]["imported"] + views["C"]["merged"] < 1:
+            proxy.fail(f"front tier: /debug/cluster {views}")
+
+        # 4. /fleet.json from the proxy's debug listener.
+        status, body = http_get(proxy.debug_port, "/fleet.json")
+        if status != 200:
+            proxy.fail(f"front tier: /fleet.json answered {status}")
+        fleet = json.loads(body)
+        live = sorted(rid for rid, r in fleet["replicas"].items() if r.get("metrics", {}).get("up"))
+        proxy_types = [e["type"] for e in fleet["events"] if e["replica"] == "_proxy"]
+        order = [proxy_types.index(t) if t in proxy_types else None
+                 for t in ("membership_change", "handoff_begin", "handoff_end")]
+        names = {rid: n for n, rid in ids.items()}
+        out["fleet"] = dict(
+            live=[n for n in "ABC" if ids[n] in live], bytes=len(body),
+            slo=sorted(fleet["slo"]["domains"]), proxy_events=proxy_types,
+            # The merged timeline, oldest first.  A proxy row that names
+            # a replica (replica_eject) carries that replica's id, as
+            # the JAX package's merge gives it.
+            timeline=[(names.get(e["replica"], e["replica"]), e["type"]) for e in fleet["events"]],
+            quarantined=len(fleet["faults"]["quarantined_banks"]),
+        )
+        if len(live) < 2 or not all("domains" in fleet["replicas"][rid].get("slo", {}) for rid in live):
+            proxy.fail(f"front tier: /fleet.json live replicas {live}")
+        if None in order or order != sorted(order) or "ct" not in fleet["slo"]["domains"]:
+            proxy.fail(f"front tier: /fleet.json timeline {proxy_types}, slo {fleet['slo']}")
+        for n in ("A", "C"):
+            if reps[n].launches.stamped() - stamped0[n] < 1:
+                fail(f"front tier: replica {n} launched nothing")
+        out["stamped"] = {n: reps[n].launches.stamped() - stamped0[n] for n in "ABC"}
+        out["rc"] = proxy.terminate()
+        if out["rc"] != 0:
+            proxy.fail(f"front tier: the proxy exited {out['rc']} on SIGTERM")
+    out["k1_lanes"] = kernels.launches.get(fw.K1_LANES, 0)
+    if out["k1_lanes"] < 1:
+        fail("front tier: no K1 by-value launch")
+    return dict(kernels.launches), out
+
+
+def front_tier_lines(o, smi) -> list:
+    h, c, v, f = o["hop"], o["churn"], o["coordinator"], o["fleet"]
+
+    def spread(x):
+        return f"median {np.median(x):.1f}, min {min(x):.1f}, max {max(x):.1f}"
+
+    diffs = [p - d for p, d in zip(h["proxy"], h["direct"])]
+    s = c["summary"]
+    return [
+        f"front tier (hop, {smi}): the proxy process served {o['start_s']:.2f} s after its start and "
+        f"maps no torch or CUDA library ({o['maps_no_torch']}); warm us/request on keys A owns, "
+        f"{HOP_PAIRS} alternating pairs of {HOP_LEG}: via the proxy {spread(h['proxy'])}; direct "
+        f"{spread(h['direct'])}; proxy - direct per pair {spread(diffs)}",
+        f"front tier (churn, {smi}): the target ({CHURN_LIMIT}/minute) admitted {c['admitted']} of "
+        f"{2 * CHURN_HITS} ({c['before']} before, {c['after']} after) beside {c['bg_rpcs']} RPCs of "
+        f"{CHURN_CLIENTS} background clients; B stopped: {c['ejections']} ejection(s), {c['failovers']} "
+        f"failover(s), {c['retries']} retries, {c['fallback']} fallback descriptors, seen in "
+        f"{c['kill_to_eject_s']:.2f} s; [A, B] -> [A, C] swapped and handed off in "
+        f"{c['swap_to_handoff_s']:.2f} s: moved {s['moved_keys']}, imported {s['imported']}, merged "
+        f"{s['merged']}, dropped {s['dropped']}, coordinator {s['duration_s']} s, exports "
+        f"{s['exports']}, errors {s['errors']}; forwarded {c['forwarded']}; RPC ms during the churn "
+        f"(n, median, max) ({c['inside'][0]}, {c['inside'][1]:.2f}, {c['inside'][2]:.2f}), outside "
+        f"({c['outside'][0]}, {c['outside'][1]:.2f}, {c['outside'][2]:.2f}); longest "
+        f"interpreter-lock gap on the replicas' process {c['lock_gap_ms']:.1f} ms",
+        f"front tier (coordinator in the proxy process, {smi}): " + "; ".join(
+            f"{n}: exported {x['exported']}, imported {x['imported']}, merged {x['merged']}, "
+            f"{x['legs']} exclusive legs {x['leg_ms']} ms (max {x['leg_max_ms']:.2f}), faults "
+            f"{x['faults']['faults']}" for n, x in v.items()),
+        f"front tier (/fleet.json, {smi}): {f['bytes']} bytes, live replicas {f['live']}, SLO domains "
+        f"{f['slo']}, quarantined banks {f['quarantined']}, timeline {f['timeline']}; launch "
+        f"records by replica {o['stamped']}, "
+        f"K1 by value {o['k1_lanes']}; the proxy exited {o['rc']} on SIGTERM",
     ]
 
 
@@ -4712,9 +5165,16 @@ def main() -> None:
     for line in overload_lines(overload, smi):
         log(line)
 
+    # 14. the cluster's front tier: a port proxy in its own process
+    ft_launches, front = front_tier_phase(kernels, fw, smi)
+    lap("front_tier")
+    log(f"front tier: launches {ft_launches}")
+    for line in front_tier_lines(front, smi):
+        log(line)
+
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
-        top_launches, wb_launches, obs_launches, ovl_launches,
+        top_launches, wb_launches, obs_launches, ovl_launches, ft_launches,
     )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
@@ -4769,7 +5229,7 @@ def main() -> None:
                 "device": {
                     "platform": "gpu",
                     "kind": torch.cuda.get_device_name(0),
-                    "count": 1,  # the one card this run uses
+                    "count": torch.cuda.device_count(),
                 },
             }
         )

@@ -231,17 +231,23 @@ class _FlushToken:
 
 class _CallToken:
     """Run an arbitrary fn on the dispatcher thread (the slot-table
-    owner) — used for consistent checkpoints without a serving lock."""
+    owner) — used for consistent checkpoints without a serving lock.
+    A ``device_call`` is stamped like a launch while it runs, so a call
+    that waits on a stalled stream shows in ``stuck_age``."""
 
-    __slots__ = ("fn", "event", "error")
+    __slots__ = ("fn", "event", "error", "device_call")
 
-    def __init__(self, fn):
+    def __init__(self, fn, device_call=False):
         self.fn = fn
         self.event = threading.Event()
         self.error = None
+        self.device_call = device_call
 
 
 _STOP = object()
+
+#: How often run_on_thread polls its `abandon` predicate while it waits.
+_ABANDON_POLL_S = 0.01
 
 
 class DispatcherDead(RuntimeError):
@@ -556,12 +562,24 @@ class BatchDispatcher:
         self._enqueue(token)
         token.event.wait()
 
-    def run_on_thread(self, fn, timeout: float = 120.0):
+    def run_on_thread(self, fn, timeout: float = 120.0, device_call: bool = False,
+                      abandon=None):
         """Execute `fn()` on the dispatcher thread, after everything
-        already queued; blocks for the result."""
-        token = _CallToken(fn)
+        already queued; blocks for the result.  `device_call` stamps the
+        call like a launch while it runs (a copy that waits on the
+        bank's stream).  `abandon`, a predicate polled while waiting,
+        gives up early: TimeoutError as at `timeout`, and the call still
+        runs when its turn comes."""
+        token = _CallToken(fn, device_call)
         self._enqueue(token)
-        if not token.event.wait(timeout):
+        if abandon is None:
+            done = token.event.wait(timeout)
+        else:
+            give_up = time.monotonic() + timeout
+            done = token.event.wait(_ABANDON_POLL_S)
+            while not done and time.monotonic() < give_up and not abandon():
+                done = token.event.wait(_ABANDON_POLL_S)
+        if not done:
             raise TimeoutError("dispatcher did not run the call in time")
         if token.error is not None:
             raise token.error
@@ -934,12 +952,16 @@ class BatchDispatcher:
         except Exception:
             logger.exception("%s: launch record dropped", self._thread.name)
 
-    @staticmethod
-    def _run_call(t: "_CallToken") -> None:
+    def _run_call(self, t: "_CallToken") -> None:
+        if t.device_call:
+            self._launch_busy_since = self._stamp_now()
         try:
             t.fn()
         except BaseException as e:
             t.error = e
+        finally:
+            if t.device_call:
+                self._launch_busy_since = None
         t.event.set()
 
     def _drain(self) -> None:

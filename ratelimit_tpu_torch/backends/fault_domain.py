@@ -11,7 +11,10 @@ open window.  With it:
   MonotonicClock, deterministic ``tick()`` seam) scans every bank's
   dispatcher: a device call stuck past ``KERNEL_DEADLINE_S`` (the
   dispatcher's liveness stamps; a stalled kernel holds the completer in
-  its event wait), a dead dispatcher thread, or a failed step classify
+  its event wait, and a periodic snapshot's copy queued behind it holds
+  the collector, stamped as a device call -- the supervisor's wait for
+  that snapshot gives up at the deadline, where the JAX domain waits
+  unseen until the stall ends), a dead dispatcher thread, or a failed step classify
   into ``hang`` / ``exception`` / ``device_lost`` faults
   (``ratelimit.tpu.fault.*`` counters).  RPC waits are bounded by the
   same deadline (cuda_cache ``_execute``), so the FIRST request to hit
@@ -520,6 +523,14 @@ class DeviceFaultDomain:
             if not kernel_defect(d.dead):
                 self.record_fault(bank, classify_fault(d.dead), d.dead)
             return
+        if self._hung(bank, d, now):
+            return
+        if self.snapshot_interval_s > 0 and now >= rec.next_snapshot:
+            self._snapshot_bank(bank, rec, d, now)
+
+    def _hung(self, bank: int, d, now: float) -> bool:
+        """Record a hang fault when `d` has been in one device call past
+        the kernel deadline; returns whether it did."""
         if d.completed_launches > 0 and d.stuck_age(now) > self.kernel_deadline_s:
             self.record_fault(
                 bank,
@@ -529,9 +540,8 @@ class DeviceFaultDomain:
                     f"(> kernel deadline {self.kernel_deadline_s:.3f}s)"
                 ),
             )
-            return
-        if self.snapshot_interval_s > 0 and now >= rec.next_snapshot:
-            self._snapshot_bank(bank, rec, d, now)
+            return True
+        return False
 
     def snapshot_now(self, bank: Optional[int] = None) -> int:
         """Force an immediate snapshot of one bank (or all closed
@@ -558,7 +568,12 @@ class DeviceFaultDomain:
         here after it -- the seed of the host mirror, bounding restart
         loss to one interval.  A timeout here is NOT a fault (a deep but
         moving queue can delay the token); the stuck-stamp check catches
-        real stalls.  Returns whether this call took a snapshot."""
+        real stalls.  The copy waits on the bank's stream, so it runs as
+        a device call: a copy queued behind a stalled kernel makes the
+        dispatcher stuck, and this wait gives up at the deadline and
+        records the hang instead of holding the watchdog (whose thread
+        this is) for the whole stall.  Returns whether this call took a
+        snapshot."""
         from .checkpoint import copy_engine
 
         engine = self._engines[bank]
@@ -568,15 +583,22 @@ class DeviceFaultDomain:
             grabbed["copy"] = copy_engine(engine)
             grabbed["seq"] = next(self._snapshot_seq)
 
+        def stuck():
+            return d.stuck_age(self._clock.now()) > self.kernel_deadline_s
+
         try:
-            d.run_on_thread(grab, timeout=max(1.0, 4.0 * self.kernel_deadline_s))
+            d.run_on_thread(
+                grab, timeout=max(1.0, 4.0 * self.kernel_deadline_s), device_call=True, abandon=stuck
+            )
         except TimeoutError:
+            rec.next_snapshot = now + self.snapshot_interval_s
+            if self._hung(bank, d, self._clock.now()):
+                return False
             logger.warning(
                 "bank %d: snapshot token not served in time (queue "
                 "backlog?); retrying next interval",
                 bank,
             )
-            rec.next_snapshot = now + self.snapshot_interval_s
             return False
         except Exception as e:
             self.record_fault(bank, classify_fault(e), e)

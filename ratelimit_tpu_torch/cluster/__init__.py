@@ -1,12 +1,14 @@
-"""The replica half of the cluster tier: key ownership (hashing.py),
-counter handoff on membership change (handoff.py) and the fault
-injectors that prove both (faults.py).
+"""Multi-replica scale-out: key-ownership routing across service
+replicas (the rendezvous router, the proxy process and the fleet view),
+counter handoff on membership change, and the fault injectors that
+prove both.
 
-Port of ratelimit_tpu/cluster/ without its front tier: the rendezvous
-router, the proxy process and the fleet view are still to be ported
-(ROADMAP.md, Queue 1), so asking for ``ReplicaRouter`` raises.  The
-modules here are stdlib and numpy, and touch a bank's tensors only
-through the engine's handoff legs.
+Port of ratelimit_tpu/cluster/.  PEP-562 lazy on the router, as there:
+the hashing and handoff halves are stdlib and numpy and are imported by
+the replica backend (which must never pay a grpc import for them);
+``ReplicaRouter`` pulls the wire protos only when used (the proxy
+process, the cluster tests).  Nothing here touches a card but the
+handoff's legs, through the engine.
 """
 
 from .hashing import owner_of, routing_key  # noqa: F401
@@ -14,8 +16,7 @@ from .hashing import owner_of, routing_key  # noqa: F401
 
 def __getattr__(name):
     if name == "ReplicaRouter":
-        raise AttributeError(
-            f"module {__name__!r} has no attribute 'ReplicaRouter': the cluster's "
-            "front tier (router, proxy, fleet) is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        from .router import ReplicaRouter
+
+        return ReplicaRouter
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

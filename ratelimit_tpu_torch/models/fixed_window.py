@@ -117,7 +117,16 @@ def state_from_numpy(counts_u32: np.ndarray, device="cuda") -> torch.Tensor:
 
 def state_to_numpy(t: torch.Tensor) -> np.ndarray:
     """Inverse of state_from_numpy: a uint32 numpy copy of the table,
-    same shape."""
+    same shape.  From the card the copy lands in pinned memory on the
+    current stream, and only that stream is waited for: CUDA
+    stages a copy to pageable memory, and one queued behind a stalled
+    kernel held up every other bank's pageable copy until the stall
+    ended (scripts/torch_snapshot_stall.py)."""
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t.detach(), non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host.numpy().view(np.uint32).copy()
     return t.detach().cpu().numpy().view(np.uint32).copy()
 
 

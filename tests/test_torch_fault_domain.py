@@ -1371,3 +1371,83 @@ def test_a_stream_whose_query_raises_does_not_hold_the_restart():
     finally:
         inj.heal()
         cache.close()
+
+
+def test_a_snapshot_queued_behind_a_stall_is_a_hang():
+    """On the card a snapshot's copy waits on the bank's stream.  One
+    queued just behind a stalled kernel holds the dispatcher thread
+    outside any launch: the copy runs as a device call, so the stuck
+    stamp shows it, and the supervisor's wait gives up at the deadline
+    and records the hang (the bank goes to its mirror) instead of
+    holding the watchdog for the whole stall."""
+    inj, clock = Injector(), port_time.FakeMonotonicClock(CLOCK0)
+    cache = make_cache(PORT, inj, clock=clock)
+    rule = _rule(PORT, Manager())
+    fd = cache.fault_domain
+    d = cache._dispatchers[id(cache.engine)]
+    release = threading.Event()
+    inner = cache.engine._engine
+    real_export = inner.export_state
+
+    def export_state():
+        release.wait(10)  # the copy behind the stalled kernel
+        return real_export()
+
+    try:
+        codes = [_code(PORT, cache, rule)]
+        inner.export_state = export_state
+        took = {}
+        t = threading.Thread(target=lambda: took.update(n=fd.snapshot_now(0), at=time.monotonic()))
+        t0 = time.monotonic()
+        t.start()
+        give_up = time.monotonic() + 5
+        while d._launch_busy_since is None and time.monotonic() < give_up:
+            time.sleep(0.005)
+        assert d._launch_busy_since is not None  # the copy is stamped
+        clock.advance(1.0)  # past the 0.25 s deadline
+        t.join(timeout=5)
+        assert not t.is_alive() and took["n"] == 0
+        assert took["at"] - t0 < 0.9  # gave up before the 1 s token wait
+        assert fd.is_quarantined(0) and fd.stat_faults["hang"] == 1
+        codes.append(_code(PORT, cache, rule))  # the mirror answers
+        assert fd.stat_fallback_decisions == 1
+        release.set()
+        inner.export_state = real_export
+        _restart(fd, clock)
+        codes.append(_code(PORT, cache, rule))
+        assert codes == ["OK", "OK", "OK"] and fd.stat_faults["hang"] == 1
+    finally:
+        release.set()
+        inj.heal()
+        cache.close()
+
+
+def test_run_on_thread_abandons_and_stamps_device_calls():
+    """run_on_thread(abandon=...) gives up as soon as the predicate
+    holds (the call still runs later); a device_call is stamped like a
+    launch while it runs, and a plain call is not."""
+    from ratelimit_tpu_torch.backends.dispatcher import BatchDispatcher
+
+    clock = port_time.FakeMonotonicClock(CLOCK0)
+    d = BatchDispatcher(
+        CounterEngine(num_slots=64, buckets=(8,), device="cpu"), stamp_clock=clock
+    )
+    gate, seen = threading.Event(), []
+    try:
+        def blocked():
+            seen.append(d.stuck_age(clock.now() + 1.0))
+            gate.wait(10)
+
+        t0 = time.monotonic()
+        with pytest.raises(TimeoutError):
+            d.run_on_thread(blocked, timeout=30.0, device_call=True,
+                            abandon=lambda: d._launch_busy_since is not None)
+        assert time.monotonic() - t0 < 5.0
+        assert seen == [1.0]  # stamped while it runs
+        gate.set()
+        d.run_on_thread(lambda: seen.append(d.stuck_age(clock.now() + 1.0)))
+        assert seen == [1.0, 0.0]  # a plain call is not
+        assert d._launch_busy_since is None
+    finally:
+        gate.set()
+        d.stop()

@@ -27,7 +27,8 @@ assert not leaked, leaked
 assert "ratelimit_tpu_torch.parallel.sharded" in names, names
 for plane in ("events", "flight", "launches", "slo", "hotkeys", "detectors", "timeseries"):
     assert "ratelimit_tpu_torch.observability." + plane in names, plane
-for mod in ("overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults"):
+for mod in ("overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults",
+            "cluster.router", "cluster.proxy", "cluster.fleet", "cli.client", "cli.config_check"):
     assert "ratelimit_tpu_torch." + mod in names, mod
 """
 
@@ -134,16 +135,19 @@ def test_observability_plane_is_the_port_own_copy(plane):
             assert not (mod == "ratelimit_tpu" or mod.startswith("ratelimit_tpu.")), (plane, mod)
 
 
-COPIES = ("overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults")
+COPIES = (
+    "overload.controller", "cluster.hashing", "cluster.handoff", "cluster.faults",
+    "cluster.router", "cluster.proxy", "cluster.fleet", "cli.client", "cli.config_check",
+)
 
 
 @pytest.mark.parametrize("name", COPIES)
 def test_overload_and_cluster_modules_are_the_port_own_copies(name):
-    """The overload controller and the replica half of the cluster tier
-    are modules of the port with the JAX modules' public names, naming
-    no module of the JAX package.  The cluster package leaves out the
-    front tier's router, which is still to be ported.  The handoff adds
-    HANDOFF_CHUNK, the keys its import lands per exclusive leg, and
+    """The overload controller, both halves of the cluster tier and the
+    command-line tools are modules of the port with the JAX modules'
+    public names, naming no module of the JAX package, and the cluster
+    package's ReplicaRouter resolves to the port's router.  The handoff
+    adds HANDOFF_CHUNK, the keys its import lands per exclusive leg, and
     YIELD_EVERY, the keys a per-key pass handles between two yields of
     the interpreter lock."""
     import importlib
@@ -165,5 +169,37 @@ def test_overload_and_cluster_modules_are_the_port_own_copies(name):
         if mod:
             assert not (mod == "ratelimit_tpu" or mod.startswith("ratelimit_tpu.")), (name, mod)
     cluster = importlib.import_module("ratelimit_tpu_torch.cluster")
-    with pytest.raises(AttributeError, match="ROADMAP.md"):
-        cluster.ReplicaRouter
+    router = importlib.import_module("ratelimit_tpu_torch.cluster.router")
+    assert cluster.ReplicaRouter is router.ReplicaRouter
+    with pytest.raises(AttributeError):
+        cluster.NoSuchName
+
+
+_IMPORT_HOST_TOOLS = """
+import sys
+import ratelimit_tpu_torch.cluster.proxy, ratelimit_tpu_torch.cli.client
+loaded = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("torch", "jax", "jaxlib", "ratelimit_tpu")
+)
+print(loaded)
+assert not loaded, loaded
+"""
+
+
+def test_proxy_and_client_import_no_torch():
+    """The proxy process owns no counters and the client sends one RPC:
+    importing either loads no torch (so no CUDA context can be made in
+    their processes), no jax and nothing of the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_HOST_TOOLS],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
+    assert proc.stdout.strip() == "[]"
