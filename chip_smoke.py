@@ -200,13 +200,29 @@ Phases, one line each; any failure exits non-zero:
    /debug/cluster with no fault; /fleet.json merging the live replicas
    (liveness, SLO sections, the timeline membership_change ...
    handoff_end); K1 launched on each live replica; exit 0 on SIGTERM.
+15. sanitized serving: in a child process (so the patched lock
+   factories never touch phases 1-14), the port's runtime lock sanitizer
+   (ratelimit_tpu_torch/analysis/sanitizer.py) installed before any port
+   module allocates a lock, torch loaded first so its waits for the card
+   (torch.cuda.synchronize, Stream.synchronize, Event.synchronize) are
+   tracked too; the runner with BACKEND_TYPE=cuda at every default; 8
+   gRPC clients and one /json client for 5 s over the fixed-window,
+   sliding-window and GCRA keys, one forced periodic snapshot and one
+   fault-domain probe half way; the sanitizer's locks, order edges and
+   violations, the K1 / K4 / K5 by-value launches, and warm
+   microseconds per request on that runner against one booted with the
+   sanitizer uninstalled, in alternating pairs.  Any lock-order cycle,
+   any unsanctioned blocking call under a lock, a child that does not
+   exit 0, or no by-value launch of one of the three fails the smoke.
 
-Phases 6, 7, 9, 10, 12, 13 and 14 run with the fault domain armed at its defaults
+Phases 6, 7 and 9 run their runners on a clock pinned half way through
+a minute (pinned_clock), so no 5/minute progression waits for a new
+minute.  Phases 6, 7, 9, 10, 12, 13, 14 and 15 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
 one stall, and phase 12 for its); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-14)
+phase (4-14; phase 15 counts the by-value launches of its own child)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
 the K3 update, K3's decision block, K7).  The last lines
@@ -1671,10 +1687,18 @@ def fault_free(runner, what):
     return counts
 
 
+def pinned_clock():
+    """A clock pinned half way through the current minute: a runner on it
+    never sees a 5/minute window roll over, so a phase never waits for a
+    new minute."""
+    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
+
+    return PinnedTimeSource(int(time.time()) // 60 * 60 + 30)
+
+
 def six_hits(request, key, value):
-    """Six hits on a 5/min key inside one minute window: the responses."""
-    if time.time() % 60 > 50:
-        time.sleep(61 - time.time() % 60)
+    """Six hits on a 5/min key (of a runner on pinned_clock(), so inside
+    one minute window): the responses."""
     return [request(key, value) for _ in range(6)]
 
 
@@ -1783,7 +1807,7 @@ def served_forms(kernels, device_form, by_value, before, torch, request, key, wi
 
 def served_phase(torch, kernels, fw, sw, gcra):
     kernels.launches.clear()
-    with serving("cuda") as (runner, request, R):
+    with serving("cuda", time_source=pinned_clock()) as (runner, request, R):
         OK, OVER = R.OK, R.OVER_LIMIT
         started = dict(kernels.launches)
         if sorted(runner.cache.algorithm_banks) != ["gcra", "sliding_window"]:
@@ -1827,7 +1851,9 @@ def sharded_served_phase(torch, kernels, sh, dev):
     """BACKEND_TYPE=cuda-sharded: 2^20 slots over BANKS banks on the card."""
     kernels.launches.clear()
     mesh = sh.make_mesh(BANKS, dev)
-    with serving("cuda-sharded", device=dev, mesh=mesh) as (runner, request, R):
+    with serving("cuda-sharded", device=dev, mesh=mesh, time_source=pinned_clock()) as (
+        runner, request, R
+    ):
         OK, OVER = R.OK, R.OVER_LIMIT
         started = dict(kernels.launches)
         engine = runner.cache.engine
@@ -2329,12 +2355,12 @@ def listeners_phase(torch, kernels, fw, sw, gcra, k1_ms):
 
     kernels.launches.clear()
     out = {}
-    with serving("cuda", env={"DEBUG_PROFILING": "1"}) as (runner, request, R):
+    with serving("cuda", env={"DEBUG_PROFILING": "1"}, time_source=pinned_clock()) as (
+        runner, request, R
+    ):
         api, dbg = runner.http_server.bound_port, runner.debug_server.bound_port
         client = JsonClient(api)
         try:
-            if time.time() % 60 > 50:
-                time.sleep(61 - time.time() % 60)
             for key in ("foo", "slide", "tb"):
                 statuses = [client.post(key, "http")[0] for _ in range(6)]
                 if statuses != [200] * 5 + [429]:
@@ -4207,13 +4233,12 @@ def handoff_phase(kernels):
     from ratelimit_tpu_torch.cluster import handoff as ho
     from ratelimit_tpu_torch.cluster.hashing import owner_id, stem_of_cache_key
     from ratelimit_tpu_torch.parallel import make_mesh
-    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
 
-    pinned = int(time.time()) // 60 * 60 + 30  # mid-minute, never far from now
+    pinned = pinned_clock()
     env_a = dict(HANDOFF_ENV, TPU_NUM_LANES="2")
     cfg = {"ho.yaml": HANDOFF_CONFIG}
-    with serving("cuda", env=env_a, config=cfg, time_source=PinnedTimeSource(pinned)) as (a, _ra, R):
-        with serving("cuda-sharded", env=HANDOFF_ENV, config=cfg, time_source=PinnedTimeSource(pinned),
+    with serving("cuda", env=env_a, config=cfg, time_source=pinned) as (a, _ra, R):
+        with serving("cuda-sharded", env=HANDOFF_ENV, config=cfg, time_source=pinned,
                      mesh=make_mesh(BANKS, MESH_DEVICE)) as (b, _rb, _):
             call_a, chan_a = ho_call(a)
             call_b, chan_b = ho_call(b)
@@ -4426,9 +4451,7 @@ def overload_phase(torch, kernels, fw, cycles_per_ms):
         # A pinned clock, as 13c's: the 5/minute rules of 13a and 13b
         # never see a minute roll over.  The controller, the SLO windows
         # and the detectors read their own monotonic clock, not this one.
-        from ratelimit_tpu_torch.utils.time import PinnedTimeSource
-
-        pinned = PinnedTimeSource(int(time.time()) // 60 * 60 + 30)
+        pinned = pinned_clock()
         with serving("cuda", env=OVERLOAD_ENV, config=OVERLOAD_CONFIG, time_source=pinned) as (runner, request, R):
             s = runner.settings
             if (s.tpu_num_slots, s.tpu_algorithm_num_slots) != (NUM_SLOTS, ALGO_SLOTS) or runner.overload is None:
@@ -4649,13 +4672,12 @@ def front_tier_phase(kernels, fw, smi):
 
     from ratelimit_tpu_torch.cluster.hashing import owner_of
     from ratelimit_tpu_torch.server import pb  # noqa: F401
-    from ratelimit_tpu_torch.utils.time import PinnedTimeSource
 
     from envoy.service.ratelimit.v3 import rls_pb2
     from grpchealth.v1 import health_pb2
 
     kernels.launches.clear()
-    pinned = int(time.time()) // 60 * 60 + 30
+    pinned = pinned_clock()
     cfg = {"ct.yaml": CLUSTER_CONFIG}
     OK = rls_pb2.RateLimitResponse.OK
     out = {}
@@ -4663,7 +4685,7 @@ def front_tier_phase(kernels, fw, smi):
         reps = {}
         for name in "ABC":
             runner, _request, _R = stack.enter_context(
-                serving("cuda", env=CLUSTER_ENV, config=cfg, time_source=PinnedTimeSource(pinned))
+                serving("cuda", env=CLUSTER_ENV, config=cfg, time_source=pinned)
             )
             reps[name] = runner
         for name, r in reps.items():
@@ -4880,6 +4902,217 @@ def front_tier_lines(o, smi) -> list:
         f"{f['slo']}, quarantined banks {f['quarantined']}, timeline {f['timeline']}; launch "
         f"records by replica {o['stamped']}, "
         f"K1 by value {o['k1_lanes']}; the proxy exited {o['rc']} on SIGTERM",
+    ]
+
+
+# -- phase 15: sanitized serving ------------------------------------------
+
+SANITIZED_CLIENTS = 8  # gRPC clients, beside one /json client
+SANITIZED_SECONDS = 5.0
+SANITIZED_PAIRS = 10
+SANITIZED_LEG = 50
+SANITIZED_KEYS = ("obs_fw", "obs_sw", "obs_tb")
+SANITIZED_TIMEOUT_S = 300
+SANITIZED_RESULT = "SANITIZED_RESULT "
+
+
+def sanitized_traffic(runner, OK, fd, dev_engine, disp):
+    """SANITIZED_CLIENTS gRPC clients and one /json client over the
+    fixed-window, sliding-window and GCRA keys for SANITIZED_SECONDS, with
+    one forced periodic snapshot and one fault-domain probe half way;
+    returns the requests answered by transport, the snapshots taken and
+    the probe's answer.  Any refusal or error fails the child."""
+    stop = threading.Event()
+    sent = {"grpc": 0, "json": 0}
+    lock = threading.Lock()
+    errors = []
+
+    def grpc_work(i, call):
+        n = 0
+        while not stop.is_set():
+            key = SANITIZED_KEYS[n % 3]
+            if call(key, f"s{i}-{n % 64}")[0] != OK:
+                errors.append(f"{key} refused")
+                break
+            n += 1
+        with lock:
+            sent["grpc"] += n
+        return n
+
+    def json_work():
+        client = JsonClient(runner.http_server.bound_port)
+        n = 0
+        try:
+            while not stop.is_set():
+                key = SANITIZED_KEYS[n % 3]
+                if client.post(key, f"j-{n % 64}")[0] != 200:
+                    errors.append(f"/json {key} refused")
+                    break
+                n += 1
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(repr(exc))
+        finally:
+            client.close()
+        with lock:
+            sent["json"] += n
+
+    done = []  # grpc_clients' results: empty if it failed on its thread
+    json_thread = threading.Thread(target=json_work)
+    clients = threading.Thread(
+        target=lambda: done.append(grpc_clients(runner, SANITIZED_CLIENTS, grpc_work))
+    )
+    json_thread.start()
+    clients.start()
+    time.sleep(SANITIZED_SECONDS / 2)
+    snapshots = fd.snapshot_now()
+    probe_ok = fd._probe(0, fd._records[0], dev_engine, disp)
+    time.sleep(SANITIZED_SECONDS / 2)
+    stop.set()
+    clients.join(timeout=120)
+    json_thread.join(timeout=120)
+    if errors or not done or clients.is_alive() or json_thread.is_alive():
+        fail(f"sanitized serving: clients failed: {errors[:3]}")
+    return sent, snapshots, probe_ok
+
+
+def sanitized_child() -> None:
+    """Phase 15's child process: the port's lock sanitizer installed
+    before any port module allocates a lock (torch is loaded first, so
+    its waits for the card are patched too), then the default
+    BACKEND_TYPE=cuda runner under traffic, one forced snapshot and one
+    probe, and served us per request on it against a runner booted and
+    driven with the sanitizer uninstalled, in alternating pairs.  Prints one
+    SANITIZED_RESULT line; the parent judges it."""
+    t0 = time.perf_counter()
+    stages = {}
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stages[name] = round(now - t0, 2)
+        t0 = now
+
+    import torch  # noqa: F401  (before install: torch.cuda waits get wrapped)
+
+    sys.path.insert(0, REPO)
+    from ratelimit_tpu_torch.analysis import sanitizer
+
+    san = sanitizer.install()
+    from ratelimit_tpu_torch import kernels
+    from ratelimit_tpu_torch.models import fixed_window as fw
+    from ratelimit_tpu_torch.models import gcra
+    from ratelimit_tpu_torch.models import sliding_window as sw
+
+    kernels.build_all()
+    stage("imports")
+    out = {"stages": stages}
+    with serving("cuda") as (runner, request, R):
+        stage("boot")
+        fd = runner.cache.fault_domain
+        engine = runner.cache.engine
+        disp = runner.cache._dispatchers[id(engine)]
+        kernels.launches.clear()
+        sent, snapshots, probe_ok = sanitized_traffic(runner, R.OK, fd, engine, disp)
+        stage("traffic")
+        out["launches"] = {
+            k: kernels.launches.get(k, 0) for k in (fw.K1_LANES, sw.K4_LANES, gcra.K5_LANES)
+        }
+        out["all_launches"] = dict(kernels.launches)
+        out.update(requests=sent, snapshots=snapshots, probe_ok=probe_ok)
+        out["faults"] = fault_free(runner, "sanitized serving")
+        # The cost of the tracking: this runner's locks are wrapped; one
+        # booted with the sanitizer uninstalled has raw instance locks, and
+        # its legs run uninstalled too (unpatched lock factories, sleeps,
+        # Event and card waits).  The module-level locks, made at import
+        # under the sanitizer, stay wrapped in both legs.
+        san.uninstall()
+        with serving("cuda") as (_u, plain_request, _R):
+            san.install()
+            stage("second_boot")
+            us = {"sanitized": [], "unsanitized": []}
+            legs = (("sanitized", request), ("unsanitized", plain_request))
+
+            def leg(name, req, tag, n):
+                if name == "unsanitized":
+                    san.uninstall()
+                t1 = time.perf_counter()
+                for i in range(n):
+                    req("obs_fw", f"{tag}-{i}")
+                seconds = time.perf_counter() - t1
+                san.install()
+                return seconds / n * 1e6
+
+            for name, req in legs:
+                leg(name, req, "pair-warm", 20)
+            for p in range(SANITIZED_PAIRS):
+                for name, req in legs if p % 2 == 0 else legs[::-1]:
+                    us[name].append(leg(name, req, f"pair{p}", SANITIZED_LEG))
+            out["us_per_request"] = us
+            stage("pairs")
+        stage("second_stop")
+    stage("stop")
+    out["summary"] = san.summary()
+    out["violations"] = [v.as_dict() for v in san.violations()]
+    log(SANITIZED_RESULT + json.dumps(out))
+
+
+def sanitized_phase() -> dict:
+    """Phase 15 (sanitized serving): runs sanitized_child in a process of
+    its own, so the patched lock factories never touch phases 1-14, and
+    fails on a lock-order cycle, an unsanctioned blocking call under a
+    lock (a wait for the card included), a child that does not exit 0,
+    or a K1 / K4 / K5 by-value kernel never launched."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.sanitized_child()"],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=SANITIZED_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(f"sanitized child stdout tail:\n{proc.stdout[-3000:]}")
+        log(f"sanitized child stderr tail:\n{proc.stderr[-3000:]}")
+        fail(f"sanitized serving: the child exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(SANITIZED_RESULT)]
+    if len(lines) != 1:
+        fail(f"sanitized serving: no result line: {proc.stdout[-2000:]}")
+    out = json.loads(lines[0][len(SANITIZED_RESULT):])
+    out["seconds"] = seconds
+    for v in out["violations"]:
+        log(f"sanitizer violation [{v['kind']}] {v['detail']} (thread {v['thread']})\n{v['stack']}")
+    if out["violations"]:
+        fail(f"sanitized serving: {len(out['violations'])} sanitizer violation(s): "
+             f"{out['summary']['by_kind']}")
+    missing = [k for k, n in out["launches"].items() if n < 1]
+    if missing:
+        fail(f"sanitized serving: no by-value launch of {missing}: {out['all_launches']}")
+    if not out["probe_ok"] or out["snapshots"] < 1:
+        fail(f"sanitized serving: snapshot {out['snapshots']}, probe {out['probe_ok']}")
+    return out
+
+
+def sanitized_lines(o, smi) -> list:
+    s = o["summary"]
+    us = o["us_per_request"]
+    med = {k: float(np.median(v)) for k, v in us.items()}
+    return [
+        f"sanitized serving: child {o['seconds']:.1f} s (stages {o['stages']}); "
+        f"{SANITIZED_CLIENTS} gRPC + 1 /json "
+        f"clients for {SANITIZED_SECONDS:.0f} s answered {o['requests']}; forced "
+        f"snapshots {o['snapshots']}, probe {'OK' if o['probe_ok'] else 'FAILED'}; "
+        f"fault domain {o['faults']}",
+        f"sanitized serving: sanitizer {s['locks']} locks tracked at {s['lock_sites']} "
+        f"creation sites, {s['order_edges']} lock-order edges, {s['violations']} "
+        f"violations {s['by_kind']}",
+        f"sanitized serving: by-value launches {o['launches']} (all {o['all_launches']})",
+        f"sanitized serving: warm us/request over {SANITIZED_PAIRS} alternating pairs of "
+        f"{SANITIZED_LEG} requests, sanitized median {med['sanitized']:.1f} "
+        f"(legs {[round(x, 1) for x in us['sanitized']]}) against unsanitized (booted and "
+        f"driven uninstalled; the module-level locks stay wrapped in both) "
+        f"{med['unsanitized']:.1f} (legs {[round(x, 1) for x in us['unsanitized']]}); "
+        f"{smi}",
     ]
 
 
@@ -5170,6 +5403,13 @@ def main() -> None:
     lap("front_tier")
     log(f"front tier: launches {ft_launches}")
     for line in front_tier_lines(front, smi):
+        log(line)
+
+    # 15. sanitized serving: the default runner under the port's lock
+    # sanitizer, in a child process
+    sanitized = sanitized_phase()
+    lap("sanitized")
+    for line in sanitized_lines(sanitized, smi):
         log(line)
 
     phases = (

@@ -229,7 +229,7 @@ def restore_engine(
     engine.stat_live_keys = len(engine.slot_table)
     logger.warning(
         "restored %d live keys from %s (saved %.0fs ago)",
-        len(entries), path, time.time() - saved_at,
+        len(entries), path, time.time() - saved_at,  # tpu-lint: disable=timing-discipline -- cross-restart age: wall stamps are all that survive a process boundary
     )
     return True
 
@@ -340,7 +340,7 @@ class CheckpointManager:
                 "bytes": nbytes,
                 "keys": len(entries.key_lens),
             })
-        self.last = last
+        self.last = last  # tpu-lint: disable=shared-state -- one writer at a time: stop() joins the loop thread before its final checkpoint, and each round publishes a fresh list in one assignment
 
     def start(self) -> None:
         if self._thread is not None:

@@ -49,6 +49,7 @@ from zlib import crc32
 
 import numpy as np
 
+from ..analysis.sanitizer import allow_blocking
 from ..api import Code, DescriptorStatus, RateLimitRequest
 from ..config import RateLimitRule
 from ..limiter.cache_key import CacheKeyGenerator, EMPTY_KEY
@@ -68,7 +69,9 @@ from .dispatcher import (
     BatchDispatcher,
     LanePack,
     WorkItem,
+    complete_items,
     run_items,
+    submit_items,
 )
 from .engine import (
     CounterEngine,
@@ -428,7 +431,12 @@ class CudaRateLimitCache:
         if d is not None:
             d.run_on_thread(fn)
         else:
-            with self._inline_locks[id(engine)]:
+            with self._inline_locks[id(engine)], allow_blocking(
+                "exclusive access: a copy or merge of the bank must see no "
+                "launch between its start and its readback, so its wait for "
+                "the card holds the bank's lock (batching on, the same call "
+                "runs on the bank's own thread)"
+            ):
                 fn()
 
     # -- RateLimitCache seam --------------------------------------------
@@ -583,10 +591,12 @@ class CudaRateLimitCache:
                 is_unlimited[i] = True
                 continue  # limits[i] stays None (service contract)
             limits[i] = rule
+            algorithm = rd.algorithm
+            stem = rd.stem
             if fl_pending:
                 fl_pending = False
                 if rd.algo_id and not rd.algo_shadow:
-                    note_bank = self._algo_bank[rd.algorithm]
+                    note_bank = self._algo_bank[algorithm]
                 elif ps_bank is not None and rd.per_second:
                     note_bank = n_lanes
                 else:
@@ -595,7 +605,7 @@ class CudaRateLimitCache:
             if hk is not None:
                 e = rd.hot
                 if e is None or e.key is None:
-                    e = hk.track(rd.stem)
+                    e = hk.track(stem)
                     rd.hot = e
                 e.hits += hits_addend
                 hk_observed += hits_addend
@@ -620,17 +630,17 @@ class CudaRateLimitCache:
                 categories[i] = _CAT_ENGINE
                 if algo_accs is None:
                     algo_accs = {}
-                acc = algo_accs.get(rd.algorithm)
+                acc = algo_accs.get(algorithm)
                 if acc is None:
-                    acc = algo_accs[rd.algorithm] = ([], [], [])
+                    acc = algo_accs[algorithm] = ([], [], [])
                 acc[0].append(i)
                 acc[1].append(ws.algo_key_bytes)
                 acc[2].append(ws.algo_template_bytes)
                 continue
             if (
                 promo_entries is not None
-                and rd.stem in promo_entries
-                and promotion.contains(rd.stem)
+                and stem in promo_entries
+                and promotion.contains(stem)
             ):
                 # Hot-key promotion (overload/controller.py): the sketch
                 # marked this stem a repeat offender; serve the short-TTL
@@ -652,13 +662,13 @@ class CudaRateLimitCache:
                     raw_over = [False] * n
                     cand_over = [None] * n
                     cand_code = [None] * n
-                sa = shadow_accs.get(rd.algorithm)
+                sa = shadow_accs.get(algorithm)
                 if sa is None:
-                    sa = shadow_accs[rd.algorithm] = ([], [], [])
+                    sa = shadow_accs[algorithm] = ([], [], [])
                 sa[0].append(i)
                 sa[1].append(ws.algo_key_bytes)
                 sa[2].append(ws.algo_template_bytes)
-                shadow_rows.append((i, rd.algorithm, algo_id))
+                shadow_rows.append((i, algorithm, algo_id))
             if single_bank:
                 rows.append(i)
                 enc.append(ws.key_bytes)
@@ -932,8 +942,14 @@ class CudaRateLimitCache:
                 raise _engine_failure(e) from e
             pending.append((bank, engine, item))
         for bank, engine, item in inline:
+            # The bank's lock guards its slot table (the submit); the
+            # wait for the readback runs outside it, as the completer's
+            # does (step_complete touches no engine state but the
+            # staging free list), so the bank's other requests never
+            # queue behind a wait on the card.
             with self._inline_locks[id(engine)]:
-                run_items(engine, [item])
+                token = submit_items(engine, [item])
+            complete_items(engine, [item], token)
             pending.append((bank, engine, item))
         kd = fd.kernel_deadline_s if fd is not None else None
         # _fault_fallback may append a re-routed clone to `pending`.
@@ -978,7 +994,7 @@ class CudaRateLimitCache:
         if len(pool) < 1024:
             for item in done:
                 item.event.clear()
-                pool.append(item.event)
+                pool.append(item.event)  # tpu-lint: disable=shared-state -- GIL-atomic list ops; pop is EAFP in _pool_event
         if span is not None:
             self._record_item_spans(span, [it for _, _, it in items])
 
@@ -1093,7 +1109,7 @@ class CudaRateLimitCache:
             [clone],
         )
         clone.wait(5.0)
-        self.stat_deadline_answers += 1
+        self.stat_deadline_answers += 1  # tpu-lint: disable=shared-state -- GIL-atomic stats counter, scrape-only reader
         self._note_fallback()
 
     def _note_fallback(self) -> None:
@@ -1275,7 +1291,7 @@ class CudaRateLimitCache:
                     ("inflight_launches", "inflight"),
                     ("inflight_hwm", "inflight_hwm"),
                 ):
-                    store.gauge_fn(
+                    store.gauge_fn(  # tpu-lint: disable=metrics-discipline -- bounded: one of the four literal gauge names of the tuple above, per bank
                         f"{base}.{gauge}",
                         lambda i=idx, m=method: self._disp_stat(i, m),
                     )

@@ -752,7 +752,7 @@ class BatchDispatcher:
             if lr is not None:
                 # Appended strictly before the matching _put_completion:
                 # the completer poplefts one entry per batch.
-                self._launch_meta.append(
+                self._launch_meta.append(  # tpu-lint: disable=shared-state -- deque append/popleft are GIL-atomic; one FIFO producer (collector) and one FIFO consumer (completer)
                     (
                         lanes_total,
                         len(batch),

@@ -44,8 +44,9 @@ import functools
 import math
 import threading
 import weakref
+from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Deque, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -425,6 +426,15 @@ def decide_generic(
     )
 
 
+#: Idle stagings an engine keeps for reuse.  The dispatcher has at most
+#: TPU_PIPELINE_DEPTH (2 by default) submissions in flight; inline
+#: serving (no batch window) has one for each RPC completing on the
+#: engine at once, which can be many.  Past the cap the oldest idle
+#: staging is dropped: its pinned blocks go back to torch's caching host
+#: allocator, to be reused by the next staging made.
+STAGING_POOL_CAP = 8
+
+
 class _Staging:
     """Host buffers of one in-flight submission: `words` int32 of packed
     batch and `nbytes` of readback (pinned on CUDA, so both copies are
@@ -512,7 +522,7 @@ class CounterEngine:
         self.buckets = tuple(sorted(buckets))
         self.max_batch = self.buckets[-1]
         self._stream = claim_stream(self.device, self)
-        self._free_staging: List[_Staging] = []
+        self._free_staging: Deque[_Staging] = deque(maxlen=STAGING_POOL_CAP)
         with self._on_stream():
             self._counts = self.model.init_state()
         # Gauge snapshots, written only by the thread that owns the
@@ -580,10 +590,10 @@ class CounterEngine:
             )
             handle, reassemble = self._device_submit(dedup, now)
             chunks.append((handle, start, count, dedup, reassemble))
-            self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
-        self.stat_live_keys = len(self.slot_table)
-        self.stat_evictions = self.slot_table.evictions
-        self.stat_dedup_groups = sum(len(c[3].uniq_slots) for c in chunks)
+            self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))  # tpu-lint: disable=shared-state -- collector-owned engine
+        self.stat_live_keys = len(self.slot_table)  # tpu-lint: disable=shared-state -- collector-owned engine
+        self.stat_evictions = self.slot_table.evictions  # tpu-lint: disable=shared-state -- collector-owned engine
+        self.stat_dedup_groups = sum(len(c[3].uniq_slots) for c in chunks)  # tpu-lint: disable=shared-state -- collector-owned engine
         return (batch.hits, batch.limits, batch.shadow, chunks, now)
 
     def submit_packed(self, now: int, key_blob, meta: np.ndarray):
@@ -734,16 +744,16 @@ class CounterEngine:
 
     def _take_staging(self) -> _Staging:
         try:
-            return self._free_staging.pop()
+            return self._free_staging.pop()  # tpu-lint: disable=shared-state -- GIL-atomic deque pop (submit side, EAFP: an empty pool makes a new staging) against append (complete side) after the event wait: a staging re-enters the pool only once its readback is copied out
         except IndexError:
             return _Staging(*self._staging_size(), self.device)
 
     def _fetch(self, handle) -> np.ndarray:
         """Wait for one submission's readback; copy it out and recycle
-        its staging buffers."""
+        its staging buffers (the pool keeps STAGING_POOL_CAP at most)."""
         st, readback = handle
         if st.event is not None:
-            st.event.synchronize()
+            st.event.synchronize()  # tpu-lint: disable=torch-host-sync -- the wait for this submission's own readback: it runs on the dispatcher's completer thread, or with no batch window on the RPC's thread after the bank's lock is released, under no lock, and each RPC waits on its own item event bounded by KERNEL_DEADLINE_S
         out = readback.numpy().view(_HOST_VIEW[readback.dtype]).copy()
         self._free_staging.append(st)
         return out
@@ -911,7 +921,7 @@ class CounterEngine:
                 )
             stacked[i] = arr
         with self._on_stream():
-            self._counts = state_from_numpy(stacked, self.device)
+            self._counts = state_from_numpy(stacked, self.device)  # tpu-lint: disable=shared-state -- rebinding the state is an exclusive-access hook: restore and handoff run it through run_exclusive on the bank's owner thread, the restart merge on a new engine before it is swapped in
 
     # -- live key export/import (the fault domain's restart merge) -------
 

@@ -135,7 +135,7 @@ class HostEngine:
                 fresh[start:end],
                 None if dividers is None else dividers[start:end],
             )
-            self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
+            self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))  # tpu-lint: disable=shared-state -- mirror has one toucher (the bank's fallback lock)
             if self._generic:
                 divider_g = (
                     dedup.divider_max
@@ -181,8 +181,8 @@ class HostEngine:
                     )
                 )
         self.stat_live_keys = len(self.slot_table)
-        self.stat_evictions = self.slot_table.evictions
-        self.stat_decisions += n
+        self.stat_evictions = self.slot_table.evictions  # tpu-lint: disable=shared-state -- mirror has one toucher (the bank's fallback lock)
+        self.stat_decisions += n  # tpu-lint: disable=shared-state -- mirror has one toucher (the bank's fallback lock)
         if len(outs) == 1:
             return outs[0]
         if not outs:
@@ -262,7 +262,7 @@ class StaticFallbackEngine:
         else:
             codes = np.where(meta["shadow"] != 0, _OK, _OVER).astype(np.int32)
             remaining = z
-        self.stat_decisions += n
+        self.stat_decisions += n  # tpu-lint: disable=shared-state -- GIL-atomic stats counter, scrape-only reader
         return HostDecisions(
             codes=codes,
             limit_remaining=remaining,

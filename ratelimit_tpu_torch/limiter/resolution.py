@@ -351,9 +351,9 @@ class ResolutionCache:
         if e is not None and e.generation == config.generation:
             if e.n_lanes != self.n_lanes:
                 e.rehash_lanes(self.n_lanes)
-            self.hits += 1
+            self.hits += 1  # tpu-lint: disable=shared-state -- stats-only tally; a lost increment skews a debug counter, never a decision
             return e
-        self.misses += 1
+        self.misses += 1  # tpu-lint: disable=shared-state -- stats-only tally; a lost increment skews a debug counter, never a decision
         rule = config.get_limit(domain, descriptor)
         e = ResolvedDescriptor(
             config.generation,
@@ -367,8 +367,8 @@ class ResolutionCache:
             # Same clear-on-full policy as the stem cache: a key-
             # cardinality blowup resets the map (and is counted, so
             # it is visible on /metrics instead of silent).
-            self._entries.clear()
-            self.clears += 1
+            self._entries.clear()  # tpu-lint: disable=shared-state -- idempotent resolution cache; a racing clear only costs re-resolution
+            self.clears += 1  # tpu-lint: disable=shared-state -- stats-only tally; a lost increment skews a debug counter, never a decision
         self._entries[ck] = e
         return e
 

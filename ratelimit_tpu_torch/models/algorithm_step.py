@@ -116,12 +116,12 @@ def step_lanes(
 def f32_to_u32(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int64 holding the u32 that ``cvt.rzi.u32.f32`` gives:
     truncated, clamped to [0, 2^32 - 1], NaN -> 0."""
-    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)  # tpu-lint: disable=dtype-pack-contract -- host-side emulation of cvt.rzi.u32.f32 in the plain version: the clamp bound 2^32 - 1 is not an f32; no kernel argument or transfer is f64
     return torch.trunc(x).clamp(0.0, float(U32_MASK)).to(torch.int64)
 
 
 def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int32 as ``cvt.rzi.s32.f32``: truncated, clamped to
     the int32 range, NaN -> 0."""
-    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)
+    x = torch.nan_to_num(x.to(torch.float64), nan=0.0)  # tpu-lint: disable=dtype-pack-contract -- host-side emulation of cvt.rzi.s32.f32 in the plain version (exact int32 bounds); no kernel argument or transfer is f64
     return torch.trunc(x).clamp(float(_I32_MIN), float(_I32_MAX)).to(torch.int32)

@@ -144,7 +144,7 @@ class EventJournal:
             etype,
             detail,
         )
-        self._ring[i % self.size] = row
+        self._ring[i % self.size] = row  # tpu-lint: disable=shared-state -- GIL-atomic list-item store; readers window-check seq
         with self._lock:
             self._counts[etype] += 1
             sink = self._jsonl

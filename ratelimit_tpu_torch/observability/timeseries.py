@@ -120,7 +120,7 @@ class TimeSeriesStore:
         last, self._last_mono = self._last_mono, now
         dt = now - last if last is not None else 0.0
         values = self._values
-        self._ts_unix[row] = self._wall()
+        self._ts_unix[row] = self._wall()  # tpu-lint: disable=shared-state -- single-writer tick; readers window-check _seqs, published last
         for name, fn in self._gauges:
             try:
                 values[name][row] = float(fn())
@@ -156,8 +156,8 @@ class TimeSeriesStore:
             entry[2] = counts
         # Publish LAST: readers window-check seqs, so a row is visible
         # only after every series value for it landed.
-        self._seqs[row] = seq
-        self._hwm = seq
+        self._seqs[row] = seq  # tpu-lint: disable=shared-state -- single-writer tick; the seq publish IS the row's visibility barrier
+        self._hwm = seq  # tpu-lint: disable=shared-state -- single-writer tick counter; readers derive the window from _seqs
 
     # -- read surface -----------------------------------------------------
 

@@ -35,35 +35,7 @@ from collections import Counter
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
-_BLOCKING = threading.local()
-
-
-class _AllowBlocking:
-    """Context manager marking the CURRENT THREAD's blocking calls as
-    sanctioned, with the justification at the call site (the JAX
-    package's runtime lock sanitizer, analysis/sanitizer.py, reads the
-    same mark; the port has no sanitizer yet).  Use it ONLY where
-    holding a lock across the block is the design and nothing ever
-    blocks on that lock (the one-capture-at-a-time gate below, whose
-    contenders take ``acquire(blocking=False)`` and answer 409)."""
-
-    __slots__ = ("why",)
-
-    def __init__(self, why: str):
-        if not why:
-            raise ValueError("allow_blocking requires a justification")
-        self.why = why
-
-    def __enter__(self):
-        _BLOCKING.depth = getattr(_BLOCKING, "depth", 0) + 1
-        return self
-
-    def __exit__(self, *exc) -> None:
-        _BLOCKING.depth -= 1
-
-
-def allow_blocking(why: str) -> _AllowBlocking:
-    return _AllowBlocking(why)
+from ..analysis.sanitizer import allow_blocking
 
 
 def threadz_text() -> str:

@@ -65,7 +65,7 @@ class _Router:
         self.routes: Dict[tuple, Callable] = {}
 
     def add(self, method: str, path: str, fn: Callable) -> None:
-        self.routes[(method, path)] = fn
+        self.routes[(method, path)] = fn  # tpu-lint: disable=shared-state -- routes are registered during startup wiring, before serve_forever
 
     def dispatch(self, method: str, path: str):
         return self.routes.get((method, path))
@@ -138,7 +138,7 @@ class HttpServer:
         self._name = name
 
     def add_route(self, method: str, path: str, fn) -> None:
-        self.router.add(method, path, fn)
+        self.router.add(method, path, fn)  # tpu-lint: disable=shared-state -- startup wiring only, before serve_forever
 
     def start(self) -> None:
         self._thread = threading.Thread(

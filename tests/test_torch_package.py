@@ -203,3 +203,52 @@ def test_proxy_and_client_import_no_torch():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr[-2000:]
     assert proc.stdout.strip() == "[]"
+
+
+_ANALYSIS_ALONE = """
+import runpy, sys
+import ratelimit_tpu_torch.analysis
+from ratelimit_tpu_torch.analysis import sanitizer
+sanitizer.install()
+sanitizer.uninstall()
+sys.argv = ["ratelimit_tpu_torch.analysis", "--list-rules"]
+try:
+    runpy.run_module("ratelimit_tpu_torch.analysis", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+leaked = sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "ratelimit_tpu", "torch")
+)
+print("LEAKED", leaked)
+"""
+
+
+def test_analysis_loads_neither_jax_nor_the_jax_package_nor_torch():
+    """The analyzer and the sanitizer are pure stdlib: they run where
+    neither stack is installed."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _ANALYSIS_ALONE],
+        cwd=REPO,
+        env=env,
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "torch-host-sync:" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "LEAKED []"
+
+
+def test_debug_profiling_mark_is_the_sanitizers():
+    """The capture gate's allow_blocking is the port sanitizer's own
+    (the placeholder mark is gone), so a sanitized run sees it."""
+    from ratelimit_tpu_torch.analysis import sanitizer
+    from ratelimit_tpu_torch.server import debug_profiling
+
+    assert debug_profiling.allow_blocking is sanitizer.allow_blocking
+    assert not hasattr(debug_profiling, "_AllowBlocking")
+    with pytest.raises(ValueError, match="justification"):
+        debug_profiling.allow_blocking("")
