@@ -214,18 +214,39 @@ Phases, one line each; any failure exits non-zero:
    sanitizer uninstalled, in alternating pairs.  Any lock-order cycle,
    any unsanctioned blocking call under a lock, a child that does not
    exit 0, or no by-value launch of one of the three fails the smoke.
+16. banks in groups: 8 banks in groups, one per card on a host of two
+   or more cards (the largest of 1, 2, 4, 8 that fits), else 4 groups of
+   2 banks on the one card, each group its own tensor and stream -- the
+   graft batch and a batch with negative and out-of-table ids through
+   meshes of 1, 2 and 4 groups in every epilogue (decision block,
+   afters, u8 / u16 readback): bit-equal to the one-group step and the
+   plain version, tables too, K7's group form launched once a group and
+   the combine once a step; device time of the grouped step against the
+   one-launch step; cuda-sharded at 2^20 slots over the grouped mesh
+   beside one over one group on one pinned clock -- the 5/min
+   progression, 40 spread keys, 8 clients x 60 on a 120/minute key
+   admitting exactly 120 on each, export_counts and every key's counter
+   equal, K6 launched by every group on its own stream, warm
+   microseconds per request of both in alternating pairs, the grouped
+   runner's checkpoint restored by a one-group runner with equal counts
+   -- and phase 8's stall on the last group's stream: quarantined,
+   answered by the mirror within the deadline + STALL_RPC_MARGIN_S,
+   exactly 120 of 180 admitted, one hang fault and no other, the first
+   fallback answer split into detection, mirror seeding and the numpy
+   step; then K7's group form and the combine against their plain
+   versions and timed.
 
-Phases 6, 7 and 9 run their runners on a clock pinned half way through
-a minute (pinned_clock), so no 5/minute progression waits for a new
-minute.  Phases 6, 7, 9, 10, 12, 13, 14 and 15 run with the fault domain armed at its defaults
+Phases 6, 7, 8, 9 and 16 run their runners on a clock pinned half way
+through a minute (pinned_clock), so no 5/minute progression waits for
+a new minute and no hourly rule of phase 8 rolls over.  Phases 6, 7, 9, 10, 12, 13, 14, 15 and 16 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
-one stall, and phase 12 for its); every served phase binds its three listeners to free local
+one stall, and phases 12 and 16 for theirs); every served phase binds its three listeners to free local
 ports.  Kernel launch counts are zeroed just before each main-path
-phase (4-14; phase 15 counts the by-value launches of its own child)
+phase (4-14, 16; phase 15 counts the by-value launches of its own child)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
-the K3 update, K3's decision block, K7).  The last lines
+the K3 update, K3's decision block, K7, K7's group form).  The last lines
 are a JSON summary of the kernels and
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -1550,6 +1571,10 @@ descriptors:
       unit: hour
       requests_per_unit: 1000000
       algorithm: gcra
+  - key: groups
+    rate_limit:
+      unit: minute
+      requests_per_unit: 120
 """
 
 #: Settings that would move the fault domain off its defaults; every
@@ -1990,12 +2015,13 @@ def sleep_cycles_per_ms(torch) -> float:
 
 
 def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms,
-                  value=None, during=None, behind=None):
+                  value=None, during=None, behind=None, group=0):
     """One episode on `bank`: 40 hits on a fresh `key` value (a 120/hour
     rule; `value` names one that lands on `bank`), a snapshot, a kernel
-    spinning for STALL_DEADLINES deadlines on the bank's own stream, 40
-    hits during the stall (answered by the host mirror), `during(stall
-    end event)` if given, the supervised restart, 100 more hits.
+    spinning for STALL_DEADLINES deadlines on the bank's own stream (its
+    bank group `group`'s, where its banks lie in groups), 40 hits during
+    the stall (answered by the host mirror), `during(stall end event)`
+    if given, the supervised restart, 100 more hits.
     Exactly 120 of the 180 must be admitted.  With `behind`, another
     bank, a snapshot of `bank` is queued just behind the stall (the
     supervisor's periodic one, landing there by chance): it must give
@@ -2016,20 +2042,19 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
     fallback0 = fd.stat_fallback_decisions
     restarts0 = rec.restarts
     stall_ms = STALL_DEADLINES * fd.kernel_deadline_s * 1e3
-    stall_end = torch.cuda.Event()
-    with torch.cuda.stream(engine._stream):
-        torch.cuda._sleep(int(stall_ms * cycles_per_ms))
-        stall_end.record()
+    stall_end = stall_stream(torch, engine, stall_ms, cycles_per_ms, group)
     t_stall = time.monotonic()
     snapshots = snapshot_behind(fd, bank, behind, old_d) if behind is not None else None
     rpc_ms = []
     degraded = None
     quarantined_at = None
+    first_rpc = None
     for i in range(40):
         t0 = time.perf_counter()
         codes.append(request(key, value).overall_code)
         rpc_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
+            first_rpc = (t0, time.perf_counter())
             degraded = runner.health.degraded
             quarantined_at = rec.quarantined_at
     fallback = fd.stat_fallback_decisions - fallback0
@@ -2066,7 +2091,9 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         restart_s=t_restart - t_stall,
         stall_s=t_over - t_stall,
         restart_during_stall=t_restart < t_over,
-        own_stream=new_engine._stream.cuda_stream != engine._stream.cuda_stream,
+        own_stream=new_engine._stream.cuda_stream not in {
+            x.cuda_stream for x in (engine._stream, *getattr(engine, "_more_streams", ()))
+        },
         launches_after_swap=after_swap,
         admitted=admitted,
         offered=len(codes),
@@ -2074,6 +2101,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
         old_threads_ended=not (old_d._thread.is_alive() or old_d._completer.is_alive()),
         during=extra,
         snapshots=snapshots,
+        first_rpc=first_rpc,
     )
     bound_ms = (fd.kernel_deadline_s + STALL_RPC_MARGIN_S) * 1e3
     if codes[:80] != [OK] * 80:
@@ -2135,10 +2163,11 @@ def fault_phase(torch, kernels, fw, gcra):
     other banks must stay closed."""
     kernels.launches.clear()
     cycles_per_ms = sleep_cycles_per_ms(torch)
-    if time.time() % 3600 > 3600 - 60:
-        # The fixed-window probe rule counts per hour: no rollover inside.
-        time.sleep(3601 - time.time() % 3600)
-    with serving("cuda", env={"DEVICE_RESTART_BACKOFF_S": FAULT_BACKOFF_S}) as (
+    # The probe rules count per hour: on a pinned clock no hour rolls
+    # over inside the phase, and the GCRA cell never refills.
+    with serving(
+        "cuda", env={"DEVICE_RESTART_BACKOFF_S": FAULT_BACKOFF_S}, time_source=pinned_clock()
+    ) as (
         runner,
         request,
         R,
@@ -3062,11 +3091,12 @@ def wb_counting(runner, R, clients, keys, what) -> dict:
                 attempts=attempt + 1)
 
 
-def stall_stream(torch, engine, ms, cycles_per_ms):
-    """A kernel spinning `ms` on `engine`'s stream; returns the event
-    recorded after it."""
+def stall_stream(torch, engine, ms, cycles_per_ms, group=0):
+    """A kernel spinning `ms` on `engine`'s stream (its bank group
+    `group`'s, on that group's card, where its banks lie in groups);
+    returns the event recorded after it."""
     end = torch.cuda.Event()
-    with torch.cuda.stream(engine._stream):
+    with torch.cuda.stream((engine._stream, *getattr(engine, "_more_streams", ()))[group]):
         torch.cuda._sleep(int(ms * cycles_per_ms))
         end.record()
     return end
@@ -5116,6 +5146,520 @@ def sanitized_lines(o, smi) -> list:
     ]
 
 
+# -- phase 16: banks in groups --------------------------------------------
+
+#: Groups of the forward meshes, each 8 banks.
+FORWARD_GROUPS = (1, 2, 4)
+#: Groups of the served mesh on a host with one card.
+SERVED_GROUPS = 4
+GROUPS_LIMIT = 120  # the groups rule's requests per minute
+GROUPS_CLIENTS = 8
+GROUPS_PER_CLIENT = 60
+GROUP_PAIRS = 10
+GROUP_LEG = 100
+#: Epilogues of the general step the forward check runs: the decision
+#: block (model.step), the afters (step_counters), the narrow readbacks.
+GROUP_LAYOUTS = ("decide", "", "uint8", "uint16")
+
+
+def group_placement(torch, dev):
+    """(groups, their devices, a sentence): on a host of two or more
+    visible cards one group per card, 8 banks over the largest of 1, 2,
+    4, 8 cards that fits; on one card SERVED_GROUPS groups of 2 banks on
+    `dev`."""
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        g = max(d for d in (1, 2, 4, 8) if d <= cards)
+        return g, tuple(torch.device("cuda", i) for i in range(g)), (
+            f"{g} groups of {BANKS // g} banks, one per card, over {cards} visible cards"
+        )
+    return SERVED_GROUPS, (dev,) * SERVED_GROUPS, (
+        f"{SERVED_GROUPS} groups of {BANKS // SERVED_GROUPS} banks, all on {dev} "
+        f"(one visible card: each group its own tensor and stream)"
+    )
+
+
+def group_mesh(torch, sh, dev, groups):
+    """8 banks in `groups` groups: one group on `dev`, several round robin
+    over the placement's devices."""
+    if groups == 1:
+        return sh.make_mesh(BANKS, dev)
+    _, devices, _ = group_placement(torch, dev)
+    return sh.make_mesh(BANKS, devices=tuple(devices[i % len(devices)] for i in range(groups)))
+
+
+def split_groups(torch, sh, table, mesh):
+    """A (BANKS, spb) table as a mesh's state: each group's rows, copied
+    to its device."""
+    k = mesh.banks_per_group
+    return sh.ShardedFixedWindowModel.join(
+        [table[i * k : (i + 1) * k].clone().to(d) for i, d in enumerate(mesh.devices)]
+    )
+
+
+def joined(torch, model, state):
+    """A mesh's state as one (BANKS, spb) table on the home device."""
+    return torch.cat([p.to(model.device) for p in model.parts(state)])
+
+
+def groups_forward(torch, fw, sh, kernels, dev):
+    """Step 1: the graft batch (2^20 slots, 4096 lanes) and a batch of
+    duplicates with negative and out-of-table ids, from one seeded table,
+    through meshes of 1, 2 and 4 groups in each epilogue.  Every result
+    and table must be bit-equal to the one-group step's and to the plain
+    version's, and each grouped step launch K7's group form once a group
+    and the combine once."""
+    rng = np.random.default_rng(1616)
+    base, hot = _banked_table(torch, rng, NUM_SLOTS, dev)
+    _, graft = graft_device_batch(torch, fw, dev)
+    slots, hits, fresh = _dup_lanes(torch, rng, 4096, NUM_SLOTS, dev, 512, neg=True)
+    shadow = torch.from_numpy(rng.random(4096) < 0.2).to(dev)
+    batches = {"graft": graft, "negative and out-of-table ids": fw.DeviceBatch(
+        slots, hits, graft.limits, fresh, shadow)}
+    checked = 0
+    for (what, b), layout in itertools.product(batches.items(), GROUP_LAYOUTS):
+        plain_table = base.clone()
+        afters = sh._general_update_plain(
+            plain_table, b.slots, b.hits, b.fresh, None if layout == "decide" else b.limits,
+            "" if layout == "decide" else layout,
+        )
+        want = (fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
+                if layout == "decide" else afters)
+        for groups in FORWARD_GROUPS:
+            mesh = group_mesh(torch, sh, dev, groups)
+            model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
+            state = split_groups(torch, sh, base, mesh)
+            torch.cuda.synchronize()
+            before = dict(kernels.launches)
+            if layout == "decide":
+                state, got = model.step(state, b)
+            elif layout == "":
+                state, got = model.step_counters(state, b)
+            else:
+                state, got = model.step_counters_compact(state, layout, b)
+            torch.cuda.synchronize()
+            moved = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+                     if v != before.get(k, 0)}
+            kernel = (sh.K7_GROUP_STEP if layout == "decide" else sh.K7_GROUP) if groups > 1 else (
+                sh.K7_STEP if layout == "decide" else sh.K7)
+            expect = {kernel: groups, sh.COMBINE: 1} if groups > 1 else {kernel: 1}
+            if moved != expect:
+                fail(f"groups: {groups} groups, {layout or 'afters'} on {what} launched {moved}, "
+                     f"want {expect}")
+            fields = got._fields if layout == "decide" else (None,)
+            for f in fields:
+                g_, w_ = (getattr(got, f), getattr(want, f)) if f else (got, want)
+                if u32_max_abs_err(g_.to(dev), w_) != 0:
+                    fail(f"groups: {groups} groups, {layout or 'afters'} {f or ''} on {what} "
+                         f"disagrees with the plain version")
+            if u32_max_abs_err(joined(torch, model, state), plain_table) != 0:
+                fail(f"groups: {groups} groups' table on {what} ({layout}) disagrees")
+            checked += 1
+    return dict(checked=checked)
+
+
+def group_step_spread(torch, fw, sh, dev):
+    """Device time a step of the graft batch, min / median / max over 50
+    calls: the one-launch step of one group, and the step over
+    SERVED_GROUPS groups (its launches, copies and combine)."""
+    rng = np.random.default_rng(1616)
+    base, _ = _banked_table(torch, rng, NUM_SLOTS, dev)
+    _, graft = graft_device_batch(torch, fw, dev)
+    spread = {}
+    for groups in (1, SERVED_GROUPS):
+        mesh = group_mesh(torch, sh, dev, groups)
+        model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
+        state = split_groups(torch, sh, base, mesh)
+        spread[groups] = device_samples(lambda: model.step(state, graft), iters=50)
+    return spread
+
+
+def group_kernel_rows(torch, fw, sh, dev):
+    """K7's group form (decision epilogue and afters) on one group of
+    SERVED_GROUPS, and the combine of SERVED_GROUPS decision partials, at
+    4096 lanes of duplicates on a 2^20-slot table: each against its plain
+    version on the same inputs (max |err|), its device time, the plain
+    version's, its bound and, for the combine, the nearest PyTorch call
+    (a bytewise sum of the partials, equal here because every lane is 0
+    off its owner).  Returns (rows, errs)."""
+    rng = np.random.default_rng(1617)
+    n = 4096
+    k = BANKS // SERVED_GROUPS
+    spb = NUM_SLOTS // BANKS
+    base, _ = _banked_table(torch, rng, NUM_SLOTS, dev)
+    slots, hits, fresh = _dup_lanes(torch, rng, n, NUM_SLOTS, dev, n // 2)
+    limits = torch.from_numpy(rng.integers(1, 1000, n).astype(np.int32)).to(dev)
+    shadow = torch.zeros(n, dtype=torch.bool, device=dev)
+    s = slots.to(torch.int64)
+    mine = (s >= 0) & (s < NUM_SLOTS) & (s % BANKS < k)
+    owned = int(torch.unique(s[mine]).numel())
+    rows, errs = {}, {}
+
+    def row(name, kern, plain, nbytes, ops, library=None):
+        got, want = kern(), plain()
+        errs[name] = u32_max_abs_err(got, want)
+        if errs[name] != 0:
+            fail(f"{name} disagrees with its plain version: max|err|={errs[name]}")
+        per_call = device_samples(kern, iters=50)
+        dev_ms = None if per_call is None else float(np.mean(per_call))
+        plain_ms = device_ms(plain, iters=5)
+        lib = None
+        if library is not None:
+            lib = device_ms(library, iters=50)
+            lib = lib if lib is not None else time_ms(library)
+        b_ms, b_by = bound(nbytes, ops)
+        rows[name] = dict(
+            ms=dev_ms if dev_ms is not None else time_ms(kern),
+            plain_ms=plain_ms if plain_ms is not None else time_ms(plain, reps=5, inner=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        )
+
+    lanes = (slots, hits, fresh, limits)
+    # Each row starts the kernel and its plain version from one table:
+    # the first calls are compared, before the timing moves the two apart.
+    g1, g2 = base[:k].clone(), base[:k].clone()
+    row(sh.K7_GROUP_STEP,
+        lambda: sh.sharded_group_partial(g1, 0, BANKS, *lanes, "decide", shadow, 0.8),
+        lambda: sh._group_partial_plain(g2, 0, BANKS, *lanes, "decide", shadow, 0.8),
+        14 * n + 8 * owned + 33 * n, prefix_ops(n) + 34 * n)
+    u1, u2 = base[:k].clone(), base[:k].clone()
+    row(sh.K7_GROUP,
+        lambda: sh.sharded_group_partial(u1, 0, BANKS, *lanes, "", None, 0.0),
+        lambda: sh._group_partial_plain(u2, 0, BANKS, *lanes, "", None, 0.0),
+        9 * n + 8 * owned + 4 * n, prefix_ops(n) + 4 * n)
+    parts = [base[i * k : (i + 1) * k].clone() for i in range(SERVED_GROUPS)]
+    stride = -(-sh.partial_bytes("decide", n) // 16) * 16
+    stage = torch.zeros((SERVED_GROUPS, stride), dtype=torch.uint8, device=dev)
+    for i, p in enumerate(parts):
+        q = sh.sharded_group_partial(p, i * k, BANKS, *lanes, "decide", shadow, 0.8)
+        stage[i, : q.shape[0]] = q
+    out_bytes = sh.partial_bytes("decide", n)
+    row(sh.COMBINE,
+        lambda: sh.sharded_combine(stage, slots, BANKS, spb, "decide"),
+        lambda: sh._combine_plain(stage, slots, BANKS, spb, "decide"),
+        # The select reads only each lane's owner partial: one
+        # partial's bytes and the ids in, one partial out.
+        out_bytes + 4 * n + out_bytes, n,
+        library=lambda: torch.sum(stage, 0, dtype=torch.uint8))
+    return rows, errs
+
+
+#: The grouped engine's host stages, each a method that stage_clock
+#: wraps: the submission (of which the staging takes and each group's
+#: launch, _serve_on) and the fetch (of which the event waits).
+GROUP_STAGES = {"submit": "_device_submit", "take": "_take_group_staging",
+                "launch": "_serve_on", "fetch": "_fetch", "wait": "_wait"}
+
+
+def stage_clock(engine) -> dict:
+    """Wrap `engine`'s GROUP_STAGES methods (as instance attributes) so
+    that each adds its wall microseconds to the dict returned; "calls"
+    counts submissions.  unclock(engine) takes the wrappers off."""
+    spent = dict.fromkeys((*GROUP_STAGES, "calls"), 0.0)
+
+    def wrap(stage, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[stage] += (time.perf_counter_ns() - t0) / 1e3
+                spent["calls"] += stage == "submit"
+
+        return call
+
+    for stage, attr in GROUP_STAGES.items():
+        setattr(engine, attr, wrap(stage, getattr(engine, attr)))
+    return spent
+
+
+def unclock(engine) -> None:
+    for attr in GROUP_STAGES.values():
+        engine.__dict__.pop(attr, None)
+
+
+def stage_split(spent) -> dict:
+    """Microseconds a submission by stage: routing and packing (the
+    submission less its staging takes and launches), the takes, the
+    launches, the event waits, and the gather (the fetch less its
+    waits)."""
+    n = max(spent["calls"], 1)
+    return dict(
+        route_pack=(spent["submit"] - spent["take"] - spent["launch"]) / n,
+        take=spent["take"] / n, launch=spent["launch"] / n, wait=spent["wait"] / n,
+        gather=(spent["fetch"] - spent["wait"]) / n, submissions=int(spent["calls"]),
+    )
+
+
+def group_engine_split(torch, sh, dev):
+    """The engine alone, no server: microseconds of one step
+    (step_submit + step_complete of one key) on an engine of 8 banks in
+    the placement's groups and on one of one group, medians of
+    GROUP_PAIRS alternating pairs of GROUP_LEG steps, and one more
+    clocked leg each, split by stage."""
+    from ratelimit_tpu_torch.backends.engine import HostBatch
+
+    _, devices, _ = group_placement(torch, dev)
+    engines = (
+        sh.ShardedCounterEngine(sh.make_mesh(BANKS, devices=devices), num_slots=NUM_SLOTS),
+        sh.ShardedCounterEngine(sh.make_mesh(BANKS, dev), num_slots=NUM_SLOTS),
+    )
+    hb = HostBatch(slots=np.array([4242], np.int32), hits=np.ones(1, np.uint32),
+                   limits=np.full(1, 100, np.uint32), fresh=np.zeros(1, bool),
+                   shadow=np.zeros(1, bool))
+
+    def leg(e):
+        t0 = time.perf_counter()
+        for _ in range(GROUP_LEG):
+            e.step_complete(e.step_submit(hb))
+        return (time.perf_counter() - t0) / GROUP_LEG * 1e6
+
+    try:
+        for e in engines:
+            leg(e)
+        pairs = []
+        for i in range(GROUP_PAIRS):
+            legs = [None, None]
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                legs[side] = leg(engines[side])
+            pairs.append(legs)
+        split = {}
+        for name, e in zip(("grouped", "one group"), engines):
+            spent = stage_clock(e)
+            try:
+                split[name] = dict(step_us=leg(e), **stage_split(spent))
+            finally:
+                unclock(e)
+    finally:
+        for e in engines:
+            e.give_back_stream()
+    diffs = [p[0] - p[1] for p in pairs]
+    return dict(step_us=[float(np.median([p[i] for p in pairs])) for i in (0, 1)],
+                diff_us=(float(np.median(diffs)), min(diffs), max(diffs)), split=split)
+
+
+def group_streams(engine):
+    return [x.cuda_stream for x in (engine._stream, *engine._more_streams)]
+
+
+def spy_group_launches(torch, engine):
+    """Record, for each K6 launch of `engine`'s model, its group (by the
+    table it updates) and the stream it was enqueued on."""
+    m = engine.model
+    seen = []
+    ptrs = {p.data_ptr(): g for g, p in enumerate(m.parts(engine._counts))}
+
+    def wrap(fn):
+        def call(counts, *args):
+            seen.append((ptrs.get(counts.data_ptr()),
+                         torch.cuda.current_stream(counts.device).cuda_stream))
+            return fn(counts, *args)
+
+        return call
+
+    m.step_counters_unique_routed_lanes = wrap(m.step_counters_unique_routed_lanes)
+    m.step_counters_unique_routed_packed = wrap(m.step_counters_unique_routed_packed)
+    return seen
+
+
+def key_counts(engine) -> dict:
+    """Each live key's counter (export_counts in global slot order)."""
+    counts = engine.export_counts()
+    return {k: int(counts[s]) for k, s, _e in engine.slot_table.entries()}
+
+
+def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
+    """Steps 2-4: cuda-sharded with 2^20 slots over the placement's
+    groups beside one over one group, both on one pinned clock and fed
+    the same requests; the checkpoint of the grouped runner restored into
+    a one-group runner; the stall of one group's stream; the served cost
+    of both in alternating pairs."""
+    groups, devices, said = group_placement(torch, dev)
+    clock = pinned_clock()
+    out = dict(placement=said)
+    with contextlib.ExitStack() as stack:
+        ckpt = stack.enter_context(tempfile.TemporaryDirectory())
+        rg, req_g, R = stack.enter_context(serving(
+            "cuda-sharded", env={"TPU_CHECKPOINT_DIR": ckpt}, device=dev,
+            mesh=sh.make_mesh(BANKS, devices=devices), time_source=clock))
+        r1, req_1, _ = stack.enter_context(serving(
+            "cuda-sharded", device=dev, mesh=sh.make_mesh(BANKS, dev), time_source=clock))
+        OK, OVER = R.OK, R.OVER_LIMIT
+        eg, e1 = rg.cache.engine, r1.cache.engine
+        if not isinstance(eg, sh.ShardedCounterEngine) or (
+            eg.model.num_banks, eg.model.groups, eg.model.num_slots
+        ) != (BANKS, groups, NUM_SLOTS):
+            fail(f"groups: cuda-sharded did not build {BANKS} banks of 2^20 slots in {groups} groups")
+        if e1.model.groups != 1 or len(set(group_streams(eg))) != groups:
+            fail(f"groups: streams {group_streams(eg)} are not one a group")
+        seen = spy_group_launches(torch, eg)
+        for name, req in (("grouped", req_g), ("one group", req_1)):
+            answers = six_hits(req, "foo", "groups")
+            codes = [a.overall_code for a in answers]
+            remaining = [a.statuses[0].limit_remaining for a in answers]
+            if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
+                fail(f"groups: 5/min progression wrong ({name}): {codes} {remaining}")
+            for i in range(40):
+                if req("burst", f"gspread{i}").statuses[0].limit_remaining != 4:
+                    fail(f"groups: spread key {i} counted wrong ({name})")
+        for r in (rg, r1):
+            r.cache.flush()
+        if not np.array_equal(eg.export_counts(), e1.export_counts()):
+            fail("groups: export_counts of the grouped engine differs from one group's")
+        admitted = {}
+        for name, r in (("grouped", rg), ("one group", r1)):
+            res = grpc_clients(r, GROUPS_CLIENTS, lambda i, call: [
+                call("groups", "hot")[0] for _ in range(GROUPS_PER_CLIENT)])
+            admitted[name] = sum(c == OK for codes in res for c in codes)
+            if admitted[name] != GROUPS_LIMIT:
+                fail(f"groups: {name} admitted {admitted[name]} of "
+                     f"{GROUPS_CLIENTS * GROUPS_PER_CLIENT}, want {GROUPS_LIMIT}")
+        for r in (rg, r1):
+            r.cache.flush()
+        if key_counts(eg) != key_counts(e1):
+            fail("groups: a key's counter differs between the grouped and the one-group engine")
+        launched = {g: {st for gg, st in seen if gg == g} for g in range(groups)}
+        streams = group_streams(eg)
+        if any(launched[g] != {streams[g]} for g in range(groups)):
+            fail(f"groups: K6 launches by group and stream {launched}, streams {streams}")
+        out.update(admitted=admitted, launches_by_group=[
+            sum(gg == g for gg, _ in seen) for g in range(groups)])
+        # Served cost, grouped against one group, in alternating pairs.
+        pairs = []
+        for i in range(GROUP_PAIRS):
+            legs = [None, None]
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):  # alternate which leg runs first
+                legs[side] = warm_us((req_g, req_1)[side], "obs_fw", n=GROUP_LEG)
+            pairs.append(legs)
+        out["served_us"] = [float(np.median([p[i] for p in pairs])) for i in (0, 1)]
+        diffs = [p[0] - p[1] for p in pairs]
+        out["served_diff_us"] = (float(np.median(diffs)), min(diffs), max(diffs),
+                                 sum(d > 0 for d in diffs))
+        # Where a request's time goes in the engine: one more leg each,
+        # its host stages clocked.
+        split = {}
+        for name, req, e in (("grouped", req_g, eg), ("one group", req_1, e1)):
+            spent = stage_clock(e)
+            try:
+                split[name] = dict(request_us=warm_us(req, "obs_fw", n=GROUP_LEG),
+                                   **stage_split(spent))
+            finally:
+                unclock(e)
+        out["served_split"] = split
+        out["fault_free"] = [fault_free(rg, "groups (grouped)"), fault_free(r1, "groups (one group)")]
+        # The grouped runner's checkpoint restores into a one-group runner.
+        rg.cache.flush()
+        rg.checkpointer.checkpoint()
+        want = eg.export_counts()
+        with serving("cuda-sharded", env={"TPU_CHECKPOINT_DIR": ckpt}, device=dev,
+                     mesh=sh.make_mesh(BANKS, dev), time_source=clock) as (rb, _, _):
+            back = rb.cache.engine
+            if back.model.groups != 1 or not np.array_equal(back.export_counts(), want):
+                fail("groups: the grouped runner's checkpoint did not restore into one group")
+            out["restored_keys"] = len(back.slot_table)
+        # The stall of one group's stream (the last group's: on a host of
+        # several cards, not the home card).
+        fd = rg.cache.fault_domain
+        marks = {}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    marks.setdefault(name, (t0, time.perf_counter()))
+
+            return call
+
+        fd._quarantine = timed("quarantine", fd._quarantine)
+        fd.run_fallback = timed("fallback", fd.run_fallback)
+        try:
+            ep = stall_episode(torch, kernels, rg, req_g, OK, bank_of(rg, "lane0of1"), "probe",
+                               fw.K1_LANES, cycles_per_ms, group=groups - 1)
+        finally:
+            del fd._quarantine, fd.run_fallback
+        t0, t1 = ep["first_rpc"]
+        q0, q1 = marks["quarantine"]
+        f0, f1 = marks["fallback"]
+        ep["first_answer_ms"] = dict(
+            total=(t1 - t0) * 1e3, detection=(q0 - t0) * 1e3, mirror_seeding=(q1 - q0) * 1e3,
+            numpy_step=(f1 - f0) * 1e3, rest=((t1 - t0) - (q0 - t0) - (q1 - q0) - (f1 - f0)) * 1e3,
+        )
+        summary = fd.summary()
+        if summary["faults"] != {"hang": 1, "exception": 0, "device_lost": 0}:
+            fail(f"groups: faults beyond the one stall: {summary['faults']}")
+        out["stall"] = ep
+    return out
+
+
+def groups_phase(torch, kernels, fw, sh, dev, cycles_per_ms):
+    """Phase 16: the forward step over 1, 2 and 4 groups and the served
+    grouped runner (the main path: launches counted), then each new
+    kernel against its plain version and timed."""
+    kernels.launches.clear()
+    fwd = groups_forward(torch, fw, sh, kernels, dev)
+    served = groups_served(torch, kernels, sh, fw, dev, cycles_per_ms)
+    launches = dict(kernels.launches)
+    for name in (sh.K7_GROUP, sh.K7_GROUP_STEP, sh.COMBINE, sh.K6_LANES):
+        if launches.get(name, 0) < 1:
+            fail(f"groups: {name} never launched on the main path: {launches}")
+    fwd["spread"] = group_step_spread(torch, fw, sh, dev)
+    served["engine"] = group_engine_split(torch, sh, dev)
+    rows, errs = group_kernel_rows(torch, fw, sh, dev)
+    return launches, dict(forward=fwd, served=served), rows, errs
+
+
+def split_text(split) -> str:
+    return ", ".join(
+        f"{name} " + " / ".join(f"{k} {v:.1f}" for k, v in sp.items() if k != "submissions")
+        + f" ({sp['submissions']} submissions)"
+        for name, sp in split.items()
+    )
+
+
+def groups_lines(o, smi) -> list:
+    fwd, srv = o["forward"], o["served"]
+    st = srv["stall"]
+    split = st["first_answer_ms"]
+    eng = srv["engine"]
+    return [
+        f"groups: placement {srv['placement']} ({smi})",
+        f"groups forward: {fwd['checked']} steps (graft batch and negative / out-of-table ids, "
+        f"2^20 slots x 4096 lanes, {len(GROUP_LAYOUTS)} epilogues, {list(FORWARD_GROUPS)} groups) "
+        f"bit-equal to the one-group step and the plain version; K7's group form once a group "
+        f"and the combine once a step; device time a step, min / median / max over 50: "
+        f"one group (one launch) {spread_us(fwd['spread'][1])}, {SERVED_GROUPS} groups "
+        f"({SERVED_GROUPS} launches, {SERVED_GROUPS} copies, the combine) "
+        f"{spread_us(fwd['spread'][SERVED_GROUPS])}",
+        f"groups served: 6th hit OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0] and 40 spread keys "
+        f"at 4 on both runners, export_counts equal; {GROUPS_CLIENTS} clients x "
+        f"{GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key admitted {srv['admitted']}; K6 "
+        f"launches by group {srv['launches_by_group']}, each on its own stream; per-key counters "
+        f"equal; the checkpoint restored {srv['restored_keys']} keys into one group, counts "
+        f"equal; {srv['fault_free'][0]}",
+        f"groups served cost: median of {GROUP_PAIRS} alternating pairs, {GROUP_LEG} requests "
+        f"each: {srv['served_us'][0]:.1f} us/request over the grouped mesh, "
+        f"{srv['served_us'][1]:.1f} us/request over one group; grouped - one group per pair "
+        f"median {srv['served_diff_us'][0]:.1f}, min {srv['served_diff_us'][1]:.1f}, max "
+        f"{srv['served_diff_us'][2]:.1f}, grouped slower in {srv['served_diff_us'][3]} of "
+        f"{GROUP_PAIRS} ({smi})",
+        f"groups served split, us a submission by stage over one clocked leg each (request_us "
+        f"over its {GROUP_LEG} requests): {split_text(srv['served_split'])} ({smi})",
+        f"groups engine alone, one key a step, median of {GROUP_PAIRS} alternating pairs of "
+        f"{GROUP_LEG} steps: {eng['step_us'][0]:.1f} us/step grouped, {eng['step_us'][1]:.1f} one "
+        f"group; per pair median {eng['diff_us'][0]:.1f}, min {eng['diff_us'][1]:.1f}, max "
+        f"{eng['diff_us'][2]:.1f}; clocked legs: {split_text(eng['split'])} ({smi})",
+        f"groups stall: one group's stream for {st['stall_ms']:.0f} ms: quarantined after "
+        f"{st['quarantine_ms']:.1f} ms, RPCs during the stall max {st['rpc_max_ms']:.1f} ms "
+        f"(p99 {st['rpc_p99_ms']:.1f}), {st['fallback']} fallback answers, faults {st['faults']}, "
+        f"admitted {st['admitted']} of {st['offered']}, restart after {st['restart_s']:.2f} s on "
+        f"its own stream; first fallback answer {split['total']:.1f} ms = detection "
+        f"{split['detection']:.1f} + mirror seeding {split['mirror_seeding']:.1f} + numpy step "
+        f"{split['numpy_step']:.1f} + rest {split['rest']:.1f} ms",
+    ]
+
+
 def main() -> None:
     import torch
 
@@ -5412,9 +5956,20 @@ def main() -> None:
     for line in sanitized_lines(sanitized, smi):
         log(line)
 
+    # 16. banks in groups: K7's group form, the combine, K6 per group
+    grp_launches, groups_out, grp_rows, grp_errs = groups_phase(
+        torch, kernels, fw, sh, dev, cycles_per_ms
+    )
+    lap("groups")
+    log(f"groups: launches {grp_launches}")
+    for line in groups_lines(groups_out, smi):
+        log(line)
+    timing.update(grp_rows)
+    errs.update(grp_errs)
+
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,
-        top_launches, wb_launches, obs_launches, ovl_launches, ft_launches,
+        top_launches, wb_launches, obs_launches, ovl_launches, ft_launches, grp_launches,
     )
     main_launches = {
         k: sum(p.get(k, 0) for p in phases) for k in set().union(*phases)
@@ -5422,10 +5977,12 @@ def main() -> None:
     # The fused general step runs the bodies of K2, the K3 update and
     # decide, and K7: its launches count for each body it runs.
     bodies = {
-        prefix_cuda.KERNEL: (prefix_cuda.KERNEL, fw.K3_UPDATE, fw.K3_STEP, sh.K7, sh.K7_STEP),
+        prefix_cuda.KERNEL: (prefix_cuda.KERNEL, fw.K3_UPDATE, fw.K3_STEP, sh.K7, sh.K7_STEP,
+                             sh.K7_GROUP, sh.K7_GROUP_STEP),
         fw.K3_UPDATE: (fw.K3_UPDATE, fw.K3_STEP),
-        fw.K3_DECIDE: (fw.K3_DECIDE, fw.K3_STEP, sh.K7_STEP),
+        fw.K3_DECIDE: (fw.K3_DECIDE, fw.K3_STEP, sh.K7_STEP, sh.K7_GROUP_STEP),
         sh.K7: (sh.K7, sh.K7_STEP),
+        sh.K7_GROUP: (sh.K7_GROUP, sh.K7_GROUP_STEP),
     }
     fused = "ratelimit_tpu_torch/csrc/counter_update.cuh"
     replaces = {
@@ -5443,6 +6000,9 @@ def main() -> None:
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
         sh.K7_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
+        sh.K7_GROUP: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
+        sh.K7_GROUP_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
+        sh.COMBINE: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:322"),
     }
     rows = []
     for name, (source, rep) in replaces.items():

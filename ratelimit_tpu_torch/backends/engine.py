@@ -33,7 +33,10 @@ stream order stands in for the reference's donated-buffer chain.  The
 stream is passed explicitly wherever it is used: ``step_complete`` runs
 on another thread, and a stream context is thread-local.  No two live
 engines share a stream (``claim_stream``): a stall on one bank's stream
-must hold up no other bank.
+must hold up no other bank.  An engine whose table lies in several bank
+groups (parallel.ShardedCounterEngine) holds one stream, staging pool
+and event per group, each group's on its group's device
+(``_more_streams`` beside ``_stream``); this engine is one group.
 """
 
 from __future__ import annotations
@@ -99,6 +102,14 @@ def _create_stream(device: torch.device):
     return torch.cuda.ExternalStream(handle.value, device=device)
 
 
+def _stream_context(stream, device: torch.device):
+    """Context that makes `stream` current, and its device with it
+    (torch's set_stream does both); nothing off CUDA."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
+
+
 def claim_stream(device: torch.device, holder):
     """A stream of `device` that no live engine holds, now held by
     `holder` (None off CUDA).  torch's pool hands its streams out in
@@ -124,27 +135,33 @@ def claim_stream(device: torch.device, holder):
         return stream
 
 
+def _streams_of(holder) -> list:
+    """`holder`'s streams: ``_stream`` and, for an engine of several bank
+    groups (parallel.ShardedCounterEngine), its other groups' streams."""
+    streams = [getattr(holder, "_stream", None), *getattr(holder, "_more_streams", ())]
+    return [s for s in streams if s is not None]
+
+
 def release_stream(holder) -> None:
-    """Give `holder`'s stream back: a later engine may draw it."""
-    stream = getattr(holder, "_stream", None)
-    if stream is None:
-        return
+    """Give `holder`'s streams back: a later engine may draw them."""
     with _HELD_LOCK:
-        if _HELD_STREAMS.get(stream.cuda_stream) is holder:
-            del _HELD_STREAMS[stream.cuda_stream]
+        for stream in _streams_of(holder):
+            if _HELD_STREAMS.get(stream.cuda_stream) is holder:
+                del _HELD_STREAMS[stream.cuda_stream]
 
 
 def stream_idle(holder, lost: bool = False) -> bool:
-    """Whether `holder`'s stream has finished all the work queued on it
-    (True off CUDA).  A stream whose query fails -- a lost context --
-    answers `lost`: busy by default, so it stays held."""
-    stream = getattr(holder, "_stream", None)
-    if stream is None:
-        return True
-    try:
-        return bool(stream.query())
-    except Exception:
-        return lost
+    """Whether every stream of `holder` has finished all the work queued
+    on it (True off CUDA).  A stream whose query fails -- a lost context
+    -- answers `lost`: busy by default, so it stays held."""
+    for stream in _streams_of(holder):
+        try:
+            if not stream.query():
+                return False
+        except Exception:
+            if not lost:
+                return False
+    return True
 
 
 @dataclass
@@ -523,8 +540,7 @@ class CounterEngine:
         self.max_batch = self.buckets[-1]
         self._stream = claim_stream(self.device, self)
         self._free_staging: Deque[_Staging] = deque(maxlen=STAGING_POOL_CAP)
-        with self._on_stream():
-            self._counts = self.model.init_state()
+        self._counts = self._fresh_state()
         # Gauge snapshots, written only by the thread that owns the
         # slot table (the dispatcher collector) and read lock-free.
         self.stat_live_keys = 0
@@ -538,9 +554,12 @@ class CounterEngine:
         engine's own kernels: nothing of an engine waits on the whole
         device or on another engine's stream, so a stream stalled by one
         bank cannot hold up the restart of another."""
-        if self.device.type != "cuda":
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self._stream)
+        return _stream_context(self._stream, self.device)
+
+    def _fresh_state(self):
+        """A fresh table, made on the engine stream."""
+        with self._on_stream():
+            return self.model.init_state()
 
     def give_back_stream(self) -> None:
         """release_stream of this engine.  An engine proxy
@@ -752,11 +771,16 @@ class CounterEngine:
         """Wait for one submission's readback; copy it out and recycle
         its staging buffers (the pool keeps STAGING_POOL_CAP at most)."""
         st, readback = handle
-        if st.event is not None:
-            st.event.synchronize()  # tpu-lint: disable=torch-host-sync -- the wait for this submission's own readback: it runs on the dispatcher's completer thread, or with no batch window on the RPC's thread after the bank's lock is released, under no lock, and each RPC waits on its own item event bounded by KERNEL_DEADLINE_S
+        self._wait(st)
         out = readback.numpy().view(_HOST_VIEW[readback.dtype]).copy()
         self._free_staging.append(st)
         return out
+
+    @staticmethod
+    def _wait(st: _Staging) -> None:
+        """Wait for `st`'s event: the device work that writes its readback."""
+        if st.event is not None:
+            st.event.synchronize()  # tpu-lint: disable=torch-host-sync -- the wait for this submission's own readback: it runs on the dispatcher's completer thread, or with no batch window on the RPC's thread after the bank's lock is released, under no lock, and each RPC waits on its own item event bounded by KERNEL_DEADLINE_S
 
     def _device_submit(self, dedup: _Dedup, now: int):
         """Launch the device step for one deduped chunk; returns the
@@ -810,26 +834,39 @@ class CounterEngine:
         lanes_step,
         packed_step,
     ):
-        """Run a serving step on the packed batch `host` (int32[...,
-        rows, padded], a view of `st.packed`) whose readback is
-        dtype[shape], and return the handle (st, readback) for _fetch.
-        The batch's shape alone picks the form: by value
-        (`lanes_step(counts, host, out)`; one launch, the readback
-        written by the kernel into `st.readback`), or through device
-        memory (`packed_step(counts, packed)`; upload, kernel, readback
-        copy).  Each returns (counts, readback).  Runs on the engine
-        stream; the event follows the kernel either way."""
+        """Run a serving step on the engine's table (_serve_on) and return
+        the handle (st, readback) for _fetch."""
+        self._counts, handle = self._serve_on(
+            self._stream, self._counts, st, host, dtype, shape, lanes_step, packed_step
+        )
+        return handle
+
+    def _serve_on(self, stream, counts, st: _Staging, host: torch.Tensor,
+                  dtype: torch.dtype, shape, lanes_step, packed_step):
+        """Run a serving step on the table `counts` on `stream` (and its
+        device) over the packed batch `host` (int32[..., rows, padded], a
+        view of `st.packed`) whose readback is dtype[shape].  The batch's
+        shape alone picks the form: by value (`lanes_step(counts, host,
+        out)`; one launch, the readback written by the kernel into
+        `st.readback`), or through device memory (`packed_step(counts,
+        packed)`; upload, kernel, readback copy).  Each returns (counts,
+        readback).  `st`'s event is recorded on `stream` after the last of
+        it.  Returns (counts, the handle (st, readback) for _fetch)."""
         rows, padded = host.shape[-2:]
-        with self._on_stream():
+        with _stream_context(stream, counts.device):
             if lanes_by_value(host.numel() // (rows * padded), padded):
                 nbytes = math.prod(shape) * dtype.itemsize
                 out = st.readback[:nbytes].view(dtype).view(shape)
-                self._counts, readback = lanes_step(self._counts, host, out)
-                self._record(st)
-                return st, readback
-            packed = host.to(self.device, non_blocking=True)
-            self._counts, out = packed_step(self._counts, packed)
-            return st, self._read_back(st, out)
+                counts, readback = lanes_step(counts, host, out)
+            else:
+                packed = host.to(counts.device, non_blocking=True)
+                counts, out = packed_step(counts, packed)
+                nbytes = out.numel() * out.element_size()
+                readback = st.readback[:nbytes].view(out.dtype).view(out.shape)
+                readback.copy_(out, non_blocking=True)
+            if st.event is not None:
+                st.event.record(stream)
+        return counts, (st, readback)
 
     def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
         """Generic algorithm path: ONE int32[5, padded] batch -- rows
@@ -864,22 +901,6 @@ class CounterEngine:
             lambda state, packed: m.step_serve_packed(state, packed, now),
         )
         return handle, None
-
-    def _read_back(self, st: _Staging, out: torch.Tensor) -> torch.Tensor:
-        """Enqueue the copy of `out` into `st`'s pinned readback (same
-        dtype and shape) and record `st`'s event after it.  Runs on the
-        engine stream."""
-        nbytes = out.numel() * out.element_size()
-        readback = st.readback[:nbytes].view(out.dtype).view(out.shape)
-        readback.copy_(out, non_blocking=True)
-        self._record(st)
-        return readback
-
-    def _record(self, st: _Staging) -> None:
-        """Record `st`'s event on the engine stream, after the work that
-        writes its readback; _fetch waits on it."""
-        if st.event is not None:
-            st.event.record(self._stream)
 
     # -- checkpoint surface ---------------------------------------------
 

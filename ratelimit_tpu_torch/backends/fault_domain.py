@@ -18,7 +18,10 @@ open window.  With it:
   into ``hang`` / ``exception`` / ``device_lost`` faults
   (``ratelimit.tpu.fault.*`` counters).  RPC waits are bounded by the
   same deadline (cuda_cache ``_execute``), so the FIRST request to hit
-  a stall reports it.
+  a stall reports it.  An engine whose banks lie in several groups
+  (parallel.ShardedCounterEngine) is ONE bank here: its completer waits
+  for every group's event under the one stamp, so a stall on any group
+  quarantines the engine as a stalled single table does.
 
 - **Quarantine + host fallback.**  A faulted bank's dispatcher is
   killed (its queue fast-fails) and its lanes re-route per
@@ -177,7 +180,8 @@ def default_engine_factory(bank: int, old_engine):
     """Rebuild a bank's engine from its predecessor's shape: same
     algorithm model (fresh state), same slot budget and buckets, on the
     old engine's device -- as the reference's factory, a bank-sharded
-    engine comes back as one table of the same slot count.  The new
+    engine comes back as one table of the same slot count, on the home
+    device (its first group's) where its banks lay in groups.  The new
     engine draws a stream that no live engine holds
     (engine.claim_stream): not the old one's, which may be stalled, and
     not another bank's."""

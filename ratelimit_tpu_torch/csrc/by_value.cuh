@@ -31,7 +31,17 @@ inline int lane_threads(int lanes) { return (lanes + 31) / 32 * 32; }
 
 // The device alias of the pinned host memory at `host`, into `*device`.
 // A failure (pageable memory has no alias) is returned and cleared, so the
-// next launch check does not report it.
+// next launch check does not report it.  The alias is asked in the
+// calling thread's current device context, the one the launch goes to:
+// every wrapper launches under its table's device (kernels.launch), so a
+// bank group on a second card takes its alias there.  That the same
+// pinned block is reachable from every card rests on the CUDA runtime's
+// unified-addressing rule ("Automatic Mapping of Host Allocated Host
+// Memory"): host memory from cudaHostAlloc or cudaMallocHost, as torch's
+// pinned allocator makes it, is directly accessible from every device
+// that supports unified addressing, whatever its flags, at one address.
+// One card cannot show this: chip_smoke.py's phase 16 does, on a host of
+// several cards, where its bank groups serve by value from every card.
 inline cudaError_t mapped_alias(void* host, void** device) {
   const cudaError_t err = cudaHostGetDevicePointer(device, host, 0);
   if (err != cudaSuccess) {

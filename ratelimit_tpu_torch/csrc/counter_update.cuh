@@ -9,11 +9,23 @@
 //
 // - WrappedIndex: one table, JAX's index semantics (slot_index.cuh): an
 //   id in [-num_slots, -1] addresses id + num_slots.
-// - StripedIndex: a (num_banks, slots_per_bank) table, bank-major.  Global
-//   slot s in [0, num_banks * slots_per_bank) lives in bank s % num_banks
-//   at position s / num_banks.  Every other id, negative ones included, is
-//   out of the table: the sharded JAX model masks ids to [0, num_slots)
-//   and never wraps them (ratelimit_tpu/parallel/sharded.py:281-287).
+// - GroupIndex: the banks [bank_lo, bank_lo + banks_here) of a
+//   (num_banks, slots_per_bank) table, bank-major, held as one bank
+//   group's (banks_here, slots_per_bank) tensor.  Global slot s in [0,
+//   num_banks * slots_per_bank) lives in bank s % num_banks at position
+//   s / num_banks.  Every other id, negative ones included, is out of the
+//   table: the sharded JAX model masks ids to [0, num_slots) and never
+//   wraps them (ratelimit_tpu/parallel/sharded.py:281-287).  An id owned
+//   by a bank outside the group is inert here, as on another chip of the
+//   JAX mesh.  A group of every bank (bank_lo 0, banks_here num_banks) is
+//   the whole sharded table.
+//
+// Each policy also says which lanes its table OWNS, the `owned` mask of
+// _bank_core (sharded.py:286): an in-table lane is owned by its bank's
+// table, an out-of-table lane by the table that holds bank 0.  A lane the
+// table does not own leaves the epilogue zero, as _bank_step zeroes it
+// before the psum; WrappedIndex, and a group of every bank, own every
+// lane.
 //
 // and on an epilogue: the raw afters, their narrow u8/u16 readback, or
 // the decision block's nine fields.  It is one cooperative launch
@@ -57,16 +69,30 @@ struct WrappedIndex {
   __device__ __forceinline__ long long operator()(int32_t slot) const {
     return slot_index(slot, num_slots);
   }
+  __device__ __forceinline__ bool owns(int32_t) const { return true; }
 };
 
-struct StripedIndex {
-  int num_banks;
+struct GroupIndex {
+  int num_banks;   // of the whole table
+  int bank_lo;     // the group's first bank
+  int banks_here;  // the group's banks: rows of its tensor
   long long slots_per_bank;
-  __device__ __forceinline__ long long operator()(int32_t slot) const {
+  // The group's row of `slot`'s bank, or -1 when another group holds it;
+  // -2 when the id is out of the table.
+  __device__ __forceinline__ int row(int32_t slot) const {
     if (slot < 0 || slot >= num_banks * slots_per_bank) {
-      return -1;
+      return -2;
     }
-    return (slot % num_banks) * slots_per_bank + slot / num_banks;
+    const int r = slot % num_banks - bank_lo;
+    return (r >= 0 && r < banks_here) ? r : -1;
+  }
+  __device__ __forceinline__ long long operator()(int32_t slot) const {
+    const int r = row(slot);
+    return r < 0 ? -1 : r * slots_per_bank + slot / num_banks;
+  }
+  __device__ __forceinline__ bool owns(int32_t slot) const {
+    const int r = row(slot);
+    return r >= 0 || (r == -2 && bank_lo == 0);
   }
 };
 
@@ -215,8 +241,10 @@ int launch_unique_step_lanes(void* counts, long long num_slots,
 //   step_counters_compact's narrow readback) and :294 decision_block
 //   (WrappedIndex: K3 update and K3 decide), and
 //   ratelimit_tpu/parallel/sharded.py:270 _bank_core with _bank_update,
-//   step_counters_compact and _bank_step (StripedIndex: K7; each lane has
-//   one owner bank, so the psum is the write of that lane).
+//   step_counters_compact and _bank_step (GroupIndex: K7 on one bank
+//   group; over every bank each lane has one owner bank, so the psum is
+//   the write of that lane; over fewer, sharded_combine, in sharded.cu,
+//   recombines the group's partial with the other groups').
 //
 // What bounds it.  About 14 B in per lane (slot, hits, fresh, limit,
 // shadow), 8 B gathered and scattered per distinct slot and at most 33 B
@@ -320,6 +348,22 @@ struct GeneralStep {
   bool aligned;      // tiles_aligned(slots, hits)
 };
 
+// The epilogue of a lane the table does not own: every output field 0.
+template <int kEpilogue>
+__device__ __forceinline__ void drop_lane(const GeneralStep& p, long long i) {
+  if constexpr (kEpilogue == kDecide) {
+    uint32_t* out = static_cast<uint32_t*>(p.out);
+    for (int r = 0; r < 8; ++r) {
+      out[r * static_cast<long long>(p.n) + i] = 0u;
+    }
+    p.set_lc[i] = 0;
+  } else if constexpr (kEpilogue == kAfters) {
+    p.afters[i] = 0u;
+  } else {
+    write_readback(p.out, i, 0u, 0u, kEpilogue);
+  }
+}
+
 // `counts`, `afters` and `incl` are written and read again across the
 // barriers, so they carry no __restrict__ (no read-only loads).
 template <class Index, int kEpilogue>
@@ -351,11 +395,14 @@ __global__ void __launch_bounds__(kTile)
   for (long long i = first; i < p.n; i += stride) {  // C
     const uint32_t h = p.hits[i];
     const uint32_t after = p.afters[i] + p.incl[i];
-    const long long slot = index(p.slots[i]);
+    const int32_t id = p.slots[i];
+    const long long slot = index(id);
     if (slot >= 0) {
       atomicAdd(&p.counts[slot], h);
     }
-    if constexpr (kEpilogue == kDecide) {
+    if (!index.owns(id)) {
+      drop_lane<kEpilogue>(p, i);
+    } else if constexpr (kEpilogue == kDecide) {
       decide_lane(after, h, p.limits[i], p.shadow[i] != 0, p.near_ratio,
                   static_cast<uint32_t*>(p.out), p.n, i, p.set_lc);
     } else if constexpr (kEpilogue == kAfters) {

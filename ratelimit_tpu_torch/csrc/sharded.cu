@@ -1,20 +1,25 @@
 // Bank-sharded fixed-window counter kernels for Hopper (sm_90a).
 //
-// The table is uint32 laid out (num_banks, slots_per_bank), bank-major, on
-// one device (the caller stores it as int32 of the same bits).  The JAX
-// model puts one bank on each chip of a mesh; here every bank lives on one
-// card, so no kernel needs a collective.  The kernels are those of the
-// single table (counter_update.cuh), under another index policy or with a
-// bank per blockIdx.y.
+// The table is uint32 laid out (num_banks, slots_per_bank), bank-major
+// (the caller stores it as int32 of the same bits).  The JAX model puts
+// one bank on each chip of a mesh and recombines per-lane answers with a
+// psum.  The port places the banks in GROUPS (parallel/sharded.py Mesh):
+// group g holds the contiguous banks [g k, (g + 1) k) as one (k,
+// slots_per_bank) tensor on its own device, and one group may hold every
+// bank.  The kernels are those of the single table (counter_update.cuh),
+// under another index policy or with a bank per blockIdx.y, plus
+// sharded_combine, which stands in for the psum where the banks lie in
+// more than one group.
 //
 // K6 rl_sharded_routed_step replaces the routed unique step
 //   ratelimit_tpu/parallel/sharded.py:184-227
 //   step_counters_unique_routed_packed -> _bank_unique (:229-266).
 // The host routes each unique slot to its bank and hands over one packed
 // int32[num_banks, 4, cap] batch of LOCAL ids (padding ids
-// slots_per_bank + i).  One launch serves every bank, one thread per
-// routed lane, no atomics (slots are unique within a bank): in the device
-// form (rl_sharded_routed_step) grid (cap / 256, num_banks) over the
+// slots_per_bank + i).  One launch serves every bank of a group (the
+// batch's rows of that group), one thread per routed lane, no atomics
+// (slots are unique within a bank): in the device form
+// (rl_sharded_routed_step) grid (cap / 256, num_banks) over the
 // batch in device memory; in the by-value form
 // (rl_sharded_routed_step_lanes, num_banks x cap <= 128, so 8 banks up to
 // cap 16) one block of num_banks x cap threads over the batch carried in
@@ -26,18 +31,43 @@
 // latency bounds it, as it bounds K1.  The TPU's 128-wide row gather
 // (sharded.py:239-253) is a TPU layout trick and has no counterpart.
 //
-// K7 rl_sharded_general_step replaces the general update _bank_core
-// (sharded.py:270-302) and the psum of _bank_update,
-// step_counters_compact and _bank_step (:116-141,304-324) over a
-// replicated batch of GLOBAL ids.  StripedIndex gives each in-table lane
-// its owner bank and position; an out-of-table lane (negative ids
-// included: they never wrap here) reads a virtual zero and scatters
-// nowhere.  The per-slot prefix runs on the raw global ids.  Each lane
-// has exactly one owner, so the psum is the write of that lane: no
-// collective.  It is K3's general step under another index policy, one
+// The host routes by bank, so K6 needs no collective: a group's launch
+// serves that group's rows of the batch (the engine packs one
+// int32[k, 4, cap] batch a group, each on its group's stream).
+//
+// K7 rl_sharded_group_step replaces the general update _bank_core
+// (sharded.py:270-302) and _bank_update, step_counters_compact and
+// _bank_step (:116-141,304-324) over a replicated batch of GLOBAL ids,
+// on one group's tensor under GroupIndex (counter_update.cuh): the group
+// zeroes, gathers and scatters only the lanes of its own banks; an
+// out-of-table lane (negative ids included: they never wrap here) reads
+// a virtual zero and scatters nowhere.  The per-slot prefix runs on the
+// raw global ids over the whole replicated batch, as every chip of the
+// JAX mesh does.  The group writes its OWNED lanes -- out-of-table ones
+// in the group of bank 0 -- and leaves every other lane 0, as _bank_step
+// does before its psum: that partial is the group's share.  A group of
+// every bank owns every lane, so its partial is the answer and needs no
+// psum.  It is K3's general step under another index policy, one
 // cooperative launch (general_step_kernel, counter_update.cuh, says what
 // bounds it), with the raw afters, the narrow u8/u16 readback
 // min(after, limit + hits) or the decision block as its epilogue.
+//
+// sharded_combine, rl_sharded_combine, replaces the psum itself.  The
+// caller copies each group's partial to the home device (the first
+// group's), one row of parts[groups, part_bytes] each, by the same copy
+// on one card and on several, and one launch selects, for each lane, the
+// fields of the partial of its owner group: (s % num_banks) /
+// banks_per_group for an in-table id s, the group of bank 0 for any other.
+// Each lane has exactly one owner and every other partial is 0 there, so
+// the select equals JAX's sum.  A partial is rows32 rows of u32[n], then
+// rows16 rows of u16[n], then rows8 rows of u8[n] -- the afters 1/0/0, the
+// u16 readback 0/1/0, the u8 readback 0/0/1, the decision block 8/0/1
+// (set_local_cache its u8 row) -- and `out` has the same layout.  One
+// thread a lane, no atomics.  Bound: bytes, and the select reads only the
+// owner's partial of each lane: one partial's bytes and the ids in, one
+// partial out -- about 0.29 MB for the decision block of 4096 lanes, 0.09
+// us at 3.35 TB/s, whatever the number of groups, so the launch bounds
+// it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,12 +91,76 @@ extern "C" int rl_sharded_routed_step_lanes(void* counts,
                                   cap, out, out_kind, stream);
 }
 
-extern "C" int rl_sharded_general_step(
-    void* counts, int num_banks, long long slots_per_bank, const void* slots,
-    const void* hits, const void* fresh, const void* limits,
-    const void* shadow, float near_ratio, void* afters, void* incl, void* out,
-    void* set_lc, int epilogue, int n, void* stream) {
-  return launch_general_step(counts, StripedIndex{num_banks, slots_per_bank},
-                             slots, hits, fresh, limits, shadow, near_ratio,
-                             afters, incl, out, set_lc, epilogue, n, stream);
+namespace {
+
+__global__ void combine_kernel(const uint8_t* __restrict__ parts,
+                               long long part_bytes,
+                               const int32_t* __restrict__ slots,
+                               int num_banks, long long num_slots,
+                               int banks_per_group, int n, int rows32,
+                               int rows16, int rows8,
+                               uint8_t* __restrict__ out) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) {
+    return;
+  }
+  const int32_t s = slots[i];
+  const long long owner =
+      (s >= 0 && s < num_slots) ? (s % num_banks) / banks_per_group : 0;
+  const uint8_t* src = parts + owner * part_bytes;
+  const long long w = n;
+  for (int r = 0; r < rows32; ++r) {
+    reinterpret_cast<uint32_t*>(out)[r * w + i] =
+        reinterpret_cast<const uint32_t*>(src)[r * w + i];
+  }
+  const long long at16 = 4 * rows32 * w;
+  for (int r = 0; r < rows16; ++r) {
+    reinterpret_cast<uint16_t*>(out + at16)[r * w + i] =
+        reinterpret_cast<const uint16_t*>(src + at16)[r * w + i];
+  }
+  const long long at8 = at16 + 2 * rows16 * w;
+  for (int r = 0; r < rows8; ++r) {
+    out[at8 + r * w + i] = src[at8 + r * w + i];
+  }
+}
+
+}  // namespace
+
+extern "C" int rl_sharded_group_step(
+    void* counts, int num_banks, int bank_lo, int banks_here,
+    long long slots_per_bank, const void* slots, const void* hits,
+    const void* fresh, const void* limits, const void* shadow,
+    float near_ratio, void* afters, void* incl, void* out, void* set_lc,
+    int epilogue, int n, void* stream) {
+  if (bank_lo < 0 || banks_here < 1 || bank_lo + banks_here > num_banks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_general_step(
+      counts, GroupIndex{num_banks, bank_lo, banks_here, slots_per_bank},
+      slots, hits, fresh, limits, shadow, near_ratio, afters, incl, out,
+      set_lc, epilogue, n, stream);
+}
+
+// `parts` is u8[groups, part_bytes] on the home device, part_bytes a
+// multiple of 4 (each partial's u32 rows stay aligned); `out` holds one
+// partial's layout.
+extern "C" int rl_sharded_combine(const void* parts, long long part_bytes,
+                                  int groups, const void* slots,
+                                  int num_banks, long long slots_per_bank,
+                                  int rows32, int rows16, int rows8, int n,
+                                  void* out, void* stream) {
+  if (n <= 0) {
+    return 0;
+  }
+  if (groups < 1 || num_banks % groups != 0 || part_bytes % 4 != 0 ||
+      part_bytes < (4LL * rows32 + 2LL * rows16 + rows8) * n) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  combine_kernel<<<blocks_for(n), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(parts), part_bytes,
+      static_cast<const int32_t*>(slots), num_banks,
+      static_cast<long long>(num_banks) * slots_per_bank, num_banks / groups,
+      n, rows32, rows16, rows8, static_cast<uint8_t*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,11 +17,19 @@ or launch raises, and there is no fallback to the plain versions.
 ``launches`` counts kernel launches by kernel name.  Every wrapper adds
 one where it launches its kernel, and nowhere else, so a run can show
 that its main path went through the kernels.
+
+A ctypes call reaches the calling thread's CURRENT CUDA device, not the
+device its pointers lie on.  So every wrapper launches through
+:func:`launch`, which runs the call under the one device that the
+launch's device tensors lie on (:func:`device_of` raises ValueError
+where they lie on two): a bank group on a second card launches there,
+whatever device the thread had current.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -97,9 +105,13 @@ SIGNATURES = {
         "sharded",
         [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
     ),
-    "rl_sharded_general_step": (
+    "rl_sharded_group_step": (
         "sharded",
-        [_VP, _I32, _I64, *_GENERAL_STEP],
+        [_VP, _I32, _I32, _I32, _I64, *_GENERAL_STEP],
+    ),
+    "rl_sharded_combine": (
+        "sharded",
+        [_VP, _I64, _I32, _VP, _I32, _I64, _I32, _I32, _I32, _I32, _VP, _VP],
     ),
 }
 
@@ -234,6 +246,38 @@ def check(rc: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
         raise KernelError(f"{kernel}: CUDA launch failed with error {rc}", code=rc)
+
+
+def device_of(*tensors):
+    """The one device that the device tensors of a launch lie on; raises
+    ValueError where they lie on more than one."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(
+            "one launch's tensors must lie on one device, got "
+            + ", ".join(sorted(str(d) for d in devices))
+        )
+    return devices.pop()
+
+
+def on_device(device):
+    """Context under which `device` is the calling thread's current CUDA
+    device (nothing for the CPU)."""
+    import torch
+
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(entry: str, kernel: str, tensors, *args) -> None:
+    """Call the C entry `entry` with `args` under the device of
+    `tensors` (the launch's tensors in device memory, device_of), raise
+    on the error it returns, and count one launch of `kernel`."""
+    with on_device(device_of(*tensors)):
+        rc = function(entry)(*args)
+    check(rc, kernel)
+    launches[kernel] += 1
 
 
 def mapped_alias(host_ptr: int) -> int:

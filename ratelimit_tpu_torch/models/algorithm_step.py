@@ -73,7 +73,11 @@ def launch(
     n = packed.shape[1]
     if n == 0:
         return out
-    rc = kernels.function(fn)(
+    kernels.launch(
+        fn,
+        name,
+        # The by-value form's words and readback are host memory.
+        (state, *(t for t in (packed, out) if t.device.type != "cpu")),
         state.data_ptr(),
         state.shape[1],
         packed.data_ptr(),
@@ -82,8 +86,6 @@ def launch(
         out.data_ptr(),
         kernels.stream_ptr(state.device),
     )
-    kernels.check(rc, name)
-    kernels.launches[name] += 1
     return out
 
 

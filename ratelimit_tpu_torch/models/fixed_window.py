@@ -239,7 +239,10 @@ def fw_unique_step(
     out = torch.empty(n, dtype=OUT_DTYPES[out_dtype], device=counts.device)
     if n == 0:
         return out
-    rc = kernels.function("rl_fw_unique_step")(
+    kernels.launch(
+        "rl_fw_unique_step",
+        K1,
+        (counts, packed, out),
         counts.data_ptr(),
         counts.shape[0],
         packed.data_ptr(),
@@ -248,8 +251,6 @@ def fw_unique_step(
         _OUT_KIND[out_dtype],
         kernels.stream_ptr(counts.device),
     )
-    kernels.check(rc, K1)
-    kernels.launches[K1] += 1
     return out
 
 
@@ -309,7 +310,10 @@ def fw_unique_step_lanes(
     n = words.shape[1]
     if n == 0:
         return out
-    rc = kernels.function("rl_fw_unique_step_lanes")(
+    kernels.launch(
+        "rl_fw_unique_step_lanes",
+        K1_LANES,
+        (counts,),  # words and out are host memory
         counts.data_ptr(),
         counts.shape[0],
         words.data_ptr(),
@@ -318,8 +322,6 @@ def fw_unique_step_lanes(
         _OUT_KIND[out_dtype],
         kernels.stream_ptr(counts.device),
     )
-    kernels.check(rc, K1_LANES)
-    kernels.launches[K1_LANES] += 1
     return out
 
 
@@ -420,7 +422,9 @@ def launch_general_step(
         result = out
     if n == 0:
         return result
-    rc = kernels.function(entry)(
+    given = [t for t in (limits, shadow) if t is not None]
+    kernels.launch(
+        entry, kernel, (counts, slots, hits, fresh, *given, buf, out),
         counts.data_ptr(), *table, slots.data_ptr(), hits.data_ptr(), fresh.data_ptr(),
         None if limits is None else limits.data_ptr(),
         None if shadow is None else shadow.data_ptr(),
@@ -428,8 +432,6 @@ def launch_general_step(
         None if set_lc is None else set_lc.data_ptr(), epilogue, n,
         kernels.stream_ptr(dev),
     )
-    kernels.check(rc, kernel)
-    kernels.launches[kernel] += 1
     return result
 
 
@@ -560,13 +562,12 @@ def fw_decision_block(
     out = torch.empty((8, n), dtype=torch.int32, device=device)
     set_lc = torch.empty(n, dtype=torch.bool, device=device)
     if n > 0:
-        rc = kernels.function("rl_fw_decision_block")(
+        kernels.launch(
+            "rl_fw_decision_block", K3_DECIDE, (afters, hits, limits, shadow, out),
             afters.data_ptr(), hits.data_ptr(), limits.data_ptr(),
             shadow.data_ptr(), float(near_ratio), n, out.data_ptr(),
             set_lc.data_ptr(), kernels.stream_ptr(device),
         )
-        kernels.check(rc, K3_DECIDE)
-        kernels.launches[K3_DECIDE] += 1
     return DeviceDecisions(*out.unbind(0), set_lc)
 
 

@@ -51,13 +51,14 @@ def per_slot_inclusive_prefix_cuda(
     out = torch.empty(n, dtype=torch.int32, device=slots.device)
     if n == 0:
         return out
-    rc = kernels.function("rl_per_slot_inclusive_prefix")(
+    kernels.launch(
+        "rl_per_slot_inclusive_prefix",
+        KERNEL,
+        (slots, hits, out),
         slots.data_ptr(),
         hits.data_ptr(),
         out.data_ptr(),
         n,
         kernels.stream_ptr(slots.device),
     )
-    kernels.check(rc, KERNEL)
-    kernels.launches[KERNEL] += 1
     return out

@@ -1,43 +1,58 @@
 """Sharded fixed-window counter model: the slot space split into banks.
 
-Port of ratelimit_tpu/parallel/sharded.py.  The counter table is one
-int32 tensor of u32 bits laid out (num_banks, slots_per_bank),
-bank-major, like the JAX model's device layout.  Bank ownership is
-MODULO-STRIPED: global slot s lives in bank ``s % num_banks`` at local
-position ``s // num_banks``, so the host slot table's dense allocation
-spreads over every bank from the first key.
+Port of ratelimit_tpu/parallel/sharded.py.  The counter table is int32
+of u32 bits laid out (num_banks, slots_per_bank), bank-major, like the
+JAX model's device layout.  Bank ownership is MODULO-STRIPED: global
+slot s lives in bank ``s % num_banks`` at local position
+``s // num_banks``, so the host slot table's dense allocation spreads
+over every bank from the first key.
 
 The JAX model puts one bank on each chip of a ``Mesh`` and recombines
-per-lane answers with a ``psum``.  Here a mesh is ``num_banks`` banks on
-ONE CUDA device (:func:`make_mesh`): every lane has exactly one owner
-bank, so each kernel writes each lane once and no collective is needed.
-A mesh whose banks would span several cards is refused; placing banks
-across cards waits for a four-card cell (ROADMAP.md, Queue 3).
+per-lane answers with a ``psum``.  Here a mesh (:func:`make_mesh`)
+places its banks in GROUPS, one device each: group g holds the
+contiguous banks [g k, (g + 1) k) as one int32[k, slots_per_bank]
+tensor on its device.  ``make_mesh()`` gives one bank per visible card,
+as the JAX package's takes every local device; ``make_mesh(n, device)``
+one group of n banks; ``make_mesh(n, devices=...)`` one group per listed
+device, which may repeat (several groups on one card, each on its own
+stream in the engine).  A state is the one group's tensor, or a tuple of
+the groups' tensors; ``ShardedFixedWindowModel.parts`` and ``join`` are
+the only code that tells the two apart.
 
-Two kernels, in csrc/sharded.cu:
+Three kernels, in csrc/sharded.cu:
 
 - K6 ``sharded_routed_step``, the serving step: the engine routes each
   unique slot to its bank on the host (local ids, one packed
-  int32[num_banks, 4, cap] batch) and one launch serves every bank --
-  fresh-zero, gather, SATURATING add, unique scatter-set, narrow
-  readback.  Up to 128 routed lanes (8 banks x cap 16) go by value,
+  int32[k, 4, cap] batch a group) and one launch serves every bank of a
+  group -- fresh-zero, gather, SATURATING add, unique scatter-set,
+  narrow readback.  Up to 128 routed lanes (k x cap) go by value,
   ``sharded_routed_step_lanes``: the batch rides in the launch's
   parameters and the readback lands in pinned host memory
-  (``fixed_window.lanes_by_value`` decides, from the shape alone);
-- K7 ``sharded_general_update``, the duplicate-tolerant step over a
-  replicated batch of GLOBAL ids: zero fresh slots, gather, the
-  per-slot prefix (K2's tile pass) on the raw ids, MODULAR scatter-add,
-  with an optional narrow readback -- K3's fused general step under the
-  striped index policy, one cooperative launch; ``step`` takes its
-  decision epilogue (``sharded_general_step``), still one launch.
+  (``fixed_window.lanes_by_value`` decides, from the shape alone).
+  Routing is done on the host, so K6 needs no collective;
+- K7, the duplicate-tolerant step over a replicated batch of GLOBAL
+  ids: zero fresh slots, gather, the per-slot prefix (K2's tile pass)
+  on the raw ids, MODULAR scatter-add, with an optional narrow readback
+  or the decision block -- K3's fused general step under the group
+  index policy, one cooperative launch a group
+  (``sharded_group_partial``): each group works on its own banks and
+  writes the lanes it owns, zeroing the rest, as ``_bank_step`` does.
+  A group of every bank owns every lane, and its launch is counted as
+  ``sharded_general_update`` or ``sharded_general_step``;
+- ``sharded_combine``, the ``psum``: the groups' partials, copied to the
+  home device (the first group's), and one launch that takes each
+  lane from its owner group.  Each lane has one owner, so the select is
+  JAX's sum.
 
-Like the single-table steps, both update ``counts`` IN PLACE.  Each
-wrapper launches its kernel for a CUDA tensor (or raises) and runs its
-plain PyTorch version, kept beside it, only for a tensor on the CPU.
+Like the single-table steps, K6 and K7 update the table IN PLACE.  Each
+wrapper launches its kernel for a CUDA tensor, under that tensor's
+device (kernels.launch), or raises, and runs its plain PyTorch version,
+kept beside it, only for a tensor on the CPU.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -45,7 +60,16 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..backends.engine import DEFAULT_BUCKETS, CounterEngine
+from ..backends.engine import (
+    _HOST_VIEW,
+    DEFAULT_BUCKETS,
+    STAGING_POOL_CAP,
+    CounterEngine,
+    _stream_context,
+    _Staging,
+    claim_stream,
+    release_stream,
+)
 from ..models import fixed_window as fw
 from ..models.fixed_window import (
     DeviceBatch,
@@ -61,39 +85,81 @@ K6 = "sharded_routed_step"
 K6_LANES = "sharded_routed_step_lanes"
 K7 = "sharded_general_update"
 K7_STEP = "sharded_general_step"
+K7_GROUP = "sharded_group_update"
+K7_GROUP_STEP = "sharded_group_step"
+COMBINE = "sharded_combine"
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """``num_banks`` counter banks on one device: the port's
-    counterpart of the JAX package's 1-D device mesh."""
+    """``num_banks`` counter banks in ``len(devices)`` equal groups, group
+    g on ``devices[g]``: the port's counterpart of the JAX package's 1-D
+    device mesh.  ``device``, the first group's, is the home device: it
+    holds the batch, the recombined answers and the engine's host work."""
 
     num_banks: int
-    device: torch.device
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        # One device names a mesh of one group.
+        if isinstance(self.devices, torch.device):
+            object.__setattr__(self, "devices", (self.devices,))
+
+    @property
+    def device(self) -> torch.device:
+        return self.devices[0]
+
+    @property
+    def groups(self) -> int:
+        return len(self.devices)
+
+    @property
+    def banks_per_group(self) -> int:
+        return self.num_banks // len(self.devices)
 
 
-def make_mesh(n_banks: Optional[int] = None, device="cuda") -> Mesh:
-    """A mesh of `n_banks` banks on `device`.
+def make_mesh(n_banks: Optional[int] = None, device=None, devices=None) -> Mesh:
+    """A mesh of `n_banks` banks.
 
-    `n_banks` None means one bank per card, as the JAX package's
-    ``make_mesh()`` takes every local device: one bank on a device that
-    names one card (or the CPU), one per visible card for plain "cuda"
-    -- and banks on more than one card raise ValueError: they are never
-    folded onto one card."""
-    device = torch.device(device)
-    if n_banks is None:
-        n_banks = 1
-        cards = torch.cuda.device_count() if device.type == "cuda" else 1
-        if device.index is None and cards > 1:
+    - ``make_mesh()``: one bank per visible card, one group each, as the
+      JAX package's ``make_mesh()`` takes every local device;
+    - ``make_mesh(n_banks, device)``: one group of `n_banks` banks on
+      `device` ("cuda" by default; `n_banks` None: one bank);
+    - ``make_mesh(n_banks, devices=[...])``: one group per listed device,
+      `n_banks` (default one per device) split evenly over them.  A
+      device may repeat: groups that share a card each get their own
+      tensor and, in the engine, their own stream.
+
+    Raises ValueError for no bank, banks that do not split evenly, no
+    device, devices of two types, or both `device` and `devices`."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass either device or devices, not both")
+        devices = tuple(resolve_device(d) for d in devices)
+        if not devices:
+            raise ValueError("a mesh needs at least one device")
+        if len({d.type for d in devices}) != 1:
             raise ValueError(
-                f"one bank per visible card is a mesh over {cards} cards, which "
-                "is not ported: every bank lives on one device; banks across "
-                "cards wait for a four-card cell (ROADMAP.md, Queue 3).  Pass "
-                "n_banks and one device to put several banks on one card."
+                "a mesh's devices must be of one type, got "
+                + ", ".join(str(d) for d in devices)
             )
+    else:
+        d = torch.device("cuda" if device is None else device)
+        if n_banks is None and d.type == "cuda" and d.index is None:
+            resolve_device(torch.device("cuda", 0))  # raises without CUDA
+            devices = tuple(
+                torch.device("cuda", i) for i in range(torch.cuda.device_count())
+            )
+        else:
+            devices = (resolve_device(d),)
+    n_banks = len(devices) if n_banks is None else int(n_banks)
     if n_banks < 1:
         raise ValueError(f"a mesh needs at least one bank, got {n_banks}")
-    return Mesh(int(n_banks), resolve_device(device))
+    if n_banks % len(devices):
+        raise ValueError(
+            f"{n_banks} banks do not split evenly over {len(devices)} groups"
+        )
+    return Mesh(n_banks, devices)
 
 
 def _check_banked(counts: torch.Tensor) -> Tuple[int, int]:
@@ -160,7 +226,10 @@ def sharded_routed_step(
     out = torch.empty((nb, cap), dtype=fw.OUT_DTYPES[out_dtype], device=counts.device)
     if cap == 0:
         return out
-    rc = kernels.function("rl_sharded_routed_step")(
+    kernels.launch(
+        "rl_sharded_routed_step",
+        K6,
+        (counts, packed, out),
         counts.data_ptr(),
         spb,
         packed.data_ptr(),
@@ -170,8 +239,6 @@ def sharded_routed_step(
         fw._OUT_KIND[out_dtype],
         kernels.stream_ptr(counts.device),
     )
-    kernels.check(rc, K6)
-    kernels.launches[K6] += 1
     return out
 
 
@@ -195,7 +262,12 @@ def sharded_routed_step_lanes(
     cap = words.shape[2]
     if cap == 0:
         return out
-    rc = kernels.function("rl_sharded_routed_step_lanes")(
+    # words and out are host memory; the kernel reaches `out` through
+    # the alias taken under the table's device (csrc/by_value.cuh).
+    kernels.launch(
+        "rl_sharded_routed_step_lanes",
+        K6_LANES,
+        (counts,),
         counts.data_ptr(),
         counts.shape[1],
         words.data_ptr(),
@@ -205,12 +277,43 @@ def sharded_routed_step_lanes(
         fw._OUT_KIND[out_dtype],
         kernels.stream_ptr(counts.device),
     )
-    kernels.check(rc, K6_LANES)
-    kernels.launches[K6_LANES] += 1
     return out
 
 
 # -- K7: duplicate-tolerant update over global ids ----------------------
+
+
+def _range_update_plain(
+    counts: torch.Tensor,
+    bank_lo: int,
+    num_banks: int,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7 on the banks [bank_lo, bank_lo + k) of a
+    `num_banks`-bank table, held as `counts` int32[k, slots_per_bank]
+    (in place).  Returns the int64 afters -- a lane whose bank another
+    group holds reads a zero counter, as on another chip -- and the
+    lanes this table owns (its banks' ids; out-of-table ids where it
+    holds bank 0)."""
+    k, spb = counts.shape
+    s = slots.to(torch.int64)
+    # Only [0, ns) is in the table: negative ids never wrap here.
+    in_table = (s >= 0) & (s < num_banks * spb)
+    row = s % num_banks - bank_lo
+    mine = in_table & (row >= 0) & (row < k)
+    owned = mine | (~in_table & (bank_lo == 0))
+    pos = torch.where(mine, row * spb + s // num_banks, torch.zeros_like(s))
+    table = counts.view(-1)
+    table[pos[mine & fresh]] = 0
+    before = torch.where(mine, widen(table[pos]), torch.zeros_like(s))
+    afters = before + widen(per_slot_inclusive_prefix(slots, hits))
+    touched = pos[mine]
+    total = torch.zeros(k * spb, dtype=torch.int64, device=counts.device)
+    total.index_add_(0, touched, widen(hits)[mine])
+    table[touched] = narrow(widen(table[touched]) + total[touched])
+    return afters, owned
 
 
 def _general_update_plain(
@@ -223,20 +326,7 @@ def _general_update_plain(
 ) -> torch.Tensor:
     """Plain version of K7 (in place; returns the afters or their narrow
     readback)."""
-    nb, spb = counts.shape
-    ns = nb * spb
-    s = slots.to(torch.int64)
-    # Only [0, ns) is in the table: negative ids never wrap here.
-    in_table = (s >= 0) & (s < ns)
-    pos = torch.where(in_table, (s % nb) * spb + s // nb, torch.zeros_like(s))
-    table = counts.view(-1)
-    table[pos[in_table & fresh]] = 0
-    before = torch.where(in_table, widen(table[pos]), torch.zeros_like(s))
-    afters = before + widen(per_slot_inclusive_prefix(slots, hits))
-    touched = pos[in_table]
-    total = torch.zeros(ns, dtype=torch.int64, device=counts.device)
-    total.index_add_(0, touched, widen(hits)[in_table])
-    table[touched] = narrow(widen(table[touched]) + total[touched])
+    afters, _ = _range_update_plain(counts, 0, counts.shape[0], slots, hits, fresh)
     if out_dtype == "":
         return narrow(afters)
     return fw.readback_plain(afters, widen(hits), widen(limits), out_dtype)
@@ -252,7 +342,8 @@ def sharded_general_update(
 ) -> torch.Tensor:
     """K7: zero fresh slots, gather, add the per-slot prefix of the raw
     GLOBAL ids, modular scatter-add of hits, over the (num_banks,
-    slots_per_bank) table, in one launch of the fused general step.  An
+    slots_per_bank) table, in one launch of the fused general step (the
+    group form's C entry over every bank).  An
     id in [0, num_banks * slots_per_bank) is owned by bank id %
     num_banks at id // num_banks; any other id -- negative ones
     included -- reads a zero counter and scatters nowhere.  Duplicate
@@ -264,7 +355,7 @@ def sharded_general_update(
     if counts.device.type == "cpu":
         return _general_update_plain(counts, slots, hits, fresh, limits, out_dtype)
     return fw.launch_general_step(
-        "rl_sharded_general_step", (nb, spb), K7,
+        "rl_sharded_group_step", (nb, 0, nb, spb), K7,
         counts, slots, hits, fresh, limits, out_dtype,
     )
 
@@ -287,9 +378,259 @@ def sharded_general_step(
         afters = _general_update_plain(counts, slots, hits, fresh, None, "")
         return fw._decision_block_plain(afters, hits, limits, shadow, near_ratio)
     return fw.launch_general_step(
-        "rl_sharded_general_step", (nb, spb), K7_STEP,
+        "rl_sharded_group_step", (nb, 0, nb, spb), K7_STEP,
         counts, slots, hits, fresh, limits, shadow=shadow, near_ratio=near_ratio,
     )
+
+
+# -- K7 over bank groups: the group form and the combine ---------------
+
+#: A partial's rows by width: (u32 rows, u16 rows, u8 rows) of [n] each,
+#: in that order, for each epilogue of the general step ("decide": the
+#: decision block's eight u32 fields, then set_local_cache).
+LAYOUTS = {"": (1, 0, 0), "uint16": (0, 1, 0), "uint8": (0, 0, 1), "decide": (8, 0, 1)}
+
+
+def partial_bytes(layout: str, n: int) -> int:
+    """Bytes of one partial of `n` lanes in `layout`."""
+    r32, r16, r8 = LAYOUTS[layout]
+    return (4 * r32 + 2 * r16 + r8) * n
+
+
+def unpack_partial(buf: torch.Tensor, layout: str, n: int):
+    """The typed result a partial's bytes `buf` (uint8, from offset 0)
+    hold: DeviceDecisions ("decide"), int32 afters (""), or the uint8 /
+    int16-stored uint16 readback -- views of `buf`."""
+    if layout == "decide":
+        words = buf[: 32 * n].view(torch.int32).view(8, n)
+        return DeviceDecisions(*words.unbind(0), buf[32 * n : 33 * n].view(torch.bool))
+    return buf[: partial_bytes(layout, n)].view(fw.OUT_DTYPES[layout])
+
+
+def _pack_partial(result, n: int) -> torch.Tensor:
+    """A typed result as its partial's bytes (inverse of unpack_partial)."""
+    fields = list(result) if isinstance(result, DeviceDecisions) else [result]
+    return torch.cat([f.contiguous().view(torch.uint8).reshape(-1) for f in fields])
+
+
+def _group_partial_plain(counts, bank_lo, num_banks, slots, hits, fresh, limits,
+                         layout, shadow, near_ratio) -> torch.Tensor:
+    """Plain version of K7's group form (in place; returns the partial's
+    bytes)."""
+    afters, owned = _range_update_plain(counts, bank_lo, num_banks, slots, hits, fresh)
+    if layout == "decide":
+        result = fw._decision_block_plain(narrow(afters), hits, limits, shadow, near_ratio)
+    elif layout == "":
+        result = narrow(afters)
+    else:
+        result = fw.readback_plain(afters, widen(hits), widen(limits), layout)
+    if isinstance(result, DeviceDecisions):
+        result = DeviceDecisions(*(torch.where(owned, f, torch.zeros_like(f)) for f in result))
+    else:
+        result = torch.where(owned, result, torch.zeros_like(result))
+    return _pack_partial(result, slots.shape[0])
+
+
+def sharded_group_partial(
+    counts: torch.Tensor,
+    bank_lo: int,
+    num_banks: int,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    layout: str = "",
+    shadow: Optional[torch.Tensor] = None,
+    near_ratio: float = 0.0,
+) -> torch.Tensor:
+    """K7's group form: the general step of K7 on ONE bank group,
+    `counts` int32[k, slots_per_bank] holding the banks [bank_lo, bank_lo
+    + k) of a `num_banks`-bank table, over the whole replicated batch of
+    global ids (on the group's device).  The group zeroes, gathers and
+    scatters only its own banks' slots; the per-slot prefix runs over the
+    whole batch.  Returns the group's partial, uint8[partial_bytes(layout,
+    n)]: the epilogue `layout` ("", "uint8", "uint16" or "decide", which
+    needs `shadow` and `near_ratio`) on the lanes the group owns -- its
+    banks' ids, and ids out of the table where it holds bank 0 -- and 0
+    on every other lane.  One cooperative launch, counted as
+    sharded_group_step ("decide") or sharded_group_update; updates
+    `counts` in place."""
+    k, _ = _check_banked(counts)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
+    if not (0 <= bank_lo and 1 <= k and bank_lo + k <= num_banks):
+        raise ValueError(f"banks [{bank_lo}, {bank_lo + k}) are not banks of {num_banks}")
+    decide = layout == "decide"
+    fw.check_general_lanes(
+        counts, slots, hits, fresh, limits, "" if decide else layout,
+        shadow=shadow if decide else None,
+    )
+    if decide and (limits is None or shadow is None):
+        raise ValueError("the decision block needs the limits and shadow lanes")
+    if counts.device.type == "cpu":
+        return _group_partial_plain(
+            counts, bank_lo, num_banks, slots, hits, fresh, limits, layout, shadow, near_ratio
+        )
+    return launch_group_partial(
+        counts, bank_lo, num_banks, slots, hits, fresh, limits, layout, shadow, near_ratio
+    )
+
+
+def launch_group_partial(counts, bank_lo, num_banks, slots, hits, fresh, limits,
+                         layout, shadow, near_ratio) -> torch.Tensor:
+    """sharded_group_partial's launch, on checked arguments: one
+    cooperative launch of rl_sharded_group_step into a new partial."""
+    fw._require_cuda(counts.device)
+    k, spb = counts.shape
+    decide = layout == "decide"
+    n = slots.shape[0]
+    dev = counts.device
+    part = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=dev)
+    incl = torch.empty(n, dtype=torch.int32, device=dev)
+    typed = unpack_partial(part, layout, n)
+    if decide:
+        # The afters row doubles as the gather scratch, as in K3/K7.
+        out, afters, set_lc = part, typed.afters, typed.set_local_cache
+    elif layout == "":
+        out, afters, set_lc = part, typed, None
+    else:
+        out, afters, set_lc = part, torch.empty(n, dtype=torch.int32, device=dev), None
+    if n == 0:
+        return part
+    given = [t for t in (limits, shadow) if t is not None]
+    kernels.launch(
+        "rl_sharded_group_step",
+        K7_GROUP_STEP if decide else K7_GROUP,
+        (counts, slots, hits, fresh, *given, part, incl, afters),
+        counts.data_ptr(), num_banks, bank_lo, k, spb,
+        slots.data_ptr(), hits.data_ptr(), fresh.data_ptr(),
+        None if limits is None else limits.data_ptr(),
+        shadow.data_ptr() if decide else None,
+        float(near_ratio), afters.data_ptr(), incl.data_ptr(), out.data_ptr(),
+        None if set_lc is None else set_lc.data_ptr(),
+        fw._DECIDE if decide else fw._OUT_KIND[layout], n,
+        kernels.stream_ptr(dev),
+    )
+    return part
+
+
+def _combine_plain(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
+    """Plain version of sharded_combine."""
+    groups = parts.shape[0]
+    n = slots.shape[0]
+    s = slots.to(torch.int64)
+    in_table = (s >= 0) & (s < num_banks * slots_per_bank)
+    owner = torch.where(
+        in_table, (s % num_banks) // (num_banks // groups), torch.zeros_like(s)
+    )
+    out, at = [], 0
+    for rows, dtype in zip(LAYOUTS[layout], (torch.int32, torch.int16, torch.uint8)):
+        if not rows:
+            continue
+        width = rows * dtype.itemsize * n
+        seg = parts[:, at : at + width].contiguous().view(dtype).view(groups, rows, n)
+        pick = seg.gather(0, owner.view(1, 1, n).expand(1, rows, n))[0]
+        out.append(pick.contiguous().view(torch.uint8).reshape(-1))
+        at += width
+    return torch.cat(out)
+
+
+def sharded_combine(
+    parts: torch.Tensor,
+    slots: torch.Tensor,
+    num_banks: int,
+    slots_per_bank: int,
+    layout: str,
+) -> torch.Tensor:
+    """The psum of K7 over bank groups: `parts` uint8[groups,
+    part_stride] holds each group's partial (sharded_group_partial) of
+    the lanes `slots` (int32[n], global ids) in `layout`, group g's in
+    row g, all on one device; returns uint8[partial_bytes(layout, n)],
+    each lane's fields taken from its owner group's partial -- the group
+    of bank ``s % num_banks`` for an in-table id s, the group of bank 0
+    for any other.  Each lane has one owner and the other partials hold
+    0 there, so this select is JAX's sum."""
+    if parts.dtype != torch.uint8 or parts.dim() != 2 or not parts.is_contiguous():
+        raise TypeError(f"parts must be contiguous uint8[groups, bytes], got {parts.dtype} "
+                        f"{tuple(parts.shape)}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
+    groups, stride = parts.shape
+    n = slots.shape[0]
+    if slots.dtype != torch.int32 or slots.dim() != 1 or not slots.is_contiguous():
+        raise TypeError(f"slots must be contiguous int32[n], got {slots.dtype} "
+                        f"{tuple(slots.shape)}")
+    if groups < 1 or num_banks % groups or stride % 4 or stride < partial_bytes(layout, n):
+        raise ValueError(
+            f"{groups} partials of {stride} bytes do not hold {layout!r} over "
+            f"{num_banks} banks for {n} lanes"
+        )
+    if kernels.device_of(parts, slots).type == "cpu":
+        return _combine_plain(parts, slots, num_banks, slots_per_bank, layout)
+    return launch_combine(parts, slots, num_banks, slots_per_bank, layout)
+
+
+def launch_combine(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
+    """sharded_combine's launch, on checked arguments: one launch of
+    rl_sharded_combine into a new partial."""
+    dev = parts.device
+    fw._require_cuda(dev)
+    groups, stride = parts.shape
+    n = slots.shape[0]
+    out = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    kernels.launch(
+        "rl_sharded_combine",
+        COMBINE,
+        (parts, slots, out),
+        parts.data_ptr(), stride, groups, slots.data_ptr(), num_banks,
+        slots_per_bank, *LAYOUTS[layout], n, out.data_ptr(), kernels.stream_ptr(dev),
+    )
+    return out
+
+
+def grouped_general_step(
+    parts: Sequence[torch.Tensor],
+    num_banks: int,
+    slots: torch.Tensor,
+    hits: torch.Tensor,
+    fresh: torch.Tensor,
+    limits: Optional[torch.Tensor] = None,
+    layout: str = "",
+    shadow: Optional[torch.Tensor] = None,
+    near_ratio: float = 0.0,
+):
+    """K7 over bank groups: group g (parts[g], int32[k, slots_per_bank]
+    on its device) runs K7's group form on its own banks [g k, (g + 1) k)
+    over the replicated batch, on its device's current stream; each
+    partial is copied to the home device (parts[0]'s, where the batch
+    lies) and sharded_combine recombines them there.  The copies are
+    torch's, the same code whether two groups share a card or not: a copy
+    between cards is ordered after the source card's current stream and
+    before the home card's.  One group holds every bank and owns every
+    lane, so its launch is the answer: no partial, copy or combine.
+    Returns what sharded_general_update (layout "", "uint8", "uint16") or
+    sharded_general_step ("decide") returns on one table; updates every
+    group's table in place."""
+    if len(parts) == 1:
+        if layout == "decide":
+            return sharded_general_step(parts[0], slots, hits, fresh, limits, shadow, near_ratio)
+        return sharded_general_update(parts[0], slots, hits, fresh, limits, layout)
+    home = parts[0].device
+    k, spb = parts[0].shape
+    n = slots.shape[0]
+    stride = -(-partial_bytes(layout, n) // 16) * 16
+    stage = torch.empty((len(parts), stride), dtype=torch.uint8, device=home)
+    lanes = (slots, hits, fresh, limits, shadow)
+    for g, counts in enumerate(parts):
+        here = [None if t is None else t.to(counts.device, non_blocking=True) for t in lanes]
+        part = sharded_group_partial(
+            counts, g * k, num_banks, *here[:4], layout, here[4], near_ratio
+        )
+        stage[g, : part.shape[0]].copy_(part, non_blocking=True)
+    out = sharded_combine(stage, slots, num_banks, spb, layout)
+    return unpack_partial(out, layout, n)
 
 
 class ShardedFixedWindowModel:
@@ -298,66 +639,98 @@ class ShardedFixedWindowModel:
     ``num_slots`` is the GLOBAL slot count, rounded up to a multiple of
     the mesh's bank count so that every bank has the same size (100
     slots over 8 banks -> 104, 13 per bank).  Slot ids from the host
-    slot table index the global space."""
+    slot table index the global space.  A state is one int32[num_banks,
+    slots_per_bank] tensor on a mesh of one group, else a tuple of each
+    group's int32[banks_per_group, slots_per_bank] tensor on its device
+    (``parts`` and ``join`` convert).  The batch lies on the home
+    device, and so do the answers."""
 
     def __init__(self, num_slots: int, mesh: Mesh, near_ratio: float = 0.8):
         self.mesh = mesh
         self.num_banks = mesh.num_banks
+        self.groups = mesh.groups
+        self.banks_per_group = mesh.banks_per_group
         self.slots_per_bank = -(-int(num_slots) // self.num_banks)
         self.num_slots = self.slots_per_bank * self.num_banks
         self.near_ratio = float(near_ratio)
         self.device = mesh.device
 
-    def init_state(self) -> torch.Tensor:
-        """Fresh table: int32[num_banks, slots_per_bank], all zero."""
-        return torch.zeros(
-            (self.num_banks, self.slots_per_bank), dtype=torch.int32, device=self.device
+    @staticmethod
+    def parts(counts) -> Tuple[torch.Tensor, ...]:
+        """The group tensors of a state (a tensor is one group's)."""
+        return (counts,) if isinstance(counts, torch.Tensor) else tuple(counts)
+
+    @staticmethod
+    def join(parts: Sequence[torch.Tensor]):
+        """The state of group tensors: the tensor itself for one group."""
+        return parts[0] if len(parts) == 1 else tuple(parts)
+
+    def init_state(self):
+        """Fresh table, all zero: each group's tensor on its device."""
+        shape = (self.banks_per_group, self.slots_per_bank)
+        return self.join(
+            [torch.zeros(shape, dtype=torch.int32, device=d) for d in self.mesh.devices]
         )
 
-    def step(
-        self, counts: torch.Tensor, batch: DeviceBatch
-    ) -> Tuple[torch.Tensor, DeviceDecisions]:
+    def _general(self, counts, batch: DeviceBatch, layout: str, limits=None):
+        """K7 on a state's groups (grouped_general_step)."""
+        decide = layout == "decide"
+        return grouped_general_step(
+            self.parts(counts), self.num_banks, batch.slots, batch.hits, batch.fresh,
+            limits, layout, batch.shadow if decide else None, self.near_ratio,
+        )
+
+    def step(self, counts, batch: DeviceBatch) -> Tuple[object, DeviceDecisions]:
         """The sharded forward step: K7 + K3's decision block, one launch
-        (sharded_general_step)."""
-        return counts, sharded_general_step(
-            counts, batch.slots, batch.hits, batch.fresh, batch.limits,
-            batch.shadow, self.near_ratio,
-        )
+        on one group (sharded_general_step); on several, each group's
+        launch and the combine."""
+        return counts, self._general(counts, batch, "decide", batch.limits)
 
-    def step_counters(
-        self, counts: torch.Tensor, batch: DeviceBatch
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def step_counters(self, counts, batch: DeviceBatch) -> Tuple[object, torch.Tensor]:
         """Counter update only (K7): returns (counts, afters)."""
-        return counts, sharded_general_update(counts, batch.slots, batch.hits, batch.fresh)
+        return counts, self._general(counts, batch, "")
 
     def step_counters_compact(
-        self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self, counts, out_dtype: str, batch: DeviceBatch
+    ) -> Tuple[object, torch.Tensor]:
         """K7 with the saturated narrow readback min(after, limit +
         hits) as uint8 or uint16 (int16 storage)."""
-        return counts, sharded_general_update(
-            counts, batch.slots, batch.hits, batch.fresh, batch.limits, out_dtype
-        )
+        return counts, self._general(counts, batch, out_dtype, batch.limits)
 
     def step_counters_unique_routed_packed(
-        self, counts: torch.Tensor, out_dtype: str, packed: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The routed serving step (K6) on one packed int32[num_banks,
-        4, cap] upload: returns (counts, afters[num_banks, cap])."""
-        return counts, sharded_routed_step(counts, packed, out_dtype)
+        self, counts, out_dtype: str, packed: torch.Tensor
+    ) -> Tuple[object, torch.Tensor]:
+        """The routed serving step (K6) on one packed int32[num_banks, 4,
+        cap] upload on the home device: one launch a group, on the
+        group's rows.  Returns (counts, afters[num_banks, cap]) on the
+        home device.  A tensor `counts` is served as one group, whatever
+        its banks (the engine passes one group's at a time)."""
+        parts = self.parts(counts)
+        k = parts[0].shape[0]
+        outs = [
+            sharded_routed_step(c, packed[g * k : (g + 1) * k].to(c.device), out_dtype)
+            for g, c in enumerate(parts)
+        ]
+        return counts, outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs])
 
     def step_counters_unique_routed_lanes(
-        self, counts: torch.Tensor, out_dtype: str, words: torch.Tensor, out: torch.Tensor
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self, counts, out_dtype: str, words: torch.Tensor, out: torch.Tensor
+    ) -> Tuple[object, torch.Tensor]:
         """The routed serving step in K6's by-value form: the batch of
         step_counters_unique_routed_packed held in host memory, the
-        readback into `out` (pinned host memory on the card).  Returns
-        (counts, out); wait on the stream before reading `out`."""
-        return counts, sharded_routed_step_lanes(counts, words, out, out_dtype)
+        readback into `out` (pinned host memory on the card), each
+        group's rows by its own launch.  Returns (counts, out); wait on
+        each group's stream before reading `out`."""
+        parts = self.parts(counts)
+        k = parts[0].shape[0]
+        for g, c in enumerate(parts):
+            rows = slice(g * k, (g + 1) * k)
+            sharded_routed_step_lanes(c, words[rows], out[rows], out_dtype)
+        return counts, out
 
     def step_counters_unique_routed(
-        self, counts: torch.Tensor, out_dtype: str, batch: DeviceBatch
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        self, counts, out_dtype: str, batch: DeviceBatch
+    ) -> Tuple[object, torch.Tensor]:
         """The routed serving step on a batch whose fields are each
         shaped (num_banks, cap), slot ids LOCAL (shadow unused)."""
         packed = torch.stack(
@@ -373,7 +746,15 @@ class ShardedCounterEngine(CounterEngine):
     the device step is the ROUTED unique step (K6): unique slots are
     routed on the host to their owning bank (the Redis-cluster key-slot
     analog, reference driver_impl.go:108-126), each bank receives only
-    its share of the batch, and the readback is unrouted on the host."""
+    its share of the batch, and the readback is unrouted on the host.
+
+    Each bank group of the mesh has its own stream (claim_stream: no two
+    live groups share one, so a stall on one group holds up no other
+    engine), its own pool of stagings (pinned on its device) and its own
+    event a submission: a chunk packs one int32[k, 4, cap] batch a group
+    and launches K6 on each group's stream, and the readback is taken
+    once every group's event has fired.  The first group's stream is
+    ``_stream``, the others' ``_more_streams``."""
 
     def __init__(
         self,
@@ -383,26 +764,85 @@ class ShardedCounterEngine(CounterEngine):
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         native_table: Optional[bool] = None,
     ):
-        super().__init__(
-            buckets=buckets,
-            device=mesh.device,
-            model=ShardedFixedWindowModel(num_slots, mesh, near_ratio),
-            native_table=native_table,
-        )
+        # The groups past the first; CounterEngine claims the first's
+        # stream on the home device and makes the table (_fresh_state).
+        self._more_streams = tuple(claim_stream(d, self) for d in mesh.devices[1:])
+        self._more_staging = tuple(deque(maxlen=STAGING_POOL_CAP) for _ in mesh.devices[1:])
+        try:
+            super().__init__(
+                buckets=buckets,
+                device=mesh.device,
+                model=ShardedFixedWindowModel(num_slots, mesh, near_ratio),
+                native_table=native_table,
+            )
+        except BaseException:
+            # No later engine may find these streams held by this one.
+            release_stream(self)
+            raise
         # Routed-balance gauge: real lanes each bank received in the
         # last chunk.
         self.stat_bank_lane_counts = [0] * self.model.num_banks
 
+    # -- the groups ----------------------------------------------------
+
+    def _group_stream(self, g: int):
+        return (self._stream, *self._more_streams)[g]
+
+    def _on_group(self, g: int):
+        """Context that puts this thread's work on group g's stream and
+        device."""
+        return _stream_context(self._group_stream(g), self.model.mesh.devices[g])
+
+    def _fresh_state(self):
+        """A fresh table, each group's tensor made on its own stream."""
+        m = self.model
+        shape = (m.banks_per_group, m.slots_per_bank)
+        parts = []
+        for g, dev in enumerate(m.mesh.devices):
+            with self._on_group(g):
+                parts.append(torch.zeros(shape, dtype=torch.int32, device=dev))
+        return m.join(parts)
+
+    def _pool(self, g: int) -> deque:
+        return (self._free_staging, *self._more_staging)[g]
+
+    def _take_group_staging(self, g: int) -> _Staging:
+        """An idle staging of group g, or a new one pinned under its
+        device."""
+        try:
+            return self._pool(g).pop()
+        except IndexError:
+            dev = self.model.mesh.devices[g]
+            with kernels.on_device(dev):
+                return _Staging(*self._staging_size(), dev)
+
     def _staging_size(self):
-        """The routed upload is int32[num_banks, 4, cap] and its
-        readback up to 4 B per routed lane, where cap is at most the
+        """A group's routed upload is int32[banks_per_group, 4, cap] and
+        its readback up to 4 B per routed lane, where cap is at most the
         bucket of min(max_batch, slots_per_bank): one bank holds at most
         slots_per_bank distinct slots (the warmup skew probe reaches
         it)."""
         m = self.model
         cap = self._bucket(min(self.max_batch, m.slots_per_bank))
-        words = m.num_banks * 4 * cap
+        words = m.banks_per_group * 4 * cap
         return words, words
+
+    def _fetch(self, handle) -> np.ndarray:
+        """One group's handle as CounterEngine's; several groups' (a
+        list) after every group's event: their readbacks in bank order,
+        each staging back to its group's pool."""
+        if not isinstance(handle, list):
+            return super()._fetch(handle)
+        for st, _ in handle:
+            self._wait(st)
+        out = np.concatenate(
+            [rb.numpy().view(_HOST_VIEW[rb.dtype]) for _, rb in handle]
+        )
+        for g, (st, _) in enumerate(handle):
+            self._pool(g).append(st)
+        return out
+
+    # -- the device step -----------------------------------------------
 
     def _device_submit(self, dedup, now: int = 0):
         # `now` is the generic-algorithm batch clock; the sharded engine
@@ -410,8 +850,9 @@ class ShardedCounterEngine(CounterEngine):
         m = self.model
         spb = m.slots_per_bank
         nb = m.num_banks
+        k = m.banks_per_group
         uniq = dedup.uniq_slots
-        g = len(uniq)
+        g_count = len(uniq)
         totals32 = dedup.totals_u32()
 
         valid = (uniq >= 0) & (uniq < m.num_slots)
@@ -428,39 +869,51 @@ class ShardedCounterEngine(CounterEngine):
         cap = self._bucket(max(int(counts_pb.max(initial=1)), 1))
         self.stat_bank_lane_counts = counts_pb.tolist()
 
-        # ONE packed int32[nb, 4, cap] batch.  Padding ids spb + i are
-        # distinct and out of the bank, so K6 leaves them inert.
-        st = self._take_staging()
-        pk = st.packed_np[: nb * 4 * cap].reshape(nb, 4, cap)
-        pk[:, 0, :] = spb + np.arange(cap, dtype=np.int64)
-        pk[:, 1, :] = 0
-        pk[:, 2, :] = 1
-        pk[:, 3, :] = 0
-        pk[banks, 0, pos] = uniq[vi] // nb
-        pk[banks, 1, pos] = totals32[vi].view(np.int32)
-        pk[banks, 2, pos] = dedup.limit_max[vi].view(np.int32)
-        pk[banks, 3, pos] = dedup.fresh[vi]
-
         # Dtype choice from the unwrapped uint64 totals (see
         # CounterEngine._device_submit): clamped-total groups take the
-        # raw u32 readback, never the narrow one.
+        # raw u32 readback, never the narrow one.  One dtype serves the
+        # whole chunk.
         cap_val = int(dedup.totals[vi].max(initial=0)) + int(
             dedup.limit_max[vi].max(initial=1)
         )
         dt = "uint8" if cap_val <= 0xFF else ("uint16" if cap_val <= 0xFFFF else "")
-        handle = self._serve(
-            st,
-            st.packed[: nb * 4 * cap].view(nb, 4, cap),
-            fw.OUT_DTYPES[dt],
-            (nb, cap),
-            lambda counts, words, out: m.step_counters_unique_routed_lanes(
-                counts, dt, words, out
-            ),
-            lambda counts, packed: m.step_counters_unique_routed_packed(counts, dt, packed),
-        )
+
+        # ONE packed int32[k, 4, cap] batch a group, on the group's
+        # stream.  Banks are sorted, so group g's lanes are the run
+        # starts[g k] : starts[(g + 1) k].  Padding ids spb + i are
+        # distinct and out of the bank, so K6 leaves them inert.
+        parts = list(m.parts(self._counts))
+        handles = []
+        for g, counts in enumerate(parts):
+            lo, hi = starts[g * k], starts[(g + 1) * k]
+            b, p, v = banks[lo:hi] - g * k, pos[lo:hi], vi[lo:hi]
+            st = self._take_group_staging(g)
+            pk = st.packed_np[: k * 4 * cap].reshape(k, 4, cap)
+            pk[:, 0, :] = spb + np.arange(cap, dtype=np.int64)
+            pk[:, 1, :] = 0
+            pk[:, 2, :] = 1
+            pk[:, 3, :] = 0
+            pk[b, 0, p] = uniq[v] // nb
+            pk[b, 1, p] = totals32[v].view(np.int32)
+            pk[b, 2, p] = dedup.limit_max[v].view(np.int32)
+            pk[b, 3, p] = dedup.fresh[v]
+            parts[g], handle = self._serve_on(
+                self._group_stream(g),
+                counts,
+                st,
+                st.packed[: k * 4 * cap].view(k, 4, cap),
+                fw.OUT_DTYPES[dt],
+                (k, cap),
+                lambda counts, words, out: m.step_counters_unique_routed_lanes(
+                    counts, dt, words, out
+                ),
+                lambda counts, packed: m.step_counters_unique_routed_packed(counts, dt, packed),
+            )
+            handles.append(handle)
+        self._counts = m.join(parts)
 
         def reassemble(fetched: np.ndarray) -> np.ndarray:
-            out = np.zeros(g, dtype=np.uint32)
+            out = np.zeros(g_count, dtype=np.uint32)
             out[vi] = fetched[banks, pos]
             # Out-of-table slots (warmup probes) answer as on one table:
             # before 0, after = hits (never saturated: totals <= cap_val
@@ -468,7 +921,7 @@ class ShardedCounterEngine(CounterEngine):
             out[~valid] = totals32[~valid]
             return out
 
-        return handle, reassemble
+        return (handles[0] if len(handles) == 1 else handles), reassemble
 
     def warmup_probe_slots(self, bucket: int) -> np.ndarray:
         """All-one-bank probes: slots k * num_banks all land in bank 0,
@@ -476,24 +929,62 @@ class ShardedCounterEngine(CounterEngine):
         engine can serve for a `bucket`-lane batch -- min(bucket,
         slots_per_bank), since one bank holds at most slots_per_bank
         distinct slots.  The clamp keeps the probes distinct and in the
-        table on small tables."""
+        table on small tables.  Every group launches at that cap (its
+        banks padding only, but for bank 0's group)."""
         m = self.model
         width = min(int(bucket), m.slots_per_bank)
         return (np.arange(width, dtype=np.int64) * m.num_banks).astype(np.int32)
 
-    def _slot_index(self, slots):
-        """Global slot g lives in bank g % num_banks at position
-        g // num_banks."""
-        nb = self.model.num_banks
-        idx = torch.from_numpy(np.ascontiguousarray(slots, dtype=np.int64)).to(self.device)
-        return (idx % nb, idx // nb)
+    # -- the table in global order -------------------------------------
+
+    def _slot_groups(self, slots):
+        """Global slot s lives in bank s % num_banks at position
+        s // num_banks, and that bank in group bank // banks_per_group:
+        (group, lanes of `slots` in it, row in the group's tensor,
+        position) for each group that holds any of `slots`."""
+        m = self.model
+        s = np.asarray(slots, dtype=np.int64).reshape(-1)
+        bank = s % m.num_banks
+        group = bank // m.banks_per_group
+        for g in range(m.groups):
+            sel = np.nonzero(group == g)[0]
+            if len(sel):
+                yield g, sel, bank[sel] - g * m.banks_per_group, s[sel] // m.num_banks
+
+    def read_slots(self, slots) -> dict:
+        """The counters at the global `slots`, by group, each group's
+        gather on its own stream."""
+        parts = self.model.parts(self._counts)
+        got = np.zeros(len(np.asarray(slots).reshape(-1)), dtype=np.uint32)
+        for g, sel, row, col in self._slot_groups(slots):
+            dev = self.model.mesh.devices[g]
+            with self._on_group(g):
+                idx = (torch.from_numpy(row).to(dev), torch.from_numpy(col).to(dev))
+                got[sel] = state_to_numpy(parts[g][idx])
+        return {"counts": got}
+
+    def write_slots(self, slots, state: dict) -> None:
+        """Set the counters at the global `slots` to `state["counts"]`."""
+        parts = self.model.parts(self._counts)
+        vals = np.asarray(state["counts"], dtype=np.uint32).reshape(-1)
+        for g, sel, row, col in self._slot_groups(slots):
+            dev = self.model.mesh.devices[g]
+            with self._on_group(g):
+                idx = (torch.from_numpy(row).to(dev), torch.from_numpy(col).to(dev))
+                host = torch.from_numpy(np.ascontiguousarray(vals[sel]).view(np.int32))
+                parts[g][idx] = host.to(dev)
 
     def export_counts(self) -> np.ndarray:
         """Flat uint32 copy in GLOBAL slot order: bank b's position l
         holds global slot l * num_banks + b, so the (num_banks,
-        slots_per_bank) layout transposes back."""
-        with self._on_stream():
-            return state_to_numpy(self._counts).T.reshape(-1)
+        slots_per_bank) layout transposes back.  Each group is copied on
+        its own stream (state_to_numpy waits for that stream only), so a
+        group's copy never queues behind another group's stream."""
+        hosts = []
+        for g, part in enumerate(self.model.parts(self._counts)):
+            with self._on_group(g):
+                hosts.append(state_to_numpy(part))
+        return np.concatenate(hosts).T.reshape(-1)
 
     def import_counts(self, counts) -> None:
         arr = np.asarray(counts, dtype=np.uint32).reshape(-1)
@@ -501,5 +992,9 @@ class ShardedCounterEngine(CounterEngine):
         if arr.shape[0] != m.num_slots:
             raise ValueError(f"counts size {arr.shape[0]} != num_slots {m.num_slots}")
         banked = arr.reshape(m.slots_per_bank, m.num_banks).T
-        with self._on_stream():
-            self._counts = state_from_numpy(banked, self.device)
+        k = m.banks_per_group
+        parts = []
+        for g, dev in enumerate(m.mesh.devices):
+            with self._on_group(g):
+                parts.append(state_from_numpy(banked[g * k : (g + 1) * k], dev))
+        self._counts = m.join(parts)

@@ -88,9 +88,12 @@ def lane_slot_split(total_slots: int, n_lanes: int) -> list:
 def _make_engine(s: Settings, device="cuda", mesh=None, num_slots=None):
     """One construction site for a fixed-window engine of `num_slots`
     slots (TPU_NUM_SLOTS by default): one table on `device`, or, under
-    ``BACKEND_TYPE=cuda-sharded``, the bank-sharded table over `mesh`
-    (default: one bank per card of `device`, parallel.make_mesh), as
-    under ``cuda-sharded-write-behind``."""
+    ``BACKEND_TYPE=cuda-sharded`` and ``cuda-sharded-write-behind``, the
+    bank-sharded table over `mesh`, whose home device (its first group's)
+    must be `device`.  The default mesh is parallel.make_mesh(device=
+    `device`): for plain "cuda" one bank per visible card, one group on
+    each, as the JAX runner's mesh takes every local device; for a named
+    card or the CPU one bank there."""
     if num_slots is None:
         num_slots = s.tpu_num_slots
     if s.backend_type.lower() in ("cuda-sharded", "cuda-sharded-write-behind"):
@@ -100,7 +103,7 @@ def _make_engine(s: Settings, device="cuda", mesh=None, num_slots=None):
         if mesh is None:
             mesh = make_mesh(device=device)
         elif mesh.device != resolve_device(device):
-            raise ValueError(f"mesh is on {mesh.device}, runner on {device}")
+            raise ValueError(f"mesh is on {mesh.device} (its home device), runner on {device}")
         return ShardedCounterEngine(
             mesh,
             num_slots=num_slots,
@@ -252,7 +255,8 @@ class Runner:
         """`time_source` is the clock seam (tests pin it); `device`
         places the counter tables (default the GPU); `mesh`
         (parallel.make_mesh) places the banks of BACKEND_TYPE=cuda-sharded
-        (default: one bank per card of `device`)."""
+        in groups, its first group on `device` (default: one bank per
+        visible card for plain "cuda")."""
         self.settings = settings or new_settings()
         self.time_source = time_source or RealTimeSource()
         self.device = device

@@ -95,9 +95,9 @@ def main() -> int:
     fdm.DeviceFaultDomain.record_fault = record_fault
     stall = cs.stall_stream
 
-    def stall_stream(torch, engine, ms, cpm):
+    def stall_stream(torch, engine, ms, cpm, group=0):
         mark(f"stall of {ms:.0f} ms enqueued")
-        end = stall(torch, engine, ms, cpm)
+        end = stall(torch, engine, ms, cpm, group)
 
         def watch():
             end.synchronize()
@@ -110,7 +110,7 @@ def main() -> int:
     idle = fdm.stream_idle
     ok = True
     for leg in args.legs.split(","):
-        fdm.stream_idle = (lambda engine: True) if leg == "inside" else idle
+        fdm.stream_idle = (lambda engine, lost=False: True) if leg == "inside" else idle
         marks.clear()
         with cs.serving("cuda", env=cs.OVERLOAD_ENV, config=cs.OVERLOAD_CONFIG) as (runner, _req, R):
             with cs.GilProbe() as probe:

@@ -70,12 +70,16 @@ COMMON = dict(
 OK = rls_pb2.RateLimitResponse.OK
 OVER = rls_pb2.RateLimitResponse.OVER_LIMIT
 
-#: (JAX BACKEND_TYPE, the port's, whether the port's runner takes a mesh)
+#: (JAX BACKEND_TYPE, the port's, the port runner's mesh: None, or the
+#: number of groups its 8 banks lie in on the CPU)
 PAIRS = [
-    ("tpu-write-behind", "cuda-write-behind", False),
-    ("tpu-sharded-write-behind", "cuda-sharded-write-behind", True),
-    ("memory", "memory", False),
+    ("tpu-write-behind", "cuda-write-behind", None),
+    ("tpu-sharded-write-behind", "cuda-sharded-write-behind", 1),
+    ("memory", "memory", None),
+    ("tpu-sharded-write-behind", "cuda-sharded-write-behind", 4),
 ]
+PAIR_IDS = ["cuda-write-behind", "cuda-sharded-write-behind", "memory",
+            "cuda-sharded-write-behind-4-groups"]
 
 
 def _runtime(tmp_path_factory, name):
@@ -86,16 +90,16 @@ def _runtime(tmp_path_factory, name):
     return dict(runtime_path=str(root), runtime_subdirectory="ratelimit")
 
 
-def _port_runner(backend, paths, clock=None, mesh=False, **settings):
+def _port_runner(backend, paths, clock=None, mesh=None, **settings):
     return Runner(
         Settings(backend_type=backend, **{**COMMON, **paths, **settings}),
         time_source=clock or PinnedTimeSource(1_000_000),
         device="cpu",
-        mesh=make_mesh(8, "cpu") if mesh else None,
+        mesh=None if mesh is None else make_mesh(8, devices=("cpu",) * mesh),
     )
 
 
-@pytest.fixture(scope="module", params=PAIRS, ids=[p[1] for p in PAIRS])
+@pytest.fixture(scope="module", params=PAIRS, ids=PAIR_IDS)
 def runners(request, tmp_path_factory):
     jax_backend, backend, mesh = request.param
     paths = _runtime(tmp_path_factory, backend)
@@ -178,6 +182,7 @@ def test_backend_is_wired(runners):
     if backend == "cuda-sharded-write-behind":
         assert isinstance(cache.engine, ShardedCounterEngine)
         assert cache.engine.model.num_banks == 8
+        assert cache.engine.model.groups == port_runner.mesh.groups
     values = port_runner.stats_manager.store.counter_fn_values()
     assert "ratelimit.tpu.bank0.evictions" in values
 

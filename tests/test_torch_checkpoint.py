@@ -447,6 +447,53 @@ def test_jax_sharded_file_is_bank_major(tmp_path):
         assert not np.array_equal(np.asarray(moved.export_counts()), written)
 
 
+#: Sharded engines of 8 banks: the JAX mesh, and the port's banks in one
+#: group and in four groups of the CPU.
+SHARDED_ENGINES = {
+    "jax": (JAX, lambda: JaxShardedEngine(jax_make_mesh(8), num_slots=64)),
+    "port-1-group": (PORT, lambda: ShardedCounterEngine(make_mesh(8, "cpu"), num_slots=64)),
+    "port-4-groups": (
+        PORT,
+        lambda: ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64),
+    ),
+}
+
+
+def _sharded_bank(name):
+    P, make = SHARDED_ENGINES[name]
+    engine = make()
+    return P, P.Cache(engine, time_source=_clock(P)), engine
+
+
+@pytest.mark.parametrize("reader", SHARDED_ENGINES)
+@pytest.mark.parametrize("writer", SHARDED_ENGINES)
+def test_sharded_files_cross_between_groups(writer, reader, tmp_path):
+    """A sharded bank's file crosses between the JAX mesh, one port
+    group and four port groups in every direction: the reader's state is
+    byte-equal to the JAX sharded engine's after it reads the same file,
+    and to the writer's own state for a port file (the port writes
+    global slot order whatever its groups; a JAX file is bank-major,
+    test_jax_sharded_file_is_bank_major); the reader then answers more
+    traffic as that JAX engine does."""
+    rng = np.random.default_rng(31)
+    values = [f"v{int(i)}" for i in rng.integers(0, 12, 40)]
+    w_P, w_cache, w_engine = _sharded_bank(writer)
+    _serve(w_P, w_cache, "k", values)
+    path = str(tmp_path / "bank.npz")
+    w_P.cp.save_engine(w_engine, path, "lane0of1")
+    r_P, r_cache, r_engine = _sharded_bank(reader)
+    _, j_cache, j_engine = _sharded_bank("jax")
+    assert r_P.cp.restore_engine(r_engine, path, "lane0of1")
+    assert JAX.cp.restore_engine(j_engine, path, "lane0of1")
+    got = np.asarray(r_engine.export_counts())
+    assert got.dtype == np.uint32 and got.tobytes() == np.asarray(j_engine.export_counts()).tobytes()
+    assert _table(r_engine) == _table(j_engine) == _table(w_engine)
+    if writer != "jax":
+        assert got.tobytes() == np.asarray(w_engine.export_counts()).tobytes()
+    more = [f"v{int(i)}" for i in rng.integers(0, 16, 30)]
+    assert _serve(r_P, r_cache, "k", more) == _serve(JAX, j_cache, "k", more)
+
+
 GUARDS = ["version", "age", "role", "num_slots", "algorithm"]
 
 

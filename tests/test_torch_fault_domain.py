@@ -54,6 +54,7 @@ from ratelimit_tpu_torch.backends.fault_domain import (
 )
 from ratelimit_tpu_torch.config import loader
 from ratelimit_tpu_torch.kernels import KernelError
+from ratelimit_tpu_torch.parallel import ShardedCounterEngine, make_mesh
 from ratelimit_tpu_torch.server.health import HealthChecker
 from ratelimit_tpu_torch.service import CacheError
 from ratelimit_tpu_torch.stats.manager import Manager
@@ -1290,6 +1291,84 @@ def test_a_raising_journal_never_blocks_a_quarantine():
     finally:
         inj.heal()
         cache.close()
+
+
+def _stall_group(engine, group):
+    """Make `group`'s event wait block while the returned switch is on
+    and until it is released: the engine's view of a stalled stream of
+    that group (the CPU has no stream to stall)."""
+    switch = SimpleNamespace(on=False, release=threading.Event())
+    of_group = {}
+    take, wait = engine._take_group_staging, engine._wait
+
+    def take_group(g):
+        st = take(g)
+        of_group[id(st)] = g
+        return st
+
+    def wait_group(st):
+        if switch.on and of_group.get(id(st)) == group:
+            switch.release.wait()
+        wait(st)
+
+    engine._take_group_staging = take_group
+    engine._wait = wait_group
+    return switch
+
+
+def stalled_group_quarantines_the_engine(groups):
+    """8 banks in `groups` groups, the last group's stream stalled: the
+    RPC answers within the deadline, one hang fault, the engine (one
+    bank of the domain) quarantined onto the mirror, exact admission,
+    and after the stall drains the restart brings one table of the same
+    slots on the home device."""
+    P = SimpleNamespace(
+        **{**vars(PORT), "engine_kw": {},
+           "Engine": lambda **kw: ShardedCounterEngine(
+               make_mesh(8, devices=("cpu",) * groups), **kw)},
+    )
+    clock = port_time.FakeMonotonicClock(CLOCK0)
+    cache = make_cache(P, deadline=0.2, clock=clock)
+    rule = _rule(P, Manager())
+    fd = cache.fault_domain
+    stall = _stall_group(cache.engine, groups - 1)
+    try:
+        codes = [_code(P, cache, rule) for _ in range(5)]
+        assert fd.snapshot_now() == 1
+        stall.on = True
+        t0 = time.monotonic()
+        codes.append(_code(P, cache, rule))
+        assert time.monotonic() - t0 < 2.0, "not deadline-bounded"
+        quarantined = fd.is_quarantined(0)
+        codes += [_code(P, cache, rule) for _ in range(30)]
+        assert codes.count("OK") == 20
+        faults = dict(fd.stat_faults)
+        stall.release.set()
+        _restart(fd, clock)
+        new = fd.engine_at(0)
+        after = [_code(P, cache, rule) for _ in range(3)]
+        return dict(
+            codes=codes,
+            faults=faults,
+            quarantined=quarantined,
+            fallback_decisions=fd.stat_fallback_decisions,
+            restarted_as=(type(new).__name__, new.model.num_slots, str(new.device)),
+            after=after,
+        )
+    finally:
+        stall.release.set()
+        cache.close()
+
+
+def test_a_stalled_group_quarantines_its_engine_as_a_stalled_table():
+    """A stall on one group of four quarantines the grouped engine
+    exactly as a stall on a one-group table does: same codes, faults,
+    fallback answers and restart."""
+    four = stalled_group_quarantines_the_engine(4)
+    assert four["faults"] == {"hang": 1, "exception": 0, "device_lost": 0}
+    assert four["quarantined"] and four["after"] == ["OVER_LIMIT"] * 3
+    assert four["restarted_as"] == ("CounterEngine", 256, "cpu")
+    assert four == stalled_group_quarantines_the_engine(1)
 
 
 def test_restart_waits_for_the_stalled_stream_to_drain():

@@ -289,7 +289,7 @@ def _launch(table, epilogue, n=40):
     if table == "one table":
         entry, shape, kernel, counts = "rl_fw_general_step", (NS,), fw.K3_STEP, torch.zeros(NS, dtype=torch.int32)
     else:
-        entry, shape, kernel = "rl_sharded_general_step", (BANKS, NS // BANKS), sh.K7_STEP
+        entry, shape, kernel = "rl_sharded_group_step", (BANKS, 0, BANKS, NS // BANKS), sh.K7_STEP
         counts = torch.zeros(shape, dtype=torch.int32)
     if epilogue != "decide":
         kernel = fw.K3_UPDATE if table == "one table" else sh.K7

@@ -546,13 +546,15 @@ BLOB_KEYS = [("fw", f"v{i}") for i in range(12)] + [("sw", "s"), ("tb", "t"), ("
 def blob_replica(P, sharded=False):
     """Two fixed-window lanes, the per-second bank and both algorithm
     banks; `sharded` makes the lanes and the per-second bank
-    bank-sharded tables over 8 banks (tpu-sharded / cuda-sharded)."""
+    bank-sharded tables over 8 banks (tpu-sharded / cuda-sharded), a
+    number > 1 the port's banks in that many groups of the CPU."""
 
     def lane():
         if sharded and P is JAX:
             return JaxShardedEngine(jax_make_mesh(8), num_slots=1 << 10, buckets=(8, 32))
         if sharded:
-            return ShardedCounterEngine(make_mesh(8, "cpu"), num_slots=1 << 10, buckets=(8, 32))
+            mesh = make_mesh(8, "cpu") if sharded is True else make_mesh(8, devices=("cpu",) * sharded)
+            return ShardedCounterEngine(mesh, num_slots=1 << 10, buckets=(8, 32))
         return P.Engine(num_slots=1 << 10, buckets=(8, 32), **P.engine_kw)
 
     banks = {
@@ -589,8 +591,9 @@ REST = ["OK"] * 6 + ["OVER_LIMIT"]
 
 @pytest.mark.parametrize(
     "src,dst,sharded",
-    [(JAX, PORT, False), (PORT, JAX, False), (PORT, JAX, True)],
-    ids=["jax_tpu_to_port_cuda", "port_cuda_to_jax_tpu", "port_cuda_sharded_to_jax_tpu"],
+    [(JAX, PORT, False), (PORT, JAX, False), (PORT, JAX, True), (PORT, JAX, 4)],
+    ids=["jax_tpu_to_port_cuda", "port_cuda_to_jax_tpu", "port_cuda_sharded_to_jax_tpu",
+         "port_cuda_sharded_4_groups_to_jax_tpu"],
 )
 def test_blobs_cross_between_the_packages(src, dst, sharded):
     """A blob packed by either package's replica (fixed-window lanes,

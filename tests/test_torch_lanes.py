@@ -566,6 +566,58 @@ def test_the_factory_never_returns_a_live_banks_stream(pool):
     assert len({b._stream.cuda_stream for b in banks}) == 7
 
 
+def test_each_bank_group_holds_a_stream_of_its_own(pool):
+    """An engine of 8 banks in 4 groups claims one stream a group: no two
+    groups, and no group and another live bank, share a stream.  Its
+    release gives back all four, and a busy stream on any one group
+    keeps the engine's streams busy (fault_domain waits for it)."""
+    grouped = ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+    banks = [PORT.engine(64, buckets=(8,)) for _ in range(3)]
+    mine = [s.cuda_stream for s in (grouped._stream, *grouped._more_streams)]
+    assert len(set(mine)) == 4
+    assert set(mine).isdisjoint(b._stream.cuda_stream for b in banks)
+    assert all(engine_mod._HELD_STREAMS[h] is grouped for h in mine)
+    assert engine_mod.stream_idle(grouped)
+    grouped._more_streams[1].busy = True
+    assert not engine_mod.stream_idle(grouped)
+    grouped._more_streams[1].busy = False
+    release_stream(grouped)
+    assert not set(mine) & set(engine_mod._HELD_STREAMS)
+    assert len({b._stream.cuda_stream for b in banks}) == 3
+
+
+def test_a_grouped_engine_that_fails_to_build_holds_no_stream(pool, monkeypatch):
+    """The groups' streams are claimed before the table is made: where
+    making it raises, every stream the engine claimed is given back, so
+    no later engine -- a restarted bank among them -- finds it held.  On
+    a pool of 8 and no stream of its own, two engines of 4 groups then
+    still find their 8."""
+    real = ShardedCounterEngine._fresh_state
+
+    def no_table(self):
+        raise RuntimeError("CUDA out of memory")
+
+    monkeypatch.setattr(ShardedCounterEngine, "_fresh_state", no_table)
+    with pytest.raises(RuntimeError, match="out of memory") as failed:
+        ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+    # The traceback keeps the half-built engine alive: only the release
+    # frees its streams.
+    assert failed.value.__traceback__ is not None
+    assert not any(
+        isinstance(e, ShardedCounterEngine) for e in engine_mod._HELD_STREAMS.values()
+    )
+    monkeypatch.setattr(ShardedCounterEngine, "_fresh_state", real)
+    monkeypatch.setattr(engine_mod, "_create_stream", _no_stream_of_its_own)
+    engines = [
+        ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+        for _ in range(2)
+    ]
+    held = [s.cuda_stream for e in engines for s in (e._stream, *e._more_streams)]
+    assert len(set(held)) == 8
+    for e in engines:
+        release_stream(e)
+
+
 def test_an_exhausted_pool_refuses_a_new_bank(pool, monkeypatch):
     """Every stream of the pool held and no stream of its own to be
     made: the new bank is refused, never handed a live bank's stream."""

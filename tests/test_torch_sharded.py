@@ -409,21 +409,63 @@ def test_sharded_engine_matches_one_table_engine():
 # -- the mesh and the wrappers -------------------------------------------
 
 
-@pytest.mark.parametrize("cards", [2, 4])
-def test_default_mesh_across_cards_is_refused(monkeypatch, cards):
-    """One bank per visible card, as JAX's make_mesh(): with several
-    cards that is a mesh across cards, refused, never folded onto one."""
+def _fake_cards(monkeypatch, cards):
+    """A host with `cards` visible CUDA cards, as make_mesh asks."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        make_mesh()
-    with pytest.raises(ValueError, match="ROADMAP"):
-        make_mesh(device="cuda")
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_default_mesh_is_one_bank_per_card(monkeypatch, cards):
+    """One bank per visible card, one group each, as JAX's make_mesh()
+    takes every local device; the home device is the first card."""
+    _fake_cards(monkeypatch, cards)
+    for mesh in (make_mesh(), make_mesh(device="cuda")):
+        assert mesh.num_banks == mesh.groups == cards
+        assert mesh.devices == tuple(torch.device("cuda", i) for i in range(cards))
+        assert (mesh.banks_per_group, mesh.device) == (1, torch.device("cuda", 0))
+    # A named card is one bank there, as before.
+    assert make_mesh(device="cuda:1").devices == (torch.device("cuda", 1),)
+
+
+@pytest.mark.parametrize("cards", [2, 4])
+def test_default_mesh_sizes_the_default_engine(monkeypatch, cards):
+    """The runner's default mesh for cuda-sharded (make_mesh(device=
+    "cuda")) is the mesh above: a model on it has one group per card."""
+    _fake_cards(monkeypatch, cards)
+    mesh = make_mesh(device="cuda")
+    m = ShardedFixedWindowModel(1 << 10, mesh)
+    assert (m.num_banks, m.groups, m.banks_per_group) == (cards, cards, 1)
+    assert m.slots_per_bank * cards == m.num_slots >= 1 << 10
+
+
+def test_mesh_of_groups_validates_devices_and_banks(monkeypatch):
+    mesh = make_mesh(8, devices=("cpu",) * 4)
+    assert (mesh.num_banks, mesh.groups, mesh.banks_per_group) == (8, 4, 2)
+    assert mesh.device == torch.device("cpu")
+    assert make_mesh(devices=("cpu", "cpu")).num_banks == 2
+    with pytest.raises(ValueError, match="split evenly"):
+        make_mesh(8, devices=("cpu",) * 3)
+    with pytest.raises(ValueError, match="at least one bank"):
+        make_mesh(0, devices=("cpu",) * 2)
+    with pytest.raises(ValueError, match="at least one device"):
+        make_mesh(8, devices=())
+    with pytest.raises(ValueError, match="not both"):
+        make_mesh(8, "cpu", devices=("cpu",))
+    with pytest.raises(ValueError, match="unsupported device"):
+        make_mesh(8, devices=("meta",))
+    _fake_cards(monkeypatch, 2)
+    with pytest.raises(ValueError, match="one type"):
+        make_mesh(2, devices=("cpu", "cuda:0"))
+    # One card may hold several groups.
+    assert make_mesh(8, devices=("cuda:0",) * 4).devices == (torch.device("cuda", 0),) * 4
 
 
 def test_mesh_banks_on_one_device():
     assert make_mesh(device="cpu").num_banks == 1
     mesh = make_mesh(8, "cpu")
     assert (mesh.num_banks, mesh.device) == (8, torch.device("cpu"))
+    assert mesh.devices == (torch.device("cpu"),)
     with pytest.raises(ValueError, match="at least one bank"):
         make_mesh(0, "cpu")
 

@@ -1,0 +1,476 @@
+"""Banks in groups: the port's sharded table over several group tensors
+against the JAX package's mesh of the same number of banks, on the CPU.
+
+The JAX side runs on the conftest's 8 virtual CPU devices, one bank per
+device; the port places the same banks in G groups of the CPU
+(``make_mesh(nb, devices=("cpu",) * G)``), for every G that divides
+nb, where every kernel wrapper takes its plain version -- K7's group
+form on each group and the combine that stands in for the psum.  The
+same numpy-seeded inputs go through both and every answer, readback and
+the (num_banks, slots_per_bank) table in global bank order must be
+equal (tolerance 0): duplicates, fresh and shadow lanes, skew onto one
+bank, ids past the table and negative ids, in all three readback
+types.  Then the engine over groups, the plain group form and combine
+against the one-group plain step, and the launch's device rules.
+"""
+
+from types import SimpleNamespace
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ratelimit_tpu.backends.engine import HostBatch as JaxHostBatch
+from ratelimit_tpu.models.fixed_window import DeviceBatch as JaxDeviceBatch
+from ratelimit_tpu.parallel import ShardedCounterEngine as JaxShardedEngine
+from ratelimit_tpu.parallel import ShardedFixedWindowModel as JaxShardedModel
+from ratelimit_tpu.parallel import make_mesh as jax_make_mesh
+from ratelimit_tpu_torch import kernels
+from ratelimit_tpu_torch.backends.engine import HostBatch
+from ratelimit_tpu_torch.models import fixed_window as fw
+from ratelimit_tpu_torch.models.fixed_window import DeviceBatch, state_to_numpy
+from ratelimit_tpu_torch.parallel import ShardedCounterEngine, ShardedFixedWindowModel, make_mesh
+from ratelimit_tpu_torch.parallel import sharded as sh
+
+NUM_SLOTS = 64
+U32 = 0xFFFFFFFF
+FIELDS = fw.DeviceDecisions._fields
+_HOST = {torch.int32: np.uint32, torch.int16: np.uint16, torch.uint8: np.uint8, torch.bool: np.bool_}
+#: (banks, groups) for every group count that divides the banks.
+SPLITS = [(nb, g) for nb in (2, 4, 8) for g in (1, 2, 4, 8) if nb % g == 0]
+
+
+def _u(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(_HOST[t.dtype])
+
+
+def _groups(nb, g):
+    return make_mesh(nb, devices=("cpu",) * g)
+
+
+def _table(model, counts) -> np.ndarray:
+    """A port state as the JAX (num_banks, slots_per_bank) table."""
+    return np.concatenate([state_to_numpy(p) for p in model.parts(counts)])
+
+
+def _raw_batch(rng, step, nb, n=32, ns=NUM_SLOTS):
+    """Odd steps: every lane in bank 0 (one group) with heavy duplicates;
+    even steps: duplicates, ids past the table and negative ids down to
+    -ns - 4.  Fresh and shadow lanes on both."""
+    if step % 2:
+        slots = (rng.integers(0, max(ns // nb // 2, 2), n) * nb).astype(np.int32)
+    else:
+        slots = rng.integers(-ns - 4, ns + 6, size=n).astype(np.int32)
+    return dict(
+        slots=slots,
+        hits=rng.integers(1, 5, size=n).astype(np.uint32),
+        limits=rng.integers(1, 12, size=n).astype(np.uint32),
+        fresh=rng.random(n) < 0.15,
+        shadow=rng.random(n) < 0.2,
+    )
+
+
+def _jax_batch(raw):
+    return JaxDeviceBatch(**{k: jnp.asarray(v) for k, v in raw.items()})
+
+
+def _port_batch(raw):
+    return DeviceBatch(
+        slots=torch.from_numpy(raw["slots"]),
+        hits=torch.from_numpy(raw["hits"].view(np.int32)),
+        limits=torch.from_numpy(raw["limits"].view(np.int32)),
+        fresh=torch.from_numpy(raw["fresh"]),
+        shadow=torch.from_numpy(raw["shadow"]),
+    )
+
+
+# -- the model -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("nb,g", SPLITS, ids=[f"{nb}banks-{g}groups" for nb, g in SPLITS])
+@pytest.mark.parametrize("variant", ["step", "step_counters", "uint8", "uint16"])
+def test_grouped_model_matches_jax(nb, g, variant):
+    """Six batches through JAX's mesh of nb devices and the port's nb
+    banks in g groups: step's nine decision fields, step_counters'
+    afters or step_counters_compact's narrow readback, and the table."""
+    jm = JaxShardedModel(NUM_SLOTS, jax_make_mesh(nb))
+    tm = ShardedFixedWindowModel(NUM_SLOTS, _groups(nb, g))
+    assert (tm.num_banks, tm.groups, tm.banks_per_group) == (nb, g, nb // g)
+    jc, tc = jm.init_state(), tm.init_state()
+    assert len(tm.parts(tc)) == g
+    assert all(tuple(p.shape) == (nb // g, NUM_SLOTS // nb) for p in tm.parts(tc))
+    rng = np.random.default_rng(100 + 10 * nb + g)
+    for step in range(6):
+        raw = _raw_batch(rng, step, nb)
+        jb, tb = _jax_batch(raw), _port_batch(raw)
+        if variant == "step":
+            jc, jd = jm.step(jc, jb)
+            tc, td = tm.step(tc, tb)
+            for f in FIELDS:
+                np.testing.assert_array_equal(
+                    _u(getattr(td, f)).astype(np.int64),
+                    np.asarray(getattr(jd, f)).astype(np.int64),
+                    err_msg=f"step {step} {f}",
+                )
+        else:
+            if variant == "step_counters":
+                jc, ja = jm.step_counters(jc, jb)
+                tc, ta = tm.step_counters(tc, tb)
+            else:
+                jc, ja = jm.step_counters_compact(jc, variant, jb)
+                tc, ta = tm.step_counters_compact(tc, variant, tb)
+            assert _u(ta).dtype == np.asarray(ja).dtype
+            np.testing.assert_array_equal(_u(ta), np.asarray(ja), err_msg=f"step {step}")
+        np.testing.assert_array_equal(_table(tm, tc), np.asarray(jc), err_msg=f"step {step}")
+
+
+def _routed_raw(rng, nb, spb, cap, table):
+    """int32[nb, 4, cap] routed rows: distinct live local ids per bank
+    (some as their alias id - spb), fresh and saturating lanes, padding
+    ids spb + i."""
+    pk = np.zeros((nb, 4, cap), np.int32)
+    pk[:, 0] = spb + np.arange(cap)
+    pk[:, 2] = 1
+    for b in range(nb):
+        live = int(rng.integers(0, min(cap, spb) + 1))
+        ids = rng.choice(spb, live, replace=False).astype(np.int64)
+        ids[rng.random(live) < 0.35] -= spb
+        hits = rng.integers(0, 40, live).astype(np.uint32)
+        hot = table[b, ids % spb] > U32 - 64
+        hits[hot] = rng.integers(60, 200, int(hot.sum()))
+        pk[b, 0, :live] = ids
+        pk[b, 1, :live] = hits.view(np.int32)
+        pk[b, 2, :live] = rng.integers(1, 300, live).astype(np.uint32).view(np.int32)
+        pk[b, 3, :live] = rng.random(live) < 0.2
+    return pk
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+@pytest.mark.parametrize("form", ["packed", "lanes", "unpacked"])
+@pytest.mark.parametrize("out_dtype", ["", "uint8", "uint16"])
+def test_grouped_routed_step_matches_jax(g, form, out_dtype):
+    """The routed serving step (K6, one launch a group on the group's
+    rows) over 8 banks in g groups against the JAX routed step: the
+    device form, the by-value form (host words, host readback) and the
+    unpacked batch, all three readback types."""
+    nb = 8
+    jm = JaxShardedModel(NUM_SLOTS, jax_make_mesh(nb))
+    tm = ShardedFixedWindowModel(NUM_SLOTS, _groups(nb, g))
+    spb, k = tm.slots_per_bank, nb // g
+    rng = np.random.default_rng(11 + g)
+    table = rng.integers(0, 300, (nb, spb)).astype(np.uint32)
+    table[rng.random((nb, spb)) < 0.2] = U32 - 10
+    jc = jnp.asarray(table)
+    tc = tuple(
+        torch.from_numpy(table[i * k : (i + 1) * k].view(np.int32).copy()) for i in range(g)
+    )
+    for step, cap in enumerate((8, 16, 8, 4)):
+        pk = _routed_raw(rng, nb, spb, cap, _table(tm, tc))
+        jc, ja = jm.step_counters_unique_routed_packed(jc, out_dtype, pk)
+        if form == "packed":
+            tc, ta = tm.step_counters_unique_routed_packed(tc, out_dtype, torch.from_numpy(pk))
+        elif form == "lanes":
+            out = torch.empty((nb, cap), dtype=fw.OUT_DTYPES[out_dtype])
+            tc, ta = tm.step_counters_unique_routed_lanes(tc, out_dtype, torch.from_numpy(pk), out)
+            assert ta is out
+        else:
+            tb = DeviceBatch(
+                *(torch.from_numpy(pk[:, r].copy()) for r in range(3)),
+                fresh=torch.from_numpy(pk[:, 3] != 0),
+                shadow=torch.zeros((nb, cap), dtype=torch.bool),
+            )
+            tc, ta = tm.step_counters_unique_routed(tc, out_dtype, tb)
+        assert tuple(ta.shape) == (nb, cap)
+        np.testing.assert_array_equal(_u(ta), np.asarray(ja), err_msg=f"step {step}")
+        np.testing.assert_array_equal(_table(tm, tc), np.asarray(jc), err_msg=f"step {step}")
+
+
+# -- the plain group form and combine -------------------------------------
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+@pytest.mark.parametrize("layout", ["", "uint8", "uint16", "decide"])
+def test_plain_group_form_and_combine_equal_one_group(g, layout):
+    """K7's plain group form on each group, combined by the plain
+    combine, equals the one-group plain step on one table of the same
+    banks, lane for lane and table for table; every lane is nonzero in
+    at most its owner's partial, so the combine (a select) also equals
+    the bytewise sum of the partials, JAX's psum."""
+    nb, spb = 8, NUM_SLOTS // 8
+    rng = np.random.default_rng(40 + g)
+    base = rng.integers(0, 2**32, (nb, spb), dtype=np.uint64).astype(np.uint32)
+    one = torch.from_numpy(base.view(np.int32).copy())
+    k = nb // g
+    parts = [one[i * k : (i + 1) * k].clone() for i in range(g)]
+    for step in range(4):
+        b = _port_batch(_raw_batch(rng, step, nb, n=40))
+        n = b.slots.shape[0]
+        decide = layout == "decide"
+        if decide:
+            afters = sh._general_update_plain(one, b.slots, b.hits, b.fresh, None, "")
+            want = fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
+        else:
+            want = sh._general_update_plain(one, b.slots, b.hits, b.fresh, b.limits, layout)
+        partials = [
+            sh.sharded_group_partial(
+                p, i * k, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8
+            )
+            for i, p in enumerate(parts)
+        ]
+        assert all(q.shape == (sh.partial_bytes(layout, n),) for q in partials)
+        stage = torch.zeros((g, -(-sh.partial_bytes(layout, n) // 16) * 16), dtype=torch.uint8)
+        for i, q in enumerate(partials):
+            stage[i, : q.shape[0]] = q
+        out = sh.sharded_combine(stage, b.slots, nb, spb, layout)
+        got = sh.unpack_partial(out, layout, n)
+        summed = stage.sum(0, dtype=torch.uint8)[: out.shape[0]]
+        assert torch.equal(out, summed), f"step {step}: a lane is nonzero off its owner"
+        if decide:
+            for f in FIELDS:
+                assert torch.equal(getattr(got, f), getattr(want, f)), (step, f)
+        else:
+            assert torch.equal(got, want), step
+        assert torch.equal(torch.cat(parts), one), step
+
+
+def test_combine_takes_out_of_table_lanes_from_bank_zeros_group():
+    """An id past the table or negative belongs to the group of bank 0,
+    an in-table id to its bank's group: the combine picks those rows."""
+    nb, spb, g = 8, 4, 4
+    slots = torch.tensor([-1, 32, 0, 1, 2, 3, 4, 5, 6, 7, 31], dtype=torch.int32)
+    n = slots.shape[0]
+    parts = torch.arange(g, dtype=torch.int32).add(1).repeat_interleave(n).view(g, n)
+    out = sh.sharded_combine(parts.view(torch.uint8).contiguous(), slots, nb, spb, "")
+    owner = [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 4]  # group + 1; 31 % 8 = 7 -> group 3
+    assert sh.unpack_partial(out, "", n).tolist() == owner
+
+
+# -- the engine ----------------------------------------------------------
+
+
+def _uniform(rng, step, nb, spb, ns):
+    n = int(rng.integers(1, 70))  # crosses the max_batch chunking
+    return dict(
+        slots=rng.integers(0, ns, n).astype(np.int32),
+        hits=rng.integers(1, 4, n).astype(np.uint32),
+        limits=rng.integers(1, 10, n).astype(np.uint32),
+        fresh=rng.random(n) < 0.1,
+        shadow=rng.random(n) < 0.3,
+    )
+
+
+def _skewed(rng, step, nb, spb, ns):
+    n = 40
+    slots = (rng.integers(0, max(spb // 2, 2), n) * nb).astype(np.int32)
+    fresh = np.zeros(n, bool)
+    if step == 0:
+        fresh[np.unique(slots, return_index=True)[1]] = True
+    return dict(
+        slots=slots,
+        hits=rng.integers(1, 4, n).astype(np.uint32),
+        limits=np.full(n, 9, np.uint32),
+        fresh=fresh,
+        shadow=rng.random(n) < 0.2,
+    )
+
+
+def _probes(rng, step, nb, spb, ns):
+    n = 8
+    return dict(
+        slots=np.concatenate([np.arange(ns, ns + n), rng.integers(0, ns, n)]).astype(np.int32),
+        hits=np.concatenate([np.zeros(n), rng.integers(1, 4, n)]).astype(np.uint32),
+        limits=np.array([100, 60_000, 3_000_000_000, 7] * 4, np.uint32),
+        fresh=np.zeros(2 * n, bool),
+        shadow=np.zeros(2 * n, bool),
+    )
+
+
+def _grouped_engine(g, nb=8, num_slots=NUM_SLOTS, buckets=(8, 32)):
+    return ShardedCounterEngine(_groups(nb, g), num_slots=num_slots, buckets=buckets)
+
+
+@pytest.mark.parametrize("g", [2, 4, 8])
+@pytest.mark.parametrize("case", [_uniform, _skewed, _probes], ids=["uniform", "skew", "probes"])
+def test_grouped_engine_matches_jax(g, case):
+    """The routed serving engine over 8 banks in g groups (one K6 a
+    group a chunk, the readback after every group's) against the JAX
+    sharded engine: every decision field, export_counts() in global
+    order and the per-bank lane counts."""
+    je = JaxShardedEngine(jax_make_mesh(8), num_slots=NUM_SLOTS, buckets=(8, 32))
+    te = _grouped_engine(g)
+    m = te.model
+    rng = np.random.default_rng(21 + g)
+    for step in range(5):
+        raw = case(rng, step, m.num_banks, m.slots_per_bank, m.num_slots)
+        dj = je.step(JaxHostBatch(**raw))
+        dt = te.step(HostBatch(**raw))
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                np.asarray(getattr(dt, f)).astype(np.int64),
+                np.asarray(getattr(dj, f)).astype(np.int64),
+                err_msg=f"step {step} {f}",
+            )
+        np.testing.assert_array_equal(te.export_counts(), je.export_counts())
+        assert te.stat_bank_lane_counts == je.stat_bank_lane_counts
+    assert te.stat_window_rollovers == je.stat_window_rollovers
+
+
+def test_grouped_engine_submits_one_staging_a_group():
+    """A chunk over 4 groups is one handle a group, each staging from
+    its group's own pool, int32[2, 4, cap] a group; after the wait each
+    goes back to its own pool."""
+    te = _grouped_engine(4, num_slots=1 << 10, buckets=(8, 32, 128, 256))
+    rng = np.random.default_rng(9)
+    n = 256
+    hb = HostBatch(
+        slots=rng.choice(1 << 10, n, replace=False).astype(np.int32),
+        hits=np.ones(n, np.uint32),
+        limits=np.full(n, 10, np.uint32),
+        fresh=np.zeros(n, bool),
+        shadow=np.zeros(n, bool),
+    )
+    token = te.step_submit(hb)
+    handle = token[3][0][0]
+    assert isinstance(handle, list) and len(handle) == 4
+    assert all(rb.shape[0] == 2 and rb.shape[1] < n for _, rb in handle)
+    assert te._staging_size()[0] == 2 * 4 * 128
+    np.testing.assert_array_equal(te.step_complete(token).afters, np.ones(n))
+    for g in range(4):
+        assert list(te._pool(g)) == [handle[g][0]]
+
+
+def test_counts_cross_between_group_counts_and_jax():
+    """export_counts / import_counts in global order: a JAX engine's
+    table into 1 and 4 groups, 4 groups into 1 and back into JAX, and
+    the same batch then answers alike everywhere; read_slots and
+    write_slots address global slots over the groups."""
+    je = JaxShardedEngine(jax_make_mesh(8), num_slots=NUM_SLOTS, buckets=(8, 32))
+    one, four = _grouped_engine(1), _grouped_engine(4)
+    rng = np.random.default_rng(5)
+    m = four.model
+    for _ in range(2):
+        je.step(JaxHostBatch(**_uniform(rng, 0, m.num_banks, m.slots_per_bank, m.num_slots)))
+    for e in (one, four):
+        e.import_counts(je.export_counts())
+        np.testing.assert_array_equal(e.export_counts(), je.export_counts())
+    np.testing.assert_array_equal(_table(m, four._counts), np.asarray(je._counts))
+    raw = _skewed(rng, 1, m.num_banks, m.slots_per_bank, m.num_slots)
+    dj = je.step(JaxHostBatch(**raw))
+    for e in (one, four):
+        np.testing.assert_array_equal(e.step(HostBatch(**raw)).afters, np.asarray(dj.afters))
+    one.import_counts(four.export_counts())
+    je2 = JaxShardedEngine(jax_make_mesh(8), num_slots=NUM_SLOTS, buckets=(8, 32))
+    je2.import_counts(four.export_counts())
+    np.testing.assert_array_equal(je2.export_counts(), je.export_counts())
+    np.testing.assert_array_equal(one.export_counts(), je.export_counts())
+    slots = rng.choice(NUM_SLOTS, 20, replace=False)
+    np.testing.assert_array_equal(four.read_slots(slots)["counts"], je.export_counts()[slots])
+    four.write_slots(slots, {"counts": np.arange(20, dtype=np.uint32) + U32 - 9})
+    want = je.export_counts().copy()
+    want[slots] = np.arange(20, dtype=np.uint32) + U32 - 9
+    np.testing.assert_array_equal(four.export_counts(), want)
+    with pytest.raises(ValueError):
+        four.import_counts(np.zeros(10, np.uint32))
+
+
+# -- the launch's device rules ------------------------------------------
+
+
+def test_one_launch_lies_on_one_device(monkeypatch):
+    """kernels.launch runs its ctypes call under the one device of the
+    launch's tensors (torch.cuda.device of it), and a launch whose
+    tensors lie on two devices raises ValueError before any call."""
+    entered, calls = [], []
+
+    class Device:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            entered.append(self.device)
+
+        def __exit__(self, *exc):
+            entered.append("exit")
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(kernels, "function", lambda name: lambda *a: calls.append((name, a)) or 0)
+    on = [SimpleNamespace(device=torch.device("cuda", 1))] * 2
+    before = kernels.launches["k"]
+    kernels.launch("rl_x", "k", on, 1, 2)
+    assert entered == [torch.device("cuda", 1), "exit"]
+    assert calls == [("rl_x", (1, 2))] and kernels.launches["k"] == before + 1
+    assert kernels.device_of(*on) == torch.device("cuda", 1)
+    with pytest.raises(ValueError, match="one device"):
+        kernels.launch("rl_x", "k", [on[0], SimpleNamespace(device=torch.device("cuda", 0))])
+    assert len(calls) == 1 and kernels.launches["k"] == before + 1
+    # The CPU needs no current device.
+    kernels.launch("rl_x", "k", [SimpleNamespace(device=torch.device("cpu"))])
+    assert entered == [torch.device("cuda", 1), "exit"]
+
+
+def test_wrappers_refuse_tensors_on_two_devices():
+    """The group form and the combine never mix devices: the lanes on
+    another device than the table, or the ids on another device than
+    the partials, raise ValueError."""
+    counts = torch.zeros((2, 4), dtype=torch.int32)
+    meta = torch.zeros(8, dtype=torch.int32, device="meta")
+    lanes = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="expected cpu"):
+        sh.sharded_group_partial(counts, 0, 4, meta, lanes, torch.zeros(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="one device"):
+        sh.sharded_combine(torch.zeros((2, 32), dtype=torch.uint8), meta, 4, 4, "")
+    with pytest.raises(ValueError, match="not banks of"):
+        sh.sharded_group_partial(counts, 3, 4, lanes, lanes, torch.zeros(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="do not hold"):
+        sh.sharded_combine(torch.zeros((3, 32), dtype=torch.uint8), lanes, 4, 4, "")
+
+
+def _fake_card(monkeypatch):
+    calls = []
+
+    def function(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+
+        return call
+
+    monkeypatch.setattr(kernels, "function", function)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(fw, "_require_cuda", lambda device: None)
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["", "uint8", "uint16", "decide"])
+def test_group_form_and_combine_are_one_ctypes_call_each(monkeypatch, layout):
+    """A CPU tensor taken for a card's: K7's group form is one call of
+    rl_sharded_group_step with the group's bank range, counted under its
+    epilogue's name, and the combine one call of rl_sharded_combine with
+    the layout's rows; the argument counts are those of SIGNATURES."""
+    calls = _fake_card(monkeypatch)
+    n, nb = 40, 8
+    b = _port_batch(_raw_batch(np.random.default_rng(n), 0, nb, n=n))
+    counts = torch.zeros((2, NUM_SLOTS // nb), dtype=torch.int32)
+    before = dict(kernels.launches)
+    part = sh.launch_group_partial(
+        counts, 4, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.5
+    )
+    (name, args), = calls
+    assert name == "rl_sharded_group_step"
+    assert len(args) == len(kernels.SIGNATURES[name][1])
+    assert args[:5] == (counts.data_ptr(), nb, 4, 2, NUM_SLOTS // nb)
+    assert args[-3:-1] == ({"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
+    assert args[13] == part.data_ptr()  # out
+    kernel = sh.K7_GROUP_STEP if layout == "decide" else sh.K7_GROUP
+    assert kernels.launches[kernel] == before.get(kernel, 0) + 1
+    assert part.dtype == torch.uint8 and part.shape == (sh.partial_bytes(layout, n),)
+    stage = torch.zeros((4, 48 * n), dtype=torch.uint8)
+    out = sh.launch_combine(stage, b.slots, nb, NUM_SLOTS // nb, layout)
+    name, args = calls[1]
+    assert name == "rl_sharded_combine"
+    assert len(args) == len(kernels.SIGNATURES[name][1])
+    assert args[:3] == (stage.data_ptr(), 48 * n, 4)
+    assert args[6:10] == (*sh.LAYOUTS[layout], n)
+    assert args[10] == out.data_ptr() and out.shape == (sh.partial_bytes(layout, n),)
+    assert kernels.launches[sh.COMBINE] == before.get(sh.COMBINE, 0) + 1

@@ -3,8 +3,9 @@ package's tpu-sharded Runner.
 
 The JAX runner serves its bank-sharded engine over the conftest's 8
 virtual CPU devices; the port's runner serves 8 banks on the CPU (a
-mesh on one device, ``make_mesh(8, "cpu")``).  Both answer the same gRPC
-requests, and the responses must be byte-equal."""
+mesh on one device, ``make_mesh(8, "cpu")``, and the same banks in 4
+groups, ``make_mesh(8, devices=("cpu",) * 4)``).  Both answer the same
+gRPC requests, and the responses must be byte-equal."""
 
 import grpc
 import numpy as np
@@ -159,6 +160,80 @@ def test_concurrent_burst_byte_equal(runners):
             list(pool.map(lambda p, r=runner: _call(r, p), payloads))
     for k in keys:
         assert _both(runners, _request("limited", k)).statuses[0].limit_remaining == 1
+
+
+# -- the same 8 banks in 4 groups ----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def grouped(tmp_path_factory):
+    """The JAX tpu-sharded runner beside a port cuda-sharded runner whose
+    8 banks lie in 4 groups of the CPU (make_mesh(8, devices=...)): one
+    K6 a group a chunk, the readback after every group's."""
+    root = tmp_path_factory.mktemp("grouped-runtime")
+    config_dir = root / "ratelimit" / "config"
+    config_dir.mkdir(parents=True)
+    (config_dir / "sh.yaml").write_text(YAML)
+    paths = dict(runtime_path=str(root), runtime_subdirectory="ratelimit")
+    jax_runner = JaxRunner(
+        JaxSettings(backend_type="tpu-sharded", **COMMON, **paths),
+        time_source=JaxPinned(1_000_000),
+    )
+    port_runner = Runner(
+        Settings(backend_type="cuda-sharded", kernel_deadline_s=0.0, **COMMON, **paths),
+        time_source=PinnedTimeSource(1_000_000),
+        device="cpu",
+        mesh=make_mesh(8, devices=("cpu",) * 4),
+    )
+    jax_runner.start()
+    try:
+        port_runner.start()
+        try:
+            yield jax_runner, port_runner
+        finally:
+            port_runner.stop()
+    finally:
+        jax_runner.stop()
+
+
+def test_grouped_backend_is_wired(grouped):
+    engine = grouped[1].cache.engine
+    assert isinstance(engine, ShardedCounterEngine)
+    assert (engine.model.num_banks, engine.model.groups) == (8, 4)
+    assert len(engine.model.parts(engine._counts)) == 4
+    assert engine.model.num_slots == grouped[0].cache.engine.model.num_slots
+
+
+def test_grouped_progression_and_spread_byte_equal(grouped):
+    """4/min over 4 groups: four OK, then OVER, byte-equal with the JAX
+    runner; 40 spread keys each leave remaining 3 and a live counter in
+    every bank, the counters in global order equal to JAX's."""
+    answers = [_both(grouped, _request("limited", "groups")) for _ in range(6)]
+    assert [a.overall_code for a in answers] == [OK] * 4 + [OVER] * 2
+    assert [a.statuses[0].limit_remaining for a in answers] == [3, 2, 1, 0, 0, 0]
+    for i in range(40):
+        a = _both(grouped, _request("limited", f"gspread{i}"))
+        assert a.overall_code == OK and a.statuses[0].limit_remaining == 3
+    jax_runner, port_runner = grouped
+    port_runner.cache.flush()
+    jax_runner.cache.flush()
+    counts = port_runner.cache.engine.export_counts()
+    assert np.unique(np.nonzero(counts)[0] % 8).size == 8
+    np.testing.assert_array_equal(counts, jax_runner.cache.engine.export_counts())
+
+
+def test_grouped_per_second_and_burst_byte_equal(grouped):
+    codes = [_both(grouped, _request("persec", "gs")).overall_code for _ in range(3)]
+    assert codes == [OK, OK, OVER]
+    from concurrent.futures import ThreadPoolExecutor
+
+    keys = [f"gburst{i}" for i in range(48)]
+    payloads = [_request("limited", k) for k in keys for _ in range(2)]
+    for runner in grouped:
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(lambda p, r=runner: _call(r, p), payloads))
+    for k in keys:
+        assert _both(grouped, _request("limited", k)).statuses[0].limit_remaining == 1
 
 
 @pytest.mark.parametrize(
