@@ -2,6 +2,8 @@
 """Smoke run of ratelimit_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --groups # phases 1, 2 and 16 alone (for a
+                                   # host of several cards)
 
 Phases, one line each; any failure exits non-zero:
 
@@ -219,10 +221,13 @@ Phases, one line each; any failure exits non-zero:
    2 banks on the one card, each group its own tensor and stream -- the
    graft batch and a batch with negative and out-of-table ids through
    meshes of 1, 2 and 4 groups in every epilogue (decision block,
-   afters, u8 / u16 readback): bit-equal to the one-group step and the
-   plain version, tables too, K7's group form launched once a group and
-   the combine once a step; device time of the grouped step against the
-   one-launch step; cuda-sharded at 2^20 slots over the grouped mesh
+   afters, u8 / u16 readback), and the 4-group mesh on the path of a
+   host whose cards map no other's memory: bit-equal to the one-group
+   step and the plain version, tables too, K7 launched once a card, the
+   combine only where a card takes it; which path each card pair took
+   (peer or combine); device time of the grouped steps (summed over
+   their activities, and the call time) against the one-launch step;
+   cuda-sharded at 2^20 slots over the grouped mesh
    beside one over one group on one pinned clock -- the 5/min
    progression, 40 spread keys, 8 clients x 60 on a 120/minute key
    admitting exactly 120 on each, export_counts and every key's counter
@@ -233,12 +238,13 @@ Phases, one line each; any failure exits non-zero:
    answered by the mirror within the deadline + STALL_RPC_MARGIN_S,
    exactly 120 of 180 admitted, one hang fault and no other, the first
    fallback answer split into detection, mirror seeding and the numpy
-   step; then K7's group form and the combine against their plain
+   step; then K7's card step and the combine against their plain
    versions and timed.
 
-Phases 6, 7, 8, 9 and 16 run their runners on a clock pinned half way
+Phases 6-9, 11, 13, 14 and 16 run their runners on a clock pinned half way
 through a minute (pinned_clock), so no 5/minute progression waits for
-a new minute and no hourly rule of phase 8 rolls over.  Phases 6, 7, 9, 10, 12, 13, 14, 15 and 16 run with the fault domain armed at its defaults
+a new minute, no hourly rule rolls over, and no per-minute key expires
+inside phase 11.  Phases 6, 7, 9, 10, 12, 13, 14, 15 and 16 run with the fault domain armed at its defaults
 (KERNEL_DEADLINE_S 0.25 s) and must end with no fault, no fallback
 answer, no bank quarantined and health SERVING (phase 10 but for its
 one stall, and phases 12 and 16 for theirs); every served phase binds its three listeners to free local
@@ -246,7 +252,7 @@ ports.  Kernel launch counts are zeroed just before each main-path
 phase (4-14, 16; phase 15 counts the by-value launches of its own child)
 and read just after: every kernel must have run there, where a launch
 of the fused general step counts for each body it runs (K2's tile pass,
-the K3 update, K3's decision block, K7, K7's group form).  The last lines
+the K3 update, K3's decision block, K7, K7's card step).  The last lines
 are a JSON summary of the kernels and
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
@@ -3037,8 +3043,8 @@ def wb_counting(runner, R, clients, keys, what) -> dict:
     admits exactly its limit; after flush() its counter on the card
     equals the hits sent; a MemoryRateLimitCache fed each client's
     requests in the client's order agrees on every status (code and
-    remaining).  A run that straddled a minute boundary is run again on
-    fresh keys."""
+    remaining).  The runner is on pinned_clock(), so no run straddles a
+    minute boundary; one that did would run again on fresh keys."""
     from ratelimit_tpu_torch.api import Descriptor, RateLimitRequest
     from ratelimit_tpu_torch.backends.memory_cache import MemoryRateLimitCache
     from ratelimit_tpu_torch.config.loader import ConfigFile, load_config
@@ -3057,11 +3063,11 @@ def wb_counting(runner, R, clients, keys, what) -> dict:
                     out.append((v, resp.overall_code, resp.statuses[0].limit_remaining))
             return out
 
-        t0 = time.time()
+        t0 = runner.time_source.unix_now()
         started = time.perf_counter()
         results = grpc_clients(runner, clients, work)
         seconds = time.perf_counter() - started
-        if int(t0 // 60) == int(time.time() // 60):
+        if int(t0 // 60) == int(runner.time_source.unix_now() // 60):
             break
     else:
         fail(f"{what}: two runs straddled a minute boundary")
@@ -3113,7 +3119,7 @@ def wb_stall(torch, runner, R, cycles_per_ms) -> dict:
     store = runner.stats_manager.store
     gauge = "ratelimit.tpu.bank0.dispatch_queue"
     value = f"stall-{time.time_ns()}"
-    hour = int(time.time() // 3600)
+    hour = int(runner.time_source.unix_now() // 3600)
 
     def work(_i, call):
         call("wbstall", value)  # the key's first hit, before the stall
@@ -3160,7 +3166,7 @@ def wb_stall(torch, runner, R, cycles_per_ms) -> dict:
         fail(f"write-behind stall: the dispatcher's intake never grew: {out}")
     if out["on_card"] != sent or out["pending"]:
         fail(f"write-behind stall: after flush the card holds {out['on_card']} of {sent}: {out}")
-    if int(time.time() // 3600) != hour:
+    if int(runner.time_source.unix_now() // 3600) != hour:
         fail("write-behind stall: the hour rolled over inside the check")
     return out
 
@@ -3239,18 +3245,19 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
     envelope under a stall on the bank's stream, a quarter of the table
     filled and carried across stop() and a boot on the files; then
     cuda-sharded-write-behind on BANKS banks, and memory, which must
-    launch nothing."""
+    launch nothing.  Every runner is on one pinned_clock(): no minute or
+    hour rolls over inside the phase, so the view a restart restores is
+    the view the stop saved."""
     from ratelimit_tpu_torch.backends import write_behind as wb_mod
     from ratelimit_tpu_torch.backends.memory_cache import MemoryRateLimitCache
 
     kernels.launches.clear()
     out = {}
-    if time.time() % 3600 > 3600 - PHASE10_HOUR_MARGIN_S:
-        time.sleep(3601 - time.time() % 3600)  # the hour rules: no rollover inside
+    clock = pinned_clock()
     with tempfile.TemporaryDirectory() as ckpt:
         env = {"TPU_CHECKPOINT_DIR": ckpt, "TPU_WARMUP": "true"}
         t_boot = time.perf_counter()
-        with serving("cuda-write-behind", env=env) as (runner, request, R):
+        with serving("cuda-write-behind", env=env, time_source=clock) as (runner, request, R):
             out["boot_s"] = time.perf_counter() - t_boot
             cache = runner.cache
             if (
@@ -3280,7 +3287,7 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
         wb_mod.WriteBehindRateLimitCache.on_restored = timed
         t_boot = time.perf_counter()
         try:
-            with serving("cuda-write-behind", env=env) as (runner, request, R):
+            with serving("cuda-write-behind", env=env, time_source=clock) as (runner, request, R):
                 out["restore_boot_s"] = time.perf_counter() - t_boot
                 out["view_keys_after"] = len(runner.cache._view)
                 codes = [request("wbfill", k[len("rl_wbfill_"):].rsplit("_", 1)[0]).overall_code
@@ -3297,7 +3304,7 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
     before = dict(kernels.launches)
     mesh = sh.make_mesh(BANKS, dev)
     with serving("cuda-sharded-write-behind", env={"TPU_WARMUP": "true"}, device=dev,
-                 mesh=mesh) as (runner, request, R):
+                 mesh=mesh, time_source=clock) as (runner, request, R):
         engine = runner.cache.engine
         if not isinstance(engine, sh.ShardedCounterEngine) or (
             engine.model.num_banks, engine.model.num_slots
@@ -3309,7 +3316,7 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
     if min(out["sharded"]["launches"].values()) < 1:
         fail(f"sharded write-behind: K6 launches {out['sharded']['launches']}")
     before = dict(kernels.launches)
-    with serving("memory") as (runner, request, R):
+    with serving("memory", time_source=clock) as (runner, request, R):
         if not isinstance(runner.cache, MemoryRateLimitCache):
             fail("BACKEND_TYPE=memory did not build the memory backend")
         # The 5/hour rule: the phase runs inside one hour.
@@ -5202,13 +5209,36 @@ def joined(torch, model, state):
     return torch.cat([p.to(model.device) for p in model.parts(state)])
 
 
+def unmapped_cards(mesh):
+    """The path of `mesh`'s groups on a host where no card maps another:
+    every card past the home one takes the combine.  Where the groups
+    share one card, its groups split into two sets (even and odd groups),
+    the second as such a card."""
+    cards = mesh.card_groups()
+    if len(cards) == 1:
+        groups = cards[0][0]
+        return ((groups[0::2], "home"), (groups[1::2], "combine"))
+    return (cards[0],) + tuple((groups, "combine") for groups, _ in cards[1:])
+
+
+def card_expect(sh, cards, decide):
+    """The launches of one K7 step over `cards`: one card step a card,
+    and the combine where any card takes it."""
+    expect = {sh.K7_CARD_STEP if decide else sh.K7_CARD: len(cards)}
+    if any(link == "combine" for _, link in cards):
+        expect[sh.COMBINE] = 1
+    return expect
+
+
 def groups_forward(torch, fw, sh, kernels, dev):
     """Step 1: the graft batch (2^20 slots, 4096 lanes) and a batch of
     duplicates with negative and out-of-table ids, from one seeded table,
-    through meshes of 1, 2 and 4 groups in each epilogue.  Every result
-    and table must be bit-equal to the one-group step's and to the plain
-    version's, and each grouped step launch K7's group form once a group
-    and the combine once."""
+    through meshes of 1, 2 and 4 groups in each epilogue, and through the
+    4-group mesh's path on a host whose cards map no other
+    (unmapped_cards).  Every result and table must be bit-equal to the
+    one-group step's and to the plain version's; each grouped step
+    launches K7 once a card, and the combine only where a card takes
+    it."""
     rng = np.random.default_rng(1616)
     base, hot = _banked_table(torch, rng, NUM_SLOTS, dev)
     _, graft = graft_device_batch(torch, fw, dev)
@@ -5217,21 +5247,34 @@ def groups_forward(torch, fw, sh, kernels, dev):
     batches = {"graft": graft, "negative and out-of-table ids": fw.DeviceBatch(
         slots, hits, graft.limits, fresh, shadow)}
     checked = 0
+    paths = {}
+    legs = [(g, None) for g in FORWARD_GROUPS] + [(SERVED_GROUPS, "unmapped")]
     for (what, b), layout in itertools.product(batches.items(), GROUP_LAYOUTS):
         plain_table = base.clone()
         afters = sh._general_update_plain(
             plain_table, b.slots, b.hits, b.fresh, None if layout == "decide" else b.limits,
             "" if layout == "decide" else layout,
         )
+        decide = layout == "decide"
         want = (fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
-                if layout == "decide" else afters)
-        for groups in FORWARD_GROUPS:
+                if decide else afters)
+        for groups, path in legs:
             mesh = group_mesh(torch, sh, dev, groups)
             model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
             state = split_groups(torch, sh, base, mesh)
+            cards = mesh.card_groups() if path is None else unmapped_cards(mesh)
+            pairs = mesh.paths() if path is None else {
+                f"groups {list(gs)} -> groups {list(cards[0][0])}": link for gs, link in cards[1:]}
+            paths[f"{groups} groups" + (", no card mapped" if path else "")] = (
+                f"cards {[(list(gs), link) for gs, link in cards]}, pairs {pairs or 'none'}")
             torch.cuda.synchronize()
             before = dict(kernels.launches)
-            if layout == "decide":
+            if path is not None:
+                got = sh.grouped_general_step(
+                    model.parts(state), cards, BANKS, b.slots, b.hits, b.fresh,
+                    b.limits if decide or layout else None, layout,
+                    b.shadow if decide else None, 0.8)
+            elif decide:
                 state, got = model.step(state, b)
             elif layout == "":
                 state, got = model.step_counters(state, b)
@@ -5240,12 +5283,11 @@ def groups_forward(torch, fw, sh, kernels, dev):
             torch.cuda.synchronize()
             moved = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
                      if v != before.get(k, 0)}
-            kernel = (sh.K7_GROUP_STEP if layout == "decide" else sh.K7_GROUP) if groups > 1 else (
-                sh.K7_STEP if layout == "decide" else sh.K7)
-            expect = {kernel: groups, sh.COMBINE: 1} if groups > 1 else {kernel: 1}
+            expect = card_expect(sh, cards, decide) if groups > 1 else {
+                sh.K7_STEP if decide else sh.K7: 1}
             if moved != expect:
-                fail(f"groups: {groups} groups, {layout or 'afters'} on {what} launched {moved}, "
-                     f"want {expect}")
+                fail(f"groups: {groups} groups{', ' + path if path else ''}, "
+                     f"{layout or 'afters'} on {what} launched {moved}, want {expect}")
             fields = got._fields if layout == "decide" else (None,)
             for f in fields:
                 g_, w_ = (getattr(got, f), getattr(want, f)) if f else (got, want)
@@ -5255,33 +5297,50 @@ def groups_forward(torch, fw, sh, kernels, dev):
             if u32_max_abs_err(joined(torch, model, state), plain_table) != 0:
                 fail(f"groups: {groups} groups' table on {what} ({layout}) disagrees")
             checked += 1
-    return dict(checked=checked)
+    return dict(checked=checked, paths=paths)
 
 
 def group_step_spread(torch, fw, sh, dev):
     """Device time a step of the graft batch, min / median / max over 50
-    calls: the one-launch step of one group, and the step over
-    SERVED_GROUPS groups (its launches, copies and combine)."""
+    calls: the one-launch step of one group, the step over SERVED_GROUPS
+    groups (one card launch a card), and the same groups on the path of
+    a host whose cards map no other (their card launches, the row copies
+    and the combine); each also as its call time (time_ms: CUDA events on
+    the home stream, which waits on every card, over back-to-back calls;
+    the host's enqueue included), the time a step holds the cards."""
     rng = np.random.default_rng(1616)
     base, _ = _banked_table(torch, rng, NUM_SLOTS, dev)
     _, graft = graft_device_batch(torch, fw, dev)
     spread = {}
-    for groups in (1, SERVED_GROUPS):
-        mesh = group_mesh(torch, sh, dev, groups)
+    for groups in (1, SERVED_GROUPS, "unmapped"):
+        mesh = group_mesh(torch, sh, dev, SERVED_GROUPS if groups == "unmapped" else groups)
         model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
         state = split_groups(torch, sh, base, mesh)
-        spread[groups] = device_samples(lambda: model.step(state, graft), iters=50)
+        if groups == "unmapped":
+            cards = unmapped_cards(mesh)
+            parts = model.parts(state)
+
+            def step():
+                return sh.grouped_general_step(parts, cards, BANKS, graft.slots, graft.hits,
+                                               graft.fresh, graft.limits, "decide",
+                                               graft.shadow, 0.8)
+        else:
+            def step():
+                return model.step(state, graft)
+        spread[groups] = device_samples(step, iters=50)
+        spread[f"{groups} call"] = time_ms(step, reps=10, inner=20)
     return spread
 
 
 def group_kernel_rows(torch, fw, sh, dev):
-    """K7's group form (decision epilogue and afters) on one group of
-    SERVED_GROUPS, and the combine of SERVED_GROUPS decision partials, at
-    4096 lanes of duplicates on a 2^20-slot table: each against its plain
-    version on the same inputs (max |err|), its device time, the plain
-    version's, its bound and, for the combine, the nearest PyTorch call
-    (a bytewise sum of the partials, equal here because every lane is 0
-    off its owner).  Returns (rows, errs)."""
+    """K7's card step (decision epilogue and afters) over SERVED_GROUPS
+    groups on one card, and the combine of SERVED_GROUPS decision rows,
+    at 4096 lanes of duplicates on a 2^20-slot table: each against its
+    plain version on the same inputs (max |err|), its device time, the
+    plain version's, its bound and, for the combine, the nearest PyTorch
+    call (a bytewise sum of the rows, equal here because the stage starts
+    at 0 and each row holds only its group's lanes).  Returns (rows,
+    errs)."""
     rng = np.random.default_rng(1617)
     n = 4096
     k = BANKS // SERVED_GROUPS
@@ -5291,8 +5350,9 @@ def group_kernel_rows(torch, fw, sh, dev):
     limits = torch.from_numpy(rng.integers(1, 1000, n).astype(np.int32)).to(dev)
     shadow = torch.zeros(n, dtype=torch.bool, device=dev)
     s = slots.to(torch.int64)
-    mine = (s >= 0) & (s < NUM_SLOTS) & (s % BANKS < k)
-    owned = int(torch.unique(s[mine]).numel())
+    # Every group is on the card: each distinct in-table slot is
+    # gathered and scattered once.
+    touched = int(torch.unique(s[(s >= 0) & (s < NUM_SLOTS)]).numel())
     rows, errs = {}, {}
 
     def row(name, kern, plain, nbytes, ops, library=None):
@@ -5315,24 +5375,32 @@ def group_kernel_rows(torch, fw, sh, dev):
         )
 
     lanes = (slots, hits, fresh, limits)
+    every = tuple(range(SERVED_GROUPS))
+
+    def split():
+        return [base[i * k : (i + 1) * k].clone() for i in every]
+
+    def card(tables, layout, out, stride=0, groups=every, plain=False):
+        fn = sh._card_step_plain if plain else sh.sharded_card_step
+        return fn(tables, groups, BANKS, *lanes, layout, shadow, 0.8, out, stride)
+
     # Each row starts the kernel and its plain version from one table:
     # the first calls are compared, before the timing moves the two apart.
-    g1, g2 = base[:k].clone(), base[:k].clone()
-    row(sh.K7_GROUP_STEP,
-        lambda: sh.sharded_group_partial(g1, 0, BANKS, *lanes, "decide", shadow, 0.8),
-        lambda: sh._group_partial_plain(g2, 0, BANKS, *lanes, "decide", shadow, 0.8),
-        14 * n + 8 * owned + 33 * n, prefix_ops(n) + 34 * n)
-    u1, u2 = base[:k].clone(), base[:k].clone()
-    row(sh.K7_GROUP,
-        lambda: sh.sharded_group_partial(u1, 0, BANKS, *lanes, "", None, 0.0),
-        lambda: sh._group_partial_plain(u2, 0, BANKS, *lanes, "", None, 0.0),
-        9 * n + 8 * owned + 4 * n, prefix_ops(n) + 4 * n)
-    parts = [base[i * k : (i + 1) * k].clone() for i in range(SERVED_GROUPS)]
+    for name, layout, nbytes, ops in (
+        (sh.K7_CARD_STEP, "decide", 14 * n + 8 * touched + 33 * n, prefix_ops(n) + 34 * n),
+        (sh.K7_CARD, "", 9 * n + 8 * touched + 4 * n, prefix_ops(n) + 4 * n),
+    ):
+        size = sh.partial_bytes(layout, n)
+        t1, t2 = split(), split()
+        o1 = torch.zeros(size, dtype=torch.uint8, device=dev)
+        o2 = torch.zeros(size, dtype=torch.uint8, device=dev)
+        row(name, lambda: card(t1, layout, o1), lambda: card(t2, layout, o2, plain=True),
+            nbytes, ops)
+    parts = split()
     stride = -(-sh.partial_bytes("decide", n) // 16) * 16
     stage = torch.zeros((SERVED_GROUPS, stride), dtype=torch.uint8, device=dev)
-    for i, p in enumerate(parts):
-        q = sh.sharded_group_partial(p, i * k, BANKS, *lanes, "decide", shadow, 0.8)
-        stage[i, : q.shape[0]] = q
+    for i in every:
+        card(parts, "decide", stage.view(-1), stride, groups=(i,))
     out_bytes = sh.partial_bytes("decide", n)
     row(sh.COMBINE,
         lambda: sh.sharded_combine(stage, slots, BANKS, spb, "decide"),
@@ -5601,7 +5669,7 @@ def groups_phase(torch, kernels, fw, sh, dev, cycles_per_ms):
     fwd = groups_forward(torch, fw, sh, kernels, dev)
     served = groups_served(torch, kernels, sh, fw, dev, cycles_per_ms)
     launches = dict(kernels.launches)
-    for name in (sh.K7_GROUP, sh.K7_GROUP_STEP, sh.COMBINE, sh.K6_LANES):
+    for name in (sh.K7_CARD, sh.K7_CARD_STEP, sh.COMBINE, sh.K6_LANES):
         if launches.get(name, 0) < 1:
             fail(f"groups: {name} never launched on the main path: {launches}")
     fwd["spread"] = group_step_spread(torch, fw, sh, dev)
@@ -5623,15 +5691,23 @@ def groups_lines(o, smi) -> list:
     st = srv["stall"]
     split = st["first_answer_ms"]
     eng = srv["engine"]
+    sp = fwd["spread"]
+
+    def both(key):
+        return f"{spread_us(sp[key])} (call {sp[f'{key} call'] * 1e3:.2f} us)"
+
     return [
         f"groups: placement {srv['placement']} ({smi})",
+        "groups paths (each card's groups and how its lanes reach the home output): "
+        + "; ".join(f"{k}: {v}" for k, v in fwd["paths"].items()),
         f"groups forward: {fwd['checked']} steps (graft batch and negative / out-of-table ids, "
-        f"2^20 slots x 4096 lanes, {len(GROUP_LAYOUTS)} epilogues, {list(FORWARD_GROUPS)} groups) "
-        f"bit-equal to the one-group step and the plain version; K7's group form once a group "
-        f"and the combine once a step; device time a step, min / median / max over 50: "
-        f"one group (one launch) {spread_us(fwd['spread'][1])}, {SERVED_GROUPS} groups "
-        f"({SERVED_GROUPS} launches, {SERVED_GROUPS} copies, the combine) "
-        f"{spread_us(fwd['spread'][SERVED_GROUPS])}",
+        f"2^20 slots x 4096 lanes, {len(GROUP_LAYOUTS)} epilogues, {list(FORWARD_GROUPS)} groups "
+        f"and {SERVED_GROUPS} groups with no card mapped) bit-equal to the one-group step and "
+        f"the plain version; K7 once a card, the combine only on a card without a mapping; "
+        f"device time a step (summed over its activities), min / median / max over 50: one "
+        f"group (one launch) {both(1)}, {SERVED_GROUPS} groups (one launch a card) "
+        f"{both(SERVED_GROUPS)}, {SERVED_GROUPS} groups with no card mapped (a launch a card, "
+        f"row copies, the combine) {both('unmapped')} ({smi})",
         f"groups served: 6th hit OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0] and 40 spread keys "
         f"at 4 on both runners, export_counts equal; {GROUPS_CLIENTS} clients x "
         f"{GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key admitted {srv['admitted']}; K6 "
@@ -5956,7 +6032,7 @@ def main() -> None:
     for line in sanitized_lines(sanitized, smi):
         log(line)
 
-    # 16. banks in groups: K7's group form, the combine, K6 per group
+    # 16. banks in groups: K7 once a card, the combine, K6 per group
     grp_launches, groups_out, grp_rows, grp_errs = groups_phase(
         torch, kernels, fw, sh, dev, cycles_per_ms
     )
@@ -5978,11 +6054,11 @@ def main() -> None:
     # decide, and K7: its launches count for each body it runs.
     bodies = {
         prefix_cuda.KERNEL: (prefix_cuda.KERNEL, fw.K3_UPDATE, fw.K3_STEP, sh.K7, sh.K7_STEP,
-                             sh.K7_GROUP, sh.K7_GROUP_STEP),
+                             sh.K7_CARD, sh.K7_CARD_STEP),
         fw.K3_UPDATE: (fw.K3_UPDATE, fw.K3_STEP),
-        fw.K3_DECIDE: (fw.K3_DECIDE, fw.K3_STEP, sh.K7_STEP, sh.K7_GROUP_STEP),
+        fw.K3_DECIDE: (fw.K3_DECIDE, fw.K3_STEP, sh.K7_STEP, sh.K7_CARD_STEP),
         sh.K7: (sh.K7, sh.K7_STEP),
-        sh.K7_GROUP: (sh.K7_GROUP, sh.K7_GROUP_STEP),
+        sh.K7_CARD: (sh.K7_CARD, sh.K7_CARD_STEP),
     }
     fused = "ratelimit_tpu_torch/csrc/counter_update.cuh"
     replaces = {
@@ -6000,8 +6076,8 @@ def main() -> None:
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
         sh.K7_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
-        sh.K7_GROUP: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
-        sh.K7_GROUP_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
+        sh.K7_CARD: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
+        sh.K7_CARD_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
         sh.COMBINE: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:322"),
     }
     rows = []
@@ -6036,5 +6112,34 @@ def main() -> None:
     )
 
 
+def groups_only() -> None:
+    """`--groups`: the device, the build and phase 16 alone -- on a host
+    of several cards, the banks one group a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs a CUDA GPU")
+    sys.path.insert(0, REPO)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    log(f"device: {torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    log(smi)
+    from ratelimit_tpu_torch import kernels
+    from ratelimit_tpu_torch.models import fixed_window as fw
+    from ratelimit_tpu_torch.parallel import sharded as sh
+
+    log(f"build: {kernels.build_all()}")
+    launches, out, rows, errs = groups_phase(
+        torch, kernels, fw, sh, dev, sleep_cycles_per_ms(torch))
+    log(f"groups: launches {launches}")
+    for line in groups_lines(out, smi):
+        log(line)
+    log(json.dumps({"kernels": [dict(name=k, max_abs_err=errs[k], **v) for k, v in rows.items()]}))
+
+
 if __name__ == "__main__":
-    main()
+    groups_only() if sys.argv[1:] == ["--groups"] else main()

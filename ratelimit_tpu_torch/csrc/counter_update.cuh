@@ -4,8 +4,8 @@
 // all arithmetic and comparisons are on uint32_t.
 //
 // The duplicate-tolerant general step is templated on an index policy,
-// the map from a slot id to a table position (or -1 where the id is
-// inert):
+// the map from a slot id to the counter it addresses (null where the id
+// is inert here):
 //
 // - WrappedIndex: one table, JAX's index semantics (slot_index.cuh): an
 //   id in [-num_slots, -1] addresses id + num_slots.
@@ -19,13 +19,19 @@
 //   by a bank outside the group is inert here, as on another chip of the
 //   JAX mesh.  A group of every bank (bank_lo 0, banks_here num_banks) is
 //   the whole sharded table.
+// - CardIndex: every bank group of a mesh that lies on one card, each
+//   its own (k, slots_per_bank) tensor; group g holds the banks [g k,
+//   (g + 1) k).  It carries one table pointer per group of the mesh, null
+//   for a group on another card, so one launch serves every group the
+//   card holds.
 //
-// Each policy also says which lanes its table OWNS, the `owned` mask of
+// Each policy also says which lanes its tables OWN, the `owned` mask of
 // _bank_core (sharded.py:286): an in-table lane is owned by its bank's
-// table, an out-of-table lane by the table that holds bank 0.  A lane the
-// table does not own leaves the epilogue zero, as _bank_step zeroes it
-// before the psum; WrappedIndex, and a group of every bank, own every
-// lane.
+// table, an out-of-table lane by the table that holds bank 0.  Only an
+// owned lane runs the epilogue: the step writes nothing at the others.
+// WrappedIndex, and a group of every bank, own every lane.  CardIndex
+// also places each owned lane's output: at out + g * out_stride bytes
+// for its owner group g (out_stride 0: one output for every group).
 //
 // and on an epilogue: the raw afters, their narrow u8/u16 readback, or
 // the decision block's nine fields.  It is one cooperative launch
@@ -69,7 +75,12 @@ struct WrappedIndex {
   __device__ __forceinline__ long long operator()(int32_t slot) const {
     return slot_index(slot, num_slots);
   }
+  __device__ __forceinline__ uint32_t* at(uint32_t* counts, int32_t slot) const {
+    const long long s = (*this)(slot);
+    return s < 0 ? nullptr : counts + s;
+  }
   __device__ __forceinline__ bool owns(int32_t) const { return true; }
+  __device__ __forceinline__ long long out_offset(int32_t) const { return 0; }
 };
 
 struct GroupIndex {
@@ -90,9 +101,51 @@ struct GroupIndex {
     const int r = row(slot);
     return r < 0 ? -1 : r * slots_per_bank + slot / num_banks;
   }
+  __device__ __forceinline__ uint32_t* at(uint32_t* counts, int32_t slot) const {
+    const long long s = (*this)(slot);
+    return s < 0 ? nullptr : counts + s;
+  }
   __device__ __forceinline__ bool owns(int32_t slot) const {
     const int r = row(slot);
     return r >= 0 || (r == -2 && bank_lo == 0);
+  }
+  __device__ __forceinline__ long long out_offset(int32_t) const { return 0; }
+};
+
+// The groups one card launch may carry: 256 pointers, 2 KB of the 4 KB
+// a launch's parameters hold (parallel/sharded.py MAX_GROUPS refuses a
+// larger mesh).
+constexpr int kMaxGroups = 256;
+
+struct CardIndex {
+  uint32_t* table[kMaxGroups];  // group g's tensor on this card, else null
+  int num_banks;
+  int banks_per_group;          // k
+  long long slots_per_bank;
+  long long out_stride;         // bytes between two groups' outputs
+  // The group of `slot`'s bank; an out-of-table id belongs to group 0.
+  __device__ __forceinline__ int group(int32_t slot) const {
+    if (slot < 0 || slot >= num_banks * slots_per_bank) {
+      return 0;
+    }
+    return (slot % num_banks) / banks_per_group;
+  }
+  __device__ __forceinline__ uint32_t* at(uint32_t*, int32_t slot) const {
+    if (slot < 0 || slot >= num_banks * slots_per_bank) {
+      return nullptr;
+    }
+    const int b = slot % num_banks;
+    const int g = b / banks_per_group;
+    uint32_t* t = table[g];
+    return t == nullptr
+               ? nullptr
+               : t + (b - g * banks_per_group) * slots_per_bank + slot / num_banks;
+  }
+  __device__ __forceinline__ bool owns(int32_t slot) const {
+    return table[group(slot)] != nullptr;
+  }
+  __device__ __forceinline__ long long out_offset(int32_t slot) const {
+    return group(slot) * out_stride;
   }
 };
 
@@ -241,10 +294,10 @@ int launch_unique_step_lanes(void* counts, long long num_slots,
 //   step_counters_compact's narrow readback) and :294 decision_block
 //   (WrappedIndex: K3 update and K3 decide), and
 //   ratelimit_tpu/parallel/sharded.py:270 _bank_core with _bank_update,
-//   step_counters_compact and _bank_step (GroupIndex: K7 on one bank
-//   group; over every bank each lane has one owner bank, so the psum is
-//   the write of that lane; over fewer, sharded_combine, in sharded.cu,
-//   recombines the group's partial with the other groups').
+//   step_counters_compact and _bank_step (GroupIndex: K7 on a group of
+//   every bank; CardIndex: K7 on the groups one card holds).  Each lane
+//   has one owner bank, so the psum is the owner's write of that lane
+//   (sharded.cu says how the cards of a mesh write theirs).
 //
 // What bounds it.  About 14 B in per lane (slot, hits, fresh, limit,
 // shadow), 8 B gathered and scattered per distinct slot and at most 33 B
@@ -339,36 +392,23 @@ struct GeneralStep {
   const uint32_t* limits;  // kNarrow8, kNarrow16, kDecide
   const uint8_t* shadow;   // kDecide
   float near_ratio;        // kDecide
-  uint32_t* afters;  // [n]: the gathered befores, then (kAfters) the afters
+  uint32_t* afters;  // [n]: the gathered befores
   uint32_t* incl;    // [n]: the prefix scratch
-  void* out;         // kNarrow8/16: u8/u16[n]; kDecide: u32[8, n]
+  void* out;         // kAfters: u32[n] (may be `afters`); kNarrow8/16:
+                     // u8/u16[n]; kDecide: u32[8, n]
   uint8_t* set_lc;   // kDecide: [n]
   int n;
   long long pairs;   // tile_pairs(n)
   bool aligned;      // tiles_aligned(slots, hits)
 };
 
-// The epilogue of a lane the table does not own: every output field 0.
-template <int kEpilogue>
-__device__ __forceinline__ void drop_lane(const GeneralStep& p, long long i) {
-  if constexpr (kEpilogue == kDecide) {
-    uint32_t* out = static_cast<uint32_t*>(p.out);
-    for (int r = 0; r < 8; ++r) {
-      out[r * static_cast<long long>(p.n) + i] = 0u;
-    }
-    p.set_lc[i] = 0;
-  } else if constexpr (kEpilogue == kAfters) {
-    p.afters[i] = 0u;
-  } else {
-    write_readback(p.out, i, 0u, 0u, kEpilogue);
-  }
-}
-
 // `counts`, `afters` and `incl` are written and read again across the
-// barriers, so they carry no __restrict__ (no read-only loads).
+// barriers, so they carry no __restrict__ (no read-only loads).  The
+// index is a __grid_constant__: CardIndex's table is indexed per lane in
+// place, never copied to local memory.
 template <class Index, int kEpilogue>
 __global__ void __launch_bounds__(kTile)
-    general_step_kernel(const GeneralStep p, const Index index) {
+    general_step_kernel(const GeneralStep p, const __grid_constant__ Index index) {
   cg::grid_group grid = cg::this_grid();
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first =
@@ -376,9 +416,9 @@ __global__ void __launch_bounds__(kTile)
 
   for (long long i = first; i < p.n; i += stride) {  // A
     if (p.fresh[i]) {
-      const long long slot = index(p.slots[i]);
-      if (slot >= 0) {
-        p.counts[slot] = 0u;
+      uint32_t* cell = index.at(p.counts, p.slots[i]);
+      if (cell != nullptr) {
+        *cell = 0u;
       }
     }
     p.incl[i] = 0u;
@@ -386,8 +426,8 @@ __global__ void __launch_bounds__(kTile)
   grid.sync();
 
   for (long long i = first; i < p.n; i += stride) {  // B
-    const long long slot = index(p.slots[i]);
-    p.afters[i] = slot >= 0 ? p.counts[slot] : 0u;
+    const uint32_t* cell = index.at(p.counts, p.slots[i]);
+    p.afters[i] = cell != nullptr ? *cell : 0u;
   }
   prefix_tile_pass(p.slots, p.hits, p.incl, p.n, p.pairs, p.aligned);
   grid.sync();
@@ -396,19 +436,21 @@ __global__ void __launch_bounds__(kTile)
     const uint32_t h = p.hits[i];
     const uint32_t after = p.afters[i] + p.incl[i];
     const int32_t id = p.slots[i];
-    const long long slot = index(id);
-    if (slot >= 0) {
-      atomicAdd(&p.counts[slot], h);
+    uint32_t* cell = index.at(p.counts, id);
+    if (cell != nullptr) {
+      atomicAdd(cell, h);
     }
     if (!index.owns(id)) {
-      drop_lane<kEpilogue>(p, i);
-    } else if constexpr (kEpilogue == kDecide) {
+      continue;  // another card's (or group's) lane: written there
+    }
+    const long long at = index.out_offset(id);
+    void* out = static_cast<uint8_t*>(p.out) + at;
+    if constexpr (kEpilogue == kDecide) {
       decide_lane(after, h, p.limits[i], p.shadow[i] != 0, p.near_ratio,
-                  static_cast<uint32_t*>(p.out), p.n, i, p.set_lc);
-    } else if constexpr (kEpilogue == kAfters) {
-      p.afters[i] = after;
+                  static_cast<uint32_t*>(out), p.n, i, p.set_lc + at);
     } else {
-      write_readback(p.out, i, after, p.limits[i] + h, kEpilogue);
+      write_readback(out, i, after, kEpilogue == kAfters ? 0u : p.limits[i] + h,
+                     kEpilogue);
     }
   }
 }
@@ -468,7 +510,7 @@ int launch_general(const GeneralStep& p, const Index& index,
 
 // The C entries' body: the general step of n lanes with epilogue
 // `epilogue` (Epilogue), in one launch.  `afters` and `incl` are int32[n]
-// of scratch (kAfters: `afters` is the output); the pointers an epilogue
+// of scratch (kAfters: `out` may be `afters`); the pointers an epilogue
 // does not read may be null.
 template <class Index>
 int launch_general_step(void* counts, const Index& index, const void* slots,

@@ -109,6 +109,12 @@ SIGNATURES = {
         "sharded",
         [_VP, _I32, _I32, _I32, _I64, *_GENERAL_STEP],
     ),
+    "rl_sharded_card_step": (
+        "sharded",
+        [_VP, _I32, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _F32, _VP, _VP, _VP, _VP,
+         _I64, _I32, _I32, _VP],
+    ),
+    "rl_enable_peer": ("sharded", [_I32, _I32, _VP]),
     "rl_sharded_combine": (
         "sharded",
         [_VP, _I64, _I32, _VP, _I32, _I64, _I32, _I32, _I32, _I32, _VP, _VP],
@@ -287,6 +293,15 @@ def mapped_alias(host_ptr: int) -> int:
     dev = ctypes.c_void_p()
     check(function("rl_mapped_alias")(host_ptr, ctypes.byref(dev)), "rl_mapped_alias")
     return dev.value or 0
+
+
+def enable_peer(device: int, peer: int) -> bool:
+    """Whether kernels on card `device` can store into card `peer`'s
+    memory; where they can, the mapping is enabled (once a process: an
+    enabled one stays).  Raises KernelError where the CUDA calls fail."""
+    mapped = ctypes.c_int(0)
+    check(function("rl_enable_peer")(device, peer, ctypes.byref(mapped)), "rl_enable_peer")
+    return bool(mapped.value)
 
 
 def stream_ptr(device) -> int:

@@ -33,16 +33,20 @@ Three kernels, in csrc/sharded.cu:
 - K7, the duplicate-tolerant step over a replicated batch of GLOBAL
   ids: zero fresh slots, gather, the per-slot prefix (K2's tile pass)
   on the raw ids, MODULAR scatter-add, with an optional narrow readback
-  or the decision block -- K3's fused general step under the group
-  index policy, one cooperative launch a group
-  (``sharded_group_partial``): each group works on its own banks and
-  writes the lanes it owns, zeroing the rest, as ``_bank_step`` does.
-  A group of every bank owns every lane, and its launch is counted as
-  ``sharded_general_update`` or ``sharded_general_step``;
-- ``sharded_combine``, the ``psum``: the groups' partials, copied to the
-  home device (the first group's), and one launch that takes each
-  lane from its owner group.  Each lane has one owner, so the select is
-  JAX's sum.
+  or the decision block -- K3's fused general step under another index
+  policy.  A group of every bank owns every lane: one launch, counted
+  as ``sharded_general_update`` or ``sharded_general_step``.  Over
+  several groups, ONE cooperative launch a card over every group it
+  holds (``sharded_card_step``, counted as ``sharded_card_update`` or
+  ``sharded_card_step``): each card works on its own groups' banks and
+  stores the lanes it owns into the one output on the home device
+  (the first group's) -- in place on the home card, through a peer
+  mapping from another.  Each lane has one owner, so those stores are
+  JAX's ``psum``;
+- ``sharded_combine``, the ``psum`` where a card cannot map the home
+  card (Mesh.links): each card's owned lanes in their owner group's row
+  of a stage, copied home, and one launch that takes each lane from its
+  owner's row.
 
 Like the single-table steps, K6 and K7 update the table IN PLACE.  Each
 wrapper launches its kernel for a CUDA tensor, under that tensor's
@@ -52,6 +56,7 @@ kept beside it, only for a tensor on the CPU.
 
 from __future__ import annotations
 
+import ctypes
 from collections import deque
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
@@ -85,9 +90,15 @@ K6 = "sharded_routed_step"
 K6_LANES = "sharded_routed_step_lanes"
 K7 = "sharded_general_update"
 K7_STEP = "sharded_general_step"
-K7_GROUP = "sharded_group_update"
-K7_GROUP_STEP = "sharded_group_step"
+K7_CARD = "sharded_card_update"
+K7_CARD_STEP = "sharded_card_step"
 COMBINE = "sharded_combine"
+
+#: The most groups a mesh may have: one card's launch of K7 carries a
+#: table pointer for each (csrc/counter_update.cuh kMaxGroups).
+MAX_GROUPS = 256
+#: How a card's owned lanes reach the home device's output (Mesh.links).
+LINKS = ("home", "peer", "combine")
 
 
 @dataclass(frozen=True)
@@ -95,15 +106,51 @@ class Mesh:
     """``num_banks`` counter banks in ``len(devices)`` equal groups, group
     g on ``devices[g]``: the port's counterpart of the JAX package's 1-D
     device mesh.  ``device``, the first group's, is the home device: it
-    holds the batch, the recombined answers and the engine's host work."""
+    holds the batch, the recombined answers and the engine's host work.
+
+    ``links`` says, for each card (``cards``, the home card first), how
+    K7 brings the lanes that card owns to the home device: "home" for the
+    home card, "peer" for a card that stores into the home card's memory
+    through a peer mapping, "combine" for one that cannot (its rows are
+    copied home and sharded_combine selects them).  make_mesh reads it
+    from the topology; a mesh built without it takes "combine" for every
+    card past the home one, the way that needs no mapping."""
 
     num_banks: int
     devices: Tuple[torch.device, ...]
+    links: Tuple[str, ...] = ()
 
     def __post_init__(self):
         # One device names a mesh of one group.
         if isinstance(self.devices, torch.device):
             object.__setattr__(self, "devices", (self.devices,))
+        cards = len(self.cards)
+        if not self.links:
+            object.__setattr__(self, "links", ("home",) + ("combine",) * (cards - 1))
+        links = tuple(self.links)
+        if len(links) != cards or links[:1] != ("home",) or not set(links[1:]) <= set(LINKS[1:]):
+            raise ValueError(f"links {links} do not fit {cards} cards: the home card's is "
+                             f"'home', every other's 'peer' or 'combine'")
+        object.__setattr__(self, "links", links)
+
+    @property
+    def cards(self) -> Tuple[torch.device, ...]:
+        """The distinct devices of the groups, the home device first."""
+        return tuple(dict.fromkeys(self.devices))
+
+    def card_groups(self) -> Tuple[Tuple[Tuple[int, ...], str], ...]:
+        """(the groups a card holds, its link) for each card, the home
+        card's first: what grouped_general_step launches over."""
+        return tuple(
+            (tuple(g for g, d in enumerate(self.devices) if d == card), link)
+            for card, link in zip(self.cards, self.links)
+        )
+
+    def paths(self) -> dict:
+        """How K7's psum crosses each pair of a card and the home card:
+        {"cuda:1->cuda:0": "peer" or "combine"}; empty on one card."""
+        return {f"{card}->{self.device}": link
+                for card, link in zip(self.cards[1:], self.links[1:])}
 
     @property
     def device(self) -> torch.device:
@@ -130,8 +177,14 @@ def make_mesh(n_banks: Optional[int] = None, device=None, devices=None) -> Mesh:
       device may repeat: groups that share a card each get their own
       tensor and, in the engine, their own stream.
 
+    On several cards the mesh's links come from the topology: each card
+    that can map the home card's memory (cudaDeviceCanAccessPeer) gets
+    the mapping enabled here, once, and stores its lanes there ("peer");
+    any other card takes the combine.
+
     Raises ValueError for no bank, banks that do not split evenly, no
-    device, devices of two types, or both `device` and `devices`."""
+    device, devices of two types, more than MAX_GROUPS groups, or both
+    `device` and `devices`."""
     if devices is not None:
         if device is not None:
             raise ValueError("pass either device or devices, not both")
@@ -159,7 +212,17 @@ def make_mesh(n_banks: Optional[int] = None, device=None, devices=None) -> Mesh:
         raise ValueError(
             f"{n_banks} banks do not split evenly over {len(devices)} groups"
         )
-    return Mesh(n_banks, devices)
+    if len(devices) > MAX_GROUPS:
+        raise ValueError(
+            f"{len(devices)} groups: one card's launch of K7 carries at most {MAX_GROUPS}"
+        )
+    home = devices[0]
+    cards = tuple(dict.fromkeys(devices))
+    links = ("home",) + tuple(
+        "peer" if kernels.enable_peer(card.index, home.index) else "combine"
+        for card in cards[1:]
+    )
+    return Mesh(n_banks, devices, links)
 
 
 def _check_banked(counts: torch.Tensor) -> Tuple[int, int]:
@@ -283,37 +346,38 @@ def sharded_routed_step_lanes(
 # -- K7: duplicate-tolerant update over global ids ----------------------
 
 
-def _range_update_plain(
-    counts: torch.Tensor,
-    bank_lo: int,
+def _card_update_plain(
+    tables: Sequence[Optional[torch.Tensor]],
+    groups: Sequence[int],
     num_banks: int,
     slots: torch.Tensor,
     hits: torch.Tensor,
     fresh: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K7 on the banks [bank_lo, bank_lo + k) of a
-    `num_banks`-bank table, held as `counts` int32[k, slots_per_bank]
-    (in place).  Returns the int64 afters -- a lane whose bank another
-    group holds reads a zero counter, as on another chip -- and the
-    lanes this table owns (its banks' ids; out-of-table ids where it
-    holds bank 0)."""
-    k, spb = counts.shape
+    """Plain version of K7's update on one card: the groups `groups` of a
+    `num_banks`-bank table, group g's banks [g k, (g + 1) k) held as
+    tables[g] int32[k, slots_per_bank] (in place).  Returns the int64
+    afters -- a lane whose bank lies in another group reads a zero
+    counter, as on another chip -- and each lane's owner group (its
+    bank's; group 0 for an id out of the table)."""
+    k, spb = tables[groups[0]].shape
     s = slots.to(torch.int64)
     # Only [0, ns) is in the table: negative ids never wrap here.
     in_table = (s >= 0) & (s < num_banks * spb)
-    row = s % num_banks - bank_lo
-    mine = in_table & (row >= 0) & (row < k)
-    owned = mine | (~in_table & (bank_lo == 0))
-    pos = torch.where(mine, row * spb + s // num_banks, torch.zeros_like(s))
-    table = counts.view(-1)
-    table[pos[mine & fresh]] = 0
-    before = torch.where(mine, widen(table[pos]), torch.zeros_like(s))
-    afters = before + widen(per_slot_inclusive_prefix(slots, hits))
-    touched = pos[mine]
-    total = torch.zeros(k * spb, dtype=torch.int64, device=counts.device)
-    total.index_add_(0, touched, widen(hits)[mine])
-    table[touched] = narrow(widen(table[touched]) + total[touched])
-    return afters, owned
+    bank = s % num_banks
+    owner = torch.where(in_table, bank // k, torch.zeros_like(s))
+    before = torch.zeros_like(s)
+    for g in groups:
+        mine = in_table & (owner == g)
+        pos = torch.where(mine, (bank - g * k) * spb + s // num_banks, torch.zeros_like(s))
+        table = tables[g].view(-1)
+        table[pos[mine & fresh]] = 0
+        before = torch.where(mine, widen(table[pos]), before)
+        touched = pos[mine]
+        total = torch.zeros(k * spb, dtype=torch.int64, device=table.device)
+        total.index_add_(0, touched, widen(hits)[mine])
+        table[touched] = narrow(widen(table[touched]) + total[touched])
+    return before + widen(per_slot_inclusive_prefix(slots, hits)), owner
 
 
 def _general_update_plain(
@@ -326,7 +390,7 @@ def _general_update_plain(
 ) -> torch.Tensor:
     """Plain version of K7 (in place; returns the afters or their narrow
     readback)."""
-    afters, _ = _range_update_plain(counts, 0, counts.shape[0], slots, hits, fresh)
+    afters, _ = _card_update_plain([counts], (0,), counts.shape[0], slots, hits, fresh)
     if out_dtype == "":
         return narrow(afters)
     return fw.readback_plain(afters, widen(hits), widen(limits), out_dtype)
@@ -343,7 +407,7 @@ def sharded_general_update(
     """K7: zero fresh slots, gather, add the per-slot prefix of the raw
     GLOBAL ids, modular scatter-add of hits, over the (num_banks,
     slots_per_bank) table, in one launch of the fused general step (the
-    group form's C entry over every bank).  An
+    group entry over every bank).  An
     id in [0, num_banks * slots_per_bank) is owned by bank id %
     num_banks at id // num_banks; any other id -- negative ones
     included -- reads a zero counter and scatters nowhere.  Duplicate
@@ -383,22 +447,35 @@ def sharded_general_step(
     )
 
 
-# -- K7 over bank groups: the group form and the combine ---------------
+# -- K7 over bank groups: one launch a card, and the combine -------------
 
-#: A partial's rows by width: (u32 rows, u16 rows, u8 rows) of [n] each,
+#: An output's rows by width: (u32 rows, u16 rows, u8 rows) of [n] each,
 #: in that order, for each epilogue of the general step ("decide": the
 #: decision block's eight u32 fields, then set_local_cache).
 LAYOUTS = {"": (1, 0, 0), "uint16": (0, 1, 0), "uint8": (0, 0, 1), "decide": (8, 0, 1)}
+_ROW_DTYPES = (torch.int32, torch.int16, torch.uint8)
 
 
 def partial_bytes(layout: str, n: int) -> int:
-    """Bytes of one partial of `n` lanes in `layout`."""
+    """Bytes of one output of `n` lanes in `layout`."""
     r32, r16, r8 = LAYOUTS[layout]
     return (4 * r32 + 2 * r16 + r8) * n
 
 
+def _rows(buf: torch.Tensor, layout: str, n: int):
+    """The typed [rows, n] views of an output's bytes `buf` (uint8, from
+    offset 0), one a width that `layout` uses."""
+    views, at = [], 0
+    for rows, dtype in zip(LAYOUTS[layout], _ROW_DTYPES):
+        if rows:
+            width = rows * dtype.itemsize * n
+            views.append(buf[at : at + width].view(dtype).view(rows, n))
+            at += width
+    return views
+
+
 def unpack_partial(buf: torch.Tensor, layout: str, n: int):
-    """The typed result a partial's bytes `buf` (uint8, from offset 0)
+    """The typed result an output's bytes `buf` (uint8, from offset 0)
     hold: DeviceDecisions ("decide"), int32 afters (""), or the uint8 /
     int16-stored uint16 readback -- views of `buf`."""
     if layout == "decide":
@@ -408,110 +485,132 @@ def unpack_partial(buf: torch.Tensor, layout: str, n: int):
 
 
 def _pack_partial(result, n: int) -> torch.Tensor:
-    """A typed result as its partial's bytes (inverse of unpack_partial)."""
+    """A typed result as its output's bytes (inverse of unpack_partial)."""
     fields = list(result) if isinstance(result, DeviceDecisions) else [result]
     return torch.cat([f.contiguous().view(torch.uint8).reshape(-1) for f in fields])
 
 
-def _group_partial_plain(counts, bank_lo, num_banks, slots, hits, fresh, limits,
-                         layout, shadow, near_ratio) -> torch.Tensor:
-    """Plain version of K7's group form (in place; returns the partial's
-    bytes)."""
-    afters, owned = _range_update_plain(counts, bank_lo, num_banks, slots, hits, fresh)
+def _card_step_plain(tables, groups, num_banks, slots, hits, fresh, limits, layout,
+                     shadow, near_ratio, out, out_stride) -> torch.Tensor:
+    """Plain version of sharded_card_step: the card's groups updated in
+    place, each lane they own written into `out` at its owner group's
+    row, and nothing else."""
+    afters, owner = _card_update_plain(tables, groups, num_banks, slots, hits, fresh)
     if layout == "decide":
         result = fw._decision_block_plain(narrow(afters), hits, limits, shadow, near_ratio)
     elif layout == "":
         result = narrow(afters)
     else:
         result = fw.readback_plain(afters, widen(hits), widen(limits), layout)
-    if isinstance(result, DeviceDecisions):
-        result = DeviceDecisions(*(torch.where(owned, f, torch.zeros_like(f)) for f in result))
-    else:
-        result = torch.where(owned, result, torch.zeros_like(result))
-    return _pack_partial(result, slots.shape[0])
+    n = slots.shape[0]
+    size = partial_bytes(layout, n)
+    fields = _rows(_pack_partial(result, n), layout, n)
+    for g in groups:
+        lanes = owner == g
+        dst = _rows(out[g * out_stride : g * out_stride + size], layout, n)
+        for d, f in zip(dst, fields):
+            d[:, lanes] = f[:, lanes]
+    return out
 
 
-def sharded_group_partial(
-    counts: torch.Tensor,
-    bank_lo: int,
+def sharded_card_step(
+    tables: Sequence[Optional[torch.Tensor]],
+    groups: Sequence[int],
     num_banks: int,
     slots: torch.Tensor,
     hits: torch.Tensor,
     fresh: torch.Tensor,
-    limits: Optional[torch.Tensor] = None,
-    layout: str = "",
-    shadow: Optional[torch.Tensor] = None,
-    near_ratio: float = 0.0,
+    limits: Optional[torch.Tensor],
+    layout: str,
+    shadow: Optional[torch.Tensor],
+    near_ratio: float,
+    out: torch.Tensor,
+    out_stride: int = 0,
 ) -> torch.Tensor:
-    """K7's group form: the general step of K7 on ONE bank group,
-    `counts` int32[k, slots_per_bank] holding the banks [bank_lo, bank_lo
-    + k) of a `num_banks`-bank table, over the whole replicated batch of
-    global ids (on the group's device).  The group zeroes, gathers and
-    scatters only its own banks' slots; the per-slot prefix runs over the
-    whole batch.  Returns the group's partial, uint8[partial_bytes(layout,
-    n)]: the epilogue `layout` ("", "uint8", "uint16" or "decide", which
-    needs `shadow` and `near_ratio`) on the lanes the group owns -- its
-    banks' ids, and ids out of the table where it holds bank 0 -- and 0
-    on every other lane.  One cooperative launch, counted as
-    sharded_group_step ("decide") or sharded_group_update; updates
-    `counts` in place."""
-    k, _ = _check_banked(counts)
+    """K7 on ONE card over every group it holds: `tables` are the mesh's
+    group tensors (group g int32[k, slots_per_bank], the banks [g k, (g +
+    1) k) of `num_banks`), `groups` those on this card, where the
+    replicated batch of global ids lies.  The card zeroes, gathers and
+    scatters only its groups' slots; the per-slot prefix runs over the
+    whole batch.  For each lane the card OWNS -- its groups' ids, and ids
+    out of the table where it holds group 0 -- the epilogue `layout` ("",
+    "uint8", "uint16" or "decide", which needs `shadow` and `near_ratio`)
+    goes into `out` (uint8, partial_bytes(layout, n) a row) at byte
+    g * out_stride for the lane's owner group g; every other byte of
+    `out` is left as it was.  On a card, `out` may lie on another card
+    that this one maps (make_mesh); the launch is ordered on this card's
+    current stream, and the caller orders the output's reader after it.
+    One cooperative launch, counted as sharded_card_step ("decide") or
+    sharded_card_update; updates the tables in place.  Returns `out`."""
+    groups = tuple(groups)
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
-    if not (0 <= bank_lo and 1 <= k and bank_lo + k <= num_banks):
-        raise ValueError(f"banks [{bank_lo}, {bank_lo + k}) are not banks of {num_banks}")
+    if not groups or len(set(groups)) != len(groups) or not all(
+        0 <= g < len(tables) for g in groups
+    ):
+        raise ValueError(f"groups {groups} are not groups of {len(tables)}")
+    if len(tables) > MAX_GROUPS or num_banks % len(tables):
+        raise ValueError(f"{len(tables)} groups do not split {num_banks} banks (at most "
+                         f"{MAX_GROUPS} groups)")
+    k = num_banks // len(tables)
+    here = [tables[g] for g in groups]
+    for t in here:
+        if _check_banked(t)[0] != k or t.shape != here[0].shape:
+            raise ValueError(f"group tables must be int32[{k}, slots_per_bank] alike")
     decide = layout == "decide"
     fw.check_general_lanes(
-        counts, slots, hits, fresh, limits, "" if decide else layout,
+        here[0], slots, hits, fresh, limits, "" if decide else layout,
         shadow=shadow if decide else None,
     )
     if decide and (limits is None or shadow is None):
         raise ValueError("the decision block needs the limits and shadow lanes")
-    if counts.device.type == "cpu":
-        return _group_partial_plain(
-            counts, bank_lo, num_banks, slots, hits, fresh, limits, layout, shadow, near_ratio
-        )
-    return launch_group_partial(
-        counts, bank_lo, num_banks, slots, hits, fresh, limits, layout, shadow, near_ratio
-    )
+    n = slots.shape[0]
+    size = partial_bytes(layout, n)
+    if out.dtype != torch.uint8 or out.dim() != 1 or not out.is_contiguous():
+        raise TypeError(f"out must be contiguous uint8[bytes], got {out.dtype} "
+                        f"{tuple(out.shape)}")
+    if out_stride < 0 or out_stride % 4 or out.shape[0] < max(groups) * out_stride + size:
+        raise ValueError(f"out of {out.shape[0]} bytes, rows {out_stride} apart, does not "
+                         f"hold {layout!r} for {n} lanes of groups {groups}")
+    kernels.device_of(*here)
+    if here[0].device.type == "cpu":
+        return _card_step_plain(tables, groups, num_banks, slots, hits, fresh, limits,
+                                layout, shadow, near_ratio, out, out_stride)
+    return launch_card_step(tables, groups, num_banks, slots, hits, fresh, limits, layout,
+                            shadow, near_ratio, out, out_stride)
 
 
-def launch_group_partial(counts, bank_lo, num_banks, slots, hits, fresh, limits,
-                         layout, shadow, near_ratio) -> torch.Tensor:
-    """sharded_group_partial's launch, on checked arguments: one
-    cooperative launch of rl_sharded_group_step into a new partial."""
-    fw._require_cuda(counts.device)
-    k, spb = counts.shape
+def launch_card_step(tables, groups, num_banks, slots, hits, fresh, limits, layout, shadow,
+                     near_ratio, out, out_stride) -> torch.Tensor:
+    """sharded_card_step's launch, on checked arguments: one cooperative
+    launch of rl_sharded_card_step, its scratch on the card."""
+    dev = tables[groups[0]].device
+    fw._require_cuda(dev)
     decide = layout == "decide"
     n = slots.shape[0]
-    dev = counts.device
-    part = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=dev)
-    incl = torch.empty(n, dtype=torch.int32, device=dev)
-    typed = unpack_partial(part, layout, n)
-    if decide:
-        # The afters row doubles as the gather scratch, as in K3/K7.
-        out, afters, set_lc = part, typed.afters, typed.set_local_cache
-    elif layout == "":
-        out, afters, set_lc = part, typed, None
-    else:
-        out, afters, set_lc = part, torch.empty(n, dtype=torch.int32, device=dev), None
     if n == 0:
-        return part
+        return out
+    scratch = torch.empty((2, n), dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_void_p * len(tables))(
+        *(tables[g].data_ptr() if g in groups else None for g in range(len(tables)))
+    )
     given = [t for t in (limits, shadow) if t is not None]
+    # `out` is not among the launch's tensors: it may lie on the home
+    # card, reached through the peer mapping.
     kernels.launch(
-        "rl_sharded_group_step",
-        K7_GROUP_STEP if decide else K7_GROUP,
-        (counts, slots, hits, fresh, *given, part, incl, afters),
-        counts.data_ptr(), num_banks, bank_lo, k, spb,
+        "rl_sharded_card_step",
+        K7_CARD_STEP if decide else K7_CARD,
+        (*(tables[g] for g in groups), slots, hits, fresh, *given, scratch),
+        ctypes.addressof(ptrs), len(tables), num_banks, tables[groups[0]].shape[1],
         slots.data_ptr(), hits.data_ptr(), fresh.data_ptr(),
         None if limits is None else limits.data_ptr(),
         shadow.data_ptr() if decide else None,
-        float(near_ratio), afters.data_ptr(), incl.data_ptr(), out.data_ptr(),
-        None if set_lc is None else set_lc.data_ptr(),
+        float(near_ratio), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
+        out.data_ptr() + 32 * n if decide else None, out_stride,
         fw._DECIDE if decide else fw._OUT_KIND[layout], n,
         kernels.stream_ptr(dev),
     )
-    return part
+    return out
 
 
 def _combine_plain(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
@@ -523,16 +622,12 @@ def _combine_plain(parts, slots, num_banks, slots_per_bank, layout) -> torch.Ten
     owner = torch.where(
         in_table, (s % num_banks) // (num_banks // groups), torch.zeros_like(s)
     )
-    out, at = [], 0
-    for rows, dtype in zip(LAYOUTS[layout], (torch.int32, torch.int16, torch.uint8)):
-        if not rows:
-            continue
-        width = rows * dtype.itemsize * n
-        seg = parts[:, at : at + width].contiguous().view(dtype).view(groups, rows, n)
-        pick = seg.gather(0, owner.view(1, 1, n).expand(1, rows, n))[0]
-        out.append(pick.contiguous().view(torch.uint8).reshape(-1))
-        at += width
-    return torch.cat(out)
+    out = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=parts.device)
+    rows = [_rows(parts[g], layout, n) for g in range(groups)]
+    for i, dst in enumerate(_rows(out, layout, n)):
+        stacked = torch.stack([r[i] for r in rows])  # [groups, rows, n]
+        dst.copy_(stacked.gather(0, owner.view(1, 1, n).expand(1, dst.shape[0], n))[0])
+    return out
 
 
 def sharded_combine(
@@ -542,14 +637,14 @@ def sharded_combine(
     slots_per_bank: int,
     layout: str,
 ) -> torch.Tensor:
-    """The psum of K7 over bank groups: `parts` uint8[groups,
-    part_stride] holds each group's partial (sharded_group_partial) of
-    the lanes `slots` (int32[n], global ids) in `layout`, group g's in
-    row g, all on one device; returns uint8[partial_bytes(layout, n)],
-    each lane's fields taken from its owner group's partial -- the group
-    of bank ``s % num_banks`` for an in-table id s, the group of bank 0
-    for any other.  Each lane has one owner and the other partials hold
-    0 there, so this select is JAX's sum."""
+    """The psum of K7 where a card cannot map the home card: `parts`
+    uint8[groups, part_stride] holds in row g the lanes group g owns (as
+    sharded_card_step writes them with out_stride part_stride) of the
+    lanes `slots` (int32[n], global ids) in `layout`, all on one device;
+    returns uint8[partial_bytes(layout, n)], each lane's fields taken
+    from its owner group's row -- the group of bank ``s % num_banks`` for
+    an in-table id s, the group of bank 0 for any other.  Each lane has
+    one owner and no other row is read, so this select is JAX's sum."""
     if parts.dtype != torch.uint8 or parts.dim() != 2 or not parts.is_contiguous():
         raise TypeError(f"parts must be contiguous uint8[groups, bytes], got {parts.dtype} "
                         f"{tuple(parts.shape)}")
@@ -572,7 +667,7 @@ def sharded_combine(
 
 def launch_combine(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
     """sharded_combine's launch, on checked arguments: one launch of
-    rl_sharded_combine into a new partial."""
+    rl_sharded_combine into a new output."""
     dev = parts.device
     fw._require_cuda(dev)
     groups, stride = parts.shape
@@ -590,8 +685,39 @@ def launch_combine(parts, slots, num_banks, slots_per_bank, layout) -> torch.Ten
     return out
 
 
+def _pack_lanes(lanes):
+    """The given lanes' bytes end to end, the int32 lanes first (so each
+    view of a copy stays aligned), and each lane's (offset, bytes), None
+    for a lane not given."""
+    order = sorted((i for i, t in enumerate(lanes) if t is not None),
+                   key=lambda i: -lanes[i].element_size())
+    spans, at = [None] * len(lanes), 0
+    for i in order:
+        size = lanes[i].numel() * lanes[i].element_size()
+        spans[i], at = (at, size), at + size
+    return torch.cat([lanes[i].view(torch.uint8) for i in order]), spans
+
+
+def _lanes_to(lanes, packed, spans, dev):
+    """The lanes on `dev`: as they are on their own device, else views
+    of ONE copy of `packed` (_pack_lanes)."""
+    if dev == lanes[0].device:
+        return lanes
+    here = packed.to(dev, non_blocking=True)
+    return [None if sp is None else here[sp[0] : sp[0] + sp[1]].view(t.dtype)
+            for t, sp in zip(lanes, spans)]
+
+
+def _recorded(device: torch.device):
+    """An event recorded now on `device`'s current stream."""
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return done
+
+
 def grouped_general_step(
     parts: Sequence[torch.Tensor],
+    cards: Sequence[Tuple[Tuple[int, ...], str]],
     num_banks: int,
     slots: torch.Tensor,
     hits: torch.Tensor,
@@ -601,35 +727,64 @@ def grouped_general_step(
     shadow: Optional[torch.Tensor] = None,
     near_ratio: float = 0.0,
 ):
-    """K7 over bank groups: group g (parts[g], int32[k, slots_per_bank]
-    on its device) runs K7's group form on its own banks [g k, (g + 1) k)
-    over the replicated batch, on its device's current stream; each
-    partial is copied to the home device (parts[0]'s, where the batch
-    lies) and sharded_combine recombines them there.  The copies are
-    torch's, the same code whether two groups share a card or not: a copy
-    between cards is ordered after the source card's current stream and
-    before the home card's.  One group holds every bank and owns every
-    lane, so its launch is the answer: no partial, copy or combine.
-    Returns what sharded_general_update (layout "", "uint8", "uint16") or
-    sharded_general_step ("decide") returns on one table; updates every
-    group's table in place."""
+    """K7 over bank groups: parts[g] is group g's int32[k,
+    slots_per_bank] tensor, `cards` (Mesh.card_groups) the groups each
+    card holds and its link, the home card's first.  One launch a card
+    (sharded_card_step), on that card's current stream, over the batch
+    (on the home device, parts[0]'s; copied once to each other card).
+    Each card writes the lanes it owns:
+
+    - "home" and "peer": into the one output on the home device, the
+      home card in place, a peer-mapped card through the mapping; the
+      home stream then waits on each such card's event;
+    - "combine": a card that cannot map the home card writes each owned
+      lane into its owner group's row of a stage on its own card, copied
+      to the home card; then every card writes rows, and sharded_combine
+      selects each lane from its owner's row.
+
+    One group holds every bank and owns every lane: its launch is the
+    one-group step.  Returns what sharded_general_update (layout "",
+    "uint8", "uint16") or sharded_general_step ("decide") returns on one
+    table; updates every group's table in place."""
     if len(parts) == 1:
         if layout == "decide":
             return sharded_general_step(parts[0], slots, hits, fresh, limits, shadow, near_ratio)
         return sharded_general_update(parts[0], slots, hits, fresh, limits, layout)
+    if sorted(g for groups, _ in cards for g in groups) != list(range(len(parts))):
+        raise ValueError(f"cards {cards} do not hold each of {len(parts)} groups once")
     home = parts[0].device
-    k, spb = parts[0].shape
     n = slots.shape[0]
-    stride = -(-partial_bytes(layout, n) // 16) * 16
-    stage = torch.empty((len(parts), stride), dtype=torch.uint8, device=home)
+    size = partial_bytes(layout, n)
+    rows = any(link == "combine" for _, link in cards)
+    stride = -(-size // 16) * 16 if rows else 0
+    out = torch.empty(len(parts) * stride if rows else size, dtype=torch.uint8, device=home)
     lanes = (slots, hits, fresh, limits, shadow)
-    for g, counts in enumerate(parts):
-        here = [None if t is None else t.to(counts.device, non_blocking=True) for t in lanes]
-        part = sharded_group_partial(
-            counts, g * k, num_banks, *here[:4], layout, here[4], near_ratio
-        )
-        stage[g, : part.shape[0]].copy_(part, non_blocking=True)
-    out = sharded_combine(stage, slots, num_banks, spb, layout)
+    packed = spans = made = None
+    if any(parts[gs[0]].device != home for gs, _ in cards):
+        # One copy of the lanes a card, not one a lane and group; `out`
+        # was made on the home stream, and a card writes it after.
+        packed, spans = _pack_lanes(lanes)
+        made = _recorded(home)
+    for groups, link in cards:
+        dev = parts[groups[0]].device
+        here = _lanes_to(lanes, packed, spans, dev)
+        if link == "combine":
+            stage = torch.empty_like(out, device=dev)
+            sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4],
+                              near_ratio, stage, stride)
+            for g in groups:
+                row = slice(g * stride, (g + 1) * stride)
+                out[row].copy_(stage[row], non_blocking=True)
+            continue
+        if dev != home:
+            torch.cuda.current_stream(dev).wait_event(made)
+        sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4], near_ratio,
+                          out, stride)
+        if dev != home:
+            torch.cuda.current_stream(home).wait_event(_recorded(dev))
+    if rows:
+        out = sharded_combine(out.view(len(parts), stride), slots, num_banks,
+                              parts[0].shape[1], layout)
     return unpack_partial(out, layout, n)
 
 
@@ -676,14 +831,15 @@ class ShardedFixedWindowModel:
         """K7 on a state's groups (grouped_general_step)."""
         decide = layout == "decide"
         return grouped_general_step(
-            self.parts(counts), self.num_banks, batch.slots, batch.hits, batch.fresh,
-            limits, layout, batch.shadow if decide else None, self.near_ratio,
+            self.parts(counts), self.mesh.card_groups(), self.num_banks, batch.slots,
+            batch.hits, batch.fresh, limits, layout, batch.shadow if decide else None,
+            self.near_ratio,
         )
 
     def step(self, counts, batch: DeviceBatch) -> Tuple[object, DeviceDecisions]:
         """The sharded forward step: K7 + K3's decision block, one launch
-        on one group (sharded_general_step); on several, each group's
-        launch and the combine."""
+        on one group (sharded_general_step); on several, one launch a
+        card (grouped_general_step)."""
         return counts, self._general(counts, batch, "decide", batch.limits)
 
     def step_counters(self, counts, batch: DeviceBatch) -> Tuple[object, torch.Tensor]:

@@ -22,6 +22,7 @@ from ratelimit_tpu.models.fixed_window import DeviceBatch as JaxDeviceBatch
 from ratelimit_tpu.parallel import ShardedCounterEngine as JaxShardedEngine
 from ratelimit_tpu.parallel import ShardedFixedWindowModel as JaxShardedModel
 from ratelimit_tpu.parallel import make_mesh as jax_make_mesh
+from ratelimit_tpu_torch import kernels
 from ratelimit_tpu_torch.backends.cuda_cache import CudaRateLimitCache
 from ratelimit_tpu_torch.backends.engine import HostBatch
 from ratelimit_tpu_torch.models.fixed_window import (
@@ -410,9 +411,11 @@ def test_sharded_engine_matches_one_table_engine():
 
 
 def _fake_cards(monkeypatch, cards):
-    """A host with `cards` visible CUDA cards, as make_mesh asks."""
+    """A host with `cards` visible CUDA cards, each able to map every
+    other's memory, as make_mesh asks."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(kernels, "enable_peer", lambda device, peer: True)
 
 
 @pytest.mark.parametrize("cards", [2, 4])

@@ -4,16 +4,19 @@ against the JAX package's mesh of the same number of banks, on the CPU.
 The JAX side runs on the conftest's 8 virtual CPU devices, one bank per
 device; the port places the same banks in G groups of the CPU
 (``make_mesh(nb, devices=("cpu",) * G)``), for every G that divides
-nb, where every kernel wrapper takes its plain version -- K7's group
-form on each group and the combine that stands in for the psum.  The
+nb, where every kernel wrapper takes its plain version -- K7 once over
+the groups of the one device (the card step), and the combine that
+stands in for the psum where a card cannot map the home card.  The
 same numpy-seeded inputs go through both and every answer, readback and
 the (num_banks, slots_per_bank) table in global bank order must be
 equal (tolerance 0): duplicates, fresh and shadow lanes, skew onto one
 bank, ids past the table and negative ids, in all three readback
-types.  Then the engine over groups, the plain group form and combine
-against the one-group plain step, and the launch's device rules.
+types.  Then the engine over groups, the plain card step into each
+group's row and the combine against the one-group plain step, and the
+launch's device rules.
 """
 
+import ctypes
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -186,17 +189,18 @@ def test_grouped_routed_step_matches_jax(g, form, out_dtype):
         np.testing.assert_array_equal(_table(tm, tc), np.asarray(jc), err_msg=f"step {step}")
 
 
-# -- the plain group form and combine -------------------------------------
+# -- the plain card step into rows, and the combine ------------------------
 
 
 @pytest.mark.parametrize("g", [2, 4, 8])
 @pytest.mark.parametrize("layout", ["", "uint8", "uint16", "decide"])
 def test_plain_group_form_and_combine_equal_one_group(g, layout):
-    """K7's plain group form on each group, combined by the plain
-    combine, equals the one-group plain step on one table of the same
-    banks, lane for lane and table for table; every lane is nonzero in
-    at most its owner's partial, so the combine (a select) also equals
-    the bytewise sum of the partials, JAX's psum."""
+    """The plain card step on each group alone (a card of one group),
+    each writing its owned lanes into its own row of a zeroed stage,
+    combined by the plain combine, equals the one-group plain step on
+    one table of the same banks, lane for lane and table for table; a
+    row holds nothing off its group's lanes, so the combine (a select)
+    also equals the bytewise sum of the rows, JAX's psum."""
     nb, spb = 8, NUM_SLOTS // 8
     rng = np.random.default_rng(40 + g)
     base = rng.integers(0, 2**32, (nb, spb), dtype=np.uint64).astype(np.uint32)
@@ -212,16 +216,13 @@ def test_plain_group_form_and_combine_equal_one_group(g, layout):
             want = fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
         else:
             want = sh._general_update_plain(one, b.slots, b.hits, b.fresh, b.limits, layout)
-        partials = [
-            sh.sharded_group_partial(
-                p, i * k, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8
+        stride = -(-sh.partial_bytes(layout, n) // 16) * 16
+        stage = torch.zeros((g, stride), dtype=torch.uint8)
+        for i in range(g):
+            sh.sharded_card_step(
+                parts, (i,), nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8,
+                stage.view(-1), stride,
             )
-            for i, p in enumerate(parts)
-        ]
-        assert all(q.shape == (sh.partial_bytes(layout, n),) for q in partials)
-        stage = torch.zeros((g, -(-sh.partial_bytes(layout, n) // 16) * 16), dtype=torch.uint8)
-        for i, q in enumerate(partials):
-            stage[i, : q.shape[0]] = q
         out = sh.sharded_combine(stage, b.slots, nb, spb, layout)
         got = sh.unpack_partial(out, layout, n)
         summed = stage.sum(0, dtype=torch.uint8)[: out.shape[0]]
@@ -410,18 +411,24 @@ def test_one_launch_lies_on_one_device(monkeypatch):
 
 
 def test_wrappers_refuse_tensors_on_two_devices():
-    """The group form and the combine never mix devices: the lanes on
-    another device than the table, or the ids on another device than
-    the partials, raise ValueError."""
-    counts = torch.zeros((2, 4), dtype=torch.int32)
+    """The card step and the combine never mix devices: the lanes on
+    another device than the card's tables, the card's tables on two
+    devices, or the ids on another device than the rows, raise
+    ValueError."""
+    tables = [torch.zeros((2, 4), dtype=torch.int32)] * 2
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
     lanes = torch.zeros(8, dtype=torch.int32)
+    fresh = torch.zeros(8, dtype=torch.bool)
+    out = torch.zeros(32, dtype=torch.uint8)
     with pytest.raises(ValueError, match="expected cpu"):
-        sh.sharded_group_partial(counts, 0, 4, meta, lanes, torch.zeros(8, dtype=torch.bool))
+        sh.sharded_card_step(tables, (0,), 4, meta, lanes, fresh, None, "", None, 0.0, out)
+    with pytest.raises(ValueError, match="one device"):
+        sh.sharded_card_step([tables[0], tables[1].to("meta")], (0, 1), 4, lanes, lanes, fresh,
+                             None, "", None, 0.0, out)
     with pytest.raises(ValueError, match="one device"):
         sh.sharded_combine(torch.zeros((2, 32), dtype=torch.uint8), meta, 4, 4, "")
-    with pytest.raises(ValueError, match="not banks of"):
-        sh.sharded_group_partial(counts, 3, 4, lanes, lanes, torch.zeros(8, dtype=torch.bool))
+    with pytest.raises(ValueError, match="are not groups of"):
+        sh.sharded_card_step(tables, (2,), 4, lanes, lanes, fresh, None, "", None, 0.0, out)
     with pytest.raises(ValueError, match="do not hold"):
         sh.sharded_combine(torch.zeros((3, 32), dtype=torch.uint8), lanes, 4, 4, "")
 
@@ -444,27 +451,39 @@ def _fake_card(monkeypatch):
 
 @pytest.mark.parametrize("layout", ["", "uint8", "uint16", "decide"])
 def test_group_form_and_combine_are_one_ctypes_call_each(monkeypatch, layout):
-    """A CPU tensor taken for a card's: K7's group form is one call of
-    rl_sharded_group_step with the group's bank range, counted under its
-    epilogue's name, and the combine one call of rl_sharded_combine with
-    the layout's rows; the argument counts are those of SIGNATURES."""
+    """A CPU tensor taken for a card's: K7 over the groups a card holds
+    is one call of rl_sharded_card_step carrying the mesh's table
+    pointers (null for a group elsewhere), the output, its row stride and
+    set_local_cache's offset, counted under its epilogue's name; the
+    combine one call of rl_sharded_combine with the layout's rows; the
+    argument counts are those of SIGNATURES."""
     calls = _fake_card(monkeypatch)
     n, nb = 40, 8
     b = _port_batch(_raw_batch(np.random.default_rng(n), 0, nb, n=n))
-    counts = torch.zeros((2, NUM_SLOTS // nb), dtype=torch.int32)
+    tables = [torch.zeros((2, NUM_SLOTS // nb), dtype=torch.int32) for _ in range(4)]
     before = dict(kernels.launches)
-    part = sh.launch_group_partial(
-        counts, 4, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.5
+    out = torch.zeros(4 * 48 * n, dtype=torch.uint8)
+    seen = []
+    monkeypatch.setattr(
+        kernels, "function",
+        lambda name: lambda *a: calls.append((name, a)) or seen.append(
+            list((ctypes.c_void_p * 4).from_address(a[0])) if name == "rl_sharded_card_step"
+            else None) or 0,
+    )
+    got = sh.launch_card_step(
+        tables, (1, 3), nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.5,
+        out, 48 * n,
     )
     (name, args), = calls
-    assert name == "rl_sharded_group_step"
+    assert name == "rl_sharded_card_step" and got is out
     assert len(args) == len(kernels.SIGNATURES[name][1])
-    assert args[:5] == (counts.data_ptr(), nb, 4, 2, NUM_SLOTS // nb)
-    assert args[-3:-1] == ({"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
-    assert args[13] == part.data_ptr()  # out
-    kernel = sh.K7_GROUP_STEP if layout == "decide" else sh.K7_GROUP
+    assert seen[0] == [None, tables[1].data_ptr(), None, tables[3].data_ptr()]
+    assert args[1:4] == (4, nb, NUM_SLOTS // nb)
+    assert args[-4:-1] == (48 * n, {"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
+    assert args[12] == out.data_ptr()  # out
+    assert args[13] == (out.data_ptr() + 32 * n if layout == "decide" else None)  # set_lc
+    kernel = sh.K7_CARD_STEP if layout == "decide" else sh.K7_CARD
     assert kernels.launches[kernel] == before.get(kernel, 0) + 1
-    assert part.dtype == torch.uint8 and part.shape == (sh.partial_bytes(layout, n),)
     stage = torch.zeros((4, 48 * n), dtype=torch.uint8)
     out = sh.launch_combine(stage, b.slots, nb, NUM_SLOTS // nb, layout)
     name, args = calls[1]

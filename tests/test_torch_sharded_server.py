@@ -5,7 +5,9 @@ The JAX runner serves its bank-sharded engine over the conftest's 8
 virtual CPU devices; the port's runner serves 8 banks on the CPU (a
 mesh on one device, ``make_mesh(8, "cpu")``, and the same banks in 4
 groups, ``make_mesh(8, devices=("cpu",) * 4)``).  Both answer the same
-gRPC requests, and the responses must be byte-equal."""
+gRPC requests, and the responses must be byte-equal.  Both runners run
+with the device fault domain off (kernel_deadline_s 0), so that neither
+answers a burst from its host mirror past a missed deadline."""
 
 import grpc
 import numpy as np
@@ -65,7 +67,7 @@ def runners(tmp_path_factory):
     (config_dir / "sh.yaml").write_text(YAML)
     paths = dict(runtime_path=str(root), runtime_subdirectory="ratelimit")
     jax_runner = JaxRunner(
-        JaxSettings(backend_type="tpu-sharded", **COMMON, **paths),
+        JaxSettings(backend_type="tpu-sharded", kernel_deadline_s=0.0, **COMMON, **paths),
         time_source=JaxPinned(1_000_000),
     )
     port_runner = Runner(
@@ -176,7 +178,7 @@ def grouped(tmp_path_factory):
     (config_dir / "sh.yaml").write_text(YAML)
     paths = dict(runtime_path=str(root), runtime_subdirectory="ratelimit")
     jax_runner = JaxRunner(
-        JaxSettings(backend_type="tpu-sharded", **COMMON, **paths),
+        JaxSettings(backend_type="tpu-sharded", kernel_deadline_s=0.0, **COMMON, **paths),
         time_source=JaxPinned(1_000_000),
     )
     port_runner = Runner(
