@@ -2021,11 +2021,11 @@ def sleep_cycles_per_ms(torch) -> float:
 
 
 def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycles_per_ms,
-                  value=None, during=None, behind=None, group=0):
+                  value=None, during=None, behind=None, card=0):
     """One episode on `bank`: 40 hits on a fresh `key` value (a 120/hour
     rule; `value` names one that lands on `bank`), a snapshot, a kernel
     spinning for STALL_DEADLINES deadlines on the bank's own stream (its
-    bank group `group`'s, where its banks lie in groups), 40 hits during
+    card `card`'s, where its banks lie in groups over cards), 40 hits during
     the stall (answered by the host mirror), `during(stall end event)`
     if given, the supervised restart, 100 more hits.
     Exactly 120 of the 180 must be admitted.  With `behind`, another
@@ -2048,7 +2048,7 @@ def stall_episode(torch, kernels, runner, request, OK, bank, key, by_value, cycl
     fallback0 = fd.stat_fallback_decisions
     restarts0 = rec.restarts
     stall_ms = STALL_DEADLINES * fd.kernel_deadline_s * 1e3
-    stall_end = stall_stream(torch, engine, stall_ms, cycles_per_ms, group)
+    stall_end = stall_stream(torch, engine, stall_ms, cycles_per_ms, card)
     t_stall = time.monotonic()
     snapshots = snapshot_behind(fd, bank, behind, old_d) if behind is not None else None
     rpc_ms = []
@@ -3097,12 +3097,12 @@ def wb_counting(runner, R, clients, keys, what) -> dict:
                 attempts=attempt + 1)
 
 
-def stall_stream(torch, engine, ms, cycles_per_ms, group=0):
-    """A kernel spinning `ms` on `engine`'s stream (its bank group
-    `group`'s, on that group's card, where its banks lie in groups);
-    returns the event recorded after it."""
+def stall_stream(torch, engine, ms, cycles_per_ms, card=0):
+    """A kernel spinning `ms` on `engine`'s stream (card `card`'s, where
+    its banks lie in groups over cards: one stream a card); returns the
+    event recorded after it."""
     end = torch.cuda.Event()
-    with torch.cuda.stream((engine._stream, *getattr(engine, "_more_streams", ()))[group]):
+    with torch.cuda.stream((engine._stream, *getattr(engine, "_more_streams", ()))[card]):
         torch.cuda._sleep(int(ms * cycles_per_ms))
         end.record()
     return end
@@ -5164,6 +5164,10 @@ GROUPS_CLIENTS = 8
 GROUPS_PER_CLIENT = 60
 GROUP_PAIRS = 10
 GROUP_LEG = 100
+#: Descriptors of the grouped runners' wide request: 80 a bank, so cap
+#: 128 and past the 128 lanes of a by-value launch on any placement
+#: (8 banks on one card, or 2 a card over four).
+GROUPS_WIDE = 640
 #: Epilogues of the general step the forward check runs: the decision
 #: block (model.step), the afters (step_counters), the narrow readbacks.
 GROUP_LAYOUTS = ("decide", "", "uint8", "uint16")
@@ -5182,7 +5186,7 @@ def group_placement(torch, dev):
         )
     return SERVED_GROUPS, (dev,) * SERVED_GROUPS, (
         f"{SERVED_GROUPS} groups of {BANKS // SERVED_GROUPS} banks, all on {dev} "
-        f"(one visible card: each group its own tensor and stream)"
+        f"(one visible card: each group its own tensor, the card's one stream)"
     )
 
 
@@ -5214,7 +5218,7 @@ def unmapped_cards(mesh):
     every card past the home one takes the combine.  Where the groups
     share one card, its groups split into two sets (even and odd groups),
     the second as such a card."""
-    cards = mesh.card_groups()
+    cards = [c[:2] for c in mesh.card_groups()]
     if len(cards) == 1:
         groups = cards[0][0]
         return ((groups[0::2], "home"), (groups[1::2], "combine"))
@@ -5223,11 +5227,13 @@ def unmapped_cards(mesh):
 
 def card_expect(sh, cards, decide):
     """The launches of one K7 step over `cards`: one card step a card,
-    and the combine where any card takes it."""
+    and the combine where any card takes it; and the host calls of the
+    mesh entry: one for every card that stores in place or through a
+    peer mapping."""
     expect = {sh.K7_CARD_STEP if decide else sh.K7_CARD: len(cards)}
-    if any(link == "combine" for _, link in cards):
+    if any(c[1] == "combine" for c in cards):
         expect[sh.COMBINE] = 1
-    return expect
+    return expect, {sh.MESH_CARD: 1}
 
 
 def groups_forward(torch, fw, sh, kernels, dev):
@@ -5237,8 +5243,8 @@ def groups_forward(torch, fw, sh, kernels, dev):
     4-group mesh's path on a host whose cards map no other
     (unmapped_cards).  Every result and table must be bit-equal to the
     one-group step's and to the plain version's; each grouped step
-    launches K7 once a card, and the combine only where a card takes
-    it."""
+    launches K7 once a card, every mapped card's launch in ONE host call
+    of the mesh entry, and the combine only where a card takes it."""
     rng = np.random.default_rng(1616)
     base, hot = _banked_table(torch, rng, NUM_SLOTS, dev)
     _, graft = graft_device_batch(torch, fw, dev)
@@ -5264,11 +5270,12 @@ def groups_forward(torch, fw, sh, kernels, dev):
             state = split_groups(torch, sh, base, mesh)
             cards = mesh.card_groups() if path is None else unmapped_cards(mesh)
             pairs = mesh.paths() if path is None else {
-                f"groups {list(gs)} -> groups {list(cards[0][0])}": link for gs, link in cards[1:]}
+                f"groups {list(c[0])} -> groups {list(cards[0][0])}": c[1] for c in cards[1:]}
             paths[f"{groups} groups" + (", no card mapped" if path else "")] = (
-                f"cards {[(list(gs), link) for gs, link in cards]}, pairs {pairs or 'none'}")
+                f"cards {[(list(c[0]), c[1]) for c in cards]}, pairs {pairs or 'none'}")
             torch.cuda.synchronize()
             before = dict(kernels.launches)
+            calls = dict(kernels.mesh_calls)
             if path is not None:
                 got = sh.grouped_general_step(
                     model.parts(state), cards, BANKS, b.slots, b.hits, b.fresh,
@@ -5283,11 +5290,14 @@ def groups_forward(torch, fw, sh, kernels, dev):
             torch.cuda.synchronize()
             moved = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
                      if v != before.get(k, 0)}
-            expect = card_expect(sh, cards, decide) if groups > 1 else {
-                sh.K7_STEP if decide else sh.K7: 1}
-            if moved != expect:
+            called = {k: v - calls.get(k, 0) for k, v in kernels.mesh_calls.items()
+                      if v != calls.get(k, 0)}
+            expect, expect_calls = card_expect(sh, cards, decide) if groups > 1 else (
+                {sh.K7_STEP if decide else sh.K7: 1}, {})
+            if moved != expect or called != expect_calls:
                 fail(f"groups: {groups} groups{', ' + path if path else ''}, "
-                     f"{layout or 'afters'} on {what} launched {moved}, want {expect}")
+                     f"{layout or 'afters'} on {what} launched {moved} in host calls {called}, "
+                     f"want {expect} in {expect_calls}")
             fields = got._fields if layout == "decide" else (None,)
             for f in fields:
                 g_, w_ = (getattr(got, f), getattr(want, f)) if f else (got, want)
@@ -5334,18 +5344,21 @@ def group_step_spread(torch, fw, sh, dev):
 
 def group_kernel_rows(torch, fw, sh, dev):
     """K7's card step (decision epilogue and afters) over SERVED_GROUPS
-    groups on one card, and the combine of SERVED_GROUPS decision rows,
-    at 4096 lanes of duplicates on a 2^20-slot table: each against its
-    plain version on the same inputs (max |err|), its device time, the
-    plain version's, its bound and, for the combine, the nearest PyTorch
-    call (a bytewise sum of the rows, equal here because the stage starts
-    at 0 and each row holds only its group's lanes).  Returns (rows,
-    errs)."""
+    groups on one card, the combine of SERVED_GROUPS decision rows, and
+    the mesh entry's K7 dispatch over the cards of the SERVED_GROUPS-group
+    mesh (one card here, one a card on a host of several), at 4096 lanes
+    of duplicates on a 2^20-slot table; K6's card form over the same
+    groups of one card, in the device form at 4096 routed lanes and by
+    value at 8 banks x cap 8: each against its plain version on the same
+    inputs (max |err|), its device time, the plain version's, its bound
+    and, for the combine, the nearest PyTorch call (a bytewise sum of the
+    rows, equal here because the stage starts at 0 and each row holds
+    only its group's lanes).  Returns (rows, errs)."""
     rng = np.random.default_rng(1617)
     n = 4096
     k = BANKS // SERVED_GROUPS
     spb = NUM_SLOTS // BANKS
-    base, _ = _banked_table(torch, rng, NUM_SLOTS, dev)
+    base, hot6 = _banked_table(torch, rng, NUM_SLOTS, dev)
     slots, hits, fresh = _dup_lanes(torch, rng, n, NUM_SLOTS, dev, n // 2)
     limits = torch.from_numpy(rng.integers(1, 1000, n).astype(np.int32)).to(dev)
     shadow = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -5357,7 +5370,7 @@ def group_kernel_rows(torch, fw, sh, dev):
 
     def row(name, kern, plain, nbytes, ops, library=None):
         got, want = kern(), plain()
-        errs[name] = u32_max_abs_err(got, want)
+        errs[name] = u32_max_abs_err(got.to(want.device), want)
         if errs[name] != 0:
             fail(f"{name} disagrees with its plain version: max|err|={errs[name]}")
         per_call = device_samples(kern, iters=50)
@@ -5409,14 +5422,114 @@ def group_kernel_rows(torch, fw, sh, dev):
         # partial's bytes and the ids in, one partial out.
         out_bytes + 4 * n + out_bytes, n,
         library=lambda: torch.sum(stage, 0, dtype=torch.uint8))
+    # The mesh entry's K7 dispatch over the mesh's cards: each card runs
+    # the prefix over the whole batch, and each card past the home one
+    # copies the lanes (14 B a lane) once.
+    mesh = group_mesh(torch, sh, dev, SERVED_GROUPS)
+    cards = mesh.card_groups()
+    mparts = list(sh.ShardedFixedWindowModel.parts(split_groups(torch, sh, base, mesh)))
+    plain_parts = split()
+    m1 = torch.zeros(out_bytes, dtype=torch.uint8, device=dev)
+    m2 = torch.zeros(out_bytes, dtype=torch.uint8, device=dev)
+    copies = 2 * 14 * n * (len(cards) - 1)
+    row(sh.MESH_CARD,
+        lambda: sh.mesh_card_step(mparts, cards, BANKS, (*lanes, shadow), "decide", 0.8, m1),
+        lambda: card(plain_parts, "decide", m2, plain=True),
+        14 * n + 8 * touched + 33 * n + copies, len(cards) * prefix_ops(n) + 34 * n)
+    # K6's card form over the SERVED_GROUPS groups of one card: routed
+    # rows in, gather and scatter of the live lanes, readback out.
+    rpk, r_live = _routed(torch, rng, n, NUM_SLOTS, dev, hot6, skew=False)
+    rpk8, r_live8 = _routed(torch, rng, 8, NUM_SLOTS, dev, hot6, skew=False)
+    words8 = _pinned(torch, rpk8)
+    out8 = torch.empty(tuple(rpk8.shape[::2]), dtype=torch.int32, pin_memory=True)
+    for name, kern, plain, pk, live in (
+        (sh.K6_CARD, lambda t: sh.sharded_routed_card_step(t, rpk, ""),
+         lambda t: sh._routed_card_step_plain(t, rpk, ""), rpk, r_live),
+        (sh.K6_CARD_LANES, lambda t: sh.sharded_routed_card_step_lanes(t, words8, out8, ""),
+         lambda t: sh._routed_card_step_plain(t, rpk8, ""), rpk8, r_live8),
+    ):
+        routed = pk.shape[0] * pk.shape[2]  # the card's rows x cap, padding included
+        t1, t2 = split(), split()
+        row(name, lambda k=kern, t=t1: (k(t), torch.cuda.synchronize())[0],
+            lambda p=plain, t=t2: p(t), 16 * routed + 8 * live + 4 * routed, 8 * routed)
     return rows, errs
 
 
-#: The grouped engine's host stages, each a method that stage_clock
-#: wraps: the submission (of which the staging takes and each group's
-#: launch, _serve_on) and the fetch (of which the event waits).
-GROUP_STAGES = {"submit": "_device_submit", "take": "_take_group_staging",
-                "launch": "_serve_on", "fetch": "_fetch", "wait": "_wait"}
+def check_card_form(torch, fw, sh, dev):
+    """K6's card form against its plain version, bit for bit: on 1, 2
+    and SERVED_GROUPS groups of one card (2 banks a group of a 2^20-slot
+    table) for n in (8, 13, 100, 4096) routed lanes, uniform and
+    all-one-bank routing, three readback types -- in the device form
+    always, by value wherever the card's rows x cap fit 128 lanes -- and
+    through the model's routed step over the SERVED_GROUPS-group mesh
+    (one host call of the mesh entry over its cards) in both forms.
+    Returns (max |err| by kernel, cases by kernel)."""
+    rng = np.random.default_rng(1618)
+    k = BANKS // SERVED_GROUPS
+    err = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0}
+    cases = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0, "mesh": 0}
+
+    def note(name, a, b, what):
+        e = u32_max_abs_err(a, b.to(a.device))
+        err[name] = max(err[name], e)
+        if e != 0:
+            fail(f"{name} disagrees with its plain version ({what}): max|err|={e}")
+
+    base, hot = _banked_table(torch, rng, NUM_SLOTS, dev)
+    mesh = group_mesh(torch, sh, dev, SERVED_GROUPS)
+    model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
+    widest = max(len(c.rows) for c in mesh.card_groups())
+    for n, skew, dt in itertools.product((8, 13, 100, 4096), (False, True), ("", "uint8", "uint16")):
+        pk, _ = _routed(torch, rng, n, NUM_SLOTS, dev, hot, skew)
+        cap = pk.shape[2]
+        for held in (1, 2, SERVED_GROUPS):
+            rows = held * k
+            card_pk = pk[:rows].contiguous()
+            plain = [base[h * k : (h + 1) * k].clone() for h in range(held)]
+            want = sh._routed_card_step_plain(plain, card_pk, dt)
+            what = f"{held} groups on a card, n={n} cap={cap} skew={skew} dtype={dt!r}"
+            tables = [base[h * k : (h + 1) * k].clone() for h in range(held)]
+            note(sh.K6_CARD, sh.sharded_routed_card_step(tables, card_pk, dt), want,
+                 "afters " + what)
+            note(sh.K6_CARD, torch.cat(tables), torch.cat(plain), "table " + what)
+            cases[sh.K6_CARD] += 1
+            if fw.lanes_by_value(rows, cap):
+                tables = [base[h * k : (h + 1) * k].clone() for h in range(held)]
+                out = torch.empty((rows, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
+                sh.sharded_routed_card_step_lanes(tables, _pinned(torch, card_pk), out, dt)
+                torch.cuda.synchronize()
+                note(sh.K6_CARD_LANES, out, want, "out " + what)
+                note(sh.K6_CARD_LANES, torch.cat(tables), torch.cat(plain), "table " + what)
+                cases[sh.K6_CARD_LANES] += 1
+        # The model over the mesh: one host call over its cards.
+        plain = base.clone()
+        want = sh._routed_step_plain(plain, pk, dt)
+        what = f"the {SERVED_GROUPS}-group mesh, n={n} cap={cap} skew={skew} dtype={dt!r}"
+        state = split_groups(torch, sh, base, mesh)
+        state, got = model.step_counters_unique_routed_packed(state, dt, pk)
+        note(sh.K6_CARD, got, want, "afters " + what)
+        note(sh.K6_CARD, joined(torch, model, state), plain, "table " + what)
+        cases["mesh"] += 1
+        if fw.lanes_by_value(widest, cap):
+            state = split_groups(torch, sh, base, mesh)
+            out = torch.empty((BANKS, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
+            state, _ = model.step_counters_unique_routed_lanes(state, dt, _pinned(torch, pk), out)
+            torch.cuda.synchronize()
+            note(sh.K6_CARD_LANES, out, want, "out " + what)
+            note(sh.K6_CARD_LANES, joined(torch, model, state), plain, "table " + what)
+            cases["mesh"] += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+#: The grouped engine's host stages, each one or more methods that
+#: stage_clock wraps: the submission (of which the staging takes and the
+#: launch -- the one host call over every card, _serve_cards, or a
+#: one-group engine's _serve_on) and the fetch (of which the event
+#: waits).
+GROUP_STAGES = {"submit": ("_device_submit",), "take": ("_take_card_staging",),
+                "launch": ("_serve_on", "_serve_cards"), "fetch": ("_fetch",),
+                "wait": ("_wait",)}
 
 
 def stage_clock(engine) -> dict:
@@ -5436,14 +5549,16 @@ def stage_clock(engine) -> dict:
 
         return call
 
-    for stage, attr in GROUP_STAGES.items():
-        setattr(engine, attr, wrap(stage, getattr(engine, attr)))
+    for stage, attrs in GROUP_STAGES.items():
+        for attr in attrs:
+            setattr(engine, attr, wrap(stage, getattr(engine, attr)))
     return spent
 
 
 def unclock(engine) -> None:
-    for attr in GROUP_STAGES.values():
-        engine.__dict__.pop(attr, None)
+    for attrs in GROUP_STAGES.values():
+        for attr in attrs:
+            engine.__dict__.pop(attr, None)
 
 
 def stage_split(spent) -> dict:
@@ -5507,27 +5622,49 @@ def group_engine_split(torch, sh, dev):
 
 
 def group_streams(engine):
-    return [x.cuda_stream for x in (engine._stream, *engine._more_streams)]
+    return [x.cuda_stream for x in engine._card_streams()]
 
 
-def spy_group_launches(torch, engine):
-    """Record, for each K6 launch of `engine`'s model, its group (by the
-    table it updates) and the stream it was enqueued on."""
-    m = engine.model
-    seen = []
-    ptrs = {p.data_ptr(): g for g, p in enumerate(m.parts(engine._counts))}
+@contextlib.contextmanager
+def spy_card_launches(sh, kernels, engines):
+    """For each engine of `engines` (name -> engine), count its chunks
+    (_device_submit calls), and record every host call of K6's mesh
+    entries (mesh_routed_step_lanes, mesh_routed_step) with the streams
+    it enqueued on, one a card; yields the record, filled in when the
+    block ends with the launch and mesh-call counts moved meanwhile."""
+    seen = dict(chunks={name: 0 for name in engines}, calls=[])
+    launches0, calls0 = dict(kernels.launches), dict(kernels.mesh_calls)
+    real = {name: getattr(sh, name) for name in ("mesh_routed_step_lanes", "mesh_routed_step")}
 
-    def wrap(fn):
-        def call(counts, *args):
-            seen.append((ptrs.get(counts.data_ptr()),
-                         torch.cuda.current_stream(counts.device).cuda_stream))
-            return fn(counts, *args)
+    def spy(name):
+        def call(parts, cards, *args, **kwargs):
+            seen["calls"].append((name, [c.stream.cuda_stream for c in cards]))
+            return real[name](parts, cards, *args, **kwargs)
 
         return call
 
-    m.step_counters_unique_routed_lanes = wrap(m.step_counters_unique_routed_lanes)
-    m.step_counters_unique_routed_packed = wrap(m.step_counters_unique_routed_packed)
-    return seen
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            seen["chunks"][name] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name in real:
+        setattr(sh, name, spy(name))
+    for name, e in engines.items():
+        e._device_submit = counted(name, e._device_submit)
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(sh, name, fn)
+        for e in engines.values():
+            e.__dict__.pop("_device_submit", None)
+        seen["launches"] = {k: v - launches0.get(k, 0) for k, v in kernels.launches.items()
+                            if v != launches0.get(k, 0)}
+        seen["mesh_calls"] = {k: v - calls0.get(k, 0) for k, v in kernels.mesh_calls.items()
+                              if v != calls0.get(k, 0)}
 
 
 def key_counts(engine) -> dict:
@@ -5558,40 +5695,63 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
             eg.model.num_banks, eg.model.groups, eg.model.num_slots
         ) != (BANKS, groups, NUM_SLOTS):
             fail(f"groups: cuda-sharded did not build {BANKS} banks of 2^20 slots in {groups} groups")
-        if e1.model.groups != 1 or len(set(group_streams(eg))) != groups:
-            fail(f"groups: streams {group_streams(eg)} are not one a group")
-        seen = spy_group_launches(torch, eg)
-        for name, req in (("grouped", req_g), ("one group", req_1)):
-            answers = six_hits(req, "foo", "groups")
-            codes = [a.overall_code for a in answers]
-            remaining = [a.statuses[0].limit_remaining for a in answers]
-            if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
-                fail(f"groups: 5/min progression wrong ({name}): {codes} {remaining}")
-            for i in range(40):
-                if req("burst", f"gspread{i}").statuses[0].limit_remaining != 4:
-                    fail(f"groups: spread key {i} counted wrong ({name})")
-        for r in (rg, r1):
-            r.cache.flush()
-        if not np.array_equal(eg.export_counts(), e1.export_counts()):
-            fail("groups: export_counts of the grouped engine differs from one group's")
-        admitted = {}
-        for name, r in (("grouped", rg), ("one group", r1)):
-            res = grpc_clients(r, GROUPS_CLIENTS, lambda i, call: [
-                call("groups", "hot")[0] for _ in range(GROUPS_PER_CLIENT)])
-            admitted[name] = sum(c == OK for codes in res for c in codes)
-            if admitted[name] != GROUPS_LIMIT:
-                fail(f"groups: {name} admitted {admitted[name]} of "
-                     f"{GROUPS_CLIENTS * GROUPS_PER_CLIENT}, want {GROUPS_LIMIT}")
-        for r in (rg, r1):
-            r.cache.flush()
+        cards = len(eg.model.mesh.cards)
+        streams = group_streams(eg)
+        if e1.model.groups != 1 or len(set(streams)) != cards or len(group_streams(e1)) != 1:
+            fail(f"groups: streams {streams} are not one a card ({cards} cards)")
+        with spy_card_launches(sh, kernels, {"grouped": eg, "one group": e1}) as seen:
+            for name, req in (("grouped", req_g), ("one group", req_1)):
+                answers = six_hits(req, "foo", "groups")
+                codes = [a.overall_code for a in answers]
+                remaining = [a.statuses[0].limit_remaining for a in answers]
+                if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
+                    fail(f"groups: 5/min progression wrong ({name}): {codes} {remaining}")
+                for i in range(40):
+                    if req("burst", f"gspread{i}").statuses[0].limit_remaining != 4:
+                        fail(f"groups: spread key {i} counted wrong ({name})")
+                # Past 128 routed lanes a card: K6's card form in the
+                # device form (one group: sharded_routed_step).
+                values = [f"gwide{i}" for i in range(GROUPS_WIDE)]
+                statuses = req("burst", values).statuses
+                if len(statuses) != GROUPS_WIDE or any(st.limit_remaining != 4 for st in statuses):
+                    fail(f"groups: a {GROUPS_WIDE}-descriptor request counted wrong ({name})")
+            for r in (rg, r1):
+                r.cache.flush()
+            if not np.array_equal(eg.export_counts(), e1.export_counts()):
+                fail("groups: export_counts of the grouped engine differs from one group's")
+            admitted = {}
+            for name, r in (("grouped", rg), ("one group", r1)):
+                res = grpc_clients(r, GROUPS_CLIENTS, lambda i, call: [
+                    call("groups", "hot")[0] for _ in range(GROUPS_PER_CLIENT)])
+                admitted[name] = sum(c == OK for codes in res for c in codes)
+                if admitted[name] != GROUPS_LIMIT:
+                    fail(f"groups: {name} admitted {admitted[name]} of "
+                         f"{GROUPS_CLIENTS * GROUPS_PER_CLIENT}, want {GROUPS_LIMIT}")
+            for r in (rg, r1):
+                r.cache.flush()
         if key_counts(eg) != key_counts(e1):
             fail("groups: a key's counter differs between the grouped and the one-group engine")
-        launched = {g: {st for gg, st in seen if gg == g} for g in range(groups)}
-        streams = group_streams(eg)
-        if any(launched[g] != {streams[g]} for g in range(groups)):
-            fail(f"groups: K6 launches by group and stream {launched}, streams {streams}")
-        out.update(admitted=admitted, launches_by_group=[
-            sum(gg == g for gg, _ in seen) for g in range(groups)])
+        # Exact: each chunk of the grouped engine is ONE host call of a
+        # mesh entry, on the card's one stream each, launching K6's card
+        # form once a card; the one-group engine's chunks launch K6 as
+        # one table, one launch a chunk, no mesh entry.
+        chunks = seen["chunks"]
+        by_form = {k: seen["launches"].get(k, 0)
+                   for k in (sh.K6_CARD, sh.K6_CARD_LANES, sh.K6, sh.K6_LANES)}
+        calls = seen["mesh_calls"]
+        want_calls = chunks["grouped"]
+        if (len(seen["calls"]) != want_calls
+                or sum(calls.get(k, 0) for k in (sh.MESH_ROUTED, sh.MESH_ROUTED_LANES)) != want_calls
+                or set(calls) - {sh.MESH_ROUTED, sh.MESH_ROUTED_LANES}
+                or any(st != streams for _, st in seen["calls"])
+                or by_form[sh.K6_CARD] + by_form[sh.K6_CARD_LANES] != cards * want_calls
+                or by_form[sh.K6] + by_form[sh.K6_LANES] != chunks["one group"]
+                or by_form[sh.K6_CARD] < cards or by_form[sh.K6] < 1):
+            fail(f"groups: {chunks} chunks made K6 launches {by_form} in mesh calls {calls} on "
+                 f"streams {[st for _, st in seen['calls']][:3]}..., want one call a grouped "
+                 f"chunk on the {cards} card streams {streams}, one launch a card")
+        out.update(admitted=admitted, chunks=chunks, k6_by_form=by_form, mesh_calls=calls,
+                   cards=cards, streams=len(set(streams)))
         # Served cost, grouped against one group, in alternating pairs.
         pairs = []
         for i in range(GROUP_PAIRS):
@@ -5625,8 +5785,9 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
             if back.model.groups != 1 or not np.array_equal(back.export_counts(), want):
                 fail("groups: the grouped runner's checkpoint did not restore into one group")
             out["restored_keys"] = len(back.slot_table)
-        # The stall of one group's stream (the last group's: on a host of
-        # several cards, not the home card).
+        # The stall of one card's stream (the last card's: on a host of
+        # several cards, not the home card; on one, the one all groups
+        # share).
         fd = rg.cache.fault_domain
         marks = {}
 
@@ -5644,7 +5805,7 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
         fd.run_fallback = timed("fallback", fd.run_fallback)
         try:
             ep = stall_episode(torch, kernels, rg, req_g, OK, bank_of(rg, "lane0of1"), "probe",
-                               fw.K1_LANES, cycles_per_ms, group=groups - 1)
+                               fw.K1_LANES, cycles_per_ms, card=cards - 1)
         finally:
             del fd._quarantine, fd.run_fallback
         t0, t1 = ep["first_rpc"]
@@ -5663,18 +5824,28 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
 
 def groups_phase(torch, kernels, fw, sh, dev, cycles_per_ms):
     """Phase 16: the forward step over 1, 2 and 4 groups and the served
-    grouped runner (the main path: launches counted), then each new
-    kernel against its plain version and timed."""
+    grouped runner (the main path: launches counted, and the card
+    launches the mesh entry of K7 enqueued, under its name), then K6's
+    card form against its plain version, and each new kernel against
+    its plain version and timed."""
     kernels.launches.clear()
+    kernels.mesh_calls.clear()
+    kernels.mesh_launches.clear()
     fwd = groups_forward(torch, fw, sh, kernels, dev)
     served = groups_served(torch, kernels, sh, fw, dev, cycles_per_ms)
     launches = dict(kernels.launches)
-    for name in (sh.K7_CARD, sh.K7_CARD_STEP, sh.COMBINE, sh.K6_LANES):
+    launches[sh.MESH_CARD] = kernels.mesh_launches[sh.MESH_CARD]
+    for name in (sh.K7_CARD, sh.K7_CARD_STEP, sh.COMBINE, sh.K6_LANES, sh.K6_CARD,
+                 sh.K6_CARD_LANES, sh.MESH_CARD):
         if launches.get(name, 0) < 1:
             fail(f"groups: {name} never launched on the main path: {launches}")
+    served["mesh_calls_all"] = dict(kernels.mesh_calls)
+    card_errs, fwd["card_form_cases"] = check_card_form(torch, fw, sh, dev)
     fwd["spread"] = group_step_spread(torch, fw, sh, dev)
     served["engine"] = group_engine_split(torch, sh, dev)
     rows, errs = group_kernel_rows(torch, fw, sh, dev)
+    for name, e in card_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
     return launches, dict(forward=fwd, served=served), rows, errs
 
 
@@ -5703,17 +5874,24 @@ def groups_lines(o, smi) -> list:
         f"groups forward: {fwd['checked']} steps (graft batch and negative / out-of-table ids, "
         f"2^20 slots x 4096 lanes, {len(GROUP_LAYOUTS)} epilogues, {list(FORWARD_GROUPS)} groups "
         f"and {SERVED_GROUPS} groups with no card mapped) bit-equal to the one-group step and "
-        f"the plain version; K7 once a card, the combine only on a card without a mapping; "
+        f"the plain version; K7 once a card, every mapped card's launch in one host call of "
+        f"rl_mesh_card_step, the combine only on a card without a mapping; K6's card form "
+        f"bit-equal to its plain version in {fwd['card_form_cases']} cases (1, 2 and "
+        f"{SERVED_GROUPS} groups on a card, both forms, three readback types, and the model "
+        f"over the {SERVED_GROUPS}-group mesh); "
         f"device time a step (summed over its activities), min / median / max over 50: one "
         f"group (one launch) {both(1)}, {SERVED_GROUPS} groups (one launch a card) "
         f"{both(SERVED_GROUPS)}, {SERVED_GROUPS} groups with no card mapped (a launch a card, "
         f"row copies, the combine) {both('unmapped')} ({smi})",
-        f"groups served: 6th hit OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0] and 40 spread keys "
-        f"at 4 on both runners, export_counts equal; {GROUPS_CLIENTS} clients x "
-        f"{GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key admitted {srv['admitted']}; K6 "
-        f"launches by group {srv['launches_by_group']}, each on its own stream; per-key counters "
-        f"equal; the checkpoint restored {srv['restored_keys']} keys into one group, counts "
-        f"equal; {srv['fault_free'][0]}",
+        f"groups served: 6th hit OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 spread keys "
+        f"and a {GROUPS_WIDE}-descriptor request at 4 on both runners, export_counts "
+        f"equal; {GROUPS_CLIENTS} clients x {GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key "
+        f"admitted {srv['admitted']}; chunks {srv['chunks']}: K6 launches {srv['k6_by_form']} in "
+        f"mesh calls {srv['mesh_calls']} (one call a grouped chunk, one K6 card launch a card, "
+        f"{srv['cards']} cards on {srv['streams']} streams); the phase's host calls by mesh "
+        f"entry {srv['mesh_calls_all']}; per-key counters equal; "
+        f"the checkpoint restored {srv['restored_keys']} keys into one group, counts equal; "
+        f"{srv['fault_free'][0]}",
         f"groups served cost: median of {GROUP_PAIRS} alternating pairs, {GROUP_LEG} requests "
         f"each: {srv['served_us'][0]:.1f} us/request over the grouped mesh, "
         f"{srv['served_us'][1]:.1f} us/request over one group; grouped - one group per pair "
@@ -5726,7 +5904,7 @@ def groups_lines(o, smi) -> list:
         f"{GROUP_LEG} steps: {eng['step_us'][0]:.1f} us/step grouped, {eng['step_us'][1]:.1f} one "
         f"group; per pair median {eng['diff_us'][0]:.1f}, min {eng['diff_us'][1]:.1f}, max "
         f"{eng['diff_us'][2]:.1f}; clocked legs: {split_text(eng['split'])} ({smi})",
-        f"groups stall: one group's stream for {st['stall_ms']:.0f} ms: quarantined after "
+        f"groups stall: one card's stream for {st['stall_ms']:.0f} ms: quarantined after "
         f"{st['quarantine_ms']:.1f} ms, RPCs during the stall max {st['rpc_max_ms']:.1f} ms "
         f"(p99 {st['rpc_p99_ms']:.1f}), {st['fallback']} fallback answers, faults {st['faults']}, "
         f"admitted {st['admitted']} of {st['offered']}, restart after {st['restart_s']:.2f} s on "
@@ -6032,7 +6210,8 @@ def main() -> None:
     for line in sanitized_lines(sanitized, smi):
         log(line)
 
-    # 16. banks in groups: K7 once a card, the combine, K6 per group
+    # 16. banks in groups: K7 and K6 once a card, every card in one host
+    # call, the combine
     grp_launches, groups_out, grp_rows, grp_errs = groups_phase(
         torch, kernels, fw, sh, dev, cycles_per_ms
     )
@@ -6079,6 +6258,10 @@ def main() -> None:
         sh.K7_CARD: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
         sh.K7_CARD_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
         sh.COMBINE: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:322"),
+        sh.K6_CARD: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.K6_CARD_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu",
+                           "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.MESH_CARD: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
     }
     rows = []
     for name, (source, rep) in replaces.items():

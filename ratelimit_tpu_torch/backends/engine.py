@@ -33,10 +33,10 @@ stream order stands in for the reference's donated-buffer chain.  The
 stream is passed explicitly wherever it is used: ``step_complete`` runs
 on another thread, and a stream context is thread-local.  No two live
 engines share a stream (``claim_stream``): a stall on one bank's stream
-must hold up no other bank.  An engine whose table lies in several bank
-groups (parallel.ShardedCounterEngine) holds one stream, staging pool
-and event per group, each group's on its group's device
-(``_more_streams`` beside ``_stream``); this engine is one group.
+must hold up no other bank.  An engine whose table lies in bank groups
+over several cards (parallel.ShardedCounterEngine) holds one stream,
+staging pool and event per card, each on its card
+(``_more_streams`` beside ``_stream``); this engine is one card.
 """
 
 from __future__ import annotations
@@ -136,8 +136,8 @@ def claim_stream(device: torch.device, holder):
 
 
 def _streams_of(holder) -> list:
-    """`holder`'s streams: ``_stream`` and, for an engine of several bank
-    groups (parallel.ShardedCounterEngine), its other groups' streams."""
+    """`holder`'s streams: ``_stream`` and, for an engine over several
+    cards (parallel.ShardedCounterEngine), its other cards' streams."""
     streams = [getattr(holder, "_stream", None), *getattr(holder, "_more_streams", ())]
     return [s for s in streams if s is not None]
 

@@ -31,9 +31,39 @@
 // latency bounds it, as it bounds K1.  The TPU's 128-wide row gather
 // (sharded.py:239-253) is a TPU layout trick and has no counterpart.
 //
-// The host routes by bank, so K6 needs no collective: a group's launch
-// serves that group's rows of the batch (the engine packs one
-// int32[k, 4, cap] batch a group, each on its group's stream).
+// The host routes by bank, so K6 needs no collective.  On a mesh of one
+// group the entries above serve every bank.  Over several groups K6 has a
+// CARD form: one launch over the banks of every group a card holds, its
+// group tables reached through a table-pointer array as CardIndex reaches
+// K7's (rl_sharded_routed_card_step, device form: a block row a bank
+// held, the card's rows int32[held x k, 4, cap] of the batch;
+// rl_sharded_routed_card_step_lanes, by value: one block of held x k x
+// cap <= 128 threads, each lane-row's bank base in the parameters beside
+// its record).  Each lane runs serve_lane, the K1 / K6 body, so a card
+// computes exactly what _bank_unique (sharded.py:229-266) computes for
+// each of its banks.  Bound: as K6's, per routed lane.
+//
+// The mesh entries enqueue every card's work in ONE host call, the
+// counterpart of JAX's single SPMD dispatch over the mesh
+// (jax.jit(shard_map(...)), sharded.py:184-227 and :270-324).  Each takes
+// per-card arrays (device ordinal, stream, launch arguments, the event to
+// record), sets each card's device in turn, enqueues that card's work,
+// and puts the caller's device back; it returns the first error and
+// writes the index of the card that raised it into *failed (-1 for
+// none).  Cards run in parallel, each on its own stream.
+//
+// - rl_mesh_routed_step_lanes / rl_mesh_routed_step: K6's card form on
+//   every card, by value or in the device form (whose upload and
+//   readback copies it enqueues too, where given), then the card's event.
+// - rl_mesh_card_step: K7's card step on every card whose lanes reach the
+//   home output in place or through a peer mapping ("home" and "peer",
+//   parallel/sharded.py Mesh.links).  A card past the home one waits on
+//   an event recorded on the home stream at entry (the lanes and the
+//   output are ready), takes ONE cudaMemcpyPeerAsync of the lanes' bytes
+//   where the caller gives it a destination, and launches; the home
+//   stream then waits on every such card's event, so the output is read,
+//   and the home card's buffers are reused, only after every card's
+//   stores.  Those events live inside the call.
 //
 // K7 replaces the general update _bank_core (sharded.py:270-302) and
 // _bank_update, step_counters_compact and _bank_step (:116-141,304-324)
@@ -116,6 +146,170 @@ extern "C" int rl_sharded_routed_step_lanes(void* counts,
 
 namespace {
 
+// -- K6's card form --------------------------------------------------------
+
+// The group tables of one card, in the order of its rows of the batch:
+// held group h holds the card's bank rows [h k, (h + 1) k).
+struct CardTables {
+  uint32_t* table[kMaxGroups];
+  int banks_per_group;  // k
+  long long slots_per_bank;
+};
+
+// Device form: bank row blockIdx.y of the card against its packed
+// int32[4, n] rows of an int32[held x k, 4, n] batch, readback into
+// out[held x k, n].
+__global__ void routed_card_kernel(const __grid_constant__ CardTables t,
+                                   const int32_t* __restrict__ packed, int n,
+                                   void* __restrict__ out, int out_kind) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) {
+    return;
+  }
+  const long long row = blockIdx.y;
+  const int h = static_cast<int>(row / t.banks_per_group);
+  uint32_t* counts =
+      t.table[h] + (row - static_cast<long long>(h) * t.banks_per_group) *
+                       t.slots_per_bank;
+  packed += row * 4 * n;
+  serve_lane(counts, t.slots_per_bank, packed[i],
+             static_cast<uint32_t>(packed[n + i]),
+             static_cast<uint32_t>(packed[2 * n + i]), packed[3 * n + i] != 0,
+             out, row * n + i, out_kind);
+}
+
+int launch_routed_card(const void* tables, int held, int banks_per_group,
+                       long long slots_per_bank, const void* packed, int cap,
+                       void* out, int out_kind, cudaStream_t stream) {
+  if (held < 1 || held > kMaxGroups || banks_per_group < 1 ||
+      static_cast<long long>(held) * banks_per_group > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cap <= 0) {
+    return 0;
+  }
+  CardTables t{};
+  for (int h = 0; h < held; ++h) {
+    t.table[h] = static_cast<uint32_t* const*>(tables)[h];
+  }
+  t.banks_per_group = banks_per_group;
+  t.slots_per_bank = slots_per_bank;
+  routed_card_kernel<<<dim3(blocks_for(cap), held * banks_per_group), kThreads,
+                       0, stream>>>(t, static_cast<const int32_t*>(packed), cap,
+                                    out, out_kind);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// By value (by_value.cuh): a bank base and a 16 B record a lane-row, so
+// 8 B x 128 + 16 B x 128 = 3 KB of parameters.
+struct CardLaneBatch {
+  uint32_t* bank[kMaxLanes];  // bank row r's counters; rows past held x k unset
+  void* out;                  // device alias of the caller's pinned readback
+  long long num_slots;        // slots per bank
+  int cap;                    // lanes per bank
+  int lanes;                  // held x k x cap; records past it are never read
+  int out_kind;
+  int4 lane[kMaxLanes];       // lane t = row * cap + i: (slot, hits, limit, fresh)
+};
+
+static_assert(sizeof(CardLaneBatch) <= kParamBytes,
+              "the by-value card batch must fit the 4 KB parameter space");
+
+__global__ void routed_card_lanes_kernel(const __grid_constant__ CardLaneBatch b) {
+  const int t = threadIdx.x;
+  if (t >= b.lanes) {
+    return;
+  }
+  const int4 l = b.lane[t];
+  serve_lane(b.bank[t / b.cap], b.num_slots, l.x, static_cast<uint32_t>(l.y),
+             static_cast<uint32_t>(l.z), l.w != 0, b.out, t, b.out_kind);
+}
+
+// `words` is the HOST address of the card's int32[held x k, 4, cap]
+// batch, copied into the launch; `out` the host address of pinned memory.
+int launch_routed_card_lanes(const void* tables, int held, int banks_per_group,
+                             long long slots_per_bank, const void* words,
+                             int cap, void* out, int out_kind,
+                             cudaStream_t stream) {
+  if (held < 1 || banks_per_group < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cap <= 0) {
+    return 0;
+  }
+  const long long rows = static_cast<long long>(held) * banks_per_group;
+  if (rows * cap > kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CardLaneBatch b;
+  const cudaError_t err = mapped_alias(out, &b.out);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  uint32_t* const* t = static_cast<uint32_t* const*>(tables);
+  for (int r = 0; r < rows; ++r) {
+    b.bank[r] = t[r / banks_per_group] + (r % banks_per_group) * slots_per_bank;
+  }
+  b.num_slots = slots_per_bank;
+  b.cap = cap;
+  b.lanes = static_cast<int>(rows) * cap;
+  b.out_kind = out_kind;
+  const int32_t* w = static_cast<const int32_t*>(words);
+  for (int r = 0; r < rows; ++r) {
+    const int32_t* rw = w + r * 4 * cap;
+    for (int i = 0; i < cap; ++i) {
+      b.lane[r * cap + i] =
+          make_int4(rw[i], rw[cap + i], rw[2 * cap + i], rw[3 * cap + i]);
+    }
+  }
+  routed_card_lanes_kernel<<<1, lane_threads(b.lanes), 0, stream>>>(b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- the mesh entries' frame ----------------------------------------------
+
+// Runs card(i) under each card's device in turn (devices[i]), stopping at
+// the first error, whose card goes into *failed; puts the caller's device
+// back.
+template <class Card>
+int each_card(int cards, const int* devices, int* failed, Card card) {
+  *failed = -1;
+  if (cards < 1 || cards > kMaxDevices) {
+    *failed = 0;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) {
+    *failed = 0;
+    return static_cast<int>(err);
+  }
+  int rc = 0;
+  for (int i = 0; i < cards && rc == 0; ++i) {
+    err = cudaSetDevice(devices[i]);
+    rc = err != cudaSuccess ? static_cast<int>(err) : card(i);
+    if (rc != 0) {
+      *failed = i;
+    }
+  }
+  err = cudaSetDevice(current);
+  if (rc == 0 && err != cudaSuccess) {
+    *failed = 0;
+    rc = static_cast<int>(err);
+  }
+  return rc;
+}
+
+int record(const void* events, int i, cudaStream_t stream) {
+  if (events == nullptr) {
+    return 0;
+  }
+  cudaEvent_t ev = static_cast<const cudaEvent_t*>(events)[i];
+  return ev == nullptr ? 0 : static_cast<int>(cudaEventRecord(ev, stream));
+}
+
+int out_bytes(int out_kind) { return out_kind == 1 ? 1 : (out_kind == 2 ? 2 : 4); }
+
 __global__ void combine_kernel(const uint8_t* __restrict__ parts,
                                long long part_bytes,
                                const int32_t* __restrict__ slots,
@@ -195,6 +389,220 @@ extern "C" int rl_sharded_card_step(
   return launch_general_step(nullptr, index, slots, hits, fresh, limits,
                              shadow, near_ratio, afters, incl, out, set_lc,
                              epilogue, n, stream);
+}
+
+// -- K6's card form: one card, and every card in one call -----------------
+
+// One launch of K6 over the banks of every group one card holds: `tables`
+// is the HOST array of the card's `held` group tables (each int32[k,
+// slots_per_bank]), `packed` the card's int32[held x k, 4, cap] rows of
+// the batch in device memory, `out` [held x k, cap].
+extern "C" int rl_sharded_routed_card_step(const void* tables, int held,
+                                           int banks_per_group,
+                                           long long slots_per_bank,
+                                           const void* packed, int cap,
+                                           void* out, int out_kind,
+                                           void* stream) {
+  return launch_routed_card(tables, held, banks_per_group, slots_per_bank,
+                            packed, cap, out, out_kind,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The same by value: `words` in host memory, `out` pinned host memory.
+extern "C" int rl_sharded_routed_card_step_lanes(const void* tables, int held,
+                                                 int banks_per_group,
+                                                 long long slots_per_bank,
+                                                 const void* words, int cap,
+                                                 void* out, int out_kind,
+                                                 void* stream) {
+  return launch_routed_card_lanes(tables, held, banks_per_group,
+                                  slots_per_bank, words, cap, out, out_kind,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// K6's card form by value on every card of a mesh, in one call.  Per card
+// i: devices[i] (int), streams[i], held[i] (int) group tables -- card i's
+// are tables[held[0] + ... + held[i - 1] ...] --, words[i] (host) and
+// outs[i] (pinned host), and events[i] recorded after the launch (the
+// array, or an entry, may be null).
+extern "C" int rl_mesh_routed_step_lanes(
+    int cards, const void* devices, const void* streams, const void* tables,
+    const void* held, int banks_per_group, long long slots_per_bank,
+    const void* words, int cap, const void* outs, int out_kind,
+    const void* events, void* failed) {
+  const int* h = static_cast<const int*>(held);
+  void* const* t = static_cast<void* const*>(tables);
+  int first[kMaxDevices + 1] = {0};
+  for (int i = 0; i < cards && i < kMaxDevices; ++i) {
+    first[i + 1] = first[i] + h[i];
+  }
+  return each_card(
+      cards, static_cast<const int*>(devices), static_cast<int*>(failed),
+      [&](int i) {
+        cudaStream_t s = static_cast<cudaStream_t const*>(streams)[i];
+        int rc = launch_routed_card_lanes(
+            t + first[i], h[i], banks_per_group, slots_per_bank,
+            static_cast<void* const*>(words)[i], cap,
+            static_cast<void* const*>(outs)[i], out_kind, s);
+        return rc != 0 ? rc : record(events, i, s);
+      });
+}
+
+// K6's card form in the device form on every card, in one call: as
+// rl_mesh_routed_step_lanes, with packed[i] and outs[i] in card i's
+// memory; where uploads (or readbacks) gives card i a host address, the
+// card's batch is first copied from it (its readback then copied into it),
+// on the card's stream, before the event.
+extern "C" int rl_mesh_routed_step(
+    int cards, const void* devices, const void* streams, const void* tables,
+    const void* held, int banks_per_group, long long slots_per_bank,
+    const void* packed, const void* uploads, int cap, const void* outs,
+    const void* readbacks, int out_kind, const void* events, void* failed) {
+  const int* h = static_cast<const int*>(held);
+  void* const* t = static_cast<void* const*>(tables);
+  int first[kMaxDevices + 1] = {0};
+  for (int i = 0; i < cards && i < kMaxDevices; ++i) {
+    first[i + 1] = first[i] + h[i];
+  }
+  return each_card(
+      cards, static_cast<const int*>(devices), static_cast<int*>(failed),
+      [&](int i) {
+        cudaStream_t s = static_cast<cudaStream_t const*>(streams)[i];
+        void* dev_in = static_cast<void* const*>(packed)[i];
+        void* dev_out = static_cast<void* const*>(outs)[i];
+        const long long rows = static_cast<long long>(h[i]) * banks_per_group;
+        const void* up =
+            uploads == nullptr ? nullptr : static_cast<void* const*>(uploads)[i];
+        void* down = readbacks == nullptr
+                         ? nullptr
+                         : static_cast<void* const*>(readbacks)[i];
+        cudaError_t err = cudaSuccess;
+        if (up != nullptr && cap > 0) {
+          err = cudaMemcpyAsync(dev_in, up, rows * 4 * cap * sizeof(int32_t),
+                                cudaMemcpyHostToDevice, s);
+        }
+        int rc = err != cudaSuccess
+                     ? static_cast<int>(err)
+                     : launch_routed_card(t + first[i], h[i], banks_per_group,
+                                          slots_per_bank, dev_in, cap, dev_out,
+                                          out_kind, s);
+        if (rc == 0 && down != nullptr && cap > 0) {
+          rc = static_cast<int>(cudaMemcpyAsync(
+              down, dev_out, rows * cap * out_bytes(out_kind),
+              cudaMemcpyDeviceToHost, s));
+        }
+        return rc != 0 ? rc : record(events, i, s);
+      });
+}
+
+// K7's card step on every "home" and "peer" card of a mesh, in one call;
+// card 0 is the home card, whose stream orders the output.  Per card i:
+// devices[i], streams[i], tables[i x groups ...] (the mesh's `groups`
+// table pointers, null for a group on another card), lanes[5 i ...] (its
+// slots, hits, fresh, limits and shadow; limits and shadow may be null),
+// scratch[i] (int32[2, n] on the card: afters, incl), and copies[i]: where
+// not null, the card's lanes are ONE copy of the `packed_bytes` bytes at
+// `packed` (on the home card) made there first, and lanes[5 i ...] point
+// into it.  Every card writes its owned lanes into `out` / `set_lc` (on
+// the home card) at out_stride bytes a group, as rl_sharded_card_step.
+extern "C" int rl_mesh_card_step(
+    int cards, const void* devices, const void* streams, const void* tables,
+    int groups, int num_banks, long long slots_per_bank, const void* lanes,
+    const void* copies, const void* packed, long long packed_bytes,
+    float near_ratio, const void* scratch, void* out, void* set_lc,
+    long long out_stride, int epilogue, int n, void* failed) {
+  int* bad = static_cast<int*>(failed);
+  *bad = -1;
+  if (groups < 1 || groups > kMaxGroups || num_banks % groups != 0 ||
+      out_stride < 0 || cards < 1 || cards > kMaxDevices) {
+    *bad = 0;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) {
+    return 0;
+  }
+  const int* dev = static_cast<const int*>(devices);
+  cudaStream_t const* st = static_cast<cudaStream_t const*>(streams);
+  uint32_t* const* tab = static_cast<uint32_t* const*>(tables);
+  void* const* ln = static_cast<void* const*>(lanes);
+  cudaEvent_t ready = nullptr;
+  cudaEvent_t done[kMaxDevices] = {};
+  if (cards > 1) {
+    // The lanes (and their packed copy) and the output are ready on the
+    // home stream once the caller's work enqueued before this call is.
+    int rc = each_card(1, dev, bad, [&](int) {
+      cudaError_t err = cudaEventCreateWithFlags(&ready, cudaEventDisableTiming);
+      return static_cast<int>(err != cudaSuccess ? err : cudaEventRecord(ready, st[0]));
+    });
+    if (rc != 0) {
+      if (ready != nullptr) {
+        cudaEventDestroy(ready);
+      }
+      return rc;
+    }
+  }
+  int rc = each_card(cards, dev, bad, [&](int i) {
+    cudaError_t err = cudaSuccess;
+    if (i > 0) {
+      err = cudaStreamWaitEvent(st[i], ready, 0);
+    }
+    void* copy = static_cast<void* const*>(copies)[i];
+    if (err == cudaSuccess && copy != nullptr) {
+      err = cudaMemcpyPeerAsync(copy, dev[i], packed, dev[0], packed_bytes, st[i]);
+    }
+    if (err != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    CardIndex index{};
+    bool any = false;
+    for (int g = 0; g < groups; ++g) {
+      index.table[g] = tab[static_cast<long long>(i) * groups + g];
+      any = any || index.table[g] != nullptr;
+    }
+    if (!any) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    index.num_banks = num_banks;
+    index.banks_per_group = num_banks / groups;
+    index.slots_per_bank = slots_per_bank;
+    index.out_stride = out_stride;
+    uint8_t* scr = static_cast<uint8_t* const*>(scratch)[i];
+    const int rc = launch_general_step(
+        nullptr, index, ln[5 * i], ln[5 * i + 1], ln[5 * i + 2], ln[5 * i + 3],
+        ln[5 * i + 4], near_ratio, scr, scr + 4LL * n, out, set_lc, epilogue, n,
+        st[i]);
+    if (rc != 0 || i == 0) {
+      return rc;
+    }
+    err = cudaEventCreateWithFlags(&done[i], cudaEventDisableTiming);
+    return static_cast<int>(err != cudaSuccess ? err : cudaEventRecord(done[i], st[i]));
+  });
+  // The home stream waits on every card that enqueued work, failed call
+  // or not: the home card's lanes and output are not reused before.
+  int home_bad = -1;
+  const int waited = each_card(1, dev, &home_bad, [&](int) {
+    int first = 0;
+    for (int i = 1; i < cards; ++i) {
+      if (done[i] != nullptr) {
+        const cudaError_t err = cudaStreamWaitEvent(st[0], done[i], 0);
+        first = first != 0 ? first : static_cast<int>(err);
+      }
+    }
+    return first;
+  });
+  for (int i = 1; i < cards; ++i) {
+    if (done[i] != nullptr) {
+      cudaEventDestroy(done[i]);
+    }
+  }
+  if (ready != nullptr) {
+    cudaEventDestroy(ready);
+  }
+  if (rc == 0 && waited != 0) {
+    *bad = 0;
+    rc = waited;
+  }
+  return rc;
 }
 
 // Whether kernels on `device` may store into memory of `peer`

@@ -23,7 +23,10 @@ device its pointers lie on.  So every wrapper launches through
 :func:`launch`, which runs the call under the one device that the
 launch's device tensors lie on (:func:`device_of` raises ValueError
 where they lie on two): a bank group on a second card launches there,
-whatever device the thread had current.
+whatever device the thread had current.  A mesh entry (csrc/sharded.cu,
+``rl_mesh_*``) enqueues several cards' launches in one ctypes call and
+sets each card's device itself: it goes through :func:`launch_mesh`,
+which counts one launch a card.
 """
 
 from __future__ import annotations
@@ -114,6 +117,27 @@ SIGNATURES = {
         [_VP, _I32, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _F32, _VP, _VP, _VP, _VP,
          _I64, _I32, _I32, _VP],
     ),
+    "rl_sharded_routed_card_step": (
+        "sharded",
+        [_VP, _I32, _I32, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
+    "rl_sharded_routed_card_step_lanes": (
+        "sharded",
+        [_VP, _I32, _I32, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
+    "rl_mesh_routed_step_lanes": (
+        "sharded",
+        [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _I32, _VP, _I32, _VP, _VP],
+    ),
+    "rl_mesh_routed_step": (
+        "sharded",
+        [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _VP, _I32, _VP, _VP, _I32, _VP, _VP],
+    ),
+    "rl_mesh_card_step": (
+        "sharded",
+        [_I32, _VP, _VP, _VP, _I32, _I32, _I64, _VP, _VP, _VP, _I64, _F32, _VP, _VP, _VP,
+         _I64, _I32, _I32, _VP],
+    ),
     "rl_enable_peer": ("sharded", [_I32, _I32, _VP]),
     "rl_sharded_combine": (
         "sharded",
@@ -123,6 +147,10 @@ SIGNATURES = {
 
 #: Launch counts by kernel name (see module docstring).
 launches: collections.Counter = collections.Counter()
+#: Host calls of each mesh entry (launch_mesh), and the card launches
+#: those calls enqueued.
+mesh_calls: collections.Counter = collections.Counter()
+mesh_launches: collections.Counter = collections.Counter()
 
 #: nvcc's output (ptxas register/shared-memory report) per library,
 #: filled by the builds this process ran.
@@ -284,6 +312,38 @@ def launch(entry: str, kernel: str, tensors, *args) -> None:
         rc = function(entry)(*args)
     check(rc, kernel)
     launches[kernel] += 1
+
+
+def launch_mesh(entry: str, kernel: str, per_card_tensors, *args) -> None:
+    """Call the mesh entry `entry` once with `args` and a pointer to the
+    int it writes the failing card's index into: the entry itself sets
+    each card's device, enqueues that card's launch of `kernel` and puts
+    the caller's device back.  `per_card_tensors` holds, for each card in
+    the entry's order, the launch's tensors in that card's memory
+    (device_of checks each card's lie on one device).  Counts one launch
+    of `kernel` a card that launched, and one call of `entry`; raises
+    KernelError naming the card for any error the entry returns."""
+    cards = [device_of(*tensors) for tensors in per_card_tensors]
+    failed = ctypes.c_int(-1)
+    rc = function(entry)(*args, ctypes.byref(failed))
+    at = failed.value if rc != 0 else len(cards)
+    mesh_calls[entry] += 1
+    mesh_launches[entry] += max(at, 0)
+    launches[kernel] += max(at, 0)
+    if rc != 0:
+        where = f"card {at} ({cards[at]})" if 0 <= at < len(cards) else "the mesh"
+        raise KernelError(f"{kernel} on {where}: CUDA launch failed with error {rc}", code=rc)
+
+
+def pointers(values) -> "ctypes.Array":
+    """A C array of pointers (None for null), kept alive by the caller
+    for the call it is passed to."""
+    return (ctypes.c_void_p * len(values))(*values)
+
+
+def ints(values) -> "ctypes.Array":
+    """A C array of ints."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def mapped_alias(host_ptr: int) -> int:

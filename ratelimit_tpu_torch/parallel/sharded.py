@@ -14,22 +14,29 @@ contiguous banks [g k, (g + 1) k) as one int32[k, slots_per_bank]
 tensor on its device.  ``make_mesh()`` gives one bank per visible card,
 as the JAX package's takes every local device; ``make_mesh(n, device)``
 one group of n banks; ``make_mesh(n, devices=...)`` one group per listed
-device, which may repeat (several groups on one card, each on its own
-stream in the engine).  A state is the one group's tensor, or a tuple of
-the groups' tensors; ``ShardedFixedWindowModel.parts`` and ``join`` are
-the only code that tells the two apart.
+device, which may repeat (several groups on one card, sharing that
+card's stream in the engine).  A state is the one group's tensor, or a
+tuple of the groups' tensors; ``ShardedFixedWindowModel.parts`` and
+``join`` are the only code that tells the two apart.
+``Mesh.card_groups`` gives the per-card plan (``CardPlan``): the groups a
+card holds, its link, its bank rows and its stream.
 
 Three kernels, in csrc/sharded.cu:
 
 - K6 ``sharded_routed_step``, the serving step: the engine routes each
   unique slot to its bank on the host (local ids, one packed
-  int32[k, 4, cap] batch a group) and one launch serves every bank of a
-  group -- fresh-zero, gather, SATURATING add, unique scatter-set,
-  narrow readback.  Up to 128 routed lanes (k x cap) go by value,
+  int32[num_banks, 4, cap] batch) and one launch serves every bank --
+  fresh-zero, gather, SATURATING add, unique scatter-set, narrow
+  readback.  Up to 128 routed lanes (banks x cap) go by value,
   ``sharded_routed_step_lanes``: the batch rides in the launch's
   parameters and the readback lands in pinned host memory
   (``fixed_window.lanes_by_value`` decides, from the shape alone).
-  Routing is done on the host, so K6 needs no collective;
+  Routing is done on the host, so K6 needs no collective.  Over several
+  groups K6 has a CARD form, ONE launch over the banks of every group a
+  card holds (``sharded_routed_card_step`` and its by-value
+  ``sharded_routed_card_step_lanes``), and the mesh's served chunk is
+  ONE host call that launches it on every card (``mesh_routed_step``,
+  ``mesh_routed_step_lanes``: the mesh entries, kernels.launch_mesh);
 - K7, the duplicate-tolerant step over a replicated batch of GLOBAL
   ids: zero fresh slots, gather, the per-slot prefix (K2's tile pass)
   on the raw ids, MODULAR scatter-add, with an optional narrow readback
@@ -42,7 +49,9 @@ Three kernels, in csrc/sharded.cu:
   stores the lanes it owns into the one output on the home device
   (the first group's) -- in place on the home card, through a peer
   mapping from another.  Each lane has one owner, so those stores are
-  JAX's ``psum``;
+  JAX's ``psum``.  Every such card's launch is enqueued by ONE host
+  call (``rl_mesh_card_step``, the counterpart of JAX's one SPMD
+  dispatch);
 - ``sharded_combine``, the ``psum`` where a card cannot map the home
   card (Mesh.links): each card's owned lanes in their owner group's row
   of a stage, copied home, and one launch that takes each lane from its
@@ -59,7 +68,7 @@ from __future__ import annotations
 import ctypes
 from collections import deque
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -79,6 +88,7 @@ from ..models import fixed_window as fw
 from ..models.fixed_window import (
     DeviceBatch,
     DeviceDecisions,
+    lanes_by_value,
     resolve_device,
     state_from_numpy,
     state_to_numpy,
@@ -88,6 +98,8 @@ from ..ops.u32 import narrow, widen
 
 K6 = "sharded_routed_step"
 K6_LANES = "sharded_routed_step_lanes"
+K6_CARD = "sharded_routed_card_step"
+K6_CARD_LANES = "sharded_routed_card_step_lanes"
 K7 = "sharded_general_update"
 K7_STEP = "sharded_general_step"
 K7_CARD = "sharded_card_update"
@@ -99,6 +111,24 @@ COMBINE = "sharded_combine"
 MAX_GROUPS = 256
 #: How a card's owned lanes reach the home device's output (Mesh.links).
 LINKS = ("home", "peer", "combine")
+#: The mesh entries: every card's launch in one host call.
+MESH_ROUTED = "rl_mesh_routed_step"
+MESH_ROUTED_LANES = "rl_mesh_routed_step_lanes"
+MESH_CARD = "rl_mesh_card_step"
+
+
+class CardPlan(NamedTuple):
+    """One card's share of a mesh: the groups it holds (ascending), how
+    K7's owned lanes reach the home output (``link``, Mesh.links), the
+    bank rows those groups hold in order (K6's rows of the routed batch
+    on this card), the card's device, and the stream its work goes on
+    (None: that device's current stream)."""
+
+    groups: Tuple[int, ...]
+    link: str
+    rows: Tuple[int, ...]
+    device: torch.device
+    stream: object = None
 
 
 @dataclass(frozen=True)
@@ -138,13 +168,20 @@ class Mesh:
         """The distinct devices of the groups, the home device first."""
         return tuple(dict.fromkeys(self.devices))
 
-    def card_groups(self) -> Tuple[Tuple[Tuple[int, ...], str], ...]:
-        """(the groups a card holds, its link) for each card, the home
-        card's first: what grouped_general_step launches over."""
-        return tuple(
-            (tuple(g for g, d in enumerate(self.devices) if d == card), link)
-            for card, link in zip(self.cards, self.links)
-        )
+    def card_groups(self, streams: Sequence = ()) -> Tuple[CardPlan, ...]:
+        """The per-card plan (CardPlan: groups, link, rows, device and
+        stream) of each card, the home card's first: what a served chunk
+        (K6's card form) and grouped_general_step (K7) launch over.
+        `streams` gives each card's stream, in that order (the engine's
+        claimed streams); by default none."""
+        k = self.banks_per_group
+        streams = tuple(streams) or (None,) * len(self.cards)
+        plans = []
+        for card, link, stream in zip(self.cards, self.links, streams):
+            groups = tuple(g for g, d in enumerate(self.devices) if d == card)
+            rows = tuple(b for g in groups for b in range(g * k, (g + 1) * k))
+            plans.append(CardPlan(groups, link, rows, card, stream))
+        return tuple(plans)
 
     def paths(self) -> dict:
         """How K7's psum crosses each pair of a card and the home card:
@@ -180,7 +217,9 @@ def make_mesh(n_banks: Optional[int] = None, device=None, devices=None) -> Mesh:
     On several cards the mesh's links come from the topology: each card
     that can map the home card's memory (cudaDeviceCanAccessPeer) gets
     the mapping enabled here, once, and stores its lanes there ("peer");
-    any other card takes the combine.
+    any other card takes the combine.  Devices of the CPU share one
+    memory, so "cpu:0", "cpu:1", ... are cards of one host that all map
+    each other: the CPU tests rehearse a mesh of several cards so.
 
     Raises ValueError for no bank, banks that do not split evenly, no
     device, devices of two types, more than MAX_GROUPS groups, or both
@@ -219,7 +258,8 @@ def make_mesh(n_banks: Optional[int] = None, device=None, devices=None) -> Mesh:
     home = devices[0]
     cards = tuple(dict.fromkeys(devices))
     links = ("home",) + tuple(
-        "peer" if kernels.enable_peer(card.index, home.index) else "combine"
+        "peer" if card.type != "cuda" or kernels.enable_peer(card.index, home.index)
+        else "combine"
         for card in cards[1:]
     )
     return Mesh(n_banks, devices, links)
@@ -341,6 +381,239 @@ def sharded_routed_step_lanes(
         kernels.stream_ptr(counts.device),
     )
     return out
+
+
+# -- K6's card form: every group a card holds, one launch ----------------
+
+
+def _routed_card_step_plain(
+    tables: Sequence[torch.Tensor], packed: torch.Tensor, out_dtype: str
+) -> torch.Tensor:
+    """Plain version of K6's card form: _routed_step_plain on each group
+    the card holds, over that group's rows of the card's batch."""
+    k = tables[0].shape[0]
+    return torch.cat(
+        [_routed_step_plain(t, packed[h * k : (h + 1) * k], out_dtype)
+         for h, t in enumerate(tables)]
+    )
+
+
+def _check_card_tables(tables: Sequence[torch.Tensor], one_device: bool = True):
+    """(banks a group, slots a bank) of group tables, which must be
+    alike, at most MAX_GROUPS, and -- one card's -- on one device."""
+    if not tables or len(tables) > MAX_GROUPS:
+        raise ValueError(f"1 to {MAX_GROUPS} group tables, got {len(tables)}")
+    k, spb = _check_banked(tables[0])
+    for t in tables:
+        if _check_banked(t) != (k, spb):
+            raise ValueError(f"group tables must be int32[{k}, {spb}] alike")
+    if one_device:
+        kernels.device_of(*tables)
+    return k, spb
+
+
+def _check_card_batch(batch: torch.Tensor, rows: int) -> int:
+    if batch.dtype != torch.int32 or batch.dim() != 3 or batch.shape[:2] != (rows, 4):
+        raise TypeError(
+            f"a card's batch must be int32[{rows}, 4, cap], got {batch.dtype} "
+            f"{tuple(batch.shape)}"
+        )
+    return batch.shape[2]
+
+
+def _card_ptrs(tables: Sequence[torch.Tensor]):
+    return kernels.pointers([t.data_ptr() for t in tables])
+
+
+def sharded_routed_card_step(
+    tables: Sequence[torch.Tensor], packed: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K6's card form: the serving step of every bank of the groups one
+    card holds, in ONE launch.  `tables` are the card's group tensors
+    (each int32[k, slots_per_bank], one device), `packed` its rows of the
+    routed batch, int32[len(tables) x k, 4, cap] group by group (LOCAL
+    ids, as sharded_routed_step's).  Returns the readback [len(tables) x
+    k, cap] as sharded_routed_step's; updates the tables in place."""
+    if out_dtype not in fw.OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
+    k, spb = _check_card_tables(tables)
+    rows = len(tables) * k
+    cap = _check_card_batch(packed, rows)
+    dev = kernels.device_of(*tables, packed)
+    if dev.type == "cpu":
+        return _routed_card_step_plain(tables, packed, out_dtype)
+    fw._require_cuda(dev)
+    if not packed.is_contiguous():
+        raise ValueError("packed must be contiguous")
+    if rows > 65535:
+        raise ValueError(f"at most 65535 banks a card launch, got {rows}")
+    out = torch.empty((rows, cap), dtype=fw.OUT_DTYPES[out_dtype], device=dev)
+    if cap == 0:
+        return out
+    ptrs = _card_ptrs(tables)
+    kernels.launch(
+        "rl_sharded_routed_card_step", K6_CARD, (*tables, packed, out),
+        ctypes.addressof(ptrs), len(tables), k, spb, packed.data_ptr(), cap, out.data_ptr(),
+        fw._OUT_KIND[out_dtype], kernels.stream_ptr(dev),
+    )
+    return out
+
+
+def sharded_routed_card_step_lanes(
+    tables: Sequence[torch.Tensor], words: torch.Tensor, out: torch.Tensor,
+    out_dtype: str = "",
+) -> torch.Tensor:
+    """K6's card form by value: sharded_routed_card_step's batch held in
+    HOST memory (len(tables) x k x cap <= 128 lanes), carried by the
+    launch as parameters, the readback into `out` (pinned host memory on
+    a card, written through its device alias).  Only enqueued on a card:
+    wait on the stream before reading `out`.  Returns `out`."""
+    k, _ = _check_card_tables(tables)
+    fw._check_unique_lanes(words, out, out_dtype)
+    cap = _check_card_batch(words, len(tables) * k)
+    dev = tables[0].device
+    if dev.type == "cpu":
+        return out.copy_(_routed_card_step_plain(tables, words, out_dtype))
+    fw._require_cuda(dev)
+    if cap == 0:
+        return out
+    ptrs = _card_ptrs(tables)
+    kernels.launch(
+        "rl_sharded_routed_card_step_lanes", K6_CARD_LANES, tables,
+        ctypes.addressof(ptrs), len(tables), k, tables[0].shape[1], words.data_ptr(), cap,
+        out.data_ptr(), fw._OUT_KIND[out_dtype], kernels.stream_ptr(dev),
+    )
+    return out
+
+
+def _card_stream(card: CardPlan):
+    """The raw handle of the stream a card's work goes on."""
+    stream = card.stream if card.stream is not None else torch.cuda.current_stream(card.device)
+    return stream.cuda_stream
+
+
+def _mesh_frame(parts, cards):
+    """The per-card arrays every mesh entry of K6 takes -- device
+    ordinals, streams, the cards' group tables end to end, groups a card
+    -- and each card's tables."""
+    held = [[parts[g] for g in card.groups] for card in cards]
+    return held, (
+        kernels.ints([card.device.index for card in cards]),
+        kernels.pointers([_card_stream(card) for card in cards]),
+        kernels.pointers([t.data_ptr() for tables in held for t in tables]),
+        kernels.ints([len(tables) for tables in held]),
+    )
+
+
+def _check_mesh_batches(parts, cards, batches, outs, out_dtype):
+    """The common checks of a mesh's K6 arguments; returns cap."""
+    if out_dtype not in fw.OUT_DTYPES:
+        raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
+    if not (len(cards) == len(batches) == len(outs)):
+        raise ValueError(f"{len(cards)} cards, {len(batches)} batches, {len(outs)} outputs")
+    k, _ = _check_card_tables(parts, one_device=False)
+    caps = {_check_card_batch(b, len(card.groups) * k) for card, b in zip(cards, batches)}
+    if len(caps) != 1:
+        raise ValueError(f"every card's batch must have one cap, got {sorted(caps)}")
+    cap = caps.pop()
+    dtype = fw.OUT_DTYPES[out_dtype]
+    for card, o in zip(cards, outs):
+        if o.dtype != dtype or tuple(o.shape) != (len(card.groups) * k, cap):
+            raise TypeError(f"a card's readback must be {dtype}[{len(card.groups) * k}, {cap}], "
+                            f"got {o.dtype} {tuple(o.shape)}")
+    return cap
+
+
+def mesh_routed_step_lanes(
+    parts: Sequence[torch.Tensor], cards: Sequence[CardPlan], words, outs,
+    out_dtype: str = "", events=None,
+):
+    """K6's card form by value on EVERY card of a mesh in ONE host call
+    (rl_mesh_routed_step_lanes): `parts` the mesh's group tensors,
+    `cards` its plan (Mesh.card_groups), words[c] and outs[c] card c's
+    host batch int32[rows, 4, cap] and pinned readback [rows, cap] (rows:
+    its groups' banks, in order), each at most 128 lanes.  Each card's
+    launch goes on its plan's stream, then events[c] (a torch.cuda.Event
+    made on that card, or None) is recorded there.  Counted as one
+    sharded_routed_card_step_lanes a card.  On the CPU each card runs the
+    plain version.  Returns `outs`."""
+    cap = _check_mesh_batches(parts, cards, words, outs, out_dtype)
+    for w, o in zip(words, outs):
+        fw._check_unique_lanes(w, o, out_dtype)
+    if parts[0].device.type == "cpu":
+        for card, w, o in zip(cards, words, outs):
+            o.copy_(_routed_card_step_plain([parts[g] for g in card.groups], w, out_dtype))
+        return outs
+    fw._require_cuda(parts[0].device)
+    return launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events)
+
+
+def launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events=None):
+    """mesh_routed_step_lanes' launch, on checked arguments: one call of
+    rl_mesh_routed_step_lanes."""
+    if cap == 0:
+        return outs
+    held, frame = _mesh_frame(parts, cards)
+    ws = kernels.pointers([w.data_ptr() for w in words])
+    os_ = kernels.pointers([o.data_ptr() for o in outs])
+    evs = kernels.pointers([None if e is None else e.cuda_event for e in events or [None] * len(cards)])
+    kernels.launch_mesh(
+        MESH_ROUTED_LANES, K6_CARD_LANES, held, len(cards),
+        *(ctypes.addressof(a) for a in frame), parts[0].shape[0], parts[0].shape[1],
+        ctypes.addressof(ws), cap, ctypes.addressof(os_), fw._OUT_KIND[out_dtype],
+        ctypes.addressof(evs),
+    )
+    return outs
+
+
+def mesh_routed_step(
+    parts: Sequence[torch.Tensor], cards: Sequence[CardPlan], packed, outs,
+    out_dtype: str = "", uploads=None, readbacks=None, events=None,
+):
+    """K6's card form in the device form on EVERY card of a mesh in ONE
+    host call (rl_mesh_routed_step): packed[c] and outs[c] card c's batch
+    int32[rows, 4, cap] and readback [rows, cap] in its memory.  Where
+    given, uploads[c] (pinned host words) is first copied into packed[c]
+    and outs[c] then copied into readbacks[c] (pinned host), on the
+    card's stream, before events[c] is recorded.  Counted as one
+    sharded_routed_card_step a card.  On the CPU each card runs the plain
+    version.  Returns `outs`."""
+    cap = _check_mesh_batches(parts, cards, packed, outs, out_dtype)
+    if parts[0].device.type == "cpu":
+        for c, card in enumerate(cards):
+            if uploads is not None:
+                packed[c].copy_(uploads[c])
+            tables = [parts[g] for g in card.groups]
+            outs[c].copy_(_routed_card_step_plain(tables, packed[c], out_dtype))
+            if readbacks is not None:
+                readbacks[c].copy_(outs[c])
+        return outs
+    fw._require_cuda(parts[0].device)
+    if any(not p.is_contiguous() for p in packed):
+        raise ValueError("packed must be contiguous")
+    return launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, uploads, readbacks,
+                              events)
+
+
+def launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, uploads=None,
+                       readbacks=None, events=None):
+    """mesh_routed_step's launch, on checked arguments: one call of
+    rl_mesh_routed_step."""
+    held, frame = _mesh_frame(parts, cards)
+    n = len(cards)
+    ups = kernels.pointers([u.data_ptr() for u in uploads] if uploads is not None else [None] * n)
+    downs = kernels.pointers(
+        [r.data_ptr() for r in readbacks] if readbacks is not None else [None] * n)
+    pk = kernels.pointers([p.data_ptr() for p in packed])
+    os_ = kernels.pointers([o.data_ptr() for o in outs])
+    evs = kernels.pointers([None if e is None else e.cuda_event for e in events or [None] * n])
+    kernels.launch_mesh(
+        MESH_ROUTED, K6_CARD, [(*t, p, o) for t, p, o in zip(held, packed, outs)], n,
+        *(ctypes.addressof(a) for a in frame), parts[0].shape[0], parts[0].shape[1],
+        ctypes.addressof(pk), ctypes.addressof(ups), cap, ctypes.addressof(os_),
+        ctypes.addressof(downs), fw._OUT_KIND[out_dtype], ctypes.addressof(evs),
+    )
+    return outs
 
 
 # -- K7: duplicate-tolerant update over global ids ----------------------
@@ -708,11 +981,103 @@ def _lanes_to(lanes, packed, spans, dev):
             for t, sp in zip(lanes, spans)]
 
 
-def _recorded(device: torch.device):
-    """An event recorded now on `device`'s current stream."""
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(device))
-    return done
+def mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out, out_stride=0):
+    """K7's card step on every card of `cards` ((groups, link, ...) each,
+    the home card -- parts[0]'s device -- first) whose owned lanes reach
+    `out` on the home device in place or through a peer mapping: on the
+    card ONE host call (launch_mesh_card_step), on the CPU each card's
+    plain step in turn (sharded_card_step).  `lanes` are the batch's
+    slots, hits, fresh, limits and shadow (the last two may be None);
+    the rest as sharded_card_step's.  Returns `out`."""
+    cards = _plans(parts, cards)
+    home = parts[0].device
+    if not cards or parts[cards[0].groups[0]].device != home:
+        raise ValueError(f"the first card of {cards} must hold the home device's groups")
+    slots, hits, fresh, limits, shadow = lanes
+    if home.type == "cpu":
+        for groups, *_ in cards:
+            sharded_card_step(parts, groups, num_banks, slots, hits, fresh, limits, layout,
+                              shadow, near_ratio, out, out_stride)
+        return out
+    # The checks of sharded_card_step, once for every card.
+    _check_card_tables(parts, one_device=False)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
+    decide = layout == "decide"
+    fw.check_general_lanes(parts[0], slots, hits, fresh, limits, "" if decide else layout,
+                           shadow=shadow if decide else None)
+    if decide and (limits is None or shadow is None):
+        raise ValueError("the decision block needs the limits and shadow lanes")
+    if out.dtype != torch.uint8 or out.dim() != 1 or out.device != home or (
+            out.shape[0] < (len(parts) - 1) * out_stride + partial_bytes(layout, slots.shape[0])):
+        raise ValueError(f"out must be uint8 on {home} holding {layout!r} for every group")
+    return launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out,
+                                 out_stride)
+
+
+def _plans(parts, cards) -> list:
+    """`cards` as CardPlans: a (groups, link) pair takes its groups'
+    device and that device's current stream."""
+    return [c if isinstance(c, CardPlan) else
+            CardPlan(tuple(c[0]), c[1], (), parts[c[0][0]].device) for c in cards]
+
+
+def launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out,
+                          out_stride) -> torch.Tensor:
+    """K7's card step on every card of `cards` (CardPlans, the home card
+    first; their lanes reach `out` in place or through a peer mapping)
+    in ONE host call, rl_mesh_card_step: on each card one cooperative
+    launch over every group it holds, on that card's stream (its plan's,
+    else its current one).  The home card reads the lanes (slots, hits, fresh, limits,
+    shadow; the last two may be None) where they lie; each other card
+    takes ONE copy of their bytes end to end (_pack_lanes), which the
+    entry makes on that card's stream after the home stream's work so
+    far, and the home stream waits on every card's launch.  Counted as
+    one sharded_card_update (or sharded_card_step, layout "decide") a
+    card.  Arguments as sharded_card_step's, checked by the caller."""
+    home = cards[0].device
+    n = lanes[0].shape[0]
+    if n == 0:
+        return out
+    decide = layout == "decide"
+    packed = spans = None
+    base = [t.data_ptr() if t is not None else None for t in lanes]
+    tensors, lane_ptrs, copies, scratch = [], [], [], []
+    for card in cards:
+        dev = card.device
+        mine = [parts[g] for g in card.groups]
+        if dev == home:
+            buf = torch.empty(8 * n, dtype=torch.uint8, device=dev)
+            lane_ptrs += base
+            copies.append(None)
+            tensors.append((*mine, *(t for t in lanes if t is not None), buf))
+        else:
+            if packed is None:
+                packed, spans = _pack_lanes(lanes)
+            at = -(-packed.numel() // 16) * 16
+            buf = torch.empty(at + 8 * n, dtype=torch.uint8, device=dev)
+            lane_ptrs += [None if sp is None else buf.data_ptr() + sp[0] for sp in spans]
+            copies.append(buf.data_ptr())
+            tensors.append((*mine, buf))
+            buf = buf[at:]
+        scratch.append(buf.data_ptr())
+    held = [set(card.groups) for card in cards]
+    tables = kernels.pointers(
+        [parts[g].data_ptr() if g in mine else None for mine in held for g in range(len(parts))])
+    devices = kernels.ints([card.device.index for card in cards])
+    streams = kernels.pointers([_card_stream(card) for card in cards])
+    arrays = [kernels.pointers(a) for a in (lane_ptrs, copies, scratch)]
+    kernels.launch_mesh(
+        MESH_CARD, K7_CARD_STEP if decide else K7_CARD, tensors, len(cards),
+        ctypes.addressof(devices), ctypes.addressof(streams), ctypes.addressof(tables),
+        len(parts), num_banks, parts[0].shape[1], ctypes.addressof(arrays[0]),
+        ctypes.addressof(arrays[1]), None if packed is None else packed.data_ptr(),
+        0 if packed is None else packed.numel(), float(near_ratio),
+        ctypes.addressof(arrays[2]), out.data_ptr(),
+        out.data_ptr() + 32 * n if decide else None, out_stride,
+        fw._DECIDE if decide else fw._OUT_KIND[layout], n,
+    )
+    return out
 
 
 def grouped_general_step(
@@ -728,15 +1093,16 @@ def grouped_general_step(
     near_ratio: float = 0.0,
 ):
     """K7 over bank groups: parts[g] is group g's int32[k,
-    slots_per_bank] tensor, `cards` (Mesh.card_groups) the groups each
-    card holds and its link, the home card's first.  One launch a card
-    (sharded_card_step), on that card's current stream, over the batch
-    (on the home device, parts[0]'s; copied once to each other card).
-    Each card writes the lanes it owns:
+    slots_per_bank] tensor, `cards` (Mesh.card_groups, or (groups, link)
+    pairs) the groups each card holds and its link, the home card's
+    first.  One launch a card (sharded_card_step), on that card's current
+    stream, over the batch (on the home device, parts[0]'s).  Each card
+    writes the lanes it owns:
 
     - "home" and "peer": into the one output on the home device, the
-      home card in place, a peer-mapped card through the mapping; the
-      home stream then waits on each such card's event;
+      home card in place, a peer-mapped card through the mapping.  On the
+      card every such card's launch is enqueued by ONE host call
+      (launch_mesh_card_step); the home stream waits on each card;
     - "combine": a card that cannot map the home card writes each owned
       lane into its owner group's row of a stage on its own card, copied
       to the home card; then every card writes rows, and sharded_combine
@@ -750,6 +1116,7 @@ def grouped_general_step(
         if layout == "decide":
             return sharded_general_step(parts[0], slots, hits, fresh, limits, shadow, near_ratio)
         return sharded_general_update(parts[0], slots, hits, fresh, limits, layout)
+    cards = [(tuple(card[0]), card[1]) for card in cards]
     if sorted(g for groups, _ in cards for g in groups) != list(range(len(parts))):
         raise ValueError(f"cards {cards} do not hold each of {len(parts)} groups once")
     home = parts[0].device
@@ -759,29 +1126,22 @@ def grouped_general_step(
     stride = -(-size // 16) * 16 if rows else 0
     out = torch.empty(len(parts) * stride if rows else size, dtype=torch.uint8, device=home)
     lanes = (slots, hits, fresh, limits, shadow)
-    packed = spans = made = None
-    if any(parts[gs[0]].device != home for gs, _ in cards):
-        # One copy of the lanes a card, not one a lane and group; `out`
-        # was made on the home stream, and a card writes it after.
-        packed, spans = _pack_lanes(lanes)
-        made = _recorded(home)
+    mesh_card_step(parts, [c for c in cards if c[1] != "combine"], num_banks, lanes, layout,
+                   near_ratio, out, stride)
+    packed = spans = None
     for groups, link in cards:
-        dev = parts[groups[0]].device
-        here = _lanes_to(lanes, packed, spans, dev)
-        if link == "combine":
-            stage = torch.empty_like(out, device=dev)
-            sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4],
-                              near_ratio, stage, stride)
-            for g in groups:
-                row = slice(g * stride, (g + 1) * stride)
-                out[row].copy_(stage[row], non_blocking=True)
+        if link != "combine":
             continue
-        if dev != home:
-            torch.cuda.current_stream(dev).wait_event(made)
-        sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4], near_ratio,
-                          out, stride)
-        if dev != home:
-            torch.cuda.current_stream(home).wait_event(_recorded(dev))
+        dev = parts[groups[0]].device
+        if dev != home and packed is None:
+            packed, spans = _pack_lanes(lanes)
+        here = _lanes_to(lanes, packed, spans, dev)
+        stage = torch.empty_like(out, device=dev)
+        sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4],
+                          near_ratio, stage, stride)
+        for g in groups:
+            row = slice(g * stride, (g + 1) * stride)
+            out[row].copy_(stage[row], non_blocking=True)
     if rows:
         out = sharded_combine(out.view(len(parts), stride), slots, num_banks,
                               parts[0].shape[1], layout)
@@ -839,7 +1199,7 @@ class ShardedFixedWindowModel:
     def step(self, counts, batch: DeviceBatch) -> Tuple[object, DeviceDecisions]:
         """The sharded forward step: K7 + K3's decision block, one launch
         on one group (sharded_general_step); on several, one launch a
-        card (grouped_general_step)."""
+        card, every mapped card's in one host call (grouped_general_step)."""
         return counts, self._general(counts, batch, "decide", batch.limits)
 
     def step_counters(self, counts, batch: DeviceBatch) -> Tuple[object, torch.Tensor]:
@@ -853,35 +1213,86 @@ class ShardedFixedWindowModel:
         hits) as uint8 or uint16 (int16 storage)."""
         return counts, self._general(counts, batch, out_dtype, batch.limits)
 
+    def _card_rows(self, card: CardPlan):
+        """A card's rows of a [num_banks, ...] batch: a slice where they
+        are one run, else their indices."""
+        rows = card.rows
+        if rows == tuple(range(rows[0], rows[0] + len(rows))):
+            return slice(rows[0], rows[0] + len(rows))
+        return list(rows)
+
     def step_counters_unique_routed_packed(
         self, counts, out_dtype: str, packed: torch.Tensor
     ) -> Tuple[object, torch.Tensor]:
         """The routed serving step (K6) on one packed int32[num_banks, 4,
-        cap] upload on the home device: one launch a group, on the
-        group's rows.  Returns (counts, afters[num_banks, cap]) on the
-        home device.  A tensor `counts` is served as one group, whatever
-        its banks (the engine passes one group's at a time)."""
+        cap] upload on the home device.  Returns (counts, afters[num_banks,
+        cap]) on the home device.  A tensor `counts` (one group) is one
+        launch of sharded_routed_step; over several groups each card's
+        rows go to that card and K6's card form runs once a card, every
+        card in ONE host call (mesh_routed_step)."""
         parts = self.parts(counts)
-        k = parts[0].shape[0]
-        outs = [
-            sharded_routed_step(c, packed[g * k : (g + 1) * k].to(c.device), out_dtype)
-            for g, c in enumerate(parts)
-        ]
-        return counts, outs[0] if len(outs) == 1 else torch.cat([o.to(self.device) for o in outs])
+        if len(parts) == 1:
+            return counts, sharded_routed_step(parts[0], packed, out_dtype)
+        if out_dtype not in fw.OUT_DTYPES:
+            raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
+        if packed.dim() != 3 or packed.shape[:2] != (self.num_banks, 4):
+            raise TypeError(f"packed must be int32[{self.num_banks}, 4, cap], got "
+                            f"{tuple(packed.shape)}")
+        cap = packed.shape[2]
+        cards = self.mesh.card_groups()
+        batches = [packed[self._card_rows(c)].to(c.device).contiguous() for c in cards]
+        outs = [torch.empty((len(c.rows), cap), dtype=fw.OUT_DTYPES[out_dtype], device=c.device)
+                for c in cards]
+        mesh_routed_step(parts, cards, batches, outs, out_dtype)
+        if len(cards) == 1:
+            return counts, outs[0]
+        out = torch.empty((self.num_banks, cap), dtype=outs[0].dtype, device=self.device)
+        for c, o in zip(cards, outs):
+            out[self._card_rows(c)] = o.to(self.device)
+        return counts, out
 
     def step_counters_unique_routed_lanes(
         self, counts, out_dtype: str, words: torch.Tensor, out: torch.Tensor
     ) -> Tuple[object, torch.Tensor]:
         """The routed serving step in K6's by-value form: the batch of
         step_counters_unique_routed_packed held in host memory, the
-        readback into `out` (pinned host memory on the card), each
-        group's rows by its own launch.  Returns (counts, out); wait on
-        each group's stream before reading `out`."""
+        readback into `out` (pinned host memory on the card).  Over
+        several groups K6's card form by value runs once a card, every
+        card in ONE host call (mesh_routed_step_lanes), each card on its
+        rows of `words` and `out`.  Returns (counts, out); wait on each
+        card's stream before reading `out`.  A card whose rows are not one
+        run of the batch (its groups not adjacent) reads a gathered copy of
+        them and writes a readback of its own, which is waited for and
+        scattered into `out` here."""
         parts = self.parts(counts)
-        k = parts[0].shape[0]
-        for g, c in enumerate(parts):
-            rows = slice(g * k, (g + 1) * k)
-            sharded_routed_step_lanes(c, words[rows], out[rows], out_dtype)
+        if len(parts) == 1:
+            return counts, sharded_routed_step_lanes(parts[0], words, out, out_dtype)
+        # Each card's rows must fit a launch (mesh_routed_step_lanes
+        # checks them); the whole batch may hold more.
+        if out_dtype not in fw.OUT_DTYPES:
+            raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
+        cap = _check_card_batch(words, self.num_banks)
+        if out.dtype != fw.OUT_DTYPES[out_dtype] or tuple(out.shape) != (self.num_banks, cap):
+            raise TypeError(f"out must be {fw.OUT_DTYPES[out_dtype]}[{self.num_banks}, {cap}], "
+                            f"got {out.dtype} {tuple(out.shape)}")
+        cards = self.mesh.card_groups()
+        batches, outs, spread = [], [], []
+        for c in cards:
+            rows = self._card_rows(c)
+            if isinstance(rows, slice):
+                batches.append(words[rows])
+                outs.append(out[rows])
+                continue
+            batches.append(words[rows].contiguous())
+            mine = torch.empty((len(rows), out.shape[1]), dtype=out.dtype,
+                               pin_memory=c.device.type == "cuda")
+            outs.append(mine)
+            spread.append((c, rows, mine))
+        mesh_routed_step_lanes(parts, cards, batches, outs, out_dtype)
+        for c, rows, mine in spread:
+            if c.device.type == "cuda":
+                torch.cuda.current_stream(c.device).synchronize()  # tpu-lint: disable=torch-host-sync -- the readback of a card whose rows are not one run of `out`, on this model-level call alone: the engine packs a batch a card and never comes here
+            out[rows] = mine
         return counts, out
 
     def step_counters_unique_routed(
@@ -904,13 +1315,18 @@ class ShardedCounterEngine(CounterEngine):
     analog, reference driver_impl.go:108-126), each bank receives only
     its share of the batch, and the readback is unrouted on the host.
 
-    Each bank group of the mesh has its own stream (claim_stream: no two
-    live groups share one, so a stall on one group holds up no other
-    engine), its own pool of stagings (pinned on its device) and its own
-    event a submission: a chunk packs one int32[k, 4, cap] batch a group
-    and launches K6 on each group's stream, and the readback is taken
-    once every group's event has fired.  The first group's stream is
-    ``_stream``, the others' ``_more_streams``."""
+    Each CARD of the mesh has its own stream (claim_stream: no two live
+    engines share one, so a stall on one card holds up no other engine),
+    its own pool of stagings (pinned on its device) and its own event a
+    submission.  A mesh of one group serves as one table (one staging,
+    one K6 launch).  Over several groups a chunk packs one int32[rows, 4,
+    cap] batch a card -- the rows of every bank the card holds -- and
+    ONE host call (mesh_routed_step_lanes, or mesh_routed_step past 128
+    lanes a card) launches K6's card form on every card's stream and
+    records each card's event; the readback is taken once every card's
+    event has fired.  Only the routing is per bank, as the JAX host
+    routes.  The home card's stream is ``_stream``, the other cards'
+    ``_more_streams``."""
 
     def __init__(
         self,
@@ -920,10 +1336,13 @@ class ShardedCounterEngine(CounterEngine):
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         native_table: Optional[bool] = None,
     ):
-        # The groups past the first; CounterEngine claims the first's
-        # stream on the home device and makes the table (_fresh_state).
-        self._more_streams = tuple(claim_stream(d, self) for d in mesh.devices[1:])
-        self._more_staging = tuple(deque(maxlen=STAGING_POOL_CAP) for _ in mesh.devices[1:])
+        # The cards past the home one; CounterEngine claims the home
+        # card's stream and makes the table (_fresh_state).
+        cards = mesh.card_groups()
+        self._card_of_group = tuple(mesh.cards.index(d) for d in mesh.devices)
+        self._held_rows = tuple(len(c.rows) for c in cards)
+        self._more_streams = tuple(claim_stream(c.device, self) for c in cards[1:])
+        self._more_staging = tuple(deque(maxlen=STAGING_POOL_CAP) for _ in cards[1:])
         try:
             super().__init__(
                 buckets=buckets,
@@ -935,22 +1354,35 @@ class ShardedCounterEngine(CounterEngine):
             # No later engine may find these streams held by this one.
             release_stream(self)
             raise
+        self._cards = mesh.card_groups(self._card_streams())
+        # Each bank's row in the cards' readbacks end to end (_bank_at;
+        # None where that is bank order), its card, and its row in that
+        # card's batch.
+        at = np.argsort([b for c in cards for b in c.rows])
+        starts = np.concatenate([[0], np.cumsum(self._held_rows)[:-1]])
+        self._bank_card = np.repeat(np.arange(len(cards)), self._held_rows)[at]
+        self._bank_row = at - starts[self._bank_card]
+        self._bank_at = None if np.array_equal(at, np.arange(len(at))) else at
         # Routed-balance gauge: real lanes each bank received in the
         # last chunk.
         self.stat_bank_lane_counts = [0] * self.model.num_banks
 
-    # -- the groups ----------------------------------------------------
+    # -- the cards -----------------------------------------------------
 
-    def _group_stream(self, g: int):
-        return (self._stream, *self._more_streams)[g]
+    def _card_streams(self):
+        return (self._stream, *self._more_streams)
+
+    def _on_card(self, c: int):
+        """Context that puts this thread's work on card c's stream and
+        device."""
+        return _stream_context(self._card_streams()[c], self.model.mesh.cards[c])
 
     def _on_group(self, g: int):
-        """Context that puts this thread's work on group g's stream and
-        device."""
-        return _stream_context(self._group_stream(g), self.model.mesh.devices[g])
+        """Context of the card that holds group g."""
+        return self._on_card(self._card_of_group[g])
 
     def _fresh_state(self):
-        """A fresh table, each group's tensor made on its own stream."""
+        """A fresh table, each group's tensor made on its card's stream."""
         m = self.model
         shape = (m.banks_per_group, m.slots_per_bank)
         parts = []
@@ -959,34 +1391,39 @@ class ShardedCounterEngine(CounterEngine):
                 parts.append(torch.zeros(shape, dtype=torch.int32, device=dev))
         return m.join(parts)
 
-    def _pool(self, g: int) -> deque:
-        return (self._free_staging, *self._more_staging)[g]
+    def _pool(self, c: int) -> deque:
+        return (self._free_staging, *self._more_staging)[c]
 
-    def _take_group_staging(self, g: int) -> _Staging:
-        """An idle staging of group g, or a new one pinned under its
-        device."""
+    def _take_card_staging(self, c: int) -> _Staging:
+        """An idle staging of card c, or a new one pinned under its
+        device, its event made on the card's stream (torch makes an event
+        at its first record; the mesh entry then records it)."""
         try:
-            return self._pool(g).pop()
+            return self._pool(c).pop()  # tpu-lint: disable=shared-state -- GIL-atomic deque pop (submit side, EAFP: an empty pool makes a new staging) against append (complete side) after the event wait
         except IndexError:
-            dev = self.model.mesh.devices[g]
+            dev = self.model.mesh.cards[c]
             with kernels.on_device(dev):
-                return _Staging(*self._staging_size(), dev)
+                st = _Staging(*self._staging_size(c), dev)
+            if st.event is not None and self.model.groups > 1:
+                st.event.record(self._card_streams()[c])
+            return st
 
-    def _staging_size(self):
-        """A group's routed upload is int32[banks_per_group, 4, cap] and
-        its readback up to 4 B per routed lane, where cap is at most the
-        bucket of min(max_batch, slots_per_bank): one bank holds at most
-        slots_per_bank distinct slots (the warmup skew probe reaches
-        it)."""
+    def _staging_size(self, c: int = 0):
+        """A card's routed upload is int32[rows, 4, cap] (rows: the banks
+        it holds) and its readback up to 4 B per routed lane, where cap
+        is at most the bucket of min(max_batch, slots_per_bank): one bank
+        holds at most slots_per_bank distinct slots (the warmup skew
+        probe reaches it)."""
         m = self.model
         cap = self._bucket(min(self.max_batch, m.slots_per_bank))
-        words = m.banks_per_group * 4 * cap
+        words = self._held_rows[c] * 4 * cap
         return words, words
 
     def _fetch(self, handle) -> np.ndarray:
-        """One group's handle as CounterEngine's; several groups' (a
-        list) after every group's event: their readbacks in bank order,
-        each staging back to its group's pool."""
+        """One group's handle as CounterEngine's; several groups' (a list,
+        one (staging, readback) a card) after every card's event: the
+        cards' readbacks end to end, each staging back to its card's
+        pool."""
         if not isinstance(handle, list):
             return super()._fetch(handle)
         for st, _ in handle:
@@ -994,8 +1431,8 @@ class ShardedCounterEngine(CounterEngine):
         out = np.concatenate(
             [rb.numpy().view(_HOST_VIEW[rb.dtype]) for _, rb in handle]
         )
-        for g, (st, _) in enumerate(handle):
-            self._pool(g).append(st)
+        for c, (st, _) in enumerate(handle):
+            self._pool(c).append(st)
         return out
 
     # -- the device step -----------------------------------------------
@@ -1006,7 +1443,6 @@ class ShardedCounterEngine(CounterEngine):
         m = self.model
         spb = m.slots_per_bank
         nb = m.num_banks
-        k = m.banks_per_group
         uniq = dedup.uniq_slots
         g_count = len(uniq)
         totals32 = dedup.totals_u32()
@@ -1034,50 +1470,82 @@ class ShardedCounterEngine(CounterEngine):
         )
         dt = "uint8" if cap_val <= 0xFF else ("uint16" if cap_val <= 0xFFFF else "")
 
-        # ONE packed int32[k, 4, cap] batch a group, on the group's
-        # stream.  Banks are sorted, so group g's lanes are the run
-        # starts[g k] : starts[(g + 1) k].  Padding ids spb + i are
-        # distinct and out of the bank, so K6 leaves them inert.
-        parts = list(m.parts(self._counts))
-        handles = []
-        for g, counts in enumerate(parts):
-            lo, hi = starts[g * k], starts[(g + 1) * k]
-            b, p, v = banks[lo:hi] - g * k, pos[lo:hi], vi[lo:hi]
-            st = self._take_group_staging(g)
-            pk = st.packed_np[: k * 4 * cap].reshape(k, 4, cap)
+        # ONE packed int32[rows, 4, cap] batch a card, its banks' rows.
+        # Padding ids spb + i are distinct and out of the bank, so K6
+        # leaves them inert.
+        multi = len(self._cards) > 1
+        lane_card = self._bank_card[banks] if multi else None
+        stagings = []
+        for c, rows in enumerate(self._held_rows):
+            st = self._take_card_staging(c)
+            pk = st.packed_np[: rows * 4 * cap].reshape(rows, 4, cap)
             pk[:, 0, :] = spb + np.arange(cap, dtype=np.int64)
             pk[:, 1, :] = 0
             pk[:, 2, :] = 1
             pk[:, 3, :] = 0
+            if multi:
+                sel = np.nonzero(lane_card == c)[0]
+                b, p, v = self._bank_row[banks[sel]], pos[sel], vi[sel]
+            else:
+                b, p, v = banks, pos, vi
             pk[b, 0, p] = uniq[v] // nb
             pk[b, 1, p] = totals32[v].view(np.int32)
             pk[b, 2, p] = dedup.limit_max[v].view(np.int32)
             pk[b, 3, p] = dedup.fresh[v]
-            parts[g], handle = self._serve_on(
-                self._group_stream(g),
-                counts,
-                st,
-                st.packed[: k * 4 * cap].view(k, 4, cap),
-                fw.OUT_DTYPES[dt],
-                (k, cap),
+            stagings.append(st)
+        if m.groups == 1:
+            st = stagings[0]
+            self._counts, handle = self._serve_on(
+                self._stream, self._counts, st, st.packed[: nb * 4 * cap].view(nb, 4, cap),
+                fw.OUT_DTYPES[dt], (nb, cap),
                 lambda counts, words, out: m.step_counters_unique_routed_lanes(
                     counts, dt, words, out
                 ),
                 lambda counts, packed: m.step_counters_unique_routed_packed(counts, dt, packed),
             )
-            handles.append(handle)
-        self._counts = m.join(parts)
+        else:
+            handle = self._serve_cards(stagings, cap, dt)
+        at = banks if self._bank_at is None else self._bank_at[banks]
 
         def reassemble(fetched: np.ndarray) -> np.ndarray:
             out = np.zeros(g_count, dtype=np.uint32)
-            out[vi] = fetched[banks, pos]
+            out[vi] = fetched[at, pos]
             # Out-of-table slots (warmup probes) answer as on one table:
             # before 0, after = hits (never saturated: totals <= cap_val
             # by the dtype choice).
             out[~valid] = totals32[~valid]
             return out
 
-        return (handles[0] if len(handles) == 1 else handles), reassemble
+        return handle, reassemble
+
+    def _serve_cards(self, stagings, cap: int, dt: str) -> list:
+        """K6's card form on every card's staged batch in ONE host call:
+        by value where every card's rows x cap fit a launch's 128 lanes
+        (the readback written into each staging by its kernel), else the
+        device form (each card's upload, launch and readback copy).  Each
+        card's event is recorded after its last work.  Returns the
+        handle: (staging, readback) a card."""
+        m = self.model
+        parts = m.parts(self._counts)
+        dtype = fw.OUT_DTYPES[dt]
+        words = [st.packed[: r * 4 * cap].view(r, 4, cap)
+                 for st, r in zip(stagings, self._held_rows)]
+        readbacks = [st.readback[: r * cap * dtype.itemsize].view(dtype).view(r, cap)
+                     for st, r in zip(stagings, self._held_rows)]
+        events = [st.event for st in stagings]
+        if lanes_by_value(max(self._held_rows), cap):
+            mesh_routed_step_lanes(parts, self._cards, words, readbacks, dt, events)
+        else:
+            packed, outs = [], []
+            for c, (card, r) in enumerate(zip(self._cards, self._held_rows)):
+                # Made on the card's stream, which alone uses it.
+                with self._on_card(c):
+                    buf = torch.empty(r * 5 * cap, dtype=torch.int32, device=card.device)
+                packed.append(buf[: r * 4 * cap].view(r, 4, cap))
+                outs.append(buf[r * 4 * cap :].view(dtype)[: r * cap].view(r, cap))
+            mesh_routed_step(parts, self._cards, packed, outs, dt, uploads=words,
+                             readbacks=readbacks, events=events)
+        return list(zip(stagings, readbacks))
 
     def warmup_probe_slots(self, bucket: int) -> np.ndarray:
         """All-one-bank probes: slots k * num_banks all land in bank 0,
@@ -1085,8 +1553,8 @@ class ShardedCounterEngine(CounterEngine):
         engine can serve for a `bucket`-lane batch -- min(bucket,
         slots_per_bank), since one bank holds at most slots_per_bank
         distinct slots.  The clamp keeps the probes distinct and in the
-        table on small tables.  Every group launches at that cap (its
-        banks padding only, but for bank 0's group)."""
+        table on small tables.  Every card launches at that cap (its
+        banks padding only, but for bank 0's card)."""
         m = self.model
         width = min(int(bucket), m.slots_per_bank)
         return (np.arange(width, dtype=np.int64) * m.num_banks).astype(np.int32)

@@ -1294,44 +1294,46 @@ def test_a_raising_journal_never_blocks_a_quarantine():
 
 
 def _stall_group(engine, group):
-    """Make `group`'s event wait block while the returned switch is on
-    and until it is released: the engine's view of a stalled stream of
-    that group (the CPU has no stream to stall)."""
+    """Make the event wait of the card that holds `group` block while the
+    returned switch is on and until it is released: the engine's view of
+    a stalled stream of that card (the CPU has no stream to stall)."""
     switch = SimpleNamespace(on=False, release=threading.Event())
-    of_group = {}
-    take, wait = engine._take_group_staging, engine._wait
+    of_card = {}
+    card = engine._card_of_group[group]
+    take, wait = engine._take_card_staging, engine._wait
 
-    def take_group(g):
-        st = take(g)
-        of_group[id(st)] = g
+    def take_card(c):
+        st = take(c)
+        of_card[id(st)] = c
         return st
 
-    def wait_group(st):
-        if switch.on and of_group.get(id(st)) == group:
+    def wait_card(st):
+        if switch.on and of_card.get(id(st)) == card:
             switch.release.wait()
         wait(st)
 
-    engine._take_group_staging = take_group
-    engine._wait = wait_group
+    engine._take_card_staging = take_card
+    engine._wait = wait_card
     return switch
 
 
 def stalled_group_quarantines_the_engine(groups):
-    """8 banks in `groups` groups, the last group's stream stalled: the
+    """8 banks in `groups` groups (a count, all on the CPU's one card, or
+    the groups' devices), the last group's card's stream stalled: the
     RPC answers within the deadline, one hang fault, the engine (one
     bank of the domain) quarantined onto the mirror, exact admission,
     and after the stall drains the restart brings one table of the same
     slots on the home device."""
+    devices = ("cpu",) * groups if isinstance(groups, int) else tuple(groups)
     P = SimpleNamespace(
         **{**vars(PORT), "engine_kw": {},
-           "Engine": lambda **kw: ShardedCounterEngine(
-               make_mesh(8, devices=("cpu",) * groups), **kw)},
+           "Engine": lambda **kw: ShardedCounterEngine(make_mesh(8, devices=devices), **kw)},
     )
     clock = port_time.FakeMonotonicClock(CLOCK0)
     cache = make_cache(P, deadline=0.2, clock=clock)
     rule = _rule(P, Manager())
     fd = cache.fault_domain
-    stall = _stall_group(cache.engine, groups - 1)
+    stall = _stall_group(cache.engine, len(devices) - 1)
     try:
         codes = [_code(P, cache, rule) for _ in range(5)]
         assert fd.snapshot_now() == 1
@@ -1369,6 +1371,17 @@ def test_a_stalled_group_quarantines_its_engine_as_a_stalled_table():
     assert four["quarantined"] and four["after"] == ["OVER_LIMIT"] * 3
     assert four["restarted_as"] == ("CounterEngine", 256, "cpu")
     assert four == stalled_group_quarantines_the_engine(1)
+
+
+def test_a_stalled_card_of_four_quarantines_its_engine():
+    """The same over 4 cards (cpu:0..3), one group each: the last card's
+    stream stalled quarantines the engine as one group's stall does."""
+    four = stalled_group_quarantines_the_engine([f"cpu:{i}" for i in range(4)])
+    assert four["faults"] == {"hang": 1, "exception": 0, "device_lost": 0}
+    assert four["quarantined"] and four["after"] == ["OVER_LIMIT"] * 3
+    one = stalled_group_quarantines_the_engine(1)
+    assert {k: v for k, v in four.items() if k != "restarted_as"} == {
+        k: v for k, v in one.items() if k != "restarted_as"}
 
 
 def test_restart_waits_for_the_stalled_stream_to_drain():

@@ -567,14 +567,24 @@ def test_the_factory_never_returns_a_live_banks_stream(pool):
 
 
 def test_each_bank_group_holds_a_stream_of_its_own(pool):
-    """An engine of 8 banks in 4 groups claims one stream a group: no two
-    groups, and no group and another live bank, share a stream.  Its
-    release gives back all four, and a busy stream on any one group
-    keeps the engine's streams busy (fault_domain waits for it)."""
-    grouped = ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+    """An engine of 8 banks in groups claims one stream a CARD: the 4
+    groups of one card share its one stream, and 8 groups round robin
+    over 4 cards (the CPU's cpu:0..3) hold 4, each card's plan naming
+    its own; no two cards, and no card and another live bank, share a
+    stream.  The release gives back all four, and a busy stream on any
+    one card keeps the engine's streams busy (fault_domain waits for
+    it)."""
+    one_card = ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64,
+                                    buckets=(8,))
+    assert one_card._more_streams == () and one_card._stream is not None
+    release_stream(one_card)
+    grouped = ShardedCounterEngine(
+        make_mesh(8, devices=[f"cpu:{i % 4}" for i in range(8)]), num_slots=64, buckets=(8,))
     banks = [PORT.engine(64, buckets=(8,)) for _ in range(3)]
     mine = [s.cuda_stream for s in (grouped._stream, *grouped._more_streams)]
     assert len(set(mine)) == 4
+    assert [c.stream.cuda_stream for c in grouped._cards] == mine
+    assert [c.groups for c in grouped._cards] == [(0, 4), (1, 5), (2, 6), (3, 7)]
     assert set(mine).isdisjoint(b._stream.cuda_stream for b in banks)
     assert all(engine_mod._HELD_STREAMS[h] is grouped for h in mine)
     assert engine_mod.stream_idle(grouped)
@@ -586,12 +596,17 @@ def test_each_bank_group_holds_a_stream_of_its_own(pool):
     assert len({b._stream.cuda_stream for b in banks}) == 3
 
 
+def _four_cards():
+    """8 banks in 4 groups, one a card of the CPU (cpu:0..3)."""
+    return make_mesh(8, devices=[f"cpu:{i}" for i in range(4)])
+
+
 def test_a_grouped_engine_that_fails_to_build_holds_no_stream(pool, monkeypatch):
     """The groups' streams are claimed before the table is made: where
     making it raises, every stream the engine claimed is given back, so
     no later engine -- a restarted bank among them -- finds it held.  On
-    a pool of 8 and no stream of its own, two engines of 4 groups then
-    still find their 8."""
+    a pool of 8 and no stream of its own, two engines of 4 groups on 4
+    cards then still find their 8."""
     real = ShardedCounterEngine._fresh_state
 
     def no_table(self):
@@ -599,7 +614,7 @@ def test_a_grouped_engine_that_fails_to_build_holds_no_stream(pool, monkeypatch)
 
     monkeypatch.setattr(ShardedCounterEngine, "_fresh_state", no_table)
     with pytest.raises(RuntimeError, match="out of memory") as failed:
-        ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+        ShardedCounterEngine(_four_cards(), num_slots=64, buckets=(8,))
     # The traceback keeps the half-built engine alive: only the release
     # frees its streams.
     assert failed.value.__traceback__ is not None
@@ -609,7 +624,7 @@ def test_a_grouped_engine_that_fails_to_build_holds_no_stream(pool, monkeypatch)
     monkeypatch.setattr(ShardedCounterEngine, "_fresh_state", real)
     monkeypatch.setattr(engine_mod, "_create_stream", _no_stream_of_its_own)
     engines = [
-        ShardedCounterEngine(make_mesh(8, devices=("cpu",) * 4), num_slots=64, buckets=(8,))
+        ShardedCounterEngine(_four_cards(), num_slots=64, buckets=(8,))
         for _ in range(2)
     ]
     held = [s.cuda_stream for e in engines for s in (e._stream, *e._more_streams)]

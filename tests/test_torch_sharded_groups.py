@@ -318,9 +318,10 @@ def test_grouped_engine_matches_jax(g, case):
 
 
 def test_grouped_engine_submits_one_staging_a_group():
-    """A chunk over 4 groups is one handle a group, each staging from
-    its group's own pool, int32[2, 4, cap] a group; after the wait each
-    goes back to its own pool."""
+    """A chunk over 4 groups on one card is ONE handle of one staging,
+    the card's, from the card's own pool: int32[8, 4, cap], the rows of
+    every bank the card holds (2 a group), on the card's one stream;
+    after the wait it goes back to that pool."""
     te = _grouped_engine(4, num_slots=1 << 10, buckets=(8, 32, 128, 256))
     rng = np.random.default_rng(9)
     n = 256
@@ -333,12 +334,13 @@ def test_grouped_engine_submits_one_staging_a_group():
     )
     token = te.step_submit(hb)
     handle = token[3][0][0]
-    assert isinstance(handle, list) and len(handle) == 4
-    assert all(rb.shape[0] == 2 and rb.shape[1] < n for _, rb in handle)
-    assert te._staging_size()[0] == 2 * 4 * 128
+    assert isinstance(handle, list) and len(handle) == 1
+    ((st, rb),) = handle
+    assert rb.shape[0] == 8 and rb.shape[1] < n
+    assert te._staging_size()[0] == 8 * 4 * 128
+    assert len(te._card_streams()) == 1 and te._more_staging == ()
     np.testing.assert_array_equal(te.step_complete(token).afters, np.ones(n))
-    for g in range(4):
-        assert list(te._pool(g)) == [handle[g][0]]
+    assert list(te._pool(0)) == [st]
 
 
 def test_counts_cross_between_group_counts_and_jax():
