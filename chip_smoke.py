@@ -29,10 +29,12 @@ Phases, one line each; any failure exits non-zero:
    decision block -- at 2^20 and 2^24 slots for N in SIZES and K2's
    edge sizes, on duplicates with positive and negative ids, one slot
    fresh on its last lane, a u32 wrap inside a segment and -1 beside
-   ns - 1; the served step in both
+   ns - 1; the served step in its three
    forms: K1 and K6 by value (lanes in the launch's parameters, readback
-   into mapped pinned memory) for N in LANES_SIZES and in the device
-   form for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; K4 and K5
+   into mapped pinned memory) for N in LANES_SIZES, mapped (pinned words
+   read and readback written through their device aliases; a pageable
+   staging and words on the card refused) and in the device form for N
+   in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; K4 and K5
    by value for N in LANES_SIZES at 2^18 and 2^24 slots over every
    clock step, against their plain versions and their device forms;
    profiler device times at 4096 (the by-value forms at their served
@@ -40,9 +42,10 @@ Phases, one line each; any failure exits non-zero:
    with min / median / max per call for every kernel, K1, K4, K5 and K6
    in each form at the served widths, and K2 at 16384; then the served
    chunk: engine._device_submit + step_complete at 1, 8 and 13 lanes on
-   one table, on 8 banks, on a sliding-window and on a GCRA table,
+   one table, on 8 banks, on a sliding-window and on a GCRA table, and
+   at 256, 1024 and 4096 lanes on one table and on 8 banks,
    SERVED_CHUNKS chunks under torch.profiler -- per chunk the device
-   activities (one: the by-value kernel), memcpys (none), device busy
+   activities (one: the by-value or the mapped kernel), memcpys (none), device busy
    time and span from the first start to the last end -- and as many
    again without it for the host microseconds; and the host mirror
    (the numpy engine a quarantined bank falls back to) against K1 at
@@ -53,11 +56,14 @@ Phases, one line each; any failure exits non-zero:
    version and an independent numpy reference: exactly one launch (the
    fused general step, K3 with its decision block), and over 20
    profiled steps one device activity a step, no memset, no memcpy;
+   then the model's unique step on device tensors (the JAX-named API,
+   K1's device form) over the batch's distinct slots: one launch, exact;
 5. sharded forward: the same batch through the bank-sharded model (8
    banks on the card) -- one launch of the fused step, K7 with K3's
    decision block, one device activity a step -- against the
    single-table forward step and the sharded plain version, its table
-   in global order against the single table;
+   in global order against the single table; then the model's routed
+   step on device tensors (K6's device form): one launch, exact;
 6. served: the runner in-process with BACKEND_TYPE=cuda and the
    default TPU_ALGORITHM_BANKS (sliding_window,gcra) answering gRPC
    ShouldRateLimit requests -- the 6th hit on a 5/min key is
@@ -69,14 +75,15 @@ Phases, one line each; any failure exits non-zero:
    GCRA key; on the fixed-window, the GCRA and the sliding-window key
    every launch of the one-descriptor requests (and of the burst) takes
    the by-value form (K1, K5, K4), 50 requests make 50 launches and no
-   memcpy on the card, and one 200-descriptor request takes the device
-   form;
+   memcpy on the card, and one 200-descriptor request takes K1's mapped
+   form on the fixed-window key (one launch a chunk, no other form, no
+   memcpy under the profiler) and the device form on the others;
 7. sharded served: the runner with BACKEND_TYPE=cuda-sharded, 2^20
    slots over a mesh of 8 banks on the card -- the 6th hit on a 5/min
    key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
    live counter in every bank, a concurrent burst coalesces into
    multi-lane K6 launches -- and the warm microseconds per request;
-   K6 in its two forms as K1 in phase 6;
+   K6 by value and mapped as K1 in phase 6;
 8. fault: the runner with BACKEND_TYPE=cuda and every default but a
    short restart backoff; on the fixed-window bank and then on the GCRA
    bank: 40 hits on a 120/hour rule, a snapshot, a kernel spinning for
@@ -135,7 +142,8 @@ Phases, one line each; any failure exits non-zero:
 12. observability: the runner with BACKEND_TYPE=cuda and every default
    (2^20 fixed-window slots, 2^18 per algorithm bank, every plane on)
    but the sampler intervals (TSDB_INTERVAL_S and ANOMALY_INTERVAL_S
-   0.5 s), INCIDENT_DIR and DEBUG_PROFILING=1 -- an 8-client gRPC and
+   0.5 s), the detectors' cooldown (ANOMALY_COOLDOWN_S 1 s), INCIDENT_DIR
+   and DEBUG_PROFILING=1 -- an 8-client gRPC and
    /json burst over fixed-window, sliding-window and GCRA keys, one
    value clearly the hottest: one launch record for each completed
    launch of each bank, all ok, items adding up to the requests and the
@@ -147,8 +155,9 @@ Phases, one line each; any failure exits non-zero:
    seq order, the OUTCOME_FALLBACK records and the flight records with
    the fallback code equal the fallback answers, the stalled launch's
    record is stamped once its event completed, the latency detector
-   trips and its incident (in memory and in INCIDENT_DIR) holds the
-   flight rows, the journal and the series; during a second burst the
+   trips after the quarantine and the stall's own incident (the first
+   captured after it; in memory and in INCIDENT_DIR) holds the flight
+   rows, the journal with the quarantine and the series; during a second burst the
    longest interpreter-lock gap of one incident capture and of one
    time-series sample (bound: half the kernel deadline; no fault); and
    warm microseconds per request with every plane at its default
@@ -231,7 +240,10 @@ Phases, one line each; any failure exits non-zero:
    beside one over one group on one pinned clock -- the 5/min
    progression, 40 spread keys, 8 clients x 60 on a 120/minute key
    admitting exactly 120 on each, export_counts and every key's counter
-   equal, K6 launched by every group on its own stream, warm
+   equal, one mesh call and one K6 card launch a card a chunk (by value,
+   or mapped for a 640-descriptor request) on the card streams, the
+   grouped model's routed step on device tensors (K6's card form once a
+   card in one call), warm
    microseconds per request of both in alternating pairs, the grouped
    runner's checkpoint restored by a one-group runner with equal counts
    -- and phase 8's stall on the last group's stream: quarantined,
@@ -280,19 +292,29 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # compare/add work of these kernels.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# The host link's rate in one direction (PCIe 5.0 x16): what the mapped
+# forms' words and readback cross.
+HOST_LINK_BYTES_PER_S = 64e9
 
 SIZES = (8, 100, 128, 4096)
 # The serving kernels in each form: by value up to 128 lanes (banks x
-# cap), the device form past it.
+# cap); past it K1 and K6 mapped (and in the device form, the JAX-named
+# API), K4 and K5 in the device form.
 LANES_SIZES = (1, 8, 13, 16, 100, 128)
-DEVICE_FORM_SIZES = (129, 4096)
-# The served chunk: lanes per chunk, and chunks per pass.
+DEVICE_FORM_SIZES = (129, 256, 1024, 4096)
+# The served chunk: lanes per chunk, and chunks per pass; and the widths
+# past the by-value budget, on one table and on 8 banks (K1's and K6's
+# mapped form).
 SERVED_WIDTHS = (1, 8, 13)
+WIDE_SERVED_WIDTHS = (256, 1024, 4096)
 SERVED_CHUNKS = 200
 # One served request this wide is a chunk past the by-value budget on one
-# table (256 padded lanes) and on 8 banks (cap 32 or more): the device
-# form serves it.
+# table (256 padded lanes) and on 8 banks (cap 32 or more): K1's and K6's
+# mapped form serves it, the device form of K4 and K5.
 WIDE_DESCRIPTORS = 200
+# Wide requests in one profiled window of served_forms: the profiler now
+# and then drops the activities of a short capture.
+WIDE_PROFILED = 5
 # torch.profiler now and then drops device activities from a capture: a
 # capture whose activities do not split into its calls is taken again.
 PROFILE_TRIES = 3
@@ -853,20 +875,25 @@ def _pinned(torch, t):
 
 
 def check_served_forms(torch, fw, sh, kernels, dev):
-    """K1 and K6 in both forms, bit for bit against their plain versions:
-    the by-value form (host words; readback into mapped pinned memory)
-    for N in LANES_SIZES, the device form for N in
-    DEVICE_FORM_SIZES, at 2^20 and 2^24 slots, three readback types, with
-    fresh, padding, saturated, negative and out-of-table lanes; K6 over
-    BANKS banks with uniform and all-one-bank routing, by value wherever
-    the routed shape fits.  Also: a slice of pinned memory has its device
-    alias at the same offset, and an unpinned `out` raises KernelError
-    (the next launch still succeeds), and a readback on the card raises
-    ValueError.  Returns (max |err| by kernel, the number of K6 by-value
-    cases)."""
+    """K1 and K6 in their three forms, bit for bit against their plain
+    versions: the by-value form (host words; readback into mapped pinned
+    memory) for N in LANES_SIZES; the mapped form (pinned words read and
+    readback written through their device aliases) and the device form
+    for N in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots, three readback
+    types, with fresh, padding, saturated, negative and out-of-table
+    lanes; K6 over BANKS banks with uniform and all-one-bank routing, by
+    value wherever the routed shape fits, mapped wherever it does not.
+    Also: a slice of pinned memory has its device alias at the same
+    offset; an unpinned `out` raises KernelError and a readback on the
+    card ValueError (by value), and a pageable staging (words or `out`)
+    raises KernelError and words on the card ValueError (mapped); the
+    next launch still succeeds.  Returns (max |err| by kernel, the
+    number of K6 by-value cases, the number of mapped cases)."""
     rng = np.random.default_rng(2028)
-    err = {fw.K1: 0, fw.K1_LANES: 0, sh.K6: 0, sh.K6_LANES: 0}
+    err = {fw.K1: 0, fw.K1_LANES: 0, fw.K1_MAPPED: 0, sh.K6: 0, sh.K6_LANES: 0,
+           sh.K6_MAPPED: 0}
     k6_lanes_cases = 0
+    mapped_cases = 0
 
     def note(name, a, b, what):
         # On a's device: a table (up to 64 MB) never leaves the card.
@@ -898,6 +925,8 @@ def check_served_forms(torch, fw, sh, kernels, dev):
             if fw.lanes_by_value(1, n):
                 by_value(fw.fw_unique_step_lanes, fw.K1_LANES, base, pk, dt, want, cp, what)
             else:
+                by_value(fw.fw_unique_step_mapped, fw.K1_MAPPED, base, pk, dt, want, cp, what)
+                mapped_cases += 1
                 ck = base.clone()
                 note(fw.K1, fw.fw_unique_step(ck, pk, dt), want, "afters " + what)
                 note(fw.K1, ck, cp, "table " + what)
@@ -912,6 +941,9 @@ def check_served_forms(torch, fw, sh, kernels, dev):
             if fw.lanes_by_value(BANKS, pk.shape[2]):
                 k6_lanes_cases += 1
                 by_value(sh.sharded_routed_step_lanes, sh.K6_LANES, bt, pk, dt, want, cp, what)
+            else:
+                mapped_cases += 1
+                by_value(sh.sharded_routed_step_mapped, sh.K6_MAPPED, bt, pk, dt, want, cp, what)
             ck = bt.clone()
             note(sh.K6, sh.sharded_routed_step(ck, pk, dt), want, "afters " + what)
             note(sh.K6, ck, cp, "table " + what)
@@ -940,7 +972,28 @@ def check_served_forms(torch, fw, sh, kernels, dev):
     torch.cuda.synchronize()
     if out.any():
         fail("the launch after a refused readback buffer did not run")
-    return err, k6_lanes_cases
+    # The mapped form reads its words in place: a pageable staging (words
+    # or readback) has no device alias and raises, words on the card are
+    # refused, and nothing falls back; the next launch runs.
+    wide = torch.zeros((4, 256), dtype=torch.int32)
+    wide[0] = 64 + torch.arange(256, dtype=torch.int32)  # inert: past the table
+    pinned_out = torch.full((256,), 7, dtype=torch.int32, pin_memory=True)
+    for what, w, o, exc in (
+        ("pageable words", wide, pinned_out, kernels.KernelError),
+        ("a pageable readback", wide.pin_memory(), torch.zeros(256, dtype=torch.int32),
+         kernels.KernelError),
+        ("words on the card", wide.to(dev), pinned_out, ValueError),
+    ):
+        try:
+            fw.fw_unique_step_mapped(counts, w, o)
+            fail(f"the mapped form took {what}")
+        except exc:
+            pass
+    fw.fw_unique_step_mapped(counts, wide.pin_memory(), pinned_out)
+    torch.cuda.synchronize()
+    if pinned_out.any() or counts.any():
+        fail("the mapped launch after a refused staging did not run")
+    return err, k6_lanes_cases, mapped_cases
 
 
 def bound(nbytes, ops):
@@ -949,6 +1002,18 @@ def bound(nbytes, ops):
     b_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     b_ops = ops / PEAK_OPS_PER_S * 1e3
     return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
+
+
+def mapped_bound(lanes: int, out_bytes: int, live: int, ops: int):
+    """(ms, what bounds it) of a mapped launch over `lanes` lanes: the
+    larger of its host-link time and bound() of its device-memory bytes
+    (the gather and scatter of the `live` lanes) and operations.  The
+    link is full duplex: the words (16 B a lane) cross toward the card
+    while the readback (`out_bytes` a lane) crosses back, each direction
+    at HOST_LINK_BYTES_PER_S, so the busier direction sets the time."""
+    link_ms = max(16, out_bytes) * lanes / HOST_LINK_BYTES_PER_S * 1e3
+    dev_ms, dev_by = bound(8 * live, ops)
+    return (link_ms, "bytes") if link_ms >= dev_ms else (dev_ms, dev_by)
 
 
 def prefix_ops(n: int) -> int:
@@ -993,7 +1058,7 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     calls = {}
     samples = {}
 
-    def row(name, k, p, nbytes, ops):
+    def row(name, k, p, nbytes, ops, bounded=None):
         call_ms, plain_call_ms = time_ms(k), time_ms(p, reps=5, inner=5)
         # 50 calls, kept for the kernel's spread.
         per_call = device_samples(k, iters=50)
@@ -1001,7 +1066,7 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
             samples[name] = per_call
         dev_ms = None if per_call is None else float(np.mean(per_call))
         plain_dev_ms = device_ms(p, iters=5)
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bounded or bound(nbytes, ops)
         rows[name] = dict(
             # Device time from the profiler; the CUDA-event time of
             # back-to-back calls (host enqueue included) where the
@@ -1055,6 +1120,27 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
             bound(k1_bytes(pk128), 8 * 128),
         ),
     }
+    # K1's mapped form at 4096 lanes (its row), and at the served widths
+    # past the by-value budget for the spread: words and readback in
+    # pinned memory, crossing the host link.
+    words4096 = _pinned(torch, pk)
+    out4096 = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    row(
+        fw.K1_MAPPED,
+        lambda: fw.fw_unique_step_mapped(t1, words4096, out4096, ""),
+        lambda: fw._unique_step_plain(t2, pk, ""),
+        0, 0,
+        mapped_bound(n, 4, n_live_k1, 8 * n),
+    )
+    for w in (256, 1024):
+        pkw = pk[:, :w].contiguous()
+        wordsw = _pinned(torch, pkw)
+        outw = torch.empty(w, dtype=torch.int32, pin_memory=True)
+        n_live_w = int(((pkw[0] >= 0) & (pkw[0] < ns)).sum().item())
+        served[f"{fw.K1_MAPPED} at {w} lanes"] = (
+            device_samples(lambda: fw.fw_unique_step_mapped(t1, wordsw, outw, ""), iters=50),
+            mapped_bound(w, 4, n_live_w, 8 * w),
+        )
     row(
         prefix_cuda.KERNEL,
         lambda: prefix_cuda.per_slot_inclusive_prefix_cuda(slots, hits),
@@ -1205,6 +1291,16 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         device_samples(lambda: sh.sharded_routed_step(b1, rpk8, ""), iters=50),
         bound(16 * routed8 + 8 * r_live8 + 4 * routed8, 8 * routed8),
     )
+    # K6's mapped form on the same 4096 routed lanes as its device form.
+    rwords = _pinned(torch, rpk)
+    rout = torch.empty(tuple(rpk.shape[::2]), dtype=torch.int32, pin_memory=True)
+    row(
+        sh.K6_MAPPED,
+        lambda: sh.sharded_routed_step_mapped(b1, rwords, rout, ""),
+        lambda: sh._routed_step_plain(b2, rpk, ""),
+        0, 0,
+        mapped_bound(routed, 4, r_live, 8 * routed),
+    )
     row(
         sh.K7,
         lambda: sh.sharded_general_update(b1, slots, hits, fresh),
@@ -1226,13 +1322,25 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
 # -- the served chunk ------------------------------------------------------
 
 
-def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS):
-    """Drive engine._device_submit + step_complete for one chunk of 1, 8
-    and 13 distinct in-table lanes (hits 0, so every chunk answers the
-    same: all OK, and on the fixed-window engines afters 0), on one table
-    and on BANKS banks of 2^20 slots, and on a sliding-window and a GCRA
-    table of 2^18 slots (dividers of 60 s in the dedup, the clock at
-    ALGO_NOW), `n` chunks each in two passes.  The first runs under
+def served_cells():
+    """The (engine, lanes) cells of served_chunks: SERVED_WIDTHS on every
+    engine, and WIDE_SERVED_WIDTHS (past the by-value budget: K1's and
+    K6's mapped form) on one table and on BANKS banks."""
+    cells = [(label, w) for label in ("one table", f"{BANKS} banks", "sliding window", "GCRA")
+             for w in SERVED_WIDTHS]
+    return cells + [(label, w) for label in ("one table", f"{BANKS} banks")
+                    for w in WIDE_SERVED_WIDTHS]
+
+
+def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS, cells=None):
+    """Drive engine._device_submit + step_complete for one chunk of
+    distinct in-table lanes (hits 0, so every chunk answers the same: all
+    OK, and on the fixed-window engines afters 0) in each cell of `cells`
+    (default served_cells(): 1, 8 and 13 lanes on one table and on BANKS
+    banks of 2^20 slots, and on a sliding-window and a GCRA table of 2^18
+    slots -- dividers of 60 s in the dedup, the clock at ALGO_NOW -- and
+    256, 1024 and 4096 lanes on the first two), `n` chunks each in two
+    passes.  The first runs under
     torch.profiler (device activities only); a marker kernel on the
     engine stream brackets it, so its activities split into chunks.  The
     second runs without the profiler and times the host microseconds of
@@ -1250,8 +1358,8 @@ def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS):
     marker = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def is_marker(ev):
-        # A chunk makes memcpys and K1 / K6 (unique_step_kernel,
-        # unique_step_lanes_kernel) or K4 / K5 (sw_serve_step*,
+        # A chunk makes memcpys and K1 / K6 (unique_step_lanes_kernel,
+        # unique_step_rows_kernel) or K4 / K5 (sw_serve_step*,
         # gcra_serve_step*) only; the marker is an add.
         return not (
             "unique_step" in ev.name or "serve_step" in ev.name or ev.name.startswith("Memcpy")
@@ -1268,7 +1376,8 @@ def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS):
         "GCRA": eng.CounterEngine(device=dev, model=gcra.GcraModel(ALGO_SLOTS, device=dev)),
     }
     results = {}
-    for (label, engine), width in itertools.product(engines.items(), SERVED_WIDTHS):
+    for label, width in cells or served_cells():
+        engine = engines[label]
         # Distinct slots 7 apart: spread over the banks, all in the table.
         slots = (np.arange(width, dtype=np.int32) * 7 + 11).astype(np.int32)
         hits = np.zeros(width, np.uint32)
@@ -1458,7 +1567,35 @@ def forward_phase(torch, fw, kernels, dev):
     acts = step_activities(torch, step)
     one_launch("forward step", launches, fw.K3_STEP, acts)
     ms = (time_ms(step, reps=10, inner=20), device_ms(step))
-    return launches, ms, int((got_codes == 2).sum()), acts
+    # The model's serving step on device tensors (step_counters_unique,
+    # the JAX package's API beside the engine's staged forms) over the
+    # graft batch's distinct slots: one launch of K1's device form.
+    _, first = np.unique(raw["slots"], return_index=True)
+    pick = torch.from_numpy(first).to(dev)
+    ub = fw.DeviceBatch(*(t[pick] for t in batch))
+    table, plain_table = counts.clone(), counts.clone()
+    unique = device_tensor_step(
+        torch, kernels, lambda: model.step_counters_unique(table, ub)[1], {fw.K1: 1},
+        "the model's unique step")
+    want = fw._unique_step_plain(plain_table, torch.stack(
+        [ub.slots, ub.hits, ub.limits, ub.fresh.to(torch.int32)]), "")
+    if u32_max_abs_err(unique, want) or u32_max_abs_err(table, plain_table):
+        fail("the model's unique step disagrees with the plain version")
+    return dict(launches, **{fw.K1: 1}), ms, int((got_codes == 2).sum()), acts
+
+
+def device_tensor_step(torch, kernels, step, expect, what):
+    """Run step() once between two reads of the launch counts and fail
+    unless it launched exactly `expect`; returns what step() returned."""
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    got = step()
+    torch.cuda.synchronize()
+    moved = {k: v - before.get(k, 0) for k, v in kernels.launches.items()
+             if v != before.get(k, 0)}
+    if moved != expect:
+        fail(f"{what} launched {moved}, want {expect}")
+    return got
 
 
 # -- phase 5: the sharded forward step -----------------------------------
@@ -1498,7 +1635,20 @@ def sharded_forward_phase(torch, fw, sh, kernels, dev):
     step = lambda: model.step(counts, batch)  # noqa: E731
     acts = step_activities(torch, step)
     one_launch("sharded forward step", launches, sh.K7_STEP, acts)
-    return launches, (time_ms(step, reps=10, inner=20), device_ms(step)), acts
+    # The model's routed serving step on device tensors
+    # (step_counters_unique_routed_packed, the JAX package's API): one
+    # launch of K6's device form over 4096 routed lanes.
+    rpk, _ = _routed(torch, np.random.default_rng(5), 4096, NUM_SLOTS, dev,
+                     np.zeros(0, np.int64), skew=False)
+    table, plain_table = counts.clone(), counts.clone()
+    got = device_tensor_step(
+        torch, kernels, lambda: model.step_counters_unique_routed_packed(table, "", rpk)[1],
+        {sh.K6: 1}, "the sharded model's routed step")
+    if (u32_max_abs_err(got, sh._routed_step_plain(plain_table, rpk, ""))
+            or u32_max_abs_err(table, plain_table)):
+        fail("the sharded model's routed step disagrees with the plain version")
+    return (dict(launches, **{sh.K6: 1}), (time_ms(step, reps=10, inner=20), device_ms(step)),
+            acts)
 
 
 # -- phases 6 and 7: the served paths -------------------------------------
@@ -1605,6 +1755,7 @@ PLANES_ENV = (
     "ANOMALY_INTERVAL_S",
     "HOTKEYS_TOP_K",
     "INCIDENT_DIR",
+    "ANOMALY_COOLDOWN_S",
 )
 #: Settings of phase 13 (overload control, the cluster handoff); every
 #: other served phase starts from none of them.
@@ -1805,18 +1956,43 @@ def _since(kernels, before, names):
     return {name: kernels.launches.get(name, 0) - before.get(name, 0) for name in names}
 
 
-def served_forms(kernels, device_form, by_value, before, torch, request, key, wide_key, what):
+def count_chunks(engines):
+    """Count the chunks (_device_submit calls) of `engines` into the
+    returned dict's "chunks" until uncount_chunks(engines)."""
+    seen = {"chunks": 0}
+    for e in engines:
+        def counted(*args, _fn=e._device_submit, **kwargs):
+            seen["chunks"] += 1
+            return _fn(*args, **kwargs)
+
+        e._device_submit = counted
+    return seen
+
+
+def uncount_chunks(engines):
+    for e in engines:
+        e.__dict__.pop("_device_submit", None)
+
+
+def served_forms(kernels, device_form, by_value, wide_form, before, torch, request, key,
+                 wide_key, what, engines):
     """Every launch of `key`'s kernel in the served requests since
     `before` (one-descriptor requests and a burst of them, all chunks of
     at most 128 lanes) must take the by-value form, and a served request
     on `key` must make no memcpy; then one request of WIDE_DESCRIPTORS
     descriptors on `wide_key` (a 5/unit rule of the same kernel; a
-    chunk past the by-value budget) must take the device form.  Returns
-    (launches by form of the narrow requests, kernels and memcpys over
-    50 requests, launches by form of the wide request)."""
+    chunk past the by-value budget), WIDE_PROFILED of them under
+    torch.profiler, must take `wide_form`: where that is a mapped form
+    (K1, K6), exactly one launch of it a chunk of `engines` (the runner's
+    banks), none in any other form, and no memcpy in a capture that saw
+    a kernel; where it is the device form (K4, K5), at least one launch
+    of it.  Returns (launches by form of the
+    narrow requests, kernels and memcpys over 50 requests, launches by
+    form of the wide request with its chunks, kernels and memcpys)."""
     acts = served_activity(torch, kernels, by_value, request, key)
-    narrow = _since(kernels, before, (device_form, by_value))
-    if narrow[device_form] != 0 or narrow[by_value] < 1:
+    forms = tuple(dict.fromkeys((device_form, by_value, wide_form)))
+    narrow = _since(kernels, before, forms)
+    if any(narrow[f] for f in forms if f != by_value) or narrow[by_value] < 1:
         fail(f"{what}: launches by form of the narrow requests {narrow}")
     # The launch counts are exact; the profiler, which now and then drops
     # an activity, must see nearly every kernel and no memcpy.
@@ -1825,15 +2001,57 @@ def served_forms(kernels, device_form, by_value, before, torch, request, key, wi
             f"{what}: 50 requests made {acts[2]} by-value launches; the profiler "
             f"saw {acts[0]} kernels and {acts[1]} memcpys on the card"
         )
-    before = dict(kernels.launches)
-    values = [f"wide{i}" for i in range(WIDE_DESCRIPTORS)]
-    statuses = request(wide_key, values).statuses
-    if len(statuses) != WIDE_DESCRIPTORS or any(st.limit_remaining != 4 for st in statuses):
-        fail(f"{what}: a {WIDE_DESCRIPTORS}-descriptor request counted wrong")
-    wide = _since(kernels, before, (device_form, by_value))
-    if wide[device_form] < 1:
-        fail(f"{what}: the {WIDE_DESCRIPTORS}-descriptor request took no device form: {wide}")
+    wide = wide_capture(torch, kernels, request, wide_key, WIDE_DESCRIPTORS, engines, forms,
+                        "wide", what)
+    if wide_form == device_form:
+        if wide[device_form] < 1:
+            fail(f"{what}: the {WIDE_DESCRIPTORS}-descriptor request took no device form: {wide}")
+    else:
+        check_mapped(wide, wide_form, forms, 1, what)
     return narrow, acts, wide
+
+
+def wide_capture(torch, kernels, request, key, width, engines, forms, tag, what):
+    """WIDE_PROFILED requests of `width` new descriptors on `key` (a
+    5/unit rule: each answers at 4) under torch.profiler, device
+    activities only, taken again (up to PROFILE_TRIES times) where the
+    capture saw no kernel.  Returns the launches of `forms` and the
+    chunks of `engines` they made, and the kernels and memcpys the
+    capture saw."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for t in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        before = dict(kernels.launches)
+        seen = count_chunks(engines)
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for r in range(WIDE_PROFILED):
+                    values = [f"{tag}{t}-{r}-{i}" for i in range(width)]
+                    statuses = request(key, values).statuses
+                    if len(statuses) != width or any(st.limit_remaining != 4 for st in statuses):
+                        fail(f"{what}: a {width}-descriptor request counted wrong")
+                torch.cuda.synchronize()
+        finally:
+            uncount_chunks(engines)
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        memcpys = sum(name.startswith("Memcpy") for name in names)
+        if len(names) - memcpys >= 1:
+            break
+    return dict(_since(kernels, before, forms), requests=WIDE_PROFILED, chunks=seen["chunks"],
+                kernels=len(names) - memcpys, memcpys=memcpys, tries=t + 1)
+
+
+def check_mapped(wide, form, forms, per_chunk, what):
+    """Fail unless wide_capture's `wide` launched `form` exactly
+    `per_chunk` times a chunk (one a card), over at least one chunk a
+    request, no other form of `forms`, and its capture saw a kernel and
+    no memcpy."""
+    if (wide[form] != per_chunk * wide["chunks"] or wide["chunks"] < wide["requests"]
+            or any(wide[f] for f in forms if f != form) or wide["memcpys"] or not wide["kernels"]):
+        fail(f"{what}: {wide['requests']} wide requests made {wide}, want {per_chunk} {form} "
+             f"launch(es) a chunk, no other form, and a capture with a kernel and no memcpy")
 
 
 def served_phase(torch, kernels, fw, sw, gcra):
@@ -1861,18 +2079,18 @@ def served_phase(torch, kernels, fw, sw, gcra):
         us_per_algo_req = warm_us(request, "tb")
         forms = {
             key: served_forms(
-                kernels, device_form, by_value, started, torch, request, key, wide_key,
-                f"served ({key})",
+                kernels, device_form, by_value, wide_form, started, torch, request, key,
+                wide_key, f"served ({key})", runner.cache.engines(),
             )
-            for key, wide_key, device_form, by_value in (
-                ("foo", "burst", fw.K1, fw.K1_LANES),
-                ("tb", "tb", gcra.K5, gcra.K5_LANES),
-                ("slide", "slide", sw.K4, sw.K4_LANES),
+            for key, wide_key, device_form, by_value, wide_form in (
+                ("foo", "burst", fw.K1, fw.K1_LANES, fw.K1_MAPPED),
+                ("tb", "tb", gcra.K5, gcra.K5_LANES, gcra.K5),
+                ("slide", "slide", sw.K4, sw.K4_LANES, sw.K4),
             )
         }
         faults = fault_free(runner, "served")
     launches = dict(kernels.launches)
-    for name in (fw.K1, fw.K1_LANES, sw.K4, sw.K4_LANES, gcra.K5, gcra.K5_LANES):
+    for name in (fw.K1_MAPPED, fw.K1_LANES, sw.K4, sw.K4_LANES, gcra.K5, gcra.K5_LANES):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
     return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms, faults
@@ -1908,12 +2126,12 @@ def sharded_served_phase(torch, kernels, sh, dev):
         lanes = burst(runner, request, OK)
         us_per_req = warm_us(request, "foo")
         forms = served_forms(
-            kernels, sh.K6, sh.K6_LANES, started, torch, request, "foo", "burst",
-            "sharded served",
+            kernels, sh.K6, sh.K6_LANES, sh.K6_MAPPED, started, torch, request, "foo", "burst",
+            "sharded served", runner.cache.engines(),
         )
         faults = fault_free(runner, "sharded served")
     launches = dict(kernels.launches)
-    for name in (sh.K6, sh.K6_LANES):
+    for name in (sh.K6_MAPPED, sh.K6_LANES):
         if launches.get(name, 0) < 1:
             fail(f"sharded served path did not launch {name}: {launches}")
     return launches, lanes, us_per_req, forms, faults
@@ -3267,8 +3485,8 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
             ):
                 fail(f"cuda-write-behind did not build one 2^20-slot bank on {dev}")
             out["warmup"] = dict(kernels.launches)
-            if out["warmup"].get(fw.K1, 0) < 1:
-                fail(f"write-behind warmup launched no device-form K1: {out['warmup']}")
+            if out["warmup"].get(fw.K1_MAPPED, 0) < 1:
+                fail(f"write-behind warmup launched no mapped K1: {out['warmup']}")
             out["counting"] = wb_counting(runner, R, WB_CLIENTS, WB_KEYS, "wb")
             out["stall"] = wb_stall(torch, runner, R, cycles_per_ms)
             out["fill"] = wb_fill(runner, R)
@@ -3312,7 +3530,7 @@ def write_behind_phase(torch, kernels, fw, sh, dev, cycles_per_ms) -> tuple:
             fail(f"cuda-sharded-write-behind did not build {BANKS} banks of 2^20 slots")
         out["sharded"] = wb_counting(runner, R, WB_SHARDED_CLIENTS, WB_SHARDED_KEYS, "wbsh")
         wb_healthy(runner, "sharded write-behind")
-    out["sharded"]["launches"] = _since(kernels, before, (sh.K6, sh.K6_LANES))
+    out["sharded"]["launches"] = _since(kernels, before, (sh.K6_MAPPED, sh.K6_LANES))
     if min(out["sharded"]["launches"].values()) < 1:
         fail(f"sharded write-behind: K6 launches {out['sharded']['launches']}")
     before = dict(kernels.launches)
@@ -3374,6 +3592,10 @@ def write_behind_lines(w) -> list:
 
 #: The sampler intervals of the observability phase (5 s by default).
 PLANES_INTERVAL_S = "0.5"
+#: Phase 12's detector cooldown: a spike just before the stall may take
+#: an incident, and the stall's own must still be captured after the
+#: quarantine (the default 60 s would keep it out).
+PLANES_COOLDOWN_S = "1"
 #: The healthy burst: client threads (half gRPC, half /json), requests
 #: each, and the share of them on the one hot value.
 OBS_CLIENTS = 8
@@ -3622,8 +3844,11 @@ def planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms):
     seq order; the OUTCOME_FALLBACK records equal the fallback answers,
     and so do the flight records carrying the fallback code; the
     stalled launch's record is stamped once its event completed; the
-    latency detector trips and the incident, in memory and in
-    INCIDENT_DIR, holds the flight rows, the journal and the series."""
+    latency detector trips after the quarantine and the stall's own
+    incident -- the first it captured after the quarantine's journal
+    stamp, whatever a spike before the stall took -- holds, in memory
+    and in INCIDENT_DIR, the flight rows, the journal with the
+    quarantine and the series."""
     from ratelimit_tpu_torch.observability import FLIGHT_CODE_FALLBACK
 
     bank = bank_of(runner, "lane0of1")
@@ -3643,12 +3868,21 @@ def planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms):
         torch, kernels, runner, request, R.OK, bank, "probe", fw.K1_LANES, cycles_per_ms
     )
     fallback = fd.stat_fallback_decisions - fallback0
-    # The detectors capture on their own tick: wait for one past the stall.
-    deadline = time.monotonic() + 10
-    while time.monotonic() < deadline:
+    quarantined = [e["ts_unix"] for e in runner.events.snapshot(since=e0)
+                   if e["type"] == "bank_quarantine" and e.get("bank") == bank]
+    q_unix = quarantined[0] if quarantined else float("inf")
+
+    def own():
+        """The latency incidents captured after the quarantine, oldest
+        first."""
         new = runner.detectors.incidents()[: runner.detectors.captured - incidents0]
-        if any(inc["detector"] == "latency_spike" for inc in new):
-            break
+        return sorted((i for i in new if i["detector"] == "latency_spike"
+                       and i["captured_unix"] >= q_unix), key=lambda i: i["captured_unix"])
+
+    # The detectors capture on their own tick: wait for one past the
+    # quarantine.
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and not own():
         time.sleep(0.05)
     new = runner.detectors.incidents()[: runner.detectors.captured - incidents0]
     events = [
@@ -3670,6 +3904,7 @@ def planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms):
         fallback_flight=fcodes.count(FLIGHT_CODE_FALLBACK),
         stalled_complete_ms=stalled / 1e3,
         tripped=[inc["detector"] for inc in new][::-1],
+        before_quarantine=sum(i["captured_unix"] < q_unix for i in new),
         incident_files=len(files),
     )
     if not types or types[0] != "bank_quarantine" or types[1:2] != ["bank_fallback"] or types[-1] != "bank_restart" or seqs != sorted(seqs):
@@ -3678,10 +3913,11 @@ def planes_stall(torch, kernels, runner, request, R, fw, cycles_per_ms):
         fail(f"stall: fallback answers {fallback}, OUTCOME_FALLBACK records {out['fallback_records']}, fallback flight records {out['fallback_flight']}")
     if out["stalled_complete_ms"] < 0.5 * episode["stall_ms"]:
         fail(f"stall: no launch record waited out the stall ({out['stalled_complete_ms']:.1f} ms)")
-    if "latency_spike" not in out["tripped"]:
-        fail(f"stall: the latency detector did not trip (tripped: {out['tripped']}; all: "
+    if not own():
+        fail(f"stall: the latency detector did not trip after the quarantine (tripped: "
+             f"{out['tripped']}, {out['before_quarantine']} before it; all: "
              f"{[(i['detector'], i['reason']) for i in runner.detectors.incidents()]})")
-    inc = next(i for i in new if i["detector"] == "latency_spike")
+    inc = own()[0]
     on_disk = [f for f in files if inc["id"] in f]
     out["incident"] = dict(
         id=inc["id"],
@@ -3779,6 +4015,7 @@ def planes_phase(torch, kernels, fw, cycles_per_ms, smi):
         env = {
             "TSDB_INTERVAL_S": PLANES_INTERVAL_S,
             "ANOMALY_INTERVAL_S": PLANES_INTERVAL_S,
+            "ANOMALY_COOLDOWN_S": PLANES_COOLDOWN_S,
             "INCIDENT_DIR": incidents,
             "DEBUG_PROFILING": "1",
         }
@@ -3821,7 +4058,7 @@ def planes_lines(o, smi) -> list:
         f"planes (stall): journal {st['events']}; {st['fallback']} fallback answers = "
         f"{st['fallback_records']} OUTCOME_FALLBACK records = {st['fallback_flight']} flight "
         f"records with the fallback code; the stalled launch's record stamped after its event "
-        f"completed, complete {st['stalled_complete_ms']:.1f} ms; tripped {st['tripped']}; "
+        f"completed, complete {st['stalled_complete_ms']:.1f} ms; tripped {st['tripped']} ({st['before_quarantine']} captured before the quarantine); "
         f"incident {st['incident']}; {st['incident_files']} files in INCIDENT_DIR; "
         f"RPCs during the stall max {ep['rpc_max_ms']:.1f} ms",
         f"planes (interpreter lock, {smi}): during a {OBS_CLIENTS}-client burst "
@@ -3903,7 +4140,7 @@ HANDOFF_BURST_S = 1.0  # of burst on each side of the full-lane handoff
 
 
 def k1_launches(kernels, fw) -> int:
-    return kernels.launches.get(fw.K1_LANES, 0) + kernels.launches.get(fw.K1, 0)
+    return sum(kernels.launches.get(k, 0) for k in (fw.K1_LANES, fw.K1_MAPPED, fw.K1))
 
 
 def overload_summary(runner) -> dict:
@@ -5307,6 +5544,22 @@ def groups_forward(torch, fw, sh, kernels, dev):
             if u32_max_abs_err(joined(torch, model, state), plain_table) != 0:
                 fail(f"groups: {groups} groups' table on {what} ({layout}) disagrees")
             checked += 1
+    # The grouped model's routed serving step on device tensors
+    # (step_counters_unique_routed_packed, the JAX package's API): K6's
+    # card form once a card, every card in one call of the mesh entry.
+    mesh = group_mesh(torch, sh, dev, SERVED_GROUPS)
+    model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
+    state = split_groups(torch, sh, base, mesh)
+    rpk, _ = _routed(torch, rng, 4096, NUM_SLOTS, dev, hot, skew=False)
+    calls = kernels.mesh_calls[sh.MESH_ROUTED]
+    state, got = device_tensor_step(
+        torch, kernels, lambda: model.step_counters_unique_routed_packed(state, "", rpk),
+        {sh.K6_CARD: len(mesh.cards)}, "groups: the grouped model's routed step")
+    plain_table = base.clone()
+    if (kernels.mesh_calls[sh.MESH_ROUTED] != calls + 1
+            or u32_max_abs_err(got.to(dev), sh._routed_step_plain(plain_table, rpk, ""))
+            or u32_max_abs_err(joined(torch, model, state), plain_table)):
+        fail("groups: the grouped model's routed step disagrees with the plain version")
     return dict(checked=checked, paths=paths)
 
 
@@ -5368,7 +5621,7 @@ def group_kernel_rows(torch, fw, sh, dev):
     touched = int(torch.unique(s[(s >= 0) & (s < NUM_SLOTS)]).numel())
     rows, errs = {}, {}
 
-    def row(name, kern, plain, nbytes, ops, library=None):
+    def row(name, kern, plain, nbytes, ops, library=None, bounded=None):
         got, want = kern(), plain()
         errs[name] = u32_max_abs_err(got.to(want.device), want)
         if errs[name] != 0:
@@ -5380,7 +5633,7 @@ def group_kernel_rows(torch, fw, sh, dev):
         if library is not None:
             lib = device_ms(library, iters=50)
             lib = lib if lib is not None else time_ms(library)
-        b_ms, b_by = bound(nbytes, ops)
+        b_ms, b_by = bounded or bound(nbytes, ops)
         rows[name] = dict(
             ms=dev_ms if dev_ms is not None else time_ms(kern),
             plain_ms=plain_ms if plain_ms is not None else time_ms(plain, reps=5, inner=5),
@@ -5442,32 +5695,39 @@ def group_kernel_rows(torch, fw, sh, dev):
     rpk8, r_live8 = _routed(torch, rng, 8, NUM_SLOTS, dev, hot6, skew=False)
     words8 = _pinned(torch, rpk8)
     out8 = torch.empty(tuple(rpk8.shape[::2]), dtype=torch.int32, pin_memory=True)
+    words = _pinned(torch, rpk)
+    out = torch.empty(tuple(rpk.shape[::2]), dtype=torch.int32, pin_memory=True)
     for name, kern, plain, pk, live in (
         (sh.K6_CARD, lambda t: sh.sharded_routed_card_step(t, rpk, ""),
          lambda t: sh._routed_card_step_plain(t, rpk, ""), rpk, r_live),
         (sh.K6_CARD_LANES, lambda t: sh.sharded_routed_card_step_lanes(t, words8, out8, ""),
          lambda t: sh._routed_card_step_plain(t, rpk8, ""), rpk8, r_live8),
+        (sh.K6_CARD_MAPPED, lambda t: sh.sharded_routed_card_step_mapped(t, words, out, ""),
+         lambda t: sh._routed_card_step_plain(t, rpk, ""), rpk, r_live),
     ):
         routed = pk.shape[0] * pk.shape[2]  # the card's rows x cap, padding included
         t1, t2 = split(), split()
         row(name, lambda k=kern, t=t1: (k(t), torch.cuda.synchronize())[0],
-            lambda p=plain, t=t2: p(t), 16 * routed + 8 * live + 4 * routed, 8 * routed)
+            lambda p=plain, t=t2: p(t), 16 * routed + 8 * live + 4 * routed, 8 * routed,
+            bounded=mapped_bound(routed, 4, live, 8 * routed) if name == sh.K6_CARD_MAPPED
+            else None)
     return rows, errs
 
 
 def check_card_form(torch, fw, sh, dev):
     """K6's card form against its plain version, bit for bit: on 1, 2
     and SERVED_GROUPS groups of one card (2 banks a group of a 2^20-slot
-    table) for n in (8, 13, 100, 4096) routed lanes, uniform and
-    all-one-bank routing, three readback types -- in the device form
-    always, by value wherever the card's rows x cap fit 128 lanes -- and
-    through the model's routed step over the SERVED_GROUPS-group mesh
-    (one host call of the mesh entry over its cards) in both forms.
-    Returns (max |err| by kernel, cases by kernel)."""
+    table) for n in (8, 13, 100, 129, 256, 1024, 4096) routed lanes,
+    uniform and all-one-bank routing, three readback types -- in the
+    device form always, by value wherever the card's rows x cap fit 128
+    lanes, mapped wherever they do not -- and through the model's routed
+    step over the SERVED_GROUPS-group mesh (one host call of the mesh
+    entry over its cards) in all three forms.  Returns (max |err| by
+    kernel, cases by kernel)."""
     rng = np.random.default_rng(1618)
     k = BANKS // SERVED_GROUPS
-    err = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0}
-    cases = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0, "mesh": 0}
+    err = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0, sh.K6_CARD_MAPPED: 0}
+    cases = {sh.K6_CARD: 0, sh.K6_CARD_LANES: 0, sh.K6_CARD_MAPPED: 0, "mesh": 0}
 
     def note(name, a, b, what):
         e = u32_max_abs_err(a, b.to(a.device))
@@ -5479,7 +5739,8 @@ def check_card_form(torch, fw, sh, dev):
     mesh = group_mesh(torch, sh, dev, SERVED_GROUPS)
     model = sh.ShardedFixedWindowModel(NUM_SLOTS, mesh)
     widest = max(len(c.rows) for c in mesh.card_groups())
-    for n, skew, dt in itertools.product((8, 13, 100, 4096), (False, True), ("", "uint8", "uint16")):
+    for n, skew, dt in itertools.product((8, 13, 100) + DEVICE_FORM_SIZES, (False, True),
+                                         ("", "uint8", "uint16")):
         pk, _ = _routed(torch, rng, n, NUM_SLOTS, dev, hot, skew)
         cap = pk.shape[2]
         for held in (1, 2, SERVED_GROUPS):
@@ -5493,14 +5754,16 @@ def check_card_form(torch, fw, sh, dev):
                  "afters " + what)
             note(sh.K6_CARD, torch.cat(tables), torch.cat(plain), "table " + what)
             cases[sh.K6_CARD] += 1
-            if fw.lanes_by_value(rows, cap):
-                tables = [base[h * k : (h + 1) * k].clone() for h in range(held)]
-                out = torch.empty((rows, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
-                sh.sharded_routed_card_step_lanes(tables, _pinned(torch, card_pk), out, dt)
-                torch.cuda.synchronize()
-                note(sh.K6_CARD_LANES, out, want, "out " + what)
-                note(sh.K6_CARD_LANES, torch.cat(tables), torch.cat(plain), "table " + what)
-                cases[sh.K6_CARD_LANES] += 1
+            name, step = ((sh.K6_CARD_LANES, sh.sharded_routed_card_step_lanes)
+                          if fw.lanes_by_value(rows, cap)
+                          else (sh.K6_CARD_MAPPED, sh.sharded_routed_card_step_mapped))
+            tables = [base[h * k : (h + 1) * k].clone() for h in range(held)]
+            out = torch.empty((rows, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
+            step(tables, _pinned(torch, card_pk), out, dt)
+            torch.cuda.synchronize()
+            note(name, out, want, "out " + what)
+            note(name, torch.cat(tables), torch.cat(plain), "table " + what)
+            cases[name] += 1
         # The model over the mesh: one host call over its cards.
         plain = base.clone()
         want = sh._routed_step_plain(plain, pk, dt)
@@ -5510,14 +5773,16 @@ def check_card_form(torch, fw, sh, dev):
         note(sh.K6_CARD, got, want, "afters " + what)
         note(sh.K6_CARD, joined(torch, model, state), plain, "table " + what)
         cases["mesh"] += 1
-        if fw.lanes_by_value(widest, cap):
-            state = split_groups(torch, sh, base, mesh)
-            out = torch.empty((BANKS, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
-            state, _ = model.step_counters_unique_routed_lanes(state, dt, _pinned(torch, pk), out)
-            torch.cuda.synchronize()
-            note(sh.K6_CARD_LANES, out, want, "out " + what)
-            note(sh.K6_CARD_LANES, joined(torch, model, state), plain, "table " + what)
-            cases["mesh"] += 1
+        name, step = ((sh.K6_CARD_LANES, model.step_counters_unique_routed_lanes)
+                      if fw.lanes_by_value(widest, cap)
+                      else (sh.K6_CARD_MAPPED, model.step_counters_unique_routed_mapped))
+        state = split_groups(torch, sh, base, mesh)
+        out = torch.empty((BANKS, cap), dtype=fw.OUT_DTYPES[dt], pin_memory=True)
+        state, _ = step(state, dt, _pinned(torch, pk), out)
+        torch.cuda.synchronize()
+        note(name, out, want, "out " + what)
+        note(name, joined(torch, model, state), plain, "table " + what)
+        cases["mesh"] += 1
     torch.cuda.synchronize()
     return err, cases
 
@@ -5629,12 +5894,14 @@ def group_streams(engine):
 def spy_card_launches(sh, kernels, engines):
     """For each engine of `engines` (name -> engine), count its chunks
     (_device_submit calls), and record every host call of K6's mesh
-    entries (mesh_routed_step_lanes, mesh_routed_step) with the streams
-    it enqueued on, one a card; yields the record, filled in when the
-    block ends with the launch and mesh-call counts moved meanwhile."""
+    entries (mesh_routed_step_lanes, mesh_routed_step_mapped,
+    mesh_routed_step) with the streams it enqueued on, one a card; yields
+    the record, filled in when the block ends with the launch and
+    mesh-call counts moved meanwhile."""
     seen = dict(chunks={name: 0 for name in engines}, calls=[])
     launches0, calls0 = dict(kernels.launches), dict(kernels.mesh_calls)
-    real = {name: getattr(sh, name) for name in ("mesh_routed_step_lanes", "mesh_routed_step")}
+    real = {name: getattr(sh, name)
+            for name in ("mesh_routed_step_lanes", "mesh_routed_step_mapped", "mesh_routed_step")}
 
     def spy(name):
         def call(parts, cards, *args, **kwargs):
@@ -5709,8 +5976,8 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
                 for i in range(40):
                     if req("burst", f"gspread{i}").statuses[0].limit_remaining != 4:
                         fail(f"groups: spread key {i} counted wrong ({name})")
-                # Past 128 routed lanes a card: K6's card form in the
-                # device form (one group: sharded_routed_step).
+                # Past 128 routed lanes a card: K6's card form mapped
+                # (one group: sharded_routed_step_mapped).
                 values = [f"gwide{i}" for i in range(GROUPS_WIDE)]
                 statuses = req("burst", values).statuses
                 if len(statuses) != GROUPS_WIDE or any(st.limit_remaining != 4 for st in statuses):
@@ -5732,26 +5999,42 @@ def groups_served(torch, kernels, sh, fw, dev, cycles_per_ms):
         if key_counts(eg) != key_counts(e1):
             fail("groups: a key's counter differs between the grouped and the one-group engine")
         # Exact: each chunk of the grouped engine is ONE host call of a
-        # mesh entry, on the card's one stream each, launching K6's card
-        # form once a card; the one-group engine's chunks launch K6 as
-        # one table, one launch a chunk, no mesh entry.
+        # mesh entry (by value or mapped), on the card's one stream each,
+        # launching K6's card form once a card; the one-group engine's
+        # chunks launch K6 as one table, one launch a chunk, no mesh
+        # entry; no chunk takes a device form.
         chunks = seen["chunks"]
         by_form = {k: seen["launches"].get(k, 0)
-                   for k in (sh.K6_CARD, sh.K6_CARD_LANES, sh.K6, sh.K6_LANES)}
+                   for k in (sh.K6_CARD_MAPPED, sh.K6_CARD_LANES, sh.K6_CARD, sh.K6_MAPPED,
+                             sh.K6_LANES, sh.K6)}
         calls = seen["mesh_calls"]
         want_calls = chunks["grouped"]
+        served = (sh.MESH_ROUTED_MAPPED, sh.MESH_ROUTED_LANES)
         if (len(seen["calls"]) != want_calls
-                or sum(calls.get(k, 0) for k in (sh.MESH_ROUTED, sh.MESH_ROUTED_LANES)) != want_calls
-                or set(calls) - {sh.MESH_ROUTED, sh.MESH_ROUTED_LANES}
+                or sum(calls.get(k, 0) for k in served) != want_calls
+                or set(calls) - set(served)
                 or any(st != streams for _, st in seen["calls"])
-                or by_form[sh.K6_CARD] + by_form[sh.K6_CARD_LANES] != cards * want_calls
-                or by_form[sh.K6] + by_form[sh.K6_LANES] != chunks["one group"]
-                or by_form[sh.K6_CARD] < cards or by_form[sh.K6] < 1):
+                or by_form[sh.K6_CARD_MAPPED] + by_form[sh.K6_CARD_LANES] != cards * want_calls
+                or by_form[sh.K6_MAPPED] + by_form[sh.K6_LANES] != chunks["one group"]
+                or by_form[sh.K6_CARD] or by_form[sh.K6]
+                or by_form[sh.K6_CARD_MAPPED] < cards or by_form[sh.K6_MAPPED] < 1):
             fail(f"groups: {chunks} chunks made K6 launches {by_form} in mesh calls {calls} on "
                  f"streams {[st for _, st in seen['calls']][:3]}..., want one call a grouped "
                  f"chunk on the {cards} card streams {streams}, one launch a card")
         out.update(admitted=admitted, chunks=chunks, k6_by_form=by_form, mesh_calls=calls,
                    cards=cards, streams=len(set(streams)))
+        # The wide request under the profiler, WIDE_PROFILED times on each
+        # runner: K6's card form mapped once a card a chunk (one group:
+        # K6 mapped once a chunk), no other form, no memcpy.
+        forms = (sh.K6_CARD_MAPPED, sh.K6_CARD_LANES, sh.K6_CARD, sh.K6_MAPPED, sh.K6_LANES,
+                 sh.K6)
+        wide = {}
+        for name, req, r, form, per_chunk in (("grouped", req_g, rg, sh.K6_CARD_MAPPED, cards),
+                                              ("one group", req_1, r1, sh.K6_MAPPED, 1)):
+            wide[name] = wide_capture(torch, kernels, req, "burst", GROUPS_WIDE,
+                                      r.cache.engines(), forms, "gprof", f"groups ({name})")
+            check_mapped(wide[name], form, forms, per_chunk, f"groups ({name})")
+        out["wide"] = wide
         # Served cost, grouped against one group, in alternating pairs.
         pairs = []
         for i in range(GROUP_PAIRS):
@@ -5835,8 +6118,8 @@ def groups_phase(torch, kernels, fw, sh, dev, cycles_per_ms):
     served = groups_served(torch, kernels, sh, fw, dev, cycles_per_ms)
     launches = dict(kernels.launches)
     launches[sh.MESH_CARD] = kernels.mesh_launches[sh.MESH_CARD]
-    for name in (sh.K7_CARD, sh.K7_CARD_STEP, sh.COMBINE, sh.K6_LANES, sh.K6_CARD,
-                 sh.K6_CARD_LANES, sh.MESH_CARD):
+    for name in (sh.K7_CARD, sh.K7_CARD_STEP, sh.COMBINE, sh.K6_LANES, sh.K6_MAPPED, sh.K6_CARD,
+                 sh.K6_CARD_LANES, sh.K6_CARD_MAPPED, sh.MESH_CARD):
         if launches.get(name, 0) < 1:
             fail(f"groups: {name} never launched on the main path: {launches}")
     served["mesh_calls_all"] = dict(kernels.mesh_calls)
@@ -5888,7 +6171,8 @@ def groups_lines(o, smi) -> list:
         f"equal; {GROUPS_CLIENTS} clients x {GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key "
         f"admitted {srv['admitted']}; chunks {srv['chunks']}: K6 launches {srv['k6_by_form']} in "
         f"mesh calls {srv['mesh_calls']} (one call a grouped chunk, one K6 card launch a card, "
-        f"{srv['cards']} cards on {srv['streams']} streams); the phase's host calls by mesh "
+        f"{srv['cards']} cards on {srv['streams']} streams); {WIDE_PROFILED} profiled "
+        f"{GROUPS_WIDE}-descriptor requests each, mapped: {srv['wide']}; the phase's host calls by mesh "
         f"entry {srv['mesh_calls_all']}; per-key counters equal; "
         f"the checkpoint restored {srv['restored_keys']} keys into one group, counts equal; "
         f"{srv['fault_free'][0]}",
@@ -6012,17 +6296,20 @@ def main() -> None:
         f"lane, a u32 wrap inside a segment, -1 beside ns - 1; max|err| {general_errs}"
     )
     errs.update(general_errs)
-    form_errs, k6_lanes_cases = check_served_forms(torch, fw, sh, kernels, dev)
+    form_errs, k6_lanes_cases, mapped_cases = check_served_forms(torch, fw, sh, kernels, dev)
     lap("check_served_forms")
     for name, e in form_errs.items():
         errs[name] = max(errs.get(name, 0), e)
     log(
-        f"served step in both forms: K1 and K6 exact by value for N in "
+        f"served step in its three forms: K1 and K6 exact by value for N in "
         f"{LANES_SIZES} ({k6_lanes_cases} K6 cases fit {BANKS} banks x cap by "
-        f"value), readback into mapped pinned memory, and in the device form for "
-        f"N in {DEVICE_FORM_SIZES}, at 2^20 and 2^24 slots, three readback types; "
-        f"pinned slices alias at their offset; a pageable readback raises "
-        f"KernelError and a device one ValueError; max|err| {form_errs}"
+        f"value), readback into mapped pinned memory; mapped ({mapped_cases} cases: "
+        f"pinned words read and readback written through their device aliases) and "
+        f"in the device form for N in {DEVICE_FORM_SIZES}, at 2^20 and 2^24 slots, "
+        f"three readback types; pinned slices alias at their offset; a pageable "
+        f"readback raises KernelError and a device one ValueError; a pageable "
+        f"staging raises KernelError and words on the card ValueError in the mapped "
+        f"form, and the next launch runs; max|err| {form_errs}"
     )
     mirror_errs = check_mirror(torch, dev)
     lap("check_mirror")
@@ -6082,7 +6369,8 @@ def main() -> None:
         )
     )
 
-    # The served chunk, the engine's form: one by-value kernel, no memcpy.
+    # The served chunk, the engine's form: one kernel (by value, or mapped
+    # past 128 lanes), no memcpy.
     from ratelimit_tpu_torch.backends import engine as eng
 
     for (label, width), st in served_chunks(torch, sh, eng, sw, gcra, dev).items():
@@ -6243,6 +6531,7 @@ def main() -> None:
     replaces = {
         fw.K1: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
         fw.K1_LANES: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
+        fw.K1_MAPPED: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:171"),
         prefix_cuda.KERNEL: ("ratelimit_tpu_torch/csrc/prefix.cu", "ratelimit_tpu/ops/prefix_pallas.py:82"),
         fw.K3_UPDATE: (fused, "ratelimit_tpu/models/fixed_window.py:247"),
         fw.K3_DECIDE: ("ratelimit_tpu_torch/csrc/fixed_window.cu", "ratelimit_tpu/models/fixed_window.py:294"),
@@ -6253,6 +6542,7 @@ def main() -> None:
         gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.K6_MAPPED: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K7: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
         sh.K7_STEP: (fused, "ratelimit_tpu/parallel/sharded.py:308"),
         sh.K7_CARD: (fused, "ratelimit_tpu/parallel/sharded.py:270"),
@@ -6261,6 +6551,8 @@ def main() -> None:
         sh.K6_CARD: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_CARD_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu",
                            "ratelimit_tpu/parallel/sharded.py:184"),
+        sh.K6_CARD_MAPPED: ("ratelimit_tpu_torch/csrc/sharded.cu",
+                            "ratelimit_tpu/parallel/sharded.py:184"),
         sh.MESH_CARD: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:270"),
     }
     rows = []

@@ -17,15 +17,19 @@ the model's own readback (u32[2, padded] or i32[padded]) back, and
 refresh-on-touch expiry, so a hot key keeps its slot and state.
 
 The device half runs on a CUDA stream the engine owns.
-``_device_submit`` fills a staging buffer with the packed batch.  A
-chunk of at most 128 padded lanes (``lanes_by_value``, by shape alone),
-fixed-window or algorithm, goes by value: ONE launch carries the lanes
-as kernel parameters and its kernel (K1, K4 or K5) writes the readback
-straight into pinned host memory, so the chunk is one device activity.
-A wider chunk (warmup, bursts) takes the device form: one non_blocking
-host-to-device copy, the kernel, one non_blocking device-to-host copy
-of its output into pinned readback memory.  Either way an event is
-recorded after the last of it.  ``step_complete`` waits
+``_device_submit`` fills a pinned staging buffer with the packed batch,
+and the batch's shape alone picks the form (``lanes_by_value``).  A chunk
+of at most 128 padded lanes, fixed-window or algorithm, goes by value:
+ONE launch carries the lanes as kernel parameters and its kernel (K1,
+K4 or K5) writes the readback straight into pinned host memory, so the
+chunk is one device activity.  A wider fixed-window chunk (warmup,
+bursts, wide requests) takes K1's mapped form: ONE launch whose kernel
+reads the staged batch through its device alias and writes the readback
+the same way -- again one device activity, with no copy and no device
+buffer.  A wider algorithm chunk still takes the device form of K4 or
+K5: one non_blocking host-to-device copy, the kernel, one non_blocking
+device-to-host copy of its output into pinned readback memory.  Either
+way an event is recorded after the last of it.  ``step_complete`` waits
 on that event (never on the whole device) before the host decide pass.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
@@ -454,13 +458,14 @@ STAGING_POOL_CAP = 8
 
 class _Staging:
     """Host buffers of one in-flight submission: `words` int32 of packed
-    batch and `nbytes` of readback (pinned on CUDA, so both copies are
-    truly asynchronous and a by-value kernel can write the readback
-    through its device alias), plus the event recorded after the last
-    device work of the submission.  A staging object returns to the
-    engine's free list only after step_complete has waited on its event
-    and copied the readback out: until then a kernel or a copy may still
-    be writing into its readback."""
+    batch and `nbytes` of readback (pinned on CUDA, so a by-value or
+    mapped kernel reaches them through their device aliases and the
+    device form's copies are truly asynchronous), plus the event
+    recorded after the last device work of the submission.  A staging
+    object returns to the engine's free list only after step_complete
+    has waited on its event and copied the readback out: until then a
+    kernel or a copy may still be reading its words or writing its
+    readback."""
 
     __slots__ = ("packed", "packed_np", "readback", "event")
 
@@ -485,9 +490,10 @@ class CounterEngine:
         """`device` defaults to the GPU and raises there when CUDA is
         absent; only device="cpu" runs the plain versions.  `model`
         defaults to a FixedWindowModel on that device.  A model must
-        provide EITHER the saturating unique-slot serving step in both
-        forms (step_counters_unique_packed and its by-value
-        step_counters_unique_lanes) OR the generic algorithm
+        provide EITHER the saturating unique-slot serving step in the two
+        forms the engine serves from its staging (by value,
+        step_counters_unique_lanes, and mapped,
+        step_counters_unique_mapped) OR the generic algorithm
         protocol: ``step_serve_packed(state, packed, now)``, its
         by-value ``step_serve_lanes(state, words, now, out)`` and
         ``readback_shape(n)`` on the device, plus ``lane_counts(out,
@@ -510,15 +516,15 @@ class CounterEngine:
         needs = (
             ("step_serve_packed", "step_serve_lanes", "readback_shape")
             if self._generic
-            else ("step_counters_unique_packed", "step_counters_unique_lanes")
+            else ("step_counters_unique_lanes", "step_counters_unique_mapped")
         )
         if type(self)._device_submit is CounterEngine._device_submit and not all(
             hasattr(self.model, name) for name in needs
         ):
             raise TypeError(
                 "model must provide the saturating unique-slot serving "
-                "step (step_counters_unique_packed and "
-                "step_counters_unique_lanes) or the generic protocol "
+                "step (step_counters_unique_lanes and "
+                "step_counters_unique_mapped) or the generic protocol "
                 "(step_serve_packed, step_serve_lanes, readback_shape and "
                 "lane_counts); for mesh models use "
                 "parallel.ShardedCounterEngine"
@@ -821,7 +827,7 @@ class CounterEngine:
             OUT_DTYPES[dt],
             (padded,),
             lambda counts, words, out: m.step_counters_unique_lanes(counts, dt, words, out),
-            lambda counts, packed: m.step_counters_unique_packed(counts, dt, packed),
+            lambda counts, words, out: m.step_counters_unique_mapped(counts, dt, words, out),
         )
         return handle, None
 
@@ -832,38 +838,31 @@ class CounterEngine:
         dtype: torch.dtype,
         shape,
         lanes_step,
-        packed_step,
+        wide_step,
     ):
         """Run a serving step on the engine's table (_serve_on) and return
         the handle (st, readback) for _fetch."""
         self._counts, handle = self._serve_on(
-            self._stream, self._counts, st, host, dtype, shape, lanes_step, packed_step
+            self._stream, self._counts, st, host, dtype, shape, lanes_step, wide_step
         )
         return handle
 
     def _serve_on(self, stream, counts, st: _Staging, host: torch.Tensor,
-                  dtype: torch.dtype, shape, lanes_step, packed_step):
+                  dtype: torch.dtype, shape, lanes_step, wide_step):
         """Run a serving step on the table `counts` on `stream` (and its
         device) over the packed batch `host` (int32[..., rows, padded], a
-        view of `st.packed`) whose readback is dtype[shape].  The batch's
-        shape alone picks the form: by value (`lanes_step(counts, host,
-        out)`; one launch, the readback written by the kernel into
-        `st.readback`), or through device memory (`packed_step(counts,
-        packed)`; upload, kernel, readback copy).  Each returns (counts,
+        view of `st.packed`) whose readback is dtype[shape], a view of
+        `st.readback`.  The batch's shape alone picks the step
+        (lanes_by_value): `lanes_step(counts, host, out)` up to 128 lanes,
+        `wide_step(counts, host, out)` past it; each returns (counts,
         readback).  `st`'s event is recorded on `stream` after the last of
         it.  Returns (counts, the handle (st, readback) for _fetch)."""
         rows, padded = host.shape[-2:]
         with _stream_context(stream, counts.device):
-            if lanes_by_value(host.numel() // (rows * padded), padded):
-                nbytes = math.prod(shape) * dtype.itemsize
-                out = st.readback[:nbytes].view(dtype).view(shape)
-                counts, readback = lanes_step(counts, host, out)
-            else:
-                packed = host.to(counts.device, non_blocking=True)
-                counts, out = packed_step(counts, packed)
-                nbytes = out.numel() * out.element_size()
-                readback = st.readback[:nbytes].view(out.dtype).view(out.shape)
-                readback.copy_(out, non_blocking=True)
+            nbytes = math.prod(shape) * dtype.itemsize
+            out = st.readback[:nbytes].view(dtype).view(shape)
+            by_value = lanes_by_value(host.numel() // (rows * padded), padded)
+            counts, readback = (lanes_step if by_value else wide_step)(counts, host, out)
             if st.event is not None:
                 st.event.record(stream)
         return counts, (st, readback)
@@ -892,13 +891,20 @@ class CounterEngine:
             pk[3, g:] = 0
             pk[4, g:] = 1
         m = self.model
+
+        def device_form(state, words, out):
+            # K4 / K5 past 128 lanes: upload, kernel, readback copy.
+            state, got = m.step_serve_packed(state, words.to(state.device, non_blocking=True), now)
+            out.copy_(got, non_blocking=True)
+            return state, out
+
         handle = self._serve(
             st,
             st.packed[: 5 * padded].view(5, padded),
             torch.int32,
             m.readback_shape(padded),
             lambda state, words, out: m.step_serve_lanes(state, words, now, out),
-            lambda state, packed: m.step_serve_packed(state, packed, now),
+            device_form,
         )
         return handle, None
 

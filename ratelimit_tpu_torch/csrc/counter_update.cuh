@@ -37,20 +37,26 @@
 // the decision block's nine fields.  It is one cooperative launch
 // (general_step_kernel, below, says how and why).
 //
-// The unique-slot serving step (serve_lane) takes one thread per lane:
-// slots are unique within a bank, so the scatter needs no atomics.  A
-// single table is one bank.  It has two forms, chosen by the batch's
-// shape alone (fixed_window.py lanes_by_value):
+// The unique-slot serving step serves each lane from one thread: slots
+// are unique within a bank, so the scatter needs no atomics.  A single
+// table is one bank.  Two kernels serve it:
 //
-// - the device form, unique_step_kernel: the packed int32[banks, 4, n]
-//   batch in device memory, a bank per blockIdx.y, the readback into a
-//   device tensor.  It serves batches too large for a launch's
-//   parameters (warmup, bursts) and the public wrappers.
+// - unique_step_rows_kernel: the packed int32[banks, 4, n] batch, a bank
+//   row per blockIdx.y, kMappedLanes lanes a thread.  Launched on device
+//   memory it is the device form, which the public device-tensor
+//   wrappers (the JAX package's API) take.  Launched on the device
+//   aliases of the caller's PINNED host words and readback it is the
+//   mapped form: a served chunk past kMaxLanes lanes (warmup, bursts,
+//   wide requests) is one device activity, with no upload, no device
+//   buffer and no readback copy.
 // - the by-value form, unique_step_lanes_kernel (by_value.cuh): at most
 //   kMaxLanes lanes (banks x cap) ride in the launch's parameters, one
 //   16-byte (slot, hits, limit, fresh) record per lane.  One block of
 //   banks x cap threads, the readback into the caller's pinned host
 //   memory through its device alias.
+//
+// The engine picks by the batch's shape alone (fixed_window.py
+// lanes_by_value): by value up to kMaxLanes lanes, mapped past it.
 
 #pragma once
 
@@ -149,22 +155,45 @@ struct CardIndex {
   }
 };
 
-// The serving readback of one lane: the raw after (out_kind 0), or
-// min(after, limit + hits) -- the cap is modular, as the reference's --
-// truncated to uint8 (1) or uint16 (2).
+// The serving readback's value of one lane: the raw after (out_kind 0),
+// or min(after, limit + hits) -- the cap is modular, as the reference's
+// -- which the caller truncates to uint8 (1) or uint16 (2).
+__device__ __forceinline__ uint32_t readback_of(uint32_t after, uint32_t cap,
+                                                int out_kind) {
+  return (out_kind == 0 || after < cap) ? after : cap;
+}
+
+// Entry `lane` of the readback `out`: the value `v`, truncated to the
+// out_kind's width.
+__device__ __forceinline__ void store_readback(void* out, long long lane,
+                                               uint32_t v, int out_kind) {
+  if (out_kind == 0) {
+    static_cast<uint32_t*>(out)[lane] = v;
+  } else if (out_kind == 1) {
+    static_cast<uint8_t*>(out)[lane] = static_cast<uint8_t>(v);
+  } else {
+    static_cast<uint16_t*>(out)[lane] = static_cast<uint16_t>(v);
+  }
+}
+
 __device__ __forceinline__ void write_readback(void* out, long long lane,
                                                uint32_t after, uint32_t cap,
                                                int out_kind) {
-  if (out_kind == 0) {
-    static_cast<uint32_t*>(out)[lane] = after;
-    return;
-  }
-  const uint32_t sat = after < cap ? after : cap;
-  if (out_kind == 1) {
-    static_cast<uint8_t*>(out)[lane] = static_cast<uint8_t>(sat);
-  } else {
-    static_cast<uint16_t*>(out)[lane] = static_cast<uint16_t>(sat);
-  }
+  store_readback(out, lane, readback_of(after, cap, out_kind), out_kind);
+}
+
+// serve_lane's two halves, so that a thread serving several lanes can
+// issue every gather before its first store (unique_step_rows_kernel): the count
+// before the add at `slot` (-1: inert; a fresh lane reads 0), and the
+// saturating add.
+__device__ __forceinline__ uint32_t lane_before(const uint32_t* counts,
+                                                long long slot, bool fresh) {
+  return (slot >= 0 && !fresh) ? counts[slot] : 0u;
+}
+
+__device__ __forceinline__ uint32_t lane_after(uint32_t before, uint32_t hits) {
+  const uint32_t after = before + hits;
+  return after < before ? kU32Max : after;  // one u32 add wraps at most once
 }
 
 // One lane of the unique-slot step on one bank's `counts` (num_slots
@@ -176,48 +205,11 @@ __device__ __forceinline__ void serve_lane(uint32_t* __restrict__ counts,
                                            bool fresh, void* __restrict__ out,
                                            long long lane, int out_kind) {
   const long long slot = slot_index(id, num_slots);
-  const bool live = slot >= 0;
-  const uint32_t before = (live && !fresh) ? counts[slot] : 0u;
-  uint32_t after = before + hits;
-  if (after < before) {  // one u32 add wraps at most once: saturate
-    after = kU32Max;
-  }
-  if (live) {
+  const uint32_t after = lane_after(lane_before(counts, slot, fresh), hits);
+  if (slot >= 0) {
     counts[slot] = after;
   }
   write_readback(out, lane, after, limit + hits, out_kind);
-}
-
-// Device form: bank blockIdx.y of `counts` against its packed int32[4, n]
-// rows (slot, hits bits, limit bits, fresh) of an int32[banks, 4, n]
-// batch, readback into out[banks, n].
-__global__ void unique_step_kernel(uint32_t* __restrict__ counts,
-                                   long long num_slots,
-                                   const int32_t* __restrict__ packed, int n,
-                                   void* __restrict__ out, int out_kind) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
-  }
-  const long long bank = blockIdx.y;
-  packed += bank * 4 * n;
-  serve_lane(counts + bank * num_slots, num_slots, packed[i],
-             static_cast<uint32_t>(packed[n + i]),
-             static_cast<uint32_t>(packed[2 * n + i]), packed[3 * n + i] != 0,
-             out, bank * n + i, out_kind);
-}
-
-int launch_unique_step(void* counts, long long num_slots, const void* packed,
-                       int banks, int n, void* out, int out_kind,
-                       void* stream) {
-  if (n <= 0 || banks <= 0) {
-    return 0;
-  }
-  unique_step_kernel<<<dim3(blocks_for(n), banks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(counts), num_slots,
-      static_cast<const int32_t*>(packed), n, out, out_kind);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // By-value form (by_value.cuh): 16 B x 128 lanes = 2 KB of records.
@@ -285,6 +277,180 @@ int launch_unique_step_lanes(void* counts, long long num_slots,
   unique_step_lanes_kernel<<<1, lane_threads(b.lanes), 0,
                              static_cast<cudaStream_t>(stream)>>>(b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// -- the device and mapped forms -------------------------------------------
+//
+// One kernel, unique_step_rows_kernel, on device memory (the device
+// form) or on the device aliases of pinned host memory (the mapped
+// form).  The mapped form replaces, for a served chunk past kMaxLanes
+// lanes, the device form's three activities (upload copy, kernel,
+// readback copy) and the caller's device buffers.  What bounds it: the
+// host link.  Each lane crosses it
+// once each way, 16 B in and 1-4 B out, about 1 us at 4096 lanes over
+// PCIe 5.0 x16 (64 GB/s one way); in device memory it gathers and
+// scatters 8 B a live lane.  A dependent chain costs a link round trip
+// (~1-2 us), so the kernel keeps to one: each thread serves kMappedLanes
+// consecutive lanes of a row and issues its four 16-byte loads (slot,
+// hits, limit and fresh rows) before any gather, then every gather
+// before any store (slots are unique within a bank, so the hoist is the
+// serial order's result), and writes its readback as one store of
+// kMappedLanes values.  A block is one warp (kMappedThreads), so a
+// chunk's host reads issue from as many SMs as it has warps: at 4096
+// lanes one-warp blocks took 5.66 us against 6.63 for blocks of 256
+// (scripts/torch_mapped_load.py, H100 80GB HBM3, 700 W), and a bulk copy
+// of each block's tile into shared memory (cp.async.bulk, which does
+// take the host-mapped source) 12.05.  Rows whose width or alias is not 16-byte
+// aligned (a public wrapper's N = 129, say) take scalar loads and
+// stores; the engine's buckets are multiples of 8.
+
+constexpr int kMappedLanes = 4;
+constexpr int kMappedThreads = 32;
+
+// The bank rows of a one-group launch: row r's counters at counts + r x
+// num_slots (K1: one row).
+struct BankRows {
+  uint32_t* counts;
+  long long num_slots;
+  __device__ __forceinline__ uint32_t* bank(long long row) const {
+    return counts + row * num_slots;
+  }
+};
+
+// Row blockIdx.y of the packed int32[rows, 4, n] batch at `packed` (in
+// device memory, or a device alias of pinned host memory) against
+// rows.bank(row), its readback into out[rows, n] (likewise),
+// kMappedLanes lanes a thread.
+template <class Rows>
+__global__ void unique_step_rows_kernel(const __grid_constant__ Rows rows,
+                                          long long num_slots,
+                                          const int32_t* __restrict__ packed,
+                                          int n, void* __restrict__ out,
+                                          int out_kind, bool vec) {
+  const int i0 = (blockIdx.x * blockDim.x + threadIdx.x) * kMappedLanes;
+  if (i0 >= n) {
+    return;
+  }
+  const long long row = blockIdx.y;
+  const int32_t* p = packed + row * 4 * n + i0;
+  const int m = min(kMappedLanes, n - i0);
+  int32_t w[4][kMappedLanes];  // slot, hits, limit, fresh x the lanes
+  if (vec) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int4 v = *reinterpret_cast<const int4*>(p + static_cast<long long>(r) * n);
+      w[r][0] = v.x;
+      w[r][1] = v.y;
+      w[r][2] = v.z;
+      w[r][3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int j = 0; j < kMappedLanes; ++j) {
+        w[r][j] = j < m ? p[static_cast<long long>(r) * n + j] : 0;
+      }
+    }
+  }
+  uint32_t* counts = rows.bank(row);
+  long long slot[kMappedLanes];
+  uint32_t after[kMappedLanes];
+#pragma unroll
+  for (int j = 0; j < kMappedLanes; ++j) {
+    slot[j] = j < m ? slot_index(w[0][j], num_slots) : -1;
+    after[j] = lane_before(counts, slot[j], w[3][j] != 0);
+  }
+  uint32_t v[kMappedLanes];
+#pragma unroll
+  for (int j = 0; j < kMappedLanes; ++j) {
+    const uint32_t hits = static_cast<uint32_t>(w[1][j]);
+    after[j] = lane_after(after[j], hits);
+    if (slot[j] >= 0) {
+      counts[slot[j]] = after[j];
+    }
+    v[j] = readback_of(after[j], static_cast<uint32_t>(w[2][j]) + hits, out_kind);
+  }
+  const long long lane = row * n + i0;
+  if (!vec) {
+    for (int j = 0; j < m; ++j) {
+      store_readback(out, lane + j, v[j], out_kind);
+    }
+  } else if (out_kind == 0) {
+    *reinterpret_cast<uint4*>(static_cast<uint32_t*>(out) + lane) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  } else if (out_kind == 1) {
+    *reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(out) + lane) =
+        (v[0] & 0xFFu) | (v[1] & 0xFFu) << 8 | (v[2] & 0xFFu) << 16 | v[3] << 24;
+  } else {
+    *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + lane) =
+        make_uint2((v[0] & 0xFFFFu) | v[1] << 16, (v[2] & 0xFFFFu) | v[3] << 16);
+  }
+}
+
+// The launcher over `banks` rows of `rows`: `packed` (int32[banks, 4,
+// n]) and `out` are addresses the device reads and writes, device memory
+// or device aliases.  Rows whose width or address is not 16-byte aligned
+// take the kernel's scalar path.
+template <class Rows>
+int launch_rows(const Rows& rows, long long num_slots, const void* packed,
+                int banks, int n, void* out, int out_kind, cudaStream_t stream) {
+  if (banks <= 0 || n <= 0) {
+    return 0;
+  }
+  if (banks > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = n % kMappedLanes == 0 &&
+                   reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int lanes_threads = (n + kMappedLanes - 1) / kMappedLanes;
+  unique_step_rows_kernel<Rows>
+      <<<dim3((lanes_threads + kMappedThreads - 1) / kMappedThreads, banks), kMappedThreads, 0,
+         stream>>>(
+          rows, num_slots, static_cast<const int32_t*>(packed), n, out, out_kind, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mapped launcher: `words` (int32[banks, 4, n]) and `out` are HOST
+// addresses of pinned memory, each reached through its device alias
+// (mapped_alias's error, returned and cleared, where one has none:
+// pageable memory).  The kernel reads the words while it runs, so the
+// caller keeps them until the stream passes it.
+template <class Rows>
+int launch_mapped(const Rows& rows, long long num_slots,
+                  const void* words, int banks, int n, void* out,
+                  int out_kind, cudaStream_t stream) {
+  if (banks <= 0 || n <= 0) {
+    return 0;
+  }
+  void* dev_words = nullptr;
+  void* dev_out = nullptr;
+  cudaError_t err = mapped_alias(const_cast<void*>(words), &dev_words);
+  if (err == cudaSuccess) {
+    err = mapped_alias(out, &dev_out);
+  }
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  return launch_rows(rows, num_slots, dev_words, banks, n, dev_out, out_kind, stream);
+}
+
+// The device form over `banks` banks of `counts`: `packed` and `out` in
+// device memory.
+int launch_unique_step(void* counts, long long num_slots, const void* packed,
+                       int banks, int n, void* out, int out_kind,
+                       void* stream) {
+  return launch_rows(BankRows{static_cast<uint32_t*>(counts), num_slots}, num_slots,
+                     packed, banks, n, out, out_kind, static_cast<cudaStream_t>(stream));
+}
+
+int launch_unique_step_mapped(void* counts, long long num_slots,
+                              const void* words, int banks, int n, void* out,
+                              int out_kind, void* stream) {
+  return launch_mapped(
+      BankRows{static_cast<uint32_t*>(counts), num_slots}, num_slots, words,
+      banks, n, out, out_kind, static_cast<cudaStream_t>(stream));
 }
 
 // -- the general step: one cooperative launch ----------------------------

@@ -17,12 +17,16 @@
 // back per lane -- about 0.1 MB at 4096 lanes, so the launch latency
 // and not the memory system bounds it.  The TPU's 128-wide row gather
 // (fixed_window.py:210-226) is a TPU layout trick and has no
-// counterpart here.  Two forms (counter_update.cuh): rl_fw_unique_step
-// reads the batch from device memory; rl_fw_unique_step_lanes, for the
-// served widths (N <= 128), takes it from host words into the launch's
-// parameters and writes the readback into mapped pinned memory, so a
-// served chunk is one device activity instead of upload, kernel and
-// readback copy.
+// counterpart here.  Three forms (counter_update.cuh):
+// rl_fw_unique_step reads the batch from device memory (the JAX-named
+// device-tensor API); rl_fw_unique_step_lanes, for the served widths
+// (N <= 128), takes it from host words into the launch's parameters and
+// writes the readback into mapped pinned memory; rl_fw_unique_step_mapped,
+// for wider served chunks, reads the batch from pinned host words through
+// their device alias and writes the readback likewise.  So a served chunk
+// of any width is one device activity instead of upload, kernel and
+// readback copy.  The mapped form's bound is the host link: 16 B a lane
+// in and up to 4 B out, about 1 us at 4096 lanes over PCIe 5.0 x16.
 //
 // K3 replaces ratelimit_tpu/models/fixed_window.py:247 update (the
 // duplicate-tolerant step), :108 step_counters_compact (its narrow
@@ -70,6 +74,14 @@ extern "C" int rl_fw_unique_step_lanes(void* counts, long long num_slots,
                                        int out_kind, void* stream) {
   return launch_unique_step_lanes(counts, num_slots, words, 1, n, out,
                                   out_kind, stream);
+}
+
+// `words` (int32[4, n]) and `out` are host addresses of pinned memory.
+extern "C" int rl_fw_unique_step_mapped(void* counts, long long num_slots,
+                                        const void* words, int n, void* out,
+                                        int out_kind, void* stream) {
+  return launch_unique_step_mapped(counts, num_slots, words, 1, n, out,
+                                   out_kind, stream);
 }
 
 // The device alias of pinned host memory at `host` (what the by-value

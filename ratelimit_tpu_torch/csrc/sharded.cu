@@ -17,19 +17,24 @@
 // The host routes each unique slot to its bank and hands over one packed
 // int32[num_banks, 4, cap] batch of LOCAL ids (padding ids
 // slots_per_bank + i).  One launch serves every bank of a group (the
-// batch's rows of that group), one thread per routed lane, no atomics
-// (slots are unique within a bank): in the device form
-// (rl_sharded_routed_step) grid (cap / 256, num_banks) over the
-// batch in device memory; in the by-value form
+// batch's rows of that group), no atomics (slots are unique within a
+// bank): in the device form (rl_sharded_routed_step) and the mapped form
+// (rl_sharded_routed_step_mapped, the engine's form past 128 lanes)
+// unique_step_rows_kernel, a bank per blockIdx.y and 4 lanes a thread,
+// over the batch in device memory or read from pinned host words through
+// their device alias, the readback likewise; in the by-value form
 // (rl_sharded_routed_step_lanes, num_banks x cap <= 128, so 8 banks up to
 // cap 16) one block of num_banks x cap threads over the batch carried in
-// the launch's parameters, the readback into mapped pinned memory
-// (counter_update.cuh).  Local ids follow JAX's index semantics at width
-// slots_per_bank.  The add saturates; the readback is K1's.  Bound: 16 B
-// in, 4 B gathered, 4 B written and <= 4 B out per routed lane, padding
-// included -- about 0.1 MB for 4096 lanes over 8 banks, so the launch
-// latency bounds it, as it bounds K1.  The TPU's 128-wide row gather
-// (sharded.py:239-253) is a TPU layout trick and has no counterpart.
+// the launch's parameters, the readback into mapped
+// pinned memory (counter_update.cuh).  Local ids follow JAX's index
+// semantics at width slots_per_bank.  The add saturates; the readback is
+// K1's.  Bound: 16 B in, 4 B gathered, 4 B written and <= 4 B out per
+// routed lane, padding included -- about 0.1 MB for 4096 lanes over 8
+// banks, so the launch latency bounds the device form, as it bounds K1;
+// the mapped form moves the 16 B in and the readback over the host link
+// (64 GB/s one way on PCIe 5.0 x16), about 1 us at 4096 lanes.  The TPU's
+// 128-wide row gather (sharded.py:239-253) is a TPU layout trick and has
+// no counterpart.
 //
 // The host routes by bank, so K6 needs no collective.  On a mesh of one
 // group the entries above serve every bank.  Over several groups K6 has a
@@ -39,7 +44,8 @@
 // held, the card's rows int32[held x k, 4, cap] of the batch;
 // rl_sharded_routed_card_step_lanes, by value: one block of held x k x
 // cap <= 128 threads, each lane-row's bank base in the parameters beside
-// its record).  Each lane runs serve_lane, the K1 / K6 body, so a card
+// its record; rl_sharded_routed_card_step_mapped: the mapped form over
+// the card's rows of the batch in pinned host memory).  Each lane runs serve_lane, the K1 / K6 body, so a card
 // computes exactly what _bank_unique (sharded.py:229-266) computes for
 // each of its banks.  Bound: as K6's, per routed lane.
 //
@@ -52,9 +58,12 @@
 // writes the index of the card that raised it into *failed (-1 for
 // none).  Cards run in parallel, each on its own stream.
 //
-// - rl_mesh_routed_step_lanes / rl_mesh_routed_step: K6's card form on
-//   every card, by value or in the device form (whose upload and
-//   readback copies it enqueues too, where given), then the card's event.
+// - rl_mesh_routed_step_lanes / rl_mesh_routed_step_mapped: K6's card
+//   form on every card, by value or mapped (the engine's two forms: each
+//   card's batch and readback in that card's pinned staging), then the
+//   card's event; rl_mesh_routed_step: the device form on every card,
+//   its batch and readback in the card's memory (the model's
+//   device-tensor API).
 // - rl_mesh_card_step: K7's card step on every card whose lanes reach the
 //   home output in place or through a peer mapping ("home" and "peer",
 //   parallel/sharded.py Mesh.links).  A card past the home one waits on
@@ -144,6 +153,17 @@ extern "C" int rl_sharded_routed_step_lanes(void* counts,
                                   cap, out, out_kind, stream);
 }
 
+// `words` (int32[num_banks, 4, cap]) and `out` are host addresses of
+// pinned memory.
+extern "C" int rl_sharded_routed_step_mapped(void* counts,
+                                             long long slots_per_bank,
+                                             const void* words, int num_banks,
+                                             int cap, void* out, int out_kind,
+                                             void* stream) {
+  return launch_unique_step_mapped(counts, slots_per_bank, words, num_banks,
+                                   cap, out, out_kind, stream);
+}
+
 namespace {
 
 // -- K6's card form --------------------------------------------------------
@@ -154,50 +174,51 @@ struct CardTables {
   uint32_t* table[kMaxGroups];
   int banks_per_group;  // k
   long long slots_per_bank;
+  // Bank row `row` of the card's batch: row - h k of held group h.
+  __device__ __forceinline__ uint32_t* bank(long long row) const {
+    const int h = static_cast<int>(row / banks_per_group);
+    return table[h] + (row - static_cast<long long>(h) * banks_per_group) * slots_per_bank;
+  }
 };
 
-// Device form: bank row blockIdx.y of the card against its packed
-// int32[4, n] rows of an int32[held x k, 4, n] batch, readback into
-// out[held x k, n].
-__global__ void routed_card_kernel(const __grid_constant__ CardTables t,
-                                   const int32_t* __restrict__ packed, int n,
-                                   void* __restrict__ out, int out_kind) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) {
-    return;
+// The card's tables into *t; false where held x k does not fit a launch.
+bool card_tables(const void* tables, int held, int banks_per_group,
+                 long long slots_per_bank, CardTables* t) {
+  if (held < 1 || held > kMaxGroups || banks_per_group < 1 ||
+      static_cast<long long>(held) * banks_per_group > 65535) {
+    return false;
   }
-  const long long row = blockIdx.y;
-  const int h = static_cast<int>(row / t.banks_per_group);
-  uint32_t* counts =
-      t.table[h] + (row - static_cast<long long>(h) * t.banks_per_group) *
-                       t.slots_per_bank;
-  packed += row * 4 * n;
-  serve_lane(counts, t.slots_per_bank, packed[i],
-             static_cast<uint32_t>(packed[n + i]),
-             static_cast<uint32_t>(packed[2 * n + i]), packed[3 * n + i] != 0,
-             out, row * n + i, out_kind);
+  for (int h = 0; h < held; ++h) {
+    t->table[h] = static_cast<uint32_t* const*>(tables)[h];
+  }
+  t->banks_per_group = banks_per_group;
+  t->slots_per_bank = slots_per_bank;
+  return true;
 }
 
 int launch_routed_card(const void* tables, int held, int banks_per_group,
                        long long slots_per_bank, const void* packed, int cap,
                        void* out, int out_kind, cudaStream_t stream) {
-  if (held < 1 || held > kMaxGroups || banks_per_group < 1 ||
-      static_cast<long long>(held) * banks_per_group > 65535) {
+  CardTables t{};
+  if (!card_tables(tables, held, banks_per_group, slots_per_bank, &t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (cap <= 0) {
-    return 0;
-  }
+  return launch_rows(t, slots_per_bank, packed, held * banks_per_group, cap, out,
+                     out_kind, stream);
+}
+
+// Mapped (counter_update.cuh): `words` is the HOST address of the card's
+// pinned int32[held x k, 4, cap] batch, `out` of its pinned readback.
+int launch_routed_card_mapped(const void* tables, int held, int banks_per_group,
+                              long long slots_per_bank, const void* words,
+                              int cap, void* out, int out_kind,
+                              cudaStream_t stream) {
   CardTables t{};
-  for (int h = 0; h < held; ++h) {
-    t.table[h] = static_cast<uint32_t* const*>(tables)[h];
+  if (!card_tables(tables, held, banks_per_group, slots_per_bank, &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  t.banks_per_group = banks_per_group;
-  t.slots_per_bank = slots_per_bank;
-  routed_card_kernel<<<dim3(blocks_for(cap), held * banks_per_group), kThreads,
-                       0, stream>>>(t, static_cast<const int32_t*>(packed), cap,
-                                    out, out_kind);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mapped(t, slots_per_bank, words, held * banks_per_group, cap,
+                       out, out_kind, stream);
 }
 
 // By value (by_value.cuh): a bank base and a 16 B record a lane-row, so
@@ -307,8 +328,6 @@ int record(const void* events, int i, cudaStream_t stream) {
   cudaEvent_t ev = static_cast<const cudaEvent_t*>(events)[i];
   return ev == nullptr ? 0 : static_cast<int>(cudaEventRecord(ev, stream));
 }
-
-int out_bytes(int out_kind) { return out_kind == 1 ? 1 : (out_kind == 2 ? 2 : 4); }
 
 __global__ void combine_kernel(const uint8_t* __restrict__ parts,
                                long long part_bytes,
@@ -420,6 +439,48 @@ extern "C" int rl_sharded_routed_card_step_lanes(const void* tables, int held,
                                   static_cast<cudaStream_t>(stream));
 }
 
+// The same mapped: `words` and `out` pinned host memory.
+extern "C" int rl_sharded_routed_card_step_mapped(const void* tables, int held,
+                                                  int banks_per_group,
+                                                  long long slots_per_bank,
+                                                  const void* words, int cap,
+                                                  void* out, int out_kind,
+                                                  void* stream) {
+  return launch_routed_card_mapped(tables, held, banks_per_group,
+                                   slots_per_bank, words, cap, out, out_kind,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// Runs `launch` (one of the launch_routed_card* launchers) on every card
+// of a mesh, with card i's slice of `tables`, batch[i] and outs[i], then
+// records events[i]: the frame of the three mesh entries of K6.
+template <class Launch>
+int mesh_routed(int cards, const void* devices, const void* streams,
+                const void* tables, const void* held, int banks_per_group,
+                long long slots_per_bank, const void* batch, int cap,
+                const void* outs, int out_kind, const void* events, void* failed,
+                Launch launch) {
+  const int* h = static_cast<const int*>(held);
+  void* const* t = static_cast<void* const*>(tables);
+  int first[kMaxDevices + 1] = {0};
+  for (int i = 0; i < cards && i < kMaxDevices; ++i) {
+    first[i + 1] = first[i] + h[i];
+  }
+  return each_card(
+      cards, static_cast<const int*>(devices), static_cast<int*>(failed),
+      [&](int i) {
+        cudaStream_t s = static_cast<cudaStream_t const*>(streams)[i];
+        int rc = launch(t + first[i], h[i], banks_per_group, slots_per_bank,
+                        static_cast<void* const*>(batch)[i], cap,
+                        static_cast<void* const*>(outs)[i], out_kind, s);
+        return rc != 0 ? rc : record(events, i, s);
+      });
+}
+
+}  // namespace
+
 // K6's card form by value on every card of a mesh, in one call.  Per card
 // i: devices[i] (int), streams[i], held[i] (int) group tables -- card i's
 // are tables[held[0] + ... + held[i - 1] ...] --, words[i] (host) and
@@ -430,69 +491,35 @@ extern "C" int rl_mesh_routed_step_lanes(
     const void* held, int banks_per_group, long long slots_per_bank,
     const void* words, int cap, const void* outs, int out_kind,
     const void* events, void* failed) {
-  const int* h = static_cast<const int*>(held);
-  void* const* t = static_cast<void* const*>(tables);
-  int first[kMaxDevices + 1] = {0};
-  for (int i = 0; i < cards && i < kMaxDevices; ++i) {
-    first[i + 1] = first[i] + h[i];
-  }
-  return each_card(
-      cards, static_cast<const int*>(devices), static_cast<int*>(failed),
-      [&](int i) {
-        cudaStream_t s = static_cast<cudaStream_t const*>(streams)[i];
-        int rc = launch_routed_card_lanes(
-            t + first[i], h[i], banks_per_group, slots_per_bank,
-            static_cast<void* const*>(words)[i], cap,
-            static_cast<void* const*>(outs)[i], out_kind, s);
-        return rc != 0 ? rc : record(events, i, s);
-      });
+  return mesh_routed(cards, devices, streams, tables, held, banks_per_group,
+                     slots_per_bank, words, cap, outs, out_kind, events, failed,
+                     launch_routed_card_lanes);
+}
+
+// K6's card form mapped on every card of a mesh, in one call: as
+// rl_mesh_routed_step_lanes, words[i] and outs[i] card i's pinned staging
+// (the batch read, the readback written, through their device aliases).
+extern "C" int rl_mesh_routed_step_mapped(
+    int cards, const void* devices, const void* streams, const void* tables,
+    const void* held, int banks_per_group, long long slots_per_bank,
+    const void* words, int cap, const void* outs, int out_kind,
+    const void* events, void* failed) {
+  return mesh_routed(cards, devices, streams, tables, held, banks_per_group,
+                     slots_per_bank, words, cap, outs, out_kind, events, failed,
+                     launch_routed_card_mapped);
 }
 
 // K6's card form in the device form on every card, in one call: as
 // rl_mesh_routed_step_lanes, with packed[i] and outs[i] in card i's
-// memory; where uploads (or readbacks) gives card i a host address, the
-// card's batch is first copied from it (its readback then copied into it),
-// on the card's stream, before the event.
+// memory.
 extern "C" int rl_mesh_routed_step(
     int cards, const void* devices, const void* streams, const void* tables,
     const void* held, int banks_per_group, long long slots_per_bank,
-    const void* packed, const void* uploads, int cap, const void* outs,
-    const void* readbacks, int out_kind, const void* events, void* failed) {
-  const int* h = static_cast<const int*>(held);
-  void* const* t = static_cast<void* const*>(tables);
-  int first[kMaxDevices + 1] = {0};
-  for (int i = 0; i < cards && i < kMaxDevices; ++i) {
-    first[i + 1] = first[i] + h[i];
-  }
-  return each_card(
-      cards, static_cast<const int*>(devices), static_cast<int*>(failed),
-      [&](int i) {
-        cudaStream_t s = static_cast<cudaStream_t const*>(streams)[i];
-        void* dev_in = static_cast<void* const*>(packed)[i];
-        void* dev_out = static_cast<void* const*>(outs)[i];
-        const long long rows = static_cast<long long>(h[i]) * banks_per_group;
-        const void* up =
-            uploads == nullptr ? nullptr : static_cast<void* const*>(uploads)[i];
-        void* down = readbacks == nullptr
-                         ? nullptr
-                         : static_cast<void* const*>(readbacks)[i];
-        cudaError_t err = cudaSuccess;
-        if (up != nullptr && cap > 0) {
-          err = cudaMemcpyAsync(dev_in, up, rows * 4 * cap * sizeof(int32_t),
-                                cudaMemcpyHostToDevice, s);
-        }
-        int rc = err != cudaSuccess
-                     ? static_cast<int>(err)
-                     : launch_routed_card(t + first[i], h[i], banks_per_group,
-                                          slots_per_bank, dev_in, cap, dev_out,
-                                          out_kind, s);
-        if (rc == 0 && down != nullptr && cap > 0) {
-          rc = static_cast<int>(cudaMemcpyAsync(
-              down, dev_out, rows * cap * out_bytes(out_kind),
-              cudaMemcpyDeviceToHost, s));
-        }
-        return rc != 0 ? rc : record(events, i, s);
-      });
+    const void* packed, int cap, const void* outs, int out_kind,
+    const void* events, void* failed) {
+  return mesh_routed(cards, devices, streams, tables, held, banks_per_group,
+                     slots_per_bank, packed, cap, outs, out_kind, events, failed,
+                     launch_routed_card);
 }
 
 // K7's card step on every "home" and "peer" card of a mesh, in one call;

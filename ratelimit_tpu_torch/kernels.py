@@ -87,6 +87,10 @@ SIGNATURES = {
         "fixed_window",
         [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
     ),
+    "rl_fw_unique_step_mapped": (
+        "fixed_window",
+        [_VP, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
     "rl_mapped_alias": ("fixed_window", [_VP, ctypes.POINTER(_VP)]),
     "rl_fw_general_step": (
         "fixed_window",
@@ -108,6 +112,10 @@ SIGNATURES = {
         "sharded",
         [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
     ),
+    "rl_sharded_routed_step_mapped": (
+        "sharded",
+        [_VP, _I64, _VP, _I32, _I32, _VP, _I32, _VP],
+    ),
     "rl_sharded_group_step": (
         "sharded",
         [_VP, _I32, _I32, _I32, _I64, *_GENERAL_STEP],
@@ -125,13 +133,21 @@ SIGNATURES = {
         "sharded",
         [_VP, _I32, _I32, _I64, _VP, _I32, _VP, _I32, _VP],
     ),
+    "rl_sharded_routed_card_step_mapped": (
+        "sharded",
+        [_VP, _I32, _I32, _I64, _VP, _I32, _VP, _I32, _VP],
+    ),
     "rl_mesh_routed_step_lanes": (
+        "sharded",
+        [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _I32, _VP, _I32, _VP, _VP],
+    ),
+    "rl_mesh_routed_step_mapped": (
         "sharded",
         [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _I32, _VP, _I32, _VP, _VP],
     ),
     "rl_mesh_routed_step": (
         "sharded",
-        [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _VP, _I32, _VP, _VP, _I32, _VP, _VP],
+        [_I32, _VP, _VP, _VP, _VP, _I32, _I64, _VP, _I32, _VP, _I32, _VP, _VP],
     ),
     "rl_mesh_card_step": (
         "sharded",

@@ -6,12 +6,15 @@ int32 tensor of u32 bit patterns (one counter per slot; 2**24 slots =
 
 - the serving step, ``step_counters_unique_packed``: the engine has
   already deduplicated the batch on the host, so every live slot is
-  unique -- K1 ``fw_unique_step`` (csrc/fixed_window.cu).  The engine
-  serves a chunk of up to 128 padded lanes through K1's by-value form,
-  ``step_counters_unique_lanes`` (``fw_unique_step_lanes``): the lanes
-  ride in the launch's parameters and the readback lands in pinned host
-  memory, so the chunk is one device activity (``lanes_by_value``
-  decides, from the shape alone);
+  unique -- K1 ``fw_unique_step`` (csrc/fixed_window.cu), on a batch in
+  device memory.  The engine serves from its pinned staging instead, in
+  one of two forms that ``lanes_by_value`` picks from the shape alone: up
+  to 128 padded lanes by value, ``step_counters_unique_lanes``
+  (``fw_unique_step_lanes``: the lanes ride in the launch's parameters),
+  and past that mapped, ``step_counters_unique_mapped``
+  (``fw_unique_step_mapped``: the kernel reads the staged batch through
+  its device alias).  Either way the readback lands in pinned host
+  memory and the chunk is one device activity;
 - the duplicate-tolerant step, ``forward`` = ``update`` +
   ``decision_block``: zero fresh slots, gather, in-batch per-slot
   prefix (Redis pipeline order), modular scatter-add, threshold
@@ -54,6 +57,7 @@ _OUT_KIND = {"": 0, "uint8": 1, "uint16": 2}
 
 K1 = "fw_unique_step"
 K1_LANES = "fw_unique_step_lanes"
+K1_MAPPED = "fw_unique_step_mapped"
 K3_UPDATE = "fw_general_update"
 K3_DECIDE = "fw_decision_block"
 K3_STEP = "fw_general_step"
@@ -178,9 +182,9 @@ MAX_LANES = 128
 
 def lanes_by_value(banks: int, padded: int) -> bool:
     """Whether a served batch of `banks` x `padded` lanes goes by value
-    (the by-value form of K1, K4, K5 or K6) or through device memory
-    (their device form).  The batch's shape alone decides, never a
-    failure."""
+    (the by-value form of K1, K4, K5 or K6) or not: past it K1 and K6
+    take their mapped form, K4 and K5 their device form.  The batch's
+    shape alone decides, never a failure."""
     return banks * padded <= MAX_LANES
 
 
@@ -255,12 +259,15 @@ def fw_unique_step(
 
 
 def check_lanes_out(
-    words: torch.Tensor, rows: int, out: torch.Tensor, dtype: torch.dtype, shape
+    words: torch.Tensor, rows: int, out: torch.Tensor, dtype: torch.dtype, shape,
+    by_value: bool = True,
 ) -> None:
     """The arguments of a by-value launch: host int32 words [..., rows,
     N] of at most MAX_LANES lanes, and `out` dtype[shape], contiguous,
     on the host (pinned, where the table is on the card: the kernel
-    writes it through its device alias)."""
+    writes it through its device alias).  A mapped launch
+    (`by_value` False) takes any width; its words must be pinned on the
+    card too, since the kernel reads them through their alias."""
     if words.dtype != torch.int32 or words.dim() < 2 or words.shape[-2] != rows:
         raise TypeError(
             f"words must be int32[..., {rows}, N], got {words.dtype} "
@@ -269,7 +276,7 @@ def check_lanes_out(
     if words.device.type != "cpu" or not words.is_contiguous():
         raise ValueError("words must be a contiguous host tensor")
     lanes = words.numel() // rows
-    if lanes > MAX_LANES:
+    if by_value and lanes > MAX_LANES:
         raise ValueError(
             f"{lanes} lanes exceed the {MAX_LANES} a launch carries by value: "
             "use the device form"
@@ -282,13 +289,15 @@ def check_lanes_out(
         raise ValueError("out must be a contiguous host tensor")
 
 
-def _check_unique_lanes(words: torch.Tensor, out: torch.Tensor, out_dtype: str) -> None:
+def _check_unique_lanes(
+    words: torch.Tensor, out: torch.Tensor, out_dtype: str, by_value: bool = True
+) -> None:
     """check_lanes_out for K1/K6: int32[..., 4, N] words, readback
     OUT_DTYPES[out_dtype][..., N]."""
     if out_dtype not in _OUT_KIND:
         raise ValueError(f"out_dtype must be one of {sorted(_OUT_KIND)}")
     shape = tuple(words.shape[:-2]) + tuple(words.shape[-1:])
-    check_lanes_out(words, 4, out, OUT_DTYPES[out_dtype], shape)
+    check_lanes_out(words, 4, out, OUT_DTYPES[out_dtype], shape, by_value)
 
 
 def fw_unique_step_lanes(
@@ -314,6 +323,43 @@ def fw_unique_step_lanes(
         "rl_fw_unique_step_lanes",
         K1_LANES,
         (counts,),  # words and out are host memory
+        counts.data_ptr(),
+        counts.shape[0],
+        words.data_ptr(),
+        n,
+        out.data_ptr(),
+        _OUT_KIND[out_dtype],
+        kernels.stream_ptr(counts.device),
+    )
+    return out
+
+
+def fw_unique_step_mapped(
+    counts: torch.Tensor, words: torch.Tensor, out: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K1's mapped form: the same step as fw_unique_step on a packed
+    int32[4, N] batch held in PINNED host memory, of any width, which
+    the kernel reads through its device alias while it runs, so no
+    upload, no device buffer and no readback copy surround it.  The
+    readback goes into `out` (OUT_DTYPES[out_dtype][N]), pinned host
+    memory written the same way.  On a CUDA table, pageable `words` or
+    `out` raise KernelError and a device tensor ValueError; there is no
+    fallback.  Only enqueued: keep `words` and wait on the stream (an
+    event) before reading `out` or reusing either.  Returns `out`."""
+    _check_table(counts)
+    _check_unique_lanes(words, out, out_dtype, by_value=False)
+    if words.dim() != 2:
+        raise TypeError(f"words must be int32[4, N], got {tuple(words.shape)}")
+    if counts.device.type == "cpu":
+        return out.copy_(_unique_step_plain(counts, words, out_dtype))
+    _require_cuda(counts.device)
+    n = words.shape[1]
+    if n == 0:
+        return out
+    kernels.launch(
+        "rl_fw_unique_step_mapped",
+        K1_MAPPED,
+        (counts,),  # words and out are pinned host memory
         counts.data_ptr(),
         counts.shape[0],
         words.data_ptr(),
@@ -607,6 +653,16 @@ class FixedWindowModel:
         readback into `out` (pinned host memory on the card).  Returns
         (counts, out); wait on the stream before reading `out`."""
         return counts, fw_unique_step_lanes(counts, words, out, out_dtype)
+
+    def step_counters_unique_mapped(
+        self, counts: torch.Tensor, out_dtype: str, words: torch.Tensor, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K1's mapped form: the batch of
+        step_counters_unique_packed in pinned host memory, of any width,
+        read by the kernel through its device alias, the readback into
+        `out` (pinned).  Returns (counts, out); wait on the stream before
+        reading `out` or reusing `words`."""
+        return counts, fw_unique_step_mapped(counts, words, out, out_dtype)
 
     def step_counters_unique(
         self, counts: torch.Tensor, batch: DeviceBatch

@@ -27,16 +27,23 @@ Three kernels, in csrc/sharded.cu:
   unique slot to its bank on the host (local ids, one packed
   int32[num_banks, 4, cap] batch) and one launch serves every bank --
   fresh-zero, gather, SATURATING add, unique scatter-set, narrow
-  readback.  Up to 128 routed lanes (banks x cap) go by value,
-  ``sharded_routed_step_lanes``: the batch rides in the launch's
-  parameters and the readback lands in pinned host memory
-  (``fixed_window.lanes_by_value`` decides, from the shape alone).
-  Routing is done on the host, so K6 needs no collective.  Over several
-  groups K6 has a CARD form, ONE launch over the banks of every group a
-  card holds (``sharded_routed_card_step`` and its by-value
-  ``sharded_routed_card_step_lanes``), and the mesh's served chunk is
-  ONE host call that launches it on every card (``mesh_routed_step``,
-  ``mesh_routed_step_lanes``: the mesh entries, kernels.launch_mesh);
+  readback.  The engine serves from its pinned staging in the form
+  ``fixed_window.lanes_by_value`` picks from the shape alone: up to 128
+  routed lanes (banks x cap) by value, ``sharded_routed_step_lanes``
+  (the batch rides in the launch's parameters), past that mapped,
+  ``sharded_routed_step_mapped`` (the kernel reads the staged batch
+  through its device alias); either way the readback lands in pinned
+  host memory and the chunk is one launch.  ``sharded_routed_step``
+  itself takes a batch in device memory (the JAX-named API).  Routing
+  is done on the host, so K6 needs no collective.  Over several groups
+  K6 has a CARD form, ONE launch over the banks of every group a card
+  holds (``sharded_routed_card_step``, by value
+  ``sharded_routed_card_step_lanes``, mapped
+  ``sharded_routed_card_step_mapped``), and the mesh's served chunk is
+  ONE host call that launches it on every card
+  (``mesh_routed_step_lanes``, ``mesh_routed_step_mapped``, and
+  ``mesh_routed_step`` on device tensors: the mesh entries,
+  kernels.launch_mesh);
 - K7, the duplicate-tolerant step over a replicated batch of GLOBAL
   ids: zero fresh slots, gather, the per-slot prefix (K2's tile pass)
   on the raw ids, MODULAR scatter-add, with an optional narrow readback
@@ -98,8 +105,10 @@ from ..ops.u32 import narrow, widen
 
 K6 = "sharded_routed_step"
 K6_LANES = "sharded_routed_step_lanes"
+K6_MAPPED = "sharded_routed_step_mapped"
 K6_CARD = "sharded_routed_card_step"
 K6_CARD_LANES = "sharded_routed_card_step_lanes"
+K6_CARD_MAPPED = "sharded_routed_card_step_mapped"
 K7 = "sharded_general_update"
 K7_STEP = "sharded_general_step"
 K7_CARD = "sharded_card_update"
@@ -114,6 +123,7 @@ LINKS = ("home", "peer", "combine")
 #: The mesh entries: every card's launch in one host call.
 MESH_ROUTED = "rl_mesh_routed_step"
 MESH_ROUTED_LANES = "rl_mesh_routed_step_lanes"
+MESH_ROUTED_MAPPED = "rl_mesh_routed_step_mapped"
 MESH_CARD = "rl_mesh_card_step"
 
 
@@ -383,6 +393,37 @@ def sharded_routed_step_lanes(
     return out
 
 
+def sharded_routed_step_mapped(
+    counts: torch.Tensor, words: torch.Tensor, out: torch.Tensor, out_dtype: str = ""
+) -> torch.Tensor:
+    """K6's mapped form: the same step as sharded_routed_step on an
+    int32[num_banks, 4, cap] batch of any width held in PINNED host
+    memory, which the kernel reads through its device alias; the
+    readback goes into `out` (OUT_DTYPES[out_dtype][num_banks, cap]),
+    pinned host memory written the same way.  On a CUDA table, pageable
+    memory raises KernelError and a device tensor ValueError; there is no
+    fallback.  Only enqueued: keep `words` and wait on the stream (an
+    event) before reading `out` or reusing either.  Returns `out`."""
+    nb, spb = _check_banked(counts)
+    fw._check_unique_lanes(words, out, out_dtype, by_value=False)
+    if words.dim() != 3 or words.shape[0] != nb:
+        raise TypeError(f"words must be int32[{nb}, 4, cap], got {tuple(words.shape)}")
+    if counts.device.type == "cpu":
+        return out.copy_(_routed_step_plain(counts, words, out_dtype))
+    fw._require_cuda(counts.device)
+    if nb > 65535:
+        raise ValueError(f"at most 65535 banks per launch, got {nb}")
+    cap = words.shape[2]
+    if cap == 0:
+        return out
+    kernels.launch(
+        "rl_sharded_routed_step_mapped", K6_MAPPED, (counts,),
+        counts.data_ptr(), spb, words.data_ptr(), nb, cap, out.data_ptr(),
+        fw._OUT_KIND[out_dtype], kernels.stream_ptr(counts.device),
+    )
+    return out
+
+
 # -- K6's card form: every group a card holds, one launch ----------------
 
 
@@ -486,6 +527,36 @@ def sharded_routed_card_step_lanes(
     return out
 
 
+def sharded_routed_card_step_mapped(
+    tables: Sequence[torch.Tensor], words: torch.Tensor, out: torch.Tensor,
+    out_dtype: str = "",
+) -> torch.Tensor:
+    """K6's card form mapped: sharded_routed_card_step's batch, of any
+    width, held in PINNED host memory and read by the kernel through its
+    device alias, the readback into `out` (pinned, written likewise).
+    Only enqueued on a card: keep `words` and wait on the stream before
+    reading `out`.  Returns `out`."""
+    k, spb = _check_card_tables(tables)
+    fw._check_unique_lanes(words, out, out_dtype, by_value=False)
+    rows = len(tables) * k
+    cap = _check_card_batch(words, rows)
+    dev = tables[0].device
+    if dev.type == "cpu":
+        return out.copy_(_routed_card_step_plain(tables, words, out_dtype))
+    fw._require_cuda(dev)
+    if rows > 65535:
+        raise ValueError(f"at most 65535 banks a card launch, got {rows}")
+    if cap == 0:
+        return out
+    ptrs = _card_ptrs(tables)
+    kernels.launch(
+        "rl_sharded_routed_card_step_mapped", K6_CARD_MAPPED, tables,
+        ctypes.addressof(ptrs), len(tables), k, spb, words.data_ptr(), cap,
+        out.data_ptr(), fw._OUT_KIND[out_dtype], kernels.stream_ptr(dev),
+    )
+    return out
+
+
 def _card_stream(card: CardPlan):
     """The raw handle of the stream a card's work goes on."""
     stream = card.stream if card.stream is not None else torch.cuda.current_stream(card.device)
@@ -524,6 +595,20 @@ def _check_mesh_batches(parts, cards, batches, outs, out_dtype):
     return cap
 
 
+def _mesh_host(parts, cards, words, outs, out_dtype, events, by_value: bool, launch):
+    """mesh_routed_step_lanes' and mesh_routed_step_mapped's checks, the
+    plain version on the CPU, and `launch` on a card."""
+    cap = _check_mesh_batches(parts, cards, words, outs, out_dtype)
+    for w, o in zip(words, outs):
+        fw._check_unique_lanes(w, o, out_dtype, by_value)
+    if parts[0].device.type == "cpu":
+        for card, w, o in zip(cards, words, outs):
+            o.copy_(_routed_card_step_plain([parts[g] for g in card.groups], w, out_dtype))
+        return outs
+    fw._require_cuda(parts[0].device)
+    return launch(parts, cards, words, outs, out_dtype, cap, events)
+
+
 def mesh_routed_step_lanes(
     parts: Sequence[torch.Tensor], cards: Sequence[CardPlan], words, outs,
     out_dtype: str = "", events=None,
@@ -537,20 +622,26 @@ def mesh_routed_step_lanes(
     made on that card, or None) is recorded there.  Counted as one
     sharded_routed_card_step_lanes a card.  On the CPU each card runs the
     plain version.  Returns `outs`."""
-    cap = _check_mesh_batches(parts, cards, words, outs, out_dtype)
-    for w, o in zip(words, outs):
-        fw._check_unique_lanes(w, o, out_dtype)
-    if parts[0].device.type == "cpu":
-        for card, w, o in zip(cards, words, outs):
-            o.copy_(_routed_card_step_plain([parts[g] for g in card.groups], w, out_dtype))
-        return outs
-    fw._require_cuda(parts[0].device)
-    return launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events)
+    return _mesh_host(parts, cards, words, outs, out_dtype, events, True,
+                      launch_mesh_routed_lanes)
 
 
-def launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events=None):
-    """mesh_routed_step_lanes' launch, on checked arguments: one call of
-    rl_mesh_routed_step_lanes."""
+def mesh_routed_step_mapped(
+    parts: Sequence[torch.Tensor], cards: Sequence[CardPlan], words, outs,
+    out_dtype: str = "", events=None,
+):
+    """K6's card form mapped on EVERY card of a mesh in ONE host call
+    (rl_mesh_routed_step_mapped): as mesh_routed_step_lanes, of any width,
+    words[c] pinned host memory that card c's kernel reads through its
+    device alias.  Counted as one sharded_routed_card_step_mapped a
+    card.  Returns `outs`."""
+    return _mesh_host(parts, cards, words, outs, out_dtype, events, False,
+                      launch_mesh_routed_mapped)
+
+
+def _launch_mesh_host(entry, kernel, parts, cards, words, outs, out_dtype, cap, events):
+    """One call of the mesh entry `entry` (by value or mapped) on checked
+    arguments, counted as one `kernel` a card."""
     if cap == 0:
         return outs
     held, frame = _mesh_frame(parts, cards)
@@ -558,7 +649,7 @@ def launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events=N
     os_ = kernels.pointers([o.data_ptr() for o in outs])
     evs = kernels.pointers([None if e is None else e.cuda_event for e in events or [None] * len(cards)])
     kernels.launch_mesh(
-        MESH_ROUTED_LANES, K6_CARD_LANES, held, len(cards),
+        entry, kernel, held, len(cards),
         *(ctypes.addressof(a) for a in frame), parts[0].shape[0], parts[0].shape[1],
         ctypes.addressof(ws), cap, ctypes.addressof(os_), fw._OUT_KIND[out_dtype],
         ctypes.addressof(evs),
@@ -566,52 +657,55 @@ def launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events=N
     return outs
 
 
+def launch_mesh_routed_lanes(parts, cards, words, outs, out_dtype, cap, events=None):
+    """mesh_routed_step_lanes' launch, on checked arguments: one call of
+    rl_mesh_routed_step_lanes."""
+    return _launch_mesh_host(MESH_ROUTED_LANES, K6_CARD_LANES, parts, cards, words, outs,
+                             out_dtype, cap, events)
+
+
+def launch_mesh_routed_mapped(parts, cards, words, outs, out_dtype, cap, events=None):
+    """mesh_routed_step_mapped's launch, on checked arguments: one call of
+    rl_mesh_routed_step_mapped."""
+    return _launch_mesh_host(MESH_ROUTED_MAPPED, K6_CARD_MAPPED, parts, cards, words, outs,
+                             out_dtype, cap, events)
+
+
 def mesh_routed_step(
     parts: Sequence[torch.Tensor], cards: Sequence[CardPlan], packed, outs,
-    out_dtype: str = "", uploads=None, readbacks=None, events=None,
+    out_dtype: str = "", events=None,
 ):
     """K6's card form in the device form on EVERY card of a mesh in ONE
     host call (rl_mesh_routed_step): packed[c] and outs[c] card c's batch
-    int32[rows, 4, cap] and readback [rows, cap] in its memory.  Where
-    given, uploads[c] (pinned host words) is first copied into packed[c]
-    and outs[c] then copied into readbacks[c] (pinned host), on the
-    card's stream, before events[c] is recorded.  Counted as one
+    int32[rows, 4, cap] and readback [rows, cap] in its memory, then
+    events[c] recorded on the card's stream.  Counted as one
     sharded_routed_card_step a card.  On the CPU each card runs the plain
     version.  Returns `outs`."""
     cap = _check_mesh_batches(parts, cards, packed, outs, out_dtype)
     if parts[0].device.type == "cpu":
         for c, card in enumerate(cards):
-            if uploads is not None:
-                packed[c].copy_(uploads[c])
             tables = [parts[g] for g in card.groups]
             outs[c].copy_(_routed_card_step_plain(tables, packed[c], out_dtype))
-            if readbacks is not None:
-                readbacks[c].copy_(outs[c])
         return outs
     fw._require_cuda(parts[0].device)
     if any(not p.is_contiguous() for p in packed):
         raise ValueError("packed must be contiguous")
-    return launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, uploads, readbacks,
-                              events)
+    return launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, events)
 
 
-def launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, uploads=None,
-                       readbacks=None, events=None):
+def launch_mesh_routed(parts, cards, packed, outs, out_dtype, cap, events=None):
     """mesh_routed_step's launch, on checked arguments: one call of
     rl_mesh_routed_step."""
     held, frame = _mesh_frame(parts, cards)
     n = len(cards)
-    ups = kernels.pointers([u.data_ptr() for u in uploads] if uploads is not None else [None] * n)
-    downs = kernels.pointers(
-        [r.data_ptr() for r in readbacks] if readbacks is not None else [None] * n)
     pk = kernels.pointers([p.data_ptr() for p in packed])
     os_ = kernels.pointers([o.data_ptr() for o in outs])
     evs = kernels.pointers([None if e is None else e.cuda_event for e in events or [None] * n])
     kernels.launch_mesh(
         MESH_ROUTED, K6_CARD, [(*t, p, o) for t, p, o in zip(held, packed, outs)], n,
         *(ctypes.addressof(a) for a in frame), parts[0].shape[0], parts[0].shape[1],
-        ctypes.addressof(pk), ctypes.addressof(ups), cap, ctypes.addressof(os_),
-        ctypes.addressof(downs), fw._OUT_KIND[out_dtype], ctypes.addressof(evs),
+        ctypes.addressof(pk), cap, ctypes.addressof(os_), fw._OUT_KIND[out_dtype],
+        ctypes.addressof(evs),
     )
     return outs
 
@@ -1269,6 +1363,29 @@ class ShardedFixedWindowModel:
             return counts, sharded_routed_step_lanes(parts[0], words, out, out_dtype)
         # Each card's rows must fit a launch (mesh_routed_step_lanes
         # checks them); the whole batch may hold more.
+        return counts, self._routed_host(parts, out_dtype, words, out, mesh_routed_step_lanes)
+
+    def step_counters_unique_routed_mapped(
+        self, counts, out_dtype: str, words: torch.Tensor, out: torch.Tensor
+    ) -> Tuple[object, torch.Tensor]:
+        """The routed serving step in K6's mapped form: the batch of
+        step_counters_unique_routed_packed, of any width, in PINNED host
+        memory that the kernel reads through its device alias, the
+        readback into `out` (pinned).  Over several groups K6's card form
+        mapped runs once a card, every card in ONE host call
+        (mesh_routed_step_mapped), as step_counters_unique_routed_lanes
+        does by value.  Returns (counts, out); keep `words` and wait on
+        each card's stream before reading `out`."""
+        parts = self.parts(counts)
+        if len(parts) == 1:
+            return counts, sharded_routed_step_mapped(parts[0], words, out, out_dtype)
+        return counts, self._routed_host(parts, out_dtype, words, out, mesh_routed_step_mapped)
+
+    def _routed_host(self, parts, out_dtype: str, words: torch.Tensor, out: torch.Tensor,
+                     mesh_step) -> torch.Tensor:
+        """The routed step over several groups on a batch in host memory:
+        `mesh_step` (mesh_routed_step_lanes or mesh_routed_step_mapped)
+        once over every card's rows of `words` and `out`; returns `out`."""
         if out_dtype not in fw.OUT_DTYPES:
             raise ValueError(f"out_dtype must be one of {sorted(fw.OUT_DTYPES)}")
         cap = _check_card_batch(words, self.num_banks)
@@ -1283,17 +1400,24 @@ class ShardedFixedWindowModel:
                 batches.append(words[rows])
                 outs.append(out[rows])
                 continue
-            batches.append(words[rows].contiguous())
-            mine = torch.empty((len(rows), out.shape[1]), dtype=out.dtype,
-                               pin_memory=c.device.type == "cuda")
+            # A gathered copy; pinned for the mapped kernel, which reads
+            # it while it runs (it lives until the wait below).  By value
+            # the launch copies the words into its parameters.
+            pin = c.device.type == "cuda"
+            if pin and mesh_step is mesh_routed_step_mapped:
+                batches.append(torch.empty(words[rows].shape, dtype=words.dtype, pin_memory=True))
+                batches[-1].copy_(words[rows])
+            else:
+                batches.append(words[rows].contiguous())
+            mine = torch.empty((len(rows), out.shape[1]), dtype=out.dtype, pin_memory=pin)
             outs.append(mine)
             spread.append((c, rows, mine))
-        mesh_routed_step_lanes(parts, cards, batches, outs, out_dtype)
+        mesh_step(parts, cards, batches, outs, out_dtype)
         for c, rows, mine in spread:
             if c.device.type == "cuda":
                 torch.cuda.current_stream(c.device).synchronize()  # tpu-lint: disable=torch-host-sync -- the readback of a card whose rows are not one run of `out`, on this model-level call alone: the engine packs a batch a card and never comes here
             out[rows] = mine
-        return counts, out
+        return out
 
     def step_counters_unique_routed(
         self, counts, out_dtype: str, batch: DeviceBatch
@@ -1319,12 +1443,13 @@ class ShardedCounterEngine(CounterEngine):
     engines share one, so a stall on one card holds up no other engine),
     its own pool of stagings (pinned on its device) and its own event a
     submission.  A mesh of one group serves as one table (one staging,
-    one K6 launch).  Over several groups a chunk packs one int32[rows, 4,
-    cap] batch a card -- the rows of every bank the card holds -- and
-    ONE host call (mesh_routed_step_lanes, or mesh_routed_step past 128
-    lanes a card) launches K6's card form on every card's stream and
-    records each card's event; the readback is taken once every card's
-    event has fired.  Only the routing is per bank, as the JAX host
+    one K6 launch, by value or mapped).  Over several groups a chunk
+    packs one int32[rows, 4, cap] batch a card -- the rows of every bank
+    the card holds -- and ONE host call (mesh_routed_step_lanes, or
+    mesh_routed_step_mapped past 128 lanes a card) launches K6's card
+    form on every card's stream, reading each card's staged batch and
+    writing its readback in pinned memory, and records each card's event;
+    the readback is taken once every card's event has fired.  Only the routing is per bank, as the JAX host
     routes.  The home card's stream is ``_stream``, the other cards'
     ``_more_streams``."""
 
@@ -1409,7 +1534,7 @@ class ShardedCounterEngine(CounterEngine):
             return st
 
     def _staging_size(self, c: int = 0):
-        """A card's routed upload is int32[rows, 4, cap] (rows: the banks
+        """A card's staged batch is int32[rows, 4, cap] (rows: the banks
         it holds) and its readback up to 4 B per routed lane, where cap
         is at most the bucket of min(max_batch, slots_per_bank): one bank
         holds at most slots_per_bank distinct slots (the warmup skew
@@ -1501,7 +1626,9 @@ class ShardedCounterEngine(CounterEngine):
                 lambda counts, words, out: m.step_counters_unique_routed_lanes(
                     counts, dt, words, out
                 ),
-                lambda counts, packed: m.step_counters_unique_routed_packed(counts, dt, packed),
+                lambda counts, words, out: m.step_counters_unique_routed_mapped(
+                    counts, dt, words, out
+                ),
             )
         else:
             handle = self._serve_cards(stagings, cap, dt)
@@ -1520,11 +1647,11 @@ class ShardedCounterEngine(CounterEngine):
 
     def _serve_cards(self, stagings, cap: int, dt: str) -> list:
         """K6's card form on every card's staged batch in ONE host call:
-        by value where every card's rows x cap fit a launch's 128 lanes
-        (the readback written into each staging by its kernel), else the
-        device form (each card's upload, launch and readback copy).  Each
-        card's event is recorded after its last work.  Returns the
-        handle: (staging, readback) a card."""
+        by value where every card's rows x cap fit a launch's 128 lanes,
+        else mapped (each card's kernel reads its staged batch through the
+        device alias); either way the kernel writes the readback into each
+        staging.  Each card's event is recorded after its launch.  Returns
+        the handle: (staging, readback) a card."""
         m = self.model
         parts = m.parts(self._counts)
         dtype = fw.OUT_DTYPES[dt]
@@ -1533,18 +1660,9 @@ class ShardedCounterEngine(CounterEngine):
         readbacks = [st.readback[: r * cap * dtype.itemsize].view(dtype).view(r, cap)
                      for st, r in zip(stagings, self._held_rows)]
         events = [st.event for st in stagings]
-        if lanes_by_value(max(self._held_rows), cap):
-            mesh_routed_step_lanes(parts, self._cards, words, readbacks, dt, events)
-        else:
-            packed, outs = [], []
-            for c, (card, r) in enumerate(zip(self._cards, self._held_rows)):
-                # Made on the card's stream, which alone uses it.
-                with self._on_card(c):
-                    buf = torch.empty(r * 5 * cap, dtype=torch.int32, device=card.device)
-                packed.append(buf[: r * 4 * cap].view(r, 4, cap))
-                outs.append(buf[r * 4 * cap :].view(dtype)[: r * cap].view(r, cap))
-            mesh_routed_step(parts, self._cards, packed, outs, dt, uploads=words,
-                             readbacks=readbacks, events=events)
+        step = (mesh_routed_step_lanes if lanes_by_value(max(self._held_rows), cap)
+                else mesh_routed_step_mapped)
+        step(parts, self._cards, words, readbacks, dt, events)
         return list(zip(stagings, readbacks))
 
     def warmup_probe_slots(self, bucket: int) -> np.ndarray:
@@ -1577,7 +1695,8 @@ class ShardedCounterEngine(CounterEngine):
 
     def read_slots(self, slots) -> dict:
         """The counters at the global `slots`, by group, each group's
-        gather on its own stream."""
+        gather on the stream of the card that holds it (every group of a
+        card shares that card's one stream)."""
         parts = self.model.parts(self._counts)
         got = np.zeros(len(np.asarray(slots).reshape(-1)), dtype=np.uint32)
         for g, sel, row, col in self._slot_groups(slots):
@@ -1602,8 +1721,9 @@ class ShardedCounterEngine(CounterEngine):
         """Flat uint32 copy in GLOBAL slot order: bank b's position l
         holds global slot l * num_banks + b, so the (num_banks,
         slots_per_bank) layout transposes back.  Each group is copied on
-        its own stream (state_to_numpy waits for that stream only), so a
-        group's copy never queues behind another group's stream."""
+        the stream of the card that holds it (state_to_numpy waits for
+        that stream only): the groups of one card share its one stream, and
+        a copy never queues behind another card's stream."""
         hosts = []
         for g, part in enumerate(self.model.parts(self._counts)):
             with self._on_group(g):

@@ -3,8 +3,9 @@
 A served chunk of at most 128 padded lanes (banks x cap) goes to K1 /
 K6 by value: the host words ride in the launch and the kernel writes the
 readback into pinned host memory, so the engine makes no upload and no
-readback copy.  The batch's shape alone picks the form
-(``lanes_by_value``).  On the CPU the by-value wrappers run the same
+readback copy; a wider chunk takes their mapped form
+(tests/test_torch_mapped_step.py).  The batch's shape alone picks the
+form (``lanes_by_value``).  On the CPU the by-value wrappers run the same
 plain versions as the device form, into the caller's `out`, so these
 tests hold:
 
@@ -15,7 +16,7 @@ tests hold:
 - CounterEngine and ShardedCounterEngine (device="cpu") against the JAX
   engines over a served sequence that crosses a window and saturates,
   with every chunk taking the by-value form, and a wide chunk the
-  device form;
+  mapped form;
 - two submissions in flight completed out of order, each reading its
   own readback.
 """
@@ -211,12 +212,16 @@ def test_lanes_wrappers_refuse_what_the_kernel_does_not_take():
 # -- the engines ------------------------------------------------------------
 
 
-def _count_forms(engine, lanes_name, packed_name):
-    """Wrap the model's two serving entries to count the chunks each
-    form served."""
+def _count_forms(engine, lanes_name, packed_name, mapped_name=None):
+    """Wrap the model's serving entries to count the chunks each form
+    served."""
     forms = {"lanes": 0, "device": 0}
+    named = [("lanes", lanes_name), ("device", packed_name)]
+    if mapped_name is not None:
+        forms["mapped"] = 0
+        named.append(("mapped", mapped_name))
     m = engine.model
-    for form, name in (("lanes", lanes_name), ("device", packed_name)):
+    for form, name in named:
         orig = getattr(m, name)
 
         def spy(*args, _orig=orig, _form=form):
@@ -270,11 +275,14 @@ def test_engine_serves_by_value_like_jax():
 
 
 def test_wide_chunk_takes_the_device_form():
-    """200 distinct lanes pad to 256, past the by-value budget: upload,
-    kernel, readback copy -- the same answers."""
+    """200 distinct lanes pad to 256, past the by-value budget: the
+    mapped form (the kernel reads the staged batch in place; the name is
+    from before it, when upload, kernel and readback copy served such a
+    chunk) -- the same answers, and never the device form."""
     je = JaxEngine(num_slots=512, buckets=(8, 128, 256))
     te = CounterEngine(num_slots=512, buckets=(8, 128, 256), device="cpu")
-    forms = _count_forms(te, "step_counters_unique_lanes", "step_counters_unique_packed")
+    forms = _count_forms(te, "step_counters_unique_lanes", "step_counters_unique_packed",
+                         "step_counters_unique_mapped")
     rng = np.random.default_rng(2)
     for n in (200, 100):
         raw = dict(
@@ -285,7 +293,7 @@ def test_wide_chunk_takes_the_device_form():
             shadow=np.zeros(n, bool),
         )
         _assert_same(je.step(JaxHostBatch(**raw)), te.step(HostBatch(**raw)), f"n={n}")
-    assert forms == {"lanes": 1, "device": 1}
+    assert forms == {"lanes": 1, "device": 0, "mapped": 1}
     np.testing.assert_array_equal(te.export_counts(), je.export_counts())
 
 

@@ -335,32 +335,39 @@ def test_routed_width_is_below_the_batch():
 def test_warmup_reaches_every_routed_shape():
     """The cache's warmup drives every (bucket, readback type) routed
     shape through the all-one-bank probes -- 8 banks x cap 8 in K6's
-    by-value form, cap 32 in its device form -- and leaves the counters
+    by-value form, cap 32 in its mapped form -- and leaves the counters
     and the slot table untouched."""
     buckets = (8, 32)
     te = ShardedCounterEngine(make_mesh(8, "cpu"), num_slots=1 << 10, buckets=buckets)
     cache = CudaRateLimitCache(te)
     seen = []
     m = te.model
-    by_value, packed_step = m.step_counters_unique_routed_lanes, m.step_counters_unique_routed_packed
+    by_value, mapped = m.step_counters_unique_routed_lanes, m.step_counters_unique_routed_mapped
+    packed_step = m.step_counters_unique_routed_packed
 
     def spy_lanes(counts, out_dtype, words, out):
         seen.append((out_dtype, words.shape[2], "lanes"))
         return by_value(counts, out_dtype, words, out)
+
+    def spy_mapped(counts, out_dtype, words, out):
+        seen.append((out_dtype, words.shape[2], "mapped"))
+        return mapped(counts, out_dtype, words, out)
 
     def spy_packed(counts, out_dtype, packed):
         seen.append((out_dtype, packed.shape[2], "device"))
         return packed_step(counts, out_dtype, packed)
 
     m.step_counters_unique_routed_lanes = spy_lanes
+    m.step_counters_unique_routed_mapped = spy_mapped
     m.step_counters_unique_routed_packed = spy_packed
     try:
         cache.warmup()
     finally:
         cache.close()
-    for bucket, form in zip(buckets, ("lanes", "device")):
+    for bucket, form in zip(buckets, ("lanes", "mapped")):
         for dt in ("uint8", "uint16", ""):
             assert (dt, bucket, form) in seen, sorted(set(seen))
+    assert not [s for s in seen if s[2] == "device"], sorted(set(seen))
     assert not te.export_counts().any()
     assert len(te.slot_table) == 0
     # Staging sized for the widest routed shape: num_banks x 4 x cap.

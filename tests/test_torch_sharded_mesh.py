@@ -196,7 +196,7 @@ def test_engine_over_cards_matches_jax(mesh, buckets):
     """The routed serving engine over 8 banks in groups (one staging and
     one K6 card launch a card a chunk, every card in one mesh call)
     against JAX's sharded engine (tpu-sharded) over a seeded chunk stream
-    -- chunks by value and, with wide buckets, in the device form: every
+    -- chunks by value and, with wide buckets, in the mapped form: every
     decision field, export_counts() in global order and the per-bank lane
     counts."""
     je = JaxShardedEngine(jax_make_mesh(8), num_slots=NUM_SLOTS, buckets=buckets)
@@ -277,8 +277,8 @@ def test_served_chunk_over_four_cards_is_one_ctypes_call(monkeypatch):
     card's path) is ONE ctypes call of rl_mesh_routed_step_lanes carrying
     each card's device, stream, tables, words, readback and event,
     counted as one launch of K6's card form by value a card; a chunk past
-    128 lanes a card is one call of rl_mesh_routed_step with each card's
-    upload and readback."""
+    128 lanes a card is one call of rl_mesh_routed_step_mapped with each
+    card's staged words and readback (no upload, no device buffer)."""
     calls = _recorder(monkeypatch, read=lambda a: (
         _read(a[1], ctypes.c_int, 4), _read(a[2], ctypes.c_void_p, 4),
         _read(a[3], ctypes.c_void_p, 4), _read(a[4], ctypes.c_int, 4)))
@@ -297,12 +297,12 @@ def test_served_chunk_over_four_cards_is_one_ctypes_call(monkeypatch):
         return real
 
     by_card("mesh_routed_step_lanes", sh.launch_mesh_routed_lanes)
-    by_card("mesh_routed_step", sh.launch_mesh_routed)
+    by_card("mesh_routed_step_mapped", sh.launch_mesh_routed_mapped)
     parts = engine.model.parts(engine._counts)
     # 12 lanes over every bank (cap 8, by value); 70 lanes all in bank 0
-    # (cap 128: 2 banks x 128 lanes a card, the device form).
+    # (cap 128: 2 banks x 128 lanes a card, the mapped form).
     for slots, entry, kernel in ((np.arange(12), sh.MESH_ROUTED_LANES, sh.K6_CARD_LANES),
-                                 (np.arange(70) * 8, sh.MESH_ROUTED, sh.K6_CARD)):
+                                 (np.arange(70) * 8, sh.MESH_ROUTED_MAPPED, sh.K6_CARD_MAPPED)):
         calls.clear()
         before, mesh0 = dict(kernels.launches), dict(kernels.mesh_calls)
         width = len(slots)
@@ -382,18 +382,19 @@ def test_a_failed_card_names_itself(monkeypatch, code, sticky):
 
 def test_a_one_group_mesh_keeps_its_one_table_entries(monkeypatch):
     """A mesh of one group (the default on one card) serves and steps as
-    one table: the engine's chunk is one call of K6's one-table entry and
-    the forward step one of K7's group entry, no mesh entry, no card
-    form."""
+    one table: the engine's chunk is one call of K6's one-table entry (by
+    value, or mapped past 128 lanes) and the forward step one of K7's
+    group entry, no mesh entry, no card form."""
     model = ShardedFixedWindowModel(NUM_SLOTS, make_mesh(8, "cpu"))
     seen = []
-    for name in ("sharded_routed_step", "sharded_routed_step_lanes", "sharded_general_step",
-                 "mesh_routed_step", "mesh_routed_step_lanes", "mesh_card_step"):
+    for name in ("sharded_routed_step", "sharded_routed_step_lanes", "sharded_routed_step_mapped",
+                 "sharded_general_step", "mesh_routed_step", "mesh_routed_step_lanes",
+                 "mesh_routed_step_mapped", "mesh_card_step"):
         real = getattr(sh, name)
         monkeypatch.setattr(sh, name, lambda *a, _n=name, _r=real, **k: seen.append(_n) or _r(*a, **k))
     engine = ShardedCounterEngine(model.mesh, num_slots=4096, buckets=(8, 64))
     # 5 lanes by value; 60 lanes all in bank 0 (8 banks x cap 64: the
-    # device form).
+    # mapped form).
     for slots in (np.arange(5), np.arange(60) * 8):
         width = len(slots)
         engine.step(HostBatch(slots=slots.astype(np.int32),
@@ -404,7 +405,8 @@ def test_a_one_group_mesh_keeps_its_one_table_entries(monkeypatch):
                        torch.ones(8, dtype=torch.int32), torch.full((8,), 3, dtype=torch.int32),
                        torch.zeros(8, dtype=torch.bool), torch.zeros(8, dtype=torch.bool))
     model.step(model.init_state(), b)
-    assert seen == ["sharded_routed_step_lanes", "sharded_routed_step", "sharded_general_step"]
+    assert seen == ["sharded_routed_step_lanes", "sharded_routed_step_mapped",
+                    "sharded_general_step"]
     assert engine._card_streams() == (engine._stream,)
 
 
