@@ -35,16 +35,17 @@ Phases, one line each; any failure exits non-zero:
    read and readback written through their device aliases; a pageable
    staging and words on the card refused) and in the device form for N
    in DEVICE_FORM_SIZES, at 2^20 and 2^24 slots; K4 and K5
-   by value for N in LANES_SIZES at 2^18 and 2^24 slots over every
-   clock step, against their plain versions and their device forms;
+   by value for N in LANES_SIZES and mapped for N in DEVICE_FORM_SIZES
+   (a pageable staging and words on the card refused) at 2^18 and 2^24
+   slots over every clock step, against their plain versions and their
+   device forms;
    profiler device times at 4096 (the by-value forms at their served
    width), beside the launch floor (a one-element in-place torch add),
    with min / median / max per call for every kernel, K1, K4, K5 and K6
    in each form at the served widths, and K2 at 16384; then the served
-   chunk: engine._device_submit + step_complete at 1, 8 and 13 lanes on
-   one table, on 8 banks, on a sliding-window and on a GCRA table, and
-   at 256, 1024 and 4096 lanes on one table and on 8 banks,
-   SERVED_CHUNKS chunks under torch.profiler -- per chunk the device
+   chunk: engine._device_submit + step_complete at 1, 8, 13, 256, 1024
+   and 4096 lanes on one table, on 8 banks, on a sliding-window and on a
+   GCRA table, SERVED_CHUNKS chunks under torch.profiler -- per chunk the device
    activities (one: the by-value or the mapped kernel), memcpys (none), device busy
    time and span from the first start to the last end -- and as many
    again without it for the host microseconds; and the host mirror
@@ -75,9 +76,11 @@ Phases, one line each; any failure exits non-zero:
    GCRA key; on the fixed-window, the GCRA and the sliding-window key
    every launch of the one-descriptor requests (and of the burst) takes
    the by-value form (K1, K5, K4), 50 requests make 50 launches and no
-   memcpy on the card, and one 200-descriptor request takes K1's mapped
-   form on the fixed-window key (one launch a chunk, no other form, no
-   memcpy under the profiler) and the device form on the others;
+   memcpy on the card, and one 200-descriptor request takes the mapped
+   form on each key (K1, K5, K4: one launch a chunk, no other form, no
+   memcpy under the profiler); then the algorithm models' step on device
+   tensors (K4's and K5's device form, the JAX-named API), one launch
+   each, exact;
 7. sharded served: the runner with BACKEND_TYPE=cuda-sharded, 2^20
    slots over a mesh of 8 banks on the card -- the 6th hit on a 5/min
    key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
@@ -298,19 +301,17 @@ HOST_LINK_BYTES_PER_S = 64e9
 
 SIZES = (8, 100, 128, 4096)
 # The serving kernels in each form: by value up to 128 lanes (banks x
-# cap); past it K1 and K6 mapped (and in the device form, the JAX-named
-# API), K4 and K5 in the device form.
+# cap); past it mapped (and in the device form, the JAX-named API).
 LANES_SIZES = (1, 8, 13, 16, 100, 128)
 DEVICE_FORM_SIZES = (129, 256, 1024, 4096)
 # The served chunk: lanes per chunk, and chunks per pass; and the widths
-# past the by-value budget, on one table and on 8 banks (K1's and K6's
-# mapped form).
+# past the by-value budget (the mapped forms).
 SERVED_WIDTHS = (1, 8, 13)
 WIDE_SERVED_WIDTHS = (256, 1024, 4096)
 SERVED_CHUNKS = 200
 # One served request this wide is a chunk past the by-value budget on one
-# table (256 padded lanes) and on 8 banks (cap 32 or more): K1's and K6's
-# mapped form serves it, the device form of K4 and K5.
+# table (256 padded lanes) and on 8 banks (cap 32 or more): the mapped
+# form of K1, K4, K5 or K6 serves it.
 WIDE_DESCRIPTORS = 200
 # Wide requests in one profiled window of served_forms: the profiler now
 # and then drops the activities of a short capture.
@@ -633,14 +634,18 @@ def check_algorithms(torch, sw, gcra, kernels, dev):
     """K4 and K5 against their plain versions, several steps each with
     the clock advancing (ALGO_STEPS): the device form for N in SIZES at
     2^18 slots and 4096 at 2^24; the by-value form (host words, readback
-    into mapped pinned memory) for N in LANES_SIZES at 2^18 and 2^24
-    slots, also against the device form on a cloned state.  A pageable
-    readback raises KernelError, one on the card ValueError, and the
+    into mapped pinned memory) for N in LANES_SIZES and the mapped form
+    (pinned words read and readback written through their device
+    aliases) for N in DEVICE_FORM_SIZES, at 2^18 and 2^24 slots, also
+    against the device form on a cloned state.  A pageable readback
+    raises KernelError, one on the card ValueError (both forms), pageable
+    words KernelError and words on the card ValueError (mapped), and the
     next launch still runs.  Returns max |err| by kernel."""
     rng = np.random.default_rng(2025)
     steps = {sw.K4: (sw.sw_serve_step, sw._sw_step_plain, "sw"),
              gcra.K5: (gcra.gcra_serve_step, gcra._gcra_step_plain, "gcra")}
-    err = {name: 0 for name in (sw.K4, gcra.K5, sw.K4_LANES, gcra.K5_LANES)}
+    err = {name: 0 for name in (sw.K4, gcra.K5, sw.K4_LANES, gcra.K5_LANES, sw.K4_MAPPED,
+                                gcra.K5_MAPPED)}
 
     def note(name, a, b, what):
         # On a's device: a state (up to 200 MB) never leaves the card.
@@ -662,17 +667,21 @@ def check_algorithms(torch, sw, gcra, kernels, dev):
                     note(name, kernel(sk, pk, now), plain(sp, pk, now), "out " + what)
                     note(name, sk, sp, "state " + what)
 
-    by_value = {
-        sw.K4_LANES: (sw.sw_serve_step_lanes, sw.sw_serve_step, sw._sw_step_plain, "sw", (2,)),
-        gcra.K5_LANES: (
-            gcra.gcra_serve_step_lanes, gcra.gcra_serve_step, gcra._gcra_step_plain, "gcra", ()
-        ),
+    host_forms = {
+        sw.K4_LANES: (sw.sw_serve_step_lanes, sw.sw_serve_step, sw._sw_step_plain, "sw", (2,),
+                      LANES_SIZES),
+        gcra.K5_LANES: (gcra.gcra_serve_step_lanes, gcra.gcra_serve_step, gcra._gcra_step_plain,
+                        "gcra", (), LANES_SIZES),
+        sw.K4_MAPPED: (sw.sw_serve_step_mapped, sw.sw_serve_step, sw._sw_step_plain, "sw", (2,),
+                       DEVICE_FORM_SIZES),
+        gcra.K5_MAPPED: (gcra.gcra_serve_step_mapped, gcra.gcra_serve_step,
+                         gcra._gcra_step_plain, "gcra", (), DEVICE_FORM_SIZES),
     }
-    for name, (lanes, device, plain, algo, rows) in by_value.items():
+    for name, (lanes, device, plain, algo, rows, sizes) in host_forms.items():
         for ns in (ALGO_SLOTS, BIG_SLOTS):
-            pool = rng.choice(ns, 2 * max(LANES_SIZES), replace=False)
+            pool = rng.choice(ns, 2 * max(sizes), replace=False)
             base = _algo_state(torch, rng, algo, ns, pool, dev)
-            for n in LANES_SIZES:
+            for n in sizes:
                 sl, sd, sp = base.clone(), base.clone(), base.clone()
                 for dt in ALGO_STEPS:
                     now = ALGO_NOW + dt
@@ -691,9 +700,11 @@ def check_algorithms(torch, sw, gcra, kernels, dev):
         # No fallback: a pageable readback has no device alias and raises;
         # one on the card is refused before the launch.
         state = torch.zeros(({"sw": 3, "gcra": 2}[algo], 64), dtype=torch.int32, device=dev)
-        words = torch.zeros((5, 8), dtype=torch.int32)
-        words[0] = 64 + torch.arange(8)  # distinct pads past the table
-        words[4] = 1
+        pageable = torch.zeros((5, 8), dtype=torch.int32)
+        pageable[0] = 64 + torch.arange(8)  # distinct pads past the table
+        pageable[4] = 1
+        mapped = name in (sw.K4_MAPPED, gcra.K5_MAPPED)
+        words = pageable.pin_memory() if mapped else pageable
         try:
             lanes(state, words, ALGO_NOW, torch.zeros((*rows, 8), dtype=torch.int32))
             fail(f"{name}: a pageable readback buffer did not raise KernelError")
@@ -704,6 +715,18 @@ def check_algorithms(torch, sw, gcra, kernels, dev):
             fail(f"{name}: a readback buffer on the card did not raise ValueError")
         except ValueError:
             pass
+        if mapped:
+            # The mapped form reads its words in place: pageable words
+            # have no device alias either, and words on the card are
+            # refused before the launch.
+            for what, w, exc in (("pageable words", pageable, kernels.KernelError),
+                                 ("words on the card", pageable.to(dev), ValueError)):
+                try:
+                    lanes(state, w, ALGO_NOW,
+                          torch.zeros((*rows, 8), dtype=torch.int32, pin_memory=True))
+                    fail(f"{name}: the mapped form took {what}")
+                except exc:
+                    pass
         out = torch.full((*rows, 8), 7, dtype=torch.int32, pin_memory=True)
         lanes(state, words, ALGO_NOW, out)
         torch.cuda.synchronize()
@@ -1004,15 +1027,16 @@ def bound(nbytes, ops):
     return max(b_bytes, b_ops), "bytes" if b_bytes >= b_ops else "operations"
 
 
-def mapped_bound(lanes: int, out_bytes: int, live: int, ops: int):
+def mapped_bound(lanes: int, in_bytes: int, out_bytes: int, dev_bytes: int, ops: int):
     """(ms, what bounds it) of a mapped launch over `lanes` lanes: the
     larger of its host-link time and bound() of its device-memory bytes
-    (the gather and scatter of the `live` lanes) and operations.  The
-    link is full duplex: the words (16 B a lane) cross toward the card
-    while the readback (`out_bytes` a lane) crosses back, each direction
-    at HOST_LINK_BYTES_PER_S, so the busier direction sets the time."""
-    link_ms = max(16, out_bytes) * lanes / HOST_LINK_BYTES_PER_S * 1e3
-    dev_ms, dev_by = bound(8 * live, ops)
+    (`dev_bytes`: the gather and scatter of the live lanes) and
+    operations.  The link is full duplex: the words (`in_bytes` a lane:
+    16 for K1, K4 and K6, 20 for K5) cross toward the card while the
+    readback (`out_bytes` a lane) crosses back, each direction at
+    HOST_LINK_BYTES_PER_S, so the busier direction sets the time."""
+    link_ms = max(in_bytes, out_bytes) * lanes / HOST_LINK_BYTES_PER_S * 1e3
+    dev_ms, dev_by = bound(dev_bytes, ops)
     return (link_ms, "bytes") if link_ms >= dev_ms else (dev_ms, dev_by)
 
 
@@ -1035,13 +1059,15 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
     """Median ms of each kernel and its plain version at 4096 lanes and
     2^20 slots (K4, K5: 2^18, the bank default; the by-value forms of K1,
     K4, K5 and K6 at the widths they serve, 8 lanes and 8 banks x cap
-    8), plus the bound of each (larger of bytes over HBM rate and
+    8; the mapped forms of K1, K4 and K5 at 4096 lanes, K6's at 8 banks
+    x cap 512), plus the bound of each (larger of bytes over HBM rate and
     operations over the 32-bit peak), from this run's inputs.  Also
     returns, as `extra`: the launch floor (a one-element in-place torch
     add, which the port never calls), the per-call device times of every
     kernel over 50 calls (for their spread), K1, K4, K5 and K6 at the
-    served widths in the other form and by value at 128 lanes, each with
-    its bound, and K2 at 16384 lanes."""
+    served widths in the other form, by value at 128 lanes and (K1, K4,
+    K5) mapped at 256 and 1024, each with its bound, and K2 at 16384
+    lanes."""
     rng = np.random.default_rng(7)
     n, ns = 4096, NUM_SLOTS
     table = _table(torch, rng, ns, dev)
@@ -1130,7 +1156,7 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         lambda: fw.fw_unique_step_mapped(t1, words4096, out4096, ""),
         lambda: fw._unique_step_plain(t2, pk, ""),
         0, 0,
-        mapped_bound(n, 4, n_live_k1, 8 * n),
+        mapped_bound(n, 16, 4, 8 * n_live_k1, 8 * n),
     )
     for w in (256, 1024):
         pkw = pk[:, :w].contiguous()
@@ -1139,7 +1165,7 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         n_live_w = int(((pkw[0] >= 0) & (pkw[0] < ns)).sum().item())
         served[f"{fw.K1_MAPPED} at {w} lanes"] = (
             device_samples(lambda: fw.fw_unique_step_mapped(t1, wordsw, outw, ""), iters=50),
-            mapped_bound(w, 4, n_live_w, 8 * w),
+            mapped_bound(w, 16, 4, 8 * n_live_w, 8 * w),
         )
     row(
         prefix_cuda.KERNEL,
@@ -1259,6 +1285,34 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         bound(*gcra_bound(apk128)),
     )
 
+    def algo_mapped_bound(p, work, in_bytes, out_bytes):
+        """mapped_bound of K4 or K5 on `p`: `work`'s device bytes less
+        the rows in and the readback out, which cross the host link."""
+        w = p.shape[1]
+        nbytes, ops = work(p)
+        return mapped_bound(w, in_bytes, out_bytes, nbytes - (in_bytes + out_bytes) * w, ops)
+
+    # K4 and K5 mapped at 4096 lanes (their rows), and at the served
+    # widths past the by-value budget for the spread: words and readback
+    # in pinned memory, crossing the host link (K4 16 B a lane in, 8 out;
+    # K5 20 in, 4 out).
+    for w in (256, 1024, n):
+        apkw = apk[:, :w].contiguous()
+        wordsw = _pinned(torch, apkw)
+        sw_outw = torch.empty((2, w), dtype=torch.int32, pin_memory=True)
+        g_outw = torch.empty(w, dtype=torch.int32, pin_memory=True)
+        k4 = (lambda: sw.sw_serve_step_mapped(s1, wordsw, ALGO_NOW, sw_outw),
+              lambda: sw._sw_step_plain(s2, apkw, ALGO_NOW),
+              algo_mapped_bound(apkw, sw_bound, 16, 8))
+        k5 = (lambda: gcra.gcra_serve_step_mapped(g1, wordsw, ALGO_NOW, g_outw),
+              lambda: gcra._gcra_step_plain(g2, apkw, ALGO_NOW),
+              algo_mapped_bound(apkw, gcra_bound, 20, 4))
+        for name, (k, p, b) in ((sw.K4_MAPPED, k4), (gcra.K5_MAPPED, k5)):
+            if w == n:
+                row(name, k, p, 0, 0, b)
+            else:
+                served[f"{name} at {w} lanes"] = (device_samples(k, iters=50), b)
+
     # The sharded kernels over BANKS banks of a 2^20-slot table: K6 on
     # uniformly routed lanes, K7 on the same duplicate lanes as K3.
     bt, hot = _banked_table(torch, rng, ns, dev)
@@ -1299,7 +1353,7 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
         lambda: sh.sharded_routed_step_mapped(b1, rwords, rout, ""),
         lambda: sh._routed_step_plain(b2, rpk, ""),
         0, 0,
-        mapped_bound(routed, 4, r_live, 8 * routed),
+        mapped_bound(routed, 16, 4, 8 * r_live, 8 * routed),
     )
     row(
         sh.K7,
@@ -1323,23 +1377,21 @@ def time_kernels(torch, fw, prefix_cuda, prefix_plain, sw, gcra, sh, dev):
 
 
 def served_cells():
-    """The (engine, lanes) cells of served_chunks: SERVED_WIDTHS on every
-    engine, and WIDE_SERVED_WIDTHS (past the by-value budget: K1's and
-    K6's mapped form) on one table and on BANKS banks."""
-    cells = [(label, w) for label in ("one table", f"{BANKS} banks", "sliding window", "GCRA")
-             for w in SERVED_WIDTHS]
-    return cells + [(label, w) for label in ("one table", f"{BANKS} banks")
-                    for w in WIDE_SERVED_WIDTHS]
+    """The (engine, lanes) cells of served_chunks: SERVED_WIDTHS and
+    WIDE_SERVED_WIDTHS (past the by-value budget: the mapped form of K1,
+    K6, K4 and K5) on every engine."""
+    return [(label, w) for label in ("one table", f"{BANKS} banks", "sliding window", "GCRA")
+            for w in SERVED_WIDTHS + WIDE_SERVED_WIDTHS]
 
 
 def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS, cells=None):
     """Drive engine._device_submit + step_complete for one chunk of
     distinct in-table lanes (hits 0, so every chunk answers the same: all
     OK, and on the fixed-window engines afters 0) in each cell of `cells`
-    (default served_cells(): 1, 8 and 13 lanes on one table and on BANKS
-    banks of 2^20 slots, and on a sliding-window and a GCRA table of 2^18
-    slots -- dividers of 60 s in the dedup, the clock at ALGO_NOW -- and
-    256, 1024 and 4096 lanes on the first two), `n` chunks each in two
+    (default served_cells(): 1, 8, 13, 256, 1024 and 4096 lanes on one
+    table and on BANKS banks of 2^20 slots, and on a sliding-window and a
+    GCRA table of 2^18 slots -- dividers of 60 s in the dedup, the clock
+    at ALGO_NOW), `n` chunks each in two
     passes.  The first runs under
     torch.profiler (device activities only); a marker kernel on the
     engine stream brackets it, so its activities split into chunks.  The
@@ -1982,11 +2034,10 @@ def served_forms(kernels, device_form, by_value, wide_form, before, torch, reque
     on `key` must make no memcpy; then one request of WIDE_DESCRIPTORS
     descriptors on `wide_key` (a 5/unit rule of the same kernel; a
     chunk past the by-value budget), WIDE_PROFILED of them under
-    torch.profiler, must take `wide_form`: where that is a mapped form
-    (K1, K6), exactly one launch of it a chunk of `engines` (the runner's
-    banks), none in any other form, and no memcpy in a capture that saw
-    a kernel; where it is the device form (K4, K5), at least one launch
-    of it.  Returns (launches by form of the
+    torch.profiler, must take `wide_form`, the kernel's mapped form:
+    exactly one launch of it a chunk of `engines` (the runner's banks),
+    none in any other form, and no memcpy in a capture that saw a
+    kernel.  Returns (launches by form of the
     narrow requests, kernels and memcpys over 50 requests, launches by
     form of the wide request with its chunks, kernels and memcpys)."""
     acts = served_activity(torch, kernels, by_value, request, key)
@@ -2003,11 +2054,7 @@ def served_forms(kernels, device_form, by_value, wide_form, before, torch, reque
         )
     wide = wide_capture(torch, kernels, request, wide_key, WIDE_DESCRIPTORS, engines, forms,
                         "wide", what)
-    if wide_form == device_form:
-        if wide[device_form] < 1:
-            fail(f"{what}: the {WIDE_DESCRIPTORS}-descriptor request took no device form: {wide}")
-    else:
-        check_mapped(wide, wide_form, forms, 1, what)
+    check_mapped(wide, wide_form, forms, 1, what)
     return narrow, acts, wide
 
 
@@ -2084,16 +2131,41 @@ def served_phase(torch, kernels, fw, sw, gcra):
             )
             for key, wide_key, device_form, by_value, wide_form in (
                 ("foo", "burst", fw.K1, fw.K1_LANES, fw.K1_MAPPED),
-                ("tb", "tb", gcra.K5, gcra.K5_LANES, gcra.K5),
-                ("slide", "slide", sw.K4, sw.K4_LANES, sw.K4),
+                ("tb", "tb", gcra.K5, gcra.K5_LANES, gcra.K5_MAPPED),
+                ("slide", "slide", sw.K4, sw.K4_LANES, sw.K4_MAPPED),
             )
         }
         faults = fault_free(runner, "served")
+    algorithm_device_steps(torch, kernels, sw, gcra, torch.device("cuda", 0))
     launches = dict(kernels.launches)
-    for name in (fw.K1_MAPPED, fw.K1_LANES, sw.K4, sw.K4_LANES, gcra.K5, gcra.K5_LANES):
+    for name in (fw.K1_MAPPED, fw.K1_LANES, sw.K4, sw.K4_LANES, sw.K4_MAPPED, gcra.K5,
+                 gcra.K5_LANES, gcra.K5_MAPPED):
         if launches.get(name, 0) < 1:
             fail(f"served path did not launch {name}: {launches}")
     return launches, lanes, us_per_req, us_per_algo_req, shadow_moved, forms, faults
+
+
+def algorithm_device_steps(torch, kernels, sw, gcra, dev):
+    """The algorithm models' serving step on device tensors
+    (step_serve_packed, the JAX package's API beside the engine's staged
+    forms) at the bank default of 2^18 slots over 4096 lanes: one launch
+    of K4's and of K5's device form each, exact against the plain
+    version, state too."""
+    rng = np.random.default_rng(11)
+    pool = rng.choice(ALGO_SLOTS, 2 * 4096, replace=False)
+    for name, model, plain, algo in (
+        (sw.K4, sw.SlidingWindowModel(ALGO_SLOTS, device=dev), sw._sw_step_plain, "sw"),
+        (gcra.K5, gcra.GcraModel(ALGO_SLOTS, device=dev), gcra._gcra_step_plain, "gcra"),
+    ):
+        state = _algo_state(torch, rng, algo, ALGO_SLOTS, pool, dev)
+        plain_state = state.clone()
+        pk = _algo_packed(torch, rng, 4096, ALGO_SLOTS, pool, dev)
+        got = device_tensor_step(
+            torch, kernels, lambda: model.step_serve_packed(state, pk, ALGO_NOW)[1], {name: 1},
+            f"the {algo} model's device-tensor step")
+        if (u32_max_abs_err(got, plain(plain_state, pk, ALGO_NOW))
+                or u32_max_abs_err(state, plain_state)):
+            fail(f"the {algo} model's device-tensor step disagrees with the plain version")
 
 
 def sharded_served_phase(torch, kernels, sh, dev):
@@ -5709,7 +5781,7 @@ def group_kernel_rows(torch, fw, sh, dev):
         t1, t2 = split(), split()
         row(name, lambda k=kern, t=t1: (k(t), torch.cuda.synchronize())[0],
             lambda p=plain, t=t2: p(t), 16 * routed + 8 * live + 4 * routed, 8 * routed,
-            bounded=mapped_bound(routed, 4, live, 8 * routed) if name == sh.K6_CARD_MAPPED
+            bounded=mapped_bound(routed, 16, 4, 8 * live, 8 * routed) if name == sh.K6_CARD_MAPPED
             else None)
     return rows, errs
 
@@ -6273,9 +6345,13 @@ def main() -> None:
     log(
         f"algorithm kernels: exact for N in {SIZES} at 2^18 slots and 4096 at "
         f"2^24 over {len(ALGO_STEPS)} steps each; by value (readback into mapped "
-        f"pinned memory) for N in {LANES_SIZES} at 2^18 and 2^24 slots over every "
-        f"step, equal to the plain version and to the device form; a pageable "
-        f"readback raises KernelError and a device one ValueError; max|err| {algo_errs}"
+        f"pinned memory) for N in {LANES_SIZES} and mapped (pinned words read and "
+        f"readback written through their device aliases) for N in "
+        f"{DEVICE_FORM_SIZES} at 2^18 and 2^24 slots over every step, equal to the "
+        f"plain version and to the device form; a pageable readback raises "
+        f"KernelError and a device one ValueError, pageable words KernelError and "
+        f"words on the card ValueError in the mapped form, and the next launch "
+        f"runs; max|err| {algo_errs}"
     )
     errs.update(algo_errs)
     sharded_errs = check_sharded(torch, sh, dev)
@@ -6540,6 +6616,9 @@ def main() -> None:
         sw.K4_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/sliding_window.py:71"),
         gcra.K5: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
         gcra.K5_LANES: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
+        sw.K4_MAPPED: ("ratelimit_tpu_torch/csrc/algorithms.cu",
+                       "ratelimit_tpu/models/sliding_window.py:71"),
+        gcra.K5_MAPPED: ("ratelimit_tpu_torch/csrc/algorithms.cu", "ratelimit_tpu/models/gcra.py:87"),
         sh.K6: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_LANES: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),
         sh.K6_MAPPED: ("ratelimit_tpu_torch/csrc/sharded.cu", "ratelimit_tpu/parallel/sharded.py:184"),

@@ -22,14 +22,11 @@ and the batch's shape alone picks the form (``lanes_by_value``).  A chunk
 of at most 128 padded lanes, fixed-window or algorithm, goes by value:
 ONE launch carries the lanes as kernel parameters and its kernel (K1,
 K4 or K5) writes the readback straight into pinned host memory, so the
-chunk is one device activity.  A wider fixed-window chunk (warmup,
-bursts, wide requests) takes K1's mapped form: ONE launch whose kernel
-reads the staged batch through its device alias and writes the readback
-the same way -- again one device activity, with no copy and no device
-buffer.  A wider algorithm chunk still takes the device form of K4 or
-K5: one non_blocking host-to-device copy, the kernel, one non_blocking
-device-to-host copy of its output into pinned readback memory.  Either
-way an event is recorded after the last of it.  ``step_complete`` waits
+chunk is one device activity.  A wider chunk (warmup, bursts, wide
+requests) takes the mapped form of its kernel (K1, K4 or K5): ONE
+launch whose kernel reads the staged batch through its device alias and
+writes the readback the same way -- again one device activity, with no
+copy and no device buffer.  Either way an event is recorded after it.  ``step_complete`` waits
 on that event (never on the whole device) before the host decide pass.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
@@ -459,8 +456,7 @@ STAGING_POOL_CAP = 8
 class _Staging:
     """Host buffers of one in-flight submission: `words` int32 of packed
     batch and `nbytes` of readback (pinned on CUDA, so a by-value or
-    mapped kernel reaches them through their device aliases and the
-    device form's copies are truly asynchronous), plus the event
+    mapped kernel reaches them through their device aliases), plus the event
     recorded after the last device work of the submission.  A staging
     object returns to the engine's free list only after step_complete
     has waited on its event and copied the readback out: until then a
@@ -494,10 +490,11 @@ class CounterEngine:
         forms the engine serves from its staging (by value,
         step_counters_unique_lanes, and mapped,
         step_counters_unique_mapped) OR the generic algorithm
-        protocol: ``step_serve_packed(state, packed, now)``, its
-        by-value ``step_serve_lanes(state, words, now, out)`` and
-        ``readback_shape(n)`` on the device, plus ``lane_counts(out,
-        dedup, hits, limits, now)`` on the host.  A subclass that
+        protocol: the serving step by value, ``step_serve_lanes(state,
+        words, now, out)``, and mapped, ``step_serve_mapped(state,
+        words, now, out)``, and ``readback_shape(n)`` on the device,
+        plus ``lane_counts(out, dedup, hits, limits, now)`` on the
+        host.  A subclass that
         overrides ``_device_submit`` brings its own device step
         (parallel.ShardedCounterEngine).
         `native_table`: None = use the C++ slot table when
@@ -514,7 +511,7 @@ class CounterEngine:
         # device step and the host lane reconstruction.
         self._generic = hasattr(self.model, "lane_counts")
         needs = (
-            ("step_serve_packed", "step_serve_lanes", "readback_shape")
+            ("step_serve_lanes", "step_serve_mapped", "readback_shape")
             if self._generic
             else ("step_counters_unique_lanes", "step_counters_unique_mapped")
         )
@@ -525,7 +522,7 @@ class CounterEngine:
                 "model must provide the saturating unique-slot serving "
                 "step (step_counters_unique_lanes and "
                 "step_counters_unique_mapped) or the generic protocol "
-                "(step_serve_packed, step_serve_lanes, readback_shape and "
+                "(step_serve_lanes, step_serve_mapped, readback_shape and "
                 "lane_counts); for mesh models use "
                 "parallel.ShardedCounterEngine"
             )
@@ -891,20 +888,13 @@ class CounterEngine:
             pk[3, g:] = 0
             pk[4, g:] = 1
         m = self.model
-
-        def device_form(state, words, out):
-            # K4 / K5 past 128 lanes: upload, kernel, readback copy.
-            state, got = m.step_serve_packed(state, words.to(state.device, non_blocking=True), now)
-            out.copy_(got, non_blocking=True)
-            return state, out
-
         handle = self._serve(
             st,
             st.packed[: 5 * padded].view(5, padded),
             torch.int32,
             m.readback_shape(padded),
             lambda state, words, out: m.step_serve_lanes(state, words, now, out),
-            device_form,
+            lambda state, words, out: m.step_serve_mapped(state, words, now, out),
         )
         return handle, None
 

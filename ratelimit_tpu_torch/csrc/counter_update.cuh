@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 
 #include "by_value.cuh"
+#include "mapped.cuh"
 #include "prefix_tiles.cuh"
 #include "slot_index.cuh"
 
@@ -283,29 +284,15 @@ int launch_unique_step_lanes(void* counts, long long num_slots,
 //
 // One kernel, unique_step_rows_kernel, on device memory (the device
 // form) or on the device aliases of pinned host memory (the mapped
-// form).  The mapped form replaces, for a served chunk past kMaxLanes
-// lanes, the device form's three activities (upload copy, kernel,
-// readback copy) and the caller's device buffers.  What bounds it: the
-// host link.  Each lane crosses it
-// once each way, 16 B in and 1-4 B out, about 1 us at 4096 lanes over
-// PCIe 5.0 x16 (64 GB/s one way); in device memory it gathers and
-// scatters 8 B a live lane.  A dependent chain costs a link round trip
-// (~1-2 us), so the kernel keeps to one: each thread serves kMappedLanes
-// consecutive lanes of a row and issues its four 16-byte loads (slot,
-// hits, limit and fresh rows) before any gather, then every gather
-// before any store (slots are unique within a bank, so the hoist is the
-// serial order's result), and writes its readback as one store of
-// kMappedLanes values.  A block is one warp (kMappedThreads), so a
-// chunk's host reads issue from as many SMs as it has warps: at 4096
-// lanes one-warp blocks took 5.66 us against 6.63 for blocks of 256
-// (scripts/torch_mapped_load.py, H100 80GB HBM3, 700 W), and a bulk copy
-// of each block's tile into shared memory (cp.async.bulk, which does
-// take the host-mapped source) 12.05.  Rows whose width or alias is not 16-byte
-// aligned (a public wrapper's N = 129, say) take scalar loads and
-// stores; the engine's buckets are multiples of 8.
-
-constexpr int kMappedLanes = 4;
-constexpr int kMappedThreads = 32;
+// form), in mapped.cuh's layout: kMappedLanes lanes a thread in one-warp
+// blocks, the four 16-byte loads of a thread's lanes (slot, hits, limit
+// and fresh rows) before any gather, every gather before any store, the
+// readback as one store of kMappedLanes values.  The mapped form
+// replaces, for a served chunk past kMaxLanes lanes, the device form's
+// three activities (upload copy, kernel, readback copy) and the caller's
+// device buffers.  Its bound is the host link: 16 B a lane in and 1-4 B
+// out, about 1 us at 4096 lanes over PCIe 5.0 x16 (64 GB/s one way); in
+// device memory it gathers and scatters 8 B a live lane.
 
 // The bank rows of a one-group launch: row r's counters at counts + r x
 // num_slots (K1: one row).
@@ -335,23 +322,9 @@ __global__ void unique_step_rows_kernel(const __grid_constant__ Rows rows,
   const int32_t* p = packed + row * 4 * n + i0;
   const int m = min(kMappedLanes, n - i0);
   int32_t w[4][kMappedLanes];  // slot, hits, limit, fresh x the lanes
-  if (vec) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int4 v = *reinterpret_cast<const int4*>(p + static_cast<long long>(r) * n);
-      w[r][0] = v.x;
-      w[r][1] = v.y;
-      w[r][2] = v.z;
-      w[r][3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int j = 0; j < kMappedLanes; ++j) {
-        w[r][j] = j < m ? p[static_cast<long long>(r) * n + j] : 0;
-      }
-    }
+  for (int r = 0; r < 4; ++r) {
+    load_lanes(p + static_cast<long long>(r) * n, m, vec, w[r]);
   }
   uint32_t* counts = rows.bank(row);
   long long slot[kMappedLanes];
@@ -401,14 +374,10 @@ int launch_rows(const Rows& rows, long long num_slots, const void* packed,
   if (banks > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = n % kMappedLanes == 0 &&
-                   reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int lanes_threads = (n + kMappedLanes - 1) / kMappedLanes;
   unique_step_rows_kernel<Rows>
-      <<<dim3((lanes_threads + kMappedThreads - 1) / kMappedThreads, banks), kMappedThreads, 0,
-         stream>>>(
-          rows, num_slots, static_cast<const int32_t*>(packed), n, out, out_kind, vec);
+      <<<dim3(mapped_blocks(n), banks), kMappedThreads, 0, stream>>>(
+          rows, num_slots, static_cast<const int32_t*>(packed), n, out, out_kind,
+          mapped_vec(n, packed, out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -426,10 +395,7 @@ int launch_mapped(const Rows& rows, long long num_slots,
   }
   void* dev_words = nullptr;
   void* dev_out = nullptr;
-  cudaError_t err = mapped_alias(const_cast<void*>(words), &dev_words);
-  if (err == cudaSuccess) {
-    err = mapped_alias(out, &dev_out);
-  }
+  const cudaError_t err = mapped_aliases(words, out, &dev_words, &dev_out);
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }

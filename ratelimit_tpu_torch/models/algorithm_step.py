@@ -4,11 +4,14 @@ Both kernels take the engine's packed int32[5, N] batch -- rows: slots,
 hits bits, limit bits, fresh, divider bits -- and the batch clock
 ``now`` against a [rows, num_slots] state table (int32 tensor of u32
 bits), update the table in place and return a narrow per-lane readback.
-Each has K1's two forms: the device form reads the batch from device
+Each has K1's three forms: the device form reads the batch from device
 memory and returns a device tensor; the by-value form takes the batch
 in host memory (at most ``MAX_LANES`` lanes, carried in the launch's
 parameters) and writes the readback into the caller's `out`, pinned
-host memory on the card.  This module checks those inputs, launches a
+host memory on the card; the mapped form takes a batch of any width in
+pinned host memory, which the kernel reads through its device alias,
+and writes the readback into `out` the same way.  This module checks
+those inputs, launches a
 kernel through ``kernels`` -- or, for a state tensor on the CPU only,
 runs its plain version -- and holds the f32-to-integer conversions the
 plain versions need to match the kernels and JAX: truncate, saturate at
@@ -99,20 +102,43 @@ def step_lanes(
     now: int,
     out: torch.Tensor,
     readback_rows: tuple,
+    by_value: bool = True,
 ) -> torch.Tensor:
     """A kernel's by-value form: `state` int32[rows, ns], `words` the
     host int32[5, N] batch (N <= MAX_LANES), the readback into `out`
     int32[*readback_rows, N], a host tensor.  For a state on the CPU
     `plain`'s readback is copied into `out`; on the card the C function
     `fn` is launched and counted as kernel `name`, or raises -- wait on
-    the stream (an event) before reading `out`.  Returns `out`."""
+    the stream (an event) before reading `out`.  Returns `out`.
+    `by_value` False lifts the width cap (step_mapped)."""
     _check_state(state, rows)
     if words.dim() != 2:
         raise TypeError(f"words must be int32[5, N], got {tuple(words.shape)}")
-    check_lanes_out(words, 5, out, torch.int32, (*readback_rows, words.shape[1]))
+    check_lanes_out(words, 5, out, torch.int32, (*readback_rows, words.shape[1]), by_value)
     if state.device.type == "cpu":
         return out.copy_(plain(state, words, now))
     return launch(fn, name, state, words, now, out)
+
+
+def step_mapped(
+    fn: str,
+    name: str,
+    plain: Callable[[torch.Tensor, torch.Tensor, int], torch.Tensor],
+    state: torch.Tensor,
+    rows: int,
+    words: torch.Tensor,
+    now: int,
+    out: torch.Tensor,
+    readback_rows: tuple,
+) -> torch.Tensor:
+    """A kernel's mapped form: as step_lanes, on a batch `words` of any
+    width in PINNED host memory, which the kernel reads through its
+    device alias while it runs, the readback into the pinned `out` the
+    same way.  On the card, pageable `words` or `out` raise KernelError
+    and a device tensor ValueError; nothing falls back.  Keep `words`
+    and wait on the stream (an event) before reading `out` or reusing
+    either.  Returns `out`."""
+    return step_lanes(fn, name, plain, state, rows, words, now, out, readback_rows, by_value=False)
 
 
 def f32_to_u32(x: torch.Tensor) -> torch.Tensor:

@@ -182,9 +182,9 @@ MAX_LANES = 128
 
 def lanes_by_value(banks: int, padded: int) -> bool:
     """Whether a served batch of `banks` x `padded` lanes goes by value
-    (the by-value form of K1, K4, K5 or K6) or not: past it K1 and K6
-    take their mapped form, K4 and K5 their device form.  The batch's
-    shape alone decides, never a failure."""
+    (the by-value form of K1, K4, K5 or K6) or not: past it each
+    takes its mapped form.  The batch's shape alone decides, never a
+    failure."""
     return banks * padded <= MAX_LANES
 
 

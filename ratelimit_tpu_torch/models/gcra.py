@@ -25,7 +25,11 @@ budgets; it updates ``state`` IN PLACE.  Its by-value form,
 ``gcra_serve_step_lanes``, takes the batch in host memory (N <= 128)
 and writes the budgets into the caller's pinned host `out`: the engine
 serves every chunk of at most 128 padded lanes through it, as one
-device activity.  The wrappers launch the kernel for a CUDA tensor (or
+device activity.  Its mapped form, ``gcra_serve_step_mapped``, reads a
+batch of any width from pinned host memory through its device alias
+and writes the budgets likewise: the engine serves every wider chunk
+through it, again as one device activity.  ``gcra_serve_step`` itself,
+on device tensors, is the JAX-named API.  The wrappers launch the kernel for a CUDA tensor (or
 raise) and run the plain PyTorch version beside it only for a tensor on
 the CPU.  The plain version equals the JAX package's numpy
 ``reference_step`` bit for bit; the jitted JAX step may differ by one
@@ -49,12 +53,14 @@ from .algorithm_step import (
     launch,
     now_i32,
     step_lanes,
+    step_mapped,
 )
 from .fixed_window import resolve_device, slot_index
 from .registry import ALGO_GCRA
 
 K5 = "gcra_serve_step"
 K5_LANES = "gcra_serve_step_lanes"
+K5_MAPPED = "gcra_serve_step_mapped"
 
 _FRAC_UNIT = 2.0**-32
 _FRAC_SCALE = 2.0**32
@@ -137,6 +143,21 @@ def gcra_serve_step_lanes(
     )
 
 
+def gcra_serve_step_mapped(
+    state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+) -> torch.Tensor:
+    """K5's mapped form: the same step as gcra_serve_step on the
+    int32[5, N] batch `words` of any width held in PINNED host memory,
+    read by the kernel through its device alias, the budgets into `out`
+    int32[N], pinned host memory written the same way.  On a CUDA table,
+    pageable memory raises KernelError and a device tensor ValueError.
+    Only enqueued: keep `words` and wait on the stream (an event) before
+    reading `out`.  Returns `out`."""
+    return step_mapped(
+        "rl_gcra_serve_step_mapped", K5_MAPPED, _gcra_step_plain, state, 2, words, now, out, ()
+    )
+
+
 class GcraModel:
     """Configuration + serving step for the TAT table.  `device`
     defaults to the GPU; only an explicit "cpu" runs the plain
@@ -176,6 +197,16 @@ class GcraModel:
         (pinned host memory on the card).  Returns (state, out); wait on
         the stream before reading `out`."""
         return state, gcra_serve_step_lanes(state, words, now, out)
+
+    def step_serve_mapped(
+        self, state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K5's mapped form: the batch of
+        step_serve_packed in pinned host memory, of any width, read by
+        the kernel through its device alias, the budgets into `out`
+        (pinned).  Returns (state, out); wait on the stream before
+        reading `out` or reusing `words`."""
+        return state, gcra_serve_step_mapped(state, words, now, out)
 
     @staticmethod
     def readback_shape(n: int) -> Tuple[int, ...]:

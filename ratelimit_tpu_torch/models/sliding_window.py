@@ -27,7 +27,11 @@ machine.  The step updates ``state`` IN PLACE.  Its by-value form,
 ``sw_serve_step_lanes``, takes the batch in host memory (N <= 128) and
 writes the readback into the caller's pinned host `out`: the engine
 serves every chunk of at most 128 padded lanes through it, as one
-device activity.  The wrappers launch the kernel for a CUDA tensor (or
+device activity.  Its mapped form, ``sw_serve_step_mapped``, reads a
+batch of any width from pinned host memory through its device alias
+and writes the readback likewise: the engine serves every wider chunk
+through it, again as one device activity.  ``sw_serve_step`` itself,
+on device tensors, is the JAX-named API.  The wrappers launch the kernel for a CUDA tensor (or
 raise) and run the plain PyTorch version beside it only for a tensor on
 the CPU.  ``SlidingWindowModel.reference_step`` is K4 once more in
 numpy on host arrays, the step of a quarantined bank's host mirror
@@ -42,12 +46,20 @@ import numpy as np
 import torch
 
 from ..ops.u32 import U32_MASK, narrow, widen
-from .algorithm_step import check_step_inputs, f32_to_u32, launch, now_i32, step_lanes
+from .algorithm_step import (
+    check_step_inputs,
+    f32_to_u32,
+    launch,
+    now_i32,
+    step_lanes,
+    step_mapped,
+)
 from .fixed_window import resolve_device, slot_index
 from .registry import ALGO_SLIDING_WINDOW
 
 K4 = "sw_serve_step"
 K4_LANES = "sw_serve_step_lanes"
+K4_MAPPED = "sw_serve_step_mapped"
 
 
 def _sw_step_plain(state: torch.Tensor, packed: torch.Tensor, now: int) -> torch.Tensor:
@@ -109,6 +121,21 @@ def sw_serve_step_lanes(
     )
 
 
+def sw_serve_step_mapped(
+    state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+) -> torch.Tensor:
+    """K4's mapped form: the same step as sw_serve_step on the int32[5,
+    N] batch `words` of any width held in PINNED host memory, read by
+    the kernel through its device alias, the readback into `out`
+    int32[2, N], pinned host memory written the same way.  On a CUDA
+    table, pageable memory raises KernelError and a device tensor
+    ValueError.  Only enqueued: keep `words` and wait on the stream (an
+    event) before reading `out`.  Returns `out`."""
+    return step_mapped(
+        "rl_sw_serve_step_mapped", K4_MAPPED, _sw_step_plain, state, 3, words, now, out, (2,)
+    )
+
+
 class SlidingWindowModel:
     """Configuration + serving step for the two-window table.  `device`
     defaults to the GPU; only an explicit "cpu" runs the plain
@@ -147,6 +174,16 @@ class SlidingWindowModel:
         (pinned host memory on the card).  Returns (state, out); wait on
         the stream before reading `out`."""
         return state, sw_serve_step_lanes(state, words, now, out)
+
+    def step_serve_mapped(
+        self, state: torch.Tensor, words: torch.Tensor, now: int, out: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The serving step in K4's mapped form: the batch of
+        step_serve_packed in pinned host memory, of any width, read by
+        the kernel through its device alias, the readback into `out`
+        (pinned).  Returns (state, out); wait on the stream before
+        reading `out` or reusing `words`."""
+        return state, sw_serve_step_mapped(state, words, now, out)
 
     @staticmethod
     def readback_shape(n: int) -> Tuple[int, ...]:

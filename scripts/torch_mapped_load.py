@@ -63,7 +63,8 @@ def build():
     from ratelimit_tpu_torch import kernels
 
     h = hashlib.sha256()
-    for path in (SOURCE, os.path.join(kernels.CSRC_DIR, "counter_update.cuh")):
+    for path in (SOURCE, *(os.path.join(kernels.CSRC_DIR, f)
+                           for f in ("counter_update.cuh", "mapped.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)

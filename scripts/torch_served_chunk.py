@@ -8,10 +8,10 @@
 Imports ``ratelimit_tpu_torch`` from the checkout at PATH (default: the
 one this script lives in), builds its kernels, and drives its engines'
 ``_device_submit`` + ``step_complete`` through ``served_chunks`` of this
-checkout's ``chip_smoke.py``: one chunk of 1, 8 and 13 distinct lanes on
-one table and on 8 banks of 2^20 slots, and on a sliding-window and a
-GCRA table of 2^18 slots, and of 256, 1024 and 4096 lanes on the first
-two (``--wide``: those alone), SERVED_CHUNKS (or N) times under
+checkout's ``chip_smoke.py``: one chunk of 1, 8, 13, 256, 1024 and 4096
+distinct lanes on one table and on 8 banks of 2^20 slots, and on a
+sliding-window and a GCRA table of 2^18 slots (``--wide``: the chunks
+past 128 lanes alone), SERVED_CHUNKS (or N) times under
 torch.profiler and as many again without it.  Prints, per engine and
 width, the device activities and memcpys per chunk, the device busy
 time and the span from the first start to the last end (profiled), and
@@ -33,8 +33,8 @@ directory and run the two in turns in one call::
         python3 scripts/torch_served_chunk.py --repo $r --label $r; done
 
 The other checkout's engines serve in whatever forms it has: one that
-predates the algorithm kernels' by-value form serves every algorithm
-chunk in the device form.
+predates the algorithm kernels' by-value or mapped form serves those
+algorithm chunks in the device form (upload, kernel, readback copy).
 """
 
 from __future__ import annotations
@@ -143,7 +143,7 @@ def main() -> None:
 
     label = args.label or repo
     cells = []
-    wanted = [(e, w) for e in ("one table", "8 banks") for w in smoke.WIDE_SERVED_WIDTHS]
+    wanted = [cell for cell in smoke.served_cells() if cell[1] in smoke.WIDE_SERVED_WIDTHS]
     run = smoke.served_chunks(torch, sh, eng, sw, gcra, dev, n=args.chunks or smoke.SERVED_CHUNKS,
                               cells=wanted if args.wide else None)
     for (engine, width), st in run.items():

@@ -19,8 +19,8 @@ from a numpy seed, at 2^12 to 2^18 slots:
   a 4-row batch;
 - both algorithm engines against the JAX engine with the same model,
   every chunk of at most 128 padded lanes through the by-value wrapper
-  and a 256-lane chunk through the device form, and two submissions in
-  flight completed out of order.
+  and a 256-lane chunk through the mapped form (never the device form),
+  and two submissions in flight completed out of order.
 """
 
 import numpy as np
@@ -226,12 +226,12 @@ def _engines(name, ns, buckets=(8, 16, 32, 64, 128, 256)):
 
 def _spy_forms(monkeypatch, name):
     """Count the chunks each wrapper of the model's kernel served."""
-    mod, lanes, device = {
-        "sliding_window": (sw, "sw_serve_step_lanes", "sw_serve_step"),
-        "gcra": (gcra, "gcra_serve_step_lanes", "gcra_serve_step"),
+    mod, lanes, mapped, device = {
+        "sliding_window": (sw, "sw_serve_step_lanes", "sw_serve_step_mapped", "sw_serve_step"),
+        "gcra": (gcra, "gcra_serve_step_lanes", "gcra_serve_step_mapped", "gcra_serve_step"),
     }[name]
-    forms = {"lanes": [], "device": []}
-    for form, attr in (("lanes", lanes), ("device", device)):
+    forms = {"lanes": [], "mapped": [], "device": []}
+    for form, attr in (("lanes", lanes), ("mapped", mapped), ("device", device)):
         orig = getattr(mod, attr)
 
         def spy(state, batch, *rest, _orig=orig, _form=form):
@@ -273,8 +273,9 @@ def _assert_same(dj, dt, what=""):
 @pytest.mark.parametrize("name", ["sliding_window", "gcra"])
 def test_engine_serves_by_value_like_jax(monkeypatch, name):
     """Chunks of 1-128 padded lanes go to the by-value wrapper, a chunk of
-    200 distinct slots (256 padded) to the device form; every decision
-    field and state row equals the JAX engine's."""
+    200 distinct slots (256 padded) to the mapped form and none to the
+    device form; every decision field and state row equals the JAX
+    engine's."""
     forms = _spy_forms(monkeypatch, name)
     je, te = _engines(name, 1024)
     rng = np.random.default_rng(23)
@@ -291,7 +292,8 @@ def test_engine_serves_by_value_like_jax(monkeypatch, name):
             np.testing.assert_array_equal(te.export_state()[row], arr, err_msg=row)
         now += int(rng.integers(0, 50))
     assert forms["lanes"] == [p for p in padded if p <= fw.MAX_LANES]
-    assert forms["device"] == [256]
+    assert forms["mapped"] == [256]
+    assert forms["device"] == []
 
 
 @pytest.mark.parametrize("name", ["sliding_window", "gcra"])
@@ -316,12 +318,24 @@ class _WithoutLanes:
     """The generic protocol (lane_counts) without its by-value step."""
 
     lane_counts = sw.SlidingWindowModel.lane_counts
+    step_serve_mapped = sw.SlidingWindowModel.step_serve_mapped
+    readback_shape = sw.SlidingWindowModel.readback_shape
+
+
+class _WithoutMapped:
+    """The generic protocol with the device-tensor and by-value steps but
+    not the mapped one."""
+
+    lane_counts = sw.SlidingWindowModel.lane_counts
     step_serve_packed = sw.SlidingWindowModel.step_serve_packed
+    step_serve_lanes = sw.SlidingWindowModel.step_serve_lanes
     readback_shape = sw.SlidingWindowModel.readback_shape
 
 
 def test_generic_model_needs_both_forms():
-    """A generic model without the by-value step is refused up front,
-    not at its first narrow chunk."""
+    """A generic model without the by-value or the mapped step is refused
+    up front, not at its first chunk of that width."""
     with pytest.raises(TypeError, match="step_serve_lanes"):
         CounterEngine(device="cpu", model=_WithoutLanes())
+    with pytest.raises(TypeError, match="step_serve_mapped"):
+        CounterEngine(device="cpu", model=_WithoutMapped())
