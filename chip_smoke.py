@@ -86,7 +86,9 @@ Phases, one line each; any failure exits non-zero:
    key is OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 keys leave a
    live counter in every bank, a concurrent burst coalesces into
    multi-lane K6 launches -- and the warm microseconds per request;
-   K6 by value and mapped as K1 in phase 6;
+   K6 by value and mapped as K1 in phase 6; grpc_server.set_stage_sink
+   must stamp each of the progression's and spread keys' gRPC requests
+   once, four perf_counter stamps in order;
 8. fault: the runner with BACKEND_TYPE=cuda and every default but a
    short restart backoff; on the fixed-window bank and then on the GCRA
    bank: 40 hits on a 120/hour rule, a snapshot, a kernel spinning for
@@ -235,8 +237,12 @@ Phases, one line each; any failure exits non-zero:
    meshes of 1, 2 and 4 groups in every epilogue (decision block,
    afters, u8 / u16 readback), and the 4-group mesh on the path of a
    host whose cards map no other's memory: bit-equal to the one-group
-   step and the plain version, tables too, K7 launched once a card, the
-   combine only where a card takes it; which path each card pair took
+   step, the plain version and the mapped path, tables too, K7 launched
+   once a card, the combine only where a card takes it, and under the
+   profiler one K7 launch a card, one copy home a combine card and the
+   combine a step; sharded_combine bit-equal to its plain version for n
+   in COMBINE_SIZES in every layout, with negative, int32-extreme and
+   past-the-table ids; which path each card pair took
    (peer or combine); device time of the grouped steps (summed over
    their activities, and the call time) against the one-launch step;
    cuda-sharded at 2^20 slots over the grouped mesh
@@ -254,7 +260,11 @@ Phases, one line each; any failure exits non-zero:
    exactly 120 of 180 admitted, one hang fault and no other, the first
    fallback answer split into detection, mirror seeding and the numpy
    step; then K7's card step and the combine against their plain
-   versions and timed.
+   versions and timed;
+17. the last of the JAX package's surface: a cuda engine and a grouped
+   cuda-sharded engine on the card, checkpoint.snapshot_engine equal to
+   copy_engine, and reset(): the tables read zero, the slot tables are
+   empty, and the next served request counts from 0.
 
 Phases 6-9, 11, 13, 14 and 16 run their runners on a clock pinned half way
 through a minute (pinned_clock), so no 5/minute progression waits for
@@ -274,6 +284,7 @@ are a JSON summary of the kernels and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import itertools
@@ -316,9 +327,13 @@ WIDE_DESCRIPTORS = 200
 # Wide requests in one profiled window of served_forms: the profiler now
 # and then drops the activities of a short capture.
 WIDE_PROFILED = 5
-# torch.profiler now and then drops device activities from a capture: a
-# capture whose activities do not split into its calls is taken again.
-PROFILE_TRIES = 3
+# torch.profiler drops device activities from captures: in a process
+# past its first minute, about every other session keeps no kernel, or
+# only its first, whatever the pad around the work or the activities
+# asked for (scripts/torch_profiler_window.py).  A capture that saw no
+# kernel, or whose activities do not split into its calls, is taken
+# again.
+PROFILE_TRIES = 8
 # Of 50 served requests, one launch each, the kernels a capture must
 # show: the launch counters are exact, the capture may drop a few.
 SEEN_KERNELS = 45
@@ -397,7 +412,10 @@ def device_samples(fn, iters: int = 20):
     per call.  The profiler now and then drops activities, or all of
     them: where none was seen or their count does not divide, the
     capture is taken again (up to PROFILE_TRIES times), and after that
-    every call gets the mean of the last capture that saw any."""
+    every call gets the last capture's time for k of the activities it
+    saw, k the whole number of activities a call nearest to what it saw
+    (noted in SHORT_CAPTURES): a call's time, not the seen time spread
+    over every call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -421,7 +439,17 @@ def device_samples(fn, iters: int = 20):
         if len(us) % iters == 0:
             k = len(us) // iters
             return [sum(us[c * k : (c + 1) * k]) / 1e3 for c in range(iters)]
-    return None if seen is None else [sum(seen) / iters / 1e3] * iters
+    if seen is None:
+        return None
+    SHORT_CAPTURES.append((len(seen), iters))
+    k = max(1, round(len(seen) / iters))
+    return [sum(seen) * k / len(seen) / 1e3] * iters
+
+
+#: (activities, calls) of each device_samples capture whose activities
+#: did not split into its calls, so that each call got their mean time.
+SHORT_CAPTURES = []
+
 
 
 def device_ms(fn, iters: int = 20):
@@ -1548,8 +1576,9 @@ STEP_CAPTURE = 20
 def step_activities(torch, step, iters=STEP_CAPTURE):
     """Device activities of `iters` calls of step() under torch.profiler
     (device activities only): dict(activities, memsets, memcpys per
-    call, names, busy_us per call).  A capture whose activities do not
-    split into its calls is taken again (up to PROFILE_TRIES times)."""
+    call, names, counts -- each name's activities per call -- and
+    busy_us per call).  A capture whose activities do not split into its
+    calls is taken again (up to PROFILE_TRIES times)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -1563,11 +1592,13 @@ def step_activities(torch, step, iters=STEP_CAPTURE):
         evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
         if evs and len(evs) % iters == 0:
             break
+    names = [ev.name.replace("(anonymous namespace)::", "").split("<")[0] for ev in evs]
     return dict(
         activities=len(evs) / iters,
         memsets=sum(ev.name.startswith("Memset") for ev in evs) / iters,
         memcpys=sum(ev.name.startswith("Memcpy") for ev in evs) / iters,
-        names=sorted({ev.name.replace("(anonymous namespace)::", "").split("<")[0] for ev in evs}),
+        names=sorted(set(names)),
+        counts={name: names.count(name) / iters for name in sorted(set(names))},
         busy_us=sum(ev.time_range.elapsed_us() for ev in evs) / iters,
     )
 
@@ -2182,14 +2213,16 @@ def sharded_served_phase(torch, kernels, sh, dev):
             engine.model.num_banks, engine.model.num_slots
         ) != (BANKS, NUM_SLOTS):
             fail(f"cuda-sharded did not build {BANKS} banks of 2^20 slots: {engine}")
-        answers = six_hits(request, "foo", "sharded")
-        codes = [a.overall_code for a in answers]
-        remaining = [a.statuses[0].limit_remaining for a in answers]
-        if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
-            fail(f"5/min progression wrong over {BANKS} banks: {codes} {remaining}")
-        for i in range(40):
-            if request("burst", f"spread{i}").statuses[0].limit_remaining != 4:
-                fail(f"spread key {i} counted wrong")
+        with stage_sink(request) as (stamps, rpc):
+            answers = six_hits(rpc, "foo", "sharded")
+            codes = [a.overall_code for a in answers]
+            remaining = [a.statuses[0].limit_remaining for a in answers]
+            if codes != [OK] * 5 + [OVER] or remaining != [4, 3, 2, 1, 0, 0]:
+                fail(f"5/min progression wrong over {BANKS} banks: {codes} {remaining}")
+            for i in range(40):
+                if rpc("burst", f"spread{i}").statuses[0].limit_remaining != 4:
+                    fail(f"spread key {i} counted wrong")
+        sink = stamp_check(stamps, rpc.calls, "sharded served")
         runner.cache.flush()
         live = np.nonzero(engine.export_counts())[0]
         banks_used = int(np.unique(live % BANKS).size)
@@ -2206,7 +2239,40 @@ def sharded_served_phase(torch, kernels, sh, dev):
     for name in (sh.K6_MAPPED, sh.K6_LANES):
         if launches.get(name, 0) < 1:
             fail(f"sharded served path did not launch {name}: {launches}")
-    return launches, lanes, us_per_req, forms, faults
+    return launches, lanes, us_per_req, forms, faults, sink
+
+
+@contextlib.contextmanager
+def stage_sink(request):
+    """grpc_server.set_stage_sink for the block: yields (the stamps, a
+    tuple an RPC, and `request` counting its calls in `.calls`); the
+    sink is cleared after."""
+    from ratelimit_tpu_torch.server import grpc_server
+
+    stamps = []
+
+    def rpc(*args, **kwargs):
+        rpc.calls += 1
+        return request(*args, **kwargs)
+
+    rpc.calls = 0
+    grpc_server.set_stage_sink(lambda *st: stamps.append(st))
+    try:
+        yield stamps, rpc
+    finally:
+        grpc_server.set_stage_sink(None)
+
+
+def stamp_check(stamps, calls, what) -> dict:
+    """One stage-sink stamp for each of `calls` gRPC requests, each four
+    non-decreasing perf_counter stamps (recv, decoded, serviced,
+    serialized); returns their count and the median µs of each stage."""
+    if len(stamps) != calls or any(len(st) != 4 or list(st) != sorted(st) for st in stamps):
+        fail(f"{what}: {len(stamps)} stage-sink stamps for {calls} gRPC requests, or a stamp "
+             f"out of order")
+    d = np.diff(np.array(stamps), axis=1) * 1e6
+    return dict(rpcs=len(stamps), **{f"{k}_us": float(np.median(d[:, i]))
+                                      for i, k in enumerate(("decode", "service", "serialize"))})
 
 
 # -- the host mirror against the kernels ----------------------------------
@@ -5551,9 +5617,10 @@ def groups_forward(torch, fw, sh, kernels, dev):
     through meshes of 1, 2 and 4 groups in each epilogue, and through the
     4-group mesh's path on a host whose cards map no other
     (unmapped_cards).  Every result and table must be bit-equal to the
-    one-group step's and to the plain version's; each grouped step
-    launches K7 once a card, every mapped card's launch in ONE host call
-    of the mesh entry, and the combine only where a card takes it."""
+    one-group step's and to the plain version's, and the rehearsal's to
+    the mapped path's; each grouped step launches K7 once a card, every
+    mapped card's launch in ONE host call of the mesh entry, and the
+    combine only where a card takes it."""
     rng = np.random.default_rng(1616)
     base, hot = _banked_table(torch, rng, NUM_SLOTS, dev)
     _, graft = graft_device_batch(torch, fw, dev)
@@ -5563,6 +5630,7 @@ def groups_forward(torch, fw, sh, kernels, dev):
         slots, hits, graft.limits, fresh, shadow)}
     checked = 0
     paths = {}
+    mapped = {}
     legs = [(g, None) for g in FORWARD_GROUPS] + [(SERVED_GROUPS, "unmapped")]
     for (what, b), layout in itertools.product(batches.items(), GROUP_LAYOUTS):
         plain_table = base.clone()
@@ -5608,11 +5676,18 @@ def groups_forward(torch, fw, sh, kernels, dev):
                      f"{layout or 'afters'} on {what} launched {moved} in host calls {called}, "
                      f"want {expect} in {expect_calls}")
             fields = got._fields if layout == "decide" else (None,)
+            if groups == SERVED_GROUPS and path is None:
+                mapped[what, layout] = got
             for f in fields:
                 g_, w_ = (getattr(got, f), getattr(want, f)) if f else (got, want)
                 if u32_max_abs_err(g_.to(dev), w_) != 0:
                     fail(f"groups: {groups} groups, {layout or 'afters'} {f or ''} on {what} "
                          f"disagrees with the plain version")
+                if path is not None:
+                    m_ = getattr(mapped[what, layout], f) if f else mapped[what, layout]
+                    if u32_max_abs_err(g_.to(dev), m_.to(dev)) != 0:
+                        fail(f"groups: the {path} rehearsal's {layout or 'afters'} {f or ''} "
+                             f"on {what} disagrees with the mapped path")
             if u32_max_abs_err(joined(torch, model, state), plain_table) != 0:
                 fail(f"groups: {groups} groups' table on {what} ({layout}) disagrees")
             checked += 1
@@ -5639,10 +5714,11 @@ def group_step_spread(torch, fw, sh, dev):
     """Device time a step of the graft batch, min / median / max over 50
     calls: the one-launch step of one group, the step over SERVED_GROUPS
     groups (one card launch a card), and the same groups on the path of
-    a host whose cards map no other (their card launches, the row copies
-    and the combine); each also as its call time (time_ms: CUDA events on
-    the home stream, which waits on every card, over back-to-back calls;
-    the host's enqueue included), the time a step holds the cards."""
+    a host whose cards map no other (their card launches, one copy home
+    a combine card and the combine; unmapped_activities); each also as
+    its call time (time_ms: CUDA events on the home stream, which waits
+    on every card, over back-to-back calls; the host's enqueue
+    included), the time a step holds the cards."""
     rng = np.random.default_rng(1616)
     base, _ = _banked_table(torch, rng, NUM_SLOTS, dev)
     _, graft = graft_device_batch(torch, fw, dev)
@@ -5659,6 +5735,8 @@ def group_step_spread(torch, fw, sh, dev):
                 return sh.grouped_general_step(parts, cards, BANKS, graft.slots, graft.hits,
                                                graft.fresh, graft.limits, "decide",
                                                graft.shadow, 0.8)
+
+            spread["unmapped acts"] = unmapped_activities(torch, sh, step, cards, mesh)
         else:
             def step():
                 return model.step(state, graft)
@@ -5667,9 +5745,96 @@ def group_step_spread(torch, fw, sh, dev):
     return spread
 
 
+def unmapped_activities(torch, sh, step, cards, mesh) -> dict:
+    """The rehearsal step's device activities (step_activities) over
+    STEP_CAPTURE profiled steps, and the launches its wrappers counted in
+    the same steps.  The counts are exact: one K7 card launch a card and
+    one combine a step, and no other launch.  The profiler drops
+    activities now and then (one K7 launch of 40 in every capture, or 4
+    whole steps of 20, on one H100), so the capture is held to what loss
+    cannot fake: ONE copy home a combine card (its partial; and one of
+    the lanes where it lies off the home card, after one concatenation of
+    them on the home card) for each combine it saw, no memset, and no
+    activity more than a step makes; in one of PROFILE_TRIES captures."""
+    home = mesh.device
+    far = [mesh.devices[groups[0]] for groups, link in cards if link == "combine"]
+    off = sum(d != home for d in far)
+    copies = len(far) + off
+    want = len(cards) + copies + 1 + (off > 0)
+    steps = [0]
+
+    def counted():
+        steps[0] += 1
+        return step()
+
+    for _ in range(PROFILE_TRIES):
+        before = collections.Counter(sh.kernels.launches)
+        steps[0] = 0
+        acts = step_activities(torch, counted)
+        made = dict(sh.kernels.launches - before)
+        acts["launches"] = {name: count / steps[0] for name, count in made.items()}
+        combines = sum(c for name, c in acts["counts"].items() if "combine_kernel" in name)
+        if (made == {sh.K7_CARD_STEP: len(cards) * steps[0], sh.COMBINE: steps[0]}
+                and combines > 0
+                and round(acts["memcpys"] * STEP_CAPTURE) == copies * round(combines * STEP_CAPTURE)
+                and acts["memsets"] == 0 and acts["activities"] <= want):
+            return acts
+    fail(f"groups: the unmapped rehearsal made {acts} a step in each of {PROFILE_TRIES} "
+         f"captures, want {len(cards)} {sh.K7_CARD_STEP} and one {sh.COMBINE} launch, "
+         f"{copies} memcpys a combine seen, no memset and at most {want} activities a step "
+         f"({len(cards)} cards, {len(far)} of them combine cards)")
+
+
+#: Widths of the combine's check: one lane, a ragged width past a warp's
+#: multiple, and the forward step's.
+COMBINE_SIZES = (1, 129, 4096)
+
+
+def check_combine(torch, sh, dev):
+    """The combine bit for bit against its plain version over 8 banks in
+    4 groups at 2^20 slots: n in COMBINE_SIZES, every layout, one and two
+    combine cards, ids in the table beside negative ones, the int32
+    extremes and ids at or past num_slots; the output and the partials
+    full of seeded random bytes, so a byte the select must not touch
+    shows; at 4096 lanes also an output 4 bytes off 16-byte alignment.
+    A source table that puts group 0 in a partial is refused.  Returns
+    (max |err|, cases)."""
+    rng = np.random.default_rng(1619)
+    spb = NUM_SLOTS // BANKS
+    err = cases = 0
+    for n, layout, sources, shift in itertools.product(
+            COMBINE_SIZES, sh.LAYOUTS, ([0, 1, 0, 1], [0, 1, 0, 2]), (0, 4)):
+        if shift and n != COMBINE_SIZES[-1]:
+            continue
+        size = sh.partial_bytes(layout, n)
+        pool = np.concatenate([rng.integers(0, NUM_SLOTS, 64),
+                               [-1, -NUM_SLOTS, -(2**31), 2**31 - 1, NUM_SLOTS, NUM_SLOTS + 1]])
+        slots = torch.from_numpy(rng.choice(pool, n).astype(np.int32)).to(dev)
+        buf = torch.from_numpy(rng.integers(0, 256, size + 16, dtype=np.uint8)).to(dev)
+        out = buf[shift : shift + size]
+        partials = torch.from_numpy(
+            rng.integers(0, 256, (max(sources), -(-size // 16) * 16), dtype=np.uint8)).to(dev)
+        want = sh._combine_plain(out.clone(), partials, sources, slots, BANKS, spb, layout)
+        got = sh.sharded_combine(out, partials, sources, slots, BANKS, spb, layout)
+        torch.cuda.synchronize()
+        e = u32_max_abs_err(got, want)
+        if e:
+            fail(f"{sh.COMBINE}: n {n}, {layout or 'afters'}, sources {sources}, output "
+                 f"{shift} bytes off alignment disagrees with the plain version (max|err| {e})")
+        err, cases = max(err, e), cases + 1
+    try:
+        sh.sharded_combine(out, partials, [1, 0, 0, 1], slots, BANKS, spb, layout)
+    except ValueError:
+        pass
+    else:
+        fail(f"{sh.COMBINE} took a source table that puts group 0 in a partial")
+    return err, cases
+
+
 def group_kernel_rows(torch, fw, sh, dev):
     """K7's card step (decision epilogue and afters) over SERVED_GROUPS
-    groups on one card, the combine of SERVED_GROUPS decision rows, and
+    groups on one card, the combine of the rehearsal's decision block
+    (groups {0, 2} in the home output, {1, 3} in one partial), and
     the mesh entry's K7 dispatch over the cards of the SERVED_GROUPS-group
     mesh (one card here, one a card on a host of several), at 4096 lanes
     of duplicates on a 2^20-slot table; K6's card form over the same
@@ -5677,8 +5842,8 @@ def group_kernel_rows(torch, fw, sh, dev):
     value at 8 banks x cap 8: each against its plain version on the same
     inputs (max |err|), its device time, the plain version's, its bound
     and, for the combine, the nearest PyTorch call (a bytewise sum of the
-    rows, equal here because the stage starts at 0 and each row holds
-    only its group's lanes).  Returns (rows, errs)."""
+    home output and the partial, equal here because each starts at 0 and
+    holds only its own card's lanes).  Returns (rows, errs)."""
     rng = np.random.default_rng(1617)
     n = 4096
     k = BANKS // SERVED_GROUPS
@@ -5698,7 +5863,11 @@ def group_kernel_rows(torch, fw, sh, dev):
         errs[name] = u32_max_abs_err(got.to(want.device), want)
         if errs[name] != 0:
             fail(f"{name} disagrees with its plain version: max|err|={errs[name]}")
+        short = len(SHORT_CAPTURES)
         per_call = device_samples(kern, iters=50)
+        if len(SHORT_CAPTURES) > short:
+            log(f"{name}: its capture saw {SHORT_CAPTURES[-1][0]} activities for 50 calls; "
+                f"its device time is their mean time a call")
         dev_ms = None if per_call is None else float(np.mean(per_call))
         plain_ms = device_ms(plain, iters=5)
         lib = None
@@ -5718,9 +5887,9 @@ def group_kernel_rows(torch, fw, sh, dev):
     def split():
         return [base[i * k : (i + 1) * k].clone() for i in every]
 
-    def card(tables, layout, out, stride=0, groups=every, plain=False):
+    def card(tables, layout, out, groups=every, plain=False):
         fn = sh._card_step_plain if plain else sh.sharded_card_step
-        return fn(tables, groups, BANKS, *lanes, layout, shadow, 0.8, out, stride)
+        return fn(tables, groups, BANKS, *lanes, layout, shadow, 0.8, out)
 
     # Each row starts the kernel and its plain version from one table:
     # the first calls are compared, before the timing moves the two apart.
@@ -5734,19 +5903,34 @@ def group_kernel_rows(torch, fw, sh, dev):
         o2 = torch.zeros(size, dtype=torch.uint8, device=dev)
         row(name, lambda: card(t1, layout, o1), lambda: card(t2, layout, o2, plain=True),
             nbytes, ops)
-    parts = split()
-    stride = -(-sh.partial_bytes("decide", n) // 16) * 16
-    stage = torch.zeros((SERVED_GROUPS, stride), dtype=torch.uint8, device=dev)
-    for i in every:
-        card(parts, "decide", stage.view(-1), stride, groups=(i,))
+    # The combine on the rehearsal's split (unmapped_cards on one card):
+    # groups {0, 2} stored in place into the home output, {1, 3} into one
+    # partial -- rows 0 and 1 of `both`, each zero off its own lanes, so
+    # torch.sum over them computes the same function on the same inputs.
     out_bytes = sh.partial_bytes("decide", n)
+    stride = -(-out_bytes // 16) * 16
+    home, far = every[0::2], every[1::2]
+    both = torch.zeros((2, stride), dtype=torch.uint8, device=dev)
+    parts = split()
+    card(parts, "decide", both[0], groups=home)
+    card(parts, "decide", both[1], groups=far)
+    sources = sh._combine_sources([(home, "home"), (far, "combine")])
+    plain_both = both.clone()
+    if not torch.equal(torch.sum(both, 0, dtype=torch.uint8)[:out_bytes],
+                       sh._combine_plain(both[0].clone(), both[1:], sources, slots, BANKS, spb,
+                                         "decide")[:out_bytes]):
+        fail(f"{sh.COMBINE}: torch.sum over the output and the partial is not the select")
+    owned = int(torch.isin((s % BANKS) // k, torch.tensor(far, device=dev))
+                .logical_and((s >= 0) & (s < NUM_SLOTS)).sum())
     row(sh.COMBINE,
-        lambda: sh.sharded_combine(stage, slots, BANKS, spb, "decide"),
-        lambda: sh._combine_plain(stage, slots, BANKS, spb, "decide"),
-        # The select reads only each lane's owner partial: one
-        # partial's bytes and the ids in, one partial out.
-        out_bytes + 4 * n + out_bytes, n,
-        library=lambda: torch.sum(stage, 0, dtype=torch.uint8))
+        lambda: sh.sharded_combine(both[0], both[1:], sources, slots, BANKS, spb,
+                                   "decide")[:out_bytes],
+        lambda: sh._combine_plain(plain_both[0], plain_both[1:], sources, slots, BANKS, spb,
+                                  "decide")[:out_bytes],
+        # Only the lanes a combine card owns move: the ids in, and each
+        # such lane's 33 B read from the partial and written home.
+        4 * n + 2 * 33 * owned, n,
+        library=lambda: torch.sum(plain_both, 0, dtype=torch.uint8))
     # The mesh entry's K7 dispatch over the mesh's cards: each card runs
     # the prefix over the whole batch, and each card past the home one
     # copies the lanes (14 B a lane) once.
@@ -6196,12 +6380,70 @@ def groups_phase(torch, kernels, fw, sh, dev, cycles_per_ms):
             fail(f"groups: {name} never launched on the main path: {launches}")
     served["mesh_calls_all"] = dict(kernels.mesh_calls)
     card_errs, fwd["card_form_cases"] = check_card_form(torch, fw, sh, dev)
+    card_errs[sh.COMBINE], fwd["combine_cases"] = check_combine(torch, sh, dev)
     fwd["spread"] = group_step_spread(torch, fw, sh, dev)
     served["engine"] = group_engine_split(torch, sh, dev)
     rows, errs = group_kernel_rows(torch, fw, sh, dev)
     for name, e in card_errs.items():
         errs[name] = max(errs.get(name, 0), e)
     return launches, dict(forward=fwd, served=served), rows, errs
+
+
+#: Keys phase 17 serves on each engine.
+SURFACE_KEYS = 64
+
+
+def surface_phase(torch, sh, dev) -> dict:
+    """Phase 17: the last of the JAX package's surface on the card.  A
+    `cuda` engine (2^20 slots) and a grouped `cuda-sharded` one (8 banks
+    in SERVED_GROUPS groups) each serve SURFACE_KEYS keys twice, 3 hits a
+    key a time; checkpoint.snapshot_engine equals copy_engine (state rows
+    bit for bit, the entries decoded); reset() leaves every table reading
+    zero and the slot table empty, and the same request served again
+    counts from 0 (befores 0, afters 3).  Returns, for each engine, the
+    keys snapshotted, reset()'s host µs and the next request's answers."""
+    from ratelimit_tpu_torch.backends import checkpoint as cp
+    from ratelimit_tpu_torch.backends.dispatcher import LANE_DTYPE
+    from ratelimit_tpu_torch.backends.engine import CounterEngine
+
+    now = 1_700_000_040
+    keys = [f"surface{i}".encode() for i in range(SURFACE_KEYS)]
+    meta = np.zeros(len(keys), LANE_DTYPE)
+    meta["expiry"], meta["hits"], meta["limits"] = now + 60, 3, 10
+    meta["len"] = [len(k) for k in keys]
+    blob = b"".join(keys)
+    out = {}
+    for name, make in (
+        ("cuda", lambda: CounterEngine(num_slots=NUM_SLOTS, device=dev)),
+        (f"cuda-sharded over {SERVED_GROUPS} groups", lambda: sh.ShardedCounterEngine(
+            group_mesh(torch, sh, dev, SERVED_GROUPS), num_slots=NUM_SLOTS)),
+    ):
+        engine = make()
+        try:
+            for _ in range(2):
+                dec = engine.step_complete(engine.submit_packed(now, blob, meta.copy()))
+            if not ((dec.befores == 3).all() and (dec.afters == 6).all()):
+                fail(f"surface: {name} counted {dec.befores} -> {dec.afters}, not 3 -> 6")
+            state, copied = cp.copy_engine(engine)
+            snap, entries = cp.snapshot_engine(engine)
+            if (sorted(snap) != sorted(state)
+                    or not all(np.array_equal(snap[k], state[k]) for k in state)
+                    or sorted(entries) != sorted(copied.entries())
+                    or len(entries) != SURFACE_KEYS):
+                fail(f"surface: {name}'s snapshot_engine disagrees with copy_engine")
+            t0 = time.perf_counter()
+            engine.reset()
+            reset_us = (time.perf_counter() - t0) * 1e6
+            if np.asarray(engine.export_counts()).any() or len(engine.slot_table):
+                fail(f"surface: {name}'s table or slot table is not empty after reset()")
+            dec = engine.step_complete(engine.submit_packed(now, blob, meta.copy()))
+            if not ((dec.befores == 0).all() and (dec.afters == 3).all()):
+                fail(f"surface: {name} after reset() counted {dec.befores} -> {dec.afters}, "
+                     f"not 0 -> 3")
+            out[name] = dict(keys=len(entries), reset_us=reset_us)
+        finally:
+            engine.give_back_stream()
+    return out
 
 
 def split_text(split) -> str:
@@ -6237,7 +6479,13 @@ def groups_lines(o, smi) -> list:
         f"device time a step (summed over its activities), min / median / max over 50: one "
         f"group (one launch) {both(1)}, {SERVED_GROUPS} groups (one launch a card) "
         f"{both(SERVED_GROUPS)}, {SERVED_GROUPS} groups with no card mapped (a launch a card, "
-        f"row copies, the combine) {both('unmapped')} ({smi})",
+        f"one copy home a combine card, the combine) {both('unmapped')}, bit-equal to the "
+        f"mapped path, per step over {STEP_CAPTURE} profiled steps "
+        f"{ {k: v for k, v in sp['unmapped acts'].items() if k != 'names'} } ({smi}); "
+        f"sharded_combine bit-equal to its plain version in {fwd['combine_cases']} cases (n in "
+        f"{list(COMBINE_SIZES)}, every layout, one and two combine cards, negative, int32-extreme "
+        f"and past-the-table ids, random bytes around the lanes it writes, an unaligned "
+        f"output)",
         f"groups served: 6th hit OVER_LIMIT with remaining [4, 3, 2, 1, 0, 0], 40 spread keys "
         f"and a {GROUPS_WIDE}-descriptor request at 4 on both runners, export_counts "
         f"equal; {GROUPS_CLIENTS} clients x {GROUPS_PER_CLIENT} on a {GROUPS_LIMIT}/minute key "
@@ -6498,7 +6746,7 @@ def main() -> None:
     )
 
     # 7. sharded served path
-    shs_launches, sh_lanes, sh_us_per_req, sh_forms, shs_faults = sharded_served_phase(
+    shs_launches, sh_lanes, sh_us_per_req, sh_forms, shs_faults, sh_sink = sharded_served_phase(
         torch, kernels, sh, dev
     )
     lap("sharded_served")
@@ -6511,7 +6759,9 @@ def main() -> None:
         f"{WIDE_DESCRIPTORS}-descriptor request {sh_forms[2]}; 50 requests made "
         f"{sh_forms[1][2]} by-value launches, the profiler saw {sh_forms[1][0]} "
         f"kernels and {sh_forms[1][1]} memcpys on the card; fault domain armed at "
-        f"KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {shs_faults}"
+        f"KERNEL_DEADLINE_S={DEFAULT_DEADLINE_S}: {shs_faults}; grpc_server.set_stage_sink: "
+        f"one stamp of four in order for each of the progression's and spread keys' gRPC "
+        f"requests, medians {sh_sink}"
     )
 
     # 8. the fault domain on the card
@@ -6585,6 +6835,19 @@ def main() -> None:
         log(line)
     timing.update(grp_rows)
     errs.update(grp_errs)
+
+    # 17. the last of the JAX package's surface: reset() and
+    # snapshot_engine on the card (the stage sink runs in phase 7)
+    surface = surface_phase(torch, sh, dev)
+    lap("surface")
+    log(
+        f"surface: a cuda engine and a cuda-sharded one over {SERVED_GROUPS} groups, "
+        f"{SURFACE_KEYS} keys served twice: snapshot_engine equal to copy_engine (state rows "
+        f"bit for bit, entries decoded); reset() leaves the table zero and the slot table "
+        f"empty, and the next request counts from 0; "
+        + "; ".join(f"{k}: {v['keys']} keys, reset() {v['reset_us']:.1f} us host"
+                    for k, v in surface.items())
+    )
 
     phases = (
         fwd_launches, shf_launches, srv_launches, shs_launches, flt_launches, lst_launches,

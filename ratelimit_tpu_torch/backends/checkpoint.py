@@ -79,6 +79,19 @@ def copy_engine(engine) -> tuple:
     return engine.export_state(), engine.slot_table.export_entries()
 
 
+def snapshot_engine(engine) -> tuple:
+    """One bank's state in the JAX package's shape: (state dict,
+    entries), the entries a list of (key, slot, expiry).  It is
+    ``copy_engine`` followed by the decode of the copied entries in one
+    call, so a caller that holds the bank for it holds it for the decode
+    too.  The port's own callers (save_engine, CheckpointManager, the
+    fault domain) keep ``copy_engine`` and decode afterwards, off the
+    bank's thread (a settled divergence from the JAX package); this is
+    the JAX-shaped entry beside it."""
+    state, copied = copy_engine(engine)
+    return state, copied.entries()
+
+
 def write_snapshot(
     path: str,
     num_slots: int,

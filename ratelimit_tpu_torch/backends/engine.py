@@ -577,8 +577,23 @@ class CounterEngine:
         ns = self.model.num_slots
         return (np.arange(bucket, dtype=np.int64) % ns).astype(np.int32)
 
+    def assign_slot(self, key: str, now: int, expiry: int):
+        """The slot table's assign: (slot, fresh) for `key`."""
+        return self.slot_table.assign(key, now, expiry)
+
     def gc(self, now: int) -> int:
         return self.slot_table.gc(now)
+
+    def reset(self) -> None:
+        """Drop all counters and key assignments: the model's fresh state
+        (every state row of an algorithm bank), made on the engine's
+        streams by ``_fresh_state``, and an empty slot table.  Needs
+        exclusive access to the engine (``cache.run_exclusive``, or a
+        thread that owns it), as every slot-table touch.  Nothing here
+        waits for the card: the zeroing is enqueued behind the engine's
+        earlier work, so a fault domain never sees it as a device call."""
+        self._counts = self._fresh_state()  # tpu-lint: disable=shared-state -- reset() is an exclusive-access hook; serving never races it
+        self.slot_table = self._table_cls(self.model.num_slots)  # tpu-lint: disable=shared-state -- same exclusive-access contract
 
     # -- device step ----------------------------------------------------
 

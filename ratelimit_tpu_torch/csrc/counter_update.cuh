@@ -29,9 +29,7 @@
 // _bank_core (sharded.py:286): an in-table lane is owned by its bank's
 // table, an out-of-table lane by the table that holds bank 0.  Only an
 // owned lane runs the epilogue: the step writes nothing at the others.
-// WrappedIndex, and a group of every bank, own every lane.  CardIndex
-// also places each owned lane's output: at out + g * out_stride bytes
-// for its owner group g (out_stride 0: one output for every group).
+// WrappedIndex, and a group of every bank, own every lane.
 //
 // and on an epilogue: the raw afters, their narrow u8/u16 readback, or
 // the decision block's nine fields.  It is one cooperative launch
@@ -87,7 +85,6 @@ struct WrappedIndex {
     return s < 0 ? nullptr : counts + s;
   }
   __device__ __forceinline__ bool owns(int32_t) const { return true; }
-  __device__ __forceinline__ long long out_offset(int32_t) const { return 0; }
 };
 
 struct GroupIndex {
@@ -116,7 +113,6 @@ struct GroupIndex {
     const int r = row(slot);
     return r >= 0 || (r == -2 && bank_lo == 0);
   }
-  __device__ __forceinline__ long long out_offset(int32_t) const { return 0; }
 };
 
 // The groups one card launch may carry: 256 pointers, 2 KB of the 4 KB
@@ -129,7 +125,6 @@ struct CardIndex {
   int num_banks;
   int banks_per_group;          // k
   long long slots_per_bank;
-  long long out_stride;         // bytes between two groups' outputs
   // The group of `slot`'s bank; an out-of-table id belongs to group 0.
   __device__ __forceinline__ int group(int32_t slot) const {
     if (slot < 0 || slot >= num_banks * slots_per_bank) {
@@ -150,9 +145,6 @@ struct CardIndex {
   }
   __device__ __forceinline__ bool owns(int32_t slot) const {
     return table[group(slot)] != nullptr;
-  }
-  __device__ __forceinline__ long long out_offset(int32_t slot) const {
-    return group(slot) * out_stride;
   }
 };
 
@@ -575,13 +567,11 @@ __global__ void __launch_bounds__(kTile)
     if (!index.owns(id)) {
       continue;  // another card's (or group's) lane: written there
     }
-    const long long at = index.out_offset(id);
-    void* out = static_cast<uint8_t*>(p.out) + at;
     if constexpr (kEpilogue == kDecide) {
       decide_lane(after, h, p.limits[i], p.shadow[i] != 0, p.near_ratio,
-                  static_cast<uint32_t*>(out), p.n, i, p.set_lc + at);
+                  static_cast<uint32_t*>(p.out), p.n, i, p.set_lc);
     } else {
-      write_readback(out, i, after, kEpilogue == kAfters ? 0u : p.limits[i] + h,
+      write_readback(p.out, i, after, kEpilogue == kAfters ? 0u : p.limits[i] + h,
                      kEpilogue);
     }
   }

@@ -114,22 +114,32 @@
 //
 // sharded_combine, rl_sharded_combine, replaces the psum where a card
 // cannot map the home card's memory (the mesh says so at build, from the
-// topology).  Then every card's launch writes each owned lane into the
-// row of its owner group, out_stride bytes apart (parts[groups,
-// part_bytes]: on the home card and on mapped cards in place, on an
-// unmapped card into a stage of its own that the caller copies home), and
-// one launch selects, for each lane, the fields of the row of its owner
-// group: (s % num_banks) / banks_per_group for an in-table id s, the
-// group of bank 0 for any other.  It reads no other row, so the rows
-// need no zeros: the select is JAX's sum of one owner's share.  A row is
+// topology).  The home card and every mapped card store their owned lanes
+// into the one home output in place, as with no combine.  Each card that
+// cannot ("combine") runs its card step into ONE partial of the
+// output's layout on its own card, which goes home in ONE
+// copy: partials[cards, stride] on the home device.  Then one launch
+// copies, for each lane whose owner group lies on a combine card, that
+// lane's fields from the card's partial into the home output.  The owner
+// is the group of bank s % num_banks for an in-table id s, found with
+// 32-bit arithmetic, and a group -> source table (kMaxGroups bytes: 0 the
+// home output, c + 1 partial c) rides in the launch's parameters; an id
+// outside the table is group 0's, which the home card holds, so its lane
+// is already in place.  No other lane or row is read, so nothing needs
+// zeros: the select is JAX's sum of one owner's share.  A layout is
 // rows32 rows of u32[n], then rows16 rows of u16[n], then rows8 rows of
 // u8[n] -- the afters 1/0/0, the u16 readback 0/1/0, the u8 readback
-// 0/0/1, the decision block 8/0/1 (set_local_cache its u8 row) -- and
-// `out` has the same layout.  One thread a lane, no atomics.  Bound:
-// bytes, and the select reads only the owner's row of each lane: one
-// row's bytes and the ids in, one row out -- about 0.29 MB for the
-// decision block of 4096 lanes, 0.09 us at 3.35 TB/s, whatever the
-// number of groups, so the launch bounds it.
+// 0/0/1, the decision block 8/0/1 (set_local_cache its u8 row).  One
+// lane a thread in one-warp blocks, every row gathered before any store:
+// at 4096 lanes that took 1.73 us on an H100 against 5.15 for 4 lanes a
+// thread moving each row's lanes as one 16-, 8- or 4-byte word (the
+// owners of 4 adjacent lanes differ, so most words are blended lane by
+// lane, with a quarter of the threads in flight; scripts/torch_combine.cu
+// keeps that variant).
+// Bound: bytes, and only the lanes a combine card owns move: the ids in,
+// and each such lane's fields read from its partial and written home --
+// about 0.14 MB for the decision block of 4096 lanes half of which a
+// combine card owns, 0.04 us at 3.35 TB/s, so the launch bounds it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -329,36 +339,134 @@ int record(const void* events, int i, cudaStream_t stream) {
   return ev == nullptr ? 0 : static_cast<int>(cudaEventRecord(ev, stream));
 }
 
-__global__ void combine_kernel(const uint8_t* __restrict__ parts,
-                               long long part_bytes,
-                               const int32_t* __restrict__ slots,
-                               int num_banks, long long num_slots,
-                               int banks_per_group, int n, int rows32,
-                               int rows16, int rows8,
-                               uint8_t* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) {
+// -- the combine -----------------------------------------------------------
+
+// One-warp blocks of one lane a thread (timed against 4 lanes a thread by
+// scripts/torch_combine.py: 1.73 and 5.15 us at 4096 lanes), and the most
+// rows of each width a layout has (the decision block's eight u32 fields,
+// one u8 row).
+constexpr int kCombineThreads = 32;
+constexpr int kCombineRows32 = 8;
+constexpr int kCombineRows16 = 1;
+constexpr int kCombineRows8 = 1;
+
+struct CombineArgs {
+  uint8_t* out;             // the home output, written in place
+  const uint8_t* partials;  // u8[cards, stride] on the home device
+  const int32_t* slots;
+  long long stride;
+  uint32_t in_table;        // ids in [0, in_table) are in the table
+  uint32_t num_banks;
+  uint32_t banks_per_group;
+  int n;
+  int rows32, rows16, rows8;
+  uint8_t source[kMaxGroups];  // group g's lanes: 0 in out, c + 1 in partial c
+};
+
+// Where lane id s's fields lie: 0 the home output, c + 1 partial c.
+__device__ __forceinline__ int combine_source(const CombineArgs& a, int32_t s) {
+  const uint32_t u = static_cast<uint32_t>(s);
+  return (s >= 0 && u < a.in_table) ? a.source[(u % a.num_banks) / a.banks_per_group] : 0;
+}
+
+// Lane i, where a combine card owns it, takes its fields from that
+// card's partial: every row gathered before any is stored.
+__global__ void combine_kernel(const __grid_constant__ CombineArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) {
     return;
   }
-  const int32_t s = slots[i];
-  const long long owner =
-      (s >= 0 && s < num_slots) ? (s % num_banks) / banks_per_group : 0;
-  const uint8_t* src = parts + owner * part_bytes;
-  const long long w = n;
-  for (int r = 0; r < rows32; ++r) {
-    reinterpret_cast<uint32_t*>(out)[r * w + i] =
-        reinterpret_cast<const uint32_t*>(src)[r * w + i];
+  const int src = combine_source(a, a.slots[i]);
+  if (src == 0) {
+    return;
   }
-  const long long at16 = 4 * rows32 * w;
-  for (int r = 0; r < rows16; ++r) {
-    reinterpret_cast<uint16_t*>(out + at16)[r * w + i] =
-        reinterpret_cast<const uint16_t*>(src + at16)[r * w + i];
+  const uint8_t* part = a.partials + (src - 1) * a.stride;
+  const long long w = a.n;
+  const long long at16 = 4 * a.rows32 * w;
+  const long long at8 = at16 + 2 * a.rows16 * w;
+  uint32_t v32[kCombineRows32];
+  uint16_t v16[kCombineRows16];
+  uint8_t v8[kCombineRows8];
+#pragma unroll
+  for (int r = 0; r < kCombineRows32; ++r) {
+    if (r < a.rows32) {
+      v32[r] = reinterpret_cast<const uint32_t*>(part)[r * w + i];
+    }
   }
-  const long long at8 = at16 + 2 * rows16 * w;
-  for (int r = 0; r < rows8; ++r) {
-    out[at8 + r * w + i] = src[at8 + r * w + i];
+#pragma unroll
+  for (int r = 0; r < kCombineRows16; ++r) {
+    if (r < a.rows16) {
+      v16[r] = reinterpret_cast<const uint16_t*>(part + at16)[r * w + i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kCombineRows8; ++r) {
+    if (r < a.rows8) {
+      v8[r] = part[at8 + r * w + i];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kCombineRows32; ++r) {
+    if (r < a.rows32) {
+      reinterpret_cast<uint32_t*>(a.out)[r * w + i] = v32[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kCombineRows16; ++r) {
+    if (r < a.rows16) {
+      reinterpret_cast<uint16_t*>(a.out + at16)[r * w + i] = v16[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kCombineRows8; ++r) {
+    if (r < a.rows8) {
+      a.out[at8 + r * w + i] = v8[r];
+    }
   }
 }
+
+// rl_sharded_combine's arguments into *a; false where they do not fit
+// (see the entry).
+bool combine_args(void* out, const void* partials, long long stride, int cards,
+                  const void* sources, int groups, const void* slots, int num_banks,
+                  long long slots_per_bank, int rows32, int rows16, int rows8, int n,
+                  CombineArgs* a) {
+  const long long lane_bytes = 4LL * rows32 + 2LL * rows16 + rows8;
+  if (groups < 1 || groups > kMaxGroups || num_banks < 1 || num_banks % groups != 0 ||
+      cards < 1 || cards > 255 || rows32 < 0 || rows32 > kCombineRows32 || rows16 < 0 ||
+      rows16 > kCombineRows16 || rows8 < 0 || rows8 > kCombineRows8 || lane_bytes < 1 ||
+      stride < lane_bytes * n || stride % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(partials) % 4 != 0) {
+    return false;
+  }
+  const int* src = static_cast<const int*>(sources);
+  if (src[0] != 0) {
+    return false;  // group 0, and the out-of-table lanes, are the home card's
+  }
+  for (int g = 0; g < groups; ++g) {
+    if (src[g] < 0 || src[g] > cards) {
+      return false;
+    }
+    a->source[g] = static_cast<uint8_t>(src[g]);
+  }
+  const long long num_slots = static_cast<long long>(num_banks) * slots_per_bank;
+  a->out = static_cast<uint8_t*>(out);
+  a->partials = static_cast<const uint8_t*>(partials);
+  a->slots = static_cast<const int32_t*>(slots);
+  a->stride = stride;
+  a->in_table = static_cast<uint32_t>(num_slots < 0x80000000LL ? num_slots : 0x80000000LL);
+  a->num_banks = static_cast<uint32_t>(num_banks);
+  a->banks_per_group = static_cast<uint32_t>(num_banks / groups);
+  a->n = n;
+  a->rows32 = rows32;
+  a->rows16 = rows16;
+  a->rows8 = rows8;
+  return true;
+}
+
+static_assert(sizeof(CombineArgs) <= kParamBytes,
+              "the combine's arguments must fit the 4 KB parameter space");
 
 }  // namespace
 
@@ -379,17 +487,15 @@ extern "C" int rl_sharded_group_step(
 
 // One launch of K7 on one card: `tables` is the HOST array of the mesh's
 // `groups` table pointers, null for a group on another card (at least one
-// is this card's), its values carried into the launch's parameters.  An
-// owned lane's fields land at out + g * out_stride bytes for its owner
-// group g (set_lc likewise); `out` may lie on another card that this card
-// maps.  `afters` and `incl` are int32[n] of scratch on this card.
+// is this card's), its values carried into the launch's parameters.  The
+// owned lanes' fields land in `out` (and set_lc); `out` may lie on another
+// card that this card maps.  `afters` and `incl` are int32[n] of scratch on this card.
 extern "C" int rl_sharded_card_step(
     const void* tables, int groups, int num_banks, long long slots_per_bank,
     const void* slots, const void* hits, const void* fresh, const void* limits,
     const void* shadow, float near_ratio, void* afters, void* incl, void* out,
-    void* set_lc, long long out_stride, int epilogue, int n, void* stream) {
-  if (groups < 1 || groups > kMaxGroups || num_banks % groups != 0 ||
-      out_stride < 0) {
+    void* set_lc, int epilogue, int n, void* stream) {
+  if (groups < 1 || groups > kMaxGroups || num_banks % groups != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CardIndex index{};
@@ -404,7 +510,6 @@ extern "C" int rl_sharded_card_step(
   index.num_banks = num_banks;
   index.banks_per_group = num_banks / groups;
   index.slots_per_bank = slots_per_bank;
-  index.out_stride = out_stride;
   return launch_general_step(nullptr, index, slots, hits, fresh, limits,
                              shadow, near_ratio, afters, incl, out, set_lc,
                              epilogue, n, stream);
@@ -531,17 +636,17 @@ extern "C" int rl_mesh_routed_step(
 // not null, the card's lanes are ONE copy of the `packed_bytes` bytes at
 // `packed` (on the home card) made there first, and lanes[5 i ...] point
 // into it.  Every card writes its owned lanes into `out` / `set_lc` (on
-// the home card) at out_stride bytes a group, as rl_sharded_card_step.
+// the home card), as rl_sharded_card_step.
 extern "C" int rl_mesh_card_step(
     int cards, const void* devices, const void* streams, const void* tables,
     int groups, int num_banks, long long slots_per_bank, const void* lanes,
     const void* copies, const void* packed, long long packed_bytes,
     float near_ratio, const void* scratch, void* out, void* set_lc,
-    long long out_stride, int epilogue, int n, void* failed) {
+    int epilogue, int n, void* failed) {
   int* bad = static_cast<int*>(failed);
   *bad = -1;
   if (groups < 1 || groups > kMaxGroups || num_banks % groups != 0 ||
-      out_stride < 0 || cards < 1 || cards > kMaxDevices) {
+      cards < 1 || cards > kMaxDevices) {
     *bad = 0;
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -592,7 +697,6 @@ extern "C" int rl_mesh_card_step(
     index.num_banks = num_banks;
     index.banks_per_group = num_banks / groups;
     index.slots_per_bank = slots_per_bank;
-    index.out_stride = out_stride;
     uint8_t* scr = static_cast<uint8_t* const*>(scratch)[i];
     const int rc = launch_general_step(
         nullptr, index, ln[5 * i], ln[5 * i + 1], ln[5 * i + 2], ln[5 * i + 3],
@@ -663,26 +767,25 @@ extern "C" int rl_enable_peer(int device, int peer, int* mapped) {
   return static_cast<int>(err);
 }
 
-// `parts` is u8[groups, part_bytes] on the home device, part_bytes a
-// multiple of 4 (each partial's u32 rows stay aligned); `out` holds one
-// partial's layout.
-extern "C" int rl_sharded_combine(const void* parts, long long part_bytes,
-                                  int groups, const void* slots,
-                                  int num_banks, long long slots_per_bank,
-                                  int rows32, int rows16, int rows8, int n,
-                                  void* out, void* stream) {
+// `out` is the home output (u8, one layout of n lanes) and `partials`
+// u8[cards, stride] (stride a multiple of 4) on the home device;
+// `sources` is the HOST array of `groups` ints, group g's lanes' place: 0
+// already in `out` (group 0 always), c + 1 in partial c.  Writes the
+// combine cards' lanes into `out` in place.
+extern "C" int rl_sharded_combine(void* out, const void* partials, long long stride,
+                                  int cards, const void* sources, int groups,
+                                  const void* slots, int num_banks,
+                                  long long slots_per_bank, int rows32, int rows16,
+                                  int rows8, int n, void* stream) {
   if (n <= 0) {
     return 0;
   }
-  if (groups < 1 || num_banks % groups != 0 || part_bytes % 4 != 0 ||
-      part_bytes < (4LL * rows32 + 2LL * rows16 + rows8) * n) {
+  CombineArgs a;
+  if (!combine_args(out, partials, stride, cards, sources, groups, slots, num_banks,
+                    slots_per_bank, rows32, rows16, rows8, n, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  combine_kernel<<<blocks_for(n), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(parts), part_bytes,
-      static_cast<const int32_t*>(slots), num_banks,
-      static_cast<long long>(num_banks) * slots_per_bank, num_banks / groups,
-      n, rows32, rows16, rows8, static_cast<uint8_t*>(out));
+  combine_kernel<<<(n + kCombineThreads - 1) / kCombineThreads, kCombineThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

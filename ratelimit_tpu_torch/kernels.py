@@ -125,7 +125,7 @@ SIGNATURES = {
     "rl_sharded_card_step": (
         "sharded",
         [_VP, _I32, _I32, _I64, _VP, _VP, _VP, _VP, _VP, _F32, _VP, _VP, _VP, _VP,
-         _I64, _I32, _I32, _VP],
+         _I32, _I32, _VP],
     ),
     "rl_sharded_routed_card_step": (
         "sharded",
@@ -154,12 +154,12 @@ SIGNATURES = {
     "rl_mesh_card_step": (
         "sharded",
         [_I32, _VP, _VP, _VP, _I32, _I32, _I64, _VP, _VP, _VP, _I64, _F32, _VP, _VP, _VP,
-         _I64, _I32, _I32, _VP],
+         _I32, _I32, _VP],
     ),
     "rl_enable_peer": ("sharded", [_I32, _I32, _VP]),
     "rl_sharded_combine": (
         "sharded",
-        [_VP, _I64, _I32, _VP, _I32, _I64, _I32, _I32, _I32, _I32, _VP, _VP],
+        [_VP, _VP, _I64, _I32, _VP, _I32, _VP, _I32, _I64, _I32, _I32, _I32, _I32, _VP],
     ),
 }
 

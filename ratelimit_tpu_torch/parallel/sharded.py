@@ -60,9 +60,9 @@ Three kernels, in csrc/sharded.cu:
   call (``rl_mesh_card_step``, the counterpart of JAX's one SPMD
   dispatch);
 - ``sharded_combine``, the ``psum`` where a card cannot map the home
-  card (Mesh.links): each card's owned lanes in their owner group's row
-  of a stage, copied home, and one launch that takes each lane from its
-  owner's row.
+  card (Mesh.links): such a card's owned lanes in ONE partial on its own
+  card, copied home in one copy, and one launch that puts each lane a
+  combine card owns into the home output, in place.
 
 Like the single-table steps, K6 and K7 update the table IN PLACE.  Each
 wrapper launches its kernel for a CUDA tensor, under that tensor's
@@ -151,10 +151,10 @@ class Mesh:
     ``links`` says, for each card (``cards``, the home card first), how
     K7 brings the lanes that card owns to the home device: "home" for the
     home card, "peer" for a card that stores into the home card's memory
-    through a peer mapping, "combine" for one that cannot (its rows are
-    copied home and sharded_combine selects them).  make_mesh reads it
-    from the topology; a mesh built without it takes "combine" for every
-    card past the home one, the way that needs no mapping."""
+    through a peer mapping, "combine" for one that cannot (its partial is
+    copied home and sharded_combine puts its lanes in place).  make_mesh
+    reads it from the topology; a mesh built without it takes "combine"
+    for every card past the home one, the way that needs no mapping."""
 
     num_banks: int
     devices: Tuple[torch.device, ...]
@@ -858,10 +858,9 @@ def _pack_partial(result, n: int) -> torch.Tensor:
 
 
 def _card_step_plain(tables, groups, num_banks, slots, hits, fresh, limits, layout,
-                     shadow, near_ratio, out, out_stride) -> torch.Tensor:
+                     shadow, near_ratio, out) -> torch.Tensor:
     """Plain version of sharded_card_step: the card's groups updated in
-    place, each lane they own written into `out` at its owner group's
-    row, and nothing else."""
+    place, each lane they own written into `out`, and nothing else."""
     afters, owner = _card_update_plain(tables, groups, num_banks, slots, hits, fresh)
     if layout == "decide":
         result = fw._decision_block_plain(narrow(afters), hits, limits, shadow, near_ratio)
@@ -871,12 +870,9 @@ def _card_step_plain(tables, groups, num_banks, slots, hits, fresh, limits, layo
         result = fw.readback_plain(afters, widen(hits), widen(limits), layout)
     n = slots.shape[0]
     size = partial_bytes(layout, n)
-    fields = _rows(_pack_partial(result, n), layout, n)
-    for g in groups:
-        lanes = owner == g
-        dst = _rows(out[g * out_stride : g * out_stride + size], layout, n)
-        for d, f in zip(dst, fields):
-            d[:, lanes] = f[:, lanes]
+    lanes = torch.isin(owner, torch.tensor(groups, dtype=owner.dtype, device=owner.device))
+    for d, f in zip(_rows(out[:size], layout, n), _rows(_pack_partial(result, n), layout, n)):
+        d[:, lanes] = f[:, lanes]
     return out
 
 
@@ -892,7 +888,6 @@ def sharded_card_step(
     shadow: Optional[torch.Tensor],
     near_ratio: float,
     out: torch.Tensor,
-    out_stride: int = 0,
 ) -> torch.Tensor:
     """K7 on ONE card over every group it holds: `tables` are the mesh's
     group tensors (group g int32[k, slots_per_bank], the banks [g k, (g +
@@ -902,9 +897,8 @@ def sharded_card_step(
     whole batch.  For each lane the card OWNS -- its groups' ids, and ids
     out of the table where it holds group 0 -- the epilogue `layout` ("",
     "uint8", "uint16" or "decide", which needs `shadow` and `near_ratio`)
-    goes into `out` (uint8, partial_bytes(layout, n) a row) at byte
-    g * out_stride for the lane's owner group g; every other byte of
-    `out` is left as it was.  On a card, `out` may lie on another card
+    goes into `out` (uint8, partial_bytes(layout, n) bytes at least);
+    every other byte of `out` is left as it was.  On a card, `out` may lie on another card
     that this one maps (make_mesh); the launch is ordered on this card's
     current stream, and the caller orders the output's reader after it.
     One cooperative launch, counted as sharded_card_step ("decide") or
@@ -936,19 +930,19 @@ def sharded_card_step(
     if out.dtype != torch.uint8 or out.dim() != 1 or not out.is_contiguous():
         raise TypeError(f"out must be contiguous uint8[bytes], got {out.dtype} "
                         f"{tuple(out.shape)}")
-    if out_stride < 0 or out_stride % 4 or out.shape[0] < max(groups) * out_stride + size:
-        raise ValueError(f"out of {out.shape[0]} bytes, rows {out_stride} apart, does not "
-                         f"hold {layout!r} for {n} lanes of groups {groups}")
+    if out.shape[0] < size:
+        raise ValueError(f"out of {out.shape[0]} bytes does not hold {layout!r} for {n} "
+                         f"lanes")
     kernels.device_of(*here)
     if here[0].device.type == "cpu":
         return _card_step_plain(tables, groups, num_banks, slots, hits, fresh, limits,
-                                layout, shadow, near_ratio, out, out_stride)
+                                layout, shadow, near_ratio, out)
     return launch_card_step(tables, groups, num_banks, slots, hits, fresh, limits, layout,
-                            shadow, near_ratio, out, out_stride)
+                            shadow, near_ratio, out)
 
 
 def launch_card_step(tables, groups, num_banks, slots, hits, fresh, limits, layout, shadow,
-                     near_ratio, out, out_stride) -> torch.Tensor:
+                     near_ratio, out) -> torch.Tensor:
     """sharded_card_step's launch, on checked arguments: one cooperative
     launch of rl_sharded_card_step, its scratch on the card."""
     dev = tables[groups[0]].device
@@ -973,81 +967,108 @@ def launch_card_step(tables, groups, num_banks, slots, hits, fresh, limits, layo
         None if limits is None else limits.data_ptr(),
         shadow.data_ptr() if decide else None,
         float(near_ratio), scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr(),
-        out.data_ptr() + 32 * n if decide else None, out_stride,
+        out.data_ptr() + 32 * n if decide else None,
         fw._DECIDE if decide else fw._OUT_KIND[layout], n,
         kernels.stream_ptr(dev),
     )
     return out
 
 
-def _combine_plain(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
-    """Plain version of sharded_combine."""
-    groups = parts.shape[0]
+def _combine_sources(cards) -> list:
+    """Each group's place for the combine: 0 for the groups of a card
+    that stores into the home output ("home", "peer"), c + 1 for those
+    of the c-th "combine" card, whose lanes reach home in partial c."""
+    sources = [0] * sum(len(groups) for groups, _ in cards)
+    combine = [groups for groups, link in cards if link == "combine"]
+    for c, groups in enumerate(combine):
+        for g in groups:
+            sources[g] = c + 1
+    return sources
+
+
+def _combine_plain(out, partials, sources, slots, num_banks, slots_per_bank,
+                   layout) -> torch.Tensor:
+    """Plain version of sharded_combine (in place; returns `out`)."""
+    groups = len(sources)
     n = slots.shape[0]
     s = slots.to(torch.int64)
     in_table = (s >= 0) & (s < num_banks * slots_per_bank)
     owner = torch.where(
         in_table, (s % num_banks) // (num_banks // groups), torch.zeros_like(s)
     )
-    out = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=parts.device)
-    rows = [_rows(parts[g], layout, n) for g in range(groups)]
-    for i, dst in enumerate(_rows(out, layout, n)):
-        stacked = torch.stack([r[i] for r in rows])  # [groups, rows, n]
-        dst.copy_(stacked.gather(0, owner.view(1, 1, n).expand(1, dst.shape[0], n))[0])
+    src = torch.tensor(sources, dtype=torch.int64, device=out.device)[owner]
+    dst = _rows(out, layout, n)
+    for c in range(partials.shape[0]):
+        lanes = src == c + 1
+        for d, f in zip(dst, _rows(partials[c], layout, n)):
+            d[:, lanes] = f[:, lanes]
     return out
 
 
 def sharded_combine(
-    parts: torch.Tensor,
+    out: torch.Tensor,
+    partials: torch.Tensor,
+    sources: Sequence[int],
     slots: torch.Tensor,
     num_banks: int,
     slots_per_bank: int,
     layout: str,
 ) -> torch.Tensor:
-    """The psum of K7 where a card cannot map the home card: `parts`
-    uint8[groups, part_stride] holds in row g the lanes group g owns (as
-    sharded_card_step writes them with out_stride part_stride) of the
-    lanes `slots` (int32[n], global ids) in `layout`, all on one device;
-    returns uint8[partial_bytes(layout, n)], each lane's fields taken
-    from its owner group's row -- the group of bank ``s % num_banks`` for
-    an in-table id s, the group of bank 0 for any other.  Each lane has
-    one owner and no other row is read, so this select is JAX's sum."""
-    if parts.dtype != torch.uint8 or parts.dim() != 2 or not parts.is_contiguous():
-        raise TypeError(f"parts must be contiguous uint8[groups, bytes], got {parts.dtype} "
-                        f"{tuple(parts.shape)}")
+    """The psum of K7 where a card cannot map the home card.  `out`
+    (uint8, partial_bytes(layout, n) at least) is the home output that
+    the home card and every mapped card stored their owned lanes into;
+    `partials` uint8[cards, stride] holds in row c the output that the
+    c-th combine card wrote (its owned lanes); both on
+    the home device, with `slots` (int32[n], global ids).  sources[g]
+    says where group g's lanes lie: 0 in `out` (group 0's always), c + 1
+    in partial c (_combine_sources).  Each lane whose owner -- the group
+    of bank ``s % num_banks`` for an in-table id s, the group of bank 0
+    for any other -- lies on a combine card takes its fields from that
+    card's partial, in place in `out`; nothing else is read or written,
+    so this select is JAX's sum.  Returns `out`."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {sorted(LAYOUTS)}")
-    groups, stride = parts.shape
     n = slots.shape[0]
     if slots.dtype != torch.int32 or slots.dim() != 1 or not slots.is_contiguous():
         raise TypeError(f"slots must be contiguous int32[n], got {slots.dtype} "
                         f"{tuple(slots.shape)}")
-    if groups < 1 or num_banks % groups or stride % 4 or stride < partial_bytes(layout, n):
-        raise ValueError(
-            f"{groups} partials of {stride} bytes do not hold {layout!r} over "
-            f"{num_banks} banks for {n} lanes"
-        )
-    if kernels.device_of(parts, slots).type == "cpu":
-        return _combine_plain(parts, slots, num_banks, slots_per_bank, layout)
-    return launch_combine(parts, slots, num_banks, slots_per_bank, layout)
+    for name, t, dim in (("out", out, 1), ("partials", partials, 2)):
+        if t.dtype != torch.uint8 or t.dim() != dim or not t.is_contiguous():
+            raise TypeError(f"{name} must be contiguous uint8 of {dim} dimension(s), got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    cards, stride = partials.shape
+    size = partial_bytes(layout, n)
+    sources = [int(c) for c in sources]
+    groups = len(sources)
+    if (not 1 <= groups <= MAX_GROUPS or num_banks % groups or not 1 <= cards <= 255
+            or sources[0] != 0 or not all(0 <= c <= cards for c in sources)):
+        raise ValueError(f"sources {sources} do not place {groups} groups of {num_banks} "
+                         f"banks in the home output or one of {cards} partials")
+    if out.shape[0] < size or stride < size or stride % 4:
+        raise ValueError(f"an output of {out.shape[0]} bytes and partials of {stride} do not "
+                         f"hold {layout!r} for {n} lanes")
+    if kernels.device_of(out, partials, slots).type == "cpu":
+        return _combine_plain(out, partials, sources, slots, num_banks, slots_per_bank, layout)
+    return launch_combine(out, partials, sources, slots, num_banks, slots_per_bank, layout)
 
 
-def launch_combine(parts, slots, num_banks, slots_per_bank, layout) -> torch.Tensor:
+def launch_combine(out, partials, sources, slots, num_banks, slots_per_bank,
+                   layout) -> torch.Tensor:
     """sharded_combine's launch, on checked arguments: one launch of
-    rl_sharded_combine into a new output."""
-    dev = parts.device
-    fw._require_cuda(dev)
-    groups, stride = parts.shape
+    rl_sharded_combine, in place in `out`."""
+    fw._require_cuda(out.device)
     n = slots.shape[0]
-    out = torch.empty(partial_bytes(layout, n), dtype=torch.uint8, device=dev)
     if n == 0:
         return out
+    cards, stride = partials.shape
+    table = kernels.ints(sources)  # carried into the launch's parameters
     kernels.launch(
         "rl_sharded_combine",
         COMBINE,
-        (parts, slots, out),
-        parts.data_ptr(), stride, groups, slots.data_ptr(), num_banks,
-        slots_per_bank, *LAYOUTS[layout], n, out.data_ptr(), kernels.stream_ptr(dev),
+        (out, partials, slots),
+        out.data_ptr(), partials.data_ptr(), stride, cards,
+        ctypes.addressof(table), len(sources), slots.data_ptr(), num_banks,
+        slots_per_bank, *LAYOUTS[layout], n, kernels.stream_ptr(out.device),
     )
     return out
 
@@ -1075,7 +1096,7 @@ def _lanes_to(lanes, packed, spans, dev):
             for t, sp in zip(lanes, spans)]
 
 
-def mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out, out_stride=0):
+def mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out):
     """K7's card step on every card of `cards` ((groups, link, ...) each,
     the home card -- parts[0]'s device -- first) whose owned lanes reach
     `out` on the home device in place or through a peer mapping: on the
@@ -1091,7 +1112,7 @@ def mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out, out_
     if home.type == "cpu":
         for groups, *_ in cards:
             sharded_card_step(parts, groups, num_banks, slots, hits, fresh, limits, layout,
-                              shadow, near_ratio, out, out_stride)
+                              shadow, near_ratio, out)
         return out
     # The checks of sharded_card_step, once for every card.
     _check_card_tables(parts, one_device=False)
@@ -1103,10 +1124,9 @@ def mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out, out_
     if decide and (limits is None or shadow is None):
         raise ValueError("the decision block needs the limits and shadow lanes")
     if out.dtype != torch.uint8 or out.dim() != 1 or out.device != home or (
-            out.shape[0] < (len(parts) - 1) * out_stride + partial_bytes(layout, slots.shape[0])):
-        raise ValueError(f"out must be uint8 on {home} holding {layout!r} for every group")
-    return launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out,
-                                 out_stride)
+            out.shape[0] < partial_bytes(layout, slots.shape[0])):
+        raise ValueError(f"out must be uint8 on {home} holding {layout!r} for the batch")
+    return launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out)
 
 
 def _plans(parts, cards) -> list:
@@ -1116,8 +1136,8 @@ def _plans(parts, cards) -> list:
             CardPlan(tuple(c[0]), c[1], (), parts[c[0][0]].device) for c in cards]
 
 
-def launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, out,
-                          out_stride) -> torch.Tensor:
+def launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio,
+                          out) -> torch.Tensor:
     """K7's card step on every card of `cards` (CardPlans, the home card
     first; their lanes reach `out` in place or through a peer mapping)
     in ONE host call, rl_mesh_card_step: on each card one cooperative
@@ -1168,7 +1188,7 @@ def launch_mesh_card_step(parts, cards, num_banks, lanes, layout, near_ratio, ou
         ctypes.addressof(arrays[1]), None if packed is None else packed.data_ptr(),
         0 if packed is None else packed.numel(), float(near_ratio),
         ctypes.addressof(arrays[2]), out.data_ptr(),
-        out.data_ptr() + 32 * n if decide else None, out_stride,
+        out.data_ptr() + 32 * n if decide else None,
         fw._DECIDE if decide else fw._OUT_KIND[layout], n,
     )
     return out
@@ -1197,10 +1217,9 @@ def grouped_general_step(
       home card in place, a peer-mapped card through the mapping.  On the
       card every such card's launch is enqueued by ONE host call
       (launch_mesh_card_step); the home stream waits on each card;
-    - "combine": a card that cannot map the home card writes each owned
-      lane into its owner group's row of a stage on its own card, copied
-      to the home card; then every card writes rows, and sharded_combine
-      selects each lane from its owner's row.
+    - "combine": a card that cannot map the home card writes them into
+      ONE partial of the output's layout on its own card, which goes home in ONE copy; then sharded_combine puts each lane
+      such a card owns into the home output.
 
     One group holds every bank and owns every lane: its launch is the
     one-group step.  Returns what sharded_general_update (layout "",
@@ -1216,29 +1235,27 @@ def grouped_general_step(
     home = parts[0].device
     n = slots.shape[0]
     size = partial_bytes(layout, n)
-    rows = any(link == "combine" for _, link in cards)
-    stride = -(-size // 16) * 16 if rows else 0
-    out = torch.empty(len(parts) * stride if rows else size, dtype=torch.uint8, device=home)
+    out = torch.empty(size, dtype=torch.uint8, device=home)
     lanes = (slots, hits, fresh, limits, shadow)
     mesh_card_step(parts, [c for c in cards if c[1] != "combine"], num_banks, lanes, layout,
-                   near_ratio, out, stride)
-    packed = spans = None
-    for groups, link in cards:
-        if link != "combine":
-            continue
-        dev = parts[groups[0]].device
-        if dev != home and packed is None:
-            packed, spans = _pack_lanes(lanes)
-        here = _lanes_to(lanes, packed, spans, dev)
-        stage = torch.empty_like(out, device=dev)
-        sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4],
-                          near_ratio, stage, stride)
-        for g in groups:
-            row = slice(g * stride, (g + 1) * stride)
-            out[row].copy_(stage[row], non_blocking=True)
-    if rows:
-        out = sharded_combine(out.view(len(parts), stride), slots, num_banks,
-                              parts[0].shape[1], layout)
+                   near_ratio, out)
+    combine = [groups for groups, link in cards if link == "combine"]
+    if combine:
+        # Each partial starts 16-byte aligned, like the home output.
+        partials = torch.empty((len(combine), -(-size // 16) * 16), dtype=torch.uint8,
+                               device=home)
+        packed = spans = None
+        for c, groups in enumerate(combine):
+            dev = parts[groups[0]].device
+            if dev != home and packed is None:
+                packed, spans = _pack_lanes(lanes)
+            here = _lanes_to(lanes, packed, spans, dev)
+            partial = torch.empty(size, dtype=torch.uint8, device=dev)
+            sharded_card_step(parts, groups, num_banks, *here[:4], layout, here[4],
+                              near_ratio, partial)
+            partials[c, :size].copy_(partial, non_blocking=True)
+        sharded_combine(out, partials, _combine_sources(cards), slots, num_banks,
+                        parts[0].shape[1], layout)
     return unpack_partial(out, layout, n)
 
 

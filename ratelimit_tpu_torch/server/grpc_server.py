@@ -84,6 +84,22 @@ class ServerReporter:
         self._response.observe((serialized - recv) * 1e3)
 
 
+# The per-RPC stage-timestamp sink: when set through set_stage_sink,
+# the handler reports each ShouldRateLimit's (recv, decoded, serviced,
+# serialized) perf_counter stamps, the four it takes anyway for
+# ServerReporter.observe_phases.  A one-element list, so the live
+# handler's closure sees a change.
+_stage_sink = [None]
+
+
+def set_stage_sink(fn) -> None:
+    """fn(recv, decoded, serviced, serialized), called once per
+    ShouldRateLimit with its perf_counter stamps, or None to stop.  A
+    profiling seam (a closed-loop benchmark names every wire millisecond
+    through it), not a stable API."""
+    _stage_sink[0] = fn
+
+
 def _ratelimit_handler(
     service,
     reporter: Optional[ServerReporter],
@@ -156,6 +172,9 @@ def _ratelimit_handler(
                     # Tail-sampling override: over-limit decisions are
                     # always worth keeping (observability/trace.py).
                     root.set_status("over_limit")
+                sink = _stage_sink[0]
+                if sink is not None:
+                    sink(start, t_decoded, t_serviced, t_serialized)
                 if reporter is not None:
                     reporter.observe_phases(
                         start, t_decoded, t_serviced, t_serialized

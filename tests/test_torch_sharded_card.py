@@ -10,7 +10,8 @@ is on the CPU) over all of them, or over disjoint sets of them as two
 through both, and every answer and the (num_banks, slots_per_bank)
 table must be equal (tolerance 0), in all four epilogues.  Then the
 model's launch count, the combine path of a card without a peer
-mapping, the mesh's links and its cap on groups.
+mapping (one partial and one copy home a card, ids at the int32
+extremes), the mesh's links and its cap on groups.
 """
 
 import ctypes
@@ -133,10 +134,9 @@ def _seeded_table(rng, nb):
     return table
 
 
-def _card(tables, groups, nb, b, layout, out, stride=0):
+def _card(tables, groups, nb, b, layout, out):
     return sh.sharded_card_step(
-        tables, groups, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8,
-        out, stride,
+        tables, groups, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8, out,
     )
 
 
@@ -281,7 +281,9 @@ def test_model_step_on_four_groups_is_one_card_step(monkeypatch, variant):
                                   tm.step_counters_compact(tc, variant, tb))
             np.testing.assert_array_equal(_u(ta), np.asarray(ja))
         assert len(calls) == step + 1 and calls[-1][1] == (0, 1, 2, 3)
-        assert calls[-1][-1] == 0  # out_stride: one output
+        layout = {"step": "decide", "step_counters": ""}.get(variant, variant)
+        # One output of the batch's bytes, no rows a group.
+        assert calls[-1][-1].shape == (sh.partial_bytes(layout, tb.slots.shape[0]),)
         np.testing.assert_array_equal(_joined(tm.parts(tc)), np.asarray(jc))
     assert combines == []
 
@@ -291,9 +293,10 @@ def test_model_step_on_four_groups_is_one_card_step(monkeypatch, variant):
 def test_grouped_step_over_two_cards_matches_jax(monkeypatch, link, layout):
     """grouped_general_step over groups {0, 2} on the home card and
     {1, 3} on a second card (both the CPU here): with a peer mapping one
-    output and no combine; without one, each owned lane in its owner
-    group's row, the second card's rows copied home, and ONE combine.
-    Both equal JAX's mesh, answer and table."""
+    output and no combine; without one, the home card's lanes in the one
+    output, the second card's in ONE partial copied home, and ONE
+    combine placing {1, 3}'s lanes from it.  Both equal JAX's mesh,
+    answer and table."""
     combines = _counting(monkeypatch, "sharded_combine")
     cards = (((0, 2), "home"), ((1, 3), link))
     nb, g = 8, 4
@@ -312,8 +315,100 @@ def test_grouped_step_over_two_cards_matches_jax(monkeypatch, link, layout):
         _same(got, want, layout, what)
         np.testing.assert_array_equal(_joined(tables), want_table, err_msg=what)
     assert len(combines) == (2 if link == "combine" else 0)
+    for out, partials, sources, *_ in combines:
+        assert partials.shape[0] == 1 and list(sources) == [0, 1, 0, 1]
+        assert out.shape == (sh.partial_bytes(layout, N),)
     with pytest.raises(ValueError, match="each of 4 groups once"):
         sh.grouped_general_step(tables, (((0, 2), "home"),), nb, b.slots, b.hits, b.fresh)
+
+
+def _extremes(rng, ns):
+    """Ids at the int32 extremes, negative, at and past the table's end,
+    and in the table; fresh and shadow lanes."""
+    pool = np.concatenate([rng.integers(0, ns, 8), [-(2**31), 2**31 - 1, -1, -ns, ns, ns + 1]])
+    return dict(
+        slots=rng.choice(pool, N).astype(np.int32),
+        hits=rng.integers(1, 5, N).astype(np.uint32),
+        limits=rng.integers(1, 12, N).astype(np.uint32),
+        fresh=rng.random(N) < 0.15,
+        shadow=rng.random(N) < 0.2,
+    )
+
+
+#: (banks, the cards' groups and links): the home card and one or two
+#: cards that take the combine, with and without a peer-mapped card.
+COMBINE_MESHES = {
+    "4banks-2cards": (4, [((0, 2), "home"), ((1, 3), "combine")]),
+    "8banks-3cards": (8, [((0,), "home"), ((1, 3), "combine"), ((2,), "combine")]),
+    "8banks-4cards-peer": (8, [((0, 4), "home"), ((1, 5), "combine"), ((2, 6), "peer"),
+                               ((3, 7), "combine")]),
+}
+
+
+@pytest.mark.parametrize("mesh", COMBINE_MESHES)
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda x: x or "afters")
+def test_combine_path_matches_jax(mesh, layout):
+    """The combine path with one or two combine cards (and a peer card
+    beside them), on the graft batch, heavy duplicates, and ids at the
+    int32 extremes, negative and at or past num_slots: answer and table
+    equal JAX's mesh, and the plain combine alone, on the cards' output
+    and partials, equals the bytewise sum of them."""
+    nb, cards = COMBINE_MESHES[mesh]
+    g = sum(len(groups) for groups, _ in cards)
+    rng = np.random.default_rng(91 + nb + len(cards))
+    for what, make in dict(BATCHES, extremes=_extremes).items():
+        table = _seeded_table(rng, nb)
+        raw = make(rng, NUM_SLOTS)
+        b = _port_batch(raw)
+        want, want_table = _jax_step(nb, table, raw, layout)
+        decide = layout == "decide"
+        tables = _tables(table, g)
+        got = sh.grouped_general_step(tables, cards, nb, b.slots, b.hits, b.fresh, b.limits,
+                                      layout, b.shadow if decide else None, 0.8)
+        _same(got, want, layout, what)
+        np.testing.assert_array_equal(_joined(tables), want_table, err_msg=what)
+        # The same through the plain combine on zeroed buffers.
+        tables = _tables(table, g)
+        size = sh.partial_bytes(layout, N)
+        out = torch.zeros(size, dtype=torch.uint8)
+        combine = [groups for groups, link in cards if link == "combine"]
+        partials = torch.zeros((len(combine), -(-size // 16) * 16), dtype=torch.uint8)
+        for groups, link in cards:
+            dst = out if link != "combine" else partials[combine.index(groups)]
+            _card(tables, groups, nb, b, layout, dst)
+        summed = torch.cat([out[None], partials[:, :size]]).sum(0, dtype=torch.uint8)
+        sh._combine_plain(out, partials, sh._combine_sources(cards), b.slots, nb,
+                          NUM_SLOTS // nb, layout)
+        assert torch.equal(out, summed), what
+        _same(sh.unpack_partial(out, layout, N), want, layout, what)
+
+
+def test_one_copy_home_per_combine_card(monkeypatch):
+    """Each card that takes the combine writes ONE partial of the
+    output's layout and sends it home in ONE copy (not a copy a group):
+    three cards, two of them combine cards of two groups and one."""
+    copies = []
+    real = torch.Tensor.copy_
+
+    def spy(self, src, *args, **kwargs):
+        copies.append((tuple(self.shape), tuple(src.shape)))
+        return real(self, src, *args, **kwargs)
+
+    nb = 8
+    cards = [((0, 4), "home"), ((1, 3), "combine"), ((2, 5, 6, 7), "combine")]
+    rng = np.random.default_rng(17)
+    raw = _duplicates(rng, NUM_SLOTS)
+    b = _port_batch(raw)
+    table = _seeded_table(rng, nb)
+    want, _ = _jax_step(nb, table, raw, "decide")
+    tables = _tables(table, 8)
+    monkeypatch.setattr(torch.Tensor, "copy_", spy)
+    got = sh.grouped_general_step(tables, cards, nb, b.slots, b.hits, b.fresh, b.limits,
+                                  "decide", b.shadow, 0.8)
+    monkeypatch.undo()
+    size = sh.partial_bytes("decide", N)
+    assert copies == [((size,), (size,))] * 2
+    _same(got, want, "decide", "duplicates")
 
 
 def _fake_host(monkeypatch, cards, unmapped=()):
@@ -386,15 +481,15 @@ def test_max_groups_is_the_kernels_cap():
 
 def test_card_step_checks_its_arguments():
     """Groups outside the mesh or repeated, tables of two shapes, an
-    output too small for its rows, or lanes on another device raise."""
+    output too small for the batch, or lanes on another device raise."""
     tables = [torch.zeros((2, 4), dtype=torch.int32) for _ in range(4)]
     lanes = torch.zeros(8, dtype=torch.int32)
     fresh = torch.zeros(8, dtype=torch.bool)
     out = torch.zeros(32, dtype=torch.uint8)
 
-    def call(groups=(0,), tabs=tables, out=out, stride=0, slots=lanes, layout=""):
+    def call(groups=(0,), tabs=tables, out=out, slots=lanes, layout=""):
         return sh.sharded_card_step(tabs, groups, 8, slots, lanes, fresh, None, layout, None,
-                                    0.0, out, stride)
+                                    0.0, out)
 
     for groups in ((), (4,), (0, 0), (-1,)):
         with pytest.raises(ValueError, match="are not groups of"):
@@ -402,7 +497,7 @@ def test_card_step_checks_its_arguments():
     with pytest.raises(ValueError, match="alike"):
         call((0, 1), [tables[0], torch.zeros((2, 8), dtype=torch.int32)] + tables[2:])
     with pytest.raises(ValueError, match="does not hold"):
-        call((0, 1), stride=32)
+        call((0, 1), out=torch.zeros(16, dtype=torch.uint8))
     with pytest.raises(ValueError, match="does not hold"):
         call(out=torch.zeros(31, dtype=torch.uint8))
     with pytest.raises(TypeError, match="uint8"):
@@ -411,7 +506,7 @@ def test_card_step_checks_its_arguments():
         call(slots=torch.zeros(8, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="layout"):
         call(layout="uint32")
-    assert call((0, 1, 2, 3), out=torch.zeros(4 * 32 + 32, dtype=torch.uint8), stride=32) is not None
+    assert call((0, 1, 2, 3), out=torch.zeros(4 * 32 + 32, dtype=torch.uint8)) is not None
 
 
 def test_lanes_cross_to_a_card_in_one_copy():

@@ -11,9 +11,9 @@ same numpy-seeded inputs go through both and every answer, readback and
 the (num_banks, slots_per_bank) table in global bank order must be
 equal (tolerance 0): duplicates, fresh and shadow lanes, skew onto one
 bank, ids past the table and negative ids, in all three readback
-types.  Then the engine over groups, the plain card step into each
-group's row and the combine against the one-group plain step, and the
-launch's device rules.
+types.  Then the engine over groups, the plain card step into the home
+output and the combine cards' partials, and the combine, against the
+one-group plain step, and the launch's device rules.
 """
 
 import ctypes
@@ -192,59 +192,80 @@ def test_grouped_routed_step_matches_jax(g, form, out_dtype):
 # -- the plain card step into rows, and the combine ------------------------
 
 
+#: Where the groups' lanes go on the combine path: each group a card of
+#: its own, group 0 the home card and every other a combine card with a
+#: partial; or the even groups in place (home or peer cards) and the odd
+#: ones on combine cards.
+COMBINE_SPLITS = {
+    "every group a card": lambda g: [(i,) for i in range(g)],
+    "odd groups combine": lambda g: [tuple(range(0, g, 2))] + [(i,) for i in range(1, g, 2)],
+}
+
+
 @pytest.mark.parametrize("g", [2, 4, 8])
 @pytest.mark.parametrize("layout", ["", "uint8", "uint16", "decide"])
 def test_plain_group_form_and_combine_equal_one_group(g, layout):
-    """The plain card step on each group alone (a card of one group),
-    each writing its owned lanes into its own row of a zeroed stage,
-    combined by the plain combine, equals the one-group plain step on
-    one table of the same banks, lane for lane and table for table; a
-    row holds nothing off its group's lanes, so the combine (a select)
-    also equals the bytewise sum of the rows, JAX's psum."""
+    """The plain card step on the groups of each card: the in-place
+    cards' owned lanes into one zeroed home output, each combine card's
+    into one zeroed partial of its own, then the plain
+    combine, equals the one-group plain step on one table of the same
+    banks, lane for lane and table for table; no buffer holds anything
+    off its card's lanes, so the combine (a select) also equals the
+    bytewise sum of the output and the partials, JAX's psum."""
     nb, spb = 8, NUM_SLOTS // 8
     rng = np.random.default_rng(40 + g)
     base = rng.integers(0, 2**32, (nb, spb), dtype=np.uint64).astype(np.uint32)
-    one = torch.from_numpy(base.view(np.int32).copy())
-    k = nb // g
-    parts = [one[i * k : (i + 1) * k].clone() for i in range(g)]
-    for step in range(4):
-        b = _port_batch(_raw_batch(rng, step, nb, n=40))
-        n = b.slots.shape[0]
-        decide = layout == "decide"
-        if decide:
-            afters = sh._general_update_plain(one, b.slots, b.hits, b.fresh, None, "")
-            want = fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
-        else:
-            want = sh._general_update_plain(one, b.slots, b.hits, b.fresh, b.limits, layout)
-        stride = -(-sh.partial_bytes(layout, n) // 16) * 16
-        stage = torch.zeros((g, stride), dtype=torch.uint8)
-        for i in range(g):
-            sh.sharded_card_step(
-                parts, (i,), nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.8,
-                stage.view(-1), stride,
-            )
-        out = sh.sharded_combine(stage, b.slots, nb, spb, layout)
-        got = sh.unpack_partial(out, layout, n)
-        summed = stage.sum(0, dtype=torch.uint8)[: out.shape[0]]
-        assert torch.equal(out, summed), f"step {step}: a lane is nonzero off its owner"
-        if decide:
-            for f in FIELDS:
-                assert torch.equal(getattr(got, f), getattr(want, f)), (step, f)
-        else:
-            assert torch.equal(got, want), step
-        assert torch.equal(torch.cat(parts), one), step
+    for split, sets in COMBINE_SPLITS.items():
+        one = torch.from_numpy(base.view(np.int32).copy())
+        k = nb // g
+        parts = [one[i * k : (i + 1) * k].clone() for i in range(g)]
+        cards = [(groups, "home" if c == 0 else "combine") for c, groups in enumerate(sets(g))]
+        sources = sh._combine_sources(cards)
+        for step in range(4):
+            b = _port_batch(_raw_batch(rng, step, nb, n=40))
+            n = b.slots.shape[0]
+            decide = layout == "decide"
+            if decide:
+                afters = sh._general_update_plain(one, b.slots, b.hits, b.fresh, None, "")
+                want = fw._decision_block_plain(afters, b.hits, b.limits, b.shadow, 0.8)
+            else:
+                want = sh._general_update_plain(one, b.slots, b.hits, b.fresh, b.limits, layout)
+            size = sh.partial_bytes(layout, n)
+            out = torch.zeros(size, dtype=torch.uint8)
+            partials = torch.zeros((len(cards) - 1, -(-size // 16) * 16), dtype=torch.uint8)
+            for c, (groups, _) in enumerate(cards):
+                sh.sharded_card_step(
+                    parts, groups, nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow,
+                    0.8, out if c == 0 else partials[c - 1],
+                )
+            summed = torch.cat([out[None], partials[:, :size]]).sum(0, dtype=torch.uint8)
+            assert sh.sharded_combine(out, partials, sources, b.slots, nb, spb, layout) is out
+            got = sh.unpack_partial(out, layout, n)
+            assert torch.equal(out, summed), f"{split} step {step}: a lane is off its owner"
+            if decide:
+                for f in FIELDS:
+                    assert torch.equal(getattr(got, f), getattr(want, f)), (split, step, f)
+            else:
+                assert torch.equal(got, want), (split, step)
+            assert torch.equal(torch.cat(parts), one), (split, step)
 
 
 def test_combine_takes_out_of_table_lanes_from_bank_zeros_group():
     """An id past the table or negative belongs to the group of bank 0,
-    an in-table id to its bank's group: the combine picks those rows."""
+    which the home card holds, so its lane stays in the home output; an
+    in-table id takes its bank's group's place: the output for group 0,
+    partial c - 1 for a group on the c-th combine card."""
     nb, spb, g = 8, 4, 4
-    slots = torch.tensor([-1, 32, 0, 1, 2, 3, 4, 5, 6, 7, 31], dtype=torch.int32)
+    slots = torch.tensor([-1, 32, 0, 1, 2, 3, 4, 5, 6, 7, 31, -2**31, 2**31 - 1],
+                         dtype=torch.int32)
     n = slots.shape[0]
-    parts = torch.arange(g, dtype=torch.int32).add(1).repeat_interleave(n).view(g, n)
-    out = sh.sharded_combine(parts.view(torch.uint8).contiguous(), slots, nb, spb, "")
-    owner = [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 4]  # group + 1; 31 % 8 = 7 -> group 3
-    assert sh.unpack_partial(out, "", n).tolist() == owner
+    out = torch.full((n,), 1, dtype=torch.int32)
+    partials = torch.arange(2, g + 1, dtype=torch.int32).repeat_interleave(n).view(g - 1, n)
+    got = sh.sharded_combine(out.view(torch.uint8), partials.view(torch.uint8), [0, 1, 2, 3],
+                             slots, nb, spb, "")
+    # group + 1; 31 % 8 = 7 -> group 3; the int32 extremes are out of the table.
+    owner = [1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 4, 1, 1]
+    assert sh.unpack_partial(got, "", n).tolist() == owner
 
 
 # -- the engine ----------------------------------------------------------
@@ -427,12 +448,16 @@ def test_wrappers_refuse_tensors_on_two_devices():
     with pytest.raises(ValueError, match="one device"):
         sh.sharded_card_step([tables[0], tables[1].to("meta")], (0, 1), 4, lanes, lanes, fresh,
                              None, "", None, 0.0, out)
+    partials = torch.zeros((1, 32), dtype=torch.uint8)
     with pytest.raises(ValueError, match="one device"):
-        sh.sharded_combine(torch.zeros((2, 32), dtype=torch.uint8), meta, 4, 4, "")
+        sh.sharded_combine(out, partials, [0, 1], meta, 4, 4, "")
     with pytest.raises(ValueError, match="are not groups of"):
         sh.sharded_card_step(tables, (2,), 4, lanes, lanes, fresh, None, "", None, 0.0, out)
     with pytest.raises(ValueError, match="do not hold"):
-        sh.sharded_combine(torch.zeros((3, 32), dtype=torch.uint8), lanes, 4, 4, "")
+        sh.sharded_combine(out, torch.zeros((1, 28), dtype=torch.uint8), [0, 1], lanes, 4, 4, "")
+    for sources in ([1, 0], [0, 2], [0, 1, 1]):
+        with pytest.raises(ValueError, match="do not place"):
+            sh.sharded_combine(out, partials, sources, lanes, 4, 4, "")
 
 
 def _fake_card(monkeypatch):
@@ -455,9 +480,10 @@ def _fake_card(monkeypatch):
 def test_group_form_and_combine_are_one_ctypes_call_each(monkeypatch, layout):
     """A CPU tensor taken for a card's: K7 over the groups a card holds
     is one call of rl_sharded_card_step carrying the mesh's table
-    pointers (null for a group elsewhere), the output, its row stride and
+    pointers (null for a group elsewhere), the output and
     set_local_cache's offset, counted under its epilogue's name; the
-    combine one call of rl_sharded_combine with the layout's rows; the
+    combine one call of rl_sharded_combine on the home output and the
+    partials, with the group -> source table and the layout's rows; the
     argument counts are those of SIGNATURES."""
     calls = _fake_card(monkeypatch)
     n, nb = 40, 8
@@ -470,28 +496,29 @@ def test_group_form_and_combine_are_one_ctypes_call_each(monkeypatch, layout):
         kernels, "function",
         lambda name: lambda *a: calls.append((name, a)) or seen.append(
             list((ctypes.c_void_p * 4).from_address(a[0])) if name == "rl_sharded_card_step"
-            else None) or 0,
+            else list((ctypes.c_int * 4).from_address(a[4]))) or 0,
     )
     got = sh.launch_card_step(
-        tables, (1, 3), nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.5,
-        out, 48 * n,
+        tables, (1, 3), nb, b.slots, b.hits, b.fresh, b.limits, layout, b.shadow, 0.5, out,
     )
     (name, args), = calls
     assert name == "rl_sharded_card_step" and got is out
     assert len(args) == len(kernels.SIGNATURES[name][1])
     assert seen[0] == [None, tables[1].data_ptr(), None, tables[3].data_ptr()]
     assert args[1:4] == (4, nb, NUM_SLOTS // nb)
-    assert args[-4:-1] == (48 * n, {"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
+    assert args[-3:-1] == ({"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
     assert args[12] == out.data_ptr()  # out
     assert args[13] == (out.data_ptr() + 32 * n if layout == "decide" else None)  # set_lc
     kernel = sh.K7_CARD_STEP if layout == "decide" else sh.K7_CARD
     assert kernels.launches[kernel] == before.get(kernel, 0) + 1
-    stage = torch.zeros((4, 48 * n), dtype=torch.uint8)
-    out = sh.launch_combine(stage, b.slots, nb, NUM_SLOTS // nb, layout)
+    home = torch.zeros(sh.partial_bytes(layout, n), dtype=torch.uint8)
+    partials = torch.zeros((2, 48 * n), dtype=torch.uint8)
+    got = sh.launch_combine(home, partials, [0, 2, 0, 1], b.slots, nb, NUM_SLOTS // nb, layout)
     name, args = calls[1]
-    assert name == "rl_sharded_combine"
+    assert name == "rl_sharded_combine" and got is home
     assert len(args) == len(kernels.SIGNATURES[name][1])
-    assert args[:3] == (stage.data_ptr(), 48 * n, 4)
-    assert args[6:10] == (*sh.LAYOUTS[layout], n)
-    assert args[10] == out.data_ptr() and out.shape == (sh.partial_bytes(layout, n),)
+    assert args[:4] == (home.data_ptr(), partials.data_ptr(), 48 * n, 2)
+    assert seen[1] == [0, 2, 0, 1] and args[5] == 4  # the group -> source table
+    assert args[6:9] == (b.slots.data_ptr(), nb, NUM_SLOTS // nb)
+    assert args[9:13] == (*sh.LAYOUTS[layout], n)
     assert kernels.launches[sh.COMBINE] == before.get(sh.COMBINE, 0) + 1

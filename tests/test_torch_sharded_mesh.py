@@ -342,7 +342,7 @@ def test_forward_step_over_four_cards_is_one_ctypes_call(monkeypatch, layout):
     out = torch.zeros(sh.partial_bytes(layout, n), dtype=torch.uint8)
     kernel = sh.K7_CARD_STEP if layout == "decide" else sh.K7_CARD
     before = kernels.launches[kernel]
-    assert sh.launch_mesh_card_step(parts, plan, nb, lanes, layout, 0.5, out, 0) is out
+    assert sh.launch_mesh_card_step(parts, plan, nb, lanes, layout, 0.5, out) is out
     ((name, args, (devices, streams, tables, lane_ptrs, copies)),) = calls
     assert name == sh.MESH_CARD and len(args) == len(kernels.SIGNATURES[name][1])
     assert args[0] == 4 and args[4:7] == (4, nb, NUM_SLOTS // nb)
@@ -354,8 +354,8 @@ def test_forward_step_over_four_cards_is_one_ctypes_call(monkeypatch, layout):
     assert args[10] == packed.numel()
     for c in range(1, 4):
         assert lane_ptrs[5 * c : 5 * c + 5] == [copies[c] + sp[0] for sp in spans]
-    assert args[13] == out.data_ptr() and args[-4:-1] == (
-        0, {"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
+    assert args[13] == out.data_ptr() and args[-3:-1] == (
+        {"": 0, "uint8": 1, "uint16": 2, "decide": 3}[layout], n)
     assert kernels.launches[kernel] == before + 4
 
 
