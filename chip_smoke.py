@@ -1470,8 +1470,10 @@ def served_chunks(torch, sh, eng, sw, gcra, dev, n=SERVED_CHUNKS, cells=None):
 
         def chunk():
             handle, reassemble = engine._device_submit(dedup, now)
+            # The token step_submit returns; its last field (no phase
+            # record) is None.
             d = engine.step_complete(
-                (hits, limits, shadow, [(handle, 0, width, dedup, reassemble)], now)
+                (hits, limits, shadow, [(handle, 0, width, dedup, reassemble)], now, None)
             )
             if (d.codes != 1).any() or (not generic and d.afters.any()):
                 fail(f"served chunk answered wrong ({label}, {width} lanes)")

@@ -233,7 +233,9 @@ def find_format_refs(mod: ModuleInfo, known: Dict[str, DtypeDecl]):
                 )
             except (TypeError, ValueError):
                 folded = None
-            refs.append(_FmtRef(node, folded, decls[0].name))
+            # Keyed by the local name, as `known` is (an import may
+            # alias the declaration).
+            refs.append(_FmtRef(node, folded, targets[0]))
     return refs
 
 

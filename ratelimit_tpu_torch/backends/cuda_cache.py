@@ -246,8 +246,11 @@ class CudaRateLimitCache:
         # the fault domain as well.
         self.events = None
         # Launch flight recorder (observability/launches.py), attached
-        # through attach_launch_recorder when LAUNCH_RECORDER_SIZE > 0.
+        # through attach_launch_recorder when LAUNCH_RECORDER_SIZE > 0;
+        # _launch_phases: whether the banks' engines stamp phase records
+        # there too (on request only).
         self.launches = None
+        self._launch_phases = False
         # Hot-key promotion cache (overload/controller.py), attached by
         # the runner when OVERLOAD_PROMOTE_ENABLED: stems the sketch
         # marked repeat offenders carry a short-TTL host-side OVER_LIMIT
@@ -351,6 +354,8 @@ class CudaRateLimitCache:
             new_dispatcher.launches = self.launches
             new_dispatcher.launch_bank = bank
             new_dispatcher.launch_algo = self._bank_algo_id(bank)
+            if self._launch_phases:
+                self._attach_phases(new_engine, bank)
         self._inline_locks[id(new_engine)] = threading.Lock()
         self._dispatchers[id(new_engine)] = new_dispatcher
         self._bank_engines[bank] = new_engine
@@ -368,11 +373,19 @@ class CudaRateLimitCache:
         with self._health_lock:
             self._unhealthy.discard(id(old_d))
 
-    def attach_launch_recorder(self, recorder) -> None:
+    def attach_launch_recorder(self, recorder, phases: bool = False) -> None:
         """Wire the launch flight recorder into every bank dispatcher
         and the fault domain's fallback path (runner.start; _swap_bank
-        hands it to restarted dispatchers)."""
+        hands it to restarted dispatchers).  With `phases`, every bank's
+        engine stamps its phase records there too, each joined to its
+        dispatcher's launch record (observability/launches.py), and a
+        restarted bank's engine with it.  The runner's recorder leaves
+        the engines detached: a phase record's device timing holds the
+        engine's stream behind a gate from the launch's first ctypes
+        call to its last, which a served chunk does not pay for unless
+        asked."""
         self.launches = recorder
+        self._launch_phases = phases
         if self.fault_domain is not None:
             self.fault_domain.launches = recorder
         for bank, eng in enumerate(self.engines()):
@@ -381,6 +394,15 @@ class CudaRateLimitCache:
                 d.launch_bank = bank
                 d.launch_algo = self._bank_algo_id(bank)
                 d.launches = recorder
+            if phases:
+                self._attach_phases(eng, bank)
+
+    def _attach_phases(self, engine, bank: int) -> None:
+        """The launch recorder on `engine` under its bank index (an
+        engine without phase records is left alone)."""
+        attach = getattr(engine, "attach_launch_recorder", None)
+        if attach is not None:
+            attach(self.launches, bank=bank, algo=self._bank_algo_id(bank))
 
     def _bank_algo_id(self, bank: int) -> int:
         """models/registry algo_id serving at `bank` (engines() order):

@@ -13,7 +13,11 @@ attached (observability/launches.py), each launch leaves one record:
 the stream, ``complete_ns`` from the start of the event wait through
 decide and scatter, stamped on the completer after the event has
 completed.  A record that fails to stamp is logged and dropped; it
-never fails the launch.
+never fails the launch.  Where the engine has the recorder attached too
+(its phase records), the launch's phase record is held back from the
+engine's own stamp (``CounterEngine.hold_phase``) and stamped right
+after the launch record, carrying that record's seq in ``launch``: the
+join ``/debug/launches`` shows a launch's phases by.
 
 The reference gets cross-request batching for free from radix's
 implicit pipelining (one Redis round trip aggregates commands from
@@ -49,7 +53,7 @@ import numpy as np
 
 from ..observability.launches import OUTCOME_FAULT, OUTCOME_OK
 from ..utils.time import REAL_MONOTONIC
-from .engine import HostDecisions
+from .engine import HostDecisions, stamp_phase
 
 logger = logging.getLogger("ratelimit.dispatcher")
 
@@ -163,11 +167,11 @@ class WorkItem:
     # Optional per-stage timestamp sink: when set, the pipeline stamps
     # perf_counter() at "launch" (collector hands the batch to the
     # device) and "complete" (readback+decide done, waiter signalled).
-    # The submitter owns "submit"/"applied".  Powers the closed-loop
-    # latency harness (benchmarks/closed_loop_p99.py) and, in serving,
-    # the request tracer: the cache sets it on SAMPLED requests and
-    # converts the stamps to dispatch/kernel spans after wait()
-    # (observability/trace.py).  None on the unsampled hot path.
+    # The submitter owns "submit"/"applied".  Its reader is the request
+    # tracer: the cache sets it on SAMPLED requests and converts the
+    # stamps to dispatch/kernel spans after wait()
+    # (observability/trace.py), which /debug/tracez and the detectors
+    # read.  None on the unsampled hot path.
     trace: Optional[dict] = None
     # Launch-recorder stamps (observability/launches.py), set only
     # when a recorder is attached to the receiving dispatcher:
@@ -315,10 +319,10 @@ def submit_items(engine, items: List[WorkItem]):
         if traces:
             # Stamped AFTER submit_packed returns: "launch" means the
             # device step is in flight — host-side assign/dedup/
-            # transfer cost lands in intake->launch, so the
-            # launch->complete stage is purely the device leg +
-            # readback + decide (the part that moves to the chip on
-            # real hardware).
+            # staging cost lands in intake->launch (the tracer's
+            # dispatch span), so launch->complete (its kernel span) is
+            # the device leg + readback + decide.  The engine's phase
+            # records split both (observability/launches.py).
             t_launch = time.perf_counter()
             for tr in traces:
                 tr["launch"] = t_launch
@@ -750,6 +754,9 @@ class BatchDispatcher:
             self._note_step(False)
         elif token is not None:
             if lr is not None:
+                # The engine's phase record of this launch (None where
+                # the engine stamps none) waits for the launch record.
+                hold = getattr(self.engine, "hold_phase", None)
                 # Appended strictly before the matching _put_completion:
                 # the completer poplefts one entry per batch.
                 self._launch_meta.append(  # tpu-lint: disable=shared-state -- deque append/popleft are GIL-atomic; one FIFO producer (collector) and one FIFO consumer (completer)
@@ -760,6 +767,7 @@ class BatchDispatcher:
                         queue_wait,
                         time.monotonic_ns() - t0,
                         corr,
+                        None if hold is None else hold(token),
                     )
                 )
             with self._state_lock:
@@ -922,8 +930,8 @@ class BatchDispatcher:
                             # Recorder attached between this batch's
                             # launch and its completion: no front-half
                             # measurements, still one record.
-                            meta = (0, len(payload), 0, 0, 0, 0)
-                        self._record_launch(
+                            meta = (0, len(payload), 0, 0, 0, 0, None)
+                        seq = self._record_launch(
                             lr,
                             meta[0],
                             meta[1],
@@ -934,6 +942,10 @@ class BatchDispatcher:
                             OUTCOME_OK if ok else OUTCOME_FAULT,
                             meta[5],
                         )
+                        ph = meta[6]
+                        if ph is not None and ph.fields is not None:
+                            # The launch's phases, joined by its seq.
+                            stamp_phase(ph, seq or 0)
                     if ok:
                         self.completed_launches += 1
                     with self._state_lock:
@@ -942,15 +954,16 @@ class BatchDispatcher:
         except BaseException as e:  # noqa: BLE001 — liveness boundary
             self._die(e)
 
-    def _record_launch(self, lr, *fields) -> None:
-        """Stamp one launch record for this dispatcher's bank.  A
-        recorder that raises loses the record, never the launch: the
-        dispatcher thread must not die into the fault domain's fallback
-        over an observability hook."""
+    def _record_launch(self, lr, *fields) -> Optional[int]:
+        """Stamp one launch record for this dispatcher's bank; returns
+        its seq (None where none).  A recorder that raises loses the
+        record, never the launch: the dispatcher thread must not die
+        into the fault domain's fallback over an observability hook."""
         try:
-            lr.record(self.launch_bank, self.launch_algo, *fields)
+            return lr.record(self.launch_bank, self.launch_algo, *fields)
         except Exception:
             logger.exception("%s: launch record dropped", self._thread.name)
+            return None
 
     def _run_call(self, t: "_CallToken") -> None:
         if t.device_call:

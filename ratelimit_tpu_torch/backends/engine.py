@@ -28,6 +28,14 @@ launch whose kernel reads the staged batch through its device alias and
 writes the readback the same way -- again one device activity, with no
 copy and no device buffer.  Either way an event is recorded after it.  ``step_complete`` waits
 on that event (never on the whole device) before the host decide pass.
+With a launch recorder attached (``attach_launch_recorder``), each
+submission also leaves a phase record (observability/launches.py): its
+host phases on the monotonic clock and, on CUDA, its device time from a
+pair of timing events recorded around the launch while the stream is
+held by a gate (``_DeviceTimer``), so the pair times the device work and
+not the host's enqueue.  Detached, ``submit_packed`` and ``step_complete``
+each pay one attribute load and one branch for it, and ``_serve_on``
+one load and three branches.
 Each in-flight submission holds its own staging buffers, so the
 dispatcher can launch batch N+1 while batch N's readback is in flight;
 stream order stands in for the reference's donated-buffer chain.  The
@@ -45,8 +53,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import itertools
+import logging
 import math
 import threading
+import time
 import weakref
 from collections import deque
 from dataclasses import dataclass
@@ -64,6 +75,8 @@ from ..models.fixed_window import (
     state_to_numpy,
 )
 from .slot_table import EntryArrays, SlotTable
+
+logger = logging.getLogger("ratelimit.engine")
 
 # Pad batches up to one of these sizes so a handful of kernel shapes
 # serve every batch length (batch-axis bucketing to fixed shapes).
@@ -473,6 +486,149 @@ class _Staging:
         self.event = torch.cuda.Event() if pin else None
 
 
+class _Phase:
+    """The phase stamps of one submission, carried in its token from
+    submit_packed to step_complete (see observability/launches.py and
+    phases.PHASE_DTYPE).  ``held`` leaves the stamp to the dispatcher, which
+    learns the launch seq that joins the two records only from its own
+    record; ``fields``, set by step_complete, is then what it stamps
+    (stamp_phase)."""
+
+    __slots__ = (
+        "record", "bank", "algo", "lanes", "groups", "fresh", "submit_t0", "submit_ns",
+        "assign_ns", "stage_ns", "enqueue_ns", "mark", "events", "held", "fields",
+    )
+
+    def __init__(self, record, bank: int, algo: int, lanes: int):
+        self.record = record
+        self.bank = bank
+        self.algo = algo
+        self.lanes = lanes
+        self.stage_ns = self.enqueue_ns = 0
+        self.events = []  # (start, end) timing events, one pair a chunk
+        self.held = False
+        self.fields = None
+
+    def stage_done(self, t: int) -> None:
+        """The staging ends at `t` (the chunk's launch begins)."""
+        self.stage_ns += t - self.mark  # tpu-lint: disable=shared-state -- a _Phase is one submission's: written by the submitting (owner) thread until its token is handed on, then by the completing thread alone
+        self.mark = t  # tpu-lint: disable=shared-state -- same one-submission ownership as stage_ns
+
+    def enqueue_done(self, t: int) -> None:
+        """The launch and its event records end at `t`."""
+        self.enqueue_ns += t - self.mark  # tpu-lint: disable=shared-state -- same one-submission ownership as stage_ns
+        self.mark = t
+
+
+class _DeviceTimer:
+    """Times a chunk's device work with a pair of CUDA timing events
+    recorded while a gate holds the stream (csrc/gate.cu): the start
+    event, the kernel and the end event, enqueued meanwhile, then run
+    back to back, so the pair times the device work and not the host's
+    enqueue between the start event and the launch (on a stream idle
+    between chunks, an ungated start event completes as soon as it is
+    recorded).  ``open`` enqueues a wait for the pinned host word to
+    reach a new ticket (cuStreamWaitValue32) and records the start
+    event, ``close`` records the end event and writes the ticket: one C
+    call each.  The gate is first tried on a stream of its own
+    (``_probe``): only one seen to hold and then to let go ever holds an
+    engine's stream.  Where the driver has no such wait, the probe fails
+    or a call fails, no chunk is timed (``works`` False): an ungated pair
+    would time the host's enqueue, so device_ns stays 0 (unknown) rather
+    than read that.  Event pairs are the engine's (``pairs``, freed with
+    it)."""
+
+    #: Seconds the probe waits for a released stream to run on.
+    PROBE_S = 1.0
+    #: cudaErrorNotReady: an event not yet done.
+    NOT_READY = 600
+
+    def __init__(self, device: torch.device, pairs: Deque[tuple]):
+        from .. import kernels
+
+        self.tickets = itertools.count(1)
+        self.works = False
+        try:
+            with kernels.on_device(device):
+                self.word = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+            self.alias = kernels.mapped_alias(self.word.data_ptr())
+            self._open = kernels.function("rl_gate_open")
+            self._close = kernels.function("rl_gate_close")
+            self._elapsed = kernels.function("rl_elapsed_ns")
+            self._query = kernels.function("rl_event_query")
+            self._make = kernels.function("rl_timing_pair")
+            weakref.finalize(self, _free_pairs, pairs, kernels.function("rl_timing_free"))
+            self.works = self._probe(device)
+        except Exception:
+            logger.exception("device timing unavailable: phase records keep device_ns 0")
+
+    def pair(self) -> tuple:
+        """A new (start, end) pair of timing events, as raw handles."""
+        start, end = ctypes.c_void_p(), ctypes.c_void_p()
+        rc = self._make(ctypes.byref(start), ctypes.byref(end))
+        if rc != 0:
+            raise RuntimeError(f"cudaEventCreate failed (error {rc})")
+        return start.value, end.value
+
+    def open(self, stream, start: int) -> int:
+        """Hold `stream` and record `start` on it; returns the ticket
+        ``close`` lets it go with."""
+        ticket = next(self.tickets) & 0x7FFFFFFF or 1
+        self._check(self._open(stream.cuda_stream, self.alias, ticket, start))
+        return ticket
+
+    def close(self, stream, end: int, ticket: int) -> None:
+        """Record `end` on `stream` and let it go (its ticket)."""
+        self._check(self._close(stream.cuda_stream, end, self.word.data_ptr(), ticket))
+
+    def _check(self, rc: int) -> None:
+        """Stop timing after a failed call (`rc`, a CUDA error)."""
+        if rc != 0:
+            self.works = False  # tpu-lint: disable=shared-state -- the timer is touched only by the engine's submitting (owner) thread
+            logger.warning("device timing failed (error %d): phase records keep device_ns 0", rc)
+
+    def elapsed_ns(self, start: int, end: int) -> int:
+        """Device ns between two completed events (0 where unknown)."""
+        ns = ctypes.c_longlong(0)
+        return ns.value if self._elapsed(start, end, ctypes.addressof(ns)) == 0 else 0
+
+    def _probe(self, device: torch.device) -> bool:
+        """Whether the start event behind the gate waits while it holds,
+        and the end event runs once it lets go, on a stream made for the
+        probe (left behind where the release never arrives)."""
+        stream = _create_stream(device)
+        start, end = self.pair()
+        ticket = next(self.tickets)
+        rc = self._open(stream.cuda_stream, self.alias, ticket, start)
+        held = rc == 0 and self._query(start) == self.NOT_READY
+        self._close(stream.cuda_stream, end, self.word.data_ptr(), ticket)
+        deadline = time.monotonic() + self.PROBE_S
+        while self._query(end) != 0:
+            if time.monotonic() > deadline:
+                logger.warning("stream gate never let go: phase records keep device_ns 0")
+                return False
+            time.sleep(1e-4)
+        if not held:
+            logger.warning("stream gate did not hold: phase records keep device_ns 0")
+        return held
+
+
+def _free_pairs(pairs: Deque[tuple], free) -> None:
+    """Destroy an engine's idle timing event pairs."""
+    while pairs:
+        free(*pairs.pop())
+
+
+def stamp_phase(ph: _Phase, launch: int) -> None:
+    """Stamp `ph`'s record (step_complete's ``fields``) joined to the
+    launch record `launch` (0: none).  A recorder that raises, or has
+    no phase ring, loses the record and nothing else."""
+    try:
+        ph.record(launch, *ph.fields)
+    except Exception:
+        logger.exception("phase record dropped")
+
+
 class CounterEngine:
     def __init__(
         self,
@@ -550,6 +706,30 @@ class CounterEngine:
         self.stat_evictions = 0
         self.stat_dedup_groups = 0
         self.stat_window_rollovers = 0
+        # Launch recorder for phase records (attach_launch_recorder);
+        # None = detached.  _ph is the submission being launched (the
+        # submitting thread's), _timer and _timing (its idle event
+        # pairs) serve the device timing on CUDA.
+        self._phases = None
+        self._phase_bank = 0
+        self._phase_algo = 0
+        self._ph: Optional[_Phase] = None
+        self._timer: Optional[_DeviceTimer] = None
+        self._timing: Deque[tuple] = deque()
+
+    def attach_launch_recorder(self, recorder, bank: int = 0, algo: Optional[int] = None) -> None:
+        """Stamp a phase record of every later submission into
+        `recorder` (observability/launches.py) under `bank` and `algo`
+        (the model's registry id by default); None detaches.  A
+        submission already in flight keeps the recorder it started with."""
+        if algo is None:
+            from ..models.registry import ALGORITHMS
+
+            name = self.algorithm
+            algo = ALGORITHMS[name].algo_id if name in ALGORITHMS else 0
+        self._phase_bank = int(bank)
+        self._phase_algo = int(algo)
+        self._phases = recorder
 
     def _on_stream(self):
         """Context that puts this thread's work on the engine stream.
@@ -607,6 +787,15 @@ class CounterEngine:
         """Run one padded device step per <=max_batch chunk."""
         return self.step_complete(self.step_submit(batch, now))
 
+    def hold_phase(self, token) -> Optional[_Phase]:
+        """The phase stamps a submission's token carries (None where no
+        recorder was attached), now held: step_complete leaves the stamp
+        to the caller, who gives stamp_phase the launch seq to join."""
+        ph = token[5]
+        if ph is not None:
+            ph.held = True
+        return ph
+
     def step_submit(self, batch: HostBatch, now: int = 0):
         """Launch the device work for `batch` WITHOUT waiting for the
         readback; returns an opaque token for step_complete.  Takes
@@ -631,7 +820,7 @@ class CounterEngine:
         self.stat_live_keys = len(self.slot_table)  # tpu-lint: disable=shared-state -- collector-owned engine
         self.stat_evictions = self.slot_table.evictions  # tpu-lint: disable=shared-state -- collector-owned engine
         self.stat_dedup_groups = sum(len(c[3].uniq_slots) for c in chunks)  # tpu-lint: disable=shared-state -- collector-owned engine
-        return (batch.hits, batch.limits, batch.shadow, chunks, now)
+        return (batch.hits, batch.limits, batch.shadow, chunks, now, None)
 
     def submit_packed(self, now: int, key_blob, meta: np.ndarray):
         """Serving fast path: assign slots AND dedup in one native call
@@ -639,6 +828,39 @@ class CounterEngine:
         as a length-prefixed utf-8 blob and per-lane scalars as one
         LANE_DTYPE record array (see dispatcher.LanePack).  Returns
         the same token shape as step_submit."""
+        recorder = self._phases
+        if recorder is not None:
+            return self._submit_recorded(recorder, now, key_blob, meta)
+        hits, limits, shadow, dedups = self._assign_dedup(now, key_blob, meta)
+        return self._launch_chunks(hits, limits, shadow, dedups, now, None)
+
+    def _submit_recorded(self, recorder, now: int, key_blob, meta: np.ndarray):
+        """submit_packed with its phases stamped: assign [t0, t1), then
+        each chunk's staging and launch (marked in _serve_on), then the
+        gauges until the return."""
+        clock = time.monotonic_ns
+        t0 = clock()
+        hits, limits, shadow, dedups = self._assign_dedup(now, key_blob, meta)
+        ph = _Phase(getattr(recorder, "record_phase", None), self._phase_bank,
+                    self._phase_algo, len(meta))
+        ph.mark = t1 = clock()
+        before = self.stat_window_rollovers
+        self._ph = ph  # tpu-lint: disable=shared-state -- set and cleared by the engine's submitting (owner) thread around its own launch
+        try:
+            token = self._launch_chunks(hits, limits, shadow, dedups, now, ph)
+        finally:
+            self._ph = None
+        ph.groups = self.stat_dedup_groups
+        ph.fresh = self.stat_window_rollovers - before
+        ph.submit_t0 = t0
+        ph.assign_ns = t1 - t0
+        ph.submit_ns = clock() - t0
+        return token
+
+    def _assign_dedup(self, now: int, key_blob, meta: np.ndarray):
+        """submit_packed's first phase: every chunk's slots assigned and
+        deduped.  Returns (hits, limits, shadow, [(start, count,
+        _Dedup)])."""
         n = len(meta)
         key_lens = meta["len"].astype(np.int64)
         expiries = np.ascontiguousarray(meta["expiry"])
@@ -713,23 +935,69 @@ class CounterEngine:
         finally:
             if multi_fused:
                 table.end_batch()
-        # Phase 2 -- launch the device step per chunk.
+        return hits, limits, shadow, dedups
+
+    def _launch_chunks(self, hits, limits, shadow, dedups, now: int, ph):
+        """submit_packed's second phase: launch the device step per
+        chunk; returns the token, which carries `ph` (the phase stamps,
+        or None) to step_complete."""
         chunks = []
         for start, count, dedup in dedups:
             handle, reassemble = self._device_submit(dedup, now)
             chunks.append((handle, start, count, dedup, reassemble))
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))
+        table = self.slot_table
         self.stat_live_keys = len(table)
         self.stat_evictions = table.evictions
         self.stat_dedup_groups = sum(len(d.uniq_slots) for _, _, d in dedups)
-        return (hits, limits, shadow, chunks, now)
+        return (hits, limits, shadow, chunks, now, ph)
 
     def step_complete(self, token) -> HostDecisions:
         """Wait for the readback of a step_submit token and run the
         host threshold state machine.  Touches no engine state but the
-        staging free list (a GIL-atomic append), so any thread may call
-        it."""
-        hits, limits, shadow, chunks, now = token
+        staging and timing-event free lists (GIL-atomic appends), so any
+        thread may call it."""
+        ph = token[5]
+        if ph is not None:
+            return self._complete_recorded(ph, token)
+        return self._decide_chunks(token)
+
+    def _complete_recorded(self, ph: _Phase, token) -> HostDecisions:
+        """step_complete with its phases stamped: the wait on every
+        chunk's event [c0, c1), then the readback copy and the decide;
+        the device time is read from the chunks' timing events once they
+        have completed, and is 0 (unknown) unless every chunk was timed.
+        Stamped here unless the dispatcher holds the record
+        (``ph.held``); a recorder that raises loses the record, never the
+        chunk."""
+        clock = time.monotonic_ns
+        c0 = clock()
+        chunks = token[3]
+        for chunk in chunks:
+            self._wait_handle(chunk[0])
+        c1 = clock()
+        device_ns = 0
+        timed = len(ph.events) == len(chunks)
+        for pair in ph.events:
+            ns = self._timer.elapsed_ns(*pair)
+            timed = timed and ns > 0
+            device_ns += ns
+            self._timing.append(pair)  # tpu-lint: disable=shared-state -- GIL-atomic deque append (complete side) against pop (submit side, EAFP) once the pair's elapsed time is read
+        if not timed:
+            device_ns = 0
+        out = self._decide_chunks(token)
+        c2 = clock()
+        ph.fields = (
+            ph.bank, ph.algo, ph.lanes, ph.groups, ph.fresh,
+            ph.submit_t0, ph.submit_ns, ph.assign_ns, ph.stage_ns, ph.enqueue_ns,
+            c0, c2 - c0, c1 - c0, c2 - c1, device_ns,
+        )
+        if not ph.held:
+            stamp_phase(ph, 0)
+        return out
+
+    def _decide_chunks(self, token) -> HostDecisions:
+        hits, limits, shadow, chunks, now, _ph = token
         if not chunks:
             empty = np.zeros(0, dtype=np.int32)
             return HostDecisions(*([empty] * 8), empty.astype(bool))
@@ -793,6 +1061,10 @@ class CounterEngine:
         out = readback.numpy().view(_HOST_VIEW[readback.dtype]).copy()
         self._free_staging.append(st)
         return out
+
+    def _wait_handle(self, handle) -> None:
+        """Wait for every event of one chunk's handle (_fetch's wait)."""
+        self._wait(handle[0])
 
     @staticmethod
     def _wait(st: _Staging) -> None:
@@ -868,16 +1140,58 @@ class CounterEngine:
         (lanes_by_value): `lanes_step(counts, host, out)` up to 128 lanes,
         `wide_step(counts, host, out)` past it; each returns (counts,
         readback).  `st`'s event is recorded on `stream` after the last of
-        it.  Returns (counts, the handle (st, readback) for _fetch)."""
+        it.  Returns (counts, the handle (st, readback) for _fetch).
+        While a submission with a recorder attached is launched
+        (``_ph``), the staging ends at entry and the launch at return,
+        and on CUDA the step is timed (_step_timed)."""
+        ph = self._ph
+        if ph is not None:
+            ph.stage_done(time.monotonic_ns())
         rows, padded = host.shape[-2:]
         with _stream_context(stream, counts.device):
             nbytes = math.prod(shape) * dtype.itemsize
             out = st.readback[:nbytes].view(dtype).view(shape)
             by_value = lanes_by_value(host.numel() // (rows * padded), padded)
-            counts, readback = (lanes_step if by_value else wide_step)(counts, host, out)
+            step = lanes_step if by_value else wide_step
+            if ph is None or st.event is None:
+                counts, readback = step(counts, host, out)
+            else:
+                counts, readback = self._step_timed(ph, stream, step, counts, host, out)
             if st.event is not None:
                 st.event.record(stream)
+        if ph is not None:
+            ph.enqueue_done(time.monotonic_ns())
         return counts, (st, readback)
+
+    def _step_timed(self, ph: _Phase, stream, step, counts, host: torch.Tensor, out):
+        """`step(counts, host, out)` between a pair of timing events,
+        enqueued while the gate holds `stream` (_DeviceTimer); the pair
+        joins the submission's ``events``.  Untimed where the timer does
+        not work."""
+        timer = self._device_timer(counts.device)
+        if not timer.works:
+            return step(counts, host, out)
+        pair = self._timing_pair(timer)
+        ticket = timer.open(stream, pair[0])
+        try:
+            result = step(counts, host, out)
+        finally:
+            timer.close(stream, pair[1], ticket)
+        ph.events.append(pair)
+        return result
+
+    def _device_timer(self, device: torch.device) -> _DeviceTimer:
+        """The engine's device timer, made on first use."""
+        if self._timer is None:
+            self._timer = _DeviceTimer(device, self._timing)  # tpu-lint: disable=shared-state -- made lazily by the engine's submitting (owner) thread
+        return self._timer
+
+    def _timing_pair(self, timer: _DeviceTimer) -> tuple:
+        """An idle (start, end) pair of timing events."""
+        try:
+            return self._timing.pop()  # tpu-lint: disable=shared-state -- GIL-atomic deque pop (submit side, EAFP) against append (complete side) once the pair's elapsed time is read
+        except IndexError:
+            return timer.pair()
 
     def _device_submit_generic(self, dedup: _Dedup, now: int, g: int, padded: int, ns: int):
         """Generic algorithm path: ONE int32[5, padded] batch -- rows

@@ -52,6 +52,7 @@ SOURCES = {
     "fixed_window": "fixed_window.cu",
     "algorithms": "algorithms.cu",
     "sharded": "sharded.cu",
+    "gate": "gate.cu",
 }
 
 NVCC_FLAGS = (
@@ -157,6 +158,12 @@ SIGNATURES = {
          _I32, _I32, _VP],
     ),
     "rl_enable_peer": ("sharded", [_I32, _I32, _VP]),
+    "rl_timing_pair": ("gate", [ctypes.POINTER(_VP), ctypes.POINTER(_VP)]),
+    "rl_timing_free": ("gate", [_VP, _VP]),
+    "rl_gate_open": ("gate", [_VP, _VP, _I32, _VP]),
+    "rl_gate_close": ("gate", [_VP, _VP, _VP, _I32]),
+    "rl_elapsed_ns": ("gate", [_VP, _VP, _VP]),
+    "rl_event_query": ("gate", [_VP]),
     "rl_sharded_combine": (
         "sharded",
         [_VP, _VP, _I64, _I32, _VP, _I32, _VP, _I32, _I64, _I32, _I32, _I32, _I32, _VP],

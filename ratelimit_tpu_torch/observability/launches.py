@@ -48,6 +48,44 @@ the per-request amortized cost is launch-cost / items-per-batch.
 ``LAUNCH_RECORDER_SIZE=0`` disables recording entirely: the runner
 builds no recorder, dispatchers keep ``launches=None``, and the
 dispatch path pays one attribute load + branch per launch.
+
+Phase records (the port's own)
+------------------------------
+
+A companion ring of the same recorder holds one phase record
+(``observability/phases.py``, ``PHASE_DTYPE``)
+per ``CounterEngine.submit_packed`` / ``step_complete`` pair of an
+engine the recorder is attached to (``CounterEngine.
+attach_launch_recorder``; ``CudaRateLimitCache.attach_launch_recorder``
+with ``phases=True`` attaches it to every served bank's engine, which the
+runner's recorder does not ask for).  It splits the engine's two calls
+into their host phases, each a duration on the recorder's clock
+(monotonic ns):
+
+- ``submit_ns`` from ``submit_t0_ns``: the whole ``submit_packed``, whose
+  contiguous children are ``assign_ns`` (lane fields unpacked, slot
+  assign + dedup, native or Python table), ``stage_ns`` (bucket and
+  readback width picked, pinned staging rows filled) and ``enqueue_ns``
+  (the step wrapper's launch and the event records on the stream);
+- ``complete_ns`` from ``complete_t0_ns``: the whole ``step_complete``,
+  whose contiguous children are ``wait_ns`` (blocked on the
+  submission's event) and ``decide_ns`` (readback copy and host decide);
+- ``device_ns``: the chunk's device work from a pair of CUDA timing
+  events around its launch, run back to back behind a gate on the
+  stream; 0 (unknown) off CUDA, where the gate cannot hold the stream,
+  and where a chunk of the submission went untimed.  It reads the
+  kernel plus the pair's own cost on the card, about 4 us above the
+  profiler's kernel time on an H100 (PERF.md).
+
+Each root's self time is its duration less its children's.  A
+submission of several chunks sums each child, and ``device_ns``, over
+its chunks.  ``launch`` joins the record to the dispatcher's launch
+record it rode (that record's ``seq``); it is 0 for an engine driven
+directly.  The phase ring keeps the launch ring's discipline (one
+``struct.pack_into`` a record, seq-window validity, ``since`` cursor);
+``LAUNCH_DTYPE`` and the launch ring's views are the JAX package's,
+unchanged: only ``snapshot_dicts(phases=True)`` (``GET
+/debug/launches?phases=1``) shows a launch's phases.
 """
 
 from __future__ import annotations
@@ -60,6 +98,7 @@ import numpy as np
 
 from ..models.registry import ALGO_ID_TO_NAME as _ALGO_NAMES
 from ..utils.time import MonotonicClock, REAL_MONOTONIC, RealMonotonicClock
+from .phases import PHASE_DTYPE as _PHASE_DTYPE
 
 __all__ = [
     "LAUNCH_DTYPE",
@@ -125,6 +164,10 @@ class LaunchRecorder:
         # never from traffic.
         self._items_by_algo = {aid: 0 for aid in _ALGO_NAMES}
         self.record = self._make_record()
+        # The phase ring: same size, its own seq counter.
+        self._phases = np.zeros(self.size, _PHASE_DTYPE)
+        self._phase_counter = itertools.count()
+        self.record_phase = self._make_record_phase()
 
     # -- hot path (once per LAUNCH, on dispatcher threads) ---------------
 
@@ -160,8 +203,9 @@ class LaunchRecorder:
             complete_ns: int,
             outcome: int,
             corr: int = 0,
-        ) -> None:
-            """Stamp one launch (collector / completer thread)."""
+        ) -> int:
+            """Stamp one launch (collector / completer thread); returns
+            its seq, the key a phase record joins it by."""
             i = next(counter)
             pack_row(
                 mv,
@@ -181,8 +225,29 @@ class LaunchRecorder:
             )
             if algo in items_by_algo:
                 items_by_algo[algo] += items
+            return i + 1
 
         return record
+
+    def _make_record_phase(self):
+        """``record_phase(launch, bank, algo, lanes, groups, fresh,
+        submit_t0_ns, submit_ns, assign_ns, stage_ns, enqueue_ns,
+        complete_t0_ns, complete_ns, wait_ns, decide_ns, device_ns)``:
+        stamp one phase record in one C call (PHASE_DTYPE's fields after
+        ``seq``, in order); returns its seq.  Runs on the thread that
+        completes the submission."""
+        mv = memoryview(self._phases).cast("B")
+        itemsize = _PHASE_DTYPE.itemsize
+        pack_row = struct.Struct("<%dq" % len(_PHASE_DTYPE.names)).pack_into
+        size = self.size
+        counter = self._phase_counter
+
+        def record_phase(*fields) -> int:
+            i = next(counter)
+            pack_row(mv, (i % size) * itemsize, i + 1, *fields)
+            return i + 1
+
+        return record_phase
 
     # -- read surface -----------------------------------------------------
 
@@ -203,7 +268,10 @@ class LaunchRecorder:
         """A consistent copy of the live records with ``seq > since``,
         oldest first — one C-level copy under the GIL, then the same
         seq-window validity check as FlightRecorder.snapshot."""
-        ring = self._ring.copy()
+        return self._live(self._ring, since)
+
+    def _live(self, ring: np.ndarray, since: int) -> np.ndarray:
+        ring = ring.copy()
         seq = ring["seq"]
         hwm = int(seq.max())
         if hwm == 0:
@@ -211,15 +279,42 @@ class LaunchRecorder:
         live = ring[seq > max(int(since), 0, hwm - self.size)]
         return live[np.argsort(live["seq"], kind="stable")]
 
+    def snapshot_phases(self, since: int = 0) -> np.ndarray:
+        """The live phase records with ``seq > since``, oldest first
+        (snapshot's discipline, on the phase ring)."""
+        return self._live(self._phases, since)
+
+    def phases_stamped(self) -> int:
+        """Total phase records ever stamped."""
+        return int(self._phases["seq"].max())
+
+    def phase_dicts(self, since: int = 0, limit: Optional[int] = None) -> List[dict]:
+        """JSON view of the phase ring, oldest first, with the ``since``
+        cursor of snapshot_dicts."""
+        live = self.snapshot_phases(since)
+        if limit is not None and len(live) > limit:
+            live = live[-limit:]
+        return [_phase_view(rec) for rec in live]
+
     def snapshot_dicts(
-        self, since: int = 0, limit: Optional[int] = None
+        self, since: int = 0, limit: Optional[int] = None, phases: bool = False
     ) -> List[dict]:
         """The JSON-facing view (``GET /debug/launches``): time-ordered
         oldest first with a resumable ``since=`` seq cursor — the
-        /debug/events contract, so pollers reuse the same loop."""
+        /debug/events contract, so pollers reuse the same loop.  With
+        `phases`, a launch whose engine stamped a phase record carries
+        it under ``phases`` (_phase_view); the others are as the JAX
+        package shows them."""
         live = self.snapshot(since)
         if limit is not None and len(live) > limit:
             live = live[-limit:]
+        # Phase records joined to their launch (by its seq); nothing is
+        # added to a launch that has none.
+        joined = {}
+        if phases and len(live) and self._phases["seq"].any():
+            rides = self.snapshot_phases()
+            rides = rides[np.isin(rides["launch"], live["seq"])]
+            joined = {int(rec["launch"]): _phase_view(rec) for rec in rides}
         out = []
         for rec in live.tolist():
             (
@@ -243,6 +338,8 @@ class LaunchRecorder:
                 # Longest-queued item's cross-hop id, hex16 like the
                 # flight ring and trace spans render it.
                 d["corr"] = f"{corr & 0xFFFFFFFFFFFFFFFF:016x}"
+            if seq in joined:
+                d["phases"] = joined[seq]
             out.append(d)
         return out
 
@@ -276,6 +373,18 @@ class LaunchRecorder:
         store.counter_fn(scope + ".rate", self.stamped)
         store.gauge_fn(scope + ".p99_launch_ns", self.p99_launch_ns)
         store.float_gauge_fn(scope + ".coalesce_ratio", self.coalesce_ratio)
+
+
+def _phase_view(rec) -> dict:
+    """One phase record as JSON: the counts, the two start times (ns on
+    the recorder's clock) and every duration in microseconds."""
+    r = dict(zip(_PHASE_DTYPE.names, (int(v) for v in rec.tolist())))
+    out = {k: r[k] for k in ("seq", "launch", "bank", "lanes", "groups", "fresh",
+                             "submit_t0_ns", "complete_t0_ns")}
+    out["algorithm"] = _ALGO_NAMES.get(r["algo"], str(r["algo"]))
+    for k in ("submit", "assign", "stage", "enqueue", "complete", "wait", "decide", "device"):
+        out[k + "_us"] = round(r[k + "_ns"] / 1e3, 1)
+    return out
 
 
 def make_launch_recorder(

@@ -1577,6 +1577,13 @@ class ShardedCounterEngine(CounterEngine):
             self._pool(c).append(st)
         return out
 
+    def _wait_handle(self, handle) -> None:
+        """Every card's event of a several-group handle (a list)."""
+        if not isinstance(handle, list):
+            return super()._wait_handle(handle)
+        for st, _ in handle:
+            self._wait(st)
+
     # -- the device step -----------------------------------------------
 
     def _device_submit(self, dedup, now: int = 0):

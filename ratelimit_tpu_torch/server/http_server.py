@@ -557,7 +557,9 @@ def add_debug_routes(
 
     def launches_view(h) -> None:
         # One row per device batch with phase durations and coalescing
-        # counts; ?since=<seq> is the /debug/events cursor contract.
+        # counts; ?since=<seq> is the /debug/events cursor contract;
+        # ?phases=1 adds each launch's engine phase record (under
+        # "phases", where the engine stamped one).
         if launches is None:
             h._reply(404, b"launch recorder disabled (LAUNCH_RECORDER_SIZE=0)\n")
             return
@@ -565,6 +567,7 @@ def add_debug_routes(
         try:
             since = int(qs.get("since", ["0"])[0])
             limit = int(qs.get("limit", ["0"])[0]) or None
+            phases = bool(int(qs.get("phases", ["0"])[0]))
         except ValueError:
             h._reply(400, b"bad since=/limit= (want integers)\n")
             return
@@ -577,7 +580,9 @@ def add_debug_routes(
                     "p99_launch_ns": launches.p99_launch_ns(),
                     "coalesce_ratio": launches.coalesce_ratio(),
                     "items_by_algo": launches.items_by_algo(),
-                    "launches": launches.snapshot_dicts(since=since, limit=limit),
+                    "launches": launches.snapshot_dicts(
+                        since=since, limit=limit, phases=phases
+                    ),
                 }
             ).encode(),
             content_type="application/json",

@@ -92,7 +92,7 @@ def test_every_cuda_entry_parses_fully(src):
 def test_cuda_exports_are_the_signatures_keys():
     model = parse_sources([str(p) for p in CUDA_SOURCES])
     assert set(model.functions) == set(kernels.SIGNATURES)
-    assert len(model.functions) == 27
+    assert len(model.functions) == 33
 
 
 def test_max_lanes_pinned_to_the_cuda_constant():
