@@ -1,7 +1,7 @@
 """Clang-free C/C++/CUDA signature extraction for the native boundary.
 
 The port crosses into C at two places, both through ctypes: the host
-slot table (native/*.cpp plus csrc/slot_release.cpp, bound in
+slot table (csrc/slot_table.cpp and native/decide.cpp, bound in
 backends/native_slot_table.py) and the CUDA kernels' launchers
 (csrc/*.cu, bound through the ``SIGNATURES`` table of kernels.py).  A
 width or arity mismatch there is a silent segfault or a silent

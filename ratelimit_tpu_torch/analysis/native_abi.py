@@ -2,7 +2,7 @@
 
 The port declares, in ctypes, what it believes two ``extern "C"``
 surfaces look like: backends/native_slot_table.py for the host slot
-table (native/*.cpp and csrc/slot_release.cpp) and the ``SIGNATURES``
+table (csrc/slot_table.cpp and native/decide.cpp) and the ``SIGNATURES``
 table of kernels.py for the CUDA kernels' launchers (csrc/*.cu).
 Nothing on a machine without a card verifies the second belief at
 all.  A drifted argtype width, a forgotten
@@ -43,8 +43,10 @@ Binding modules are discovered structurally, in two forms:
   the module's own directory (fixtures put the C file next to the
   binding), else the union of the first ``native/`` and the first
   ``csrc/`` directory holding ``*.cpp``/``*.cc``/``*.c`` among up to
-  three ancestors -- the port compiles native/slot_table.cpp and
-  csrc/slot_release.cpp into one library.
+  three ancestors, a ``csrc/`` file replacing the ``native/`` file of
+  its name -- the port compiles csrc/slot_table.cpp (through
+  csrc/slot_release.cpp) and native/decide.cpp into one library, and
+  never native/slot_table.cpp.
 - **table form**: a module-level ``SIGNATURES = {name: (library,
   [argtypes])}`` dict beside a ``SOURCES = {library: file}`` dict
   (kernels.py).  Aliases (``_VP``, ``_I64``) resolve through the
@@ -383,17 +385,22 @@ def find_native_sources(module_path: str) -> List[str]:
     ``native/`` and the first ``csrc/`` holding C or C++ files beside
     the module or up to three ancestors (in-tree:
     ratelimit_tpu_torch/backends -> <repo>/native +
-    ratelimit_tpu_torch/csrc).  The ``.cu`` files of ``csrc/`` belong
-    to the SIGNATURES table, not to this library."""
+    ratelimit_tpu_torch/csrc).  A ``csrc/`` file replaces the
+    ``native/`` file of the same name: the port builds its own copy
+    (csrc/slot_table.cpp) and never compiles the one it replaces, so
+    the replaced file's declarations must not stand in for it.  The
+    ``.cu`` files of ``csrc/`` belong to the SIGNATURES table, not to
+    this library."""
     own = _glob_all(os.path.dirname(os.path.abspath(module_path)), C_GLOBS + CUDA_GLOBS)
     if own:
         return own
-    found: List[str] = []
+    by_name: Dict[str, str] = {}
     for sub in ("native", "csrc"):
         d = _ancestor_dir(module_path, sub, C_GLOBS)
         if d is not None:
-            found.extend(_glob_all(d, C_GLOBS))
-    return sorted(found)
+            for path in _glob_all(d, C_GLOBS):
+                by_name[os.path.basename(path)] = path
+    return sorted(by_name.values())
 
 
 # -- the SIGNATURES table form -----------------------------------------------

@@ -1292,6 +1292,16 @@ class CudaRateLimitCache:
             store.counter_fn(
                 base + ".evictions", lambda i=idx: self._engine_at(i).stat_evictions
             )
+            # The slot table's last sweep (µs, keys freed) and sweeps run.
+            store.gauge_fn(
+                base + ".gc_us", lambda i=idx: self._engine_at(i).stat_gc_ns // 1000
+            )
+            store.gauge_fn(
+                base + ".gc_freed", lambda i=idx: self._engine_at(i).stat_gc_freed
+            )
+            store.counter_fn(
+                base + ".gc_sweeps", lambda i=idx: self._engine_at(i).stat_gc_sweeps
+            )
             store.counter_fn(
                 base + ".window_rollovers",
                 lambda i=idx: self._engine_at(i).stat_window_rollovers,

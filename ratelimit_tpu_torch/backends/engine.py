@@ -706,6 +706,11 @@ class CounterEngine:
         self.stat_evictions = 0
         self.stat_dedup_groups = 0
         self.stat_window_rollovers = 0
+        # The slot table's sweeps (gc): the last one's monotonic ns and
+        # keys freed, and how many have run.
+        self.stat_gc_ns = 0
+        self.stat_gc_freed = 0
+        self.stat_gc_sweeps = 0
         # Launch recorder for phase records (attach_launch_recorder);
         # None = detached.  _ph is the submission being launched (the
         # submitting thread's), _timer and _timing (its idle event
@@ -762,7 +767,14 @@ class CounterEngine:
         return self.slot_table.assign(key, now, expiry)
 
     def gc(self, now: int) -> int:
-        return self.slot_table.gc(now)
+        """Sweep the slot table of keys expired at `now`; returns how
+        many it freed, and stamps the sweep's time and count."""
+        t0 = time.monotonic_ns()
+        freed = self.slot_table.gc(now)
+        self.stat_gc_ns = time.monotonic_ns() - t0  # tpu-lint: disable=shared-state -- collector-owned engine
+        self.stat_gc_freed = freed  # tpu-lint: disable=shared-state -- collector-owned engine
+        self.stat_gc_sweeps += 1  # tpu-lint: disable=shared-state -- collector-owned engine
+        return freed
 
     def reset(self) -> None:
         """Drop all counters and key assignments: the model's fresh state

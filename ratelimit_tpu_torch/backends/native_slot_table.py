@@ -1,8 +1,10 @@
-"""ctypes binding for the C++ slot table (native/slot_table.cpp) and
+"""ctypes binding for the C++ slot table (csrc/slot_table.cpp) and
 the fused host decide pass (native/decide.cpp).
 
-Port of ratelimit_tpu/backends/native_slot_table.py.  The port
-compiles the same sources, read as they are, with g++ into its own
+Port of ratelimit_tpu/backends/native_slot_table.py.  The port's slot
+table is its own: native/slot_table.cpp's ABI and answers, with an
+expiry index of per-expiry record buckets in place of a heap of key
+copies.  The port compiles it and native/decide.cpp with g++ into its own
 library under ratelimit_tpu_torch/_build/ (listed in .gitignore); it
 never loads the reference package's library and has no environment
 override for the library path.  Same contract as the Python SlotTable
@@ -34,16 +36,17 @@ _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "native",
 )
-# The port's own translation unit includes native/slot_table.cpp and
+_CSRC_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
+)
+# The port's own translation unit includes csrc/slot_table.cpp and
 # adds the handoff's release (csrc/slot_release.cpp).
 _SRCS = [
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "slot_release.cpp"
-    ),
+    os.path.join(_CSRC_DIR, "slot_release.cpp"),
     os.path.join(_NATIVE_DIR, "decide.cpp"),
 ]
 #: Every source the build reads, the included slot table too.
-_DIGEST_SRCS = _SRCS + [os.path.join(_NATIVE_DIR, "slot_table.cpp")]
+_DIGEST_SRCS = _SRCS + [os.path.join(_CSRC_DIR, "slot_table.cpp")]
 _SO = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "_build",
@@ -189,12 +192,12 @@ def _staleness_hint() -> str:
     quoted as a human-readable hint about HOW the tree got stale."""
     try:
         so_mtime = os.path.getmtime(_SO)
-        src_mtime = max(os.path.getmtime(s) for s in _SRCS)
+        src_mtime = max(os.path.getmtime(s) for s in _DIGEST_SRCS)
     except OSError:
         return ""
     if so_mtime < src_mtime:
         return (
-            " (.so predates native/*.cpp by "
+            " (.so predates its C++ sources by "
             f"{src_mtime - so_mtime:.0f}s — stale build)"
         )
     return ""

@@ -1,18 +1,18 @@
-// The port's native slot table: the JAX package's native/slot_table.cpp,
-// compiled in this translation unit, plus the release a counter
-// handoff's second leg needs (cluster/handoff.py, engine.release_keys).
+// The port's native slot table (csrc/slot_table.cpp), compiled in this
+// translation unit, plus the release a counter handoff's second leg
+// needs (cluster/handoff.py, engine.release_keys).
 //
 // sk_release_batch drops each given (key, slot, expiry) that the table
 // still holds exactly as given -- the same key in the same slot with
 // the same expiry -- and frees its slot: one hash probe and one erase a
 // key, no rebuild of the table.  A key that gc reclaimed, or whose slot
 // went to another key, since the caller copied the table is left
-// alone.  Heap entries of released keys lazy-delete, as gc's do.
+// alone.  The expiry records of released keys go stale, as gc's do.
 //
 // Build: g++ -O2 -std=c++20 -shared -fPIC with native/decide.cpp
 // (backends/native_slot_table.py).
 
-#include "../../native/slot_table.cpp"
+#include "slot_table.cpp"
 
 extern "C" {
 

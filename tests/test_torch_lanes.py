@@ -16,6 +16,7 @@ flipping health, and the CUDA stream that no two live banks may share
 (on a fake stream pool: CUDA is not needed to show the rule).
 """
 
+import re
 import threading
 import time
 from types import SimpleNamespace
@@ -346,6 +347,11 @@ def test_lane_slot_split_distributes_remainder():
 # ---------------------------------------------------------------------------
 
 
+#: Per-bank stats the port publishes beside the JAX package's: the
+#: slot table's last sweep (µs, keys freed) and sweeps run.
+PORT_BANK_STATS = (".gc_freed", ".gc_sweeps", ".gc_us")
+
+
 def _topology(P, n_lanes, per_second, algos):
     lanes = [P.engine(64, buckets=(8,)) for _ in range(n_lanes)]
     cache = P.Cache(
@@ -388,9 +394,15 @@ def test_bank_names_are_the_jax_packages(n_lanes, per_second, algos):
     dispatcher thread names and the per-bank stats names follow the
     reference's bank order: lanes, the per-second bank, the algorithm
     banks.  The default boot's names are unchanged (one lane: lane0,
-    lane0of1, the plain dispatcher name)."""
+    lane0of1, the plain dispatcher name).  The port adds its slot
+    table's sweep gauges to every bank (PORT_BANK_STATS); every other
+    name is the JAX package's."""
     want = _topology(JAX, n_lanes, per_second, algos)
     got = _topology(PORT, n_lanes, per_second, algos)
+    banks = sorted({re.match(r"(.*\.bank\d+)\.", k).group(1) for k in want["stats"]})
+    added = sorted(b + s for b in banks for s in PORT_BANK_STATS)
+    assert [k for k in got["stats"] if k.endswith(PORT_BANK_STATS)] == added
+    got["stats"] = [k for k in got["stats"] if k not in added]
     assert got == want
 
 

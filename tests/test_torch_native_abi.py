@@ -1,8 +1,9 @@
 """The port's native-abi-contract: its C parser on the CUDA sources,
 the SIGNATURES table form against csrc/*.cu, the slot table's ctypes
-table against native/*.cpp plus csrc/slot_release.cpp, parity with the
-JAX rule on the JAX package's .cpp fixtures, seeded drifts in fixtures
-and in a copy of the real table, and one CUDA constant pinned."""
+table against csrc/*.cpp plus the native/*.cpp they do not replace,
+parity with the JAX rule on the JAX package's .cpp fixtures, seeded
+drifts in fixtures and in copies of the real tables, and one CUDA
+constant pinned."""
 
 import collections
 import ctypes
@@ -212,8 +213,50 @@ def test_slot_table_sources_union_native_and_csrc():
     srcs = [os.path.relpath(p, REPO) for p in find_native_sources(
         str(PORT / "backends" / "native_slot_table.py"))]
     assert "ratelimit_tpu_torch/csrc/slot_release.cpp" in srcs
-    assert "native/slot_table.cpp" in srcs and "native/decide.cpp" in srcs
+    assert "ratelimit_tpu_torch/csrc/slot_table.cpp" in srcs
+    assert "native/decide.cpp" in srcs
+    # the port's csrc/slot_table.cpp replaces the JAX package's copy,
+    # which the port never compiles
+    assert "native/slot_table.cpp" not in srcs
     assert not [s for s in srcs if s.endswith((".cu", ".cuh"))]
+    # the lint reads exactly what the build reads
+    assert sorted(srcs) == sorted(os.path.relpath(p, REPO) for p in nst._DIGEST_SRCS)
+
+
+def _copy_port_slot_table(tmp_path):
+    """The slot table's binding and every C++ file the lint looks at,
+    in the repo's layout."""
+    shutil.copytree(REPO / "native", tmp_path / "native")
+    pkg = tmp_path / "ratelimit_tpu_torch"
+    (pkg / "backends").mkdir(parents=True)
+    shutil.copy(PORT / "backends" / "native_slot_table.py", pkg / "backends")
+    (pkg / "csrc").mkdir()
+    for src in (PORT / "csrc").glob("*.cpp"):
+        shutil.copy(src, pkg / "csrc")
+    return tmp_path
+
+
+@pytest.mark.parametrize(
+    "where, drifted",
+    [
+        ("ratelimit_tpu_torch/csrc/slot_table.cpp", True),
+        ("native/slot_table.cpp", False),
+    ],
+)
+def test_slot_table_drift_is_read_from_the_compiled_copy(tmp_path, where, drifted):
+    root = _copy_port_slot_table(tmp_path)
+    assert abi([root / "ratelimit_tpu_torch"]) == []
+    src = root / where
+    text = src.read_text()
+    old = "int64_t sk_gc(void* tp, int64_t now)"
+    assert old in text
+    src.write_text(text.replace(old, "int64_t sk_gc(void* tp, int32_t now)", 1))
+    msgs = [f.message for f in abi([root / "ratelimit_tpu_torch"])]
+    if drifted:
+        assert any("sk_gc" in m for m in msgs), msgs
+    else:
+        # the replaced file is not compiled: its drift is not the library's
+        assert msgs == []
 
 
 def test_slot_table_binding_sees_every_sk_symbol():
