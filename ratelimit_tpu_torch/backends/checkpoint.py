@@ -33,7 +33,7 @@ from typing import Optional
 
 import numpy as np
 
-from .slot_table import EntryArrays
+from .slot_table import EntryArrays, stamp_table_stats
 
 logger = logging.getLogger("ratelimit.checkpoint")
 
@@ -149,8 +149,9 @@ def save_engine(engine, path: str, role: str = "") -> None:
 
 
 def _read_snapshot(path, role, num_slots, algorithm, max_age_s, wall_now):
-    """(state, entries, saved_at) of the snapshot at `path`, or None when
-    it is missing or refused by a guard (version, age, role, num_slots,
+    """(state, entries, saved_at) of the snapshot at `path`, the entries
+    as the file's EntryArrays (no key decoded), or None when it is
+    missing or refused by a guard (version, age, role, num_slots,
     algorithm) or unreadable: each refusal is logged."""
     if not os.path.exists(path):
         return None
@@ -202,7 +203,7 @@ def _read_snapshot(path, role, num_slots, algorithm, max_age_s, wall_now):
                 }
             entries = EntryArrays(
                 z["key_blob"], z["key_lens"], z["slots"], z["expiries"]
-            ).entries()
+            )
     except Exception as e:
         logger.warning("checkpoint %s unreadable (%s), starting fresh", path, e)
         return None
@@ -222,27 +223,52 @@ def restore_engine(
     window unit; 0 disables the guard; ``wall_now`` is the clock seam),
     another bank `role` (when both sides carry one), another
     ``num_slots`` or another algorithm.  Needs exclusive access to the
-    engine (CheckpointManager.restore runs it on the dispatcher)."""
+    engine (CheckpointManager.restore runs it on the dispatcher).
+
+    A native table is rebuilt from the file's arrays in one call
+    (``from_arrays``), with no Python object a key; the Python table
+    (algorithm banks) from the decoded entries.  The engine is stamped
+    with the restore's span: ``stat_restore_ns``, split into
+    ``stat_restore_read_ns`` (the file's load), ``stat_restore_state_ns``
+    (``import_state``) and ``stat_restore_table_ns`` (the slot table),
+    and ``stat_restore_keys``, the live keys restored."""
+    clock = time.monotonic_ns
+    t0 = clock()
     algorithm = getattr(engine, "algorithm", "fixed_window")
     got = _read_snapshot(
         path, role, engine.model.num_slots, algorithm, max_age_s, wall_now
     )
     if got is None:
         return False
-    state, entries, saved_at = got
+    state, arrays, saved_at = got
+    t1 = clock()
     engine.import_state({k: v.astype(np.uint32) for k, v in state.items()})
+    t2 = clock()
     table_cls = type(engine.slot_table)
+    num_slots = engine.model.num_slots
     if getattr(engine.slot_table, "refresh_expiry", False):
         # Algorithm banks keep the refresh-on-touch lease policy.
         engine.slot_table = table_cls.from_entries(
-            engine.model.num_slots, entries, refresh_expiry=True
+            num_slots, arrays.entries(), refresh_expiry=True
         )
+    elif hasattr(table_cls, "from_arrays"):
+        engine.slot_table = table_cls.from_arrays(num_slots, arrays)
     else:
-        engine.slot_table = table_cls.from_entries(engine.model.num_slots, entries)
+        engine.slot_table = table_cls.from_entries(num_slots, arrays.entries())
+    t3 = clock()
     engine.stat_live_keys = len(engine.slot_table)
+    stamp_table_stats(engine, engine.slot_table)
+    engine.stat_restore_read_ns = t1 - t0
+    engine.stat_restore_state_ns = t2 - t1
+    engine.stat_restore_table_ns = t3 - t2
+    engine.stat_restore_ns = t3 - t0
+    engine.stat_restore_keys = len(engine.slot_table)
     logger.warning(
-        "restored %d live keys from %s (saved %.0fs ago)",
-        len(entries), path, time.time() - saved_at,  # tpu-lint: disable=timing-discipline -- cross-restart age: wall stamps are all that survive a process boundary
+        "restored %d live keys from %s (saved %.0fs ago) in %.3fs: "
+        "read %.3fs, state %.3fs, table %.3fs",
+        len(arrays.key_lens), path,
+        time.time() - saved_at,  # tpu-lint: disable=timing-discipline -- cross-restart age: wall stamps are all that survive a process boundary
+        (t3 - t0) / 1e9, (t1 - t0) / 1e9, (t2 - t1) / 1e9, (t3 - t2) / 1e9,
     )
     return True
 

@@ -1302,6 +1302,17 @@ class CudaRateLimitCache:
             store.counter_fn(
                 base + ".gc_sweeps", lambda i=idx: self._engine_at(i).stat_gc_sweeps
             )
+            # The native slot table's probe cells, rehashes and host
+            # index bytes (0 on the Python table of an algorithm bank).
+            store.counter_fn(
+                base + ".probes", lambda i=idx: self._engine_at(i).stat_probes
+            )
+            store.counter_fn(
+                base + ".rehashes", lambda i=idx: self._engine_at(i).stat_rehashes
+            )
+            store.gauge_fn(
+                base + ".index_bytes", lambda i=idx: self._engine_at(i).stat_index_bytes
+            )
             store.counter_fn(
                 base + ".window_rollovers",
                 lambda i=idx: self._engine_at(i).stat_window_rollovers,

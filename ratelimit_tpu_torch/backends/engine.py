@@ -74,7 +74,7 @@ from ..models.fixed_window import (
     state_from_numpy,
     state_to_numpy,
 )
-from .slot_table import EntryArrays, SlotTable
+from .slot_table import EntryArrays, SlotTable, stamp_table_stats
 
 logger = logging.getLogger("ratelimit.engine")
 
@@ -711,6 +711,22 @@ class CounterEngine:
         self.stat_gc_ns = 0
         self.stat_gc_freed = 0
         self.stat_gc_sweeps = 0
+        # The native slot table's own counters (stamp_table_stats): its
+        # assign lookups and probe cells, rehashes and their ns, and the
+        # host index's bytes; 0 on the Python table.
+        self.stat_lookups = 0
+        self.stat_probes = 0
+        self.stat_rehashes = 0
+        self.stat_rehash_ns = 0
+        self.stat_index_bytes = 0
+        # The last checkpoint restore (checkpoint.restore_engine): its ns,
+        # split into the file's read, import_state and the slot table,
+        # and the live keys it restored.
+        self.stat_restore_ns = 0
+        self.stat_restore_read_ns = 0
+        self.stat_restore_state_ns = 0
+        self.stat_restore_table_ns = 0
+        self.stat_restore_keys = 0
         # Launch recorder for phase records (attach_launch_recorder);
         # None = detached.  _ph is the submission being launched (the
         # submitting thread's), _timer and _timing (its idle event
@@ -831,6 +847,7 @@ class CounterEngine:
             self.stat_window_rollovers += int(np.count_nonzero(dedup.fresh))  # tpu-lint: disable=shared-state -- collector-owned engine
         self.stat_live_keys = len(self.slot_table)  # tpu-lint: disable=shared-state -- collector-owned engine
         self.stat_evictions = self.slot_table.evictions  # tpu-lint: disable=shared-state -- collector-owned engine
+        stamp_table_stats(self, self.slot_table)
         self.stat_dedup_groups = sum(len(c[3].uniq_slots) for c in chunks)  # tpu-lint: disable=shared-state -- collector-owned engine
         return (batch.hits, batch.limits, batch.shadow, chunks, now, None)
 
@@ -961,6 +978,7 @@ class CounterEngine:
         table = self.slot_table
         self.stat_live_keys = len(table)
         self.stat_evictions = table.evictions
+        stamp_table_stats(self, table)
         self.stat_dedup_groups = sum(len(d.uniq_slots) for _, _, d in dedups)
         return (hits, limits, shadow, chunks, now, ph)
 

@@ -20,7 +20,7 @@ import logging
 import os
 import subprocess
 import threading
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -143,6 +143,8 @@ def _signatures(lib: ctypes.CDLL) -> None:
     lib.sk_export.argtypes = [vp, vp, vp, vp, vp]
     lib.sk_import.restype = i64
     lib.sk_import.argtypes = [vp, vp, vp, vp, vp, i64]
+    lib.sk_stats.restype = i64
+    lib.sk_stats.argtypes = [vp, vp]
     lib.sk_release_batch.restype = i64
     lib.sk_release_batch.argtypes = [vp, vp, vp, vp, vp, i64, vp]
     lib.sk_decide_reconstruct.restype = None
@@ -284,6 +286,24 @@ def available() -> bool:
     return _get_lib() is not None
 
 
+class TableStats(NamedTuple):
+    """The native table's counters and sizes (``sk_stats``, in its
+    order): assign lookups and the map cells their probes examined;
+    rehashes past the map's construction and their nanoseconds; the
+    host index's bytes, the sum of the map's arrays, the key arena's
+    capacity, the slot homes and the expiry index."""
+
+    lookups: int
+    probes: int
+    rehashes: int
+    rehash_ns: int
+    index_bytes: int
+    map_bytes: int
+    arena_bytes: int
+    homes_bytes: int
+    expiry_bytes: int
+
+
 def _pack_keys(keys: List[str]) -> Tuple[np.ndarray, np.ndarray]:
     encoded = [k.encode("utf-8") for k in keys]
     lens = np.fromiter((len(b) for b in encoded), dtype=np.int64, count=len(encoded))
@@ -387,6 +407,7 @@ class NativeSlotTable:
         self._lib = lib
         self.num_slots = int(num_slots)
         self._handle = lib.sk_create(self.num_slots)
+        self._stats_out = np.zeros(len(TableStats._fields), dtype=np.int64)
 
     def __del__(self):
         handle = getattr(self, "_handle", None)
@@ -405,6 +426,12 @@ class NativeSlotTable:
     def arena_bytes(self) -> int:
         """Key-arena footprint incl. uncompacted tombstone bytes."""
         return int(self._lib.sk_arena_bytes(self._handle))
+
+    def stats(self) -> TableStats:
+        """The table's counters and sizes now, in one C call."""
+        out = self._stats_out
+        self._lib.sk_stats(self._handle, _ptr(out))
+        return TableStats(*out.tolist())
 
     def gc(self, now: int) -> int:
         return int(self._lib.sk_gc(self._handle, int(now)))
@@ -559,14 +586,21 @@ class NativeSlotTable:
         return slots[out.astype(bool)]
 
     @classmethod
-    def from_entries(cls, num_slots: int, entries) -> "NativeSlotTable":
+    def from_arrays(cls, num_slots: int, arrays: EntryArrays) -> "NativeSlotTable":
+        """Rebuild a table from a snapshot's arrays in one sk_import
+        call, making no Python object a key: the table from_entries
+        builds from the same entries (keys, slots, expiries and free
+        list)."""
         t = cls(num_slots)
-        if entries:
-            keys = [e[0] for e in entries]
-            blob, lens = _pack_keys(keys)
-            slots = np.asarray([e[1] for e in entries], dtype=np.int64)
-            exp = np.asarray([e[2] for e in entries], dtype=np.int64)
-            t._lib.sk_import(
-                t._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(exp), len(keys)
-            )
+        n = len(arrays.key_lens)
+        if n:
+            blob = np.ascontiguousarray(arrays.key_blob, dtype=np.uint8)
+            lens = np.ascontiguousarray(arrays.key_lens, dtype=np.int64)
+            slots = np.ascontiguousarray(arrays.slots, dtype=np.int64)
+            exp = np.ascontiguousarray(arrays.expiries, dtype=np.int64)
+            t._lib.sk_import(t._handle, _ptr(blob), _ptr(lens), _ptr(slots), _ptr(exp), n)
         return t
+
+    @classmethod
+    def from_entries(cls, num_slots: int, entries) -> "NativeSlotTable":
+        return cls.from_arrays(num_slots, EntryArrays.from_entries(entries))

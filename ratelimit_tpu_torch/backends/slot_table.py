@@ -83,6 +83,22 @@ class EntryArrays(NamedTuple):
         return out
 
 
+def stamp_table_stats(engine, table) -> None:
+    """Stamp `engine`'s gauges of `table`'s own counters
+    (NativeSlotTable.stats): ``stat_lookups``, ``stat_probes``,
+    ``stat_rehashes``, ``stat_rehash_ns`` and ``stat_index_bytes``.  A
+    table that keeps none (the Python one) leaves them as they are."""
+    stats = getattr(table, "stats", None)
+    if stats is None:
+        return
+    s = stats()
+    engine.stat_lookups = s.lookups
+    engine.stat_probes = s.probes
+    engine.stat_rehashes = s.rehashes
+    engine.stat_rehash_ns = s.rehash_ns
+    engine.stat_index_bytes = s.index_bytes
+
+
 class _MapCopy:
     """A Python table's entries, copied in one C-level pass under the
     table owner's exclusivity and turned into triples or arrays after."""

@@ -28,6 +28,12 @@
 // - Erase shifts the rest of the probe run back (no tombstones), and a
 //   sweep compacts the key arena once half of it is dead, so the next
 //   insert neither rehashes nor copies.
+// - Import sizes the map once for the entries it is given, so a restore
+//   of n keys does not double its way up from 1024 entries.
+// - Counters (sk_stats): assign lookups and the map cells their probes
+//   examined (summed in a local over one batch call and added once),
+//   rehashes past construction and their nanoseconds, and the bytes of
+//   the host index.
 //
 // Slots are 32-bit in the records: a table holds fewer than 2^32.
 //
@@ -35,6 +41,7 @@
 // (backends/native_slot_table.py: g++ -O2 -std=c++20 -shared -fPIC).
 
 #include <algorithm>
+#include <chrono>
 #include <cstdint>
 #include <cstring>
 #include <map>
@@ -92,7 +99,7 @@ class FlatMap {
  public:
   FlatMap(uint64_t seed, size_t num_slots, size_t initial_pow2 = 1024)
       : seed_(seed), homes_(num_slots) {
-    rehash(initial_pow2);
+    rehash(initial_pow2, /*counted=*/false);
   }
 
   uint64_t hash_of(std::string_view key) const {
@@ -101,12 +108,15 @@ class FlatMap {
 
   // Index of `key`, or -1.
   int64_t find(std::string_view key) const {
-    return find_hashed(hash_of(key), key);
+    uint64_t probes = 0;
+    return find_hashed(hash_of(key), key, probes);
   }
 
-  int64_t find_hashed(uint64_t h, std::string_view key) const {
+  // Index of `key`, or -1; adds the cells examined to `probes`.
+  int64_t find_hashed(uint64_t h, std::string_view key, uint64_t& probes) const {
     size_t i = h & mask_;
     while (true) {
+      ++probes;
       const uint8_t st = state_[i];
       if (st == kEmpty) return -1;
       if (st == kFull && hashes_[i] == h) {
@@ -164,10 +174,28 @@ class FlatMap {
     state_[i] = kEmpty;
   }
 
+  // Room for `n` entries without growing past 70 % load, and
+  // `key_bytes` of keys in the arena.
+  void reserve(size_t n, size_t key_bytes) {
+    size_t cap = capacity();
+    while (n * 10 >= cap * 7) cap <<= 1;
+    if (cap > capacity()) rehash(cap);
+    arena_.reserve(arena_.size() + key_bytes);
+  }
+
   int64_t slot(int64_t idx) const { return meta_[idx].slot; }
   int64_t expiry(int64_t idx) const { return meta_[idx].expiry; }
   size_t size() const { return live_; }
   size_t arena_bytes() const { return arena_.size(); }
+  uint64_t rehashes() const { return rehashes_; }
+  uint64_t rehash_ns() const { return rehash_ns_; }
+  // Bytes held: the map's three arrays, the arena, the slot homes.
+  size_t map_bytes() const {
+    return state_.capacity() + hashes_.capacity() * sizeof(uint64_t) +
+           meta_.capacity() * sizeof(Meta);
+  }
+  size_t arena_capacity() const { return arena_.capacity(); }
+  size_t homes_bytes() const { return homes_.capacity() * sizeof(Home); }
 
   // Index of the entry that holds `slot` (which must be held).
   int64_t index_of(uint32_t slot) const { return homes_[slot].idx; }
@@ -240,7 +268,9 @@ class FlatMap {
     homes_[m.slot].idx = static_cast<uint32_t>(i);
   }
 
-  void rehash(size_t new_cap) {
+  // `counted`: every rehash but the constructor's.
+  void rehash(size_t new_cap, bool counted = true) {
+    const auto t0 = std::chrono::steady_clock::now();
     // Round up to a power of two >= max(new_cap, live*2, 1024).
     size_t want = std::max<size_t>(
         {new_cap, live_ * 2, static_cast<size_t>(1024)});
@@ -266,12 +296,19 @@ class FlatMap {
       const Meta& m = old_meta[i];
       insert({old_arena.data() + m.key_off, m.key_len}, m.slot, m.expiry);
     }
+    if (counted) {
+      ++rehashes_;
+      rehash_ns_ += static_cast<uint64_t>(
+          std::chrono::duration_cast<std::chrono::nanoseconds>(
+              std::chrono::steady_clock::now() - t0).count());
+    }
   }
 
   uint64_t seed_;
   size_t mask_ = 0;
   size_t live_ = 0;
   size_t dead_bytes_ = 0;  // arena bytes owned by erased keys
+  uint64_t rehashes_ = 0, rehash_ns_ = 0;
   std::vector<uint8_t> state_;
   std::vector<uint64_t> hashes_;
   std::vector<Meta> meta_;
@@ -338,6 +375,8 @@ struct SlotTable {
   std::vector<int64_t> free_slots;  // LIFO, matches python list.pop()
   std::map<int64_t, Bucket> buckets;  // expiry -> its entries' records
   int64_t evictions = 0;
+  // Assign lookups and the map cells their probes examined.
+  uint64_t lookups = 0, probes = 0;
   // Pins are slot ids ("this slot was handed out in the in-flight
   // batch"), epoch-stamped: pin_stamp[slot] == pin_epoch means
   // pinned.  A fresh epoch per assign call (or per begin_batch for
@@ -620,12 +659,24 @@ struct SlotTable {
     return false;
   }
 
+  // Bytes of the expiry index: the buckets' records and late heaps.
+  size_t expiry_bytes() const {
+    size_t bytes = 0;
+    for (const auto& [expiry, b] : buckets) {
+      bytes += sizeof(std::pair<const int64_t, Bucket>) + b.recs.capacity() * sizeof(Rec) +
+               b.late.capacity() * sizeof(LateRec);
+      for (const LateRec& r : b.late) bytes += r.key.capacity();
+    }
+    return bytes;
+  }
+
   // Assign one key; returns (slot, fresh) via out params, false on
-  // exhaustion.  `pinned` accumulates every slot handed out.
+  // exhaustion.  `pinned` accumulates every slot handed out; `probes`
+  // the map cells the lookup examined.
   bool assign_one(std::string_view key, int64_t now, int64_t expiry,
-                  int64_t* out_slot, bool* out_fresh) {
+                  int64_t* out_slot, bool* out_fresh, uint64_t& probes) {
     const uint64_t h = map.hash_of(key);  // hashed once: find + insert
-    int64_t idx = map.find_hashed(h, key);
+    int64_t idx = map.find_hashed(h, key, probes);
     if (idx >= 0) {
       *out_slot = map.slot(idx);
       *out_fresh = false;
@@ -685,17 +736,20 @@ int64_t sk_assign_batch(void* tp, const uint8_t* key_blob,
   SlotTable* t = static_cast<SlotTable*>(tp);
   t->begin_call_pins();
   const char* p = reinterpret_cast<const char*>(key_blob);
-  for (int64_t i = 0; i < n; ++i) {
+  uint64_t probes = 0;
+  int64_t i = 0;
+  for (; i < n; ++i) {
     std::string_view key(p, static_cast<size_t>(key_lens[i]));
     p += key_lens[i];
     int64_t slot;
     bool fresh;
-    if (!t->assign_one(key, now, expiries[i], &slot, &fresh))
-      return -1;
+    if (!t->assign_one(key, now, expiries[i], &slot, &fresh, probes)) break;
     out_slots[i] = slot;
     out_fresh[i] = fresh ? 1 : 0;
   }
-  return 0;
+  t->lookups += static_cast<uint64_t>(std::min(i + 1, n));
+  t->probes += probes;
+  return i == n ? 0 : -1;
 }
 
 // Fused assign + duplicate-slot aggregation (the C++ version of
@@ -739,13 +793,17 @@ int64_t sk_assign_dedup_batch(void* tp, const uint8_t* key_blob,
 
   std::vector<int32_t> lane_gid(static_cast<size_t>(n));
   const char* p = reinterpret_cast<const char*>(key_blob);
+  uint64_t probes = 0;
   for (int64_t i = 0; i < n; ++i) {
     std::string_view key(p, static_cast<size_t>(key_lens[i]));
     p += key_lens[i];
     int64_t slot;
     bool fresh;
-    if (!t->assign_one(key, now, expiries[i], &slot, &fresh))
+    if (!t->assign_one(key, now, expiries[i], &slot, &fresh, probes)) {
+      t->lookups += static_cast<uint64_t>(i + 1);
+      t->probes += probes;
       return -1;
+    }
     int32_t gid;
     if (t->gid_stamp[slot] == ep) {
       gid = t->gid_by_slot[slot];
@@ -764,6 +822,9 @@ int64_t sk_assign_dedup_batch(void* tp, const uint8_t* key_blob,
     if (fresh) g_fresh[gid] = 1;
     lane_gid[i] = gid;
   }
+
+  t->lookups += static_cast<uint64_t>(n);
+  t->probes += probes;
 
   // Sorted-slot group order (np.unique parity).
   const int32_t g = static_cast<int32_t>(g_slot.size());
@@ -824,12 +885,18 @@ void sk_export(void* tp, uint8_t* key_blob, int64_t* key_lens,
 
 // Checkpoint import: bulk-load entries into a fresh table.  Invalid or
 // duplicate slots are skipped.  Returns how many entries were loaded.
+// The map is sized for the n entries (and the arena for their bytes)
+// before the first insert: at most one rehash, none past it.
 int64_t sk_import(void* tp, const uint8_t* key_blob, const int64_t* key_lens,
                   const int64_t* slots, const int64_t* expiries, int64_t n) {
   SlotTable* t = static_cast<SlotTable*>(tp);
   std::vector<uint8_t> used(t->num_slots, 0);
+  size_t key_bytes = 0;
+  for (int64_t i = 0; i < n; ++i) key_bytes += static_cast<size_t>(key_lens[i]);
+  t->map.reserve(t->map.size() + static_cast<size_t>(std::max<int64_t>(n, 0)), key_bytes);
   const char* p = reinterpret_cast<const char*>(key_blob);
   int64_t loaded = 0;
+  uint64_t probes = 0;  // import lookups are not assign lookups
   for (int64_t i = 0; i < n; ++i) {
     std::string_view key(p, static_cast<size_t>(key_lens[i]));
     p += key_lens[i];
@@ -838,9 +905,10 @@ int64_t sk_import(void* tp, const uint8_t* key_blob, const int64_t* key_lens,
     // Duplicate keys in a snapshot would leak the slot (marked used,
     // but the insert would create a shadowed duplicate): keep the
     // first entry.
-    if (t->map.find(key) >= 0) continue;
+    const uint64_t h = t->map.hash_of(key);
+    if (t->map.find_hashed(h, key, probes) >= 0) continue;
     used[slot] = 1;
-    t->map.insert(key, slot, expiries[i]);
+    t->map.insert_hashed(h, key, slot, expiries[i]);
     t->index_entry(expiries[i], slot);
     ++loaded;
   }
@@ -852,6 +920,28 @@ int64_t sk_import(void* tp, const uint8_t* key_blob, const int64_t* key_lens,
     t->map.bump_gen(static_cast<uint32_t>(s));
   }
   return loaded;
+}
+
+// The table's counters and sizes, nine int64s into `out`: assign
+// lookups, probe cells, rehashes past construction, their nanoseconds,
+// the host index's bytes (the sum of the next four), the map's arrays,
+// the key arena (capacity), the slot homes and the expiry index.
+// Returns the number of fields written.
+int64_t sk_stats(void* tp, int64_t* out) {
+  const SlotTable* t = static_cast<const SlotTable*>(tp);
+  const FlatMap& m = t->map;
+  const size_t map_bytes = m.map_bytes(), arena = m.arena_capacity(),
+               homes = m.homes_bytes(), expiry = t->expiry_bytes();
+  const int64_t fields[] = {
+      static_cast<int64_t>(t->lookups), static_cast<int64_t>(t->probes),
+      static_cast<int64_t>(m.rehashes()), static_cast<int64_t>(m.rehash_ns()),
+      static_cast<int64_t>(map_bytes + arena + homes + expiry),
+      static_cast<int64_t>(map_bytes), static_cast<int64_t>(arena),
+      static_cast<int64_t>(homes), static_cast<int64_t>(expiry),
+  };
+  constexpr int64_t n = sizeof(fields) / sizeof(fields[0]);
+  std::memcpy(out, fields, sizeof(fields));
+  return n;
 }
 
 }  // extern "C"

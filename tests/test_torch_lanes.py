@@ -348,8 +348,9 @@ def test_lane_slot_split_distributes_remainder():
 
 
 #: Per-bank stats the port publishes beside the JAX package's: the
-#: slot table's last sweep (µs, keys freed) and sweeps run.
-PORT_BANK_STATS = (".gc_freed", ".gc_sweeps", ".gc_us")
+#: slot table's last sweep (µs, keys freed) and sweeps run, and its
+#: probe cells, rehashes and host index bytes.
+PORT_BANK_STATS = (".gc_freed", ".gc_sweeps", ".gc_us", ".probes", ".rehashes", ".index_bytes")
 
 
 def _topology(P, n_lanes, per_second, algos):
@@ -395,7 +396,7 @@ def test_bank_names_are_the_jax_packages(n_lanes, per_second, algos):
     reference's bank order: lanes, the per-second bank, the algorithm
     banks.  The default boot's names are unchanged (one lane: lane0,
     lane0of1, the plain dispatcher name).  The port adds its slot
-    table's sweep gauges to every bank (PORT_BANK_STATS); every other
+    table's sweep and index gauges to every bank (PORT_BANK_STATS); every other
     name is the JAX package's."""
     want = _topology(JAX, n_lanes, per_second, algos)
     got = _topology(PORT, n_lanes, per_second, algos)
